@@ -1,0 +1,127 @@
+"""Weighted bincount: the counting core of the classification stack.
+
+Confusion matrices (``num_classes*target + preds`` flattened indices),
+stat-scores and calibration histograms all reduce to
+``out[k, c] = sum_n w[k, n] * [x[n] == c]`` over K weight rows sharing one
+index stream, with negative and out-of-range indices dropped.
+
+Two bodies behind the ``"bincount"`` entry of the dispatch seam
+(ops/kernels.py):
+
+- :func:`_wbincount_cuda` launches the hand-written Hopper kernel in
+  ``csrc/bincount.cu`` (the port of the JAX package's Pallas kernel
+  ``ops/bincount.py:_wbincount_pallas``); it serves every CUDA tensor;
+- :func:`_wbincount_reference`, the plain PyTorch version: a masked
+  ``index_add_``. It serves CPU tensors and is the oracle the kernel is held
+  against on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from torchmetrics_tpu_torch.ops import kernels, native
+
+#: launches of the CUDA kernel in this process (a plain counter that a run
+#: resets and reads to show its main path went through the kernel)
+launches = 0
+
+
+def _wbincount_reference(x: torch.Tensor, weights: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain PyTorch version: ``weights (K, N) -> counts (K, length)`` float32.
+
+    Masks negative and out-of-range indices (``index_add_`` and
+    ``torch.bincount`` raise on them) and scatter-adds the rest. The sums
+    run in float64 and round once to float32: a float32 scatter of a million
+    fractional weights into a few bins drifts by about 1e-5 relative in
+    itself, more than the tolerance the kernel is held to against this
+    oracle. Integer counts are exact either way."""
+    w = weights.to(torch.float64)
+    in_range = (x >= 0) & (x < length)
+    x = torch.where(in_range, x, torch.zeros_like(x)).to(torch.int64)
+    w = torch.where(in_range[None, :], w, torch.zeros_like(w))
+    out = torch.zeros((w.shape[0], int(length)), dtype=torch.float64, device=w.device)
+    return out.index_add_(1, x, w).to(torch.float32)
+
+
+def _wbincount_cuda(x: torch.Tensor, weights: torch.Tensor, length: int) -> torch.Tensor:
+    """Launch ``csrc/bincount.cu`` on ``torch.cuda.current_stream()``.
+
+    Takes ``x`` int32 ``(N,)`` and ``weights`` float32 ``(K, N)``, both
+    contiguous on one CUDA device; raises on anything else. Returns a fresh
+    float32 ``(K, length)``; with ``N == 0`` it returns zeros without a
+    launch."""
+    global launches
+    if x.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise TypeError(f"bincount kernel takes int32 x and float32 weights, got {x.dtype} and {weights.dtype}")
+    if x.ndim != 1 or weights.ndim != 2 or weights.shape[1] != x.shape[0]:
+        raise ValueError(f"bincount kernel takes x (N,) and weights (K, N), got {tuple(x.shape)} and {tuple(weights.shape)}")
+    if not (x.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("bincount kernel takes contiguous x and weights")
+    if length < 1:
+        raise ValueError(f"bincount kernel takes length >= 1, got {length}")
+    if x.device.type != "cuda" or weights.device != x.device:
+        raise ValueError(f"bincount kernel takes x and weights on one CUDA device, got {x.device} and {weights.device}")
+    out = torch.zeros((weights.shape[0], int(length)), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out
+    lib = native.load("bincount")
+    fn = lib.tm_wbincount
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            x.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            x.numel(), int(length), weights.shape[0], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bincount kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out
+
+
+kernels.register_kernel(
+    kernels.KernelSpec(
+        name="bincount",
+        reference=_wbincount_reference,
+        cuda=_wbincount_cuda,
+    )
+)
+
+
+def weighted_bincount(x: torch.Tensor, weights: Optional[torch.Tensor] = None, length: int = 0) -> torch.Tensor:
+    """``zeros(length).index_add_(x, weights)`` through the dispatch seam,
+    dropping negative and out-of-range indices. Returns float32 when
+    weighted, int32 otherwise.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.ops.bincount import weighted_bincount
+        >>> weighted_bincount(torch.tensor([0, 1, 1, 3]), length=4).tolist()
+        [1, 2, 0, 1]
+        >>> weighted_bincount(torch.tensor([0, 1, 1, 3]),
+        ...                   weights=torch.tensor([0.5, 1.0, 2.0, 0.25]), length=4).tolist()
+        [0.5, 3.0, 0.0, 0.25]
+    """
+    x = x.reshape(-1).to(torch.int32)
+    weighted = weights is not None
+    if weighted:
+        w = weights.reshape(-1).to(torch.float32)
+    else:
+        w = torch.ones(x.shape, dtype=torch.float32, device=x.device)
+    out = kernels.dispatch("bincount", x.contiguous(), w[None, :].contiguous(), int(length))[0]
+    return out if weighted else out.to(torch.int32)
+
+
+def weighted_bincount_multi(x: torch.Tensor, weights: torch.Tensor, length: int) -> torch.Tensor:
+    """K weighted bincounts sharing one index stream: weights (K, N) -> (K, length),
+    one pass over the indices for all K rows (calibration's count/confidence/
+    accuracy histograms are the K = 3 use)."""
+    x = x.reshape(-1).to(torch.int32)
+    weights = weights.to(torch.float32)
+    if weights.ndim != 2 or weights.shape[1] != x.shape[0]:
+        raise ValueError(f"weights must be (K, N={x.shape[0]}), got {tuple(weights.shape)}")
+    return kernels.dispatch("bincount", x.contiguous(), weights.contiguous(), int(length))
