@@ -5,21 +5,32 @@ Run from the root of a checkout on a machine with an NVIDIA GPU::
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from ``torchmetrics_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, then drives the
-main path (a ``MetricCollection`` of classification metrics, updated batch by
-batch and computed) at two public evaluation workloads:
+It builds every CUDA kernel of the port from ``torchmetrics_tpu_torch/csrc``
+(one ``nvcc`` per source, all started together), holds each against its
+plain PyTorch version on the card, then drives the main paths (a
+``MetricCollection`` updated batch by batch and computed) at public
+evaluation workloads:
 
 - ImageNet-1k validation, top-1: 50,000 images, 1,000 classes, eval batch
   1024 (48 full batches and one of 848), float32 logits; accuracy (micro),
   F1/precision/recall (macro) and the 1000 x 1000 confusion matrix;
 - Cityscapes validation, semantic segmentation: 500 images of 1024 x 2048,
   19 classes, ``ignore_index=255``, batch 4, float32 logits; Jaccard index
-  (mIoU), accuracy and the confusion matrix.
+  (mIoU), accuracy and the confusion matrix;
+- binary threshold curves at the JAX package's own benchmark shape (its
+  ``bench.py`` config 6): 50 updates of 1,000,000 scores, 100 thresholds,
+  ``ignore_index=-1`` on 5% of samples; binned AUROC, average precision and
+  ROC, counted by the ``binned_curve`` kernel;
+- the ImageNet batches again through macro one-vs-rest AUROC and average
+  precision with 100 thresholds: a (100, 1000, 2, 2) state whose histogram
+  is a K = 2 ``bincount`` over 101,000 bins;
+- one exact-mode (``thresholds=None``) AUROC over four binary batches,
+  against a float64 rank statistic on the host.
 
-Logits and labels are drawn from a seeded ``torch.Generator`` on the card.
-With ``--profile`` it also traces a few updates of each workload with
-``torch.profiler`` (device time by kernel, device idle share).
+Scores, logits and labels are drawn from seeded ``torch.Generator`` s on the
+card. With ``--profile`` it also traces a few updates of each workload with
+``torch.profiler`` (device time by kernel, device idle share), and a few
+``binned_curve`` calls at each of its checked shapes.
 Each phase prints one JSON line; then come the kernel table line, the card's
 name and power limit as ``nvidia-smi`` reports them, and the final line
 ``{"ok": true, "device": {...}}``. Any failed build, launch error or mismatch
@@ -33,7 +44,7 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("bincount",)
+KERNELS = ("bincount", "binned_curve")
 #: ImageNet-1k validation (torchvision references/classification eval):
 #: 50,000 images, 1,000 classes, eval batch 1024
 IMAGENET = {"num_classes": 1000, "batches": [1024] * 48 + [848]}
@@ -41,14 +52,31 @@ IMAGENET = {"num_classes": 1000, "batches": [1024] * 48 + [848]}
 #: 1024 x 2048, 19 eval classes, void label 255, batch 4
 CITYSCAPES = {"num_classes": 19, "ignore_index": 255, "images": 500, "batch": 4, "height": 1024, "width": 2048}
 #: (name, K, L, N) of each bincount check: the binary family's 4 bins, the
-#: Cityscapes 19 x 19 and ImageNet 1000 x 1000 confusion counts, and
-#: calibration's three float-weighted rows over 15 bins
+#: Cityscapes 19 x 19 and ImageNet 1000 x 1000 confusion counts,
+#: calibration's three float-weighted rows over 15 bins, and the ImageNet
+#: one-vs-rest curve histogram (negative and positive 0/1 rows over
+#: (100 + 1) x 1000 bucket-class bins, 1024 x 1000 scores)
 KERNEL_SHAPES = [
     ("binary_segmentation", 1, 4, 4 * 1024 * 2048),
     ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048),
     ("imagenet_confmat", 1, 1000 * 1000, 1024),
     ("calibration_k3", 3, 15, 1_000_000),
+    ("imagenet_curve_k2", 2, 101 * 1000, 1024 * 1000),
 ]
+#: binned-curve checks: (name, N, T, thresholds, edges). "grid" is the
+#: 100-point grid of an integer ``thresholds``, "random" unsorted uniform
+#: thresholds; edges adds NaN scores, scores exactly on a threshold and
+#: duplicated thresholds
+CURVE_SHAPES = [
+    ("config6", 1_000_000, 100, "grid", False),
+    ("doc_2m", 2_000_000, 200, "grid", False),
+    ("t1000", 8_388_608, 1000, "grid", False),
+    ("t50k", 1_000_000, 50_000, "random", False),
+    ("edges", 1_000_000, 64, "random", True),
+]
+#: the JAX package's bench.py config 6: 50 updates of 1,000,000 binary scores,
+#: 100 thresholds; here with ignore_index=-1 on 5% of samples
+BINARY_CURVE = {"updates": 50, "batch": 1_000_000, "thresholds": 100, "ignore_index": -1, "positive_rate": 0.25}
 #: H100 SXM device-memory rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -93,12 +121,19 @@ def phase_kernels(dev) -> list:
         g = torch.Generator(device=dev).manual_seed(SEED)
         spread = max(1, length // 10)
         x = torch.randint(-spread, length + spread, (n,), generator=g, device=dev, dtype=torch.int32)
-        w = torch.ones((k, n), device=dev) if k == 1 else torch.rand((k, n), generator=g, device=dev)
+        if k == 1:
+            w = torch.ones((k, n), device=dev)
+        elif k == 2:  # one-vs-rest 0/1 rows: negative and positive of 1 class in 1000
+            pos = (torch.rand(n, generator=g, device=dev) < 1e-3).to(torch.float32)
+            w = torch.stack([1.0 - pos, pos])
+        else:
+            w = torch.rand((k, n), generator=g, device=dev)
+        integral = k <= 2  # 0/1 weights: integer counts, exact in any order
         got = bincount._wbincount_cuda(x, w, length)
         ref = bincount._wbincount_reference(x, w, length)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        if k == 1:
+        if integral:
             _check(torch.equal(got, ref), f"bincount {name}: kernel differs from the plain version (max |d| {err})")
         else:
             _check(torch.allclose(got, ref, rtol=1e-5, atol=0.0), f"bincount {name}: beyond rtol 1e-5 (max |d| {err})")
@@ -114,7 +149,7 @@ def phase_kernels(dev) -> list:
         row = {
             "shape": name, "K": k, "L": length, "N": n, "in_range": n_in,
             "max_abs_err": err,
-            "tolerance": "exact" if k == 1 else "rtol=1e-5",
+            "tolerance": "exact" if integral else "rtol=1e-5",
             "ms": _time_ms(lambda: bincount._wbincount_cuda(x, w, length), iters),
             "plain_ms": _time_ms(lambda: bincount._wbincount_reference(x, w, length), iters),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -126,6 +161,92 @@ def phase_kernels(dev) -> list:
             row["library_ms"] = _time_ms(lambda: torch.bincount(xi, wi, minlength=length), iters)
         rows.append(row)
     _emit({"phase": "kernels", "kernel": "bincount", "checks": rows})
+    return rows
+
+
+def _threshold_grid(len_t: int, dev):
+    """The grid an integer ``thresholds=T`` gives the metrics."""
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+
+    return _adjust_threshold_arg(len_t, dev)
+
+
+def _curve_inputs(n: int, len_t: int, kind: str, edges: bool, dev):
+    """Scores, 0/1 targets (int32), a 95% valid mask and thresholds."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + n + len_t)
+    thr = _threshold_grid(len_t, dev) if kind == "grid" else torch.rand(len_t, generator=g, device=dev)
+    preds = torch.rand(n, generator=g, device=dev)
+    if edges:
+        thr[len_t // 2:] = thr[: len_t - len_t // 2].clone()  # duplicated thresholds
+        on = torch.rand(n, generator=g, device=dev) < 0.3  # scores exactly on a threshold
+        preds = torch.where(on, thr[torch.randint(0, len_t, (n,), generator=g, device=dev)], preds)
+        preds = torch.where(torch.rand(n, generator=g, device=dev) < 0.05, torch.full_like(preds, float("nan")), preds)
+    target = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32)
+    valid = torch.rand(n, generator=g, device=dev) >= 0.05
+    return preds, target, valid, thr
+
+
+def _composite_counts(preds, target, valid, thr_sorted, order):
+    """The same counts from stock PyTorch calls (bucketize, bincount,
+    cumsum), timed as a yardstick only; no path of the port runs it."""
+    import torch
+
+    len_t = thr_sorted.shape[0]
+    k = torch.bucketize(preds, thr_sorted, right=True)
+    k = torch.where(torch.isnan(preds), torch.zeros_like(k), k)
+    idx = (k + (len_t + 1) * target)[valid]
+    hist = torch.bincount(idx, minlength=2 * (len_t + 1)).reshape(2, len_t + 1)
+    pred1 = hist.sum(1, keepdim=True) - torch.cumsum(hist, 1)[:, :len_t]
+    return pred1[:, torch.argsort(order)]
+
+
+def phase_curve_kernels(dev) -> list:
+    """``binned_curve`` against its plain version at the main path's shape and
+    its neighbours: counts must be equal."""
+    import math
+
+    import torch
+
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    rows = []
+    for name, n, len_t, kind, edges in CURVE_SHAPES:
+        preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
+        # a metric sorts its thresholds once, when it is built, not per call
+        thr_sorted, order = binned_curve.sort_thresholds(thr)
+        args = (preds, target, valid, thr_sorted, order)
+        got = binned_curve._binned_counts_cuda(*args)
+        ref = binned_curve._binned_counts_reference(*args)
+        torch.cuda.synchronize()
+        err = int((got - ref).abs().max())
+        _check(torch.equal(got, ref), f"binned_curve {name}: kernel differs from the plain version (max |d| {err})")
+        _check(
+            torch.equal(_composite_counts(preds, target.to(torch.int64), valid, thr_sorted, order), ref[:, :, 1].T),
+            f"binned_curve {name}: the composite yardstick disagrees",
+        )
+        n_valid = int(valid.sum())
+        # least work for this data: read each score, target and mask once and
+        # the thresholds once, write the (T, 2, 2) int64 counts once; one
+        # float compare per search step of each valid sample
+        nbytes = n * (4 + 4 + 1) + len_t * 4 + len_t * 4 * 8
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_valid * math.ceil(math.log2(len_t + 1)) / FP32_OPS_PER_S * 1e3
+        iters = 20 if n <= 2_000_000 else 10
+        rows.append({
+            "shape": name, "N": n, "T": len_t, "thresholds": kind, "edges": edges, "valid": n_valid,
+            "max_abs_err": err, "tolerance": "exact",
+            "ms": _time_ms(lambda: binned_curve._binned_counts_cuda(*args), iters),
+            "plain_ms": _time_ms(lambda: binned_curve._binned_counts_reference(*args), iters),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "composite_ms": _time_ms(
+                lambda: _composite_counts(preds, target.to(torch.int64), valid, thr_sorted, order), iters
+            ),
+        })
+    _emit({"phase": "kernels", "kernel": "binned_curve", "checks": rows})
     return rows
 
 
@@ -263,21 +384,67 @@ def _cityscapes(dev) -> dict:
     }
 
 
-WORKLOADS = {"imagenet_val": _imagenet, "cityscapes_val": _cityscapes}
-
-
-def phase_workload(name: str, dev) -> dict:
-    """Drive the main path over one workload; hold the launches, the
-    confusion state and every computed value against the plain version."""
+def _binary_curve(dev) -> dict:
+    """Binned binary AUROC, average precision and ROC at bench config 6."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision, BinaryROC
 
-    spec = WORKLOADS[name](dev)
-    c = spec["num_classes"]
+    spec = BINARY_CURVE
+    n, ignore = spec["batch"], spec["ignore_index"]
+
+    def batches(count=None):
+        g = torch.Generator(device=dev).manual_seed(SEED + 2)
+        for _ in range(spec["updates"] if count is None else count):
+            target = (torch.rand(n, generator=g, device=dev) < spec["positive_rate"]).to(torch.int64)
+            # probabilities that lean towards the target: AUROC near 0.86, not chance
+            scores = torch.sigmoid(torch.randn(n, generator=g, device=dev) + 1.5 * target)
+            ignored = torch.rand(n, generator=g, device=dev) < 0.05
+            yield scores, torch.where(ignored, torch.full_like(target, ignore), target)
+
+    def collection():
+        kw = {"thresholds": spec["thresholds"], "ignore_index": ignore, "validate_args": False}
+        return MetricCollection({"auroc": BinaryAUROC(**kw), "ap": BinaryAveragePrecision(**kw), "roc": BinaryROC(**kw)})
+
+    return {"updates": spec["updates"], "samples": spec["updates"] * n, "batches": batches, "collection": collection}
+
+
+def _imagenet_curve(dev) -> dict:
+    """Macro one-vs-rest AUROC and average precision over the ImageNet batches."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAUROC, MulticlassAveragePrecision
+
+    c = IMAGENET["num_classes"]
+
+    def collection():
+        kw = {"num_classes": c, "average": "macro", "thresholds": 100, "validate_args": False}
+        return MetricCollection({"auroc": MulticlassAUROC(**kw), "ap": MulticlassAveragePrecision(**kw)})
+
+    return {
+        "updates": len(IMAGENET["batches"]), "samples": sum(IMAGENET["batches"]),
+        "batches": _imagenet(dev)["batches"], "collection": collection,
+    }
+
+
+WORKLOADS = {
+    "imagenet_val": _imagenet,
+    "cityscapes_val": _cityscapes,
+    "binary_curve_1m": _binary_curve,
+    "imagenet_curve": _imagenet_curve,
+}
+
+
+def _drive(name: str, spec: dict, dev) -> dict:
+    """Update a fresh collection over every batch and compute it, with every
+    kernel's launch count set to 0 just before and read just after."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount, binned_curve
+
     coll = spec["collection"]()
     torch.cuda.reset_peak_memory_stats(dev)
-    bincount.launches = 0
+    bincount.launches = binned_curve.launches = 0
     step_s = []
     for preds, target in spec["batches"]():
         torch.cuda.synchronize()
@@ -285,31 +452,194 @@ def phase_workload(name: str, dev) -> dict:
         coll.update(preds, target)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    update_s, steps = sum(step_s), len(step_s)
-    step_ms = sorted(t * 1e3 for t in step_s)
     t0 = time.perf_counter()
     result = coll.compute()
     torch.cuda.synchronize()
     compute_s = time.perf_counter() - t0
-    launches = bincount.launches
-    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {"bincount": bincount.launches, "binned_curve": binned_curve.launches}
+    update_s, steps = sum(step_s), len(step_s)
+    step_ms = sorted(t * 1e3 for t in step_s)
+    return {
+        "coll": coll, "result": result, "launches": launches, "out": {
+            "phase": name, "updates": steps, "samples": spec["samples"],
+            "launches": launches,
+            "compute_groups": [list(g) for g in coll.compute_groups.values()],
+            "updates_per_s": steps / update_s, "samples_per_s": spec["samples"] / update_s,
+            "update_s": update_s, "compute_s": compute_s, "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "update_ms": {"min": step_ms[0], "p50": step_ms[steps // 2], "p90": step_ms[(9 * steps) // 10], "max": step_ms[-1]},
+        },
+    }
 
+
+def phase_workload(name: str, dev) -> dict:
+    """Drive the main path over one workload; hold the launches, the
+    confusion state and every computed value against the plain version."""
+    import torch
+
+    spec = WORKLOADS[name](dev)
+    run = _drive(name, spec, dev)
+    coll, result, out = run["coll"], run["result"], run["out"]
+    launches = run["launches"]["bincount"]
     plain = _plain_confmat(spec)
     _check(torch.equal(coll["confmat"].confmat.to(torch.int64), plain), f"{name}: confusion state differs from the plain version")
-    _check(launches == spec["updates"], f"{name}: {launches} bincount launches for {steps} updates")
+    _check(launches == spec["updates"], f"{name}: {launches} bincount launches for {out['updates']} updates")
     cm, tp, fp, fn, present = _derived(plain)
     spec["check"](result, tp, fp, fn, present.to(torch.float64))
     _check(torch.equal(result["confmat"].to(torch.int64), plain), f"{name}: computed confusion matrix differs")
-    out = {
-        "phase": name, "updates": steps, "samples": spec["samples"], "counted": int(cm.sum()),
-        "num_classes": c, "bincount_launches": launches,
-        "compute_groups": [list(g) for g in coll.compute_groups.values()],
-        "updates_per_s": steps / update_s, "samples_per_s": spec["samples"] / update_s,
-        "update_s": update_s, "compute_s": compute_s, "peak_mem_bytes": peak,
-        "update_ms": {"min": step_ms[0], "p50": step_ms[steps // 2], "p90": step_ms[(9 * steps) // 10], "max": step_ms[-1]},
+    out.update({
+        "counted": int(cm.sum()), "num_classes": spec["num_classes"], "bincount_launches": launches,
         "values": {k: float(v) for k, v in result.items() if k != "confmat"},
         "confmat_exact": True,
-    }
+    })
+    _emit(out)
+    return out
+
+
+def _curve_values(counts):
+    """float64 ROC, AUROC and average precision from exact ``(T, [C,] 2, 2)``
+    counts, over the threshold axis (per class where there is one)."""
+    import torch
+
+    cm = counts.to(torch.float64)
+    tps, fps, fns, tns = cm[..., 1, 1], cm[..., 0, 1], cm[..., 1, 0], cm[..., 0, 0]
+    tpr, fpr = _safe(tps, tps + fns).flip(0), _safe(fps, fps + tns).flip(0)
+    auroc = ((tpr[1:] + tpr[:-1]) / 2 * (fpr[1:] - fpr[:-1])).sum(0)
+    one = torch.ones_like(tps[:1])
+    precision = torch.cat([_safe(tps, tps + fps), one])
+    recall = torch.cat([_safe(tps, tps + fns), torch.zeros_like(one)])
+    ap = -((recall[1:] - recall[:-1]) * precision[:-1]).sum(0)
+    return {"fpr": fpr, "tpr": tpr, "auroc": auroc, "ap": ap}
+
+
+def phase_binary_curve(dev) -> dict:
+    """The binned binary curves at bench config 6: the ``confmat`` state
+    against the ``binned_curve`` plain body over the same batches, the values
+    against float64 ones from those counts, and the launches against what
+    the compute groups imply (every member on the first update, then one
+    leader an update: the three curves share one group)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    name = "binary_curve_1m"
+    spec = WORKLOADS[name](dev)
+    run = _drive(name, spec, dev)
+    coll, result, out = run["coll"], run["result"], run["out"]
+    grid = binned_curve.sort_thresholds(_threshold_grid(BINARY_CURVE["thresholds"], dev))
+    plain = None
+    for scores, target in spec["batches"]():
+        valid = target != BINARY_CURVE["ignore_index"]
+        t = torch.where(valid, target, torch.zeros_like(target)).to(torch.int32)
+        counts = binned_curve._binned_counts_reference(scores, t, valid, *grid)
+        plain = counts if plain is None else plain + counts
+    for member in ("auroc", "ap", "roc"):
+        _check(torch.equal(coll[member].confmat.to(torch.int64), plain), f"{name}: {member} state differs from the plain body")
+    groups = out["compute_groups"]
+    expected = len(coll) + (spec["updates"] - 1) * len(groups)
+    _check(len(groups) == 1, f"{name}: the curves did not share one compute group: {groups}")
+    _check(
+        run["launches"]["binned_curve"] == expected,
+        f"{name}: {run['launches']['binned_curve']} binned_curve launches, expected {expected}",
+    )
+    want = _curve_values(plain)
+    _close("auroc", result["auroc"], want["auroc"])
+    _close("ap", result["ap"], want["ap"])
+    _close("roc fpr", result["roc"][0], want["fpr"])
+    _close("roc tpr", result["roc"][1], want["tpr"])
+    out.update({
+        "thresholds": BINARY_CURVE["thresholds"], "counted": int(plain[0].sum()),
+        "binned_curve_launches": run["launches"]["binned_curve"], "expected_launches": expected,
+        "values": {"auroc": float(result["auroc"]), "ap": float(result["ap"])},
+        "state_exact": True,
+    })
+    _emit(out)
+    return out
+
+
+def _onevsrest_counts(probs, target, grid):
+    """``(T, C, 2, 2)`` counts straight from the definition: one ``>=`` per
+    threshold, score and class; shares no code with the port's update."""
+    import torch
+
+    pos = torch.nn.functional.one_hot(target, probs.shape[1]).to(torch.bool)[None]  # (1, B, C)
+    ge = probs[None] >= grid[:, None, None]  # (T, B, C)
+    tp, fp = (ge & pos).sum(1), (ge & ~pos).sum(1)
+    fn, tn = (~ge & pos).sum(1), (~ge & ~pos).sum(1)
+    return torch.stack([torch.stack([tn, fp], -1), torch.stack([fn, tp], -1)], -2)
+
+
+def phase_imagenet_curve(dev) -> dict:
+    """Macro one-vs-rest AUROC and average precision over the ImageNet
+    batches: the (100, 1000, 2, 2) state against counts from the definition,
+    the values against float64 ones from those counts, and one K = 2
+    ``bincount`` launch per leader update."""
+    import torch
+
+    name = "imagenet_curve"
+    spec = WORKLOADS[name](dev)
+    run = _drive(name, spec, dev)
+    coll, result, out = run["coll"], run["result"], run["out"]
+    grid = _threshold_grid(100, dev)
+    plain = None
+    for logits, target in spec["batches"]():
+        counts = _onevsrest_counts(torch.softmax(logits, dim=-1), target, grid)
+        plain = counts if plain is None else plain + counts
+    for member in ("auroc", "ap"):
+        _check(torch.equal(coll[member].confmat.to(torch.int64), plain), f"{name}: {member} state differs from the plain counts")
+    groups = out["compute_groups"]
+    expected = len(coll) + (spec["updates"] - 1) * len(groups)
+    _check(
+        run["launches"]["bincount"] == expected,
+        f"{name}: {run['launches']['bincount']} bincount launches, expected {expected}",
+    )
+    want = _curve_values(plain)
+    _close("auroc", result["auroc"], want["auroc"].mean())
+    _close("ap", result["ap"], want["ap"].mean())
+    out.update({
+        "thresholds": 100, "num_classes": IMAGENET["num_classes"], "bincount_launches": run["launches"]["bincount"],
+        "expected_launches": expected, "values": {"auroc": float(result["auroc"]), "ap": float(result["ap"])},
+        "state_exact": True,
+    })
+    _emit(out)
+    return out
+
+
+def _rank_auroc(scores, target) -> float:
+    """float64 AUROC on the host as the Mann-Whitney statistic, ties counted
+    half (the trapezoidal ROC area over distinct scores, by another route)."""
+    import numpy as np
+
+    s = scores.astype(np.float64)
+    _, inverse, counts = np.unique(s, return_inverse=True, return_counts=True)
+    ends = np.cumsum(counts)
+    ranks = (ends - (counts - 1) / 2.0)[inverse]  # 1-based average ranks
+    n_pos = int(target.sum())
+    n_neg = target.size - n_pos
+    return float((ranks[target == 1].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def phase_exact_auroc(dev, batches: int = 4) -> dict:
+    """One exact-mode ``BinaryAUROC`` over the first binary batches, against
+    the float64 rank statistic of the same samples."""
+    import torch
+
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    metric = BinaryAUROC(thresholds=None, ignore_index=BINARY_CURVE["ignore_index"], validate_args=False)
+    kept_s, kept_t = [], []
+    t0 = time.perf_counter()
+    for scores, target in _binary_curve(dev)["batches"](batches):
+        metric.update(scores, target)
+        valid = target != BINARY_CURVE["ignore_index"]
+        kept_s.append(scores[valid].cpu())
+        kept_t.append(target[valid].cpu())
+    value = metric.compute()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = _rank_auroc(torch.cat(kept_s).numpy(), torch.cat(kept_t).numpy())
+    _close("exact auroc", value, torch.tensor(want, dtype=torch.float64))
+    out = {"phase": "exact_auroc", "updates": batches, "samples": sum(len(k) for k in kept_s),
+           "value": float(value), "float64_rank_auroc": want, "seconds": seconds}
     _emit(out)
     return out
 
@@ -355,6 +685,41 @@ def phase_profile(name: str, dev, steps: int = 5) -> None:
     })
 
 
+def phase_profile_curve_kernel(dev, calls: int = 5) -> None:
+    """Where one ``binned_curve`` wrapper call's device time goes, at every
+    checked shape: ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    for name, n, len_t, kind, edges in CURVE_SHAPES:
+        preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
+        args = (preds, target, valid, *binned_curve.sort_thresholds(thr))
+        binned_curve._binned_counts_cuda(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                binned_curve._binned_counts_cuda(*args)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = [
+            (ev.key, ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            and not ev.key.startswith("Activity Buffer")
+        ]
+        rows.sort(key=lambda r: -r[1])
+        _emit({
+            "phase": f"profile_binned_curve_{name}", "calls": calls,
+            "wall_ms_per_call": wall_us / calls / 1e3,
+            "device_ms_per_call": sum(r[1] for r in rows) / calls / 1e3,
+            "device_kernels": [{"name": k[:120], "ms_per_call": us / calls / 1e3, "launches_per_call": c / calls} for k, us, c in rows],
+        })
+
+
 def main() -> int:
     import torch
 
@@ -382,29 +747,56 @@ def main() -> int:
     })
 
     rows = phase_kernels(dev)
+    curve_rows = phase_curve_kernels(dev)
     imagenet = phase_workload("imagenet_val", dev)
     cityscapes = phase_workload("cityscapes_val", dev)
+    binary = phase_binary_curve(dev)
+    imagenet_curve = phase_imagenet_curve(dev)
+    phase_exact_auroc(dev)
     if "--profile" in sys.argv[1:]:
         for name in WORKLOADS:
             phase_profile(name, dev)
+        phase_profile_curve_kernel(dev)
 
-    # top-level numbers: the main path's heaviest launch (the Cityscapes
-    # update's 361-bin count over 8.4M pixels); every shape under "shapes"
+    # top-level numbers: each kernel's heaviest launch on its main path (the
+    # Cityscapes update's 361-bin count over 8.4M pixels; the config-6
+    # update's 100 thresholds over 1M scores); every shape under "shapes"
     main = next(r for r in rows if r["shape"] == "cityscapes_confmat")
-    _emit({"kernels": [{
-        "name": "bincount",
-        "route": "cuda",
-        "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
-        "replaces": "torchmetrics_tpu/ops/bincount.py:76",
-        "launches": imagenet["bincount_launches"] + cityscapes["bincount_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "shapes": rows,
-    }]})
+    curve = next(r for r in curve_rows if r["shape"] == "config6")
+    _emit({"kernels": [
+        {
+            "name": "bincount",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
+            "replaces": "torchmetrics_tpu/ops/bincount.py:76",
+            "launches": imagenet["bincount_launches"] + cityscapes["bincount_launches"]
+            + imagenet_curve["bincount_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shapes": rows,
+        },
+        {
+            "name": "binned_curve",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/binned_curve.cu",
+            "replaces": "torchmetrics_tpu/ops/binned_curve.py:103",
+            "launches": binary["binned_curve_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in curve_rows),
+            "ms": curve["ms"],
+            "plain_ms": curve["plain_ms"],
+            "bound_ms": curve["bound_ms"],
+            "bound_by": curve["bound_by"],
+            # no single PyTorch call computes (T, 2, 2) threshold counts;
+            # composite_ms times bucketize + bincount + cumsum instead
+            "library_ms": None,
+            "composite_ms": curve["composite_ms"],
+            "shapes": curve_rows,
+        },
+    ]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})
     return 0

@@ -138,3 +138,118 @@ def test_small_histogram_families_on_card_equal_cpu(cuda_device, task):
             torch.testing.assert_close(got, value, rtol=1e-6, atol=0.0)
         else:
             assert torch.equal(got, value), name
+
+
+# ---------------------------------------------------------------- binned_curve
+
+def _curve_case(seed, n, len_t, unsorted=False, edges=False):
+    rng = np.random.RandomState(seed)
+    thr = rng.rand(len_t).astype(np.float32) if unsorted else (np.arange(len_t, dtype=np.float32) * np.float32(1 / max(len_t - 1, 1)))
+    preds = rng.rand(n).astype(np.float32)
+    if edges:
+        thr[len_t // 2:] = thr[: len_t - len_t // 2]  # duplicated thresholds
+        preds[rng.rand(n) < 0.05] = np.nan
+        on = rng.rand(n) < 0.3
+        preds[on] = thr[rng.randint(0, len_t, int(on.sum()))]  # scores exactly on a threshold
+    target = rng.randint(0, 2, n).astype(np.int32)
+    valid = rng.rand(n) >= 0.05
+    return [torch.from_numpy(a) for a in (preds, target, valid, thr)]
+
+
+@pytest.mark.parametrize(
+    "n,len_t,unsorted,edges",
+    [
+        (100_000, 100, False, False),  # bench config 6, scaled down
+        (200_000, 200, False, False),
+        (1 << 20, 1000, False, False),
+        (100_000, 50_000, True, False),  # histogram and thresholds in device memory
+        (100_000, 70_000, True, False),
+        (50_000, 18_000, True, False),  # the largest shared-memory histograms
+        (50_000, 19_500, True, False),
+        (20_000, 64, True, True),
+        (0, 5, False, False),
+    ],
+)
+def test_binned_curve_kernel_matches_plain_version(cuda_device, n, len_t, unsorted, edges):
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    preds, target, valid, thr = (t.to(cuda_device) for t in _curve_case(n + len_t, n, len_t, unsorted, edges))
+    args = [preds, target, valid, *binned_curve.sort_thresholds(thr)]
+    before = binned_curve.launches
+    got = binned_curve._binned_counts_cuda(*args)
+    torch.cuda.synchronize()
+    assert binned_curve.launches == before + 1
+    assert torch.equal(got, binned_curve._binned_counts_reference(*args))
+    assert torch.equal(got.cpu(), binned_curve._binned_counts_reference(*(a.cpu() for a in args)))
+
+
+def test_binary_auroc_on_card_equals_cpu(cuda_device):
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    on_card = BinaryAUROC(thresholds=100, ignore_index=-1)
+    on_cpu = BinaryAUROC(thresholds=100, ignore_index=-1, device="cpu")
+    assert on_card.thresholds.device == cuda_device
+    kernels.reset_gate_log()
+    before = binned_curve.launches
+    rng = np.random.RandomState(3)
+    for _ in range(3):
+        preds = torch.from_numpy(rng.rand(50_000).astype(np.float32))
+        target = torch.from_numpy(rng.randint(0, 2, 50_000))
+        target[torch.from_numpy(rng.rand(50_000) < 0.05)] = -1
+        on_card.update(preds.to(cuda_device), target.to(cuda_device))
+        on_cpu.update(preds, target)
+    assert binned_curve.launches == before + 3
+    assert kernels.gate_snapshot()["binned_curve"]["selections"] == {"cuda": 3, "reference": 3}
+    assert torch.equal(on_card.confmat.cpu(), on_cpu.confmat)
+    torch.testing.assert_close(on_card.compute().cpu(), on_cpu.compute(), rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("interface", ["functional", "modular"])
+def test_binned_auroc_under_inference_mode_on_card_equals_cpu(cuda_device, interface):
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+    from torchmetrics_tpu_torch.functional import binary_auroc
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    rng = np.random.RandomState(5)
+    preds = torch.from_numpy(rng.rand(50_000).astype(np.float32))
+    target = torch.from_numpy(rng.randint(0, 2, 50_000))
+    before = binned_curve.launches
+    with torch.inference_mode():
+        if interface == "functional":
+            on_card = binary_auroc(preds.to(cuda_device), target.to(cuda_device), thresholds=100)
+            on_cpu = binary_auroc(preds, target, thresholds=100)
+        else:
+            card_metric = BinaryAUROC(thresholds=100).to(cuda_device)
+            cpu_metric = BinaryAUROC(thresholds=100, device="cpu")
+            card_metric.update(preds.to(cuda_device), target.to(cuda_device))
+            cpu_metric.update(preds, target)
+            on_card, on_cpu = card_metric.compute(), cpu_metric.compute()
+    assert binned_curve.launches == before + 1
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-6, atol=0.0)
+
+
+def test_classwise_curves_and_calibration_on_card_equal_cpu(cuda_device):
+    from torchmetrics_tpu_torch.classification import MulticlassAveragePrecision, MulticlassCalibrationError
+
+    def members(device):
+        return {
+            "ap": MulticlassAveragePrecision(num_classes=10, thresholds=50, device=device),
+            "ce": MulticlassCalibrationError(num_classes=10, device=device),
+        }
+
+    on_card = tm.MetricCollection(members(cuda_device), device=cuda_device)
+    on_cpu = tm.MetricCollection(members("cpu"), device="cpu")
+    rng = np.random.RandomState(4)
+    kernels.reset_gate_log()
+    for _ in range(2):
+        probs = rng.rand(4096, 10).astype(np.float32)
+        preds = torch.from_numpy(probs / probs.sum(1, keepdims=True))
+        target = torch.from_numpy(rng.randint(0, 10, 4096))
+        on_card.update(preds.to(cuda_device), target.to(cuda_device))
+        on_cpu.update(preds, target)
+    assert kernels.gate_snapshot()["bincount"]["selections"]["cuda"] == 4  # two members, two updates
+    assert torch.equal(on_card["ap"].confmat.cpu(), on_cpu["ap"].confmat)
+    assert torch.equal(on_card["ce"].bin_count.cpu(), on_cpu["ce"].bin_count)
+    for name, value in on_cpu.compute().items():
+        torch.testing.assert_close(on_card.compute()[name].cpu(), value, rtol=1e-5, atol=1e-6)

@@ -3,11 +3,13 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``torchmetrics_tpu``, slice by slice; this package
 imports nothing of it. State lives on the current CUDA device unless a
-metric is built with ``device="cpu"``. The slice ported so far: the ``Metric``
-core, ``MetricCollection`` with compute groups, and the classification
-stat-scores family (stat scores, accuracy, precision, recall, F-beta/F1,
-Jaccard index, confusion matrix), whose counts run on the ``bincount``
-kernel in ``csrc/bincount.cu``.
+metric is built with ``device="cpu"``. Ported so far: the ``Metric`` core,
+``MetricCollection`` with compute groups, the classification stat-scores
+family (stat scores, accuracy, precision, recall, F-beta/F1, Jaccard index,
+confusion matrix) and calibration error, whose counts run on the
+``bincount`` kernel in ``csrc/bincount.cu``, and the threshold curves (PR
+curve, ROC, AUROC, average precision), whose binned binary counts run on
+the ``binned_curve`` kernel in ``csrc/binned_curve.cu``.
 """
 from torchmetrics_tpu_torch import classification, functional
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403

@@ -1,9 +1,22 @@
-"""Modular classification metrics of the stat-scores family."""
+"""Modular classification metrics: the stat-scores family, the threshold
+curves (PR curve, ROC, AUROC, average precision) and calibration error."""
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
     BinaryAccuracy,
     MulticlassAccuracy,
     MultilabelAccuracy,
+)
+from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
+from torchmetrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
+from torchmetrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
 )
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -37,6 +50,13 @@ from torchmetrics_tpu_torch.classification.precision_recall import (
     Precision,
     Recall,
 )
+from torchmetrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+    PrecisionRecallCurve,
+)
+from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -45,36 +65,55 @@ from torchmetrics_tpu_torch.classification.stat_scores import (
 )
 
 __all__ = [
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
+    "BinaryAUROC",
     "BinaryAccuracy",
+    "BinaryAveragePrecision",
+    "BinaryCalibrationError",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
     "BinaryJaccardIndex",
     "BinaryPrecision",
+    "BinaryPrecisionRecallCurve",
+    "BinaryROC",
     "BinaryRecall",
     "BinaryStatScores",
+    "CalibrationError",
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
     "JaccardIndex",
+    "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
     "MulticlassConfusionMatrix",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassJaccardIndex",
     "MulticlassPrecision",
+    "MulticlassPrecisionRecallCurve",
+    "MulticlassROC",
     "MulticlassRecall",
     "MulticlassStatScores",
+    "MultilabelAUROC",
     "MultilabelAccuracy",
+    "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
     "MultilabelJaccardIndex",
     "MultilabelPrecision",
+    "MultilabelPrecisionRecallCurve",
+    "MultilabelROC",
     "MultilabelRecall",
     "MultilabelStatScores",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "StatScores",
 ]

@@ -1,9 +1,22 @@
-"""Functional classification metrics of the stat-scores family."""
+"""Functional classification metrics: the stat-scores family, the threshold
+curves (PR curve, ROC, AUROC, average precision) and calibration error."""
 from torchmetrics_tpu_torch.functional.classification.accuracy import (
     accuracy,
     binary_accuracy,
     multiclass_accuracy,
     multilabel_accuracy,
+)
+from torchmetrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
+from torchmetrics_tpu_torch.functional.classification.average_precision import (
+    average_precision,
+    binary_average_precision,
+    multiclass_average_precision,
+    multilabel_average_precision,
+)
+from torchmetrics_tpu_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    calibration_error,
+    multiclass_calibration_error,
 )
 from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
@@ -37,6 +50,13 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall import (
     precision,
     recall,
 )
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    binary_precision_recall_curve,
+    multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
+    precision_recall_curve,
+)
+from torchmetrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
@@ -46,35 +66,54 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
 
 __all__ = [
     "accuracy",
+    "auroc",
+    "average_precision",
     "binary_accuracy",
+    "binary_auroc",
+    "binary_average_precision",
+    "binary_calibration_error",
     "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
     "binary_jaccard_index",
     "binary_precision",
+    "binary_precision_recall_curve",
     "binary_recall",
+    "binary_roc",
     "binary_stat_scores",
+    "calibration_error",
     "confusion_matrix",
     "f1_score",
     "fbeta_score",
     "jaccard_index",
     "multiclass_accuracy",
+    "multiclass_auroc",
+    "multiclass_average_precision",
+    "multiclass_calibration_error",
     "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
     "multiclass_jaccard_index",
     "multiclass_precision",
+    "multiclass_precision_recall_curve",
     "multiclass_recall",
+    "multiclass_roc",
     "multiclass_stat_scores",
     "multilabel_accuracy",
+    "multilabel_auroc",
+    "multilabel_average_precision",
     "multilabel_confusion_matrix",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
     "multilabel_jaccard_index",
     "multilabel_precision",
+    "multilabel_precision_recall_curve",
     "multilabel_recall",
+    "multilabel_roc",
     "multilabel_stat_scores",
     "precision",
+    "precision_recall_curve",
     "recall",
+    "roc",
     "stat_scores",
 ]

@@ -1,13 +1,17 @@
 """Kernel layer: the dispatch seam, the hand-written CUDA kernels and the
 shared-count fusion built on them."""
 from torchmetrics_tpu_torch.ops.bincount import weighted_bincount, weighted_bincount_multi
+from torchmetrics_tpu_torch.ops.binned_curve import binned_curve_counts, binned_curve_counts_classwise, sort_thresholds
 from torchmetrics_tpu_torch.ops.kernels import dispatch, registered_kernels, shared_result, shared_scope
 
 __all__ = [
+    "binned_curve_counts",
+    "binned_curve_counts_classwise",
     "dispatch",
     "registered_kernels",
     "shared_result",
     "shared_scope",
+    "sort_thresholds",
     "weighted_bincount",
     "weighted_bincount_multi",
 ]

@@ -46,3 +46,64 @@ def _adjust_weights_safe_divide(
             absent = (tp + fp + fn == 0) if top_k == 1 else (tp + fn == 0)
             weights = torch.where(absent, torch.zeros_like(weights), weights)
     return _safe_divide(weights * score, weights.sum(-1, keepdim=True)).sum(-1)
+
+
+def _auc_compute_without_check(x: torch.Tensor, y: torch.Tensor, direction: float, axis: int = -1) -> torch.Tensor:
+    """Trapezoidal area under (x, y) assuming x already sorted in ``direction``.
+
+    Along ``axis=-1`` the heights are the means of neighbouring ``y``; along
+    another axis the left heights, as in the JAX package."""
+    dx = torch.diff(x, dim=axis)
+    if axis == -1:
+        avg_y = (y[..., :-1] + y[..., 1:]) / 2.0
+    else:
+        avg_y = torch.narrow(y, axis, 0, y.shape[axis] - 1)
+    return (dx * avg_y).sum(axis) * direction
+
+
+def _auc_compute(x: torch.Tensor, y: torch.Tensor, reorder: bool = False) -> torch.Tensor:
+    """Trapezoidal AUC; optionally sorts by x first. The direction is read
+    from the first and last x (a device-side select, no host read)."""
+    if reorder:
+        order = torch.argsort(x, stable=True)
+        x = x[order]
+        y = y[order]
+    direction = torch.where(x[-1] >= x[0], 1.0, -1.0)
+    dx = torch.diff(x)
+    avg_y = (y[:-1] + y[1:]) / 2.0
+    return (dx * avg_y).sum() * direction
+
+
+def auc(x: torch.Tensor, y: torch.Tensor, reorder: bool = False) -> torch.Tensor:
+    """Area under the curve (x, y) by the trapezoidal rule.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utils.compute import auc
+        >>> round(float(auc(torch.tensor([0.0, 0.5, 1.0]), torch.tensor([0.0, 0.8, 1.0]))), 4)
+        0.65
+    """
+    return _auc_compute(torch.as_tensor(x), torch.as_tensor(y), reorder=reorder)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """1-D linear interpolation with the JAX package's semantics (not
+    ``numpy.interp``): the segment of ``x`` is picked by counting how many
+    ``xp`` values are ``<= x`` (which also defines the result on an unsorted
+    ``xp``, as the macro curve merge feeds it), points past either end follow
+    the first or last segment's line, and a zero-width segment divides by 1
+    rather than 0.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utils.compute import interp
+        >>> interp(torch.tensor([0.25, 0.75]), torch.tensor([0.0, 0.5, 1.0]),
+        ...        torch.tensor([0.0, 1.0, 0.0])).tolist()
+        [0.5, 0.5]
+    """
+    dx = xp[1:] - xp[:-1]
+    m = (fp[1:] - fp[:-1]) / torch.where(dx == 0, torch.ones_like(dx), dx)
+    b = fp[:-1] - m * xp[:-1]
+    indices = (x[:, None] >= xp[None, :]).sum(dim=1) - 1
+    indices = torch.clamp(indices, 0, m.shape[0] - 1)
+    return m[indices] * x + b[indices]

@@ -80,3 +80,46 @@ def _squeeze_if_scalar(data: Any) -> Any:
     if isinstance(data, (list, tuple)):
         return type(data)(_squeeze_if_scalar(v) for v in data)
     return data
+
+
+def compact_scatter(bufs: Sequence[torch.Tensor], values: Sequence[torch.Tensor], valid: torch.Tensor, count: torch.Tensor):
+    """Scatter a batch's VALID samples into fixed-capacity state buffers.
+
+    Valid entries go to contiguous slots starting at ``count``; invalid ones
+    and those past the end of the buffer are dropped. The sentinel is the
+    buffer's actual length, so buffers that grew by concatenation still
+    scatter safely. Nothing reads back to the host: dropped entries land in
+    one spare slot that is cut off. Returns ``(new_bufs, new_count)``.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.utils.data import compact_scatter
+        >>> (buf,), count = compact_scatter([torch.zeros(3)], [torch.tensor([1.0, 2.0, 3.0])],
+        ...                                 torch.tensor([True, False, True]), torch.tensor(0))
+        >>> buf.tolist(), int(count)
+        ([1.0, 3.0, 0.0], 2)
+    """
+    v = valid.reshape(-1)
+    sentinel = bufs[0].shape[0]
+    positions = torch.where(v, count + torch.cumsum(v.to(torch.int64), 0) - 1, torch.full_like(v, sentinel, dtype=torch.int64))
+    positions = torch.clamp(positions, max=sentinel)
+    new_bufs = []
+    for b, x in zip(bufs, values):
+        spare = torch.cat([b, b.new_zeros((1,))])
+        spare.scatter_(0, positions, x.reshape(-1).to(b.dtype))
+        new_bufs.append(spare[:sentinel])
+    return new_bufs, count + v.sum().to(count.dtype)
+
+
+def compact_readout(bufs: Sequence[torch.Tensor], valid_buffer: torch.Tensor, sample_count: torch.Tensor, owner: str):
+    """Read capacity buffers: warn when more valid samples arrived than the
+    buffers hold, and return the filled rows of each buffer."""
+    from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
+
+    if int(sample_count) > valid_buffer.shape[0]:
+        rank_zero_warn(
+            f"{owner} capacity buffer overflowed: saw {int(sample_count)} valid samples"
+            f" but kept the first {valid_buffer.shape[0]}.",
+            UserWarning,
+        )
+    return [b[valid_buffer] for b in bufs]

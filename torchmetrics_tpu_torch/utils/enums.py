@@ -50,3 +50,10 @@ class ClassificationTask(EnumStr):
     BINARY = "binary"
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """Task dispatch values of metrics with no multilabel form."""
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
