@@ -25,12 +25,22 @@ evaluation workloads:
   precision with 100 thresholds: a (100, 1000, 2, 2) state whose histogram
   is a K = 2 ``bincount`` over 101,000 bins;
 - one exact-mode (``thresholds=None``) AUROC over four binary batches,
-  against a float64 rank statistic on the host.
+  against a float64 rank statistic on the host;
+- MS MARCO passage ranking dev: 6,980 queries reranked over their top-1,000
+  BM25 candidates, 70 updates of 100 queries (the last 80); MRR@10,
+  nDCG@10, MAP, precision@10, recall@100 and hit rate@10, whose top-k sums
+  run on the ``retrieval_topk_stats`` kernel, against the same collection
+  on the CPU;
+- UVG 1080p: one 600-frame sequence of 1920 x 1080 RGB frames in batches of
+  8, decoded frames against their originals; SSIM and MS-SSIM, whose
+  windowed moments run on the ``ssim_windows`` kernel, with the first
+  batch's per-image SSIM against a float64 computation on the card.
 
 Scores, logits and labels are drawn from seeded ``torch.Generator`` s on the
 card. With ``--profile`` it also traces a few updates of each workload with
-``torch.profiler`` (device time by kernel, device idle share), and a few
-``binned_curve`` calls at each of its checked shapes.
+``torch.profiler`` (device time by kernel, device idle share; for MS MARCO
+the compute too), and a few calls of each kernel at each of its checked
+shapes.
 Each phase prints one JSON line; then come the kernel table line, the card's
 name and power limit as ``nvidia-smi`` reports them, and the final line
 ``{"ok": true, "device": {...}}``. Any failed build, launch error or mismatch
@@ -44,7 +54,7 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("bincount", "binned_curve")
+KERNELS = ("bincount", "binned_curve", "retrieval_topk_stats", "ssim_windows")
 #: ImageNet-1k validation (torchvision references/classification eval):
 #: 50,000 images, 1,000 classes, eval batch 1024
 IMAGENET = {"num_classes": 1000, "batches": [1024] * 48 + [848]}
@@ -77,6 +87,48 @@ CURVE_SHAPES = [
 #: the JAX package's bench.py config 6: 50 updates of 1,000,000 binary scores,
 #: 100 thresholds; here with ignore_index=-1 on 5% of samples
 BINARY_CURVE = {"updates": 50, "batch": 1_000_000, "thresholds": 100, "ignore_index": -1, "positive_rate": 0.25}
+#: MS MARCO passage ranking dev set, reranking BM25's top 1,000 (official
+#: metric MRR@10): 6,980 queries; 5% of queries keep 100-999 candidates; no
+#: relevant passage among the candidates for 14% (BM25 recall@1000 is about
+#: 0.86), two for 6%, one for the rest; float32 N(0, 1) scores, relevant +2;
+#: updates of 100 queries (the last 80), pairs shuffled within a batch
+MSMARCO = {
+    "queries": 6980, "candidates": 1000, "short_share": 0.05, "short_counts": (100, 1000),
+    "no_relevant": 0.14, "two_relevant": 0.06, "shift": 2.0, "batch_queries": 100,
+}
+#: the collection on the card against the same on the CPU: means over 6,980
+#: queries summed in another order, nDCG's discounts an ulp apart
+MSMARCO_RTOL = 1e-5
+#: retrieval_topk_stats checks: (name, Q, L, top_k); MovieLens-20M's 138,493
+#: users with top-100 candidates
+TOPK_SHAPES = [
+    ("msmarco_k10", 6980, 1000, 10),
+    ("msmarco_all", 6980, 1000, None),
+    ("movielens_k100", 138_493, 100, 10),
+]
+#: UVG 1080p test set: 1920 x 1080 RGB sequences, used by learned video
+#: codecs, which report MS-SSIM on frames in [0, 1]; one 600-frame sequence
+#: in batches of 8; "decoded" frames add N(0, 0.02) noise, clipped
+UVG = {"frames": 600, "batch": 8, "height": 1080, "width": 1920, "noise": 0.02}
+#: the first batch's per-image SSIM against float64 on the card: float32
+#: moments cancel in E[x^2] - mu^2, and the float32 taps round
+UVG_SSIM_ATOL = 5e-5
+#: ssim_windows checks: (name, M planes, Hp, Wp, window, taps). M = 5 moment
+#: planes x batch x channels; Hp, Wp include the 2 x 5 reflect padding of
+#: the 11-tap gaussian. uvg_4k (one 3840 x 2160 frame) puts the plain body
+#: on its convolution branch (an edge above 2048)
+SSIM_SHAPES = [
+    ("uvg_1080p", 120, 1090, 1930, "gaussian", 11),
+    ("config3", 60, 266, 266, "gaussian", 11),
+    ("msssim_coarsest", 120, 77, 130, "gaussian", 11),
+    ("uvg_4k", 15, 2170, 3850, "gaussian", 11),
+    ("uniform7", 60, 262, 262, "uniform", 7),
+]
+#: kernel against plain body: float32 sums of products in another order
+#: (fmaf in tap order against cuBLAS or cuDNN without TF32), on inputs in
+#: [0, 1]; the backward's gradients are N(0, 1) sums, held to 1e-5
+SSIM_TOL = 2e-6
+SSIM_GRAD_TOL = 1e-5
 #: H100 SXM device-memory rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -248,6 +300,162 @@ def phase_curve_kernels(dev) -> list:
         })
     _emit({"phase": "kernels", "kernel": "binned_curve", "checks": rows})
     return rows
+
+
+def _topk_grid(q: int, length: int, dev, seed: int):
+    """A ranked 0/1 target grid (1% relevant), zero beyond each row's count,
+    and the int32 counts: full rows, except 5% of MS MARCO-wide rows kept
+    at 100-999 documents."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    counts = torch.full((q,), length, dtype=torch.int32, device=dev)
+    if length == MSMARCO["candidates"]:
+        short = torch.rand(q, generator=g, device=dev) < MSMARCO["short_share"]
+        drawn = torch.randint(*MSMARCO["short_counts"], (q,), generator=g, device=dev, dtype=torch.int32)
+        counts = torch.where(short, drawn, counts)
+    t = (torch.rand((q, length), generator=g, device=dev) < 0.01).to(torch.float32)
+    t = t * (torch.arange(length, device=dev)[None, :] < counts[:, None])
+    return t.contiguous(), counts
+
+
+def _composite_topk(t, counts, top_k: int):
+    """The four masked row sums as the JAX package's unfused comparator
+    takes them (``bench.py``): one pass per statistic, each building its
+    own masks. A yardstick only; no path of the port runs it."""
+    import torch
+
+    def masks():
+        pos = torch.arange(t.shape[-1], device=t.device)[None, :]
+        k = counts[:, None] if top_k < 0 else torch.clamp(counts[:, None], max=top_k)
+        return pos, (pos < k).to(t.dtype)
+
+    _, mask = masks()
+    hits = (t * mask).sum(-1)
+    total = t.sum(-1)
+    pos, mask = masks()
+    inv_hits = (torch.where(pos < counts[:, None], 1.0 - t, 0.0) * mask).sum(-1)
+    pos, _ = masks()
+    inv_total = torch.where(pos < counts[:, None], 1.0 - t, 0.0).sum(-1)
+    return torch.stack([hits, total, inv_hits, inv_total], dim=1)
+
+
+def phase_topk_kernels(dev) -> list:
+    """``retrieval_topk_stats`` against its plain version at MS MARCO dev's
+    grid (k = 10 and the whole list) and MovieLens-20M's: bit-equal."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import topk_kernel
+
+    rows = []
+    for name, q, length, top_k in TOPK_SHAPES:
+        k = -1 if top_k is None else top_k
+        t, counts = _topk_grid(q, length, dev, SEED + q + length)
+        got = topk_kernel._topk_stats_cuda(t, counts, k)
+        ref = topk_kernel._topk_stats_reference(t, counts, k)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        _check(torch.equal(got, ref), f"retrieval_topk_stats {name}: kernel differs from the plain version (max |d| {err})")
+        _check(torch.equal(_composite_topk(t, counts, k), ref), f"retrieval_topk_stats {name}: the composite disagrees")
+        # least work: read the grid and the counts once, write (Q, 4) once;
+        # four masked adds a grid value
+        nbytes = q * length * 4 + q * 4 + q * 16
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * q * length / FP32_OPS_PER_S * 1e3
+        rows.append({
+            "shape": name, "Q": q, "L": length, "top_k": top_k, "documents": int(counts.sum()),
+            "max_abs_err": err, "tolerance": "exact",
+            "ms": _time_ms(lambda: topk_kernel._topk_stats_cuda(t, counts, k), 50),
+            "plain_ms": _time_ms(lambda: topk_kernel._topk_stats_reference(t, counts, k), 20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "composite_ms": _time_ms(lambda: _composite_topk(t, counts, k), 20),
+        })
+    _emit({"phase": "kernels", "kernel": "retrieval_topk_stats", "checks": rows})
+    return rows
+
+
+def _ssim_taps(kind: str, k: int, dev):
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.utils import _gaussian
+
+    return _gaussian(k, 1.5, device=dev) if kind == "gaussian" else torch.full((k,), 1.0 / k, device=dev)
+
+
+def phase_ssim_kernels(dev) -> dict:
+    """``ssim_windows`` against its plain version (full float32) at the
+    moment stacks of the main path and its neighbours, and its backward
+    against the plain version's autograd at bench config 3."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    rows = []
+    for name, m, hp, wp, kind, k in SSIM_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + hp + wp)
+        x = torch.rand((m, hp, wp), generator=g, device=dev)
+        taps = _ssim_taps(kind, k, dev)
+        got = ssim_kernel._windowed_cuda(x, taps, taps)
+        ref = ssim_kernel._windowed_reference(x, taps, taps)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        _check(
+            torch.allclose(got, ref, rtol=SSIM_TOL, atol=SSIM_TOL),
+            f"ssim_windows {name}: beyond rtol/atol {SSIM_TOL} of the plain version (max |d| {err})",
+        )
+        weight = torch.outer(taps, taps).expand(m, 1, k, k).contiguous()
+
+        def library():
+            # one grouped convolution with the rank-1 window (cuDNN, no TF32):
+            # a yardstick only; no path of the port calls it
+            with ssim_kernel.full_float32():
+                return F.conv2d(x[None], weight, groups=m)[0]
+
+        lib_err = float((library() - ref).abs().max())
+        _check(lib_err <= 1e-4, f"ssim_windows {name}: the library yardstick disagrees (max |d| {lib_err})")
+        ho, wo = hp - k + 1, wp - k + 1
+        # least work: read the planes once, write the windows once; k
+        # multiply-adds a value in each of the two passes
+        nbytes = 4 * m * (hp * wp + ho * wo)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * (k * ho * wp + k * ho * wo) / FP32_OPS_PER_S * 1e3
+        iters = 5 if m * hp * wp > 50_000_000 else 20
+        rows.append({
+            "shape": name, "M": m, "Hp": hp, "Wp": wp, "window": kind, "taps": k,
+            "plain_branch": "conv" if max(hp, wp) > ssim_kernel._WINDOW_GEMM_MAX_DIM else "band_matmul",
+            "max_abs_err": err, "library_max_abs_err": lib_err, "tolerance": f"rtol=atol={SSIM_TOL}",
+            "ms": _time_ms(lambda: ssim_kernel._windowed_cuda(x, taps, taps), iters),
+            "plain_ms": _time_ms(lambda: ssim_kernel._windowed_reference(x, taps, taps), iters),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": _time_ms(library, iters),
+        })
+        del x, got, ref, weight
+
+    # backward at config 3: one more launch over the padded output gradient
+    _, m, hp, wp, kind, k = next(s for s in SSIM_SHAPES if s[0] == "config3")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((m, hp, wp), generator=g, device=dev)
+    grad = torch.randn((m, hp - k + 1, wp - k + 1), generator=g, device=dev)
+    taps = _ssim_taps(kind, k, dev)
+    x_card, x_plain = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = ssim_kernel.launches
+    ssim_kernel._windowed_cuda(x_card, taps, taps).backward(grad)
+    launched = ssim_kernel.launches - before
+    ssim_kernel._windowed_reference(x_plain, taps, taps).backward(grad)
+    torch.cuda.synchronize()
+    grad_err = float((x_card.grad - x_plain.grad).abs().max())
+    _check(launched == 2, f"ssim_windows backward: {launched} launches for one forward and one backward")
+    _check(
+        torch.allclose(x_card.grad, x_plain.grad, rtol=SSIM_GRAD_TOL, atol=SSIM_GRAD_TOL),
+        f"ssim_windows backward: beyond rtol/atol {SSIM_GRAD_TOL} of autograd (max |d| {grad_err})",
+    )
+    backward = {"shape": "config3", "max_abs_err": grad_err, "tolerance": f"rtol=atol={SSIM_GRAD_TOL}", "launches": launched}
+    _emit({"phase": "kernels", "kernel": "ssim_windows", "checks": rows, "backward": backward})
+    return {"rows": rows, "backward": backward}
 
 
 def _plain_confmat(spec: dict):
@@ -427,12 +635,135 @@ def _imagenet_curve(dev) -> dict:
     }
 
 
+def _msmarco(dev) -> dict:
+    """The MS MARCO dev reranking collection over 70 query batches."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.retrieval import (
+        RetrievalHitRate,
+        RetrievalMAP,
+        RetrievalMRR,
+        RetrievalNormalizedDCG,
+        RetrievalPrecision,
+        RetrievalRecall,
+    )
+
+    spec = MSMARCO
+    q = spec["queries"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    counts = torch.full((q,), spec["candidates"], dtype=torch.int64, device=dev)
+    short = torch.rand(q, generator=g, device=dev) < spec["short_share"]
+    counts = torch.where(short, torch.randint(*spec["short_counts"], (q,), generator=g, device=dev), counts)
+    u = torch.rand(q, generator=g, device=dev)
+    relevant = torch.where(u < spec["no_relevant"], 0, torch.where(u < spec["no_relevant"] + spec["two_relevant"], 2, 1))
+    offsets = torch.cumsum(counts, 0) - counts
+    qids = torch.randperm(1_000_000, generator=g, device=dev)[:q]  # distinct query ids, in no order
+    indexes = torch.repeat_interleave(qids, counts)
+    target = torch.zeros(indexes.shape[0], dtype=torch.int64, device=dev)
+    first = (torch.rand(q, generator=g, device=dev) * counts).to(torch.int64)
+    second = (first + 1 + (torch.rand(q, generator=g, device=dev) * (counts - 1)).to(torch.int64)) % counts
+    target[(offsets + first)[relevant >= 1]] = 1
+    target[(offsets + second)[relevant == 2]] = 1
+    preds = torch.randn(indexes.shape[0], generator=g, device=dev) + spec["shift"] * target
+    bounds = offsets[:: spec["batch_queries"]].tolist() + [indexes.shape[0]]
+    data = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        perm = lo + torch.randperm(hi - lo, generator=g, device=dev)  # query ids shuffled within the batch
+        data.append((preds[perm], target[perm], indexes[perm]))
+
+    def collection(device=None):
+        kw = {"device": device}
+        return MetricCollection(
+            {
+                "mrr@10": RetrievalMRR(top_k=10, **kw),
+                "ndcg@10": RetrievalNormalizedDCG(top_k=10, **kw),
+                "map": RetrievalMAP(**kw),
+                "precision@10": RetrievalPrecision(top_k=10, **kw),
+                "recall@100": RetrievalRecall(top_k=100, **kw),
+                "hit_rate@10": RetrievalHitRate(top_k=10, **kw),
+            },
+            **kw,
+        )
+
+    return {
+        "updates": len(data), "samples": int(indexes.shape[0]), "queries": q,
+        "relevant": int(target.sum()), "queries_without_relevant": int((relevant == 0).sum()),
+        "batches": lambda: iter(data), "collection": collection,
+        "update": lambda coll, b: coll.update(b[0], b[1], indexes=b[2]),
+        "profile_compute": True,
+    }
+
+
+def _uvg_frames(g, n: int, dev):
+    """``n`` smooth RGB frames in [0, 1]: 0.5 plus six random low-frequency
+    sinusoids a frame, amplitudes per channel."""
+    import math
+
+    import torch
+
+    h, w = UVG["height"], UVG["width"]
+    y = (torch.arange(h, device=dev, dtype=torch.float32) / h)[:, None]
+    x = (torch.arange(w, device=dev, dtype=torch.float32) / w)[None, :]
+    frames = torch.full((n, 3, h, w), 0.5, device=dev)
+    for _ in range(6):
+        fy, fx = (0.5 + 3.5 * torch.rand((n, 1, 1, 1), generator=g, device=dev) for _ in range(2))
+        phase = 2 * math.pi * torch.rand((n, 1, 1, 1), generator=g, device=dev)
+        amp = 0.05 + 0.1 * torch.rand((n, 3, 1, 1), generator=g, device=dev)
+        frames += amp * torch.sin(2 * math.pi * (fy * y + fx * x) + phase)
+    return frames.clamp_(0.0, 1.0)
+
+
+def _uvg(dev) -> dict:
+    """SSIM and MS-SSIM over one UVG-shaped 1080p sequence, decoded against original."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.image import MultiScaleStructuralSimilarityIndexMeasure, StructuralSimilarityIndexMeasure
+
+    spec = UVG
+
+    def batches():
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        for _ in range(spec["frames"] // spec["batch"]):
+            original = _uvg_frames(g, spec["batch"], dev)
+            noise = spec["noise"] * torch.randn(original.shape, generator=g, device=dev)
+            yield (original + noise).clamp_(0.0, 1.0), original
+
+    def collection():
+        return MetricCollection(
+            {
+                "ssim": StructuralSimilarityIndexMeasure(data_range=1.0),
+                "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0),
+            }
+        )
+
+    return {
+        "updates": spec["frames"] // spec["batch"], "samples": spec["frames"],
+        "batches": batches, "collection": collection,
+    }
+
+
 WORKLOADS = {
     "imagenet_val": _imagenet,
     "cityscapes_val": _cityscapes,
     "binary_curve_1m": _binary_curve,
     "imagenet_curve": _imagenet_curve,
+    "msmarco_dev": _msmarco,
+    "uvg_1080p": _uvg,
 }
+
+
+def _update(spec: dict):
+    """How one batch updates the workload's collection: ``coll.update(*batch)``
+    unless the spec says otherwise."""
+    return spec.get("update", lambda coll, batch: coll.update(*batch))
+
+
+def _launch_counters():
+    from torchmetrics_tpu_torch.ops import bincount, binned_curve, ssim_kernel, topk_kernel
+
+    return {"bincount": bincount, "binned_curve": binned_curve, "retrieval_topk_stats": topk_kernel, "ssim_windows": ssim_kernel}
 
 
 def _drive(name: str, spec: dict, dev) -> dict:
@@ -440,23 +771,26 @@ def _drive(name: str, spec: dict, dev) -> dict:
     kernel's launch count set to 0 just before and read just after."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import bincount, binned_curve
-
     coll = spec["collection"]()
+    update = _update(spec)
+    batches = spec["batches"]()
+    counters = _launch_counters()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    bincount.launches = binned_curve.launches = 0
+    for module in counters.values():
+        module.launches = 0
     step_s = []
-    for preds, target in spec["batches"]():
+    for batch in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        coll.update(preds, target)
+        update(coll, batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
     result = coll.compute()
     torch.cuda.synchronize()
     compute_s = time.perf_counter() - t0
-    launches = {"bincount": bincount.launches, "binned_curve": binned_curve.launches}
+    launches = {name: module.launches for name, module in counters.items()}
     update_s, steps = sum(step_s), len(step_s)
     step_ms = sorted(t * 1e3 for t in step_s)
     return {
@@ -644,6 +978,111 @@ def phase_exact_auroc(dev, batches: int = 4) -> dict:
     return out
 
 
+def phase_msmarco(dev) -> dict:
+    """The MS MARCO dev collection on the card: every value against the same
+    collection on the CPU over the same batches, and the kernel launches
+    against what the code implies (none in an update; one a compute for
+    each of precision@10, recall@100 and hit rate@10)."""
+    import torch
+
+    name = "msmarco_dev"
+    spec = WORKLOADS[name](dev)
+    run = _drive(name, spec, dev)
+    result, out = run["result"], run["out"]
+    on_cpu = spec["collection"]("cpu")
+    for preds, target, indexes in spec["batches"]():
+        on_cpu.update(preds.cpu(), target.cpu(), indexes=indexes.cpu())
+    want = on_cpu.compute()
+    for key, value in want.items():
+        got = result[key].cpu().to(torch.float64)
+        _check(bool(torch.isfinite(got).all()), f"{name}: {key} is not finite")
+        _check(
+            torch.allclose(got, value.to(torch.float64), rtol=MSMARCO_RTOL, atol=1e-7),
+            f"{name}: {key} {float(got)} differs from the CPU's {float(value)} beyond rtol {MSMARCO_RTOL}",
+        )
+    expected = 3
+    launches = run["launches"]["retrieval_topk_stats"]
+    _check(launches == expected, f"{name}: {launches} retrieval_topk_stats launches, expected {expected}")
+    out.update({
+        "queries": spec["queries"], "relevant": spec["relevant"],
+        "queries_without_relevant": spec["queries_without_relevant"],
+        "topk_launches": launches, "expected_launches": expected,
+        "values": {k: float(v) for k, v in result.items()},
+        "cpu_values": {k: float(v) for k, v in want.items()},
+        "max_rel_diff_vs_cpu": max(
+            abs(float(result[k]) - float(v)) / max(abs(float(v)), 1e-12) for k, v in want.items()
+        ),
+        "rtol": MSMARCO_RTOL,
+    })
+    _emit(out)
+    return out
+
+
+def _ssim_float64(preds, target, data_range: float = 1.0):
+    """Per-image SSIM in float64 with one dense grouped convolution of the
+    rank-1 11 x 11 gaussian window (sigma 1.5), reflect padding and the
+    constants of the metric; shares only the definition with the port."""
+    import torch
+    import torch.nn.functional as F
+
+    p, t = preds.to(torch.float64), target.to(torch.float64)
+    c = p.shape[1]
+    dist = torch.arange(-5, 6, dtype=torch.float64, device=p.device)
+    g = torch.exp(-((dist / 1.5) ** 2) / 2)
+    g = g / g.sum()
+    window = torch.outer(g, g).expand(c, 1, 11, 11)
+
+    def filt(x):
+        return F.conv2d(F.pad(x, (5, 5, 5, 5), mode="reflect"), window, groups=c)
+
+    mu_p, mu_t = filt(p), filt(t)
+    var_p = filt(p * p) - mu_p**2
+    var_t = filt(t * t) - mu_t**2
+    cov = filt(p * t) - mu_p * mu_t
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    ssim = ((2 * mu_p * mu_t + c1) * (2 * cov + c2)) / ((mu_p**2 + mu_t**2 + c1) * (var_p + var_t + c2))
+    return ssim[..., 5:-5, 5:-5].reshape(p.shape[0], -1).mean(-1)
+
+
+def phase_uvg(dev) -> dict:
+    """SSIM and MS-SSIM over the UVG 1080p sequence: 1 + 5 ``ssim_windows``
+    launches an update, finite values, and the first batch's per-image SSIM
+    against float64 on the card."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional import structural_similarity_index_measure
+
+    name = "uvg_1080p"
+    spec = WORKLOADS[name](dev)
+    run = _drive(name, spec, dev)
+    result, out = run["result"], run["out"]
+    expected = spec["updates"] * (1 + 5)
+    launches = run["launches"]["ssim_windows"]
+    _check(launches == expected, f"{name}: {launches} ssim_windows launches, expected {expected}")
+    for key in ("ssim", "ms_ssim"):
+        value = float(result[key])
+        _check(0.0 < value <= 1.0, f"{name}: {key} = {value} is outside (0, 1]")
+    preds, target = next(spec["batches"]())
+    per_image = structural_similarity_index_measure(preds, target, data_range=1.0, reduction="none")
+    want = _ssim_float64(preds, target)
+    torch.cuda.synchronize()
+    err = float((per_image.to(torch.float64) - want).abs().max())
+    _check(
+        tuple(per_image.shape) == (UVG["batch"],) and bool(torch.isfinite(per_image).all()),
+        f"{name}: per-image SSIM of shape {tuple(per_image.shape)}",
+    )
+    _check(err <= UVG_SSIM_ATOL, f"{name}: per-image SSIM differs from float64 by {err} > {UVG_SSIM_ATOL}")
+    out.update({
+        "frames": UVG["frames"], "frame": [UVG["height"], UVG["width"]], "batch": UVG["batch"],
+        "ssim_launches": launches, "expected_launches": expected,
+        "values": {k: float(v) for k, v in result.items()},
+        "first_batch_ssim": per_image.tolist(), "float64_ssim": want.tolist(),
+        "max_abs_err_vs_float64": err, "atol": UVG_SSIM_ATOL,
+    })
+    _emit(out)
+    return out
+
+
 def phase_profile(name: str, dev, steps: int = 5) -> None:
     """Where one update's time goes: ``torch.profiler`` over ``steps``
     updates of pre-generated batches (after one warm-up update), device time
@@ -654,14 +1093,17 @@ def phase_profile(name: str, dev, steps: int = 5) -> None:
 
     spec = WORKLOADS[name](dev)
     coll = spec["collection"]()
+    update = _update(spec)
     gen = spec["batches"]()
-    coll.update(*next(gen))
+    update(coll, next(gen))
     batches = [next(gen) for _ in range(steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for preds, target in batches:
-            coll.update(preds, target)
+        for batch in batches:
+            update(coll, batch)
+        if spec.get("profile_compute"):  # where the kernel runs: retrieval computes on the grid
+            coll.compute()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, memsets, copies): a CPU operator's
@@ -675,7 +1117,7 @@ def phase_profile(name: str, dev, steps: int = 5) -> None:
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     _emit({
-        "phase": f"profile_{name}", "updates": steps,
+        "phase": f"profile_{name}", "updates": steps, "with_compute": bool(spec.get("profile_compute")),
         "wall_ms_per_update": wall_us / steps / 1e3,
         "device_ms_per_update": busy_us / steps / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us else None,
@@ -685,39 +1127,56 @@ def phase_profile(name: str, dev, steps: int = 5) -> None:
     })
 
 
-def phase_profile_curve_kernel(dev, calls: int = 5) -> None:
-    """Where one ``binned_curve`` wrapper call's device time goes, at every
-    checked shape: ``torch.profiler`` over ``calls`` calls after a warm-up."""
+def _profile_calls(phase: str, fn, calls: int = 5) -> None:
+    """Where one wrapper call's device time goes: ``torch.profiler`` over
+    ``calls`` calls after a warm-up."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from torchmetrics_tpu_torch.ops import binned_curve
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [
+        (ev.key, ev.self_device_time_total, ev.count)
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+        and not ev.key.startswith("Activity Buffer")
+    ]
+    rows.sort(key=lambda r: -r[1])
+    _emit({
+        "phase": phase, "calls": calls,
+        "wall_ms_per_call": wall_us / calls / 1e3,
+        "device_ms_per_call": sum(r[1] for r in rows) / calls / 1e3,
+        "device_kernels": [{"name": k[:120], "ms_per_call": us / calls / 1e3, "launches_per_call": c / calls} for k, us, c in rows],
+    })
+
+
+def phase_profile_kernel_shapes(dev) -> None:
+    """Device time of one wrapper call of ``binned_curve``,
+    ``retrieval_topk_stats`` and ``ssim_windows`` at each of their checked shapes."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import binned_curve, ssim_kernel, topk_kernel
 
     for name, n, len_t, kind, edges in CURVE_SHAPES:
         preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
         args = (preds, target, valid, *binned_curve.sort_thresholds(thr))
-        binned_curve._binned_counts_cuda(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                binned_curve._binned_counts_cuda(*args)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [
-            (ev.key, ev.self_device_time_total, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-            and not ev.key.startswith("Activity Buffer")
-        ]
-        rows.sort(key=lambda r: -r[1])
-        _emit({
-            "phase": f"profile_binned_curve_{name}", "calls": calls,
-            "wall_ms_per_call": wall_us / calls / 1e3,
-            "device_ms_per_call": sum(r[1] for r in rows) / calls / 1e3,
-            "device_kernels": [{"name": k[:120], "ms_per_call": us / calls / 1e3, "launches_per_call": c / calls} for k, us, c in rows],
-        })
+        _profile_calls(f"profile_binned_curve_{name}", lambda: binned_curve._binned_counts_cuda(*args))
+    for name, q, length, top_k in TOPK_SHAPES:
+        t, counts = _topk_grid(q, length, dev, SEED + q + length)
+        k = -1 if top_k is None else top_k
+        _profile_calls(f"profile_retrieval_topk_stats_{name}", lambda: topk_kernel._topk_stats_cuda(t, counts, k))
+    for name, m, hp, wp, kind, k in SSIM_SHAPES:
+        x = torch.rand((m, hp, wp), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        taps = _ssim_taps(kind, k, dev)
+        _profile_calls(f"profile_ssim_windows_{name}", lambda: ssim_kernel._windowed_cuda(x, taps, taps))
+        del x
 
 
 def main() -> int:
@@ -753,16 +1212,24 @@ def main() -> int:
     binary = phase_binary_curve(dev)
     imagenet_curve = phase_imagenet_curve(dev)
     phase_exact_auroc(dev)
+    topk_rows = phase_topk_kernels(dev)
+    ssim = phase_ssim_kernels(dev)
+    msmarco = phase_msmarco(dev)
+    uvg = phase_uvg(dev)
     if "--profile" in sys.argv[1:]:
         for name in WORKLOADS:
             phase_profile(name, dev)
-        phase_profile_curve_kernel(dev)
+        phase_profile_kernel_shapes(dev)
 
     # top-level numbers: each kernel's heaviest launch on its main path (the
     # Cityscapes update's 361-bin count over 8.4M pixels; the config-6
-    # update's 100 thresholds over 1M scores); every shape under "shapes"
+    # update's 100 thresholds over 1M scores; MS MARCO's 6,980 x 1,000 grid
+    # at k = 10; the 1080p update's 120-plane SSIM stack); every shape under
+    # "shapes"
     main = next(r for r in rows if r["shape"] == "cityscapes_confmat")
     curve = next(r for r in curve_rows if r["shape"] == "config6")
+    topk = next(r for r in topk_rows if r["shape"] == "msmarco_k10")
+    window = next(r for r in ssim["rows"] if r["shape"] == "uvg_1080p")
     _emit({"kernels": [
         {
             "name": "bincount",
@@ -795,6 +1262,39 @@ def main() -> int:
             "library_ms": None,
             "composite_ms": curve["composite_ms"],
             "shapes": curve_rows,
+        },
+        {
+            "name": "retrieval_topk_stats",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/retrieval_topk_stats.cu",
+            "replaces": "torchmetrics_tpu/ops/topk_kernel.py:68",
+            "launches": msmarco["topk_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in topk_rows),
+            "ms": topk["ms"],
+            "plain_ms": topk["plain_ms"],
+            "bound_ms": topk["bound_ms"],
+            "bound_by": topk["bound_by"],
+            # no single PyTorch call gives the four masked row sums;
+            # composite_ms times them one pass each
+            "library_ms": None,
+            "composite_ms": topk["composite_ms"],
+            "shapes": topk_rows,
+        },
+        {
+            "name": "ssim_windows",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/ssim_windows.cu",
+            "replaces": "torchmetrics_tpu/ops/ssim_kernel.py:52",
+            "launches": uvg["ssim_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in ssim["rows"]),
+            "ms": window["ms"],
+            "plain_ms": window["plain_ms"],
+            "bound_ms": window["bound_ms"],
+            "bound_by": window["bound_by"],
+            # one grouped F.conv2d with the rank-1 window, without TF32
+            "library_ms": window["library_ms"],
+            "shapes": ssim["rows"],
+            "backward": ssim["backward"],
         },
     ]})
     print(smi, flush=True)

@@ -253,3 +253,154 @@ def test_classwise_curves_and_calibration_on_card_equal_cpu(cuda_device):
     assert torch.equal(on_card["ce"].bin_count.cpu(), on_cpu["ce"].bin_count)
     for name, value in on_cpu.compute().items():
         torch.testing.assert_close(on_card.compute()[name].cpu(), value, rtol=1e-5, atol=1e-6)
+
+
+# -------------------------------------------------------- retrieval_topk_stats
+
+def _topk_case(seed, q, length, binary=True):
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, length + 1, q).astype(np.int32)
+    t = rng.randint(0, 2, (q, length)) if binary else rng.rand(q, length)
+    t = np.where(np.arange(length)[None, :] < counts[:, None], t, 0).astype(np.float32)
+    return torch.from_numpy(t), torch.from_numpy(counts)
+
+
+@pytest.mark.parametrize("top_k", [-1, 1, 10, 100])
+@pytest.mark.parametrize("q,length", [(700, 1000), (5000, 100), (37, 53), (3, 1), (1, 4099)])
+def test_topk_stats_kernel_is_bit_equal_to_plain_version(cuda_device, q, length, top_k):
+    from torchmetrics_tpu_torch.ops import topk_kernel
+
+    t, counts = (a.to(cuda_device) for a in _topk_case(q + length, q, length))
+    before = topk_kernel.launches
+    got = topk_kernel._topk_stats_cuda(t, counts, top_k)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches == before + 1
+    assert torch.equal(got, topk_kernel._topk_stats_reference(t, counts, top_k))
+    assert torch.equal(got.cpu(), topk_kernel._topk_stats_reference(t.cpu(), counts.cpu(), top_k))
+
+
+def test_topk_stats_kernel_on_fractional_targets(cuda_device):
+    """Sums of fractional targets run in another order than the plain body's."""
+    from torchmetrics_tpu_torch.ops import topk_kernel
+
+    t, counts = (a.to(cuda_device) for a in _topk_case(9, 300, 257, binary=False))
+    got = topk_kernel._topk_stats_cuda(t, counts, 7)
+    torch.testing.assert_close(got, topk_kernel._topk_stats_reference(t, counts, 7), rtol=1e-5, atol=1e-5)
+
+
+def test_retrieval_collection_on_card_equals_cpu(cuda_device):
+    from torchmetrics_tpu_torch import retrieval
+    from torchmetrics_tpu_torch.ops import topk_kernel
+
+    def members(device):
+        return {
+            "mrr": retrieval.RetrievalMRR(top_k=10, device=device),
+            "ndcg": retrieval.RetrievalNormalizedDCG(top_k=10, device=device),
+            "map": retrieval.RetrievalMAP(device=device),
+            "precision": retrieval.RetrievalPrecision(top_k=10, device=device),
+            "recall": retrieval.RetrievalRecall(top_k=100, device=device),
+            "hit_rate": retrieval.RetrievalHitRate(top_k=10, device=device),
+        }
+
+    on_card = tm.MetricCollection(members(cuda_device), device=cuda_device)
+    on_cpu = tm.MetricCollection(members("cpu"), device="cpu")
+    rng = np.random.RandomState(6)
+    for b in range(3):
+        indexes = torch.from_numpy(rng.randint(0, 50, 20_000) + 50 * b)
+        target = torch.from_numpy((rng.rand(20_000) < 0.02).astype(np.int64))
+        preds = torch.from_numpy(rng.randn(20_000).astype(np.float32)) + 2.0 * target
+        on_card.update(preds.to(cuda_device), target.to(cuda_device), indexes=indexes.to(cuda_device))
+        on_cpu.update(preds, target, indexes=indexes)
+    before = topk_kernel.launches
+    got, want = on_card.compute(), on_cpu.compute()
+    assert topk_kernel.launches == before + 3  # precision@10, recall@100, hit rate@10
+    for name, value in want.items():
+        torch.testing.assert_close(got[name].cpu(), value, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- ssim_windows
+
+#: kernel against plain body: float32 sums of products in another order
+#: (fmaf in tap order against cuBLAS or cuDNN), on inputs in [0, 1]
+SSIM_TOL = 2e-6
+
+
+def _window_case(seed, m, hp, wp, kh, kw):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(m, hp, wp).astype(np.float32))
+    g_h = torch.from_numpy(rng.rand(kh).astype(np.float32))
+    g_w = torch.from_numpy(rng.rand(kw).astype(np.float32))
+    return x, g_h / g_h.sum(), g_w / g_w.sum()
+
+
+@pytest.mark.parametrize(
+    "m,hp,wp,kh,kw",
+    [
+        (60, 266, 266, 11, 11),  # bench config 3
+        (5, 77, 130, 11, 11),  # MS-SSIM's coarsest 1080p scale
+        (4, 100, 37, 7, 7),
+        (3, 40, 200, 9, 3),
+        (2, 11, 11, 11, 11),  # the window is the plane
+        (2, 8, 9, 1, 1),
+        (1, 130, 140, 65, 65),  # the most taps the kernel takes
+        (1, 2100, 40, 11, 11),  # the plain body's convolution branch
+    ],
+)
+def test_ssim_windows_kernel_matches_plain_version(cuda_device, m, hp, wp, kh, kw):
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    x, g_h, g_w = (a.to(cuda_device) for a in _window_case(m + hp + kh, m, hp, wp, kh, kw))
+    before = ssim_kernel.launches
+    got = ssim_kernel._windowed_cuda(x, g_h, g_w)
+    torch.cuda.synchronize()
+    assert ssim_kernel.launches == before + 1
+    assert tuple(got.shape) == (m, hp - kh + 1, wp - kw + 1)
+    torch.testing.assert_close(got, ssim_kernel._windowed_reference(x, g_h, g_w), rtol=SSIM_TOL, atol=SSIM_TOL)
+
+
+def test_ssim_windows_kernel_refuses_too_many_taps(cuda_device):
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    x, g_h, g_w = (a.to(cuda_device) for a in _window_case(1, 1, 100, 100, 66, 5))
+    with pytest.raises(ValueError, match="at most 65 taps"):
+        ssim_kernel._windowed_cuda(x, g_h, g_w)
+
+
+def test_ssim_windows_kernel_backward_matches_autograd(cuda_device):
+    """Backward relaunches the kernel on the padded gradient; the gradients
+    are N(0, 1) sums, so the tolerance is 1e-5."""
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    x, g_h, g_w = (a.to(cuda_device) for a in _window_case(2, 6, 70, 90, 11, 7))
+    x_card = x.clone().requires_grad_()
+    x_plain = x.clone().requires_grad_()
+    grad = torch.randn((6, 60, 84), generator=torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    before = ssim_kernel.launches
+    ssim_kernel._windowed_cuda(x_card, g_h, g_w).backward(grad)
+    assert ssim_kernel.launches == before + 2
+    ssim_kernel._windowed_reference(x_plain, g_h, g_w).backward(grad)
+    torch.testing.assert_close(x_card.grad, x_plain.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_ssim_classes_on_card_equal_cpu(cuda_device):
+    from torchmetrics_tpu_torch.image import MultiScaleStructuralSimilarityIndexMeasure, StructuralSimilarityIndexMeasure
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    def members(device):
+        return {
+            "ssim": StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+            "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        }
+
+    on_card = tm.MetricCollection(members(cuda_device), device=cuda_device)
+    on_cpu = tm.MetricCollection(members("cpu"), device="cpu")
+    rng = np.random.RandomState(7)
+    before = ssim_kernel.launches
+    for _ in range(2):
+        preds = torch.from_numpy(rng.rand(2, 3, 180, 200).astype(np.float32))
+        target = (preds + 0.05 * torch.from_numpy(rng.randn(2, 3, 180, 200).astype(np.float32))).clamp(0, 1)
+        on_card.update(preds.to(cuda_device), target.to(cuda_device))
+        on_cpu.update(preds, target)
+    assert ssim_kernel.launches == before + 2 * (1 + 5)
+    for name, value in on_cpu.compute().items():
+        torch.testing.assert_close(on_card.compute()[name].cpu(), value, rtol=1e-5, atol=1e-5)

@@ -38,7 +38,14 @@ def _imports(path: Path):
 
 def test_sources_were_found():
     names = {p.relative_to(REPO).as_posix() for p in SOURCES}
-    assert {"chip_smoke.py", "torchmetrics_tpu_torch/metric.py", "torchmetrics_tpu_torch/ops/bincount.py"} <= names
+    assert {
+        "chip_smoke.py",
+        "torchmetrics_tpu_torch/metric.py",
+        "torchmetrics_tpu_torch/ops/bincount.py",
+        "torchmetrics_tpu_torch/ops/binned_curve.py",
+        "torchmetrics_tpu_torch/ops/topk_kernel.py",
+        "torchmetrics_tpu_torch/ops/ssim_kernel.py",
+    } <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -56,6 +63,7 @@ def _run(args, cwd, env=None):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.functional, torchmetrics_tpu_torch.utils.convert\n"
+        "import torchmetrics_tpu_torch.retrieval, torchmetrics_tpu_torch.image\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -3,18 +3,40 @@ CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``torchmetrics_tpu``, slice by slice; this package
 imports nothing of it. State lives on the current CUDA device unless a
-metric is built with ``device="cpu"``. Ported so far: the ``Metric`` core,
-``MetricCollection`` with compute groups, the classification stat-scores
-family (stat scores, accuracy, precision, recall, F-beta/F1, Jaccard index,
-confusion matrix) and calibration error, whose counts run on the
-``bincount`` kernel in ``csrc/bincount.cu``, and the threshold curves (PR
-curve, ROC, AUROC, average precision), whose binned binary counts run on
-the ``binned_curve`` kernel in ``csrc/binned_curve.cu``.
+metric is built with ``device="cpu"``. Ported so far:
+
+- the ``Metric`` core and ``MetricCollection`` with compute groups;
+- the classification stat-scores family (stat scores, accuracy, precision,
+  recall, F-beta/F1, Jaccard index, confusion matrix) and calibration error,
+  whose counts run on the ``bincount`` kernel (``csrc/bincount.cu``);
+- the threshold curves (PR curve, ROC, AUROC, average precision), whose
+  binned binary counts run on the ``binned_curve`` kernel
+  (``csrc/binned_curve.cu``);
+- retrieval (MAP, MRR, precision, recall, fall-out, hit rate, R-precision,
+  nDCG, AUROC, the precision-recall curve), whose top-k sums run on the
+  ``retrieval_topk_stats`` kernel (``csrc/retrieval_topk_stats.cu``);
+- SSIM and MS-SSIM, whose windowed moments run on the ``ssim_windows``
+  kernel (``csrc/ssim_windows.cu``).
 """
-from torchmetrics_tpu_torch import classification, functional
+from torchmetrics_tpu_torch import classification, functional, image, retrieval
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 
-__all__ = ["CompositionalMetric", "Metric", "MetricCollection", "classification", "functional", *_classification_all]
+__all__ = [
+    "CompositionalMetric",
+    "Metric",
+    "MetricCollection",
+    "classification",
+    "functional",
+    "image",
+    "retrieval",
+    *_classification_all,
+    *_image_all,
+    *_retrieval_all,
+]

@@ -1,5 +1,9 @@
 """Functional metrics (pure functions of tensors)."""
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 
-__all__ = list(_classification_all)
+__all__ = [*_classification_all, *_image_all, *_retrieval_all]

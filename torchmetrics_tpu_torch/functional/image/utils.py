@@ -1,0 +1,63 @@
+"""Image-kernel utilities: gaussian and uniform separable windows, reflection
+padding and the pooling of MS-SSIM.
+
+Every 2-D windowed sum goes through the ``ssim_windows`` kernel
+(ops/ssim_kernel.py). The 3-D window is plain PyTorch in full float32, as the
+JAX package leaves it to XLA.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from torchmetrics_tpu_torch.ops.ssim_kernel import _WINDOW_GEMM_MAX_DIM, _band_matrix, full_float32, windowed_sum_2d
+
+
+def _gaussian(kernel_size: int, sigma: float, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """1-D gaussian window of ``kernel_size`` taps, summing to 1."""
+    dist = torch.arange((1 - kernel_size) / 2, (1 + kernel_size) / 2, 1, dtype=dtype, device=device)
+    gauss = torch.exp(-torch.pow(dist / sigma, 2) / 2)
+    return gauss / gauss.sum()
+
+
+def _separable_window_2d(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tensor:
+    """Valid separable windowed sum of NCHW ``x``: the per-channel valid
+    correlation with ``outer(g_h, g_w)``, on the ``ssim_windows`` kernel."""
+    n, c, h, w = x.shape
+    out = windowed_sum_2d(x.reshape(n * c, h, w), g_h, g_w)
+    return out.reshape(n, c, out.shape[1], out.shape[2]).to(x.dtype)
+
+
+def _separable_window_3d(x: torch.Tensor, g_d: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tensor:
+    """Valid separable windowed sum of NCDHW ``x``: three banded products up
+    to an edge of ``_WINDOW_GEMM_MAX_DIM``, three 1-D convolutions above it."""
+    g_d, g_h, g_w = (g.to(x) for g in (g_d, g_h, g_w))
+    with full_float32():
+        if max(x.shape[2:]) > _WINDOW_GEMM_MAX_DIM:
+            n, c = x.shape[:2]
+            out = x.reshape(n * c, 1, *x.shape[2:])
+            out = F.conv3d(out, g_d.reshape(1, 1, -1, 1, 1))
+            out = F.conv3d(out, g_h.reshape(1, 1, 1, -1, 1))
+            out = F.conv3d(out, g_w.reshape(1, 1, 1, 1, -1))
+            return out.reshape(n, c, *out.shape[2:])
+        bd = _band_matrix(g_d, x.shape[2] - g_d.shape[0] + 1)
+        bh = _band_matrix(g_h, x.shape[3] - g_h.shape[0] + 1)
+        bw = _band_matrix(g_w, x.shape[4] - g_w.shape[0] + 1)
+        out = torch.einsum("ncdhw,de->ncehw", x, bd)
+        out = torch.einsum("ncehw,hi->nceiw", out, bh)
+        return torch.einsum("nceiw,wj->nceij", out, bw)
+
+
+def _reflect_pad_2d(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """Reflect padding of the last two axes (the edge is not repeated)."""
+    return F.pad(x, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
+
+
+def _reflect_pad_3d(x: torch.Tensor, pad_d: int, pad_h: int, pad_w: int) -> torch.Tensor:
+    """Reflect padding of the last three axes."""
+    return F.pad(x, (pad_w, pad_w, pad_h, pad_h, pad_d, pad_d), mode="reflect")
+
+
+def _avg_pool2d(x: torch.Tensor, kernel: int = 2) -> torch.Tensor:
+    """Average pooling of NCHW ``x`` (MS-SSIM's downsampling)."""
+    return F.avg_pool2d(x, kernel)

@@ -3,15 +3,19 @@ shared-count fusion built on them."""
 from torchmetrics_tpu_torch.ops.bincount import weighted_bincount, weighted_bincount_multi
 from torchmetrics_tpu_torch.ops.binned_curve import binned_curve_counts, binned_curve_counts_classwise, sort_thresholds
 from torchmetrics_tpu_torch.ops.kernels import dispatch, registered_kernels, shared_result, shared_scope
+from torchmetrics_tpu_torch.ops.ssim_kernel import windowed_sum_2d
+from torchmetrics_tpu_torch.ops.topk_kernel import retrieval_topk_stats
 
 __all__ = [
     "binned_curve_counts",
     "binned_curve_counts_classwise",
     "dispatch",
     "registered_kernels",
+    "retrieval_topk_stats",
     "shared_result",
     "shared_scope",
     "sort_thresholds",
     "weighted_bincount",
     "weighted_bincount_multi",
+    "windowed_sum_2d",
 ]
