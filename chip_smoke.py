@@ -34,9 +34,20 @@ evaluation workloads:
 - UVG 1080p: one 600-frame sequence of 1920 x 1080 RGB frames in batches of
   8, decoded frames against their originals; SSIM and MS-SSIM, whose
   windowed moments run on the ``ssim_windows`` kernel, with the first
-  batch's per-image SSIM against a float64 computation on the card.
+  batch's per-image SSIM against a float64 computation on the card;
+- CIFAR-10 scored as torch-fidelity's ``cifar10-val`` input: 10,000 real
+  32 x 32 images against 10,000 generated ones through the port's
+  InceptionV3 (seeded He-scaled weights, BatchNorm statistics from one pass
+  over the images), batches of 500; FID at the 2048
+  tap, with KID, MiFID and IS fed the taps of the same forward. FID's and
+  MiFID's PSD square roots run on the ``fid_sqrtm`` kernel; FID against a
+  float64 FID of the card's own states, the others against the CPU.
 
-Scores, logits and labels are drawn from seeded ``torch.Generator`` s on the
+It also holds ``fid_sqrtm`` against its plain body at the Inception taps'
+widths (F = 64 to 2048, full-rank, rank-deficient, untiled and
+dominant-mode covariances), with the FID each root gives against float64.
+
+Scores, logits, labels and images are drawn from seeded ``torch.Generator`` s on the
 card. With ``--profile`` it also traces a few updates of each workload with
 ``torch.profiler`` (device time by kernel, device idle share; for MS MARCO
 the compute too), and a few calls of each kernel at each of its checked
@@ -54,7 +65,7 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("bincount", "binned_curve", "retrieval_topk_stats", "ssim_windows")
+KERNELS = ("bincount", "binned_curve", "retrieval_topk_stats", "ssim_windows", "fid_sqrtm")
 #: ImageNet-1k validation (torchvision references/classification eval):
 #: 50,000 images, 1,000 classes, eval batch 1024
 IMAGENET = {"num_classes": 1000, "batches": [1024] * 48 + [848]}
@@ -129,6 +140,51 @@ SSIM_SHAPES = [
 #: [0, 1]; the backward's gradients are N(0, 1) sums, held to 1e-5
 SSIM_TOL = 2e-6
 SSIM_GRAD_TOL = 1e-5
+#: fid_sqrtm checks: (name, F, samples, decay, dominant, dead). Covariances
+#: of seeded samples whose eigenvalues fall as i^-decay, in a random basis,
+#: at the Inception taps' widths; 1,000 samples at F = 2048 leave the
+#: covariance rank-deficient (rank 999); no tile divides F = 1,000. The last
+#: adds one mode of standard deviation `dominant` and zeroes `dead` features:
+#: the covariance of a network whose BatchNorm does not match its inputs
+#: (top eigenvalue 0.9999 of ||A||_F, most eigenvalues below the reach of 16
+#: Newton-Schulz steps)
+SQRTM_SHAPES = [
+    ("f64", 64, 10_000, 1.0, 0.0, 0),
+    ("f192", 192, 10_000, 1.0, 0.0, 0),
+    ("f768", 768, 10_000, 1.0, 0.0, 0),
+    ("f1000", 1000, 10_000, 1.0, 0.0, 0),
+    ("f2048_d1", 2048, 10_000, 1.0, 0.0, 0),
+    ("f2048_d2", 2048, 10_000, 2.0, 0.0, 0),
+    ("f2048_rank999", 2048, 1_000, 1.0, 0.0, 0),
+    ("f2048_dominant", 2048, 10_000, 2.0, 10.0, 93),
+]
+#: kernel against plain body on full-rank covariances, elementwise and scaled
+#: by max |ref|: two float32 16-step runs whose products sum in other orders.
+#: FID from either root against a float64 eigh FID of the same covariances,
+#: on every input but the dominant-mode one; there the 16 steps themselves
+#: (the JAX kernel's algorithm) stop short of 1e-3, so the kernel's FID is
+#: held to the plain body's within FID_RTOL of the float64 value, and the
+#: distance of both from float64 is reported
+SQRTM_TOL = 1e-3
+FID_RTOL = 1e-3
+#: step counts of the plain body on the rank-deficient input (it must stay
+#: finite at 16; more steps grow the negative eigenvalues rounding leaves)
+NS_SWEEP = (12, 16, 20, 24, 28, 32)
+#: CIFAR-10 scored as torch-fidelity's `cifar10-val` input scores a
+#: generator: 10,000 real 32 x 32 RGB images (the test set's shape) against
+#: 10,000 generated ones, batches of 500 (20 real and 20 generated updates,
+#: then one compute); FID at the 2048 tap, KID with the reference's 100
+#: subsets of 1,000, MiFID, and IS over 10 splits of the generated images
+CIFAR10 = {"images": 10_000, "batch": 500, "size": 32, "kid_subsets": 100, "kid_subset_size": 1000, "is_splits": 10}
+#: KID and IS on the card against the same metrics on the CPU from the same
+#: features: float32 products and sums in other orders (MiFID's FID takes the
+#: Newton-Schulz kernel's root on the card, the eigh root on the CPU)
+CIFAR_RTOL = 1e-3
+#: the card's InceptionV3 features of 8 images against the port on the CPU,
+#: scaled by max |ref|: full float32 on the card (convolutions summed in
+#: other orders), and cuDNN's default TF32 (ten mantissa bits) reported
+NETWORK_FP32_TOL = 1e-4
+NETWORK_TF32_TOL = 5e-2
 #: H100 SXM device-memory rate and float32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -761,9 +817,12 @@ def _update(spec: dict):
 
 
 def _launch_counters():
-    from torchmetrics_tpu_torch.ops import bincount, binned_curve, ssim_kernel, topk_kernel
+    from torchmetrics_tpu_torch.ops import bincount, binned_curve, sqrtm_kernel, ssim_kernel, topk_kernel
 
-    return {"bincount": bincount, "binned_curve": binned_curve, "retrieval_topk_stats": topk_kernel, "ssim_windows": ssim_kernel}
+    return {
+        "bincount": bincount, "binned_curve": binned_curve, "retrieval_topk_stats": topk_kernel,
+        "ssim_windows": ssim_kernel, "fid_sqrtm": sqrtm_kernel,
+    }
 
 
 def _drive(name: str, spec: dict, dev) -> dict:
@@ -1083,12 +1142,437 @@ def phase_uvg(dev) -> dict:
     return out
 
 
+def _sample_covariance(
+    f: int, n: int, decay: float, dev, seed: int, scale: float = 1.0, shift: float = 0.0,
+    dominant: float = 0.0, dead: int = 0,
+):
+    """Mean and float32 covariance of ``n`` seeded samples of width ``f``
+    whose covariance eigenvalues fall as i^-decay, in a random basis; plus
+    one mode of standard deviation ``dominant`` along a basis vector, and the
+    last ``dead`` features held at zero."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((f, f), generator=torch.Generator(device=dev).manual_seed(SEED + f), device=dev, dtype=torch.float64))
+    x = torch.randn((n, f), generator=g, device=dev, dtype=torch.float64)
+    x = scale * x * torch.arange(1, f + 1, device=dev, dtype=torch.float64) ** (-decay / 2) @ q.T + shift
+    if dominant:
+        x += dominant * scale * torch.randn((n, 1), generator=g, device=dev, dtype=torch.float64) * q[:, -1]
+    if dead:
+        x[:, f - dead:] = 0.0
+    return x.mean(0).to(torch.float32), torch.cov(x.T).to(torch.float32).contiguous()
+
+
+def _sqrtm_inputs(shape: tuple, dev):
+    """The two moments of a ``SQRTM_SHAPES`` entry: the second set scaled and
+    shifted, so the FID between them is a few units."""
+    _, f, n, decay, dominant, dead = shape
+    kw = {"dominant": dominant, "dead": dead}
+    mu1, s1 = _sample_covariance(f, n, decay, dev, SEED + 7 + f + n, **kw)
+    mu2, s2 = _sample_covariance(f, n, decay, dev, SEED + 8 + f + n, scale=1.2, shift=0.05, **kw)
+    return mu1, s1, mu2, s2
+
+
+def _fid_float64(mu1, sigma1, mu2, sigma2) -> float:
+    """FID in float64 through eigh, from float32 (or float64) moments."""
+    import torch
+
+    mu1, sigma1, mu2, sigma2 = (t.to(torch.float64) for t in (mu1, sigma1, mu2, sigma2))
+    e, v = torch.linalg.eigh(sigma1)
+    root = (v * torch.sqrt(torch.clamp(e, min=0.0))) @ v.T
+    inner = root @ sigma2 @ root
+    inner = 0.5 * (inner + inner.T)
+    tr_covmean = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(inner), min=0.0)).sum()
+    diff = mu1 - mu2
+    return float(diff @ diff + torch.trace(sigma1) + torch.trace(sigma2) - 2 * tr_covmean)
+
+
+def _reconstruction(root, a) -> float:
+    """||Y^2 - A||_F / ||A||_F in float64."""
+    import torch
+
+    y, a = root.to(torch.float64), a.to(torch.float64)
+    return float(torch.linalg.norm(y @ y - a) / torch.linalg.norm(a))
+
+
+def phase_sqrtm_kernels(dev) -> list:
+    """``fid_sqrtm`` against its plain body (the same 16 steps on cuBLAS
+    SGEMM, TF32 off) at the Inception taps' widths, rank-deficient, untiled
+    and dominant-mode inputs included: elementwise on full-rank inputs, and
+    on every input the reconstruction and the FID from each root against a
+    float64 eigh FID. Then the plain body's step count swept on the
+    rank-deficient input."""
+    import torch
+
+    from torchmetrics_tpu_torch.image.fid import _fid_from_root
+    from torchmetrics_tpu_torch.ops import sqrtm_kernel
+
+    def fid(mu1, s1, mu2, s2, root) -> float:
+        return float(_fid_from_root(mu1, s1, mu2, s2, root))
+
+    rows = []
+    for shape in SQRTM_SHAPES:
+        name, f, n, decay, dominant, dead = shape
+        mu1, s1, mu2, s2 = _sqrtm_inputs(shape, dev)
+        got = sqrtm_kernel._sqrtm_cuda(s1)
+        ref = sqrtm_kernel._sqrtm_ns_reference(s1)
+        torch.cuda.synchronize()
+        full_rank = n > f and not dead
+        err = float((got - ref).abs().max())
+        fid64 = _fid_float64(mu1, s1, mu2, s2)
+        fid_kernel = fid(mu1, s1, mu2, s2, got)
+        fid_plain = fid(mu1, s1, mu2, s2, ref)
+        fid_eigh = fid(mu1, s1, mu2, s2, sqrtm_kernel._sqrtm_reference(s1))
+        # least work: 16 steps are 47 products of f^3 multiply-adds (the
+        # last step's Z is not needed); bytes: read A once, write the root once
+        bytes_ms = 2 * 4 * f * f / HBM_BYTES_PER_S * 1e3
+        ops_ms = 47 * 2 * f**3 / FP32_OPS_PER_S * 1e3
+        iters = 5 if f >= 2048 else 20
+        rows.append({
+            "shape": name, "F": f, "samples": n, "decay": decay, "dominant": dominant, "dead": dead,
+            "full_rank": full_rank, "finite": bool(torch.isfinite(got).all()),
+            "max_abs_err": err, "max_err_scaled": err / float(ref.abs().max()),
+            "tolerance": f"{SQRTM_TOL} of max |ref|" if full_rank else "reconstruction and FID",
+            "reconstruction": _reconstruction(got, s1), "plain_reconstruction": _reconstruction(ref, s1),
+            "fid_float64": fid64, "fid_kernel": fid_kernel, "fid_plain": fid_plain, "fid_eigh_root": fid_eigh,
+            "fid_kernel_rel_err": abs(fid_kernel - fid64) / abs(fid64),
+            "fid_plain_rel_err": abs(fid_plain - fid64) / abs(fid64),
+            "fid_kernel_vs_plain": abs(fid_kernel - fid_plain) / abs(fid64),
+            "fid_eigh_root_rel_err": abs(fid_eigh - fid64) / abs(fid64),
+            # the plain body is the 16-step loop on torch.matmul (cuBLAS)
+            "ms": _time_ms(lambda: sqrtm_kernel._sqrtm_cuda(s1), iters),
+            "plain_ms": _time_ms(lambda: sqrtm_kernel._sqrtm_ns_reference(s1), iters),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # cuSOLVER's eigh, what the JAX package serves at F = 2048
+            "library_ms": _time_ms(lambda: torch.linalg.eigh(s1), max(3, iters // 4)),
+        })
+        del got, ref
+    _emit({"phase": "kernels", "kernel": "fid_sqrtm", "checks": rows})
+
+    # the plain body's step count on the rank-deficient input
+    mu1, s1, mu2, s2 = _sqrtm_inputs(next(s for s in SQRTM_SHAPES if s[0] == "f2048_rank999"), dev)
+    fid64 = _fid_float64(mu1, s1, mu2, s2)
+    sweep = []
+    for steps in NS_SWEEP:
+        root = sqrtm_kernel._sqrtm_ns_reference(s1, iters=steps)
+        finite = bool(torch.isfinite(root).all())
+        value = fid(mu1, s1, mu2, s2, root) if finite else float("nan")
+        sweep.append({
+            "steps": steps, "finite": finite, "reconstruction": _reconstruction(root, s1) if finite else None,
+            "fid_rel_err": abs(value - fid64) / abs(fid64) if finite else None,
+        })
+    _emit({"phase": "sqrtm_steps", "shape": "f2048_rank999", "fid_float64": fid64, "sweep": sweep})
+
+    for row in rows:
+        _check(row["finite"], f"fid_sqrtm {row['shape']}: non-finite root")
+        if row["full_rank"]:
+            _check(row["max_err_scaled"] <= SQRTM_TOL, f"fid_sqrtm {row['shape']}: {row['max_err_scaled']} of max |ref| > {SQRTM_TOL}")
+        keys = ("fid_kernel_vs_plain",) if row["dominant"] else ("fid_kernel_rel_err", "fid_plain_rel_err")
+        for key in keys:
+            _check(row[key] <= FID_RTOL, f"fid_sqrtm {row['shape']}: {key} {row[key]} > {FID_RTOL}")
+    _check(next(s for s in sweep if s["steps"] == 16)["finite"], "fid_sqrtm: the plain body is not finite at 16 steps")
+    return rows
+
+
+def _inception_state(dev) -> dict:
+    """Seeded He-scaled weights for the port's InceptionV3: conv weights
+    N(0, 2 / fan_in), so activations stay O(1) through the depth; BatchNorm
+    at identity (its statistics are calibrated afterwards); the fc head
+    N(0, 0.125^2) with bias N(0, 0.1^2), so the logits spread over a few
+    units and IS sits above 1."""
+    import math
+
+    import torch
+
+    from torchmetrics_tpu_torch.models import InceptionV3Features
+
+    with torch.device("meta"):
+        template = InceptionV3Features().state_dict()
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    state = {}
+    for name, t in template.items():
+        if name.endswith("num_batches_tracked"):
+            state[name] = torch.zeros((), dtype=torch.int64)
+        elif name.endswith("conv.weight"):
+            fan_in = math.prod(t.shape[1:])
+            state[name] = torch.randn(tuple(t.shape), generator=g, device=dev) * math.sqrt(2.0 / fan_in)
+        elif name == "fc.weight":
+            state[name] = 0.125 * torch.randn(tuple(t.shape), generator=g, device=dev)
+        elif name == "fc.bias":
+            state[name] = 0.1 * torch.randn(tuple(t.shape), generator=g, device=dev)
+        elif name.endswith(("bn.weight", "running_var")):
+            state[name] = torch.ones(tuple(t.shape), device=dev)
+        else:
+            state[name] = torch.zeros(tuple(t.shape), device=dev)
+    return state
+
+
+def _calibrate_batchnorm(state: dict, images, dev) -> dict:
+    """``state`` with every BatchNorm's running mean and variance taken from
+    one pass over ``images`` (an iterable of uint8 batches), as a trained
+    network's statistics match the data it is fed: BatchNorm in training
+    mode with a cumulative average, then back to eval. At identity
+    statistics many of the seeded network's features never fire, and most
+    eigenvalues of their covariance lie below what 16 Newton-Schulz steps
+    converge (the ``f2048_dominant`` covariance of the ``fid_sqrtm``
+    checks); statistics from the real images alone leave the generated
+    ones' activations unbounded."""
+    import torch
+
+    from torchmetrics_tpu_torch.models import inception_feature_extractor
+
+    extractor = inception_feature_extractor(state, feature_dim=2048, device=dev)
+    norms = [m for m in extractor.network.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in norms:
+        m.reset_running_stats()
+        m.momentum = None
+        m.train()
+    for imgs in images:
+        extractor(imgs)
+    for m in norms:
+        m.eval()
+    return {k: v.detach().clone() for k, v in extractor.network.state_dict().items()}
+
+
+def _cifar_images(g, n: int, generated: bool, dev):
+    """``n`` 32 x 32 RGB uint8 images: 0.5 plus four random low-frequency
+    sinusoids with per-channel amplitudes, and N(0, 0.02^2) pixel noise; the
+    "generated" ones have less contrast (0.6x), a colour cast (+-0.07) and
+    N(0, 0.12^2) noise."""
+    import math
+
+    import torch
+
+    s = CIFAR10["size"]
+    y = (torch.arange(s, device=dev, dtype=torch.float32) / s)[:, None]
+    x = (torch.arange(s, device=dev, dtype=torch.float32) / s)[None, :]
+    imgs = torch.full((n, 3, s, s), 0.5, device=dev)
+    for _ in range(4):
+        fy, fx = (0.5 + 2.5 * torch.rand((n, 1, 1, 1), generator=g, device=dev) for _ in range(2))
+        phase = 2 * math.pi * torch.rand((n, 1, 1, 1), generator=g, device=dev)
+        amp = 0.05 + 0.15 * torch.rand((n, 3, 1, 1), generator=g, device=dev)
+        imgs += amp * torch.sin(2 * math.pi * (fy * y + fx * x) + phase)
+    if generated:
+        cast = torch.tensor([0.07, 0.0, -0.07], device=dev)[None, :, None, None]
+        imgs = 0.5 + 0.6 * (imgs - 0.5) + cast + 0.12 * torch.randn(imgs.shape, generator=g, device=dev)
+    else:
+        imgs = imgs + 0.02 * torch.randn(imgs.shape, generator=g, device=dev)
+    return (imgs.clamp(0.0, 1.0) * 255).to(torch.uint8)
+
+
+def _cifar10(dev) -> dict:
+    """The Inception family over CIFAR-10-shaped real and generated images:
+    FID through its own network (feature=2048), and KID, MiFID and IS fed
+    the taps of that same forward through callable extractors."""
+    import torch
+
+    from torchmetrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        InceptionScore,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+
+    spec = CIFAR10
+
+    def batches():
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        for _ in range(spec["images"] // spec["batch"]):
+            yield _cifar_images(g, spec["batch"], False, dev), _cifar_images(g, spec["batch"], True, dev)
+
+    state = _calibrate_batchnorm(_inception_state(dev), (torch.cat(pair) for pair in batches()), dev)
+    fid = FrechetInceptionDistance(feature=2048, inception_params=state)
+    taps = {}
+    fid.feature_extractor.network.register_forward_hook(lambda module, args, out: taps.update(out))
+    kid = KernelInceptionDistance(
+        feature_extractor=lambda imgs: taps[2048], subsets=spec["kid_subsets"], subset_size=spec["kid_subset_size"]
+    )
+    mifid = MemorizationInformedFrechetInceptionDistance(feature_extractor=lambda imgs: taps[2048])
+    inception_score = InceptionScore(feature_extractor=lambda imgs: taps["logits_unbiased"], splits=spec["is_splits"])
+
+    def update(real_imgs, fake_imgs):
+        for imgs, real in ((real_imgs, True), (fake_imgs, False)):
+            fid.update(imgs, real=real)  # the forward: every tap lands in `taps`
+            kid.update(imgs, real=real)
+            mifid.update(imgs, real=real)
+            if not real:
+                inception_score.update(imgs)
+
+    return {"fid": fid, "kid": kid, "mifid": mifid, "is": inception_score, "state": state,
+            "batches": batches, "update": update}
+
+
+def _relative(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_cifar10(dev) -> dict:
+    """The ``cifar10_fid`` workload: 20 + 20 updates and one compute of FID,
+    KID, MiFID and IS on the card; FID against a float64 FID from the card's
+    own states, KID, MiFID and IS against the same metrics on the CPU from the
+    same features, one ``fid_sqrtm`` call of 33 launches per FID and MiFID
+    compute; and the network's features of 8 images against the port on the
+    CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch.image import (
+        InceptionScore,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+    from torchmetrics_tpu_torch.image.fid import _fid_from_root
+    from torchmetrics_tpu_torch.models import inception_feature_extractor
+    from torchmetrics_tpu_torch.ops import sqrtm_kernel
+    from torchmetrics_tpu_torch.utils.compute import full_float32
+
+    spec = CIFAR10
+    run = _cifar10(dev)
+    fid, kid, mifid, inception_score = run["fid"], run["kid"], run["mifid"], run["is"]
+    precision = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sqrtm_kernel.launches = sqrtm_kernel.calls = 0
+    step_s = []
+    for real_imgs, fake_imgs in run["batches"]():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run["update"](real_imgs, fake_imgs)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    compute_s, calls, launches = {}, {}, {}
+    values = {}
+    for name, metric in (("fid", fid), ("mifid", mifid), ("kid", kid), ("is", inception_score)):
+        before = sqrtm_kernel.calls, sqrtm_kernel.launches
+        t0 = time.perf_counter()
+        values[name] = metric.compute()
+        torch.cuda.synchronize()
+        compute_s[name] = time.perf_counter() - t0
+        calls[name] = sqrtm_kernel.calls - before[0]
+        launches[name] = sqrtm_kernel.launches - before[1]
+    total_launches = sqrtm_kernel.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # FID against float64 from the card's own states
+    n_r, n_f = int(fid.real_features_num_samples), int(fid.fake_features_num_samples)
+    sums = {k: getattr(fid, k).to(torch.float64) for k in ("real_features_sum", "real_features_cov_sum", "fake_features_sum", "fake_features_cov_sum")}
+    mu_r, mu_f = sums["real_features_sum"] / n_r, sums["fake_features_sum"] / n_f
+    cov_r = (sums["real_features_cov_sum"] - n_r * torch.outer(mu_r, mu_r)) / (n_r - 1)
+    cov_f = (sums["fake_features_cov_sum"] - n_f * torch.outer(mu_f, mu_f)) / (n_f - 1)
+    fid64 = _fid_float64(mu_r, cov_r, mu_f, cov_f)
+    # the same FID with the float32 eigh root (the port's CPU body) in place
+    # of the kernel's
+    fid_eigh32 = float(_fid_from_root(mu_r, cov_r, mu_f, cov_f, sqrtm_kernel._sqrtm_reference(cov_r.to(torch.float32))))
+    # the real covariance's spectrum: numerical rank at float32's resolution
+    # (the states are float32 sums; numpy's rule, F eps max |lambda|, with
+    # float32's eps), and how many eigenvalues lie below what 16 steps
+    # converge (1.5^-32 of ||A||_F)
+    eig = torch.linalg.eigvalsh(cov_r)
+    frobenius = float(torch.linalg.norm(cov_r))
+    rank = int((eig.abs() > cov_r.shape[0] * torch.finfo(torch.float32).eps * eig.abs().max()).sum())
+    dead = int((torch.diagonal(cov_r) == 0).sum())
+    fid_terms = {
+        "mean_diff_sq": float((mu_r - mu_f) @ (mu_r - mu_f)),
+        "trace_real": float(torch.trace(cov_r)), "trace_generated": float(torch.trace(cov_f)),
+        "mean_real_sq": float(mu_r @ mu_r),
+    }
+
+    # KID, MiFID and IS on the CPU from the features the card's metrics hold
+    def identity(x):
+        return x
+
+    on_cpu = {
+        "kid": KernelInceptionDistance(feature_extractor=identity, subsets=spec["kid_subsets"], subset_size=spec["kid_subset_size"], device="cpu"),
+        "mifid": MemorizationInformedFrechetInceptionDistance(feature_extractor=identity, device="cpu"),
+        "is": InceptionScore(feature_extractor=identity, splits=spec["is_splits"], device="cpu"),
+    }
+    for real, fake in zip(kid.real_features, kid.fake_features):
+        on_cpu["kid"].update(real.cpu(), real=True)
+        on_cpu["kid"].update(fake.cpu(), real=False)
+    for real, fake in zip(mifid.real_features, mifid.fake_features):
+        on_cpu["mifid"].update(real.cpu(), real=True)
+        on_cpu["mifid"].update(fake.cpu(), real=False)
+    for logits in inception_score.features:
+        on_cpu["is"].update(logits.cpu())
+    cpu_values = {k: m.compute() for k, m in on_cpu.items()}
+
+    def flat(v):
+        return [float(x) for x in v] if isinstance(v, tuple) else [float(v)]
+
+    rel_vs_cpu = {k: max(_relative(a, b) for a, b in zip(flat(values[k]), flat(cpu_values[k]))) for k in on_cpu}
+
+    # the network: 8 images on the card (cuDNN as configured, then full
+    # float32) against the port on the CPU
+    imgs = next(run["batches"]())[0][:8]
+    extractor = fid.feature_extractor
+    card_default = extractor(imgs)
+    with full_float32():
+        card_fp32 = extractor(imgs)
+    cpu_state = {k: v.cpu() for k, v in run["state"].items()}
+    cpu_features = inception_feature_extractor(cpu_state, feature_dim=2048, device="cpu")(imgs.cpu())
+    scale = float(cpu_features.abs().max())
+    network = {
+        "images": 8, "tap": 2048, "mode_default": precision,
+        "default_max_err_scaled": float((card_default.cpu() - cpu_features).abs().max()) / scale,
+        "fp32_max_err_scaled": float((card_fp32.cpu() - cpu_features).abs().max()) / scale,
+        "tolerance_fp32": NETWORK_FP32_TOL, "tolerance_default": NETWORK_TF32_TOL,
+    }
+
+    update_s, steps = sum(step_s), len(step_s)
+    step_ms = sorted(t * 1e3 for t in step_s)
+    out = {
+        "phase": "cifar10_fid", "images": {"real": n_r, "generated": n_f}, "batch": spec["batch"],
+        "updates": 2 * steps, "inception_forward": precision,
+        "images_per_s": (n_r + n_f) / update_s, "update_s": update_s,
+        "update_pair_ms": {"min": step_ms[0], "p50": step_ms[steps // 2], "max": step_ms[-1]},
+        "compute_s": compute_s, "peak_mem_bytes": peak,
+        "values": {k: flat(v) for k, v in values.items()}, "cpu_values": {k: flat(v) for k, v in cpu_values.items()},
+        "fid_float64": fid64, "fid_rel_err": _relative(float(values["fid"]), fid64), "fid_float64_terms": fid_terms,
+        "fid_eigh_root": fid_eigh32, "fid_eigh_root_rel_err": _relative(fid_eigh32, fid64),
+        "real_covariance": {
+            "rank": rank, "features": cov_r.shape[0], "zero_variance_features": dead,
+            "top_eigenvalue_over_frobenius": float(eig[-1]) / frobenius,
+            "eigenvalues_below_16_step_reach": int((eig < frobenius * 1.5**-32).sum()),
+        },
+        "rel_vs_cpu": rel_vs_cpu, "rtol": {"fid": FID_RTOL, "vs_cpu": CIFAR_RTOL},
+        "fid_sqrtm_calls": calls, "fid_sqrtm_launches": launches, "fid_sqrtm_launches_total": total_launches,
+        "network": network,
+    }
+    _emit(out)
+    for k, v in values.items():
+        _check(all(map(lambda x: x == x and abs(x) != float("inf"), flat(v))), f"cifar10_fid: {k} is not finite: {v}")
+    _check(out["fid_rel_err"] <= FID_RTOL, f"cifar10_fid: FID {float(values['fid'])} vs float64 {fid64} beyond {FID_RTOL}")
+    for k, rel in rel_vs_cpu.items():
+        _check(rel <= CIFAR_RTOL, f"cifar10_fid: {k} differs from the CPU's by {rel} > {CIFAR_RTOL}")
+    for k in ("fid", "mifid"):
+        _check(calls[k] == 1 and launches[k] == 1 + 2 * sqrtm_kernel.NS_ITERS,
+               f"cifar10_fid: {k} compute made {calls[k]} fid_sqrtm calls and {launches[k]} launches")
+    _check(calls["kid"] == calls["is"] == 0, "cifar10_fid: KID or IS called fid_sqrtm")
+    _check(network["fp32_max_err_scaled"] <= NETWORK_FP32_TOL, f"cifar10_fid: network in full float32 differs from the CPU by {network['fp32_max_err_scaled']}")
+    _check(network["default_max_err_scaled"] <= NETWORK_TF32_TOL, f"cifar10_fid: network as configured differs from the CPU by {network['default_max_err_scaled']}")
+    return out
+
+
+def _device_rows(prof) -> list:
+    """``(name, device us, calls)`` of a profile's device-side events only
+    (kernels, memsets, copies; a CPU operator's row repeats the device time
+    of the kernels it launched), the largest first."""
+    from torch.autograd import DeviceType
+
+    rows = [
+        (ev.key, ev.self_device_time_total, ev.count)
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+        and not ev.key.startswith("Activity Buffer")  # the profiler's own buffer traffic
+    ]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def phase_profile(name: str, dev, steps: int = 5) -> None:
     """Where one update's time goes: ``torch.profiler`` over ``steps``
     updates of pre-generated batches (after one warm-up update), device time
     by kernel and the device's idle share of the wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     spec = WORKLOADS[name](dev)
@@ -1106,16 +1590,8 @@ def phase_profile(name: str, dev, steps: int = 5) -> None:
             coll.compute()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, memsets, copies): a CPU operator's
-    # row repeats the device time of the kernels it launched
-    rows = [
-        (ev.key, ev.self_device_time_total, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-        and not ev.key.startswith("Activity Buffer")  # the profiler's own buffer traffic
-    ]
+    rows = _device_rows(prof)
     busy_us = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
     _emit({
         "phase": f"profile_{name}", "updates": steps, "with_compute": bool(spec.get("profile_compute")),
         "wall_ms_per_update": wall_us / steps / 1e3,
@@ -1131,7 +1607,6 @@ def _profile_calls(phase: str, fn, calls: int = 5) -> None:
     """Where one wrapper call's device time goes: ``torch.profiler`` over
     ``calls`` calls after a warm-up."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1142,13 +1617,7 @@ def _profile_calls(phase: str, fn, calls: int = 5) -> None:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [
-        (ev.key, ev.self_device_time_total, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-        and not ev.key.startswith("Activity Buffer")
-    ]
-    rows.sort(key=lambda r: -r[1])
+    rows = _device_rows(prof)
     _emit({
         "phase": phase, "calls": calls,
         "wall_ms_per_call": wall_us / calls / 1e3,
@@ -1159,10 +1628,11 @@ def _profile_calls(phase: str, fn, calls: int = 5) -> None:
 
 def phase_profile_kernel_shapes(dev) -> None:
     """Device time of one wrapper call of ``binned_curve``,
-    ``retrieval_topk_stats`` and ``ssim_windows`` at each of their checked shapes."""
+    ``retrieval_topk_stats``, ``ssim_windows`` and ``fid_sqrtm`` at each of
+    their checked shapes."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import binned_curve, ssim_kernel, topk_kernel
+    from torchmetrics_tpu_torch.ops import binned_curve, sqrtm_kernel, ssim_kernel, topk_kernel
 
     for name, n, len_t, kind, edges in CURVE_SHAPES:
         preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
@@ -1177,6 +1647,37 @@ def phase_profile_kernel_shapes(dev) -> None:
         taps = _ssim_taps(kind, k, dev)
         _profile_calls(f"profile_ssim_windows_{name}", lambda: ssim_kernel._windowed_cuda(x, taps, taps))
         del x
+    for shape in SQRTM_SHAPES:
+        _, a, _, _ = _sqrtm_inputs(shape, dev)
+        _profile_calls(f"profile_fid_sqrtm_{shape[0]}", lambda: sqrtm_kernel._sqrtm_cuda(a), calls=2)
+
+
+def phase_profile_cifar10(dev) -> None:
+    """Where the ``cifar10_fid`` time goes: ``torch.profiler`` over two
+    update pairs (after one warm-up pair) and the FID compute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run = _cifar10(dev)
+    gen = run["batches"]()
+    run["update"](*next(gen))
+    batches = [next(gen) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            run["update"](*batch)
+        run["fid"].compute()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    _emit({
+        "phase": "profile_cifar10_fid", "update_pairs": len(batches), "with_compute": "fid",
+        "wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us else None,
+        "top_device_kernels": [{"name": k[:120], "ms": us / 1e3, "calls": n} for k, us, n in rows[:15]],
+    })
 
 
 def main() -> int:
@@ -1216,9 +1717,12 @@ def main() -> int:
     ssim = phase_ssim_kernels(dev)
     msmarco = phase_msmarco(dev)
     uvg = phase_uvg(dev)
+    sqrtm_rows = phase_sqrtm_kernels(dev)
+    cifar = phase_cifar10(dev)
     if "--profile" in sys.argv[1:]:
         for name in WORKLOADS:
             phase_profile(name, dev)
+        phase_profile_cifar10(dev)
         phase_profile_kernel_shapes(dev)
 
     # top-level numbers: each kernel's heaviest launch on its main path (the
@@ -1230,6 +1734,7 @@ def main() -> int:
     curve = next(r for r in curve_rows if r["shape"] == "config6")
     topk = next(r for r in topk_rows if r["shape"] == "msmarco_k10")
     window = next(r for r in ssim["rows"] if r["shape"] == "uvg_1080p")
+    root = next(r for r in sqrtm_rows if r["shape"] == "f2048_d1")
     _emit({"kernels": [
         {
             "name": "bincount",
@@ -1295,6 +1800,23 @@ def main() -> int:
             "library_ms": window["library_ms"],
             "shapes": ssim["rows"],
             "backward": ssim["backward"],
+        },
+        {
+            "name": "fid_sqrtm",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/fid_sqrtm.cu",
+            "replaces": "torchmetrics_tpu/ops/sqrtm_kernel.py:82",
+            "launches": cifar["fid_sqrtm_launches_total"],
+            "calls": sum(cifar["fid_sqrtm_calls"].values()),
+            "max_abs_err": max(r["max_abs_err"] for r in sqrtm_rows if r["full_rank"]),
+            "ms": root["ms"],
+            "plain_ms": root["plain_ms"],
+            "bound_ms": root["bound_ms"],
+            "bound_by": root["bound_by"],
+            # cuSOLVER's eigh of the covariance; plain_ms is the 16 steps on
+            # torch.matmul (cuBLAS SGEMM) without TF32
+            "library_ms": root["library_ms"],
+            "shapes": sqrtm_rows,
         },
     ]})
     print(smi, flush=True)

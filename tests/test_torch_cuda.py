@@ -404,3 +404,74 @@ def test_ssim_classes_on_card_equal_cpu(cuda_device):
     assert ssim_kernel.launches == before + 2 * (1 + 5)
     for name, value in on_cpu.compute().items():
         torch.testing.assert_close(on_card.compute()[name].cpu(), value, rtol=1e-5, atol=1e-5)
+
+
+def _covariance(f, n, decay, device, seed=0):
+    """A covariance of ``n`` samples with eigenvalues about i^-decay, made
+    on the card (rank n - 1 when n <= f)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, f), generator=g, device=device, dtype=torch.float64)
+    x = x * torch.arange(1, f + 1, device=device, dtype=torch.float64) ** (-decay / 2)
+    q, _ = torch.linalg.qr(torch.randn((f, f), generator=g, device=device, dtype=torch.float64))
+    return torch.cov((x @ q.T).T).to(torch.float32).contiguous()
+
+
+@pytest.mark.parametrize("f,n", [(64, 1000), (100, 1000), (768, 10000), (2048, 10000)])
+def test_sqrtm_kernel_matches_plain_version(cuda_device, f, n):
+    """16 float32 steps summed in another order than cuBLAS's: elementwise
+    within 1e-3 of max |ref| on full-rank covariances."""
+    from torchmetrics_tpu_torch.ops import sqrtm_kernel
+
+    a = _covariance(f, n, 1.0, cuda_device, seed=f)
+    before = sqrtm_kernel.launches, sqrtm_kernel.calls
+    got = sqrtm_kernel._sqrtm_cuda(a)
+    torch.cuda.synchronize()
+    assert (sqrtm_kernel.launches, sqrtm_kernel.calls) == (before[0] + 33, before[1] + 1)
+    ref = sqrtm_kernel._sqrtm_ns_reference(a)
+    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+
+
+def test_sqrtm_kernel_stays_finite_on_a_rank_deficient_covariance(cuda_device):
+    from torchmetrics_tpu_torch.ops import sqrtm_kernel
+
+    a = _covariance(512, 100, 1.0, cuda_device)
+    y = sqrtm_kernel._sqrtm_cuda(a).double()
+    assert bool(torch.isfinite(y).all())
+    assert float(torch.linalg.norm(y @ y - a.double()) / torch.linalg.norm(a.double())) < 1e-3
+
+
+def test_fid_on_card_equals_cpu(cuda_device):
+    """The card's FID (Newton-Schulz kernel) against the CPU's (eigh): one
+    kernel call a compute, FID within 1e-3 relative."""
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+    from torchmetrics_tpu_torch.ops import kernels, sqrtm_kernel
+
+    rng = np.random.RandomState(3)
+    real = torch.from_numpy(rng.rand(600, 256).astype(np.float32))
+    fake = torch.from_numpy((rng.rand(600, 256) * 1.3 + 0.05).astype(np.float32))
+    values = []
+    for device in (cuda_device, "cpu"):
+        fid = FrechetInceptionDistance(feature_extractor=lambda x: x, num_features=256, device=device)
+        fid.update(real.to(device), real=True)
+        fid.update(fake.to(device), real=False)
+        before = sqrtm_kernel.calls
+        values.append(float(fid.compute()))
+        assert sqrtm_kernel.calls == before + (1 if device == cuda_device else 0)
+    assert kernels.gate_snapshot()["fid_sqrtm"]["selections"]["cuda"] >= 1
+    assert abs(values[0] - values[1]) <= 1e-3 * abs(values[1])
+
+
+def test_inception_network_on_card_equals_cpu(cuda_device):
+    """Two images through random weights, TF32 off on the card: every tap
+    within 1e-4 of max |ref|."""
+    from torchmetrics_tpu_torch.models import inception
+    from torchmetrics_tpu_torch.utils.compute import full_float32
+
+    torch.manual_seed(0)
+    state = inception.InceptionV3Features().state_dict()
+    imgs = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 3, 48, 40)).astype(np.uint8))
+    for tap in (64, 768, 2048, "logits"):
+        on_cpu = inception.inception_feature_extractor(state, tap, device="cpu")(imgs)
+        with full_float32():
+            on_card = inception.inception_feature_extractor(state, tap, device=cuda_device)(imgs.to(cuda_device))
+        assert float((on_card.cpu() - on_cpu).abs().max()) <= 1e-4 * float(on_cpu.abs().max())

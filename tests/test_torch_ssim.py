@@ -190,3 +190,28 @@ def test_ssim_is_differentiable_through_the_window():
     value.backward()
     assert p.grad is not None and bool(torch.isfinite(p.grad).all()) and float(p.grad.abs().sum()) > 0
     assert ssim_kernel.launches == before
+
+
+@pytest.mark.parametrize(
+    "shape,kw",
+    [((1, 1, 5, 8), {}), ((1, 1, 5, 8, 12), {}), ((1, 2, 9, 6), {"data_range": 1.0, "reduction": "none"})],
+    ids=["2d", "3d", "2d_none"],
+)
+def test_image_no_larger_than_the_padding_gives_nan_as_in_jax(shape, kw):
+    """A pad as large as its axis reflects numpy-style (``jnp.pad``), and the
+    crop then leaves no pixel: NaN in both packages, where ``F.pad`` alone
+    would refuse the pad."""
+    preds, target = _images(3, shape)
+    port, ref = _both("structural_similarity_index_measure", preds, target, **kw)
+    assert np.isnan(_to_numpy(ref)).all()
+    assert np.isnan(_to_numpy(port)).all() and _to_numpy(port).shape == _to_numpy(ref).shape
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("pad", [0, 1, 4, 5, 9, 13])
+def test_reflect_pad_equals_jnp_pad_for_any_pad(n, pad):
+    from torchmetrics_tpu_torch.functional.image.utils import _reflect_pad_2d
+
+    x = np.random.RandomState(n * 31 + pad).rand(1, 2, n, n + 1).astype(np.float32)
+    ref = np.asarray(jnp.pad(x, ((0, 0), (0, 0), (pad, pad), (pad, pad)), mode="reflect"))
+    np.testing.assert_array_equal(_reflect_pad_2d(torch.from_numpy(x), pad, pad).numpy(), ref)

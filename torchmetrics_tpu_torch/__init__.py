@@ -16,9 +16,12 @@ metric is built with ``device="cpu"``. Ported so far:
   nDCG, AUROC, the precision-recall curve), whose top-k sums run on the
   ``retrieval_topk_stats`` kernel (``csrc/retrieval_topk_stats.cu``);
 - SSIM and MS-SSIM, whose windowed moments run on the ``ssim_windows``
-  kernel (``csrc/ssim_windows.cu``).
+  kernel (``csrc/ssim_windows.cu``);
+- FID, KID, MiFID and the Inception Score on the InceptionV3 feature
+  network (``models/``); FID's and MiFID's PSD square root runs on the
+  ``fid_sqrtm`` kernel (``csrc/fid_sqrtm.cu``).
 """
-from torchmetrics_tpu_torch import classification, functional, image, retrieval
+from torchmetrics_tpu_torch import classification, functional, image, models, retrieval
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.collections import MetricCollection
@@ -35,6 +38,7 @@ __all__ = [
     "classification",
     "functional",
     "image",
+    "models",
     "retrieval",
     *_classification_all,
     *_image_all,

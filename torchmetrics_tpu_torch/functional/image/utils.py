@@ -48,14 +48,38 @@ def _separable_window_3d(x: torch.Tensor, g_d: torch.Tensor, g_h: torch.Tensor, 
         return torch.einsum("nceiw,wj->nceij", out, bw)
 
 
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Source indices of an axis of length ``n`` reflected by ``pad`` on each
+    side, as numpy's ``reflect`` mode gives them for any ``pad``: folded at
+    period ``2 (n - 1)``, and the single element repeated when ``n == 1``."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
+def _reflect_pad(x: torch.Tensor, pads) -> torch.Tensor:
+    """Reflect padding of the last ``len(pads)`` axes (the edge is not
+    repeated). ``F.pad`` serves pads shorter than their axis; a longer pad
+    reflects as numpy (and so ``jnp.pad``) does, by a gather."""
+    sizes = x.shape[-len(pads):]
+    if all(p < n for p, n in zip(pads, sizes)):
+        return F.pad(x, [q for p in reversed(pads) for q in (p, p)], mode="reflect")
+    for axis, (p, n) in enumerate(zip(pads, sizes), start=x.ndim - len(pads)):
+        x = x.index_select(axis, _reflect_index(n, p, x.device))
+    return x
+
+
 def _reflect_pad_2d(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
-    """Reflect padding of the last two axes (the edge is not repeated)."""
-    return F.pad(x, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
+    """Reflect padding of the last two axes."""
+    return _reflect_pad(x, (pad_h, pad_w))
 
 
 def _reflect_pad_3d(x: torch.Tensor, pad_d: int, pad_h: int, pad_w: int) -> torch.Tensor:
     """Reflect padding of the last three axes."""
-    return F.pad(x, (pad_w, pad_w, pad_h, pad_h, pad_d, pad_d), mode="reflect")
+    return _reflect_pad(x, (pad_d, pad_h, pad_w))
 
 
 def _avg_pool2d(x: torch.Tensor, kernel: int = 2) -> torch.Tensor:

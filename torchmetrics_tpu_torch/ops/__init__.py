@@ -3,6 +3,7 @@ shared-count fusion built on them."""
 from torchmetrics_tpu_torch.ops.bincount import weighted_bincount, weighted_bincount_multi
 from torchmetrics_tpu_torch.ops.binned_curve import binned_curve_counts, binned_curve_counts_classwise, sort_thresholds
 from torchmetrics_tpu_torch.ops.kernels import dispatch, registered_kernels, shared_result, shared_scope
+from torchmetrics_tpu_torch.ops.sqrtm_kernel import sqrtm_psd
 from torchmetrics_tpu_torch.ops.ssim_kernel import windowed_sum_2d
 from torchmetrics_tpu_torch.ops.topk_kernel import retrieval_topk_stats
 
@@ -15,6 +16,7 @@ __all__ = [
     "shared_result",
     "shared_scope",
     "sort_thresholds",
+    "sqrtm_psd",
     "weighted_bincount",
     "weighted_bincount_multi",
     "windowed_sum_2d",

@@ -25,15 +25,15 @@ Taps are constants: no gradient flows to them.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-from typing import Iterator, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.utils.compute import full_float32
 
 #: launches of the CUDA kernel in this process (a plain counter that a run
 #: resets and reads to show its main path went through the kernel)
@@ -53,19 +53,6 @@ def _band_matrix(g: torch.Tensor, out_len: int) -> torch.Tensor:
     cols = torch.arange(out_len, device=g.device)[None, :]
     d = rows - cols
     return torch.where((d >= 0) & (d < k), g[torch.clamp(d, 0, k - 1)], torch.zeros((), dtype=g.dtype, device=g.device))
-
-
-@contextlib.contextmanager
-def full_float32() -> Iterator[None]:
-    """Matrix products and cuDNN convolutions in full float32 (TF32 off)
-    inside the block, restored after: windowed moments cancel in
-    ``E[x²] − μ²``, which TF32's ten mantissa bits do not survive."""
-    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
 def _windowed_reference(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,25 @@
 """Safe-math helpers, written without data-dependent Python branching so a
-CUDA caller never waits on the device for them."""
+CUDA caller never waits on the device for them, and the full-float32 scope."""
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Matrix products and cuDNN convolutions in full float32 (TF32 off)
+    inside the block, restored after: SSIM's windowed moments cancel in
+    ``E[x²] − μ²`` and FID's covariances in ``Σ x xᵀ − n μ μᵀ``, which TF32's
+    ten mantissa bits do not survive."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
 def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 0.0) -> torch.Tensor:
