@@ -43,9 +43,11 @@ evaluation workloads:
   MiFID's PSD square roots run on the ``fid_sqrtm`` kernel; FID against a
   float64 FID of the card's own states, the others against the CPU.
 
-It also holds ``fid_sqrtm`` against its plain body at the Inception taps'
-widths (F = 64 to 2048, full-rank, rank-deficient, untiled and
-dominant-mode covariances), with the FID each root gives against float64.
+It also holds ``fid_sqrtm`` (float64 Newton-Schulz steps on the FP64
+tensor cores) against its plain body at the Inception taps' widths (F = 64
+to 2048, full-rank, rank-deficient, untiled and dominant-mode covariances),
+holds the FID each root gives to float64 on every one, and sweeps the plain
+body's float64 step count on the rank-deficient and dominant-mode inputs.
 
 Scores, logits, labels and images are drawn from seeded ``torch.Generator`` s on the
 card. With ``--profile`` it also traces a few updates of each workload with
@@ -72,17 +74,21 @@ IMAGENET = {"num_classes": 1000, "batches": [1024] * 48 + [848]}
 #: Cityscapes validation (mmsegmentation's cityscapes config): 500 images of
 #: 1024 x 2048, 19 eval classes, void label 255, batch 4
 CITYSCAPES = {"num_classes": 19, "ignore_index": 255, "images": 500, "batch": 4, "height": 1024, "width": 2048}
-#: (name, K, L, N) of each bincount check: the binary family's 4 bins, the
-#: Cityscapes 19 x 19 and ImageNet 1000 x 1000 confusion counts,
+#: (name, K, L, N, weighted) of each bincount check: the binary family's 4
+#: bins, the Cityscapes 19 x 19 and ImageNet 1000 x 1000 confusion counts,
 #: calibration's three float-weighted rows over 15 bins, and the ImageNet
 #: one-vs-rest curve histogram (negative and positive 0/1 rows over
-#: (100 + 1) x 1000 bucket-class bins, 1024 x 1000 scores)
+#: (100 + 1) x 1000 bucket-class bins, 1024 x 1000 scores); K = 1 rows with
+#: a weight row of ones, and weightless (the fused counts' launch: the
+#: ignore_index mask folded into the index)
 KERNEL_SHAPES = [
-    ("binary_segmentation", 1, 4, 4 * 1024 * 2048),
-    ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048),
-    ("imagenet_confmat", 1, 1000 * 1000, 1024),
-    ("calibration_k3", 3, 15, 1_000_000),
-    ("imagenet_curve_k2", 2, 101 * 1000, 1024 * 1000),
+    ("binary_segmentation", 1, 4, 4 * 1024 * 2048, True),
+    ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048, True),
+    ("imagenet_confmat", 1, 1000 * 1000, 1024, True),
+    ("calibration_k3", 3, 15, 1_000_000, True),
+    ("imagenet_curve_k2", 2, 101 * 1000, 1024 * 1000, True),
+    ("binary_segmentation_weightless", 1, 4, 4 * 1024 * 2048, False),
+    ("cityscapes_confmat_weightless", 1, 19 * 19, 4 * 1024 * 2048, False),
 ]
 #: binned-curve checks: (name, N, T, thresholds, edges). "grid" is the
 #: 100-point grid of an integer ``thresholds``, "random" unsorted uniform
@@ -147,7 +153,8 @@ SSIM_GRAD_TOL = 1e-5
 #: adds one mode of standard deviation `dominant` and zeroes `dead` features:
 #: the covariance of a network whose BatchNorm does not match its inputs
 #: (top eigenvalue 0.9999 of ||A||_F, most eigenvalues below the reach of 16
-#: Newton-Schulz steps)
+#: float32 Newton-Schulz steps). Each covariance is rounded to float32, as
+#: FID's states are, and handed to the kernel as float64
 SQRTM_SHAPES = [
     ("f64", 64, 10_000, 1.0, 0.0, 0),
     ("f192", 192, 10_000, 1.0, 0.0, 0),
@@ -159,17 +166,19 @@ SQRTM_SHAPES = [
     ("f2048_dominant", 2048, 10_000, 2.0, 10.0, 93),
 ]
 #: kernel against plain body on full-rank covariances, elementwise and scaled
-#: by max |ref|: two float32 16-step runs whose products sum in other orders.
-#: FID from either root against a float64 eigh FID of the same covariances,
-#: on every input but the dominant-mode one; there the 16 steps themselves
-#: (the JAX kernel's algorithm) stop short of 1e-3, so the kernel's FID is
-#: held to the plain body's within FID_RTOL of the float64 value, and the
-#: distance of both from float64 is reported
-SQRTM_TOL = 1e-3
+#: by max |ref|: two float64 runs of KERNEL_ITERS steps whose products sum in
+#: other orders (DMMA tiles against cuBLAS's DGEMM); the first run on an
+#: H100 measured at most 1.5e-12. FID from either root against a float64
+#: eigh FID of the same covariances, on every input
+SQRTM_TOL = 1e-9
 FID_RTOL = 1e-3
-#: step counts of the plain body on the rank-deficient input (it must stay
-#: finite at 16; more steps grow the negative eigenvalues rounding leaves)
-NS_SWEEP = (12, 16, 20, 24, 28, 32)
+#: float64 step counts of the plain body on the rank-deficient and the
+#: dominant-mode inputs: the dominant mode needs enough steps, while more
+#: steps grow the negative eigenvalues rounding leaves in the rank-deficient
+#: one (KERNEL_ITERS is the least count with every shape's FID within 2.5e-4
+#: of float64 before the rank-deficient input starts to drift)
+NS_SWEEP = (16, 20, 22, 24, 26, 28, 32)
+NS_SWEEP_SHAPES = ("f2048_rank999", "f2048_dominant")
 #: CIFAR-10 scored as torch-fidelity's `cifar10-val` input scores a
 #: generator: 10,000 real 32 x 32 RGB images (the test set's shape) against
 #: 10,000 generated ones, batches of 500 (20 real and 20 generated updates,
@@ -185,9 +194,11 @@ CIFAR_RTOL = 1e-3
 #: other orders), and cuDNN's default TF32 (ten mantissa bits) reported
 NETWORK_FP32_TOL = 1e-4
 NETWORK_TF32_TOL = 5e-2
-#: H100 SXM device-memory rate and float32 (non-tensor-core) peak, NVIDIA data sheet
+#: H100 SXM device-memory rate, float32 (non-tensor-core) peak and FP64
+#: tensor-core peak (dense), NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_TC_OPS_PER_S = 67e12
 SEED = 1234
 
 
@@ -217,6 +228,24 @@ def _time_ms(fn, iters: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _bincount_inputs(k: int, length: int, n: int, weighted: bool, dev):
+    """Indices with a tenth of L below 0 and above L - 1, and the weights of
+    a ``KERNEL_SHAPES`` row (None weightless)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    spread = max(1, length // 10)
+    x = torch.randint(-spread, length + spread, (n,), generator=g, device=dev, dtype=torch.int32)
+    if not weighted:
+        return x, None
+    if k == 1:
+        return x, torch.ones((k, n), device=dev)
+    if k == 2:  # one-vs-rest 0/1 rows: negative and positive of 1 class in 1000
+        pos = (torch.rand(n, generator=g, device=dev) < 1e-3).to(torch.float32)
+        return x, torch.stack([1.0 - pos, pos])
+    return x, torch.rand((k, n), generator=g, device=dev)
+
+
 def phase_kernels(dev) -> list:
     """``bincount`` against its plain version at the shapes the main path and
     its neighbours give it, with negative and out-of-range indices mixed in."""
@@ -225,18 +254,9 @@ def phase_kernels(dev) -> list:
     from torchmetrics_tpu_torch.ops import bincount
 
     rows = []
-    for name, k, length, n in KERNEL_SHAPES:
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        spread = max(1, length // 10)
-        x = torch.randint(-spread, length + spread, (n,), generator=g, device=dev, dtype=torch.int32)
-        if k == 1:
-            w = torch.ones((k, n), device=dev)
-        elif k == 2:  # one-vs-rest 0/1 rows: negative and positive of 1 class in 1000
-            pos = (torch.rand(n, generator=g, device=dev) < 1e-3).to(torch.float32)
-            w = torch.stack([1.0 - pos, pos])
-        else:
-            w = torch.rand((k, n), generator=g, device=dev)
-        integral = k <= 2  # 0/1 weights: integer counts, exact in any order
+    for name, k, length, n, weighted in KERNEL_SHAPES:
+        x, w = _bincount_inputs(k, length, n, weighted, dev)
+        integral = k <= 2  # weightless or 0/1 weights: integer counts, exact in any order
         got = bincount._wbincount_cuda(x, w, length)
         ref = bincount._wbincount_reference(x, w, length)
         torch.cuda.synchronize()
@@ -248,14 +268,14 @@ def phase_kernels(dev) -> list:
         in_range = (x >= 0) & (x < length)
         n_in = int(in_range.sum())
         # least work for this data: read every index once, the weights of the
-        # in-range ones once, write the histogram once; one compare per index
-        # and K adds per in-range index
-        nbytes = n * 4 + n_in * 4 * k + k * length * 4
+        # in-range ones once (none weightless), write the histogram once; one
+        # compare per index and K adds per in-range index
+        nbytes = n * 4 + (n_in * 4 * k if weighted else 0) + k * length * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = (n + n_in * k) / FP32_OPS_PER_S * 1e3
         iters = 50 if n < 1 << 20 else 20
         row = {
-            "shape": name, "K": k, "L": length, "N": n, "in_range": n_in,
+            "shape": name, "K": k, "L": length, "N": n, "weighted": weighted, "in_range": n_in,
             "max_abs_err": err,
             "tolerance": "exact" if integral else "rtol=1e-5",
             "ms": _time_ms(lambda: bincount._wbincount_cuda(x, w, length), iters),
@@ -264,8 +284,9 @@ def phase_kernels(dev) -> list:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         }
-        if k == 1:
-            xi, wi = x[in_range], w[0][in_range]
+        if k == 1:  # torch.bincount over the in-range indices (masked outside the timing)
+            xi = x[in_range]
+            wi = None if w is None else w[0][in_range]
             row["library_ms"] = _time_ms(lambda: torch.bincount(xi, wi, minlength=length), iters)
         rows.append(row)
     _emit({"phase": "kernels", "kernel": "bincount", "checks": rows})
@@ -1196,12 +1217,12 @@ def _reconstruction(root, a) -> float:
 
 
 def phase_sqrtm_kernels(dev) -> list:
-    """``fid_sqrtm`` against its plain body (the same 16 steps on cuBLAS
-    SGEMM, TF32 off) at the Inception taps' widths, rank-deficient, untiled
-    and dominant-mode inputs included: elementwise on full-rank inputs, and
-    on every input the reconstruction and the FID from each root against a
-    float64 eigh FID. Then the plain body's step count swept on the
-    rank-deficient input."""
+    """``fid_sqrtm`` against its plain body (the same float64 steps on
+    cuBLAS DGEMM) at the Inception taps' widths, rank-deficient, untiled and
+    dominant-mode inputs included: elementwise on full-rank inputs, and on
+    every input the reconstruction and the FID from each root against a
+    float64 eigh FID. Then the plain body's float64 step count swept on the
+    rank-deficient and the dominant-mode inputs."""
     import torch
 
     from torchmetrics_tpu_torch.image.fid import _fid_from_root
@@ -1210,12 +1231,14 @@ def phase_sqrtm_kernels(dev) -> list:
     def fid(mu1, s1, mu2, s2, root) -> float:
         return float(_fid_from_root(mu1, s1, mu2, s2, root))
 
+    steps = sqrtm_kernel.KERNEL_ITERS
     rows = []
     for shape in SQRTM_SHAPES:
         name, f, n, decay, dominant, dead = shape
         mu1, s1, mu2, s2 = _sqrtm_inputs(shape, dev)
-        got = sqrtm_kernel._sqrtm_cuda(s1)
-        ref = sqrtm_kernel._sqrtm_ns_reference(s1)
+        a = s1.double()
+        got = sqrtm_kernel._sqrtm_cuda(a)
+        ref = sqrtm_kernel._sqrtm_ns_reference(a)
         torch.cuda.synchronize()
         full_rank = n > f and not dead
         err = float((got - ref).abs().max())
@@ -1223,14 +1246,19 @@ def phase_sqrtm_kernels(dev) -> list:
         fid_kernel = fid(mu1, s1, mu2, s2, got)
         fid_plain = fid(mu1, s1, mu2, s2, ref)
         fid_eigh = fid(mu1, s1, mu2, s2, sqrtm_kernel._sqrtm_reference(s1))
-        # least work: 16 steps are 47 products of f^3 multiply-adds (the
-        # last step's Z is not needed); bytes: read A once, write the root once
-        bytes_ms = 2 * 4 * f * f / HBM_BYTES_PER_S * 1e3
-        ops_ms = 47 * 2 * f**3 / FP32_OPS_PER_S * 1e3
+        # least work: K steps are 3K - 3 products of f^3 float64 multiply-adds
+        # on the FP64 tensor cores (the first step's two products by Z0 = I
+        # are exact copies, the last step's Z is not needed); bytes: read A
+        # once, write the root once
+        products = 3 * steps - 3
+        bytes_ms = 2 * 8 * f * f / HBM_BYTES_PER_S * 1e3
+        ops_ms = products * 2 * f**3 / FP64_TC_OPS_PER_S * 1e3
         iters = 5 if f >= 2048 else 20
+        ms = _time_ms(lambda: sqrtm_kernel._sqrtm_cuda(a), iters)
         rows.append({
             "shape": name, "F": f, "samples": n, "decay": decay, "dominant": dominant, "dead": dead,
-            "full_rank": full_rank, "finite": bool(torch.isfinite(got).all()),
+            "steps": steps, "full_rank": full_rank, "finite": bool(torch.isfinite(got).all()),
+            "dtype": str(got.dtype).replace("torch.", ""),
             "max_abs_err": err, "max_err_scaled": err / float(ref.abs().max()),
             "tolerance": f"{SQRTM_TOL} of max |ref|" if full_rank else "reconstruction and FID",
             "reconstruction": _reconstruction(got, s1), "plain_reconstruction": _reconstruction(ref, s1),
@@ -1239,39 +1267,50 @@ def phase_sqrtm_kernels(dev) -> list:
             "fid_plain_rel_err": abs(fid_plain - fid64) / abs(fid64),
             "fid_kernel_vs_plain": abs(fid_kernel - fid_plain) / abs(fid64),
             "fid_eigh_root_rel_err": abs(fid_eigh - fid64) / abs(fid64),
-            # the plain body is the 16-step loop on torch.matmul (cuBLAS)
-            "ms": _time_ms(lambda: sqrtm_kernel._sqrtm_cuda(s1), iters),
-            "plain_ms": _time_ms(lambda: sqrtm_kernel._sqrtm_ns_reference(s1), iters),
+            "ms": ms,
+            "fp64_tflops": products * 2 * f**3 / (ms * 1e-3) / 1e12,
+            # the plain body is the float64 loop on torch.matmul (cuBLAS DGEMM)
+            "plain_ms": _time_ms(lambda: sqrtm_kernel._sqrtm_ns_reference(a), iters),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # cuSOLVER's eigh, what the JAX package serves at F = 2048
-            "library_ms": _time_ms(lambda: torch.linalg.eigh(s1), max(3, iters // 4)),
+            # cuSOLVER's eigh of the float64 covariance (the same function
+            # at the kernel's precision); and of the float32 one, what the
+            # JAX package serves at F = 2048
+            "library_ms": _time_ms(lambda: torch.linalg.eigh(a), max(3, iters // 4)),
+            "eigh_float32_ms": _time_ms(lambda: torch.linalg.eigh(s1), max(3, iters // 4)),
         })
         del got, ref
     _emit({"phase": "kernels", "kernel": "fid_sqrtm", "checks": rows})
 
-    # the plain body's step count on the rank-deficient input
-    mu1, s1, mu2, s2 = _sqrtm_inputs(next(s for s in SQRTM_SHAPES if s[0] == "f2048_rank999"), dev)
-    fid64 = _fid_float64(mu1, s1, mu2, s2)
-    sweep = []
-    for steps in NS_SWEEP:
-        root = sqrtm_kernel._sqrtm_ns_reference(s1, iters=steps)
-        finite = bool(torch.isfinite(root).all())
-        value = fid(mu1, s1, mu2, s2, root) if finite else float("nan")
-        sweep.append({
-            "steps": steps, "finite": finite, "reconstruction": _reconstruction(root, s1) if finite else None,
-            "fid_rel_err": abs(value - fid64) / abs(fid64) if finite else None,
-        })
-    _emit({"phase": "sqrtm_steps", "shape": "f2048_rank999", "fid_float64": fid64, "sweep": sweep})
+    # the plain body's float64 step count on the rank-deficient and the
+    # dominant-mode inputs
+    sweeps = {}
+    for shape_name in NS_SWEEP_SHAPES:
+        mu1, s1, mu2, s2 = _sqrtm_inputs(next(s for s in SQRTM_SHAPES if s[0] == shape_name), dev)
+        fid64 = _fid_float64(mu1, s1, mu2, s2)
+        sweep = []
+        for count in NS_SWEEP:
+            root = sqrtm_kernel._sqrtm_ns_reference(s1.double(), iters=count)
+            finite = bool(torch.isfinite(root).all())
+            try:
+                value = fid(mu1, s1, mu2, s2, root) if finite else float("nan")
+            except torch.linalg.LinAlgError:  # a diverged root: eigvalsh finds no spectrum
+                value = float("nan")
+            sweep.append({
+                "steps": count, "finite": finite, "reconstruction": _reconstruction(root, s1) if finite else None,
+                "fid_rel_err": abs(value - fid64) / abs(fid64) if value == value else None,
+            })
+        sweeps[shape_name] = sweep
+        _emit({"phase": "sqrtm_steps", "shape": shape_name, "dtype": "float64", "fid_float64": fid64, "sweep": sweep})
 
     for row in rows:
         _check(row["finite"], f"fid_sqrtm {row['shape']}: non-finite root")
         if row["full_rank"]:
             _check(row["max_err_scaled"] <= SQRTM_TOL, f"fid_sqrtm {row['shape']}: {row['max_err_scaled']} of max |ref| > {SQRTM_TOL}")
-        keys = ("fid_kernel_vs_plain",) if row["dominant"] else ("fid_kernel_rel_err", "fid_plain_rel_err")
-        for key in keys:
+        for key in ("fid_kernel_rel_err", "fid_plain_rel_err"):
             _check(row[key] <= FID_RTOL, f"fid_sqrtm {row['shape']}: {key} {row[key]} > {FID_RTOL}")
-    _check(next(s for s in sweep if s["steps"] == 16)["finite"], "fid_sqrtm: the plain body is not finite at 16 steps")
+    for shape_name, sweep in sweeps.items():
+        _check(next(s for s in sweep if s["steps"] == steps)["finite"], f"fid_sqrtm: the plain body is not finite on {shape_name} at {steps} steps")
     return rows
 
 
@@ -1411,9 +1450,9 @@ def phase_cifar10(dev) -> dict:
     """The ``cifar10_fid`` workload: 20 + 20 updates and one compute of FID,
     KID, MiFID and IS on the card; FID against a float64 FID from the card's
     own states, KID, MiFID and IS against the same metrics on the CPU from the
-    same features, one ``fid_sqrtm`` call of 33 launches per FID and MiFID
-    compute; and the network's features of 8 images against the port on the
-    CPU."""
+    same features, one ``fid_sqrtm`` call of 1 + 2 * KERNEL_ITERS launches
+    per FID and MiFID compute; and the network's features of 8 images against
+    the port on the CPU."""
     import torch
 
     from torchmetrics_tpu_torch.image import (
@@ -1465,8 +1504,8 @@ def phase_cifar10(dev) -> dict:
     fid_eigh32 = float(_fid_from_root(mu_r, cov_r, mu_f, cov_f, sqrtm_kernel._sqrtm_reference(cov_r.to(torch.float32))))
     # the real covariance's spectrum: numerical rank at float32's resolution
     # (the states are float32 sums; numpy's rule, F eps max |lambda|, with
-    # float32's eps), and how many eigenvalues lie below what 16 steps
-    # converge (1.5^-32 of ||A||_F)
+    # float32's eps), and how many eigenvalues lie below what the kernel's
+    # steps converge (1.5^-2K of ||A||_F)
     eig = torch.linalg.eigvalsh(cov_r)
     frobenius = float(torch.linalg.norm(cov_r))
     rank = int((eig.abs() > cov_r.shape[0] * torch.finfo(torch.float32).eps * eig.abs().max()).sum())
@@ -1532,7 +1571,7 @@ def phase_cifar10(dev) -> dict:
         "real_covariance": {
             "rank": rank, "features": cov_r.shape[0], "zero_variance_features": dead,
             "top_eigenvalue_over_frobenius": float(eig[-1]) / frobenius,
-            "eigenvalues_below_16_step_reach": int((eig < frobenius * 1.5**-32).sum()),
+            "eigenvalues_below_kernel_step_reach": int((eig < frobenius * 1.5 ** (-2 * sqrtm_kernel.KERNEL_ITERS)).sum()),
         },
         "rel_vs_cpu": rel_vs_cpu, "rtol": {"fid": FID_RTOL, "vs_cpu": CIFAR_RTOL},
         "fid_sqrtm_calls": calls, "fid_sqrtm_launches": launches, "fid_sqrtm_launches_total": total_launches,
@@ -1545,7 +1584,7 @@ def phase_cifar10(dev) -> dict:
     for k, rel in rel_vs_cpu.items():
         _check(rel <= CIFAR_RTOL, f"cifar10_fid: {k} differs from the CPU's by {rel} > {CIFAR_RTOL}")
     for k in ("fid", "mifid"):
-        _check(calls[k] == 1 and launches[k] == 1 + 2 * sqrtm_kernel.NS_ITERS,
+        _check(calls[k] == 1 and launches[k] == 1 + 2 * sqrtm_kernel.KERNEL_ITERS,
                f"cifar10_fid: {k} compute made {calls[k]} fid_sqrtm calls and {launches[k]} launches")
     _check(calls["kid"] == calls["is"] == 0, "cifar10_fid: KID or IS called fid_sqrtm")
     _check(network["fp32_max_err_scaled"] <= NETWORK_FP32_TOL, f"cifar10_fid: network in full float32 differs from the CPU by {network['fp32_max_err_scaled']}")
@@ -1627,12 +1666,15 @@ def _profile_calls(phase: str, fn, calls: int = 5) -> None:
 
 
 def phase_profile_kernel_shapes(dev) -> None:
-    """Device time of one wrapper call of ``binned_curve``,
-    ``retrieval_topk_stats``, ``ssim_windows`` and ``fid_sqrtm`` at each of
-    their checked shapes."""
+    """Device time of one wrapper call of every kernel at each of its checked
+    shapes."""
     import torch
 
-    from torchmetrics_tpu_torch.ops import binned_curve, sqrtm_kernel, ssim_kernel, topk_kernel
+    from torchmetrics_tpu_torch.ops import bincount, binned_curve, sqrtm_kernel, ssim_kernel, topk_kernel
+
+    for name, k, length, n, weighted in KERNEL_SHAPES:
+        x, w = _bincount_inputs(k, length, n, weighted, dev)
+        _profile_calls(f"profile_bincount_{name}", lambda: bincount._wbincount_cuda(x, w, length))
 
     for name, n, len_t, kind, edges in CURVE_SHAPES:
         preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
@@ -1648,7 +1690,7 @@ def phase_profile_kernel_shapes(dev) -> None:
         _profile_calls(f"profile_ssim_windows_{name}", lambda: ssim_kernel._windowed_cuda(x, taps, taps))
         del x
     for shape in SQRTM_SHAPES:
-        _, a, _, _ = _sqrtm_inputs(shape, dev)
+        a = _sqrtm_inputs(shape, dev)[1].double()
         _profile_calls(f"profile_fid_sqrtm_{shape[0]}", lambda: sqrtm_kernel._sqrtm_cuda(a), calls=2)
 
 
@@ -1726,11 +1768,11 @@ def main() -> int:
         phase_profile_kernel_shapes(dev)
 
     # top-level numbers: each kernel's heaviest launch on its main path (the
-    # Cityscapes update's 361-bin count over 8.4M pixels; the config-6
+    # Cityscapes update's weightless 361-bin count over 8.4M pixels; the config-6
     # update's 100 thresholds over 1M scores; MS MARCO's 6,980 x 1,000 grid
     # at k = 10; the 1080p update's 120-plane SSIM stack); every shape under
     # "shapes"
-    main = next(r for r in rows if r["shape"] == "cityscapes_confmat")
+    main = next(r for r in rows if r["shape"] == "cityscapes_confmat_weightless")
     curve = next(r for r in curve_rows if r["shape"] == "config6")
     topk = next(r for r in topk_rows if r["shape"] == "msmarco_k10")
     window = next(r for r in ssim["rows"] if r["shape"] == "uvg_1080p")
@@ -1813,9 +1855,10 @@ def main() -> int:
             "plain_ms": root["plain_ms"],
             "bound_ms": root["bound_ms"],
             "bound_by": root["bound_by"],
-            # cuSOLVER's eigh of the covariance; plain_ms is the 16 steps on
-            # torch.matmul (cuBLAS SGEMM) without TF32
+            # cuSOLVER's eigh of the float64 covariance; plain_ms is the
+            # float64 steps on torch.matmul (cuBLAS DGEMM)
             "library_ms": root["library_ms"],
+            "eigh_float32_ms": root["eigh_float32_ms"],
             "shapes": sqrtm_rows,
         },
     ]})

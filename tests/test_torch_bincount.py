@@ -38,6 +38,20 @@ def test_counts_match_jax_exactly(n, length):
     )
 
 
+@pytest.mark.parametrize("n,length", [(3000, 50), (4000, 4), (777, 361), (257, 1000), (5, 3)])
+def test_weightless_counts_match_jax_unit_weights(n, length):
+    """``weights=None`` counts every in-range index once: equal to JAX's
+    bodies fed a row of ones, negative and out-of-range indices dropped."""
+    x, w = _case(n + 1, n, length)
+    port = bincount._wbincount_reference(torch.from_numpy(x), None, length)
+    assert port.dtype == torch.float32 and tuple(port.shape) == (1, length)
+    np.testing.assert_array_equal(port.numpy(), np.asarray(jax_wbincount_reference(jnp.asarray(x), jnp.asarray(w), length)))
+    np.testing.assert_array_equal(
+        port.numpy(), np.asarray(_wbincount_pallas(jnp.asarray(x), jnp.asarray(w), length, interpret=True))
+    )
+    assert int(port.sum()) == int(((x >= 0) & (x < length)).sum())
+
+
 def test_float_weighted_rows_match_jax():
     x, w = _case(0, 4000, 290, k=3, weighted=True)
     port = bincount._wbincount_reference(torch.from_numpy(x), torch.from_numpy(w), 290).numpy()
@@ -97,6 +111,25 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(x, w, length, err, m
     before = bincount.launches
     with pytest.raises(err, match=match):
         bincount._wbincount_cuda(x, w, length)
+    assert bincount.launches == before
+
+
+@pytest.mark.parametrize(
+    "x,length,err,match",
+    [
+        (torch.zeros(4, dtype=torch.int64), 4, TypeError, "int32"),
+        (torch.zeros((2, 2), dtype=torch.int32), 4, ValueError, r"\(N,\)"),
+        (torch.zeros(8, dtype=torch.int32)[::2], 4, ValueError, "contiguous"),
+        (torch.zeros(4, dtype=torch.int32), 0, ValueError, "length"),
+        (torch.zeros(4, dtype=torch.int32), 4, ValueError, "CUDA device"),
+    ],
+)
+def test_cuda_wrapper_checks_a_weightless_call_without_launching(x, length, err, match):
+    """``weights=None`` reaches the CUDA body's argument checks; a CPU tensor
+    is refused there, with no launch."""
+    before = bincount.launches
+    with pytest.raises(err, match=match):
+        bincount._wbincount_cuda(x, None, length)
     assert bincount.launches == before
 
 

@@ -56,6 +56,43 @@ def test_kernel_matches_plain_version(cuda_device, k, length, n):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
 
 
+@pytest.mark.parametrize(
+    "length,n,offset",
+    [(4, 1 << 20, 0), (361, 4 * 1024 * 2048, 0), (15, 100_003, 0), (361, 1 << 20, 1), (1000 * 1000, 1 << 16, 0), (7, 3, 0)],
+)
+def test_weightless_kernel_matches_plain_version(cuda_device, length, n, offset):
+    """``weights=None``: every in-range index counts 1, bit-equal to the
+    plain body; an offset view takes the kernel's unaligned scalar loop, N
+    not a multiple of 4 its tail, 10^6 bins its global-atomic regime."""
+    x, _ = _case(length + n, n + offset, length)
+    x = x.to(cuda_device)[offset:]
+    before = bincount.launches
+    got = bincount._wbincount_cuda(x, None, length)
+    torch.cuda.synchronize()
+    assert bincount.launches == before + 1
+    assert torch.equal(got, bincount._wbincount_reference(x, None, length))
+
+
+@pytest.mark.parametrize("weights", ["none", "ones", "fractional"])
+def test_skewed_small_histogram_matches_plain_version(cuda_device, weights):
+    """L = 4 with 90% of the indices in one bin (the contended case of the
+    binary family), 2^22 indices, some out of range."""
+    rng = np.random.RandomState(5)
+    n = 1 << 22
+    x = np.where(rng.rand(n) < 0.9, 2, rng.randint(-1, 6, n)).astype(np.int32)
+    x = torch.from_numpy(x).to(cuda_device)
+    w = None
+    if weights != "none":
+        w = torch.from_numpy(rng.rand(1, n).astype(np.float32) if weights == "fractional" else np.ones((1, n), np.float32))
+        w = w.to(cuda_device)
+    got = bincount._wbincount_cuda(x, w, 4)
+    ref = bincount._wbincount_reference(x, w, 4)
+    if weights == "fractional":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    else:
+        assert torch.equal(got, ref)
+
+
 def test_empty_input_launches_nothing(cuda_device):
     before = bincount.launches
     out = bincount._wbincount_cuda(
@@ -406,6 +443,12 @@ def test_ssim_classes_on_card_equal_cpu(cuda_device):
         torch.testing.assert_close(on_card.compute()[name].cpu(), value, rtol=1e-5, atol=1e-5)
 
 
+#: the sqrtm kernel against its plain body, elementwise, scaled by max |ref|:
+#: two float64 runs of KERNEL_ITERS steps whose products sum in other orders
+#: (chip_smoke.py's SQRTM_TOL)
+SQRTM_TOL = 1e-9
+
+
 def _covariance(f, n, decay, device, seed=0):
     """A covariance of ``n`` samples with eigenvalues about i^-decay, made
     on the card (rank n - 1 when n <= f)."""
@@ -416,28 +459,53 @@ def _covariance(f, n, decay, device, seed=0):
     return torch.cov((x @ q.T).T).to(torch.float32).contiguous()
 
 
-@pytest.mark.parametrize("f,n", [(64, 1000), (100, 1000), (768, 10000), (2048, 10000)])
+@pytest.mark.parametrize("f,n", [(64, 1000), (100, 1000), (257, 2000), (768, 10000), (2048, 10000)])
 def test_sqrtm_kernel_matches_plain_version(cuda_device, f, n):
-    """16 float32 steps summed in another order than cuBLAS's: elementwise
-    within 1e-3 of max |ref| on full-rank covariances."""
+    """KERNEL_ITERS float64 steps, float64 in and out, summed in another
+    order than cuBLAS's DGEMM: elementwise within SQRTM_TOL of max |ref| on
+    full-rank covariances (an odd F takes the kernel's 8-byte copies)."""
     from torchmetrics_tpu_torch.ops import sqrtm_kernel
 
-    a = _covariance(f, n, 1.0, cuda_device, seed=f)
+    a = _covariance(f, n, 1.0, cuda_device, seed=f).double()
     before = sqrtm_kernel.launches, sqrtm_kernel.calls
     got = sqrtm_kernel._sqrtm_cuda(a)
     torch.cuda.synchronize()
-    assert (sqrtm_kernel.launches, sqrtm_kernel.calls) == (before[0] + 33, before[1] + 1)
+    assert (sqrtm_kernel.launches, sqrtm_kernel.calls) == (before[0] + 1 + 2 * sqrtm_kernel.KERNEL_ITERS, before[1] + 1)
+    assert got.dtype == torch.float64
     ref = sqrtm_kernel._sqrtm_ns_reference(a)
-    assert float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= SQRTM_TOL * float(ref.abs().max())
 
 
 def test_sqrtm_kernel_stays_finite_on_a_rank_deficient_covariance(cuda_device):
     from torchmetrics_tpu_torch.ops import sqrtm_kernel
 
-    a = _covariance(512, 100, 1.0, cuda_device)
-    y = sqrtm_kernel._sqrtm_cuda(a).double()
+    a = _covariance(512, 100, 1.0, cuda_device).double()
+    y = sqrtm_kernel._sqrtm_cuda(a)
     assert bool(torch.isfinite(y).all())
-    assert float(torch.linalg.norm(y @ y - a.double()) / torch.linalg.norm(a.double())) < 1e-3
+    assert float(torch.linalg.norm(y @ y - a) / torch.linalg.norm(a)) < 1e-3
+
+
+def test_sqrtm_kernel_fid_on_a_dominant_mode_is_within_1e3_of_float64(cuda_device):
+    """F = 256, one mode of standard deviation 10 over eigenvalues i^-2, 12
+    dead features: FID from the kernel's root within 1e-3 of a float64 eigh
+    FID (16 float32 steps miss it by about 3e-3)."""
+    from torchmetrics_tpu_torch.image.fid import _fid_from_root
+    from torchmetrics_tpu_torch.ops import sqrtm_kernel
+
+    f, n, dead = 256, 2000, 12
+    q, _ = np.linalg.qr(np.random.RandomState(1000 + f).randn(f, f))
+    moments = []
+    for scale, shift, seed in ((1.0, 0.0, 7), (1.2, 0.05, 8)):
+        rng = np.random.RandomState(seed)
+        x = scale * (rng.randn(n, f) * np.arange(1, f + 1) ** -1.0) @ q.T + shift
+        x += 10.0 * scale * rng.randn(n, 1) * q[:, -1]
+        x[:, f - dead:] = 0.0
+        moments += [torch.from_numpy(x.mean(0)), torch.from_numpy(np.cov(x, rowvar=False).astype(np.float32)).double()]
+    mu1, s1, mu2, s2 = (m.to(cuda_device) for m in moments)
+    e, v = torch.linalg.eigh(s1)
+    fid64 = float(_fid_from_root(mu1, s1, mu2, s2, (v * torch.sqrt(torch.clamp(e, min=0.0))) @ v.T))
+    fid = float(_fid_from_root(mu1, s1, mu2, s2, sqrtm_kernel._sqrtm_cuda(s1.contiguous())))
+    assert abs(fid - fid64) <= 1e-3 * abs(fid64)
 
 
 def test_fid_on_card_equals_cpu(cuda_device):

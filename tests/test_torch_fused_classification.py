@@ -82,6 +82,48 @@ def test_multilabel_counts_and_stats(extra_dims, ignore_index):
     _assert_exact(fused.multilabel_stats(port), jax_fused.multilabel_stats(ref))
 
 
+def _spy_dispatch(monkeypatch):
+    calls = []
+    real_dispatch = kernels.dispatch
+
+    def spy(name, *args, **kwargs):
+        calls.append((name, args))
+        return real_dispatch(name, *args, **kwargs)
+
+    monkeypatch.setattr(kernels, "dispatch", spy)
+    return calls
+
+
+@pytest.mark.parametrize("family", ["multiclass", "binary", "multilabel"])
+def test_ignore_index_is_folded_into_a_weightless_count(monkeypatch, family):
+    """Each builder makes one weightless ``bincount`` call (no weight row),
+    masked samples carry index -1, and the counts equal the JAX package's,
+    which masks by a 0/1 weight."""
+    rng = np.random.RandomState(14)
+    ignore = {"multiclass": 255, "binary": -1, "multilabel": -1}[family]
+    if family == "multiclass":
+        preds, target = rng.randn(2, 19, 6, 5).astype(np.float32), rng.randint(0, 19, (2, 6, 5)).astype(np.int64)
+    elif family == "binary":
+        preds, target = rng.rand(300).astype(np.float32), rng.randint(0, 2, 300).astype(np.int64)
+    else:
+        preds, target = rng.rand(40, 6).astype(np.float32), rng.randint(0, 2, (40, 6)).astype(np.int64)
+    masked = rng.rand(*target.shape) < 0.25
+    target[masked] = ignore
+    (jp, jt), (tp_, tt) = _both(preds, target)
+    calls = _spy_dispatch(monkeypatch)
+    if family == "multiclass":
+        port, ref = fused.multiclass_confusion_counts(tp_, tt, 19, ignore), jax_fused.multiclass_confusion_counts(jp, jt, 19, ignore)
+    elif family == "binary":
+        port, ref = fused.binary_confusion_counts(tp_, tt, 0.5, ignore), jax_fused.binary_confusion_counts(jp, jt, 0.5, ignore)
+    else:
+        port, ref = fused.multilabel_confusion_counts(tp_, tt, 6, 0.5, ignore), jax_fused.multilabel_confusion_counts(jp, jt, 6, 0.5, ignore)
+    _assert_exact(port, ref)
+    assert [c[0] for c in calls] == ["bincount"]
+    idx, weights = calls[0][1][:2]
+    assert weights is None and idx.dtype == torch.int32
+    assert int((idx == -1).sum()) == int(masked.sum()) and int(port.sum()) == int((~masked).sum())
+
+
 def _dispatches():
     return kernels.gate_snapshot().get("bincount", {}).get("selections", {}).get("reference", 0)
 

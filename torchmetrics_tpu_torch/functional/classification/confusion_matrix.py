@@ -168,9 +168,8 @@ def _multiclass_confusion_matrix_update(
     preds: torch.Tensor, target: torch.Tensor, valid: torch.Tensor, num_classes: int
 ) -> torch.Tensor:
     p = torch.clamp(preds.to(torch.int32), 0, num_classes - 1)
-    idx = target * num_classes + p
-    counts = weighted_bincount(idx, valid.to(torch.float32), num_classes * num_classes)
-    return counts.reshape(num_classes, num_classes).to(torch.int32)
+    idx = torch.where(valid, target * num_classes + p, torch.full_like(p, -1))  # masked samples dropped
+    return weighted_bincount(idx, length=num_classes * num_classes).reshape(num_classes, num_classes)
 
 
 def _multiclass_confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = None) -> torch.Tensor:
@@ -251,8 +250,8 @@ def _multilabel_confusion_matrix_update(
 ) -> torch.Tensor:
     label_idx = torch.arange(num_labels, dtype=torch.int32, device=target.device)[None, :]
     idx = label_idx * 4 + target * 2 + preds.to(torch.int32)
-    counts = weighted_bincount(idx, valid.to(torch.float32), num_labels * 4)
-    return counts.reshape(num_labels, 2, 2).to(torch.int32)
+    idx = torch.where(valid, idx, torch.full_like(idx, -1))  # masked samples dropped
+    return weighted_bincount(idx, length=num_labels * 4).reshape(num_labels, 2, 2)
 
 
 def _multilabel_confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = None) -> torch.Tensor:

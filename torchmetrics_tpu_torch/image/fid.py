@@ -6,7 +6,8 @@ Compute forms means and covariances from the sums and takes the Fréchet
 distance through a symmetric trace identity whose PSD square root runs on
 the ``fid_sqrtm`` kernel (ops/sqrtm_kernel.py) on the card. The JAX package
 computes all of it in float32; the port forms the moments and takes the
-trace term in float64 around the float32 square root (see
+trace term in float64, and hands the float64 covariance to the square root
+(a float64 kernel on the card, float32 ``eigh`` on the CPU; see
 :func:`_fid_from_root`).
 
 The feature network is pluggable: ``feature`` is an InceptionV3 tap (with
@@ -48,8 +49,9 @@ def _fid_from_root(
 
 def _compute_fid(mu1: torch.Tensor, sigma1: torch.Tensor, mu2: torch.Tensor, sigma2: torch.Tensor) -> torch.Tensor:
     """Fréchet distance between two gaussians, float32: the PSD square root
-    of ``sigma1`` through the ``fid_sqrtm`` seam (float32), the rest by
-    :func:`_fid_from_root`."""
+    of ``sigma1`` through the ``fid_sqrtm`` seam (handed the moments as they
+    come, float64 from the metrics; a float64 root on the card), the rest by
+    :func:`_fid_from_root` in float64."""
     return _fid_from_root(mu1, sigma1, mu2, sigma2, sqrtm_psd(sigma1)).to(torch.float32)
 
 

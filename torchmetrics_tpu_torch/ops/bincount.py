@@ -3,7 +3,10 @@
 Confusion matrices (``num_classes*target + preds`` flattened indices),
 stat-scores and calibration histograms all reduce to
 ``out[k, c] = sum_n w[k, n] * [x[n] == c]`` over K weight rows sharing one
-index stream, with negative and out-of-range indices dropped.
+index stream, with negative and out-of-range indices dropped. A weightless
+count (``weights=None``, K = 1) counts every in-range index once: callers
+with a 0/1 mask fold it into the index (a masked sample is -1) instead of
+building a weight row.
 
 Two bodies behind the ``"bincount"`` entry of the dispatch seam
 (ops/kernels.py):
@@ -18,6 +21,7 @@ Two bodies behind the ``"bincount"`` entry of the dispatch seam
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -29,8 +33,10 @@ from torchmetrics_tpu_torch.ops import kernels, native
 launches = 0
 
 
-def _wbincount_reference(x: torch.Tensor, weights: torch.Tensor, length: int) -> torch.Tensor:
-    """Plain PyTorch version: ``weights (K, N) -> counts (K, length)`` float32.
+def _wbincount_reference(x: torch.Tensor, weights: Optional[torch.Tensor], length: int) -> torch.Tensor:
+    """Plain PyTorch version: ``weights (K, N) -> counts (K, length)`` float32,
+    or with ``weights=None`` a weightless ``(1, length)`` count of every
+    in-range index.
 
     Masks negative and out-of-range indices (``index_add_`` and
     ``torch.bincount`` raise on them) and scatter-adds the rest. The sums
@@ -38,7 +44,10 @@ def _wbincount_reference(x: torch.Tensor, weights: torch.Tensor, length: int) ->
     fractional weights into a few bins drifts by about 1e-5 relative in
     itself, more than the tolerance the kernel is held to against this
     oracle. Integer counts are exact either way."""
-    w = weights.to(torch.float64)
+    if weights is None:
+        w = torch.ones((1, x.shape[0]), dtype=torch.float64, device=x.device)
+    else:
+        w = weights.to(torch.float64)
     in_range = (x >= 0) & (x < length)
     x = torch.where(in_range, x, torch.zeros_like(x)).to(torch.int64)
     w = torch.where(in_range[None, :], w, torch.zeros_like(w))
@@ -46,37 +55,47 @@ def _wbincount_reference(x: torch.Tensor, weights: torch.Tensor, length: int) ->
     return out.index_add_(1, x, w).to(torch.float32)
 
 
-def _wbincount_cuda(x: torch.Tensor, weights: torch.Tensor, length: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and typed once."""
+    fn = native.load("bincount").tm_wbincount
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _wbincount_cuda(x: torch.Tensor, weights: Optional[torch.Tensor], length: int) -> torch.Tensor:
     """Launch ``csrc/bincount.cu`` on ``torch.cuda.current_stream()``.
 
-    Takes ``x`` int32 ``(N,)`` and ``weights`` float32 ``(K, N)``, both
-    contiguous on one CUDA device; raises on anything else. Returns a fresh
-    float32 ``(K, length)``; with ``N == 0`` it returns zeros without a
-    launch."""
+    Takes ``x`` int32 ``(N,)`` and ``weights`` float32 ``(K, N)``, or
+    ``weights=None`` for a weightless count (K = 1), all contiguous on one
+    CUDA device; raises on anything else. Returns a fresh float32
+    ``(K, length)``, which the launch zeroes before it counts; with
+    ``N == 0`` it returns zeros without a launch."""
     global launches
-    if x.dtype != torch.int32 or weights.dtype != torch.float32:
-        raise TypeError(f"bincount kernel takes int32 x and float32 weights, got {x.dtype} and {weights.dtype}")
-    if x.ndim != 1 or weights.ndim != 2 or weights.shape[1] != x.shape[0]:
-        raise ValueError(f"bincount kernel takes x (N,) and weights (K, N), got {tuple(x.shape)} and {tuple(weights.shape)}")
-    if not (x.is_contiguous() and weights.is_contiguous()):
+    if x.dtype != torch.int32 or (weights is not None and weights.dtype != torch.float32):
+        got = "none" if weights is None else weights.dtype
+        raise TypeError(f"bincount kernel takes int32 x and float32 weights, got {x.dtype} and {got}")
+    if x.ndim != 1 or (weights is not None and (weights.ndim != 2 or weights.shape[1] != x.shape[0])):
+        got = None if weights is None else tuple(weights.shape)
+        raise ValueError(f"bincount kernel takes x (N,) and weights (K, N), got {tuple(x.shape)} and {got}")
+    if not (x.is_contiguous() and (weights is None or weights.is_contiguous())):
         raise ValueError("bincount kernel takes contiguous x and weights")
     if length < 1:
         raise ValueError(f"bincount kernel takes length >= 1, got {length}")
-    if x.device.type != "cuda" or weights.device != x.device:
-        raise ValueError(f"bincount kernel takes x and weights on one CUDA device, got {x.device} and {weights.device}")
-    out = torch.zeros((weights.shape[0], int(length)), dtype=torch.float32, device=x.device)
+    if x.device.type != "cuda" or (weights is not None and weights.device != x.device):
+        got = None if weights is None else weights.device
+        raise ValueError(f"bincount kernel takes x and weights on one CUDA device, got {x.device} and {got}")
+    k_rows = 1 if weights is None else weights.shape[0]
     if x.numel() == 0:
-        return out
-    lib = native.load("bincount")
-    fn = lib.tm_wbincount
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            x.numel(), int(length), weights.shape[0], stream,
-        )
+        return torch.zeros((k_rows, int(length)), dtype=torch.float32, device=x.device)
+    out = torch.empty((k_rows, int(length)), dtype=torch.float32, device=x.device)
+    device = x.device.index
+    stream = native.current_stream(device)
+    err = _entry()(
+        x.data_ptr(), None if weights is None else weights.data_ptr(), out.data_ptr(),
+        x.numel(), int(length), k_rows, device, stream,
+    )
     if err != 0:
         raise RuntimeError(f"bincount kernel launch failed with CUDA error {err}")
     launches += 1
@@ -106,14 +125,11 @@ def weighted_bincount(x: torch.Tensor, weights: Optional[torch.Tensor] = None, l
         ...                   weights=torch.tensor([0.5, 1.0, 2.0, 0.25]), length=4).tolist()
         [0.5, 3.0, 0.0, 0.25]
     """
-    x = x.reshape(-1).to(torch.int32)
-    weighted = weights is not None
-    if weighted:
-        w = weights.reshape(-1).to(torch.float32)
-    else:
-        w = torch.ones(x.shape, dtype=torch.float32, device=x.device)
-    out = kernels.dispatch("bincount", x.contiguous(), w[None, :].contiguous(), int(length))[0]
-    return out if weighted else out.to(torch.int32)
+    x = x.reshape(-1).to(torch.int32).contiguous()
+    if weights is None:
+        return kernels.dispatch("bincount", x, None, int(length))[0].to(torch.int32)
+    w = weights.reshape(1, -1).to(torch.float32).contiguous()
+    return kernels.dispatch("bincount", x, w, int(length))[0]
 
 
 def weighted_bincount_multi(x: torch.Tensor, weights: torch.Tensor, length: int) -> torch.Tensor:

@@ -149,7 +149,7 @@ def _binned_counts_cuda(
     scratch = torch.empty(scratch_len(len_t), dtype=torch.int64, device=preds.device)
     out = torch.empty((len_t, 2, 2), dtype=torch.int64, device=preds.device)
     with torch.cuda.device(preds.device):
-        stream = torch.cuda.current_stream(preds.device).cuda_stream
+        stream = native.current_stream(preds.device.index)
         err = launch(
             preds.data_ptr(), target.data_ptr(), valid.data_ptr(), thr_sorted.data_ptr(),
             order.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, len_t, stream,

@@ -8,7 +8,11 @@ confusion counts. Each builder here computes those counts once per distinct
 result to every compute-group leader inside one collection call: one kernel
 launch per update.
 
-Exactness: counts are 0/1-weighted float32 sums, exact integers up to 2**24
+Masking: ``ignore_index`` is folded into the index (a masked sample gets
+index -1, which the kernel drops), so the count is weightless: no 0/1 weight
+row is built, written or read.
+
+Exactness: counts are float32 sums of ones, exact integers up to 2**24
 events per update. Within that bound the fused path is bit-exact against the
 per-metric path; ``TORCHMETRICS_TPU_TORCH_FUSED_CLASSIFICATION=0`` restores the
 per-metric passes (the exactness oracle in the tests).
@@ -32,17 +36,17 @@ def fused_enabled() -> bool:
     return os.environ.get(FUSED_ENV, "1").strip().lower() not in ("0", "false", "off")
 
 
-def _counts(idx: torch.Tensor, w: torch.Tensor, length: int) -> torch.Tensor:
-    """One pass of ``bincount`` over in-range int32 indices with float weights."""
-    return kernels.dispatch("bincount", idx.contiguous(), w[None, :].contiguous(), length)[0]
+def _counts(idx: torch.Tensor, length: int) -> torch.Tensor:
+    """One weightless pass of ``bincount`` over int32 indices; negative ones
+    (masked samples) are dropped."""
+    return kernels.dispatch("bincount", idx.reshape(-1).contiguous(), None, length)[0]
 
 
-def _weights_and_target(t: torch.Tensor, ignore_index: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mask ``ignore_index`` by weight and zero the masked targets."""
+def _mask_ignored(idx: torch.Tensor, t: torch.Tensor, ignore_index: Optional[int]) -> torch.Tensor:
+    """``idx`` with -1 where the target ``t`` is ``ignore_index``."""
     if ignore_index is None:
-        return torch.ones(t.shape, dtype=torch.float32, device=t.device), t
-    valid = t != ignore_index
-    return valid.to(torch.float32), torch.where(valid, t, torch.zeros_like(t))
+        return idx
+    return torch.where(t != ignore_index, idx, torch.full_like(idx, -1))
 
 
 # ----------------------------------------------------------------- multiclass
@@ -52,16 +56,16 @@ def multiclass_confusion_counts(
 ) -> torch.Tensor:
     """(C, C) float32 confusion counts, shared across every multiclass metric
     updated against the same ``(preds, target)``: score preds argmax over dim
-    1, everything flattened, ``ignore_index`` masked by weight, masked targets
-    zeroed, preds clipped into range."""
+    1, everything flattened, preds clipped into range, ``ignore_index``
+    folded into the index."""
     spec = ("mc", int(num_classes), ignore_index)
 
     def build() -> torch.Tensor:
         p = preds.argmax(dim=1) if preds.ndim == target.ndim + 1 else preds
-        w, t = _weights_and_target(target.reshape(-1), ignore_index)
+        t = target.reshape(-1)
         p = torch.clamp(p.reshape(-1).to(torch.int32), 0, num_classes - 1)
-        idx = num_classes * t.to(torch.int32) + p
-        return _counts(idx, w, num_classes * num_classes).reshape(num_classes, num_classes)
+        idx = _mask_ignored(num_classes * t.to(torch.int32) + p, t, ignore_index)
+        return _counts(idx, num_classes * num_classes).reshape(num_classes, num_classes)
 
     return kernels.shared_result((preds, target), spec, build)
 
@@ -91,9 +95,9 @@ def binary_confusion_counts(
             p = (_sigmoid_if_logits(p) > threshold).to(torch.int32)
         else:
             p = torch.clamp(p.to(torch.int32), 0, 1)
-        w, t = _weights_and_target(target.reshape(-1), ignore_index)
-        idx = t.to(torch.int32) * 2 + p
-        return _counts(idx, w, 4).reshape(2, 2)
+        t = target.reshape(-1)
+        idx = _mask_ignored(t.to(torch.int32) * 2 + p, t, ignore_index)
+        return _counts(idx, 4).reshape(2, 2)
 
     return kernels.shared_result((preds, target), spec, build)
 
@@ -118,14 +122,11 @@ def multilabel_confusion_counts(
         p = preds
         if p.is_floating_point():
             p = (_sigmoid_if_logits(p) > threshold).to(torch.int32)
-        p = torch.movedim(p, 1, -1).reshape(-1, num_labels)
-        w, t = _weights_and_target(torch.movedim(target, 1, -1).reshape(-1, num_labels), ignore_index)
-        if ignore_index is not None:
-            p = torch.where(w > 0, p, torch.zeros_like(p))
-        p = torch.clamp(p.to(torch.int32), 0, 1)
+        p = torch.clamp(torch.movedim(p, 1, -1).reshape(-1, num_labels).to(torch.int32), 0, 1)
+        t = torch.movedim(target, 1, -1).reshape(-1, num_labels)
         label_idx = torch.arange(num_labels, dtype=torch.int32, device=p.device)[None, :]
-        idx = label_idx * 4 + t.to(torch.int32) * 2 + p
-        return _counts(idx.reshape(-1), w.reshape(-1), num_labels * 4).reshape(num_labels, 2, 2)
+        idx = _mask_ignored(label_idx * 4 + t.to(torch.int32) * 2 + p, t, ignore_index)
+        return _counts(idx, num_labels * 4).reshape(num_labels, 2, 2)
 
     return kernels.shared_result((preds, target), spec, build)
 

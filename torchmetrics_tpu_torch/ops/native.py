@@ -91,3 +91,20 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+def current_stream(device: int) -> int:
+    """The raw ``cudaStream_t`` handle of ``device``'s current stream, which
+    every wrapper hands its kernel's entry point.
+
+    Read with ``torch._C._cuda_getCurrentRawStream``, which builds no
+    ``torch.cuda.Stream`` object: host time a launch counts where a kernel
+    runs once a stat-scores update. That call is private to torch (checked on
+    torch 2.11, CUDA 12.8); a torch without it gets the same handle from the
+    public ``torch.cuda.current_stream(device).cuda_stream``."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device)
+    return torch.cuda.current_stream(device).cuda_stream

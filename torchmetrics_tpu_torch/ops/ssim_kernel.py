@@ -112,7 +112,7 @@ def _launch(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tens
     if m == 0:
         return out
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = native.current_stream(x.device.index)
         err = launch(x.data_ptr(), g_h.data_ptr(), g_w.data_ptr(), out.data_ptr(), m, hp, wp, kh, kw, stream)
     if err != 0:
         raise RuntimeError(f"ssim_windows kernel launch failed with CUDA error {err}")

@@ -88,7 +88,7 @@ def _topk_stats_cuda(ranked_target: torch.Tensor, counts: torch.Tensor, top_k: i
         return out
     launch = _entry()
     with torch.cuda.device(ranked_target.device):
-        stream = torch.cuda.current_stream(ranked_target.device).cuda_stream
+        stream = native.current_stream(ranked_target.device.index)
         err = launch(ranked_target.data_ptr(), counts.data_ptr(), out.data_ptr(), q, length, int(top_k), stream)
     if err != 0:
         raise RuntimeError(f"retrieval_topk_stats kernel launch failed with CUDA error {err}")
