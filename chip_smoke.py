@@ -32,9 +32,10 @@ evaluation workloads:
   run on the ``retrieval_topk_stats`` kernel, against the same collection
   on the CPU;
 - UVG 1080p: one 600-frame sequence of 1920 x 1080 RGB frames in batches of
-  8, decoded frames against their originals; SSIM and MS-SSIM, whose
-  windowed moments run on the ``ssim_windows`` kernel, with the first
-  batch's per-image SSIM against a float64 computation on the card;
+  8, decoded frames against their originals; SSIM and MS-SSIM, each SSIM
+  call (and each MS-SSIM scale) one launch of the ``ssim_windows`` kernel's
+  fused entry, with the first batch's per-image SSIM against a float64
+  computation on the card;
 - CIFAR-10 scored as torch-fidelity's ``cifar10-val`` input: 10,000 real
   32 x 32 images against 10,000 generated ones through the port's
   InceptionV3 (seeded He-scaled weights, BatchNorm statistics from one pass
@@ -42,6 +43,12 @@ evaluation workloads:
   tap, with KID, MiFID and IS fed the taps of the same forward. FID's and
   MiFID's PSD square roots run on the ``fid_sqrtm`` kernel; FID against a
   float64 FID of the card's own states, the others against the CPU.
+
+It holds both ``ssim_windows`` entries against their plain versions: the
+generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
+fused SSIM entry at the UVG update's shapes, 67 and 131 taps and a uniform
+window; and the weightless ``bincount`` of 2**24 + 3 equal indices (and the
+confusion matrix on them) to the exact count.
 
 It also holds ``fid_sqrtm`` (float64 Newton-Schulz steps on the FP64
 tensor cores) against its plain body at the Inception taps' widths (F = 64
@@ -80,7 +87,8 @@ CITYSCAPES = {"num_classes": 19, "ignore_index": 255, "images": 500, "batch": 4,
 #: one-vs-rest curve histogram (negative and positive 0/1 rows over
 #: (100 + 1) x 1000 bucket-class bins, 1024 x 1000 scores); K = 1 rows with
 #: a weight row of ones, and weightless (the fused counts' launch: the
-#: ignore_index mask folded into the index)
+#: ignore_index mask folded into the index; and the one-vs-rest curve
+#: count, a positive's bin shifted by (100 + 1) x 1000)
 KERNEL_SHAPES = [
     ("binary_segmentation", 1, 4, 4 * 1024 * 2048, True),
     ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048, True),
@@ -89,7 +97,11 @@ KERNEL_SHAPES = [
     ("imagenet_curve_k2", 2, 101 * 1000, 1024 * 1000, True),
     ("binary_segmentation_weightless", 1, 4, 4 * 1024 * 2048, False),
     ("cityscapes_confmat_weightless", 1, 19 * 19, 4 * 1024 * 2048, False),
+    ("imagenet_curve_weightless", 1, 2 * 101 * 1000, 1024 * 1000, False),
 ]
+#: one update past float32's last exact integer: 2**24 + 3 equal indices,
+#: whose weightless count must come out exactly (int64)
+PAST_2_24 = 2**24 + 3
 #: binned-curve checks: (name, N, T, thresholds, edges). "grid" is the
 #: 100-point grid of an integer ``thresholds``, "random" unsorted uniform
 #: thresholds; edges adds NaN scores, scores exactly on a threshold and
@@ -133,14 +145,36 @@ UVG_SSIM_ATOL = 5e-5
 #: ssim_windows checks: (name, M planes, Hp, Wp, window, taps). M = 5 moment
 #: planes x batch x channels; Hp, Wp include the 2 x 5 reflect padding of
 #: the 11-tap gaussian. uvg_4k (one 3840 x 2160 frame) puts the plain body
-#: on its convolution branch (an edge above 2048)
+#: on its convolution branch (an edge above 2048); 67 and 131 taps (sigma
+#: 9.3 and 18.6) run on the strip kernel, 201 taps (sigma 28.5) as two
+#: launches
 SSIM_SHAPES = [
     ("uvg_1080p", 120, 1090, 1930, "gaussian", 11),
     ("config3", 60, 266, 266, "gaussian", 11),
     ("msssim_coarsest", 120, 77, 130, "gaussian", 11),
     ("uvg_4k", 15, 2170, 3850, "gaussian", 11),
     ("uniform7", 60, 262, 262, "uniform", 7),
+    ("gaussian67", 15, 336, 546, "gaussian", 67),
+    ("gaussian131", 15, 400, 610, "gaussian", 131),
+    ("gaussian201", 15, 470, 680, "gaussian", 201),
 ]
+#: the fused SSIM entry: (name, B, C, H, W, window, taps); the UVG update's
+#: SSIM and MS-SSIM first scale, MS-SSIM's coarsest 1080p scale, sigma 9.3's
+#: 67-tap gaussian (on the strip kernel) and 131 taps (two launches), and a
+#: uniform 7-tap window under the 11-tap padding
+SSIM_FUSED_SHAPES = [
+    ("uvg_1080p", 8, 3, 1080, 1920, "gaussian", 11),
+    ("msssim_coarsest", 8, 3, 67, 120, "gaussian", 11),
+    ("gaussian67", 8, 3, 270, 480, "gaussian", 67),
+    ("gaussian131", 2, 3, 270, 480, "gaussian", 131),
+    ("uniform7", 8, 3, 1080, 1920, "uniform", 7),
+]
+#: fused kernel against its plain version: per-image SSIM and cs within 1e-5
+#: (float32 moments summed in another order, then E[x^2] - mu^2 and a
+#: division; the kernel sums its means in float64), the map within 2e-4 (a
+#: pixel of small local variance divides a rounding difference by little)
+SSIM_FUSED_TOL = 1e-5
+SSIM_FUSED_MAP_TOL = 2e-4
 #: kernel against plain body: float32 sums of products in another order
 #: (fmaf in tap order against cuBLAS or cuDNN without TF32), on inputs in
 #: [0, 1]; the backward's gradients are N(0, 1) sums, held to 1e-5
@@ -200,10 +234,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FP64_TC_OPS_PER_S = 67e12
 SEED = 1234
+#: trace with torch.profiler too (``--profile``)
+PROFILE = "--profile" in sys.argv[1:]
 
 
-def _emit(obj: dict) -> None:
+def _emit(obj: dict) -> dict:
     print(json.dumps(obj), flush=True)
+    return obj
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -289,7 +326,21 @@ def phase_kernels(dev) -> list:
             wi = None if w is None else w[0][in_range]
             row["library_ms"] = _time_ms(lambda: torch.bincount(xi, wi, minlength=length), iters)
         rows.append(row)
-    _emit({"phase": "kernels", "kernel": "bincount", "checks": rows})
+    # past 2**24: the weightless count, and the confusion matrix on it, are exact
+    from torchmetrics_tpu_torch.functional.classification import multiclass_confusion_matrix
+
+    zeros = torch.zeros(PAST_2_24, dtype=torch.int32, device=dev)
+    got = bincount._wbincount_cuda(zeros, None, 2)
+    cm = multiclass_confusion_matrix(zeros, zeros, num_classes=2, validate_args=False)
+    torch.cuda.synchronize()
+    _check(
+        got.dtype == torch.int64 and got.tolist() == [[PAST_2_24, 0]],
+        f"bincount: {got.tolist()} ({got.dtype}) for {PAST_2_24} equal indices",
+    )
+    _check(int(cm[0, 0]) == PAST_2_24, f"confusion matrix: {int(cm[0, 0])} for {PAST_2_24} equal samples")
+    exact = {"n": PAST_2_24, "bincount": got[0, 0].item(), "dtype": str(got.dtype), "confmat_00": int(cm[0, 0])}
+    del zeros, got, cm
+    _emit({"phase": "kernels", "kernel": "bincount", "checks": rows, "past_2_24": exact})
     return rows
 
 
@@ -453,12 +504,22 @@ def phase_topk_kernels(dev) -> list:
     return rows
 
 
+#: the sigma whose gaussian has k taps (int(3.5 sigma + 0.5) * 2 + 1 = k)
+SIGMA_BY_TAPS = {11: 1.5, 67: 9.3, 131: 18.6, 201: 28.5}
+
+
+def _ssim_pad(kind: str, k: int) -> int:
+    """The reflect pad of a window: half the gaussian's taps; a uniform
+    window keeps sigma 1.5's 11-tap pad, as the metric does."""
+    return 5 if kind == "uniform" else (k - 1) // 2
+
+
 def _ssim_taps(kind: str, k: int, dev):
     import torch
 
     from torchmetrics_tpu_torch.functional.image.utils import _gaussian
 
-    return _gaussian(k, 1.5, device=dev) if kind == "gaussian" else torch.full((k,), 1.0 / k, device=dev)
+    return _gaussian(k, SIGMA_BY_TAPS[k], device=dev) if kind == "gaussian" else torch.full((k,), 1.0 / k, device=dev)
 
 
 def phase_ssim_kernels(dev) -> dict:
@@ -531,8 +592,85 @@ def phase_ssim_kernels(dev) -> dict:
         f"ssim_windows backward: beyond rtol/atol {SSIM_GRAD_TOL} of autograd (max |d| {grad_err})",
     )
     backward = {"shape": "config3", "max_abs_err": grad_err, "tolerance": f"rtol=atol={SSIM_GRAD_TOL}", "launches": launched}
-    _emit({"phase": "kernels", "kernel": "ssim_windows", "checks": rows, "backward": backward})
-    return {"rows": rows, "backward": backward}
+    fused = _ssim_fused_rows(dev)
+    _emit({"phase": "kernels", "kernel": "ssim_windows", "checks": rows, "backward": backward, "fused": fused})
+    return {"rows": rows, "backward": backward, "fused": fused}
+
+
+def _ssim_fused_rows(dev) -> list:
+    """The fused entry against its plain version (the chain it replaces, in
+    full float32) at ``SSIM_FUSED_SHAPES``: per-image SSIM and cs, and the
+    map; times without the map, as the main path calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional.image.utils import _reflect_pad_2d
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    rows = []
+    for name, b, c, h, w, kind, k in SSIM_FUSED_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + h + w + k)
+        target = torch.rand((b, c, h, w), generator=g, device=dev)
+        preds = (target + 0.05 * torch.randn(target.shape, generator=g, device=dev)).clamp_(0.0, 1.0)
+        taps = _ssim_taps(kind, k, dev)
+        pad = _ssim_pad(kind, k)
+        c1, c2 = (0.01 * 1.0) ** 2, (0.03 * 1.0) ** 2
+
+        def kernel(full: bool = False):
+            return ssim_kernel._ssim_fused_cuda(preds, target, taps, taps, pad, pad, c1, c2, full)
+
+        def plain(full: bool = False):
+            with ssim_kernel.full_float32():
+                return ssim_kernel.ssim_chain(preds, target, taps, taps, pad, pad, c1, c2, full)
+
+        before = ssim_kernel.launches
+        got = kernel(True)
+        launched = ssim_kernel.launches - before
+        want = plain(True)
+        torch.cuda.synchronize()
+        errs = [float((a - r).abs().max()) for a, r in zip(got, want)]
+        _check(
+            all(e <= SSIM_FUSED_TOL for e in errs[:2]) and errs[2] <= SSIM_FUSED_MAP_TOL,
+            f"ssim_windows fused {name}: |d| SSIM {errs[0]}, cs {errs[1]}, map {errs[2]} beyond"
+            f" {SSIM_FUSED_TOL} / {SSIM_FUSED_MAP_TOL} of the plain version",
+        )
+        ph, pw = h + 2 * pad, w + 2 * pad
+        ho, wo = ph - k + 1, pw - k + 1
+        planes = b * c
+        padded = torch.cat([_reflect_pad_2d(t, pad, pad) for t in (preds, target)])
+        stack = torch.cat([padded, padded[:b] * padded[:b], padded[b:] * padded[b:], padded[:b] * padded[b:]])
+        weight = torch.outer(taps, taps).expand(5 * planes, 1, k, k).contiguous()
+        stack = stack.reshape(1, 5 * planes, ph, pw)
+
+        def library():
+            # the five windows alone, one grouped convolution with the rank-1
+            # window over the padded stack (cuDNN, no TF32): a yardstick only
+            with ssim_kernel.full_float32():
+                return F.conv2d(stack, weight, groups=5 * planes)
+
+        # least work: read preds and target once (the partial sums written are
+        # negligible); 3 products an input pixel, 5 k-tap windows down each
+        # padded column and across each output row, about 20 operations of
+        # formula and sums an output
+        nbytes = 2 * 4 * planes * h * w
+        ops = planes * (3 * ph * pw + 10 * k * ho * pw + 10 * k * ho * wo + 20 * ho * wo)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        iters = 5 if planes * h * w > 20_000_000 else 20
+        rows.append({
+            "shape": name, "B": b, "C": c, "H": h, "W": w, "window": kind, "taps": k, "pad": pad,
+            "launches_per_call": launched,
+            "max_abs_err_ssim": errs[0], "max_abs_err_cs": errs[1], "max_abs_err_map": errs[2],
+            "tolerance": f"atol={SSIM_FUSED_TOL} (map {SSIM_FUSED_MAP_TOL})",
+            "ms": _time_ms(kernel, iters),
+            "plain_ms": _time_ms(plain, iters),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": _time_ms(library, iters),
+            "library_call": "F.conv2d of the padded five-plane stack (the windows only)",
+        })
+        del preds, target, padded, stack, weight, got, want
+    return rows
 
 
 def _plain_confmat(spec: dict):
@@ -1159,6 +1297,8 @@ def phase_uvg(dev) -> dict:
         "first_batch_ssim": per_image.tolist(), "float64_ssim": want.tolist(),
         "max_abs_err_vs_float64": err, "atol": UVG_SSIM_ATOL,
     })
+    if PROFILE:  # device time an update, from torch.profiler
+        out["device_ms_per_update"] = phase_profile(name, dev)["device_ms_per_update"]
     _emit(out)
     return out
 
@@ -1603,65 +1743,115 @@ def _device_rows(prof) -> list:
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
         and not ev.key.startswith("Activity Buffer")  # the profiler's own buffer traffic
+        and not ev.key.startswith("ProfilerStep")  # a step's range repeats its kernels' time
     ]
     return sorted(rows, key=lambda r: -r[1])
 
 
-def phase_profile(name: str, dev, steps: int = 5) -> None:
-    """Where one update's time goes: ``torch.profiler`` over ``steps``
-    updates of pre-generated batches (after one warm-up update), device time
-    by kernel and the device's idle share of the wall time."""
+def _profiled(step, steps: int):
+    """``torch.profiler`` over ``step(i)`` for ``i`` in ``range(steps)``,
+    after one profiled warm-up step (``step(-1)``) whose events are dropped:
+    a trace's first launches can go unrecorded. Returns the device rows
+    (:func:`_device_rows`) and the wall us of the ``steps`` steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    plan = schedule(wait=0, warmup=1, active=steps, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=plan) as prof:
+        step(-1)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(i)
+            if i == steps - 1:  # the device's work ends inside the active window
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+    return _device_rows(prof), wall_us
+
+
+def _complete(rows, steps: int) -> bool:
+    """Whether every device row was recorded the same number of times in
+    each step (a row whose count is no multiple of ``steps`` lost launches)."""
+    return all(n % steps == 0 for _, _, n in rows)
+
+
+def phase_profile(name: str, dev, steps: int = 5) -> dict:
+    """Where one update's time goes: ``torch.profiler`` over ``steps``
+    updates of pre-generated batches (after one warm-up update outside the
+    profiler and one inside it), device time by kernel and the device's idle
+    share of the wall time."""
     spec = WORKLOADS[name](dev)
     coll = spec["collection"]()
     update = _update(spec)
     gen = spec["batches"]()
     update(coll, next(gen))
-    batches = [next(gen) for _ in range(steps)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in batches:
-            update(coll, batch)
-        if spec.get("profile_compute"):  # where the kernel runs: retrieval computes on the grid
+    batches = [next(gen) for _ in range(steps + 1)]
+
+    def step(i: int) -> None:
+        update(coll, batches[i + 1])
+        if i == steps - 1 and spec.get("profile_compute"):  # retrieval computes on the grid
             coll.compute()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_rows(prof)
+
+    rows, wall_us = _profiled(step, steps)
     busy_us = sum(r[1] for r in rows)
-    _emit({
+    # a compute runs once, in the last update, so its rows are no multiple
+    complete = bool(spec.get("profile_compute")) or _complete(rows, steps)
+    return _emit({
         "phase": f"profile_{name}", "updates": steps, "with_compute": bool(spec.get("profile_compute")),
+        "complete": complete,
         "wall_ms_per_update": wall_us / steps / 1e3,
-        "device_ms_per_update": busy_us / steps / 1e3,
-        "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us else None,
+        "device_ms_per_update": busy_us / steps / 1e3 if complete else None,
+        "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us and complete else None,
         "top_device_kernels": [
-            {"name": k[:120], "ms_per_update": us / steps / 1e3, "calls_per_update": n / steps} for k, us, n in rows[:12]
+            {"name": k[:120], "ms_per_update": us / steps / 1e3, "calls_per_update": n / steps, "ms_per_launch": us / n / 1e3}
+            for k, us, n in rows[:12]
         ],
     })
 
 
-def _profile_calls(phase: str, fn, calls: int = 5) -> None:
+def _own_kernel(name: str) -> bool:
+    """Whether a device row is one of the port's kernels (each is defined in
+    an anonymous namespace of its ``csrc/*.cu``; ATen's and CUB's carry
+    their own namespaces)."""
+    return "(anonymous namespace)::" in name and "at::" not in name and "cub::" not in name
+
+
+def _profile_calls(phase: str, fn, module, calls: int = 5) -> None:
     """Where one wrapper call's device time goes: ``torch.profiler`` over
-    ``calls`` calls after a warm-up."""
+    ``calls`` calls after a warm-up call outside the profiler and one inside
+    it. The trace is complete when each of the port's kernels was recorded
+    the same number of times in every call, and at least as many times in
+    all as ``module.launches`` counted (a wrapper counts a call once where
+    it launches two kernels; the trace can drop a launch); a call's device
+    time is given only then, each kernel's time per recorded launch
+    always."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_rows(prof)
+    made = []
+
+    def step(i: int) -> None:
+        before = module.launches
+        fn()
+        if i >= 0:
+            made.append(module.launches - before)
+
+    rows, wall_us = _profiled(step, calls)
+    own = [r for r in rows if _own_kernel(r[0])]
+    recorded = sum(n for _, _, n in own)
+    complete = _complete(own, calls) and recorded >= sum(made) > 0
     _emit({
-        "phase": phase, "calls": calls,
+        "phase": phase, "calls": calls, "launches_made": sum(made), "launches_recorded": recorded,
+        "complete": complete,
         "wall_ms_per_call": wall_us / calls / 1e3,
-        "device_ms_per_call": sum(r[1] for r in rows) / calls / 1e3,
-        "device_kernels": [{"name": k[:120], "ms_per_call": us / calls / 1e3, "launches_per_call": c / calls} for k, us, c in rows],
+        "device_ms_per_call": sum(r[1] for r in rows) / calls / 1e3 if complete else None,
+        "device_kernels": [
+            {"name": k[:120], "ms_per_call": us / calls / 1e3, "launches_per_call": c / calls, "ms_per_launch": us / c / 1e3}
+            for k, us, c in rows
+        ],
     })
 
 
@@ -1674,48 +1864,57 @@ def phase_profile_kernel_shapes(dev) -> None:
 
     for name, k, length, n, weighted in KERNEL_SHAPES:
         x, w = _bincount_inputs(k, length, n, weighted, dev)
-        _profile_calls(f"profile_bincount_{name}", lambda: bincount._wbincount_cuda(x, w, length))
+        _profile_calls(f"profile_bincount_{name}", lambda: bincount._wbincount_cuda(x, w, length), bincount)
 
     for name, n, len_t, kind, edges in CURVE_SHAPES:
         preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
         args = (preds, target, valid, *binned_curve.sort_thresholds(thr))
-        _profile_calls(f"profile_binned_curve_{name}", lambda: binned_curve._binned_counts_cuda(*args))
+        _profile_calls(f"profile_binned_curve_{name}", lambda: binned_curve._binned_counts_cuda(*args), binned_curve)
     for name, q, length, top_k in TOPK_SHAPES:
         t, counts = _topk_grid(q, length, dev, SEED + q + length)
         k = -1 if top_k is None else top_k
-        _profile_calls(f"profile_retrieval_topk_stats_{name}", lambda: topk_kernel._topk_stats_cuda(t, counts, k))
+        _profile_calls(
+            f"profile_retrieval_topk_stats_{name}", lambda: topk_kernel._topk_stats_cuda(t, counts, k), topk_kernel
+        )
     for name, m, hp, wp, kind, k in SSIM_SHAPES:
         x = torch.rand((m, hp, wp), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
         taps = _ssim_taps(kind, k, dev)
-        _profile_calls(f"profile_ssim_windows_{name}", lambda: ssim_kernel._windowed_cuda(x, taps, taps))
+        _profile_calls(f"profile_ssim_windows_{name}", lambda: ssim_kernel._windowed_cuda(x, taps, taps), ssim_kernel)
         del x
+    for name, b, c, h, w, kind, k in SSIM_FUSED_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        preds, target = (torch.rand((b, c, h, w), generator=g, device=dev) for _ in range(2))
+        taps = _ssim_taps(kind, k, dev)
+        pad = _ssim_pad(kind, k)
+        _profile_calls(
+            f"profile_ssim_fused_{name}",
+            lambda: ssim_kernel._ssim_fused_cuda(preds, target, taps, taps, pad, pad, 1e-4, 9e-4, False),
+            ssim_kernel,
+        )
+        del preds, target
     for shape in SQRTM_SHAPES:
         a = _sqrtm_inputs(shape, dev)[1].double()
-        _profile_calls(f"profile_fid_sqrtm_{shape[0]}", lambda: sqrtm_kernel._sqrtm_cuda(a), calls=2)
+        _profile_calls(f"profile_fid_sqrtm_{shape[0]}", lambda: sqrtm_kernel._sqrtm_cuda(a), sqrtm_kernel, calls=2)
 
 
 def phase_profile_cifar10(dev) -> None:
     """Where the ``cifar10_fid`` time goes: ``torch.profiler`` over two
-    update pairs (after one warm-up pair) and the FID compute."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    update pairs (after one warm-up pair outside the profiler and one inside
+    it) and the FID compute."""
     run = _cifar10(dev)
     gen = run["batches"]()
     run["update"](*next(gen))
-    batches = [next(gen) for _ in range(2)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch in batches:
-            run["update"](*batch)
-        run["fid"].compute()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_rows(prof)
+    batches = [next(gen) for _ in range(3)]
+
+    def step(i: int) -> None:
+        run["update"](*batches[i + 1])
+        if i == 1:
+            run["fid"].compute()
+
+    rows, wall_us = _profiled(step, 2)
     busy_us = sum(r[1] for r in rows)
     _emit({
-        "phase": "profile_cifar10_fid", "update_pairs": len(batches), "with_compute": "fid",
+        "phase": "profile_cifar10_fid", "update_pairs": 2, "with_compute": "fid",
         "wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us else None,
         "top_device_kernels": [{"name": k[:120], "ms": us / 1e3, "calls": n} for k, us, n in rows[:15]],
@@ -1761,21 +1960,23 @@ def main() -> int:
     uvg = phase_uvg(dev)
     sqrtm_rows = phase_sqrtm_kernels(dev)
     cifar = phase_cifar10(dev)
-    if "--profile" in sys.argv[1:]:
+    if PROFILE:
         for name in WORKLOADS:
-            phase_profile(name, dev)
+            if name != "uvg_1080p":  # profiled inside phase_uvg
+                phase_profile(name, dev)
         phase_profile_cifar10(dev)
         phase_profile_kernel_shapes(dev)
 
     # top-level numbers: each kernel's heaviest launch on its main path (the
     # Cityscapes update's weightless 361-bin count over 8.4M pixels; the config-6
     # update's 100 thresholds over 1M scores; MS MARCO's 6,980 x 1,000 grid
-    # at k = 10; the 1080p update's 120-plane SSIM stack); every shape under
-    # "shapes"
+    # at k = 10; the 1080p update's fused SSIM call over 24 planes); every
+    # shape under "shapes"
     main = next(r for r in rows if r["shape"] == "cityscapes_confmat_weightless")
     curve = next(r for r in curve_rows if r["shape"] == "config6")
     topk = next(r for r in topk_rows if r["shape"] == "msmarco_k10")
     window = next(r for r in ssim["rows"] if r["shape"] == "uvg_1080p")
+    fused = next(r for r in ssim["fused"] if r["shape"] == "uvg_1080p")
     root = next(r for r in sqrtm_rows if r["shape"] == "f2048_d1")
     _emit({"kernels": [
         {
@@ -1833,15 +2034,33 @@ def main() -> int:
             "source": "torchmetrics_tpu_torch/csrc/ssim_windows.cu",
             "replaces": "torchmetrics_tpu/ops/ssim_kernel.py:52",
             "launches": uvg["ssim_launches"],
-            "max_abs_err": max(r["max_abs_err"] for r in ssim["rows"]),
-            "ms": window["ms"],
-            "plain_ms": window["plain_ms"],
-            "bound_ms": window["bound_ms"],
-            "bound_by": window["bound_by"],
-            # one grouped F.conv2d with the rank-1 window, without TF32
-            "library_ms": window["library_ms"],
-            "shapes": ssim["rows"],
-            "backward": ssim["backward"],
+            "max_abs_err": max([r["max_abs_err"] for r in ssim["rows"]] + [r["max_abs_err_ssim"] for r in ssim["fused"]]),
+            # the headline is the entry every main-path launch takes: SSIM
+            # fused around the windows (tm_ssim_fused), one launch an SSIM
+            # call, at the UVG update's full scale
+            "entry": "tm_ssim_fused",
+            "ms": fused["ms"],
+            "plain_ms": fused["plain_ms"],
+            "bound_ms": fused["bound_ms"],
+            "bound_by": fused["bound_by"],
+            # one grouped F.conv2d of the padded five-plane stack (the
+            # windows alone, without TF32)
+            "library_ms": fused["library_ms"],
+            "shapes": ssim["fused"],
+            # the second entry, the route when a gradient is needed: the
+            # generic windowed sum (tm_ssim_windows) and its backward
+            "generic": {
+                "entry": "tm_ssim_windows",
+                "max_abs_err": max(r["max_abs_err"] for r in ssim["rows"]),
+                "ms": window["ms"],
+                "plain_ms": window["plain_ms"],
+                "bound_ms": window["bound_ms"],
+                "bound_by": window["bound_by"],
+                # one grouped F.conv2d with the rank-1 window, without TF32
+                "library_ms": window["library_ms"],
+                "shapes": ssim["rows"],
+                "backward": ssim["backward"],
+            },
         },
         {
             "name": "fid_sqrtm",

@@ -40,16 +40,55 @@ def test_counts_match_jax_exactly(n, length):
 
 @pytest.mark.parametrize("n,length", [(3000, 50), (4000, 4), (777, 361), (257, 1000), (5, 3)])
 def test_weightless_counts_match_jax_unit_weights(n, length):
-    """``weights=None`` counts every in-range index once: equal to JAX's
-    bodies fed a row of ones, negative and out-of-range indices dropped."""
+    """``weights=None`` counts every in-range index once, as int64: equal to
+    JAX's bodies fed a row of ones, negative and out-of-range indices dropped."""
     x, w = _case(n + 1, n, length)
     port = bincount._wbincount_reference(torch.from_numpy(x), None, length)
-    assert port.dtype == torch.float32 and tuple(port.shape) == (1, length)
+    assert port.dtype == torch.int64 and tuple(port.shape) == (1, length)
     np.testing.assert_array_equal(port.numpy(), np.asarray(jax_wbincount_reference(jnp.asarray(x), jnp.asarray(w), length)))
     np.testing.assert_array_equal(
         port.numpy(), np.asarray(_wbincount_pallas(jnp.asarray(x), jnp.asarray(w), length, interpret=True))
     )
     assert int(port.sum()) == int(((x >= 0) & (x < length)).sum())
+
+
+#: one update past float32's last exact integer: 2**24 + 3 events in one bin
+PAST_2_24 = 2**24 + 3
+
+
+def test_weightless_counts_are_exact_past_2_24():
+    """Weightless counts are int64 sums of ones: exact where float32 ones
+    stop at 2**24 (the JAX package's float32 sums give 16,777,216 here)."""
+    x = np.zeros(PAST_2_24, dtype=np.int32)
+    want = np.bincount(x, minlength=2)
+    plain = bincount._wbincount_reference(torch.from_numpy(x), None, 2)
+    assert plain.dtype == torch.int64 and plain[0].tolist() == want.tolist() == [PAST_2_24, 0]
+    public = bincount.weighted_bincount(torch.from_numpy(x), length=2)
+    assert public.dtype == torch.int32 and public.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("path", ["multiclass_functional", "binary_functional", "multiclass_class", "binary_stat_scores"])
+def test_confusion_counts_are_exact_past_2_24(path):
+    """``preds = target = zeros(2**24 + 3)``: every counting path of the
+    port (the weightless bincount, the unfused integer scatter, the fused
+    counts) gives the true 16,777,219 in cell (0, 0)."""
+    import torchmetrics_tpu_torch.classification as classification
+    import torchmetrics_tpu_torch.functional.classification as F
+
+    x = torch.zeros(PAST_2_24, dtype=torch.int32)
+    if path == "multiclass_functional":
+        got = int(F.multiclass_confusion_matrix(x, x, num_classes=2, validate_args=False)[0, 0])
+    elif path == "binary_functional":
+        got = int(F.binary_confusion_matrix(x, x, validate_args=False)[0, 0])
+    elif path == "multiclass_class":
+        metric = classification.MulticlassConfusionMatrix(num_classes=2, validate_args=False, device="cpu")
+        metric.update(x, x)
+        got = int(metric.compute()[0, 0])
+    else:
+        metric = classification.BinaryStatScores(validate_args=False, device="cpu")
+        metric.update(x, x)
+        got = int(metric.compute()[2])  # (tp, fp, tn, fn, support)
+    assert got == int(np.bincount(x.numpy())[0]) == PAST_2_24
 
 
 def test_float_weighted_rows_match_jax():

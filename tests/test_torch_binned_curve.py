@@ -75,8 +75,10 @@ def test_classwise_equals_jax(name):
     preds = np.stack([col[0] for col in columns], axis=1)
     pos = np.stack([col[1] * col[2] for col in columns], axis=1).astype(np.float32)
     neg = np.stack([(1 - col[1]) * col[2] for col in columns], axis=1).astype(np.float32)
+    target = np.stack([col[1] for col in columns], axis=1)
+    valid = np.stack([col[2] for col in columns], axis=1)
     port = binned_curve.binned_curve_counts_classwise(
-        *(torch.from_numpy(a) for a in (preds, pos, neg)), binned_curve.sort_thresholds(torch.from_numpy(thr))
+        *(torch.from_numpy(a) for a in (preds, target, valid)), binned_curve.sort_thresholds(torch.from_numpy(thr))
     )
     ref = jax_classwise(*(jnp.asarray(a) for a in (preds, pos, neg, thr)))
     assert port.dtype == torch.int64 and tuple(port.shape) == (len(thr), 4, 2, 2)

@@ -7,8 +7,9 @@ installed::
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 
-Counts with 0/1 weights must be bit-exact (float atomics on integers below
-2**24 are order-independent); float-weighted rows agree within rtol=1e-5
+Weightless counts must be bit-exact at any size (int64, integer atomics),
+counts with 0/1 weights bit-exact below 2**24 (float atomics on integers
+are order-independent there); float-weighted rows agree within rtol=1e-5
 (atomic order changes from run to run).
 """
 import numpy as np
@@ -379,7 +380,7 @@ def _window_case(seed, m, hp, wp, kh, kw):
         (3, 40, 200, 9, 3),
         (2, 11, 11, 11, 11),  # the window is the plane
         (2, 8, 9, 1, 1),
-        (1, 130, 140, 65, 65),  # the most taps the kernel takes
+        (1, 130, 140, 65, 65),
         (1, 2100, 40, 11, 11),  # the plain body's convolution branch
     ],
 )
@@ -395,12 +396,135 @@ def test_ssim_windows_kernel_matches_plain_version(cuda_device, m, hp, wp, kh, k
     torch.testing.assert_close(got, ssim_kernel._windowed_reference(x, g_h, g_w), rtol=SSIM_TOL, atol=SSIM_TOL)
 
 
-def test_ssim_windows_kernel_refuses_too_many_taps(cuda_device):
+@pytest.mark.parametrize(
+    "m,hp,wp,kh,kw,passes",
+    [
+        (2, 150, 160, 67, 67, 1),  # sigma 9.3's gaussian: still on the strip kernel
+        (2, 200, 210, 129, 131, 1),
+        (2, 260, 270, 201, 203, 2),  # too long for shared memory: two launches
+    ],
+)
+def test_ssim_windows_kernel_takes_any_tap_count(cuda_device, m, hp, wp, kh, kw, passes):
+    """Windows of any length up to the plane: the strip kernel while its ring
+    fits in shared memory, two 1-D passes through a global intermediate
+    beyond (both launches counted)."""
     from torchmetrics_tpu_torch.ops import ssim_kernel
 
-    x, g_h, g_w = (a.to(cuda_device) for a in _window_case(1, 1, 100, 100, 66, 5))
-    with pytest.raises(ValueError, match="at most 65 taps"):
-        ssim_kernel._windowed_cuda(x, g_h, g_w)
+    x, g_h, g_w = (a.to(cuda_device) for a in _window_case(kh + kw, m, hp, wp, kh, kw))
+    before = ssim_kernel.launches
+    got = ssim_kernel._windowed_cuda(x, g_h, g_w)
+    torch.cuda.synchronize()
+    assert ssim_kernel.launches == before + passes
+    torch.testing.assert_close(got, ssim_kernel._windowed_reference(x, g_h, g_w), rtol=SSIM_TOL, atol=SSIM_TOL)
+
+
+#: fused kernel against its plain version: per-image SSIM and cs within 1e-5
+#: (float32 moments summed in another order, then E[x^2] - mu^2 and a
+#: division; the means themselves are float64 sums in the kernel), the map
+#: within 2e-4 (a pixel of small variance divides a rounding difference by
+#: little, as in the tests against the JAX package)
+FUSED_TOL = 1e-5
+FUSED_MAP_TOL = 2e-4
+
+
+@pytest.mark.parametrize(
+    "shape,sigma,uniform,data_range",
+    [
+        ((2, 3, 181, 203), 1.5, None, 1.0),  # ragged edges, several strips
+        ((1, 2, 37, 90), 1.5, None, None),  # a plane smaller than one strip; data_range from the data
+        ((2, 1, 1, 140), 1.5, None, 1.0),  # n = 1 down
+        ((1, 2, 64, 1), 1.5, None, (0.1, 0.9)),  # n = 1 across
+        ((1, 3, 5, 8), 1.5, None, 1.0),  # no larger than the padding: NaN
+        ((2, 2, 96, 96), 9.3, None, 1.0),  # 67 taps
+        ((1, 1, 150, 150), 18.6, None, 1.0),  # 131 taps: two launches
+        ((2, 3, 70, 300), 1.5, 7, 1.0),  # uniform 7-tap window, 11-tap padding
+    ],
+)
+@pytest.mark.parametrize("full_image", [False, True])
+def test_ssim_fused_kernel_matches_plain_version(cuda_device, shape, sigma, uniform, data_range, full_image):
+    from torchmetrics_tpu_torch.functional.image.ssim import _ssim_update
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    rng = np.random.RandomState(sum(shape))
+    preds = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    target = torch.from_numpy(np.clip(preds.numpy() + 0.1 * rng.randn(*shape), 0, 1).astype(np.float32))
+    kw = dict(sigma=sigma, data_range=data_range, return_full_image=full_image)
+    if uniform:
+        kw.update(gaussian_kernel=False, kernel_size=uniform)
+    before = ssim_kernel.launches
+    got = _ssim_update(preds.to(cuda_device), target.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert ssim_kernel.launches == before + (2 if sigma > 10 else 1)
+    want = _ssim_update(preds, target, **kw)
+    got_cs = _ssim_update(preds.to(cuda_device), target.to(cuda_device), **dict(kw, return_contrast_sensitivity=True))
+    want_cs = _ssim_update(preds, target, **dict(kw, return_contrast_sensitivity=True))
+    for g, w, tol in [(got, want, FUSED_TOL), (got_cs, want_cs, FUSED_TOL)]:
+        g, w = (g, w) if isinstance(w, tuple) else ((g,), (w,))
+        for a, b in zip(g, w):
+            t = FUSED_MAP_TOL if b.ndim > 1 else tol
+            torch.testing.assert_close(a.cpu(), b, rtol=t, atol=t, equal_nan=True)
+    if shape[-2:] == (5, 8):
+        assert bool(torch.isnan(got[0] if full_image else got).all())
+
+
+def test_ssim_routes_by_gradient_on_card(cuda_device):
+    """No gradient: one fused launch. A gradient: the stack through the
+    generic kernel (one launch) and its backward (one more), and the
+    gradient equals the plain chain's."""
+    from torchmetrics_tpu_torch.functional import structural_similarity_index_measure as ssim
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    rng = np.random.RandomState(3)
+    preds = torch.from_numpy(rng.rand(2, 3, 64, 70).astype(np.float32))
+    target = torch.from_numpy(rng.rand(2, 3, 64, 70).astype(np.float32))
+    kernels.reset_gate_log()
+    before = ssim_kernel.launches
+    ssim(preds.to(cuda_device), target.to(cuda_device), data_range=1.0)
+    gate = kernels.gate_snapshot()
+    assert ssim_kernel.launches == before + 1
+    assert gate["ssim_fused"]["selections"] == {"cuda": 1} and "ssim_windows" not in gate
+    p_card = preds.to(cuda_device).requires_grad_()
+    p_cpu = preds.clone().requires_grad_()
+    kernels.reset_gate_log()
+    before = ssim_kernel.launches
+    ssim(p_card, target.to(cuda_device), data_range=1.0).backward()
+    assert ssim_kernel.launches == before + 2
+    gate = kernels.gate_snapshot()
+    assert gate["ssim_windows"]["selections"] == {"cuda": 1} and "ssim_fused" not in gate
+    ssim(p_cpu, target, data_range=1.0).backward()
+    torch.testing.assert_close(p_card.grad.cpu(), p_cpu.grad, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(0, 3, 32, 36), (2, 0, 32, 36)], ids=["no_images", "no_channels"])
+@pytest.mark.parametrize("grad", [False, True], ids=["fused", "generic"])
+def test_ssim_with_no_planes_equals_cpu_without_launching(cuda_device, shape, grad):
+    """An empty batch or no channels: no plane to window, so no launch on
+    either route, and the CPU's result (no images, or NaN per image)."""
+    from torchmetrics_tpu_torch.functional.image.ssim import _ssim_update
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    kw = dict(data_range=1.0, return_full_image=True)
+    before = ssim_kernel.launches
+    got = _ssim_update(torch.zeros(shape, device=cuda_device, requires_grad=grad), torch.zeros(shape, device=cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert ssim_kernel.launches == before
+    want = _ssim_update(torch.zeros(shape), torch.zeros(shape), **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), equal_nan=True)
+
+
+def test_weightless_bincount_is_exact_past_2_24(cuda_device):
+    """2**24 + 3 equal indices: an exact int64 count (float32 ones stop at
+    2**24), and the confusion matrix on the card gives the same."""
+    from torchmetrics_tpu_torch.functional.classification import multiclass_confusion_matrix
+
+    n = 2**24 + 3
+    x = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    got = bincount._wbincount_cuda(x, None, 2)
+    assert got.dtype == torch.int64 and got.tolist() == [[n, 0]]
+    cm = multiclass_confusion_matrix(x, x, num_classes=2, validate_args=False)
+    assert int(cm[0, 0]) == n
 
 
 def test_ssim_windows_kernel_backward_matches_autograd(cuda_device):

@@ -11,14 +11,14 @@
 //
 // K weight rows sharing one int32 index stream of length N; negative and
 // out-of-range indices are dropped. With w null (weightless, K = 1) every
-// in-range index counts 1: the fused classification counts fold their
-// ignore_index mask into the index (a masked sample is -1) instead of
-// carrying a 0/1 weight row. The entry point zeroes `out` on the stream
-// (cudaMemsetAsync), then counts.
+// in-range index counts 1 into an int64 output: the fused classification
+// counts fold their ignore_index mask into the index (a masked sample is -1)
+// instead of carrying a 0/1 weight row. The entry point zeroes `out` on the
+// stream (cudaMemsetAsync), then counts.
 //
 // Bound: device-memory bytes. A call must read 4N bytes of indices, 4KN of
-// weights (none weightless) and write 4KL of counts (the zero-fill writes
-// them once more): 0.0100 ms weightless and 0.0184 ms with one weight row at
+// weights (none weightless) and write 4KL bytes of float32 counts, or 8L of
+// int64 ones weightless (the zero-fill writes them once more): 0.0100 ms weightless and 0.0184 ms with one weight row at
 // Cityscapes' 8.4M pixels, at 3.35 TB/s on an H100 SXM. One compare and K
 // adds per index are far below the card's arithmetic rate.
 //
@@ -28,7 +28,8 @@
 // its own copy of the histogram (as many copies as fit, up to 32), so warps
 // never contend; the copies are summed at the end of the block and each
 // non-zero bin goes to `out` with one global atomic (132 x 361 at
-// Cityscapes, not one per index). Weightless counts are integer shared adds;
+// Cityscapes, not one per index). Weightless counts are integer shared adds
+// and integer global adds;
 // weighted adds skip zero weights. The smallest histograms aggregate within a
 // warp first: with one row and L <= 4 (the binary family's 4 bins), where
 // every lane of a warp would hit the same few addresses, each thread tallies
@@ -43,9 +44,12 @@
 // pointer, or K > 1 weight rows with N not a multiple of 4, takes the scalar
 // loop.
 //
-// Exactness: weightless and 0/1-weighted partial sums are integers below
-// 2^24, so float atomics give bit-exact counts in any order. Fractional
-// weights are summed in an order that changes from run to run.
+// Exactness: weightless counts are integers end to end: uint32 tallies a
+// block, added into an int64 output with 64-bit integer atomics, so they are
+// exact at any N (a float32 sum of ones stops at 2^24 = 16,777,216). Weighted
+// rows are float32 atomics; 0/1 weights stay exact while a bin holds fewer
+// than 2^24 events, and fractional weights are summed in an order that
+// changes from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,12 +80,15 @@ __device__ __forceinline__ bool in_range(int32_t c, int32_t length) {
 // in-range index and row.
 template <bool kShared, bool kWeighted, bool kVec, int kRegBins>
 __global__ void __launch_bounds__(kShared ? kBlockThreads : kGlobalThreads)
-    wbincount(const int32_t* __restrict__ x, const float* __restrict__ w, float* __restrict__ out, int64_t n,
+    wbincount(const int32_t* __restrict__ x, const float* __restrict__ w, void* __restrict__ out_any, int64_t n,
               int32_t length, int32_t k_rows, int32_t copies) {
   static_assert(kShared || kRegBins == 0, "register tallies are for regime A");
   extern __shared__ __align__(16) uint32_t smem[];
   const int32_t bins = kShared ? length * k_rows : 0;
   const int lane = threadIdx.x & 31;
+  // weighted: float32 (k_rows, length); weightless: int64 (length,)
+  float* out = static_cast<float*>(out_any);
+  unsigned long long* iout = static_cast<unsigned long long*>(out_any);
   float* fhist = out;
   uint32_t* uhist = smem;
   if constexpr (kShared) {
@@ -112,7 +119,7 @@ __global__ void __launch_bounds__(kShared ? kBlockThreads : kGlobalThreads)
       } else if constexpr (kShared) {
         atomicAdd(uhist + c, 1u);
       } else {
-        atomicAdd(out + c, 1.0f);
+        atomicAdd(iout + c, 1ull);
       }
     }
   };
@@ -191,14 +198,14 @@ __global__ void __launch_bounds__(kShared ? kBlockThreads : kGlobalThreads)
       } else {
         uint32_t s = 0u;
         for (int32_t cp = 0; cp < copies; ++cp) s += smem[cp * bins + b];
-        if (s != 0u) atomicAdd(out + b, static_cast<float>(s));
+        if (s != 0u) atomicAdd(iout + b, static_cast<unsigned long long>(s));
       }
     }
   }
 }
 
 template <bool kShared, bool kWeighted, bool kVec, int kRegBins>
-cudaError_t launch(const int32_t* x, const float* w, float* out, int64_t n, int32_t length, int32_t k_rows,
+cudaError_t launch(const int32_t* x, const float* w, void* out, int64_t n, int32_t length, int32_t k_rows,
                    int32_t copies, int64_t blocks, int device, cudaStream_t s) {
   auto kernel = wbincount<kShared, kWeighted, kVec, kRegBins>;
   size_t smem = 0;
@@ -219,16 +226,17 @@ cudaError_t launch(const int32_t* x, const float* w, float* out, int64_t n, int3
 }
 
 template <bool kShared, bool kWeighted, int kRegBins = 0>
-cudaError_t launch_vec(bool vec, const int32_t* x, const float* w, float* out, int64_t n, int32_t length,
+cudaError_t launch_vec(bool vec, const int32_t* x, const float* w, void* out, int64_t n, int32_t length,
                        int32_t k_rows, int32_t copies, int64_t blocks, int device, cudaStream_t s) {
   auto body = vec ? launch<kShared, kWeighted, true, kRegBins> : launch<kShared, kWeighted, false, kRegBins>;
   return body(x, w, out, n, length, k_rows, copies, blocks, device, s);
 }
 
-cudaError_t run(const int32_t* x, const float* w, float* out, int64_t n, int64_t length, int64_t k_rows, int device,
+cudaError_t run(const int32_t* x, const float* w, void* out, int64_t n, int64_t length, int64_t k_rows, int device,
                 cudaStream_t s) {
   const bool weighted = w != nullptr;
-  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(k_rows * length) * sizeof(float), s);
+  const size_t item = weighted ? sizeof(float) : sizeof(int64_t);
+  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(k_rows * length) * item, s);
   if (err != cudaSuccess || n <= 0) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -264,7 +272,8 @@ cudaError_t run(const int32_t* x, const float* w, float* out, int64_t n, int64_t
 }  // namespace
 
 // x: int32 (n,); w: float32 (k_rows, n), or null for a weightless count
-// (k_rows must then be 1); out: float32 (k_rows, length); all contiguous on
+// (k_rows must then be 1); out: float32 (k_rows, length), or int64 (1,
+// length) weightless; all contiguous on
 // CUDA device `device`. Zeroes `out` and counts into it on `stream`, a
 // stream of that device; returns the first failing call's cudaError_t (0 on
 // success).
@@ -277,7 +286,7 @@ extern "C" int tm_wbincount(const void* x, const void* w, void* out, int64_t n, 
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = run(static_cast<const int32_t*>(x), static_cast<const float*>(w), static_cast<float*>(out), n, length, k_rows,
+  err = run(static_cast<const int32_t*>(x), static_cast<const float*>(w), out, n, length, k_rows,
             device, static_cast<cudaStream_t>(stream));
   if (current != device) {
     const cudaError_t restore = cudaSetDevice(current);

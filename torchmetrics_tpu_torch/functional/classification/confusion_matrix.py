@@ -99,8 +99,8 @@ def _binary_confusion_matrix_format(
 
 
 def _binary_confusion_matrix_update(preds: torch.Tensor, target: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    idx = target * 2 + preds
-    return _plain_confusion_counts(idx, valid.to(torch.float32), 4).reshape(2, 2).to(torch.int32)
+    idx = torch.where(valid, target * 2 + preds, -1)
+    return _plain_confusion_counts(idx, 4).reshape(2, 2).to(torch.int32)
 
 
 def _binary_confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = None) -> torch.Tensor:

@@ -276,11 +276,8 @@ def _multiclass_precision_recall_curve_update(
         sorted_thresholds = sort_thresholds(thresholds)
     if average == "micro":
         return _binary_precision_recall_curve_update(preds, target, valid, thresholds, sorted_thresholds)
-    target_oh = torch.nn.functional.one_hot(target.to(torch.int64), num_classes).to(torch.float32)
-    w = valid.to(torch.float32)[:, None]
-    return binned_curve_counts_classwise(preds, target_oh * w, (1.0 - target_oh) * w, sorted_thresholds).to(
-        torch.int32
-    )
+    target_oh = torch.nn.functional.one_hot(target.to(torch.int64), num_classes)
+    return binned_curve_counts_classwise(preds, target_oh, valid[:, None], sorted_thresholds).to(torch.int32)
 
 
 def _per_class_curves(state: Tuple[torch.Tensor, torch.Tensor], num_classes: int, curve_fn) -> Tuple[list, list, list]:
@@ -418,9 +415,7 @@ def _multilabel_precision_recall_curve_update(
         return None
     if sorted_thresholds is None:
         sorted_thresholds = sort_thresholds(thresholds)
-    w = valid.to(torch.float32)  # (N, L) per-label mask
-    tgt = target.to(torch.float32)
-    return binned_curve_counts_classwise(preds, tgt * w, (1.0 - tgt) * w, sorted_thresholds).to(torch.int32)
+    return binned_curve_counts_classwise(preds, target, valid, sorted_thresholds).to(torch.int32)
 
 
 def _per_label_curves(

@@ -42,10 +42,14 @@ def _count(mask: torch.Tensor, dim) -> torch.Tensor:
     return mask.sum(dim, dtype=torch.int32)
 
 
-def _plain_confusion_counts(idx: torch.Tensor, w: torch.Tensor, length: int) -> torch.Tensor:
+def _plain_confusion_counts(idx: torch.Tensor, length: int) -> torch.Tensor:
     """The per-metric scatter of the unfused path (the JAX package leaves it to
-    an XLA scatter, not to the kernel); indices are in range by construction."""
-    return torch.zeros(length, dtype=torch.float32, device=idx.device).index_add_(0, idx.reshape(-1), w.reshape(-1))
+    an XLA scatter, not to the kernel): int64 counts of ``idx`` in
+    ``[0, length)``, exact at any N; an index of -1 (a masked sample) is
+    counted in a slot before the first and dropped."""
+    idx = idx.reshape(-1).to(torch.int64) + 1
+    counts = torch.zeros(length + 1, dtype=torch.int64, device=idx.device)
+    return counts.index_add_(0, idx, torch.ones_like(idx))[1:]
 
 
 # --------------------------------------------------------------------- binary
@@ -250,7 +254,7 @@ def _multiclass_stat_scores_update(
 ) -> Stats:
     """Count tp/fp/tn/fn per class.
 
-    top_k == 1: flattened confusion-matrix scatter (weights mask ignore_index).
+    top_k == 1: flattened confusion-matrix scatter (an ignored sample indexes -1).
     top_k > 1: one-hot top-k mask path.
     """
     if top_k > 1:
@@ -273,23 +277,20 @@ def _multiclass_stat_scores_update(
     samplewise = multidim_average != "global"
     p = preds.reshape(n, -1) if samplewise else preds.reshape(-1)
     t = target.reshape(n, -1) if samplewise else target.reshape(-1)
-    if ignore_index is not None:
-        w = (t != ignore_index).to(torch.float32)
-        t = torch.where(t == ignore_index, torch.zeros_like(t), t)
-    else:
-        w = torch.ones(t.shape, dtype=torch.float32, device=t.device)
     p = torch.clamp(p, 0, num_classes - 1)
     idx = num_classes * t + p
+    if samplewise:
+        idx = torch.arange(n, device=t.device)[:, None] * num_classes * num_classes + idx
+    if ignore_index is not None:
+        idx = torch.where(t != ignore_index, idx, -1)
     if not samplewise:
-        confmat = _plain_confusion_counts(idx, w, num_classes * num_classes).reshape(num_classes, num_classes)
+        confmat = _plain_confusion_counts(idx, num_classes * num_classes).reshape(num_classes, num_classes)
         tp = torch.diagonal(confmat)
         fp = confmat.sum(0) - tp
         fn = confmat.sum(1) - tp
         tn = confmat.sum() - tp - fp - fn
     else:
-        sample_idx = torch.arange(n, device=t.device)[:, None]
-        idx = sample_idx * num_classes * num_classes + idx
-        confmat = _plain_confusion_counts(idx, w, n * num_classes * num_classes).reshape(n, num_classes, num_classes)
+        confmat = _plain_confusion_counts(idx, n * num_classes * num_classes).reshape(n, num_classes, num_classes)
         tp = torch.diagonal(confmat, dim1=1, dim2=2)
         fp = confmat.sum(1) - tp
         fn = confmat.sum(2) - tp

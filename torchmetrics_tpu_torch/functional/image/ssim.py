@@ -1,24 +1,31 @@
 """SSIM and MS-SSIM.
 
 Gaussian (or uniform) windowed statistics over a five-plane stack (preds,
-target, preds², target², preds·target). In 2-D the separable window runs on
-the ``ssim_windows`` kernel (``utils._separable_window_2d``); in 3-D it is
-plain PyTorch.
+target, preds², target², preds·target). In 2-D, on the ``ssim_windows``
+kernel's two entries (ops/ssim_kernel.py), chosen only by whether a gradient
+is needed:
+
+- no gradient (``torch.is_grad_enabled()`` is false, or neither input
+  requires grad): the fused entry, one launch that reflects, forms the
+  products, windows them and evaluates SSIM and cs per pixel, returning
+  per-image sums (``"ssim_fused"`` in the dispatch seam);
+- a gradient: the chain of reflect padding, the five-plane stack and the
+  generic windowed sum (``"ssim_windows"``, whose backward is the kernel
+  too), then the formula in PyTorch.
+
+On CPU tensors both run the same plain chain. In 3-D it is plain PyTorch,
+as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from torchmetrics_tpu_torch.functional.image.utils import (
-    _avg_pool2d,
-    _gaussian,
-    _reflect_pad_2d,
-    _reflect_pad_3d,
-    _separable_window_2d,
-    _separable_window_3d,
-)
+from torchmetrics_tpu_torch.functional.image.utils import _avg_pool2d, _gaussian, _reflect_pad_3d, _separable_window_3d
+from torchmetrics_tpu_torch.ops import kernels
+from torchmetrics_tpu_torch.ops.ssim_kernel import ssim_chain, ssim_from_moments, windowed_sum_2d
 from torchmetrics_tpu_torch.utils.checks import _check_same_shape
 
 
@@ -31,6 +38,17 @@ def _ssim_check_inputs(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch
             f"Expected `preds` and `target` to have BxCxHxW or BxCxDxHxW shape. Got preds: {tuple(preds.shape)}."
         )
     return preds, target
+
+
+@functools.lru_cache(maxsize=64)
+def _window(size: int, sigma: Optional[float], dtype: torch.dtype, device: torch.device, inference: bool) -> torch.Tensor:
+    """One axis's window, gaussian of ``sigma`` or uniform (``sigma=None``),
+    made once per device: SSIM builds the same few taps every update, and
+    each would cost a handful of launches. Cached apart under inference mode,
+    whose tensors autograd cannot save."""
+    if sigma is None:
+        return torch.full((size,), 1.0 / size, dtype=dtype, device=device)
+    return _gaussian(size, sigma, dtype, device)
 
 
 def _ssim_update(
@@ -78,51 +96,42 @@ def _ssim_update(
     # per axis) and `kernel_size` sizes only the UNIFORM window; padding and
     # cropping always use the sigma-derived size.
     gauss_size = [int(3.5 * s + 0.5) * 2 + 1 for s in sigma]
+    inference = torch.is_inference_mode_enabled()
     if gaussian_kernel:
-        k1d = [_gaussian(k, s, preds.dtype, preds.device) for k, s in zip(gauss_size, sigma)]
+        k1d = [_window(k, float(s), preds.dtype, preds.device, inference) for k, s in zip(gauss_size, sigma)]
     else:
-        k1d = [torch.full((k,), 1.0 / k, dtype=preds.dtype, device=preds.device) for k in kernel_size]
-    if is_3d:
-        pad_d = (gauss_size[0] - 1) // 2
-        pad_h = (gauss_size[1] - 1) // 2
-        pad_w = (gauss_size[2] - 1) // 2
-        preds_p = _reflect_pad_3d(preds, pad_d, pad_h, pad_w)
-        target_p = _reflect_pad_3d(target, pad_d, pad_h, pad_w)
-        input_list = torch.cat([preds_p, target_p, preds_p * preds_p, target_p * target_p, preds_p * target_p])
-        outputs = _separable_window_3d(input_list, k1d[0], k1d[1], k1d[2])
-    else:
+        k1d = [_window(k, None, preds.dtype, preds.device, inference) for k in kernel_size]
+    if not is_3d:
         pad_h = (gauss_size[0] - 1) // 2
         pad_w = (gauss_size[1] - 1) // 2
-        preds_p = _reflect_pad_2d(preds, pad_h, pad_w)
-        target_p = _reflect_pad_2d(target, pad_h, pad_w)
-        input_list = torch.cat([preds_p, target_p, preds_p * preds_p, target_p * target_p, preds_p * target_p])
-        outputs = _separable_window_2d(input_list, k1d[0], k1d[1])  # (5B, C, H, W)
-    b = preds.shape[0]
-    mu_pred = outputs[:b]
-    mu_target = outputs[b : 2 * b]
-    mu_pred_sq = mu_pred**2
-    mu_target_sq = mu_target**2
-    mu_pred_target = mu_pred * mu_target
+        args = (preds.contiguous(), target.contiguous(), k1d[0], k1d[1], pad_h, pad_w, c1, c2, return_full_image)
+        if torch.is_grad_enabled() and (preds.requires_grad or target.requires_grad):
+            per_image, cs, full = ssim_chain(*args, window=windowed_sum_2d)
+        else:
+            per_image, cs, full = kernels.dispatch("ssim_fused", *args)
+        if return_contrast_sensitivity:
+            return per_image, cs
+        if return_full_image:
+            return per_image, full
+        return per_image
 
-    sigma_pred_sq = outputs[2 * b : 3 * b] - mu_pred_sq
-    sigma_target_sq = outputs[3 * b : 4 * b] - mu_target_sq
-    sigma_pred_target = outputs[4 * b :] - mu_pred_target
-
-    upper = 2 * sigma_pred_target + c2
-    lower = sigma_pred_sq + sigma_target_sq + c2
-
-    ssim_idx_full_image = ((2 * mu_pred_target + c1) * upper) / ((mu_pred_sq + mu_target_sq + c1) * lower)
+    pad_d = (gauss_size[0] - 1) // 2
+    pad_h = (gauss_size[1] - 1) // 2
+    pad_w = (gauss_size[2] - 1) // 2
+    preds_p = _reflect_pad_3d(preds, pad_d, pad_h, pad_w)
+    target_p = _reflect_pad_3d(target, pad_d, pad_h, pad_w)
+    input_list = torch.cat([preds_p, target_p, preds_p * preds_p, target_p * target_p, preds_p * target_p])
+    outputs = _separable_window_3d(input_list, k1d[0], k1d[1], k1d[2])
+    ssim_idx_full_image, cs_full = ssim_from_moments(outputs, preds.shape[0], c1, c2)
 
     # crop to the unpadded region
     def _crop(x: torch.Tensor) -> torch.Tensor:
-        if is_3d:
-            return x[..., pad_d:-pad_d, pad_h:-pad_h, pad_w:-pad_w] if pad_d and pad_h and pad_w else x
-        return x[..., pad_h:-pad_h, pad_w:-pad_w] if pad_h and pad_w else x
+        return x[..., pad_d:-pad_d, pad_h:-pad_h, pad_w:-pad_w] if pad_d and pad_h and pad_w else x
 
     ssim_idx = _crop(ssim_idx_full_image)
     per_image = ssim_idx.reshape(ssim_idx.shape[0], -1).mean(-1)
     if return_contrast_sensitivity:
-        cs = _crop(upper / lower)
+        cs = _crop(cs_full)
         return per_image, cs.reshape(cs.shape[0], -1).mean(-1)
     if return_full_image:
         return per_image, ssim_idx_full_image

@@ -4,9 +4,9 @@ Confusion matrices (``num_classes*target + preds`` flattened indices),
 stat-scores and calibration histograms all reduce to
 ``out[k, c] = sum_n w[k, n] * [x[n] == c]`` over K weight rows sharing one
 index stream, with negative and out-of-range indices dropped. A weightless
-count (``weights=None``, K = 1) counts every in-range index once: callers
-with a 0/1 mask fold it into the index (a masked sample is -1) instead of
-building a weight row.
+count (``weights=None``, K = 1) counts every in-range index once, as an exact int64 count:
+callers with a 0/1 mask fold it into the index (a masked sample is -1)
+instead of building a weight row.
 
 Two bodies behind the ``"bincount"`` entry of the dispatch seam
 (ops/kernels.py):
@@ -35,24 +35,24 @@ launches = 0
 
 def _wbincount_reference(x: torch.Tensor, weights: Optional[torch.Tensor], length: int) -> torch.Tensor:
     """Plain PyTorch version: ``weights (K, N) -> counts (K, length)`` float32,
-    or with ``weights=None`` a weightless ``(1, length)`` count of every
+    or with ``weights=None`` a weightless ``(1, length)`` int64 count of every
     in-range index.
 
     Masks negative and out-of-range indices (``index_add_`` and
-    ``torch.bincount`` raise on them) and scatter-adds the rest. The sums
-    run in float64 and round once to float32: a float32 scatter of a million
-    fractional weights into a few bins drifts by about 1e-5 relative in
-    itself, more than the tolerance the kernel is held to against this
-    oracle. Integer counts are exact either way."""
-    if weights is None:
-        w = torch.ones((1, x.shape[0]), dtype=torch.float64, device=x.device)
-    else:
-        w = weights.to(torch.float64)
+    ``torch.bincount`` raise on them) and scatter-adds the rest. Weightless
+    counts add int64 ones, exact at any N. Weighted sums run in float64 and
+    round once to float32: a float32 scatter of a million fractional weights
+    into a few bins drifts by about 1e-5 relative in itself, more than the
+    tolerance the kernel is held to against this oracle."""
     in_range = (x >= 0) & (x < length)
-    x = torch.where(in_range, x, torch.zeros_like(x)).to(torch.int64)
+    idx = torch.where(in_range, x, torch.zeros_like(x)).to(torch.int64)
+    if weights is None:
+        out = torch.zeros((1, int(length)), dtype=torch.int64, device=x.device)
+        return out.index_add_(1, idx, in_range.to(torch.int64)[None, :])
+    w = weights.to(torch.float64)
     w = torch.where(in_range[None, :], w, torch.zeros_like(w))
     out = torch.zeros((w.shape[0], int(length)), dtype=torch.float64, device=w.device)
-    return out.index_add_(1, x, w).to(torch.float32)
+    return out.index_add_(1, idx, w).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,8 +70,9 @@ def _wbincount_cuda(x: torch.Tensor, weights: Optional[torch.Tensor], length: in
     Takes ``x`` int32 ``(N,)`` and ``weights`` float32 ``(K, N)``, or
     ``weights=None`` for a weightless count (K = 1), all contiguous on one
     CUDA device; raises on anything else. Returns a fresh float32
-    ``(K, length)``, which the launch zeroes before it counts; with
-    ``N == 0`` it returns zeros without a launch."""
+    ``(K, length)``, or int64 ``(1, length)`` weightless, which the launch
+    zeroes before it counts; with ``N == 0`` it returns zeros without a
+    launch."""
     global launches
     if x.dtype != torch.int32 or (weights is not None and weights.dtype != torch.float32):
         got = "none" if weights is None else weights.dtype
@@ -87,9 +88,10 @@ def _wbincount_cuda(x: torch.Tensor, weights: Optional[torch.Tensor], length: in
         got = None if weights is None else weights.device
         raise ValueError(f"bincount kernel takes x and weights on one CUDA device, got {x.device} and {got}")
     k_rows = 1 if weights is None else weights.shape[0]
+    dtype = torch.int64 if weights is None else torch.float32
     if x.numel() == 0:
-        return torch.zeros((k_rows, int(length)), dtype=torch.float32, device=x.device)
-    out = torch.empty((k_rows, int(length)), dtype=torch.float32, device=x.device)
+        return torch.zeros((k_rows, int(length)), dtype=dtype, device=x.device)
+    out = torch.empty((k_rows, int(length)), dtype=dtype, device=x.device)
     device = x.device.index
     stream = native.current_stream(device)
     err = _entry()(

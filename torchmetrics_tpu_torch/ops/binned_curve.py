@@ -18,7 +18,7 @@ Two bodies behind the ``"binned_curve"`` entry of the dispatch seam
 Both count in int64, so they are exact at any N. The per-column form
 :func:`binned_curve_counts_classwise` (multiclass one-vs-rest and multilabel
 curves) has no kernel of its own: its histogram is one K = 2 call of the
-``bincount`` kernel.
+``bincount`` kernel, one weightless launch.
 """
 from __future__ import annotations
 
@@ -29,7 +29,6 @@ from typing import Tuple
 import torch
 
 from torchmetrics_tpu_torch.ops import kernels, native
-from torchmetrics_tpu_torch.ops.bincount import weighted_bincount_multi
 
 #: launches of the CUDA kernel in this process (a plain counter that a run
 #: resets and reads to show its main path went through the kernel)
@@ -197,25 +196,28 @@ def binned_curve_counts(
 
 
 def binned_curve_counts_classwise(
-    preds: torch.Tensor, pos_w: torch.Tensor, neg_w: torch.Tensor, sorted_thresholds: SortedThresholds
+    preds: torch.Tensor, target: torch.Tensor, valid: torch.Tensor, sorted_thresholds: SortedThresholds
 ) -> torch.Tensor:
     """``(T, C, 2, 2)`` int64 per-column threshold-binned counts.
 
     Each of the C columns of ``preds (N, C)`` (one-vs-rest classes or labels)
-    gets its own ``(T, 2, 2)`` block from one bucketing pass, one K = 2
-    weighted histogram over ``(T+1)·C`` bins (the ``bincount`` kernel on the
-    card) and a suffix sum. ``pos_w``/``neg_w`` ``(N, C)`` are the per-sample
-    positive and negative weights, already masked for ``ignore_index``; the
-    histogram sums them in float32, which is exact while a bin holds fewer
-    than 2**24 samples, as in the JAX package. ``sorted_thresholds`` is
+    gets its own ``(T, 2, 2)`` block from one bucketing pass, one weightless
+    count over ``2·(T+1)·C`` bins (the ``bincount`` kernel on the card) and a
+    suffix sum. ``target`` is the 0/1 ``(N, C)`` one-hot or label matrix and
+    ``valid`` a bool mask that broadcasts to it (``(N, 1)`` for a sample,
+    ``(N, C)`` for a label): a positive sample's bin is shifted by
+    ``(T+1)·C``, a masked one gets -1 and is dropped. The counts are int64,
+    exact at any N (the JAX package sums 0/1 masks as float32 weights, exact
+    while a bin holds fewer than 2**24 samples). ``sorted_thresholds`` is
     :func:`sort_thresholds` of the T thresholds.
     """
     n, c = preds.shape
     thr_sorted, order = sorted_thresholds
     len_t = thr_sorted.shape[0]
-    k = _buckets(preds.reshape(-1), thr_sorted)
-    col = torch.arange(c, device=preds.device).repeat(n)
-    idx = k * c + col  # bucket-major, so the (T+1, C) reshape is direct
-    w = torch.stack([neg_w.reshape(-1), pos_w.reshape(-1)])
-    hist = weighted_bincount_multi(idx, w, (len_t + 1) * c).to(torch.int64).reshape(2, len_t + 1, c)
-    return _suffix_counts(hist, order)
+    bins = (len_t + 1) * c
+    k = _buckets(preds.reshape(-1), thr_sorted).reshape(n, c)
+    col = torch.arange(c, device=preds.device)
+    idx = k * c + col + bins * target.to(k.dtype)  # bucket-major, so the (T+1, C) reshape is direct
+    idx = torch.where(valid.to(torch.bool), idx, -1)
+    hist = kernels.dispatch("bincount", idx.reshape(-1).to(torch.int32), None, 2 * bins)[0]
+    return _suffix_counts(hist.reshape(2, len_t + 1, c), order)

@@ -12,8 +12,8 @@ Masking: ``ignore_index`` is folded into the index (a masked sample gets
 index -1, which the kernel drops), so the count is weightless: no 0/1 weight
 row is built, written or read.
 
-Exactness: counts are float32 sums of ones, exact integers up to 2**24
-events per update. Within that bound the fused path is bit-exact against the
+Exactness: counts are int64, exact at any number of events per update (the
+JAX package's float32 sums of ones stop at 2**24), and bit-exact against the
 per-metric path; ``TORCHMETRICS_TPU_TORCH_FUSED_CLASSIFICATION=0`` restores the
 per-metric passes (the exactness oracle in the tests).
 """
@@ -37,8 +37,8 @@ def fused_enabled() -> bool:
 
 
 def _counts(idx: torch.Tensor, length: int) -> torch.Tensor:
-    """One weightless pass of ``bincount`` over int32 indices; negative ones
-    (masked samples) are dropped."""
+    """One weightless pass of ``bincount`` over int32 indices: int64 counts;
+    negative indices (masked samples) are dropped."""
     return kernels.dispatch("bincount", idx.reshape(-1).contiguous(), None, length)[0]
 
 
@@ -54,7 +54,7 @@ def _mask_ignored(idx: torch.Tensor, t: torch.Tensor, ignore_index: Optional[int
 def multiclass_confusion_counts(
     preds: torch.Tensor, target: torch.Tensor, num_classes: int, ignore_index: Optional[int]
 ) -> torch.Tensor:
-    """(C, C) float32 confusion counts, shared across every multiclass metric
+    """(C, C) int64 confusion counts, shared across every multiclass metric
     updated against the same ``(preds, target)``: score preds argmax over dim
     1, everything flattened, preds clipped into range, ``ignore_index``
     folded into the index."""
@@ -84,7 +84,7 @@ def multiclass_stats(confmat: torch.Tensor) -> Stats:
 def binary_confusion_counts(
     preds: torch.Tensor, target: torch.Tensor, threshold: float, ignore_index: Optional[int]
 ) -> torch.Tensor:
-    """(2, 2) float32 confusion counts shared across the binary family."""
+    """(2, 2) int64 confusion counts shared across the binary family."""
     from torchmetrics_tpu_torch.functional.classification.stat_scores import _sigmoid_if_logits
 
     spec = ("bin", float(threshold), ignore_index)
@@ -112,7 +112,7 @@ def binary_stats(confmat: torch.Tensor) -> Stats:
 def multilabel_confusion_counts(
     preds: torch.Tensor, target: torch.Tensor, num_labels: int, threshold: float, ignore_index: Optional[int]
 ) -> torch.Tensor:
-    """(L, 2, 2) float32 per-label confusion counts shared across the
+    """(L, 2, 2) int64 per-label confusion counts shared across the
     multilabel family."""
     from torchmetrics_tpu_torch.functional.classification.stat_scores import _sigmoid_if_logits
 
