@@ -56,6 +56,11 @@ to 2048, full-rank, rank-deficient, untiled and dominant-mode covariances),
 holds the FID each root gives to float64 on every one, and sweeps the plain
 body's float64 step count on the rank-deficient and dominant-mode inputs.
 
+Every kernel check also gives ``host_ms``: the wall time of 1,000
+back-to-back wrapper calls with no synchronisation, divided by 1,000 (the
+host path a call; where the calls' launches overflow the launch queue,
+the device's rate).
+
 Scores, logits, labels and images are drawn from seeded ``torch.Generator`` s on the
 card. With ``--profile`` it also traces a few updates of each workload with
 ``torch.profiler`` (device time by kernel, device idle share; for MS MARCO
@@ -102,16 +107,19 @@ KERNEL_SHAPES = [
 #: one update past float32's last exact integer: 2**24 + 3 equal indices,
 #: whose weightless count must come out exactly (int64)
 PAST_2_24 = 2**24 + 3
-#: binned-curve checks: (name, N, T, thresholds, edges). "grid" is the
+#: binned-curve checks: (name, N, T, thresholds, edges, form). "grid" is the
 #: 100-point grid of an integer ``thresholds``, "random" unsorted uniform
 #: thresholds; edges adds NaN scores, scores exactly on a threshold and
-#: duplicated thresholds
+#: duplicated thresholds. Form "int32_mask": int32 0/1 targets and a 95%
+#: bool mask; "int64_ignore": what the binned binary update hands the
+#: kernel, int64 targets with 5% of them ignore_index -1 and no mask
 CURVE_SHAPES = [
-    ("config6", 1_000_000, 100, "grid", False),
-    ("doc_2m", 2_000_000, 200, "grid", False),
-    ("t1000", 8_388_608, 1000, "grid", False),
-    ("t50k", 1_000_000, 50_000, "random", False),
-    ("edges", 1_000_000, 64, "random", True),
+    ("config6", 1_000_000, 100, "grid", False, "int32_mask"),
+    ("config6_int64_ignore", 1_000_000, 100, "grid", False, "int64_ignore"),
+    ("doc_2m", 2_000_000, 200, "grid", False, "int32_mask"),
+    ("t1000", 8_388_608, 1000, "grid", False, "int32_mask"),
+    ("t50k", 1_000_000, 50_000, "random", False, "int32_mask"),
+    ("edges", 1_000_000, 64, "random", True, "int32_mask"),
 ]
 #: the JAX package's bench.py config 6: 50 updates of 1,000,000 binary scores,
 #: 100 thresholds; here with ignore_index=-1 on 5% of samples
@@ -129,11 +137,13 @@ MSMARCO = {
 #: queries summed in another order, nDCG's discounts an ulp apart
 MSMARCO_RTOL = 1e-5
 #: retrieval_topk_stats checks: (name, Q, L, top_k); MovieLens-20M's 138,493
-#: users with top-100 candidates
+#: users with top-100 candidates, and with top-20 (a short list: 4 lanes a
+#: row, 5 float4s)
 TOPK_SHAPES = [
     ("msmarco_k10", 6980, 1000, 10),
     ("msmarco_all", 6980, 1000, None),
     ("movielens_k100", 138_493, 100, 10),
+    ("movielens_k20", 138_493, 20, 10),
 ]
 #: UVG 1080p test set: 1920 x 1080 RGB sequences, used by learned video
 #: codecs, which report MS-SSIM on frames in [0, 1]; one 600-frame sequence
@@ -265,6 +275,25 @@ def _time_ms(fn, iters: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _host_ms(fn, calls: int = 1000) -> float:
+    """Host time of one call: the wall time of ``calls`` back-to-back calls
+    with no synchronisation, divided by ``calls`` (after one warm-up call;
+    the device is drained outside the timing). Where the device is slower
+    and the calls' launches overflow the launch queue (about a thousand
+    launches: ``fid_sqrtm`` makes 45 a call), this reads the device's rate
+    instead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def _bincount_inputs(k: int, length: int, n: int, weighted: bool, dev):
     """Indices with a tenth of L below 0 and above L - 1, and the weights of
     a ``KERNEL_SHAPES`` row (None weightless)."""
@@ -316,6 +345,7 @@ def phase_kernels(dev) -> list:
             "max_abs_err": err,
             "tolerance": "exact" if integral else "rtol=1e-5",
             "ms": _time_ms(lambda: bincount._wbincount_cuda(x, w, length), iters),
+            "host_ms": _host_ms(lambda: bincount._wbincount_cuda(x, w, length)),
             "plain_ms": _time_ms(lambda: bincount._wbincount_reference(x, w, length), iters),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -368,11 +398,32 @@ def _curve_inputs(n: int, len_t: int, kind: str, edges: bool, dev):
     return preds, target, valid, thr
 
 
-def _composite_counts(preds, target, valid, thr_sorted, order):
+def _curve_args(n: int, len_t: int, kind: str, edges: bool, form: str, dev):
+    """The kernel's arguments for a ``CURVE_SHAPES`` row, thresholds sorted
+    once (as a metric sorts them when it is built): ``(preds, target, valid,
+    thr_sorted, order, ignore_index)``. "int64_ignore" marks the masked-out
+    samples of "int32_mask" with ignore_index -1 in an int64 target."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
+    thr_sorted, order = binned_curve.sort_thresholds(thr)
+    if form == "int32_mask":
+        return preds, target, valid, thr_sorted, order, None
+    target = torch.where(valid, target.to(torch.int64), torch.full((), -1, dtype=torch.int64, device=dev))
+    return preds, target, None, thr_sorted, order, -1
+
+
+def _composite_counts(preds, target, valid, thr_sorted, order, ignore_index=None):
     """The same counts from stock PyTorch calls (bucketize, bincount,
     cumsum), timed as a yardstick only; no path of the port runs it."""
     import torch
 
+    if valid is None:
+        valid = target != ignore_index
+        target = torch.where(valid, target, torch.zeros_like(target))
+    target = target.to(torch.int64)
     len_t = thr_sorted.shape[0]
     k = torch.bucketize(preds, thr_sorted, right=True)
     k = torch.where(torch.isnan(preds), torch.zeros_like(k), k)
@@ -392,39 +443,38 @@ def phase_curve_kernels(dev) -> list:
     from torchmetrics_tpu_torch.ops import binned_curve
 
     rows = []
-    for name, n, len_t, kind, edges in CURVE_SHAPES:
-        preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
-        # a metric sorts its thresholds once, when it is built, not per call
-        thr_sorted, order = binned_curve.sort_thresholds(thr)
-        args = (preds, target, valid, thr_sorted, order)
+    for name, n, len_t, kind, edges, form in CURVE_SHAPES:
+        args = _curve_args(n, len_t, kind, edges, form, dev)
+        target, valid = args[1], args[2]
         got = binned_curve._binned_counts_cuda(*args)
         ref = binned_curve._binned_counts_reference(*args)
         torch.cuda.synchronize()
         err = int((got - ref).abs().max())
         _check(torch.equal(got, ref), f"binned_curve {name}: kernel differs from the plain version (max |d| {err})")
         _check(
-            torch.equal(_composite_counts(preds, target.to(torch.int64), valid, thr_sorted, order), ref[:, :, 1].T),
+            torch.equal(_composite_counts(*args), ref[:, :, 1].T),
             f"binned_curve {name}: the composite yardstick disagrees",
         )
-        n_valid = int(valid.sum())
-        # least work for this data: read each score, target and mask once and
-        # the thresholds once, write the (T, 2, 2) int64 counts once; one
-        # float compare per search step of each valid sample
-        nbytes = n * (4 + 4 + 1) + len_t * 4 + len_t * 4 * 8
+        n_valid = int(ref[0].sum())
+        # least work for this data: read each score, target and mask (if
+        # any) once and the thresholds once, write the (T, 2, 2) int64 counts
+        # once; one float compare per search step of each valid sample
+        per_sample = 4 + target.element_size() + (0 if valid is None else 1)
+        nbytes = n * per_sample + len_t * 4 + len_t * 4 * 8
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_valid * math.ceil(math.log2(len_t + 1)) / FP32_OPS_PER_S * 1e3
         iters = 20 if n <= 2_000_000 else 10
         rows.append({
-            "shape": name, "N": n, "T": len_t, "thresholds": kind, "edges": edges, "valid": n_valid,
+            "shape": name, "N": n, "T": len_t, "thresholds": kind, "edges": edges, "form": form,
+            "bytes_per_sample": per_sample, "valid": n_valid,
             "max_abs_err": err, "tolerance": "exact",
             "ms": _time_ms(lambda: binned_curve._binned_counts_cuda(*args), iters),
+            "host_ms": _host_ms(lambda: binned_curve._binned_counts_cuda(*args)),
             "plain_ms": _time_ms(lambda: binned_curve._binned_counts_reference(*args), iters),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
-            "composite_ms": _time_ms(
-                lambda: _composite_counts(preds, target.to(torch.int64), valid, thr_sorted, order), iters
-            ),
+            "composite_ms": _time_ms(lambda: _composite_counts(*args), iters),
         })
     _emit({"phase": "kernels", "kernel": "binned_curve", "checks": rows})
     return rows
@@ -494,6 +544,7 @@ def phase_topk_kernels(dev) -> list:
             "shape": name, "Q": q, "L": length, "top_k": top_k, "documents": int(counts.sum()),
             "max_abs_err": err, "tolerance": "exact",
             "ms": _time_ms(lambda: topk_kernel._topk_stats_cuda(t, counts, k), 50),
+            "host_ms": _host_ms(lambda: topk_kernel._topk_stats_cuda(t, counts, k)),
             "plain_ms": _time_ms(lambda: topk_kernel._topk_stats_reference(t, counts, k), 20),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -566,6 +617,7 @@ def phase_ssim_kernels(dev) -> dict:
             "plain_branch": "conv" if max(hp, wp) > ssim_kernel._WINDOW_GEMM_MAX_DIM else "band_matmul",
             "max_abs_err": err, "library_max_abs_err": lib_err, "tolerance": f"rtol=atol={SSIM_TOL}",
             "ms": _time_ms(lambda: ssim_kernel._windowed_cuda(x, taps, taps), iters),
+            "host_ms": _host_ms(lambda: ssim_kernel._windowed_cuda(x, taps, taps)),
             "plain_ms": _time_ms(lambda: ssim_kernel._windowed_reference(x, taps, taps), iters),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -663,6 +715,7 @@ def _ssim_fused_rows(dev) -> list:
             "max_abs_err_ssim": errs[0], "max_abs_err_cs": errs[1], "max_abs_err_map": errs[2],
             "tolerance": f"atol={SSIM_FUSED_TOL} (map {SSIM_FUSED_MAP_TOL})",
             "ms": _time_ms(kernel, iters),
+            "host_ms": _host_ms(kernel),
             "plain_ms": _time_ms(plain, iters),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1395,6 +1448,9 @@ def phase_sqrtm_kernels(dev) -> list:
         ops_ms = products * 2 * f**3 / FP64_TC_OPS_PER_S * 1e3
         iters = 5 if f >= 2048 else 20
         ms = _time_ms(lambda: sqrtm_kernel._sqrtm_cuda(a), iters)
+        # 1,000 calls at F = 2048 take 23 s each, with the launch queue full
+        # (device-bound): measured at the headline shape only
+        host = _host_ms(lambda: sqrtm_kernel._sqrtm_cuda(a)) if f < 2048 or name == "f2048_d1" else None
         rows.append({
             "shape": name, "F": f, "samples": n, "decay": decay, "dominant": dominant, "dead": dead,
             "steps": steps, "full_rank": full_rank, "finite": bool(torch.isfinite(got).all()),
@@ -1408,6 +1464,7 @@ def phase_sqrtm_kernels(dev) -> list:
             "fid_kernel_vs_plain": abs(fid_kernel - fid_plain) / abs(fid64),
             "fid_eigh_root_rel_err": abs(fid_eigh - fid64) / abs(fid64),
             "ms": ms,
+            "host_ms": host,
             "fp64_tflops": products * 2 * f**3 / (ms * 1e-3) / 1e12,
             # the plain body is the float64 loop on torch.matmul (cuBLAS DGEMM)
             "plain_ms": _time_ms(lambda: sqrtm_kernel._sqrtm_ns_reference(a), iters),
@@ -1866,9 +1923,8 @@ def phase_profile_kernel_shapes(dev) -> None:
         x, w = _bincount_inputs(k, length, n, weighted, dev)
         _profile_calls(f"profile_bincount_{name}", lambda: bincount._wbincount_cuda(x, w, length), bincount)
 
-    for name, n, len_t, kind, edges in CURVE_SHAPES:
-        preds, target, valid, thr = _curve_inputs(n, len_t, kind, edges, dev)
-        args = (preds, target, valid, *binned_curve.sort_thresholds(thr))
+    for name, n, len_t, kind, edges, form in CURVE_SHAPES:
+        args = _curve_args(n, len_t, kind, edges, form, dev)
         _profile_calls(f"profile_binned_curve_{name}", lambda: binned_curve._binned_counts_cuda(*args), binned_curve)
     for name, q, length, top_k in TOPK_SHAPES:
         t, counts = _topk_grid(q, length, dev, SEED + q + length)
@@ -1969,11 +2025,12 @@ def main() -> int:
 
     # top-level numbers: each kernel's heaviest launch on its main path (the
     # Cityscapes update's weightless 361-bin count over 8.4M pixels; the config-6
-    # update's 100 thresholds over 1M scores; MS MARCO's 6,980 x 1,000 grid
+    # update's 100 thresholds over 1M scores, its int64 target read with
+    # ignore_index as the update passes it; MS MARCO's 6,980 x 1,000 grid
     # at k = 10; the 1080p update's fused SSIM call over 24 planes); every
     # shape under "shapes"
     main = next(r for r in rows if r["shape"] == "cityscapes_confmat_weightless")
-    curve = next(r for r in curve_rows if r["shape"] == "config6")
+    curve = next(r for r in curve_rows if r["shape"] == "config6_int64_ignore")
     topk = next(r for r in topk_rows if r["shape"] == "msmarco_k10")
     window = next(r for r in ssim["rows"] if r["shape"] == "uvg_1080p")
     fused = next(r for r in ssim["fused"] if r["shape"] == "uvg_1080p")

@@ -221,6 +221,167 @@ def test_binned_curve_kernel_matches_plain_version(cuda_device, n, len_t, unsort
     assert torch.equal(got.cpu(), binned_curve._binned_counts_reference(*(a.cpu() for a in args)))
 
 
+#: (dtype, ignore_index, mask) forms the kernel reads the target in
+CURVE_FORMS = {
+    "int64_ignore": (torch.int64, -1, False),
+    "int32_ignore": (torch.int32, -1, False),
+    "uint8_ignore": (torch.uint8, 255, False),
+    "int64_mask": (torch.int64, None, True),
+    "uint8_all": (torch.uint8, None, False),
+}
+
+
+def _curve_form_args(device, n, len_t, form, edges=False, offset=0, seed=0):
+    """Kernel arguments in one of ``CURVE_FORMS`` (an ``offset`` view makes
+    every pointer unaligned, so the kernel takes its scalar loads)."""
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    dtype, ignore, masked = CURVE_FORMS[form]
+    preds, target, valid, thr = _curve_case(seed + n + len_t, n + offset, len_t, unsorted=edges, edges=edges)
+    target = target.to(dtype)
+    if ignore is not None:
+        target[torch.from_numpy(np.random.RandomState(seed).rand(n + offset) < 0.05)] = ignore
+    preds, target, valid = (a.to(device)[offset:] for a in (preds, target, valid))
+    return [preds, target, valid if masked else None, *binned_curve.sort_thresholds(thr.to(device)), ignore]
+
+
+@pytest.mark.parametrize(
+    "n,len_t,edges,offset",
+    [
+        (1_000_000, 100, False, 0),  # bench config 6
+        (1_000_003, 100, True, 0),  # a tail of 3, NaN scores, duplicated thresholds, scores on a threshold
+        (200_000, 100, False, 1),  # unaligned: scalar loads
+        (300_000, 4095, True, 0),  # the largest one-launch grid of buckets
+        (100_000, 5000, True, 0),  # two tiles: the multi-launch scan
+        (50_000, 25_000, True, 0),  # thresholds in device memory
+        (0, 100, False, 0),
+        (5, 3, False, 0),
+    ],
+)
+@pytest.mark.parametrize("form", list(CURVE_FORMS))
+def test_binned_curve_target_forms_match_plain_version(cuda_device, form, n, len_t, edges, offset):
+    """The target as the metric holds it (int64, int32 or uint8, with an
+    ignore_index, a mask or neither) gives the plain body's counts exactly."""
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    args = _curve_form_args(cuda_device, n, len_t, form, edges, offset)
+    before = binned_curve.launches
+    got = binned_curve._binned_counts_cuda(*args)
+    torch.cuda.synchronize()
+    assert binned_curve.launches == before + 1
+    assert torch.equal(got, binned_curve._binned_counts_reference(*args))
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    assert torch.equal(got.cpu(), binned_curve._binned_counts_reference(*cpu))
+
+
+def _device_kernel_rows(fn, calls):
+    """(name, count) of every device event ``torch.profiler`` records over
+    ``calls`` calls of ``fn`` (after a warm-up call outside and one inside
+    the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)
+    ) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [
+        (ev.key, ev.count) for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and not ev.key.startswith(("ProfilerStep", "Activity Buffer"))
+    ]
+
+
+@pytest.mark.parametrize("len_t,kernels", [(100, 1), (4095, 1), (5000, 4)])
+def test_binned_curve_launches_no_memset(cuda_device, len_t, kernels):
+    """Up to 4,095 thresholds a call is one kernel, with no memset and no
+    other device work; above, the multi-launch scan also runs no memset. The
+    trace can drop a launch, so a kernel is counted at most once a call."""
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    args = _curve_form_args(cuda_device, 1_000_000, len_t, "int64_ignore")
+    calls = 5
+    rows = _device_kernel_rows(lambda: binned_curve._binned_counts_cuda(*args), calls)
+    names = [name for name, _ in rows]
+    assert not [name for name in names if "memset" in name.lower() or "fill" in name.lower()], rows
+    assert len(names) == kernels, rows
+    assert all("binned_" in name for name in names), rows
+    assert all(1 <= count <= calls for _, count in rows), rows
+
+
+def test_binned_curve_on_two_streams_at_once_then_repeated_is_exact(cuda_device):
+    """Two streams call concurrently (each with its own ticket and histogram),
+    then one stream calls again and again: every count is exact, so the
+    reused scratch is left as the next call needs it."""
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    cases = [
+        _curve_form_args(cuda_device, 1_000_000, 100, "int64_ignore", seed=1),
+        _curve_form_args(cuda_device, 700_001, 1000, "int32_ignore", edges=True, seed=2),
+    ]
+    refs = [binned_curve._binned_counts_reference(*args) for args in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(binned_curve._binned_counts_cuda(*cases[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, refs[i]) for o in outs[i]), f"stream {i}"
+    for _ in range(10):
+        for args, ref in zip(cases, refs):
+            assert torch.equal(binned_curve._binned_counts_cuda(*args), ref)
+
+
+def test_stream_scratch_keeps_the_largest_size_up_to_its_cap(cuda_device):
+    """A stream keeps buffers of the largest sizes it asked for, exactly; a
+    request past the cap gets zeroed buffers that are not kept; a dropped
+    stream (a failed launch) makes new ones."""
+    from torchmetrics_tpu_torch.ops import native
+
+    scratch = native.StreamScratch()
+    dev = cuda_device.index
+    stream = native.current_stream(dev)
+    first = scratch.grow(dev, stream, 100, 50)
+    assert scratch.get(dev, stream) is first and (first[3], first[5]) == (100, 50)
+    wider = scratch.grow(dev, stream, 40, 200)
+    assert scratch.get(dev, stream) is wider and (wider[3], wider[5]) == (100, 200)
+    assert scratch.grow(dev, stream, 60, 60) is wider
+    big = scratch.grow(dev, stream, native.StreamScratch.KEEP_BYTES, 16)
+    assert big[3] == native.StreamScratch.KEEP_BYTES and not big[0].any() and scratch.get(dev, stream) is wider
+    assert scratch.get(dev, native.current_stream(dev) + 1) is None
+    scratch.drop(dev, stream)
+    assert scratch.get(dev, stream) is None
+
+
+def test_a_call_on_another_device_restores_the_current_device(cuda_device):
+    """The C entry switches to the tensors' device and back: torch reads its
+    current device from the runtime, so a device left switched would send
+    later work to the wrong card."""
+    from torchmetrics_tpu_torch.ops import binned_curve, topk_kernel
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    current = torch.cuda.current_device()
+    other = torch.device("cuda", 1 if current == 0 else 0)
+    args = _curve_form_args(other, 100_000, 100, "int64_ignore")
+    got = binned_curve._binned_counts_cuda(*args)
+    assert torch.cuda.current_device() == current
+    t, counts = (a.to(other) for a in _topk_case(3, 500, 100))
+    stats = topk_kernel._topk_stats_cuda(t, counts, 10)
+    assert torch.cuda.current_device() == current
+    torch.cuda.synchronize(other)
+    assert torch.equal(got, binned_curve._binned_counts_reference(*args))
+    assert torch.equal(stats, topk_kernel._topk_stats_reference(t, counts, 10))
+
+
 def test_binary_auroc_on_card_equals_cpu(cuda_device):
     from torchmetrics_tpu_torch.classification import BinaryAUROC
     from torchmetrics_tpu_torch.ops import binned_curve
@@ -315,6 +476,34 @@ def test_topk_stats_kernel_is_bit_equal_to_plain_version(cuda_device, q, length,
     assert topk_kernel.launches == before + 1
     assert torch.equal(got, topk_kernel._topk_stats_reference(t, counts, top_k))
     assert torch.equal(got.cpu(), topk_kernel._topk_stats_reference(t.cpu(), counts.cpu(), top_k))
+
+
+@pytest.mark.parametrize("length", [1, 7, 20, 31, 64, 65, 100, 128, 129, 256, 257, 512, 513, 1000])
+def test_topk_stats_short_rows_are_bit_equal_to_plain_version(cuda_device, length):
+    """Rows of every length around the steps of the kernel's pick of lanes
+    by L (4 up to 64 values, 8 up to 128, 16 up to 256, 32 up to 512, 16
+    above), so each group width sums rows."""
+    from torchmetrics_tpu_torch.ops import topk_kernel
+
+    t, counts = (a.to(cuda_device) for a in _topk_case(length, 3001, length))
+    for top_k in (-1, 1, 10):
+        got = topk_kernel._topk_stats_cuda(t, counts, top_k)
+        assert torch.equal(got, topk_kernel._topk_stats_reference(t, counts, top_k))
+
+
+def test_topk_stats_unaligned_rows_and_no_rows(cuda_device):
+    """A grid whose base is 4 bytes past a 16-byte boundary takes the scalar
+    loads; Q = 0 gives an empty result without a launch."""
+    from torchmetrics_tpu_torch.ops import topk_kernel
+
+    t, counts = (a.to(cuda_device) for a in _topk_case(8, 900, 100))
+    shifted = torch.empty(t.numel() + 1, device=cuda_device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert torch.equal(topk_kernel._topk_stats_cuda(shifted, counts, 10), topk_kernel._topk_stats_reference(t, counts, 10))
+    before = topk_kernel.launches
+    empty = topk_kernel._topk_stats_cuda(t[:0], counts[:0], 10)
+    assert tuple(empty.shape) == (0, 4) and topk_kernel.launches == before
 
 
 def test_topk_stats_kernel_on_fractional_targets(cuda_device):

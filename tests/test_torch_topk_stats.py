@@ -44,6 +44,21 @@ def test_plain_body_is_bit_equal_to_both_jax_bodies(shape, top_k):
     assert not port[counts == 0].any()  # rows with a count of 0 give zeros
 
 
+#: short rows, which the kernel sums with fewer than 32 lanes (4 up to 64
+#: values, 8 up to 128, 16 up to 256), and either side of a step
+SHORT_ROWS = (1, 7, 31, 100, 128, 129)
+
+
+@pytest.mark.parametrize("top_k", [-1, 1, 10])
+@pytest.mark.parametrize("length", SHORT_ROWS)
+def test_short_rows_are_bit_equal_to_both_jax_bodies(length, top_k):
+    t, counts = _grid(3 * length + top_k, 45, length, empty_rows=4)
+    port = topk_kernel._topk_stats_reference(torch.from_numpy(t), torch.from_numpy(counts), top_k).numpy()
+    assert port.dtype == np.float32 and port.shape == (45, 4)
+    np.testing.assert_array_equal(port, np.asarray(_topk_stats_pallas(jnp.asarray(t), jnp.asarray(counts), top_k, interpret=True)))
+    np.testing.assert_array_equal(port, np.asarray(jax_reference(jnp.asarray(t), jnp.asarray(counts), top_k)))
+
+
 @pytest.mark.parametrize("top_k", [-1, 3])
 def test_fractional_targets_agree_within_rtol(top_k):
     t, counts = _grid(11, 20, 64, binary=False, empty_rows=3)
@@ -99,6 +114,17 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(change, error):
     with pytest.raises(error):
         topk_kernel._topk_stats_cuda(*args, 3)
     assert topk_kernel.launches == before
+    # the wrapper's one combined test refuses the arguments on their own device too
+    assert change == {} or not topk_kernel._fits(*args, args[0].get_device())
+
+
+def test_combined_check_takes_what_the_kernel_reads():
+    """The wrapper's one test passes the arguments the kernel takes (here on
+    the CPU, whose ``get_device()`` is -1), so only refused calls reach the
+    detailed checks."""
+    t, counts = _wrapper_args()
+    assert topk_kernel._fits(t, counts, -1)
+    assert topk_kernel._fits(t[:0], counts[:0], -1)
 
 
 def test_kernel_wrapper_refuses_a_cpu_cuda_mix():

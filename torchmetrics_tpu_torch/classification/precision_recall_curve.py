@@ -123,10 +123,13 @@ class BinaryPrecisionRecallCurve(_CurveMetric):
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
         if self.validate_args:
             _binary_precision_recall_curve_tensor_validation(preds, target, self.ignore_index)
-        preds, target, valid, _ = _binary_precision_recall_curve_format(preds, target, None, self.ignore_index)
+        preds, target, valid, _ = _binary_precision_recall_curve_format(
+            preds, target, self.thresholds, self.ignore_index
+        )
         if self.thresholds is not None:
+            # the count reads the target and ignore_index as they are: no masking pass
             self.confmat = self.confmat + _binary_precision_recall_curve_update(
-                preds, target, valid, self.thresholds, self._sorted_thresholds
+                preds, target, valid, self.thresholds, self._sorted_thresholds, self.ignore_index
             )
         elif self.capacity is not None:
             (self.preds_buffer, self.target_buffer, self.valid_buffer), self.sample_count = compact_scatter(

@@ -9,8 +9,9 @@ Two state modes, as in the JAX package:
 - ``thresholds=int|list|tensor``: the binned curve, constant memory. The
   state is a ``(T, 2, 2)`` int32 count per threshold (``(T, C, 2, 2)``
   one-vs-rest for multiclass and multilabel). The binary count runs on the
-  ``binned_curve`` kernel (ops/binned_curve.py); the per-class counts are
-  one K = 2 ``bincount`` over ``(T+1)·C`` bins.
+  ``binned_curve`` kernel (ops/binned_curve.py), which takes the batch's
+  target and ``ignore_index`` as they are (no masking pass); the per-class
+  counts are one K = 2 ``bincount`` over ``(T+1)·C`` bins.
 
 An integer ``thresholds`` is the grid ``arange(T) * float32(1/(T-1))``,
 which equals ``jnp.linspace(0, 1, T)`` bit for bit (``torch.linspace`` does
@@ -110,29 +111,39 @@ def _binary_precision_recall_curve_format(
     target: torch.Tensor,
     thresholds: Thresholds = None,
     ignore_index: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Flatten, sigmoid-if-logits; returns (preds, target, valid, thresholds)."""
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Flatten, sigmoid-if-logits; returns (preds, target, valid, thresholds).
+
+    Binned (``thresholds`` given): the target stays as the caller holds it
+    and ``valid`` is None, since the ``binned_curve`` count reads
+    ``ignore_index`` itself. Exact: the target with ignored entries set to
+    0, as int32, and the valid mask."""
     preds = _sigmoid_if_logits(preds.reshape(-1))
+    thresholds = _adjust_threshold_arg(thresholds, preds.device)
+    if thresholds is not None:
+        return preds, target.reshape(-1), None, thresholds
     target, valid = _valid_and_masked(target.reshape(-1), ignore_index)
-    return preds, target, valid, _adjust_threshold_arg(thresholds, preds.device)
+    return preds, target, valid, thresholds
 
 
 def _binary_precision_recall_curve_update(
     preds: torch.Tensor,
     target: torch.Tensor,
-    valid: torch.Tensor,
+    valid: Optional[torch.Tensor],
     thresholds: Optional[torch.Tensor],
     sorted_thresholds: Optional[SortedThresholds] = None,
+    ignore_index: Optional[int] = None,
 ) -> Optional[torch.Tensor]:
     """Binned state update: ``(T, 2, 2)`` int32 counts from the
-    ``binned_curve`` kernel (None in exact mode). A metric passes the
-    ``sorted_thresholds`` it keeps; a functional call leaves them to be
-    sorted here."""
+    ``binned_curve`` kernel (None in exact mode), over the samples of the
+    ``valid`` mask or, with ``valid=None``, those whose target is not
+    ``ignore_index``. A metric passes the ``sorted_thresholds`` it keeps; a
+    functional call leaves them to be sorted here."""
     if thresholds is None:
         return None
     if sorted_thresholds is None:
         sorted_thresholds = sort_thresholds(thresholds)
-    return binned_curve_counts(preds, target, valid, sorted_thresholds).to(torch.int32)
+    return binned_curve_counts(preds, target, valid, sorted_thresholds, ignore_index).to(torch.int32)
 
 
 def _binary_clf_curve(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -203,7 +214,7 @@ def binary_precision_recall_curve(
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
     preds, target, valid, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
-    state = _binary_precision_recall_curve_update(preds, target, valid, thresholds)
+    state = _binary_precision_recall_curve_update(preds, target, valid, thresholds, ignore_index=ignore_index)
     if state is None:
         state = _keep_valid(preds, target, valid)
     return _binary_precision_recall_curve_compute(state, thresholds)

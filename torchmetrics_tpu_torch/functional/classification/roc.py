@@ -78,7 +78,7 @@ def binary_roc(
         _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
         _binary_precision_recall_curve_tensor_validation(preds, target, ignore_index)
     preds, target, valid, thresholds = _binary_precision_recall_curve_format(preds, target, thresholds, ignore_index)
-    state = _binary_precision_recall_curve_update(preds, target, valid, thresholds)
+    state = _binary_precision_recall_curve_update(preds, target, valid, thresholds, ignore_index=ignore_index)
     if state is None:
         state = _keep_valid(preds, target, valid)
     return _binary_roc_compute(state, thresholds)

@@ -60,17 +60,20 @@ def registered_kernels() -> Dict[str, KernelSpec]:
 
 def _record_gate(name: str, path: str, device: torch.device) -> None:
     with _GATE_LOCK:
-        entry = _GATE_LOG.setdefault(name, {"selections": {}})
+        entry = _GATE_LOG.get(name)
+        if entry is None:
+            entry = _GATE_LOG[name] = {"selections": {}}
         entry["path"] = path
-        entry["device"] = str(device)
-        entry["selections"][path] = entry["selections"].get(path, 0) + 1
+        entry["device"] = device  # formatted by gate_snapshot, not on every launch
+        selections = entry["selections"]
+        selections[path] = selections.get(path, 0) + 1
 
 
 def gate_snapshot() -> Dict[str, Dict[str, Any]]:
     """Last decision plus per-path selection counts for every kernel that has
     dispatched in this process."""
     with _GATE_LOCK:
-        return {k: dict(v, selections=dict(v["selections"])) for k, v in _GATE_LOG.items()}
+        return {k: dict(v, device=str(v["device"]), selections=dict(v["selections"])) for k, v in _GATE_LOG.items()}
 
 
 def reset_gate_log() -> None:
@@ -82,7 +85,8 @@ def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
     """Run kernel ``name`` on the body its tensors' device selects (see the
     module docstring). The first tensor argument names the device."""
     spec = _REGISTRY[name]
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    first = args[0] if isinstance(args[0], torch.Tensor) else next(a for a in args if isinstance(a, torch.Tensor))
+    device = first.device
     if device.type == "cpu":
         body, path = spec.reference, "reference"
     elif device.type == "cuda":

@@ -2,10 +2,19 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into its own shared library for ``sm_90a``, then loaded
-with ``ctypes``. Libraries are named by a hash of their source and land in
-``_build/`` beside the package (listed in ``.gitignore``), so an edited source
-rebuilds and an unchanged one is reused. Nothing is built at import: the
-first launch builds (or :func:`build` does, ahead of traffic).
+with ``ctypes``. Libraries are named by a hash of their source (and of the
+shared headers ``csrc/*.cuh``) and land in ``_build/`` beside the package
+(listed in ``.gitignore``), so an edited source rebuilds and an unchanged one
+is reused. Nothing is built at import: the first launch builds (or
+:func:`build` does, ahead of traffic).
+
+The lean launch path (``csrc/launch.cuh``; the ``binned_curve`` and
+``retrieval_topk_stats`` wrappers): the C entry takes the device index and
+switches device only when the caller's current one differs, restoring it
+before it returns, so the wrapper enters no ``torch.cuda.device`` context;
+the runtime queries a launch needs are cached in C once a device; and device
+memory a kernel keeps from call to call comes from :class:`StreamScratch`,
+one buffer per stream, so no call allocates scratch.
 """
 from __future__ import annotations
 
@@ -15,7 +24,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -44,9 +53,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives (source-hashed)."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives (hashed on its
+    source and the shared headers)."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> Tuple[str, ...]:
@@ -108,3 +120,58 @@ def current_stream(device: int) -> int:
     if raw is not None:
         return raw(device)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class StreamScratch:
+    """Device memory a kernel keeps from call to call, one pair of byte
+    buffers per (device, stream): ``zeroed``, made zero and left zero by
+    every launch that uses it (tickets, a histogram cleared as it is read),
+    and ``scratch``, which a launch writes before it reads.
+
+    Keyed by the stream's raw handle, so two streams never share a buffer,
+    and taken from torch's caching allocator on the calling stream, so a
+    buffer replaced when it grows is reused only after the launches queued
+    on that stream. A stream keeps buffers of the largest sizes it has asked
+    for, up to :attr:`KEEP_BYTES` together; a call that needs more gets buffers
+    of its own, freed when the call's tensors are. A stream whose handle may
+    be reused once it is destroyed (``torch.cuda.ExternalStream``) must not
+    be destroyed while calls made on it are queued: the next stream given the
+    handle takes over its buffers. An entry is ``(zeroed, scratch,
+    zeroed_ptr, zeroed_bytes, scratch_ptr, scratch_bytes)``; a caller holds
+    it until its launch is queued.
+    """
+
+    #: what a stream keeps: 4 MiB holds the one-launch count's buffers at
+    #: any T <= 4,095 and the multi-launch scan's up to about 260,000
+    #: thresholds
+    KEEP_BYTES = 4 << 20
+
+    def __init__(self) -> None:
+        self._buffers: Dict[Tuple[int, int], Tuple] = {}
+
+    def get(self, device: int, stream: int) -> Optional[Tuple]:
+        """The stream's entry, or None before its first call."""
+        return self._buffers.get((device, stream))
+
+    def grow(self, device: int, stream: int, zeroed_bytes: int, scratch_bytes: int) -> Tuple:
+        """An entry with buffers of at least the given sizes for the stream:
+        the kept one while it suffices, else new buffers (``zeroed`` zero),
+        kept when they fit in :attr:`KEEP_BYTES`."""
+        import torch
+
+        old = self._buffers.get((device, stream))
+        if old is not None:
+            if old[3] >= zeroed_bytes and old[5] >= scratch_bytes:
+                return old
+            zeroed_bytes, scratch_bytes = max(zeroed_bytes, old[3]), max(scratch_bytes, old[5])
+        zeroed = torch.zeros(max(zeroed_bytes, 16), dtype=torch.uint8, device=device)
+        scratch = torch.empty(max(scratch_bytes, 16), dtype=torch.uint8, device=device)
+        entry = (zeroed, scratch, zeroed.data_ptr(), zeroed.numel(), scratch.data_ptr(), scratch.numel())
+        if zeroed.numel() + scratch.numel() <= self.KEEP_BYTES:
+            self._buffers[(device, stream)] = entry
+        return entry
+
+    def drop(self, device: int, stream: int) -> None:
+        """Forget the stream's buffers (after a failed launch, which may have
+        left ``zeroed`` dirty); its next call makes new ones."""
+        self._buffers.pop((device, stream), None)

@@ -19,7 +19,8 @@ Two bodies behind the ``"retrieval_topk_stats"`` entry of the dispatch seam
   held against on the card.
 
 With 0/1 targets, which the metric paths validate, the sums are integers in
-float32 and both bodies are bit-equal.
+float32 and both bodies are bit-equal. The kernel's wrapper is on the lean
+launch path of ``ops/native.py``.
 """
 from __future__ import annotations
 
@@ -53,18 +54,14 @@ def _topk_stats_reference(ranked_target: torch.Tensor, counts: torch.Tensor, top
 def _entry() -> ctypes._CFuncPtr:
     """The kernel's C entry point, built and typed once."""
     fn = native.load("retrieval_topk_stats").tm_retrieval_topk_stats
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _topk_stats_cuda(ranked_target: torch.Tensor, counts: torch.Tensor, top_k: int) -> torch.Tensor:
-    """Launch ``csrc/retrieval_topk_stats.cu`` on ``torch.cuda.current_stream()``.
-
-    Takes ``ranked_target`` float32 ``(Q, L)`` and ``counts`` int32 ``(Q,)``,
-    both contiguous on one CUDA device; raises on anything else. Returns a
-    fresh float32 ``(Q, 4)``; with ``Q == 0`` it returns it without a launch."""
-    global launches
+def _refuse(ranked_target: torch.Tensor, counts: torch.Tensor) -> None:
+    """Raise the error that says why :func:`_topk_stats_cuda` cannot take
+    these arguments (its one combined test failed)."""
     if ranked_target.dtype != torch.float32 or counts.dtype != torch.int32:
         raise TypeError(
             "retrieval_topk_stats kernel takes float32 ranked targets and int32 counts,"
@@ -77,19 +74,45 @@ def _topk_stats_cuda(ranked_target: torch.Tensor, counts: torch.Tensor, top_k: i
         )
     if not (ranked_target.is_contiguous() and counts.is_contiguous()):
         raise ValueError("retrieval_topk_stats kernel takes contiguous ranked targets and counts")
-    if ranked_target.device.type != "cuda" or counts.device != ranked_target.device:
-        raise ValueError(
-            "retrieval_topk_stats kernel takes ranked targets and counts on one CUDA device,"
-            f" got {ranked_target.device} and {counts.device}"
-        )
+    raise ValueError(
+        "retrieval_topk_stats kernel takes ranked targets and counts on one CUDA device,"
+        f" got {ranked_target.device} and {counts.device}"
+    )
+
+
+def _fits(ranked_target: torch.Tensor, counts: torch.Tensor, device: int) -> bool:
+    """The wrapper's one combined test: whether the kernel takes these
+    arguments with both on ``device`` (a ``get_device()`` index)."""
+    return (
+        ranked_target.dtype is torch.float32 and counts.dtype is torch.int32
+        and ranked_target.dim() == 2 and counts.dim() == 1 and counts.shape[0] == ranked_target.shape[0]
+        and ranked_target.is_contiguous() and counts.is_contiguous() and counts.get_device() == device
+    )
+
+
+def _topk_stats_cuda(ranked_target: torch.Tensor, counts: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Launch ``csrc/retrieval_topk_stats.cu`` on ``torch.cuda.current_stream()``.
+
+    Takes ``ranked_target`` float32 ``(Q, L)`` and ``counts`` int32 ``(Q,)``,
+    both contiguous on one CUDA device; raises on anything else. Returns a
+    fresh float32 ``(Q, 4)``; with ``Q == 0`` it returns it without a launch.
+    The kernel picks the lanes that sum a row from L.
+
+    The lean launch path: one combined test of the arguments (the detailed
+    errors come from :func:`_refuse` only when it fails), the device guard in
+    the C entry, the output the only allocation."""
+    global launches
+    device = ranked_target.get_device()
+    if device < 0 or not _fits(ranked_target, counts, device):
+        _refuse(ranked_target, counts)
     q, length = ranked_target.shape
-    out = torch.empty((q, 4), dtype=torch.float32, device=ranked_target.device)
+    out = torch.empty((q, 4), dtype=torch.float32, device=device)
     if q == 0:
         return out
-    launch = _entry()
-    with torch.cuda.device(ranked_target.device):
-        stream = native.current_stream(ranked_target.device.index)
-        err = launch(ranked_target.data_ptr(), counts.data_ptr(), out.data_ptr(), q, length, int(top_k), stream)
+    err = _entry()(
+        device, ranked_target.data_ptr(), counts.data_ptr(), out.data_ptr(), q, length, top_k,
+        native.current_stream(device),
+    )
     if err != 0:
         raise RuntimeError(f"retrieval_topk_stats kernel launch failed with CUDA error {err}")
     launches += 1
@@ -122,10 +145,12 @@ def retrieval_topk_stats(ranked_target: torch.Tensor, counts: torch.Tensor, top_
     k = -1 if top_k is None else int(top_k)
 
     def build() -> torch.Tensor:
+        grid = ranked_target if ranked_target.dtype is torch.float32 else ranked_target.to(torch.float32)
+        kept = counts if counts.dtype is torch.int32 else counts.to(torch.int32)
         return kernels.dispatch(
             "retrieval_topk_stats",
-            ranked_target.to(torch.float32).contiguous(),
-            counts.to(torch.int32).contiguous(),
+            grid if grid.is_contiguous() else grid.contiguous(),
+            kept if kept.is_contiguous() else kept.contiguous(),
             k,
         )
 
