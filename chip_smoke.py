@@ -1789,6 +1789,226 @@ def phase_cifar10(dev) -> dict:
     return out
 
 
+#: the sync phase (one-rank NCCL world), depth cut to fit the time limit:
+#: the first 8 ImageNet batches (of 49) through the ImageNet collection plus
+#: specificity, Hamming distance, Matthews correlation and Cohen's kappa
+#: (1,000 classes), and their per-sample losses through the aggregators; the
+#: first 4 config-6 batches (of 50, 1M scores each) through exact-mode and
+#: binned binary AUROC; all 70 MS MARCO updates (6,980 x 1,000); FID at
+#: F = 2048 over 4 batches of 600 real and 600 generated feature rows
+SYNC = {"imagenet_batches": 8, "curve_batches": 4, "fid_features": 2048, "fid_batches": 4, "fid_batch": 600,
+        "repeats": 5}
+#: Matthews correlation and Cohen's kappa on the synced ImageNet counts
+#: against float64 from the plain count: float32 near 0
+SYNC_ATOL = 1e-5
+
+
+def _sync_families(dev) -> dict:
+    """name -> (metric or collection, batches, update) of every synced family."""
+    import torch
+    import torch.nn.functional as F
+
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAUROC,
+        MulticlassCohenKappa,
+        MulticlassHammingDistance,
+        MulticlassMatthewsCorrCoef,
+        MulticlassSpecificity,
+    )
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    imagenet = _imagenet(dev)
+    c = imagenet["num_classes"]
+    counts = imagenet["collection"]()
+    counts.add_metrics({
+        "specificity": MulticlassSpecificity(num_classes=c, validate_args=False),
+        "hamming": MulticlassHammingDistance(num_classes=c, validate_args=False),
+        "mcc": MulticlassMatthewsCorrCoef(num_classes=c, validate_args=False),
+        "kappa": MulticlassCohenKappa(num_classes=c, validate_args=False),
+    })
+    n = SYNC["imagenet_batches"]
+    image_batches = [b for _, b in zip(range(n), imagenet["batches"]())]
+    aggregators = tm.MetricCollection({
+        "sum": tm.SumMetric(), "mean": tm.MeanMetric(), "max": tm.MaxMetric(), "min": tm.MinMetric(),
+        "cat": tm.CatMetric(), "running_mean": tm.RunningMean(window=5),
+    })
+    ignore = BINARY_CURVE["ignore_index"]
+    curves = tm.MetricCollection({
+        "exact": BinaryAUROC(thresholds=None, ignore_index=ignore, validate_args=False),
+        "binned": BinaryAUROC(thresholds=BINARY_CURVE["thresholds"], ignore_index=ignore, validate_args=False),
+    })
+    msmarco = _msmarco(dev)
+    fid = FrechetInceptionDistance(feature_extractor=lambda x: x, num_features=SYNC["fid_features"])
+
+    def features():
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+        shape = (SYNC["fid_batch"], SYNC["fid_features"])
+        for _ in range(SYNC["fid_batches"]):
+            yield torch.randn(shape, generator=g, device=dev), 1.1 * torch.randn(shape, generator=g, device=dev) + 0.05
+
+    def update_fid(m, batch):
+        m.update(batch[0], real=True)
+        m.update(batch[1], real=False)
+
+    return {
+        "imagenet_counts": (counts, image_batches, lambda m, b: m.update(*b)),
+        "aggregators": (
+            aggregators, [F.cross_entropy(p, t, reduction="none") for p, t in image_batches],
+            lambda m, b: m.update(b),
+        ),
+        "binary_auroc": (curves, list(_binary_curve(dev)["batches"](SYNC["curve_batches"])), lambda m, b: m.update(*b)),
+        "msmarco": (msmarco["collection"](), list(msmarco["batches"]()), msmarco["update"]),
+        "fid": (fid, list(features()), update_fid),
+    }
+
+
+def _bit_equal(a, b) -> bool:
+    """Equal bit for bit: dicts key by key, a list state concatenated (a
+    synced list is one tensor, or one per rank), a None-reduced field (one
+    rank's stack) by its elements."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bit_equal(a[k], b[k]) for k in a)
+    a, b = (torch.cat([torch.atleast_1d(t) for t in x]) if isinstance(x, list) else x for x in (a, b))
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1), b.reshape(-1))
+
+
+def _state_bytes(state) -> int:
+    import torch
+
+    total = 0
+    for v in state.values():
+        for t in v if isinstance(v, list) else [v]:
+            if isinstance(t, torch.Tensor):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _check_imagenet_sync(result, batches) -> dict:
+    """The synced ImageNet counts against the plain count of the same
+    batches: the confusion matrix exact, the derived values float64's."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount
+
+    c = IMAGENET["num_classes"]
+    plain = None
+    for preds, target in batches:
+        idx = (c * target + preds.argmax(1)).to(torch.int32)
+        counts = bincount._wbincount_reference(idx, None, c * c).to(torch.int64)
+        plain = counts if plain is None else plain + counts
+    plain = plain.reshape(c, c)
+    _check(torch.equal(result["confmat"].to(torch.int64), plain), "sync: the synced confusion matrix differs from the plain count")
+    cm, tp, fp, fn, present = _derived(plain)
+    w = present.to(torch.float64)
+    n = cm.sum()
+    tn = n - tp - fp - fn
+    _close("sync specificity", result["specificity"], (_safe(tn, tn + fp) * w).sum() / w.sum())
+    _close("sync hamming", result["hamming"], 1 - (_safe(tp, tp + fn) * w).sum() / w.sum())
+    tk, pk = cm.sum(1), cm.sum(0)
+    mcc = (tp.sum() * n - (tk * pk).sum()) / torch.sqrt((n**2 - (pk * pk).sum()) * (n**2 - (tk * tk).sum()))
+    expected = torch.outer(tk, pk) / n
+    off = 1 - torch.eye(c, dtype=torch.float64, device=cm.device)
+    kappa = 1 - (off * cm).sum() / (off * expected).sum()
+    errors = {"mcc": abs(float(result["mcc"]) - float(mcc)), "kappa": abs(float(result["kappa"]) - float(kappa))}
+    for name, err in errors.items():
+        _check(err <= SYNC_ATOL, f"sync: {name} {float(result[name])} is {err} from float64")
+    return {"mcc_float64": float(mcc), "kappa_float64": float(kappa), "abs_err": errors}
+
+
+def phase_sync(dev, backend: str = "nccl") -> dict:
+    """Cross-process sync in a one-rank world of ``backend`` (NCCL on the
+    card: a real communicator whose collectives launch NCCL kernels).
+
+    Each family is updated batch by batch, then computed without a sync
+    (``functional_compute`` of its state) and with one (``compute()``,
+    sync on compute): the two must be equal bit for bit, and so must every
+    field of ``functional_sync`` against the state, since the world is one
+    rank. Printed for each family: the collectives of one sync, counted at
+    the seams, and the median wall time of a ``functional_sync`` (ending in
+    a device synchronise) over a few repeats. Every kernel's launch count
+    is set to 0 before the families run and read after; ``bincount`` must
+    launch once per ImageNet update, and every kernel on the synced path at
+    least once."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.parallel import sync as psync
+
+    store_dir = Path(__file__).resolve().parent / "torchmetrics_tpu_torch" / "_build"
+    store_dir.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(dir=store_dir)
+    dist.init_process_group(backend, init_method=f"file://{store}/store", world_size=1, rank=0, device_id=dev)
+    try:
+        families = _sync_families(dev)
+        counters = _launch_counters()
+        for module in counters.values():
+            module.launches = 0
+        rows = {}
+        for name, (metric, batches, update) in families.items():
+            before = {k: m.launches for k, m in counters.items()}
+            t0 = time.perf_counter()
+            for batch in batches:
+                update(metric, batch)
+            torch.cuda.synchronize()
+            update_s = time.perf_counter() - t0
+            update_launches = {k: m.launches - before[k] for k, m in counters.items()}
+            local = metric.functional_compute(metric.state())
+            t0 = time.perf_counter()
+            synced = metric.compute()
+            torch.cuda.synchronize()
+            compute_synced_ms = (time.perf_counter() - t0) * 1e3
+            _check(_bit_equal(synced, local), f"sync: {name}: the synced compute differs from the unsynced one")
+            state = metric.state()
+            is_collection = isinstance(metric, MetricCollection)
+            leaders = state if is_collection else {name: state}
+            r0, g0 = psync.all_reduces, psync.all_gathers
+            after = metric.functional_sync(state)
+            collectives = {"all_reduce": psync.all_reduces - r0, "all_gather": psync.all_gathers - g0}
+            after = after if is_collection else {name: after}
+            for leader, st in leaders.items():
+                _check(int(after[leader]["_update_count"]) == st["_update_count"], f"sync: {name}: update count")
+                _check(
+                    _bit_equal({k: v for k, v in after[leader].items() if k != "_update_count"},
+                               {k: v for k, v in st.items() if k != "_update_count"}),
+                    f"sync: {name}: functional_sync changed {leader}'s state in a world of one",
+                )
+            sync_ms = []
+            for _ in range(SYNC["repeats"]):
+                t0 = time.perf_counter()
+                metric.functional_sync(state)
+                torch.cuda.synchronize()
+                sync_ms.append((time.perf_counter() - t0) * 1e3)
+            state_bytes = sum(_state_bytes(st) for st in leaders.values())
+            rows[name] = {
+                "updates": len(batches), "update_s": update_s, "update_launches": update_launches,
+                "collectives_per_sync": collectives, "state_bytes": state_bytes,
+                "sync_ms": statistics.median(sync_ms), "sync_ms_all": sync_ms,
+                "compute_synced_ms": compute_synced_ms, "bit_equal": True,
+            }
+            if name == "imagenet_counts":
+                rows[name]["check"] = _check_imagenet_sync(synced, batches)
+                bc = update_launches["bincount"]
+                _check(bc == len(batches), f"sync: {bc} bincount launches for {len(batches)} ImageNet updates")
+        launches = {k: m.launches for k, m in counters.items()}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    on_path = ("bincount", "binned_curve", "retrieval_topk_stats", "fid_sqrtm")
+    for k in on_path:
+        _check(launches[k] > 0, f"sync: {k} was not launched on the synced path")
+    out = {"phase": "sync", "backend": backend, "world": 1, "launches": launches, "families": rows}
+    _emit(out)
+    return out
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -2016,6 +2236,7 @@ def main() -> int:
     uvg = phase_uvg(dev)
     sqrtm_rows = phase_sqrtm_kernels(dev)
     cifar = phase_cifar10(dev)
+    sync = phase_sync(dev)
     if PROFILE:
         for name in WORKLOADS:
             if name != "uvg_1080p":  # profiled inside phase_uvg
@@ -2042,7 +2263,7 @@ def main() -> int:
             "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
             "replaces": "torchmetrics_tpu/ops/bincount.py:76",
             "launches": imagenet["bincount_launches"] + cityscapes["bincount_launches"]
-            + imagenet_curve["bincount_launches"],
+            + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -2056,7 +2277,7 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/binned_curve.cu",
             "replaces": "torchmetrics_tpu/ops/binned_curve.py:103",
-            "launches": binary["binned_curve_launches"],
+            "launches": binary["binned_curve_launches"] + sync["launches"]["binned_curve"],
             "max_abs_err": max(r["max_abs_err"] for r in curve_rows),
             "ms": curve["ms"],
             "plain_ms": curve["plain_ms"],
@@ -2073,7 +2294,7 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/retrieval_topk_stats.cu",
             "replaces": "torchmetrics_tpu/ops/topk_kernel.py:68",
-            "launches": msmarco["topk_launches"],
+            "launches": msmarco["topk_launches"] + sync["launches"]["retrieval_topk_stats"],
             "max_abs_err": max(r["max_abs_err"] for r in topk_rows),
             "ms": topk["ms"],
             "plain_ms": topk["plain_ms"],
@@ -2124,7 +2345,7 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/fid_sqrtm.cu",
             "replaces": "torchmetrics_tpu/ops/sqrtm_kernel.py:82",
-            "launches": cifar["fid_sqrtm_launches_total"],
+            "launches": cifar["fid_sqrtm_launches_total"] + sync["launches"]["fid_sqrtm"],
             "calls": sum(cifar["fid_sqrtm_calls"].values()),
             "max_abs_err": max(r["max_abs_err"] for r in sqrtm_rows if r["full_rank"]),
             "ms": root["ms"],

@@ -856,3 +856,116 @@ def test_inception_network_on_card_equals_cpu(cuda_device):
         with full_float32():
             on_card = inception.inception_feature_extractor(state, tap, device=cuda_device)(imgs.to(cuda_device))
         assert float((on_card.cpu() - on_cpu).abs().max()) <= 1e-4 * float(on_cpu.abs().max())
+
+
+# ---------------------------------------------------------- sync under NCCL
+
+
+@pytest.fixture
+def nccl_world(cuda_device, tmp_path):
+    """A one-rank NCCL world (a real communicator: its collectives launch
+    NCCL kernels on the card), from a ``file://`` store."""
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/store", world_size=1, rank=0, device_id=cuda_device
+    )
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+def _sync_families(device):
+    """Every synced family, updated on seeded inputs on ``device``: name ->
+    (metric or collection)."""
+    from torchmetrics_tpu_torch import classification as cls
+    from torchmetrics_tpu_torch import image, retrieval
+
+    g = torch.Generator(device=device).manual_seed(0)
+    c = 20
+    counts = tm.MetricCollection(
+        {
+            "accuracy": cls.MulticlassAccuracy(num_classes=c),
+            "f1": cls.MulticlassF1Score(num_classes=c),
+            "confmat": cls.MulticlassConfusionMatrix(num_classes=c),
+            "specificity": cls.MulticlassSpecificity(num_classes=c),
+            "hamming": cls.MulticlassHammingDistance(num_classes=c),
+            "mcc": cls.MulticlassMatthewsCorrCoef(num_classes=c),
+            "kappa": cls.MulticlassCohenKappa(num_classes=c),
+        }
+    )
+    curves = tm.MetricCollection(
+        {"binned": cls.BinaryAUROC(thresholds=50), "exact": cls.BinaryAUROC(thresholds=None)}
+    )
+    ranking = tm.MetricCollection({"map": retrieval.RetrievalMAP(), "mrr": retrieval.RetrievalMRR()})
+    aggregators = tm.MetricCollection(
+        {"sum": tm.SumMetric(), "mean": tm.MeanMetric(), "max": tm.MaxMetric(), "min": tm.MinMetric(),
+         "cat": tm.CatMetric(), "running": tm.RunningMean(window=3)}
+    )
+    ssim = image.StructuralSimilarityIndexMeasure(data_range=1.0)
+    fid = image.FrechetInceptionDistance(feature_extractor=lambda x: x, num_features=64)
+    for i in range(3):
+        counts.update(torch.randn((256, c), generator=g, device=device), torch.randint(0, c, (256,), generator=g, device=device))
+        target = torch.randint(0, 2, (1000,), generator=g, device=device)
+        curves.update(torch.rand(1000, generator=g, device=device), target)
+        ranking.update(
+            torch.rand(300, generator=g, device=device), torch.randint(0, 2, (300,), generator=g, device=device),
+            indexes=torch.arange(300, device=device) // 10 + 30 * i,
+        )
+        aggregators.update(torch.rand(7, generator=g, device=device))
+        ssim.update(*(torch.rand((2, 3, 32, 32), generator=g, device=device) for _ in range(2)))
+        fid.update(torch.randn((100, 64), generator=g, device=device), real=True)
+        fid.update(torch.randn((100, 64), generator=g, device=device) + 0.2, real=False)
+    return {"counts": counts, "curves": curves, "ranking": ranking, "aggregators": aggregators, "ssim": ssim, "fid": fid}
+
+
+def _bit_equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bit_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_bit_equal(x, y) for x, y in zip(a, b))
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    # a None-reduced field stacks one row per rank: in a world of one, the
+    # same elements
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1), b.reshape(-1))
+
+
+def _flat_lists(state):
+    """A state with every list field concatenated (a synced list is one
+    tensor, or one per rank)."""
+    return {k: (torch.cat([torch.atleast_1d(t) for t in v]) if isinstance(v, list) and v else v) for k, v in state.items()}
+
+
+def test_nccl_sync_in_a_world_of_one_changes_nothing(nccl_world):
+    """Synced values equal unsynced ones bit for bit for every family, and
+    so does every field ``functional_sync`` returns (the update count too);
+    the sync runs through NCCL's all_reduce and all_gather."""
+    from torchmetrics_tpu_torch.parallel import sync as psync
+
+    before = psync.all_reduces + psync.all_gathers
+    for name, m in _sync_families(nccl_world).items():
+        local = m.functional_compute(m.state())  # no sync
+        synced = m.compute()  # sync_on_compute, through NCCL
+        assert _bit_equal(synced, local), name
+        members = m.state() if isinstance(m, tm.MetricCollection) else {name: m.state()}
+        after = m.functional_sync(m.state()) if isinstance(m, tm.MetricCollection) else {name: m.functional_sync(m.state())}
+        for leader, st in members.items():
+            assert int(after[leader]["_update_count"]) == st["_update_count"] > 0
+            assert _bit_equal(
+                _flat_lists({k: v for k, v in after[leader].items() if k != "_update_count"}),
+                _flat_lists({k: v for k, v in st.items() if k != "_update_count"}),
+            ), (name, leader)
+    assert psync.all_reduces + psync.all_gathers > before
+
+
+def test_a_cpu_state_under_nccl_raises(nccl_world):
+    m = tm.SumMetric(device="cpu")
+    m.update(torch.tensor([1.0, 2.0]))
+    with pytest.raises(RuntimeError, match="'nccl' backend cannot take tensors on cpu"):
+        m.compute()
+    assert float(m.sum_value) == 3.0 and not m._is_synced
+    # and a card metric's states go through
+    card = tm.SumMetric()
+    card.update(torch.tensor([1.0, 2.0], device=nccl_world))
+    assert float(card.compute()) == 3.0

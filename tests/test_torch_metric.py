@@ -232,10 +232,13 @@ def test_sync_is_a_no_op_in_one_process_and_unported_in_many():
     m.update(torch.tensor([0.9]), torch.tensor([1]))
     m.sync()  # no process group: nothing to do
     assert float(m.compute()) == 1.0
+    # told a world exists where no process group was initialised, the sync
+    # reaches torch.distributed, which refuses; the local state stays
     world = classification.BinaryAccuracy(device="cpu", distributed_available_fn=lambda: True)
     world.update(torch.tensor([0.9]), torch.tensor([1]))
-    with pytest.raises(NotImplementedError, match="not\\s+ported"):
+    with pytest.raises(ValueError, match="process group has not been initialized"):
         world.compute()
+    assert not world._is_synced and int(world.tp) == 1
     with pytest.raises(TorchMetricsUserError):
         m.unsync()
 

@@ -19,9 +19,22 @@ metric is built with ``device="cpu"``. Ported so far:
   kernel (``csrc/ssim_windows.cu``);
 - FID, KID, MiFID and the Inception Score on the InceptionV3 feature
   network (``models/``); FID's and MiFID's PSD square root runs on the
-  ``fid_sqrtm`` kernel (``csrc/fid_sqrtm.cu``).
+  ``fid_sqrtm`` kernel (``csrc/fid_sqrtm.cu``);
+- cross-process state sync on ``torch.distributed`` (``parallel/``: gloo
+  on the CPU, NCCL on the card), with its timeout, retry and degradation
+  policies (``io/retry.py``, ``quarantine.py``);
+- the aggregators (sum, mean, max, min, cat, running mean and sum).
 """
-from torchmetrics_tpu_torch import classification, functional, image, models, retrieval
+from torchmetrics_tpu_torch import classification, functional, image, models, parallel, retrieval
+from torchmetrics_tpu_torch.aggregation import (
+    CatMetric,
+    MaxMetric,
+    MeanMetric,
+    MinMetric,
+    RunningMean,
+    RunningSum,
+    SumMetric,
+)
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.collections import MetricCollection
@@ -32,13 +45,21 @@ from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 
 __all__ = [
+    "CatMetric",
     "CompositionalMetric",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
+    "RunningMean",
+    "RunningSum",
+    "SumMetric",
     "classification",
     "functional",
     "image",
     "models",
+    "parallel",
     "retrieval",
     *_classification_all,
     *_image_all,

@@ -1,5 +1,7 @@
-"""Modular classification metrics: the stat-scores family, the threshold
-curves (PR curve, ROC, AUROC, average precision) and calibration error."""
+"""Modular classification metrics: the stat-scores family (with specificity
+and Hamming distance), the confusion matrix and what derives from it
+(Matthews correlation, Cohen's kappa), the threshold curves (PR curve, ROC,
+AUROC, average precision) and calibration error."""
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
     BinaryAccuracy,
@@ -18,6 +20,7 @@ from torchmetrics_tpu_torch.classification.calibration_error import (
     CalibrationError,
     MulticlassCalibrationError,
 )
+from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
@@ -34,11 +37,23 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from torchmetrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
 from torchmetrics_tpu_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
     MulticlassJaccardIndex,
     MultilabelJaccardIndex,
+)
+from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
 )
 from torchmetrics_tpu_torch.classification.precision_recall import (
     BinaryPrecision,
@@ -57,6 +72,12 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     PrecisionRecallCurve,
 )
 from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
+from torchmetrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
+)
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
     MulticlassStatScores,
@@ -72,32 +93,43 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAveragePrecision",
     "BinaryCalibrationError",
+    "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryHammingDistance",
     "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryRecall",
+    "BinarySpecificity",
     "BinaryStatScores",
     "CalibrationError",
+    "CohenKappa",
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
     "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
     "MulticlassCalibrationError",
+    "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassHammingDistance",
     "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
     "MulticlassRecall",
+    "MulticlassSpecificity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
@@ -105,15 +137,19 @@ __all__ = [
     "MultilabelConfusionMatrix",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelHammingDistance",
     "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
     "MultilabelRecall",
+    "MultilabelSpecificity",
     "MultilabelStatScores",
     "Precision",
     "PrecisionRecallCurve",
     "ROC",
     "Recall",
+    "Specificity",
     "StatScores",
 ]

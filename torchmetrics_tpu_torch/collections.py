@@ -20,6 +20,7 @@ import torch
 
 from torchmetrics_tpu_torch.metric import Metric, resolve_device
 from torchmetrics_tpu_torch.ops.kernels import shared_scope
+from torchmetrics_tpu_torch.parallel.sync import sync_states
 from torchmetrics_tpu_torch.utils.data import _flatten_dict
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -392,6 +393,49 @@ class MetricCollection:
                 m0 = self._modules[cg[0]]
                 out[cg[0]] = m0.functional_update(states[cg[0]], *args, **m0._filter_kwargs(**kwargs))
         return out
+
+    def functional_sync(
+        self, states: Dict[str, Dict[str, Any]], process_group: Any = None
+    ) -> Dict[str, Dict[str, Any]]:
+        """Pure sync with cross-group fusion: ``states -> states`` reduced
+        across ranks.
+
+        Every plain leader's fields (and its ``"_update_count"``, an int64
+        ``sum``) go through ONE :func:`~torchmetrics_tpu_torch.parallel.sync.sync_states`
+        per process group, so a collection of count metrics costs one
+        ``all_reduce`` per (reduction, dtype) for the whole collection, and
+        all its list fields one metadata gather. A leader with its own
+        ``dist_sync_fn``, or a subclass overriding ``functional_sync``, keeps
+        its own path. ``process_group`` overrides each leader's own.
+        """
+        count_key = Metric._STATE_COUNT_KEY
+        out: Dict[str, Dict[str, Any]] = {}
+        by_group: Dict[int, Tuple[Any, List[str]]] = {}
+        for leader, st in states.items():
+            m = self._modules[leader]
+            if m.dist_sync_fn is not None or type(m).functional_sync is not Metric.functional_sync:
+                out[leader] = m.functional_sync(st, process_group)
+                continue
+            group = process_group if process_group is not None else m.process_group
+            by_group.setdefault(id(group), (group, []))[1].append(leader)
+        for group, leaders in by_group.values():
+            flat: Dict[str, Any] = {}
+            reductions: Dict[str, Any] = {}
+            for leader in leaders:
+                for field, value in states[leader].items():
+                    key = f"{leader}\x00{field}"
+                    if field == count_key:
+                        flat[key] = torch.as_tensor(value, dtype=torch.int64, device=self._device)
+                        reductions[key] = "sum"
+                    else:
+                        flat[key] = value
+                        reductions[key] = self._modules[leader]._reductions.get(field)
+            timeouts = [self._modules[leader].sync_timeout for leader in leaders]
+            timeout = min((t for t in timeouts if t is not None), default=None)
+            synced = sync_states(flat, reductions, group, timeout=timeout, device=self._device)
+            for leader in leaders:
+                out[leader] = {field: synced[f"{leader}\x00{field}"] for field in states[leader]}
+        return {leader: out[leader] for leader in states}
 
     def functional_compute(self, states: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
         """Pure compute: every member reads its group leader's state."""

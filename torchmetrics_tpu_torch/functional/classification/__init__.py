@@ -1,5 +1,7 @@
-"""Functional classification metrics: the stat-scores family, the threshold
-curves (PR curve, ROC, AUROC, average precision) and calibration error."""
+"""Functional classification metrics: the stat-scores family (with
+specificity and Hamming distance), the confusion matrix and what derives
+from it (Matthews correlation, Cohen's kappa), the threshold curves (PR
+curve, ROC, AUROC, average precision) and calibration error."""
 from torchmetrics_tpu_torch.functional.classification.accuracy import (
     accuracy,
     binary_accuracy,
@@ -18,6 +20,7 @@ from torchmetrics_tpu_torch.functional.classification.calibration_error import (
     calibration_error,
     multiclass_calibration_error,
 )
+from torchmetrics_tpu_torch.functional.classification.cohen_kappa import binary_cohen_kappa, cohen_kappa, multiclass_cohen_kappa
 from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
     confusion_matrix,
@@ -34,11 +37,23 @@ from torchmetrics_tpu_torch.functional.classification.f_beta import (
     multilabel_f1_score,
     multilabel_fbeta_score,
 )
+from torchmetrics_tpu_torch.functional.classification.hamming import (
+    binary_hamming_distance,
+    hamming_distance,
+    multiclass_hamming_distance,
+    multilabel_hamming_distance,
+)
 from torchmetrics_tpu_torch.functional.classification.jaccard import (
     binary_jaccard_index,
     jaccard_index,
     multiclass_jaccard_index,
     multilabel_jaccard_index,
+)
+from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import (
+    binary_matthews_corrcoef,
+    matthews_corrcoef,
+    multiclass_matthews_corrcoef,
+    multilabel_matthews_corrcoef,
 )
 from torchmetrics_tpu_torch.functional.classification.precision_recall import (
     binary_precision,
@@ -57,6 +72,12 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     precision_recall_curve,
 )
 from torchmetrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
+from torchmetrics_tpu_torch.functional.classification.specificity import (
+    binary_specificity,
+    multiclass_specificity,
+    multilabel_specificity,
+    specificity,
+)
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
@@ -72,32 +93,43 @@ __all__ = [
     "binary_auroc",
     "binary_average_precision",
     "binary_calibration_error",
+    "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
+    "binary_hamming_distance",
     "binary_jaccard_index",
+    "binary_matthews_corrcoef",
     "binary_precision",
     "binary_precision_recall_curve",
     "binary_recall",
     "binary_roc",
+    "binary_specificity",
     "binary_stat_scores",
     "calibration_error",
+    "cohen_kappa",
     "confusion_matrix",
     "f1_score",
     "fbeta_score",
+    "hamming_distance",
     "jaccard_index",
+    "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
     "multiclass_calibration_error",
+    "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
+    "multiclass_hamming_distance",
     "multiclass_jaccard_index",
+    "multiclass_matthews_corrcoef",
     "multiclass_precision",
     "multiclass_precision_recall_curve",
     "multiclass_recall",
     "multiclass_roc",
+    "multiclass_specificity",
     "multiclass_stat_scores",
     "multilabel_accuracy",
     "multilabel_auroc",
@@ -105,15 +137,19 @@ __all__ = [
     "multilabel_confusion_matrix",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
+    "multilabel_hamming_distance",
     "multilabel_jaccard_index",
+    "multilabel_matthews_corrcoef",
     "multilabel_precision",
     "multilabel_precision_recall_curve",
     "multilabel_recall",
     "multilabel_roc",
+    "multilabel_specificity",
     "multilabel_stat_scores",
     "precision",
     "precision_recall_curve",
     "recall",
     "roc",
+    "specificity",
     "stat_scores",
 ]

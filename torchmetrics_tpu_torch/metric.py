@@ -27,9 +27,12 @@ plain references, and compute-group followers can share their leader's
 tensors; the states of this slice are at most a 1000 x 1000 count matrix, so
 an in-place add would save one small allocation per update.
 
-Cross-process sync is not ported yet: :meth:`sync` is a no-op when
-``torch.distributed`` is not initialised and raises ``NotImplementedError``
-when it is.
+Cross-process sync runs on ``torch.distributed`` (``parallel/sync.py``):
+:meth:`sync` is a no-op when no process group is initialised; with one, it
+reduces every state across the metric's ``process_group`` (default: the
+world) per its declared reduction, into fresh tensors, so a follower's
+shared state and :meth:`unsync`'s cache are never written. ``compute``
+syncs first unless ``sync_on_compute=False``.
 """
 from __future__ import annotations
 
@@ -42,9 +45,11 @@ from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch.parallel.sync import SYNC_FAILURE_POLICIES, default_sync_timeout, sync_states
+from torchmetrics_tpu_torch.quarantine import DegradedValue
 from torchmetrics_tpu_torch.utils.checks import _check_same_device
 from torchmetrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
-from torchmetrics_tpu_torch.utils.exceptions import StateCorruptionError, TorchMetricsUserError
+from torchmetrics_tpu_torch.utils.exceptions import StateCorruptionError, TorchMetricsUserError, TorchMetricsUserWarning
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 Reduction = Union[str, Callable[[torch.Tensor], torch.Tensor], None]
@@ -104,6 +109,27 @@ class Metric:
               (default True).
             - ``compute_with_cache``: cache the result of ``compute`` (default
               True).
+            - ``process_group``: the ``torch.distributed`` group states sync
+              across (default None: the world).
+            - ``dist_sync_fn``: ``fn(value, reduction, group) -> value``
+              replacing the built-in sync for every state.
+            - ``sync_timeout``: seconds each collective of a sync may take
+              before it raises ``SyncTimeoutError`` (default
+              ``TORCHMETRICS_TPU_SYNC_TIMEOUT``, else unbounded). Under
+              NCCL a timed-out collective leaves the communicator in an
+              unknown state and PyTorch's watchdog may abort the process,
+              so there a timeout is a cue to checkpoint and exit: the
+              ``"local"`` and ``"retry"`` policies are meant for gloo.
+            - ``on_sync_failure``: ``"raise"`` (default; local state intact),
+              ``"local"`` (warn on rank zero, compute on this process's state,
+              ``last_sync_ok`` False), ``"retry"`` (re-run the sync with
+              capped exponential backoff, ``io/retry.py``) or
+              ``"last_good"`` (serve the last value whose sync succeeded as a
+              ``DegradedValue``). A fault on one rank only leaves the
+              collectives out of step whatever the policy (the peers have
+              moved on): the policies assume every rank sees the failure.
+            - ``sync_retries``: re-attempts under ``"retry"`` (default
+              ``TORCHMETRICS_TPU_SYNC_RETRIES``, else 3).
 
     Example:
         >>> import torch
@@ -141,6 +167,27 @@ class Metric:
         if not isinstance(self.dist_sync_on_step, bool):
             raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be an `bool` but got {self.dist_sync_on_step}")
         self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError(f"Expected keyword argument `dist_sync_fn` to be an callable function but got {self.dist_sync_fn}")
+        self.sync_timeout = kwargs.pop("sync_timeout", None)
+        if self.sync_timeout is None:
+            self.sync_timeout = default_sync_timeout()
+        elif not isinstance(self.sync_timeout, (int, float)) or isinstance(self.sync_timeout, bool) or self.sync_timeout <= 0:
+            raise ValueError(f"Expected keyword argument `sync_timeout` to be a positive number of seconds but got {self.sync_timeout}")
+        self.on_sync_failure = kwargs.pop("on_sync_failure", "raise")
+        if self.on_sync_failure not in SYNC_FAILURE_POLICIES:
+            raise ValueError(
+                f"Expected keyword argument `on_sync_failure` to be one of {SYNC_FAILURE_POLICIES}"
+                f" but got {self.on_sync_failure}"
+            )
+        self.sync_retries = kwargs.pop("sync_retries", None)
+        if self.sync_retries is not None and (
+            not isinstance(self.sync_retries, int) or isinstance(self.sync_retries, bool) or self.sync_retries < 0
+        ):
+            raise ValueError(f"Expected keyword argument `sync_retries` to be a non-negative int but got {self.sync_retries}")
+        self._last_sync_ok = True
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
         if not isinstance(self.sync_on_compute, bool):
             raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")
@@ -160,6 +207,7 @@ class Metric:
         self._update_count: int = 0
         self._to_sync = self.sync_on_compute
         self._should_unsync = True
+        self._cache: Optional[Dict[str, Any]] = None
         self._is_synced = False
 
     # ------------------------------------------------------------------ states
@@ -272,10 +320,25 @@ class Metric:
                 )
             if self._computed is not None:
                 return self._computed
-            with self.sync_context(should_sync=self._to_sync, should_unsync=self._should_unsync):
+            self.__dict__.pop("_serve_last_good", None)
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+            ):
+                if self.__dict__.pop("_serve_last_good", False):
+                    # the sync just failed under on_sync_failure="last_good":
+                    # serve the cached value with its staleness (never cached
+                    # as _computed: it is stale by definition)
+                    count, cached = self.__dict__["_last_good_compute"]
+                    return DegradedValue(
+                        value=cached, updates_behind=int(self._update_count) - count, age_updates=count
+                    )
                 value = _squeeze_if_scalar(self._compute_fn(*args, **kwargs))
             if self.compute_with_cache:
                 self._computed = value
+            if self._last_sync_ok:
+                # the cache behind on_sync_failure="last_good": only values
+                # whose sync (if any) succeeded qualify
+                self.__dict__["_last_good_compute"] = (int(self._update_count), value)
             return value
 
         return wrapped_func
@@ -376,31 +439,120 @@ class Metric:
         return self.forward(*args, **kwargs)
 
     # ------------------------------------------------------------------- sync
-    def sync(self, should_sync: bool = True, distributed_available: Optional[Callable] = None) -> None:
-        """All-reduce states across processes per declared reductions.
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        process_group: Any = None,
+    ) -> None:
+        """Reduce states across processes per their declared reductions.
 
-        Not ported yet: a no-op in a single process (no initialised
-        ``torch.distributed`` group), ``NotImplementedError`` otherwise.
+        A no-op without an initialised process group (``distributed_available``,
+        default the metric's ``distributed_available_fn``). Otherwise the
+        states sync across ``process_group`` (default the metric's; None is
+        the world) under ``sync_timeout`` and ``on_sync_failure``, or through
+        ``dist_sync_fn`` when one is given. The pre-sync state is kept for
+        :meth:`unsync`; a failed sync leaves the live state as it was.
         """
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
         distributed_available = distributed_available or self.distributed_available_fn
         if not should_sync or not distributed_available():
             return
-        raise NotImplementedError(
-            f"{type(self).__name__}: cross-process state sync over torch.distributed is not"
-            " ported yet; build the metric with sync_on_compute=False to compute per process"
-        )
+        group = process_group if process_group is not None else self.process_group
+        self._cache = self._state_snapshot()
+        try:
+            dist_sync_fn = dist_sync_fn or self.dist_sync_fn
+            if dist_sync_fn is not None:
+                self._state = {k: dist_sync_fn(v, self._reductions.get(k), group) for k, v in self._state.items()}
+            else:
+                self._sync_bounded(group)
+        except BaseException:
+            self._cache = None
+            raise
+        self._is_synced = True
+
+    def _sync_bounded(self, group: Any) -> None:
+        """The built-in sync under ``sync_timeout`` and ``on_sync_failure``:
+        ``"raise"`` propagates with the local state intact; ``"local"`` keeps
+        the local state with a rank-zero warning (``last_sync_ok`` False);
+        ``"retry"`` re-runs the whole sync with capped exponential backoff
+        before it propagates; ``"last_good"`` has ``compute`` serve the last
+        value whose sync succeeded, or degrades like ``"local"`` without one."""
+
+        def sync_all() -> Dict[str, Any]:
+            return sync_states(self._state, self._reductions, group, timeout=self.sync_timeout, device=self._device)
+
+        try:
+            if self.on_sync_failure == "retry":
+                from torchmetrics_tpu_torch.io.retry import RetryPolicy, call_with_retries, default_sync_retries
+
+                retries = self.sync_retries if self.sync_retries is not None else default_sync_retries()
+                synced = call_with_retries(
+                    sync_all, RetryPolicy(max_retries=retries), what=f"sync of {type(self).__name__}"
+                )
+            else:
+                synced = sync_all()
+        except Exception as err:
+            if self.on_sync_failure not in ("local", "last_good"):
+                raise
+            self._last_sync_ok = False
+            if self.on_sync_failure == "last_good" and self.__dict__.get("_last_good_compute") is not None:
+                self.__dict__["_serve_last_good"] = True
+                rank_zero_warn(
+                    f"Sync of {type(self).__name__} failed ({type(err).__name__}: {err});"
+                    " serving the last-good value per on_sync_failure='last_good'"
+                    " (staleness metadata attached).",
+                    TorchMetricsUserWarning,
+                )
+                return
+            rank_zero_warn(
+                f"Sync of {type(self).__name__} failed ({type(err).__name__}: {err});"
+                f" degrading to local-only state per on_sync_failure={self.on_sync_failure!r}."
+                " Values computed this step cover THIS process's data only.",
+                TorchMetricsUserWarning,
+            )
+            return
+        self._state = synced
+        self._last_sync_ok = True
+
+    @property
+    def last_sync_ok(self) -> bool:
+        """False when the most recent sync degraded to local-only state
+        (``on_sync_failure="local"`` or ``"last_good"``); True after any
+        successful sync."""
+        return self._last_sync_ok
 
     def unsync(self, should_unsync: bool = True) -> None:
-        """Restore pre-sync local state (nothing to restore while sync is a no-op)."""
-        if should_unsync and not self._is_synced:
+        """Restore the pre-sync local state."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
             raise TorchMetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._state = self._cache
+        self._cache = None
+        self._is_synced = False
 
     @contextmanager
-    def sync_context(self, should_sync: bool = True, should_unsync: bool = True) -> Generator[None, None, None]:
-        """Sync on entry, restore on exit (the unsync runs in a ``finally``)."""
-        self.sync(should_sync=should_sync)
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        process_group: Any = None,
+    ) -> Generator[None, None, None]:
+        """Sync on entry, restore on exit (the unsync runs in a ``finally``,
+        so a failing body cannot strand the metric in the synced state)."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+            process_group=process_group,
+        )
         try:
             yield
         finally:
@@ -598,6 +750,26 @@ class Metric:
         counts = (update_count, 1) if update_count is not None else None
         return self.merge_states(state, batch_state, counts=counts), batch_value
 
+    def functional_sync(self, state: Dict[str, Any], process_group: Any = None) -> Dict[str, Any]:
+        """Pure sync: ``state -> state`` reduced across ``process_group``
+        (default the metric's; None is the world), honouring ``dist_sync_fn``.
+
+        The reserved ``"_update_count"`` key a :meth:`state` export carries is
+        not a declared state: it is stripped before the collectives and
+        re-attached summed across ranks (an int64 tensor riding in the
+        int64 ``sum`` group), the number of updates merged world-wide.
+        """
+        group = process_group if process_group is not None else self.process_group
+        state = dict(state)
+        count = state.pop(self._STATE_COUNT_KEY, None)
+        reductions = dict(self._reductions)
+        if count is not None:
+            state[self._STATE_COUNT_KEY] = torch.as_tensor(count, dtype=torch.int64, device=self._device)
+            reductions[self._STATE_COUNT_KEY] = "sum"
+        if self.dist_sync_fn is not None:
+            return {k: self.dist_sync_fn(v, reductions.get(k), group) for k, v in state.items()}
+        return sync_states(state, reductions, group, timeout=self.sync_timeout, device=self._device)
+
     def merge_states(
         self, a: Dict[str, Any], b: Dict[str, Any], counts: Optional[Tuple[int, int]] = None
     ) -> Dict[str, Any]:
@@ -635,6 +807,7 @@ class Metric:
         self._update_count = 0
         self._computed = None
         self._state.update(self.init_state())
+        self._cache = None
         self._is_synced = False
 
     def clone(self) -> "Metric":
@@ -691,8 +864,10 @@ class Metric:
     def __deepcopy__(self, memo: Optional[dict] = None) -> "Metric":
         cls = self.__class__
         new_obj = cls.__new__(cls)
-        if memo is not None:
-            memo[id(self)] = new_obj
+        memo = {} if memo is None else memo
+        memo[id(self)] = new_obj
+        if self.__dict__.get("process_group") is not None:
+            memo[id(self.process_group)] = self.process_group  # a group is shared, never copied
         new_obj.__setstate__(copy.deepcopy(self.__getstate__(), memo))
         return new_obj
 

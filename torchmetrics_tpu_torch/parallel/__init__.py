@@ -1,0 +1,26 @@
+"""Cross-process state sync on ``torch.distributed`` (``parallel/sync.py``)."""
+from torchmetrics_tpu_torch.parallel.sync import (
+    SYNC_FAILURE_POLICIES,
+    SYNC_TIMEOUT_ENV,
+    class_reduce,
+    default_sync_timeout,
+    gather_all_tensors,
+    reduce,
+    reduce_stacked,
+    reduction_identity,
+    sync_states,
+    sync_value,
+)
+
+__all__ = [
+    "SYNC_FAILURE_POLICIES",
+    "SYNC_TIMEOUT_ENV",
+    "class_reduce",
+    "default_sync_timeout",
+    "gather_all_tensors",
+    "reduce",
+    "reduce_stacked",
+    "reduction_identity",
+    "sync_states",
+    "sync_value",
+]

@@ -1,12 +1,15 @@
-"""Rank-zero-only warnings (rank = ``torch.distributed`` rank when a process
-group is initialised, else 0)."""
+"""Rank-zero-only warnings and log lines (rank = ``torch.distributed`` rank
+when a process group is initialised, else 0)."""
 from __future__ import annotations
 
+import logging
 import warnings
-from functools import wraps
+from functools import partial, wraps
 from typing import Any, Callable
 
 import torch
+
+log = logging.getLogger("torchmetrics_tpu_torch")
 
 
 def _rank() -> int:
@@ -30,3 +33,6 @@ def _process_zero_only(fn: Callable) -> Callable:
 def rank_zero_warn(message: str, category: type = UserWarning, stacklevel: int = 3, **kwargs: Any) -> None:
     warnings.warn(message, category=category, stacklevel=stacklevel, **kwargs)
 
+
+rank_zero_info = _process_zero_only(partial(log.info))
+rank_zero_debug = _process_zero_only(partial(log.debug))
