@@ -44,6 +44,17 @@ evaluation workloads:
   MiFID's PSD square roots run on the ``fid_sqrtm`` kernel; FID against a
   float64 FID of the card's own states, the others against the CPU.
 
+- the rest of classification on the ``bincount`` and ``binned_curve``
+  kernels: the ImageNet batches (logits leaning to the target) through Dice,
+  exact match, hinge loss and two per-class fixed operating points (100
+  thresholds); COCO 2014 val shaped multi-label batches (40,504 images, 80
+  labels, batch 256) through exact match, coverage error, label ranking
+  average precision and loss and precision at fixed recall; WILDS
+  CivilComments test shaped batches (133,782 comments, 8 identity groups,
+  batch 4,096) through demographic parity, equal opportunity, the per-group
+  rates, hinge loss and two binary fixed operating points; counts against
+  plain counts bit for bit, values and selected thresholds against float64.
+
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
 fused SSIM entry at the UVG update's shapes, 67 and 131 taps and a uniform
@@ -92,8 +103,10 @@ CITYSCAPES = {"num_classes": 19, "ignore_index": 255, "images": 500, "batch": 4,
 #: one-vs-rest curve histogram (negative and positive 0/1 rows over
 #: (100 + 1) x 1000 bucket-class bins, 1024 x 1000 scores); K = 1 rows with
 #: a weight row of ones, and weightless (the fused counts' launch: the
-#: ignore_index mask folded into the index; and the one-vs-rest curve
-#: count, a positive's bin shifted by (100 + 1) x 1000)
+#: ignore_index mask folded into the index; the one-vs-rest curve count, a
+#: positive's bin shifted by (100 + 1) x 1000; Dice's (1000 + 1)^2
+#: out-of-range-aware confusion count; the 4 x 8 per-group fairness count;
+#: the COCO per-label curve count over 2 x 101 x 80 bins)
 KERNEL_SHAPES = [
     ("binary_segmentation", 1, 4, 4 * 1024 * 2048, True),
     ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048, True),
@@ -103,6 +116,9 @@ KERNEL_SHAPES = [
     ("binary_segmentation_weightless", 1, 4, 4 * 1024 * 2048, False),
     ("cityscapes_confmat_weightless", 1, 19 * 19, 4 * 1024 * 2048, False),
     ("imagenet_curve_weightless", 1, 2 * 101 * 1000, 1024 * 1000, False),
+    ("imagenet_dice_weightless", 1, 1001 * 1001, 1024, False),
+    ("civilcomments_groups_weightless", 1, 4 * 8, 4096, False),
+    ("coco_curve_weightless", 1, 2 * 101 * 80, 256 * 80, False),
 ]
 #: one update past float32's last exact integer: 2**24 + 3 equal indices,
 #: whose weightless count must come out exactly (int64)
@@ -112,7 +128,9 @@ PAST_2_24 = 2**24 + 3
 #: thresholds; edges adds NaN scores, scores exactly on a threshold and
 #: duplicated thresholds. Form "int32_mask": int32 0/1 targets and a 95%
 #: bool mask; "int64_ignore": what the binned binary update hands the
-#: kernel, int64 targets with 5% of them ignore_index -1 and no mask
+#: kernel, int64 targets with 5% of them ignore_index -1 and no mask;
+#: "int64": int64 targets, no mask and no ignore_index (the CivilComments
+#: update's fixed operating points)
 CURVE_SHAPES = [
     ("config6", 1_000_000, 100, "grid", False, "int32_mask"),
     ("config6_int64_ignore", 1_000_000, 100, "grid", False, "int64_ignore"),
@@ -120,6 +138,7 @@ CURVE_SHAPES = [
     ("t1000", 8_388_608, 1000, "grid", False, "int32_mask"),
     ("t50k", 1_000_000, 50_000, "random", False, "int32_mask"),
     ("edges", 1_000_000, 64, "random", True, "int32_mask"),
+    ("civilcomments_int64", 4096, 100, "grid", False, "int64"),
 ]
 #: the JAX package's bench.py config 6: 50 updates of 1,000,000 binary scores,
 #: 100 thresholds; here with ignore_index=-1 on 5% of samples
@@ -411,6 +430,8 @@ def _curve_args(n: int, len_t: int, kind: str, edges: bool, form: str, dev):
     thr_sorted, order = binned_curve.sort_thresholds(thr)
     if form == "int32_mask":
         return preds, target, valid, thr_sorted, order, None
+    if form == "int64":
+        return preds, target.to(torch.int64), None, thr_sorted, order, None
     target = torch.where(valid, target.to(torch.int64), torch.full((), -1, dtype=torch.int64, device=dev))
     return preds, target, None, thr_sorted, order, -1
 
@@ -421,7 +442,7 @@ def _composite_counts(preds, target, valid, thr_sorted, order, ignore_index=None
     import torch
 
     if valid is None:
-        valid = target != ignore_index
+        valid = torch.ones_like(target, dtype=torch.bool) if ignore_index is None else target != ignore_index
         target = torch.where(valid, target, torch.zeros_like(target))
     target = target.to(torch.int64)
     len_t = thr_sorted.shape[0]
@@ -1161,16 +1182,24 @@ def phase_binary_curve(dev) -> dict:
     return out
 
 
-def _onevsrest_counts(probs, target, grid):
-    """``(T, C, 2, 2)`` counts straight from the definition: one ``>=`` per
-    threshold, score and class; shares no code with the port's update."""
+def _label_counts(probs, pos, grid):
+    """``(T, C, 2, 2)`` counts of scores ``(B, C)`` against a bool ``pos``
+    ``(B, C)`` straight from the definition: one ``>=`` per threshold, score
+    and column; shares no code with the port's update."""
     import torch
 
-    pos = torch.nn.functional.one_hot(target, probs.shape[1]).to(torch.bool)[None]  # (1, B, C)
     ge = probs[None] >= grid[:, None, None]  # (T, B, C)
+    pos = pos[None]
     tp, fp = (ge & pos).sum(1), (ge & ~pos).sum(1)
     fn, tn = (~ge & pos).sum(1), (~ge & ~pos).sum(1)
     return torch.stack([torch.stack([tn, fp], -1), torch.stack([fn, tp], -1)], -2)
+
+
+def _onevsrest_counts(probs, target, grid):
+    """``(T, C, 2, 2)`` one-vs-rest counts of class scores against labels."""
+    import torch
+
+    return _label_counts(probs, torch.nn.functional.one_hot(target, probs.shape[1]).to(torch.bool), grid)
 
 
 def phase_imagenet_curve(dev) -> dict:
@@ -1796,6 +1825,23 @@ def phase_cifar10(dev) -> dict:
 #: first 4 config-6 batches (of 50, 1M scores each) through exact-mode and
 #: binned binary AUROC; all 70 MS MARCO updates (6,980 x 1,000); FID at
 #: F = 2048 over 4 batches of 600 real and 600 generated feature rows
+#: the ImageNet batches' shapes (IMAGENET) with logits that lean to the
+#: target (top-1 near 0.75, a ResNet-50's) at temperature 3, so that the
+#: softmax scores spread over the threshold grid and the operating points
+#: are not all sentinels
+IMAGENET_REST = {"margin": 4.0, "scale": 3.0, "thresholds": 100}
+#: COCO 2014 val as the multi-label literature scores it: 40,504 images, 80
+#: labels, about 2.9 positives an image, batches of 256 (158 and one of 56)
+COCO = {"images": 40_504, "labels": 80, "positives": 2.9, "batch": 256, "thresholds": 100}
+#: WILDS CivilComments test split: 133,782 comments, 8 identity groups with
+#: one id a comment (the shares are illustrative), 10% toxic, batches of
+#: 4,096 (32 and one of 2,710)
+CIVILCOMMENTS = {
+    "comments": 133_782, "groups": 8, "positive_rate": 0.1, "batch": 4096, "thresholds": 100,
+    "group_shares": (0.30, 0.20, 0.15, 0.10, 0.10, 0.07, 0.05, 0.03),
+}
+#: the threshold of an unattainable operating point
+SENTINEL = 1e6
 SYNC = {"imagenet_batches": 8, "curve_batches": 4, "fid_features": 2048, "fid_batches": 4, "fid_batch": 600,
         "repeats": 5}
 #: Matthews correlation and Cohen's kappa on the synced ImageNet counts
@@ -2007,6 +2053,416 @@ def phase_sync(dev, backend: str = "nccl") -> dict:
     out = {"phase": "sync", "backend": backend, "world": 1, "launches": launches, "families": rows}
     _emit(out)
     return out
+
+
+# ----------------------------------------------- the rest of classification
+
+
+def _splits(total: int, batch: int) -> list:
+    return [batch] * (total // batch) + ([total % batch] if total % batch else [])
+
+
+def _imagenet_rest(dev) -> dict:
+    """Dice, exact match, hinge loss and two fixed operating points over
+    the ImageNet batches."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        Dice,
+        MulticlassExactMatch,
+        MulticlassHingeLoss,
+        MulticlassRecallAtFixedPrecision,
+        MulticlassSpecificityAtSensitivity,
+    )
+
+    c, spec = IMAGENET["num_classes"], IMAGENET_REST
+
+    def batches():
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        for b in IMAGENET["batches"]:
+            target = torch.randint(0, c, (b,), generator=g, device=dev)
+            noise = torch.randn((b, c), generator=g, device=dev)
+            lean = spec["margin"] * torch.nn.functional.one_hot(target, c).to(torch.float32)
+            yield spec["scale"] * (noise + lean), target
+
+    def collection():
+        kw = {"num_classes": c, "validate_args": False}
+        points = {"thresholds": spec["thresholds"], **kw}
+        return MetricCollection({
+            "dice": Dice(num_classes=c, average="macro"),
+            "exact_match": MulticlassExactMatch(**kw),
+            "hinge": MulticlassHingeLoss(**kw),
+            "recall_at_precision": MulticlassRecallAtFixedPrecision(min_precision=0.5, **points),
+            "specificity_at_sensitivity": MulticlassSpecificityAtSensitivity(min_sensitivity=0.5, **points),
+        })
+
+    return {
+        "updates": len(IMAGENET["batches"]), "samples": sum(IMAGENET["batches"]), "batches": batches,
+        "collection": collection,
+        # (counting members, counting compute groups): every member counts on
+        # the first update, one leader a group after it
+        "counting": {"bincount": (3, 2)},
+    }
+
+
+def _coco_multilabel(dev) -> dict:
+    """Exact match, the three ranking metrics and precision at fixed recall
+    over COCO-shaped multi-label batches."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        MultilabelCoverageError,
+        MultilabelExactMatch,
+        MultilabelPrecisionAtFixedRecall,
+        MultilabelRankingAveragePrecision,
+        MultilabelRankingLoss,
+    )
+
+    spec = COCO
+    labels, sizes = spec["labels"], _splits(spec["images"], spec["batch"])
+
+    def batches():
+        g = torch.Generator(device=dev).manual_seed(SEED + 8)
+        for b in sizes:
+            target = (torch.rand((b, labels), generator=g, device=dev) < spec["positives"] / labels).to(torch.int64)
+            scores = torch.sigmoid(torch.randn((b, labels), generator=g, device=dev) + 3.0 * target - 2.0)
+            yield scores, target
+
+    def collection():
+        kw = {"num_labels": labels, "validate_args": False}
+        return MetricCollection({
+            "exact_match": MultilabelExactMatch(**kw),
+            "coverage_error": MultilabelCoverageError(**kw),
+            "ranking_ap": MultilabelRankingAveragePrecision(**kw),
+            "ranking_loss": MultilabelRankingLoss(**kw),
+            "precision_at_recall": MultilabelPrecisionAtFixedRecall(min_recall=0.5, thresholds=spec["thresholds"], **kw),
+        })
+
+    return {
+        "updates": len(sizes), "samples": spec["images"], "batches": batches, "collection": collection,
+        "counting": {"bincount": (1, 1)},
+    }
+
+
+def _civilcomments(dev) -> dict:
+    """Group fairness, hinge loss and two binary fixed operating points over
+    CivilComments-shaped batches of scores, toxicity labels and identity ids."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import (
+        BinaryFairness,
+        BinaryGroupStatRates,
+        BinaryHingeLoss,
+        BinaryRecallAtFixedPrecision,
+        BinarySensitivityAtSpecificity,
+    )
+
+    spec = CIVILCOMMENTS
+    sizes = _splits(spec["comments"], spec["batch"])
+
+    def batches():
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        shares = torch.tensor(spec["group_shares"], device=dev)
+        for b in sizes:
+            groups = torch.multinomial(shares, b, replacement=True, generator=g)
+            target = (torch.rand(b, generator=g, device=dev) < spec["positive_rate"]).to(torch.int64)
+            # a score that leans to the label, shifted a little by the group
+            logits = torch.randn(b, generator=g, device=dev) + 2.5 * target - 1.5 + 0.1 * groups
+            yield torch.sigmoid(logits), target, groups
+
+    def collection():
+        kw = {"thresholds": spec["thresholds"], "validate_args": False}
+        return MetricCollection({
+            "fairness": BinaryFairness(num_groups=spec["groups"], validate_args=False),
+            "group_rates": BinaryGroupStatRates(num_groups=spec["groups"], validate_args=False),
+            "hinge": BinaryHingeLoss(validate_args=False),
+            "recall_at_precision": BinaryRecallAtFixedPrecision(min_precision=0.8, **kw),
+            "sensitivity_at_specificity": BinarySensitivityAtSpecificity(min_specificity=0.9, **kw),
+        })
+
+    return {
+        "updates": len(sizes), "samples": spec["comments"], "batches": batches, "collection": collection,
+        "update": lambda coll, b: coll.update(b[0], b[1], groups=b[2]),
+        "counting": {"bincount": (2, 1), "binned_curve": (2, 1)},
+    }
+
+
+def _operating_point(counts, grid, floor: float, family: str):
+    """float64 ``(values, thresholds)`` of a family from exact ``(T, [C,] 2,
+    2)`` counts, from the definition: the largest objective among the
+    thresholds whose constraint reaches ``floor``; ties to the larger
+    constraint (the precision-recall pair), then to the larger threshold;
+    the threshold 1e6 where none qualifies, and for the precision-recall
+    pair also where the best objective is 0."""
+    import torch
+
+    cm = counts.to(torch.float64)
+    tp, fp, fn, tn = cm[..., 1, 1], cm[..., 0, 1], cm[..., 1, 0], cm[..., 0, 0]
+    pr_pair = family in ("recall_at_precision", "precision_at_recall")
+    if pr_pair:
+        first, second = _safe(tp, tp + fp), _safe(tp, tp + fn)  # precision, recall
+    else:
+        first, second = _safe(tp, tp + fn), 1 - _safe(fp, fp + tn)  # sensitivity, specificity
+    objective, constraint = {
+        "recall_at_precision": (second, first), "precision_at_recall": (first, second),
+        "sensitivity_at_specificity": (first, second), "specificity_at_sensitivity": (second, first),
+    }[family]
+    neg = torch.tensor(float("-inf"), dtype=torch.float64, device=cm.device)
+    ok = constraint >= floor
+    masked = torch.where(ok, objective, neg)
+    best = masked.amax(0)
+    sel = ok & (masked == best)
+    if pr_pair:
+        tie = torch.where(sel, constraint, neg)
+        sel = sel & (tie == tie.amax(0))
+    thr = grid.to(torch.float64).reshape((-1,) + (1,) * (cm.ndim - 3))
+    chosen = torch.where(sel, thr, neg).amax(0)
+    value = torch.where(ok.any(0), best, torch.zeros_like(best))
+    none = (value == 0) if pr_pair else ~ok.any(0)
+    return value, torch.where(none, torch.full_like(chosen, SENTINEL), chosen)
+
+
+def _check_operating_point(name: str, got, counts, grid, floor: float, family: str) -> dict:
+    """The metric's (values, thresholds) against the float64 reduction of
+    the plain counts: thresholds equal, values within rtol 1e-5."""
+    import torch
+
+    value, chosen = _operating_point(counts, grid, floor, family)
+    _check(torch.equal(got[1], chosen.to(torch.float32)), f"{name}: thresholds {got[1].tolist()} != {chosen.tolist()}")
+    _close(name, got[0], value)
+    return {"sentinels": int((chosen == SENTINEL).sum()), "mean_value": float(value.mean())}
+
+
+def _hinge64(probs, target, multiclass: bool):
+    """float64 sum of hinge losses of float32 probabilities (crammer-singer
+    for multiclass)."""
+    import torch
+
+    p = probs.to(torch.float64)
+    if multiclass:
+        true = p.gather(1, target[:, None])[:, 0]
+        other = p.scatter(1, target[:, None], float("-inf")).amax(1)
+        margin = 1 - (true - other)
+    else:
+        margin = 1 - (2 * target.to(torch.float64) - 1) * p
+    return margin.clamp(min=0).sum()
+
+
+def _ranking64(scores, target):
+    """float64 sums over a batch of coverage error, label ranking average
+    precision and label ranking loss, from the definitions."""
+    import torch
+
+    p, rel = scores.to(torch.float64), target == 1
+    n_rel, n_irr = rel.sum(1), (~rel).sum(1)
+    lowest = torch.where(rel, p, torch.full_like(p, float("inf"))).amin(1, keepdim=True)
+    coverage = torch.where(n_rel > 0, (p >= lowest).sum(1).to(torch.float64), torch.zeros_like(p[:, 0]))
+    at_least = p[:, None, :] >= p[:, :, None]  # [b, l, m]: label m scored at least as high as label l
+    share = (at_least & rel[:, None, :]).sum(2) / at_least.sum(2)
+    lrap = torch.where(n_rel > 0, torch.where(rel, share, torch.zeros_like(share)).sum(1) / n_rel.clamp(min=1), 1.0)
+    wrong = (at_least & rel[:, :, None] & ~rel[:, None, :]).sum((1, 2))
+    pairs = n_rel * n_irr
+    loss = torch.where(pairs > 0, wrong / pairs.clamp(min=1), 0.0)
+    return torch.stack([coverage.sum(), lrap.sum(), loss.sum()])
+
+
+def _check_rest_launches(name: str, run: dict, spec: dict) -> dict:
+    """The launches the compute groups imply: every counting member on the
+    first update, one counting group leader an update after it; no other
+    kernel."""
+    expected = {k: 0 for k in run["launches"]}
+    for kernel, (members, groups) in spec["counting"].items():
+        expected[kernel] = members + (spec["updates"] - 1) * groups
+    _check(run["launches"] == expected, f"{name}: launches {run['launches']}, expected {expected}")
+    return expected
+
+
+def _drive_rest(name: str, dev):
+    """The workload's spec and :func:`_drive` run, after a cyclic garbage
+    collection (a metric refers to itself through its wrapped ``update``, so
+    an earlier phase's states stay on the card until one runs) and with the
+    device memory then allocated as the run's base."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    spec = WORKLOADS[name](dev)
+    run = _drive(name, spec, dev)
+    run["base_mem_bytes"] = base
+    return spec, run
+
+
+def _finish_rest(name: str, dev, run: dict, expected: dict, extra: dict) -> dict:
+    """Emit a phase's line: the drive's updates/s, its peak memory above
+    the base, the launches, and the device idle share of a short profiled
+    window (which prints its own ``profile_<name>`` line)."""
+    profile = phase_profile(name, dev, steps=5)
+    out = run["out"]
+    out.update({
+        "bincount_launches": run["launches"]["bincount"], "binned_curve_launches": run["launches"]["binned_curve"],
+        "expected_launches": expected, "device_idle_share": profile["device_idle_share"],
+        "base_mem_bytes": run["base_mem_bytes"], "peak_mem_above_base_bytes": out["peak_mem_bytes"] - run["base_mem_bytes"],
+        "state_exact": True, **extra,
+    })
+    _emit(out)
+    return out
+
+
+def phase_imagenet_rest(dev) -> dict:
+    """Dice (macro), exact match, hinge loss (crammer-singer) and the
+    per-class recall at precision 0.5 and specificity at sensitivity 0.5 (100
+    thresholds) over the ImageNet batches: Dice's tp/fp/fn, exact match's
+    count and the (100, 1000, 2, 2) curve state against plain counts, every
+    value against float64, two ``bincount`` launches an update."""
+    import torch
+
+    name = "imagenet_rest"
+    spec, run = _drive_rest(name, dev)
+    coll, result = run["coll"], run["result"]
+    c = IMAGENET["num_classes"]
+    grid = _threshold_grid(IMAGENET_REST["thresholds"], dev)
+    curve = hits = predicted = actual = None
+    hinge, correct = torch.zeros((), dtype=torch.float64, device=dev), 0
+    for logits, target in spec["batches"]():
+        pred, probs = logits.argmax(1), torch.softmax(logits, dim=-1)
+        counts = _onevsrest_counts(probs, target, grid)
+        batch = [counts] + [torch.bincount(x, minlength=c) for x in (target[pred == target], pred, target)]
+        if curve is None:
+            curve, hits, predicted, actual = batch
+        else:
+            curve, hits, predicted, actual = (a + b for a, b in zip((curve, hits, predicted, actual), batch))
+        hinge = hinge + _hinge64(probs, target, multiclass=True)
+        correct += int((pred == target).sum())
+    tp, fp, fn = hits, predicted - hits, actual - hits
+    dice = coll["dice"]
+    _check(
+        all(torch.equal(s.to(torch.int64), w) for s, w in ((dice.tp, tp), (dice.fp, fp), (dice.fn, fn))),
+        f"{name}: Dice's tp/fp/fn differ from the plain count",
+    )
+    em = coll["exact_match"]
+    _check(int(em.correct) == correct and int(em.total) == spec["samples"], f"{name}: exact match counts differ")
+    for member in ("recall_at_precision", "specificity_at_sensitivity"):
+        _check(torch.equal(coll[member].confmat.to(torch.int64), curve), f"{name}: {member} state differs from the plain counts")
+    expected = _check_rest_launches(name, run, spec)
+    tp64, fp64, fn64 = (x.to(torch.float64) for x in (tp, fp, fn))
+    present = (tp64 + fp64 + fn64) > 0
+    _close("dice", result["dice"], _safe(2 * tp64, 2 * tp64 + fp64 + fn64)[present].mean())
+    _close("exact_match", result["exact_match"], torch.tensor(correct / spec["samples"], dtype=torch.float64, device=dev))
+    _close("hinge", result["hinge"], hinge / spec["samples"])
+    points = {
+        member: _check_operating_point(member, result[member], curve, grid, 0.5, member)
+        for member in ("recall_at_precision", "specificity_at_sensitivity")
+    }
+    return _finish_rest(name, dev, run, expected, {
+        "num_classes": c, "thresholds": IMAGENET_REST["thresholds"],
+        "values": {k: float(result[k]) for k in ("dice", "exact_match", "hinge")}, "operating_points": points,
+    })
+
+
+def phase_coco_multilabel(dev) -> dict:
+    """Exact match, coverage error, label ranking average precision and
+    loss, and the per-label precision at recall 0.5 (100 thresholds) over
+    the COCO batches: the (100, 80, 2, 2) state and exact match's count
+    against plain counts, every value against float64, one ``bincount``
+    launch an update."""
+    import torch
+
+    name = "coco_multilabel"
+    spec, run = _drive_rest(name, dev)
+    coll, result = run["coll"], run["result"]
+    grid = _threshold_grid(COCO["thresholds"], dev)
+    curve, correct = None, 0
+    ranking = torch.zeros(3, dtype=torch.float64, device=dev)
+    for scores, target in spec["batches"]():
+        counts = _label_counts(scores, target == 1, grid)
+        curve = counts if curve is None else curve + counts
+        correct += int(((scores > 0.5).to(torch.int64) == target).all(1).sum())
+        ranking = ranking + _ranking64(scores, target)
+    _check(
+        torch.equal(coll["precision_at_recall"].confmat.to(torch.int64), curve),
+        f"{name}: the curve state differs from the plain counts",
+    )
+    em = coll["exact_match"]
+    _check(int(em.correct) == correct and int(em.total) == spec["samples"], f"{name}: exact match counts differ")
+    expected = _check_rest_launches(name, run, spec)
+    _close("exact_match", result["exact_match"], torch.tensor(correct / spec["samples"], dtype=torch.float64, device=dev))
+    for i, member in enumerate(("coverage_error", "ranking_ap", "ranking_loss")):
+        _close(member, result[member], ranking[i] / spec["samples"])
+    point = _check_operating_point("precision_at_recall", result["precision_at_recall"], curve, grid, 0.5, "precision_at_recall")
+    return _finish_rest(name, dev, run, expected, {
+        "labels": COCO["labels"], "thresholds": COCO["thresholds"],
+        "values": {k: float(result[k]) for k in ("exact_match", "coverage_error", "ranking_ap", "ranking_loss")},
+        "operating_points": {"precision_at_recall": point},
+    })
+
+
+def phase_civilcomments_fairness(dev) -> dict:
+    """Group fairness (demographic parity, equal opportunity, per-group
+    rates), hinge loss and the binary recall at precision 0.8 and
+    sensitivity at specificity 0.9 (100 thresholds) over the CivilComments
+    batches: the per-group counts and the (100, 2, 2) curve state against
+    plain counts, every value and the parity keys against float64, one
+    ``bincount`` and one ``binned_curve`` launch an update."""
+    import torch
+
+    name = "civilcomments_fairness"
+    spec, run = _drive_rest(name, dev)
+    coll, result = run["coll"], run["result"]
+    n_groups = CIVILCOMMENTS["groups"]
+    grid = _threshold_grid(CIVILCOMMENTS["thresholds"], dev)
+    stats = torch.zeros((4, n_groups), dtype=torch.int64, device=dev)  # tp, fp, tn, fn
+    curve, hinge = None, torch.zeros((), dtype=torch.float64, device=dev)
+    for scores, target, groups in spec["batches"]():
+        p, t = scores > 0.5, target == 1
+        for g in range(n_groups):
+            mine = groups == g
+            stats[:, g] += torch.stack([(mine & p & t).sum(), (mine & p & ~t).sum(), (mine & ~p & ~t).sum(), (mine & ~p & t).sum()])
+        counts = _label_counts(scores[:, None], t[:, None], grid)[:, 0]
+        curve = counts if curve is None else curve + counts
+        hinge = hinge + _hinge64(scores, target, multiclass=False)
+    for member in ("fairness", "group_rates"):
+        m = coll[member]
+        _check(
+            torch.equal(torch.stack([m.tp, m.fp, m.tn, m.fn]).to(torch.int64), stats),
+            f"{name}: {member}'s per-group counts differ from the plain count",
+        )
+    for member in ("recall_at_precision", "sensitivity_at_specificity"):
+        _check(torch.equal(coll[member].confmat.to(torch.int64), curve), f"{name}: {member} state differs from the plain counts")
+    expected = _check_rest_launches(name, run, spec)
+    s64 = stats.to(torch.float64)
+    rates = _safe(s64, s64.sum(0, keepdim=True).expand(4, -1))
+    for g in range(n_groups):
+        _close(f"group_{g}", result[f"group_{g}"], rates[:, g])
+    tp, fp, tn, fn = s64
+    parity = {}
+    for key, r in (("DP", _safe(tp + fp, tp + fp + tn + fn)), ("EO", _safe(tp, tp + fn))):
+        lo, hi = int(torch.argmin(r)), int(torch.argmax(r))
+        want = f"{key}_{lo}_{hi}"
+        _check(want in result, f"{name}: no key {want} in {sorted(result)}")
+        _close(want, result[want], r[lo] / r[hi])
+        parity[want] = float(result[want])
+    _close("hinge", result["hinge"], hinge / spec["samples"])
+    points = {
+        member: _check_operating_point(member, result[member], curve, grid, floor, member)
+        for member, floor in (("recall_at_precision", 0.8), ("sensitivity_at_specificity", 0.9))
+    }
+    return _finish_rest(name, dev, run, expected, {
+        "groups": n_groups, "thresholds": CIVILCOMMENTS["thresholds"],
+        "values": {**parity, "hinge": float(result["hinge"])}, "operating_points": points,
+    })
+
+
+WORKLOADS.update({
+    "imagenet_rest": _imagenet_rest,
+    "coco_multilabel": _coco_multilabel,
+    "civilcomments_fairness": _civilcomments,
+})
 
 
 def _device_rows(prof) -> list:
@@ -2237,9 +2693,11 @@ def main() -> int:
     sqrtm_rows = phase_sqrtm_kernels(dev)
     cifar = phase_cifar10(dev)
     sync = phase_sync(dev)
+    rest = [phase_imagenet_rest(dev), phase_coco_multilabel(dev), phase_civilcomments_fairness(dev)]
     if PROFILE:
         for name in WORKLOADS:
-            if name != "uvg_1080p":  # profiled inside phase_uvg
+            # uvg and the rest of classification are profiled inside their phases
+            if name not in ("uvg_1080p", "imagenet_rest", "coco_multilabel", "civilcomments_fairness"):
                 phase_profile(name, dev)
         phase_profile_cifar10(dev)
         phase_profile_kernel_shapes(dev)
@@ -2263,7 +2721,8 @@ def main() -> int:
             "source": "torchmetrics_tpu_torch/csrc/bincount.cu",
             "replaces": "torchmetrics_tpu/ops/bincount.py:76",
             "launches": imagenet["bincount_launches"] + cityscapes["bincount_launches"]
-            + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"],
+            + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"]
+            + sum(r["bincount_launches"] for r in rest),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -2277,7 +2736,8 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/binned_curve.cu",
             "replaces": "torchmetrics_tpu/ops/binned_curve.py:103",
-            "launches": binary["binned_curve_launches"] + sync["launches"]["binned_curve"],
+            "launches": binary["binned_curve_launches"] + sync["launches"]["binned_curve"]
+            + sum(r["binned_curve_launches"] for r in rest),
             "max_abs_err": max(r["max_abs_err"] for r in curve_rows),
             "ms": curve["ms"],
             "plain_ms": curve["plain_ms"],

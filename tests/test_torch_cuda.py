@@ -969,3 +969,135 @@ def test_a_cpu_state_under_nccl_raises(nccl_world):
     card = tm.SumMetric()
     card.update(torch.tensor([1.0, 2.0], device=nccl_world))
     assert float(card.compute()) == 3.0
+
+
+# ------------------------------------- the rest of classification on the card
+
+
+def _state_equal_to_cpu(on_card, on_cpu):
+    """Count states bit-equal, float sums within rtol 1e-5 (reduction order)."""
+    for name, value in on_cpu.metric_state.items():
+        got = on_card.metric_state[name]
+        if isinstance(value, list):
+            got, value = torch.cat(got), torch.cat(value)
+        if value.is_floating_point():
+            torch.testing.assert_close(got.cpu(), value, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(got.cpu(), value), name
+
+
+def _value_equal_to_cpu(got, want):
+    if isinstance(want, dict):
+        assert list(got) == list(want)
+        for key in want:
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-6)
+    elif isinstance(want, tuple):
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[1].cpu(), want[1])  # the selected thresholds
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _rest_cases():
+    """(id, build(device), batch(rng), launching kernel module name or None)."""
+    from torchmetrics_tpu_torch import classification as cls
+
+    def scores(rng, n=4096, c=19):
+        target = rng.randint(0, c, n)
+        logits = rng.randn(n, c).astype(np.float32) + 2.0 * np.eye(c, dtype=np.float32)[target]
+        return torch.from_numpy(logits), torch.from_numpy(target)
+
+    def multilabel(rng, n=512, labels=80):
+        target = (rng.rand(n, labels) < 0.04).astype(np.int64)
+        preds = (rng.rand(n, labels) * 0.7 + 0.3 * target).astype(np.float32)
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    def binary(rng, n=20_000):
+        target = (rng.rand(n) < 0.1).astype(np.int64)
+        preds = (rng.rand(n) * 0.8 + 0.2 * target).astype(np.float32)
+        target[rng.rand(n) < 0.03] = -1
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    def fairness(rng, n=20_000):
+        preds, target = binary(rng, n)
+        return preds, target, torch.from_numpy(rng.randint(-1, 9, n))  # ids -1 and 8 are dropped
+
+    def dice_labels(rng, n=8 * 512 * 512, c=19):
+        target = rng.randint(0, c, n)
+        target[rng.rand(n) < 0.05] = 255  # out of range: counts, as in the JAX package
+        preds = np.where(rng.rand(n) < 0.7, target, rng.randint(0, c, n))
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    return [
+        ("dice_labels", lambda d: cls.Dice(num_classes=19, average="macro", ignore_index=0, device=d), dice_labels, "bincount"),
+        ("dice_scores", lambda d: cls.Dice(num_classes=19, average="weighted", device=d), scores, "bincount"),
+        ("dice_micro_inferred", lambda d: cls.Dice(device=d), dice_labels, "bincount"),
+        ("group_stat_rates", lambda d: cls.BinaryGroupStatRates(num_groups=8, ignore_index=-1, validate_args=False, device=d), fairness, "bincount"),
+        ("fairness", lambda d: cls.BinaryFairness(num_groups=8, ignore_index=-1, validate_args=False, device=d), fairness, "bincount"),
+        ("mc_recall_at_precision", lambda d: cls.MulticlassRecallAtFixedPrecision(19, 0.5, thresholds=100, device=d), scores, "bincount"),
+        ("ml_precision_at_recall", lambda d: cls.MultilabelPrecisionAtFixedRecall(80, 0.5, thresholds=100, device=d), multilabel, "bincount"),
+        ("mc_specificity_at_sensitivity", lambda d: cls.MulticlassSpecificityAtSensitivity(19, 0.5, thresholds=100, device=d), scores, "bincount"),
+        ("ml_sensitivity_at_specificity", lambda d: cls.MultilabelSensitivityAtSpecificity(80, 0.9, thresholds=100, device=d), multilabel, "bincount"),
+        ("bin_recall_at_precision", lambda d: cls.BinaryRecallAtFixedPrecision(0.8, thresholds=100, ignore_index=-1, device=d), binary, "binned_curve"),
+        ("bin_precision_at_recall", lambda d: cls.BinaryPrecisionAtFixedRecall(0.5, thresholds=100, ignore_index=-1, device=d), binary, "binned_curve"),
+        ("bin_sensitivity_at_specificity", lambda d: cls.BinarySensitivityAtSpecificity(0.9, thresholds=100, ignore_index=-1, device=d), binary, "binned_curve"),
+        ("bin_specificity_at_sensitivity", lambda d: cls.BinarySpecificityAtSensitivity(0.5, thresholds=100, ignore_index=-1, device=d), binary, "binned_curve"),
+        ("bin_exact_sensitivity_at_specificity", lambda d: cls.BinarySensitivityAtSpecificity(0.9, ignore_index=-1, device=d), binary, None),
+        ("mc_exact_match", lambda d: cls.MulticlassExactMatch(num_classes=19, device=d), scores, None),
+        ("ml_exact_match", lambda d: cls.MultilabelExactMatch(num_labels=80, device=d), multilabel, None),
+        ("mc_hinge", lambda d: cls.MulticlassHingeLoss(num_classes=19, device=d), scores, None),
+        ("mc_hinge_ova", lambda d: cls.MulticlassHingeLoss(num_classes=19, multiclass_mode="one-vs-all", squared=True, device=d), scores, None),
+        ("bin_hinge", lambda d: cls.BinaryHingeLoss(ignore_index=-1, device=d), binary, None),
+        ("coverage_error", lambda d: cls.MultilabelCoverageError(num_labels=80, device=d), multilabel, None),
+        ("ranking_ap", lambda d: cls.MultilabelRankingAveragePrecision(num_labels=80, device=d), multilabel, None),
+        ("ranking_loss", lambda d: cls.MultilabelRankingLoss(num_labels=80, device=d), multilabel, None),
+    ]
+
+
+@pytest.mark.parametrize("case", _rest_cases(), ids=lambda c: c[0])
+def test_rest_of_classification_on_card_equals_cpu(cuda_device, case):
+    """Every new family on CUDA tensors against the port on the CPU: counts
+    bit-equal, values within rtol 1e-5 and the selected thresholds equal.
+    Dice, fairness and the multiclass and multilabel fixed points count on
+    ``bincount``, the binary binned fixed points on ``binned_curve``: one
+    launch an update."""
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    _, build, batch, kernel = case
+    on_card, on_cpu = build(cuda_device), build("cpu")
+    counters = {"bincount": bincount, "binned_curve": binned_curve}
+    before = {k: m.launches for k, m in counters.items()}
+    rng = np.random.RandomState(31)
+    for _ in range(3):
+        inputs = batch(rng)
+        on_card.update(*(t.to(cuda_device) for t in inputs))
+        on_cpu.update(*inputs)
+    launched = {k: m.launches - before[k] for k, m in counters.items()}
+    assert launched == {k: (3 if k == kernel else 0) for k in counters}
+    _state_equal_to_cpu(on_card, on_cpu)
+    _value_equal_to_cpu(on_card.compute(), on_cpu.compute())
+
+
+def test_fixed_points_share_one_count_with_auroc_on_card(cuda_device):
+    """AUROC and two fixed points on one (T, C, 2, 2) state form one compute
+    group: three counts on the first update, one an update after it."""
+    from torchmetrics_tpu_torch import classification as cls
+
+    kw = {"num_classes": 19, "thresholds": 100, "validate_args": False, "device": cuda_device}
+    coll = tm.MetricCollection(
+        {
+            "auroc": cls.MulticlassAUROC(**kw),
+            "recall_at_precision": cls.MulticlassRecallAtFixedPrecision(min_precision=0.5, **kw),
+            "specificity_at_sensitivity": cls.MulticlassSpecificityAtSensitivity(min_sensitivity=0.5, **kw),
+        },
+        device=cuda_device,
+    )
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    before = bincount.launches
+    for _ in range(4):
+        coll.update(
+            torch.randn((2048, 19), generator=g, device=cuda_device),
+            torch.randint(0, 19, (2048,), generator=g, device=cuda_device),
+        )
+    assert bincount.launches - before == 3 + 3
+    assert [len(group) for group in coll.compute_groups.values()] == [3]

@@ -1,7 +1,9 @@
 """Modular classification metrics: the stat-scores family (with specificity
 and Hamming distance), the confusion matrix and what derives from it
 (Matthews correlation, Cohen's kappa), the threshold curves (PR curve, ROC,
-AUROC, average precision) and calibration error."""
+AUROC, average precision) and the fixed operating points on them,
+calibration error, exact match, hinge loss, Dice, group fairness and the
+multilabel ranking metrics."""
 from torchmetrics_tpu_torch.classification.accuracy import (
     Accuracy,
     BinaryAccuracy,
@@ -27,6 +29,8 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.classification.dice import Dice
+from torchmetrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -37,12 +41,32 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from torchmetrics_tpu_torch.classification.fixed_operating_point import (
+    BinaryPrecisionAtFixedRecall,
+    BinaryRecallAtFixedPrecision,
+    BinarySensitivityAtSpecificity,
+    BinarySpecificityAtSensitivity,
+    MulticlassPrecisionAtFixedRecall,
+    MulticlassRecallAtFixedPrecision,
+    MulticlassSensitivityAtSpecificity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelPrecisionAtFixedRecall,
+    MultilabelRecallAtFixedPrecision,
+    MultilabelSensitivityAtSpecificity,
+    MultilabelSpecificityAtSensitivity,
+    PrecisionAtFixedRecall,
+    RecallAtFixedPrecision,
+    SensitivityAtSpecificity,
+    SpecificityAtSensitivity,
+)
+from torchmetrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
 from torchmetrics_tpu_torch.classification.hamming import (
     BinaryHammingDistance,
     HammingDistance,
     MulticlassHammingDistance,
     MultilabelHammingDistance,
 )
+from torchmetrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
 from torchmetrics_tpu_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
@@ -71,6 +95,11 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from torchmetrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
 from torchmetrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
 from torchmetrics_tpu_torch.classification.specificity import (
     BinarySpecificity,
@@ -97,21 +126,31 @@ __all__ = [
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
     "BinaryHammingDistance",
+    "BinaryHingeLoss",
     "BinaryJaccardIndex",
     "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
+    "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryRecall",
+    "BinaryRecallAtFixedPrecision",
+    "BinarySensitivityAtSpecificity",
     "BinarySpecificity",
+    "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
     "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
     "MatthewsCorrCoef",
     "MulticlassAUROC",
@@ -120,36 +159,54 @@ __all__ = [
     "MulticlassCalibrationError",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
     "MulticlassJaccardIndex",
     "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
+    "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
     "MulticlassRecall",
+    "MulticlassRecallAtFixedPrecision",
+    "MulticlassSensitivityAtSpecificity",
     "MulticlassSpecificity",
+    "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
     "MultilabelHammingDistance",
     "MultilabelJaccardIndex",
     "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
+    "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
+    "MultilabelRecallAtFixedPrecision",
+    "MultilabelSensitivityAtSpecificity",
     "MultilabelSpecificity",
+    "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
     "Precision",
+    "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "ROC",
     "Recall",
+    "RecallAtFixedPrecision",
+    "SensitivityAtSpecificity",
     "Specificity",
+    "SpecificityAtSensitivity",
     "StatScores",
 ]

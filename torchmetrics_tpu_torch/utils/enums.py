@@ -57,3 +57,10 @@ class ClassificationTaskNoMultilabel(EnumStr):
 
     BINARY = "binary"
     MULTICLASS = "multiclass"
+
+
+class ClassificationTaskNoBinary(EnumStr):
+    """Task dispatch values of metrics with no binary form."""
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
