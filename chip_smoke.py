@@ -53,12 +53,25 @@ evaluation workloads:
   CivilComments test shaped batches (133,782 comments, 8 identity groups,
   batch 4,096) through demographic parity, equal opportunity, the per-group
   rates, hinge loss and two binary fixed operating points; counts against
-  plain counts bit for bit, values and selected thresholds against float64.
+  plain counts bit for bit, values and selected thresholds against float64;
+- the rest of image on the ``ssim_windows`` kernel's generic entry: DIV2K
+  validation scored as x4 super-resolution (100 images of 3 x 1356 x 2040,
+  batch 4; preds the targets blurred and noised) through PSNR, PSNR-B on
+  the luma, TV, RMSE-SW, SCC, VIF and LPIPS-Alex (seeded parameters), and
+  UQI, SAM, ERGAS and RASE over the first 20 images; WorldView-3
+  pan-sharpening as PanCollection's test sets give it (20 reduced-
+  resolution samples of 8 x 256 x 256 through SAM, ERGAS, UQI and D_lambda;
+  20 full-resolution ones, MS 8 x 128 x 128 and PAN 512 x 512, through
+  D_lambda, D_s and QNR) and the perceptual path length of a seeded
+  generator (1,024 samples, LPIPS-VGG); generic launches against what the
+  code implies, never the fused entry, the first batch's values against
+  the same functionals on CPU copies.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
 fused SSIM entry at the UVG update's shapes, 67 and 131 taps and a uniform
-window; and the weightless ``bincount`` of 2**24 + 3 equal indices (and the
+window (and the generic entry at the rest of image's shapes: VIF's 17 taps
+at 1356 x 2040, UQI's 11-tap stack, the 8- and 7-tap uniform windows); and the weightless ``bincount`` of 2**24 + 3 equal indices (and the
 confusion matrix on them) to the exact count.
 
 It also holds ``fid_sqrtm`` (float64 Newton-Schulz steps on the FP64
@@ -186,6 +199,16 @@ SSIM_SHAPES = [
     ("gaussian67", 15, 336, 546, "gaussian", 67),
     ("gaussian131", 15, 400, 610, "gaussian", 131),
     ("gaussian201", 15, 470, 680, "gaussian", 201),
+    # the rest of image's main-path generic windows (phases div2k_x4_val and
+    # wv3_pansharpening): VIF's 17-tap scale-0 window over a DIV2K batch's
+    # channel (4 x 1356 x 2040); UQI's 11-tap window over its 5 x 4 x 3
+    # stack, reflect-padded by 5; the 8-tap uniform window of RMSE-SW, RASE
+    # and SCC (scipy's 4 + 3 padding) over 4 x 3 planes; D_s's 7-tap uniform
+    # window over WorldView-3's 20 x 8 pan planes of 512 x 512
+    ("div2k_vif17", 4, 1356, 2040, "vif", 17),
+    ("div2k_uqi11", 60, 1366, 2050, "gaussian", 11),
+    ("div2k_uniform8", 12, 1363, 2047, "uniform", 8),
+    ("wv3_ds_uniform7", 160, 518, 518, "uniform", 7),
 ]
 #: the fused SSIM entry: (name, B, C, H, W, window, taps); the UVG update's
 #: SSIM and MS-SSIM first scale, MS-SSIM's coarsest 1080p scale, sigma 9.3's
@@ -591,6 +614,10 @@ def _ssim_taps(kind: str, k: int, dev):
 
     from torchmetrics_tpu_torch.functional.image.utils import _gaussian
 
+    from torchmetrics_tpu_torch.functional.image.vif import _filter_1d
+
+    if kind == "vif":
+        return _filter_1d(k, k / 5, device=dev)
     return _gaussian(k, SIGMA_BY_TAPS[k], device=dev) if kind == "gaussian" else torch.full((k,), 1.0 / k, device=dev)
 
 
@@ -2281,15 +2308,11 @@ def _check_rest_launches(name: str, run: dict, spec: dict) -> dict:
 
 
 def _drive_rest(name: str, dev):
-    """The workload's spec and :func:`_drive` run, after a cyclic garbage
-    collection (a metric refers to itself through its wrapped ``update``, so
-    an earlier phase's states stay on the card until one runs) and with the
-    device memory then allocated as the run's base."""
-    import gc
-
+    """The workload's spec and :func:`_drive` run, with the device memory
+    allocated before it as the run's base (no garbage collection first: a
+    dropped metric frees its state at once)."""
     import torch
 
-    gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     spec = WORKLOADS[name](dev)
@@ -2463,6 +2486,448 @@ WORKLOADS.update({
     "coco_multilabel": _coco_multilabel,
     "civilcomments_fairness": _civilcomments,
 })
+
+
+# ------------------------------------------------------------------ the rest of image
+
+#: DIV2K validation scored as x4 super-resolution papers and NTIRE report it:
+#: 100 high-resolution images, one landscape shape (DIV2K's heights vary),
+#: float32 in [0, 1], batch 4; the list-state members (UQI, SAM, ERGAS,
+#: RASE) keep every image, as the JAX package's do, so they run over the
+#: first 20 images (5 updates) and the streaming members over all 100
+DIV2K = {"images": 100, "batch": 4, "channels": 3, "height": 1356, "width": 2040, "list_images": 20}
+#: WorldView-3 as PanCollection's test sets give it (8 bands): 20 reduced-
+#: resolution samples of 8 x 256 x 256 (fused against ground truth) and 20
+#: full-resolution ones (MS 8 x 128 x 128, PAN 512 x 512 repeated over the
+#: bands, fused 8 x 512 x 512), batch 4
+WV3 = {"samples": 20, "batch": 4, "bands": 8, "reduced": 256, "ms": 128, "pan": 512, "ratio": 4}
+#: PPL on a seeded generator (512-d latents, six transposed convolutions up
+#: to 3 x 256 x 256 in [0, 255]): 1,024 samples (StyleGAN measures 100,000),
+#: batch 64, LPIPS-VGG on seeded parameters at 64 x 64, lerp and slerp_unit
+PPL = {"samples": 1024, "batch": 64, "latent": 512, "resize": 64}
+#: card against the same port functionals on CPU copies of the first batch:
+#: the windowed-variance metrics and LPIPS (float32 convolutions in another
+#: algorithm) within rtol 1e-3; PSNR, PSNR-B, TV, SAM and ERGAS within 1e-5
+REST_IMAGE_RTOL = {"windowed": 1e-3, "plain": 1e-5}
+#: PPL's mean and std on the card against the CPU run of the same latents:
+#: each distance is divided by epsilon² = 1e-8, so a float32 rounding r of
+#: the backbone's features becomes about r / 1e-4 of their difference
+PPL_RTOL = 1e-2
+
+
+def _div2k_batch(i: int, dev):
+    """Batch ``i``: targets of random sinusoids from coarse to fine
+    (0.002 to 0.2 cycles a pixel) with grain, and preds that blur them (a
+    7-tap gaussian, sigma 1.2) and add N(0, 0.01) noise, both in [0, 1]."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional.image.utils import _gaussian
+    from torchmetrics_tpu_torch.utils.compute import full_float32
+
+    b, c, h, w = DIV2K["batch"], DIV2K["channels"], DIV2K["height"], DIV2K["width"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 7919 * i)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    target = torch.full((b, c, h, w), 0.5, device=dev)
+    for _ in range(12):
+        freq = 10 ** (torch.rand((b, 1, 1, 1), generator=g, device=dev) * 2 - 2.7)
+        angle = torch.rand((b, 1, 1, 1), generator=g, device=dev) * 6.2832
+        amp = 0.02 + 0.06 * torch.rand((b, c, 1, 1), generator=g, device=dev)
+        phase = torch.rand((b, c, 1, 1), generator=g, device=dev) * 6.2832
+        target = target + amp * torch.sin(6.2832 * freq * (yy * torch.cos(angle) + xx * torch.sin(angle)) + phase)
+    target = (target + 0.03 * torch.randn((b, c, h, w), generator=g, device=dev)).clamp(0, 1)
+    taps = _gaussian(7, 1.2, device=dev)
+    with full_float32():
+        blur = F.conv2d(F.pad(target, (3, 3, 3, 3), mode="replicate"), torch.outer(taps, taps).expand(c, 1, 7, 7), groups=c)
+    preds = (blur + 0.01 * torch.randn((b, c, h, w), generator=g, device=dev)).clamp(0, 1)
+    return preds, target
+
+
+def _luma(x):
+    """BT.601 luma of RGB ``(B, 3, H, W)``: PSNR-B's grayscale input."""
+    return (0.299 * x[:, 0:1] + 0.587 * x[:, 1:2] + 0.114 * x[:, 2:3]).contiguous()
+
+
+def _lpips_state(net_type: str, seed: int) -> dict:
+    """Seeded LPIPS parameters: PyTorch's initialisation of the backbone
+    under ``seed`` and non-negative lin heads, uniform in [0, 1) as the JAX
+    package's ``init_lpips_params`` draws them."""
+    import torch
+
+    from torchmetrics_tpu_torch.models.lpips import LPIPSNetwork
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = LPIPSNetwork(net_type)
+        for lin in net.lins:
+            lin.model[1].weight.copy_(torch.rand(lin.model[1].weight.shape))
+    return net.state_dict()
+
+
+def _generic_check(name: str, launched: int, expected: int) -> None:
+    """The generic entry launched ``expected`` times, all on the kernel, and
+    the fused entry never."""
+    from torchmetrics_tpu_torch.ops import kernels
+
+    gate = kernels.gate_snapshot()
+    _check("ssim_fused" not in gate, f"{name}: the fused SSIM entry was dispatched ({gate.get('ssim_fused')})")
+    selections = gate.get("ssim_windows", {}).get("selections", {})
+    _check(selections == {"cuda": selections.get("cuda", 0)}, f"{name}: ssim_windows dispatched off the kernel: {selections}")
+    _check(launched == expected, f"{name}: {launched} generic ssim_windows launches, expected {expected}")
+
+
+def _compare(name: str, checks: dict, got, want, rtol: float) -> None:
+    """Hold one card value to its CPU value and record the relative error."""
+    import torch
+
+    got, want = got.detach().double().cpu(), want.detach().double()
+    err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    _check(bool(torch.isfinite(got).all()), f"{name}: not finite on the card ({got})")
+    _check(torch.allclose(got, want, rtol=rtol, atol=0), f"{name}: card {got.tolist()} against CPU {want.tolist()} (rtol {rtol})")
+    checks[name] = {"card": got.tolist(), "cpu": want.tolist(), "rel_err": err, "rtol": rtol}
+
+
+def _rest_idle_share(step, steps: int) -> dict:
+    """The device's idle share over ``steps`` profiled calls of ``step``."""
+    rows, wall_us = _profiled(step, steps)
+    busy_us = sum(r[1] for r in rows)
+    return {
+        "wall_ms_per_update": wall_us / steps / 1e3, "device_ms_per_update": busy_us / steps / 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+        "top_device_kernels": [
+            {"name": k[:100], "ms_per_update": us / steps / 1e3, "calls_per_update": n / steps} for k, us, n in rows[:8]
+        ],
+    }
+
+
+def phase_div2k(dev) -> dict:
+    """DIV2K x4 validation through PSNR, PSNR-B (luma), TV (preds), RMSE-SW,
+    SCC, VIF, LPIPS-Alex (all 100 images) and UQI, SAM, ERGAS, RASE (the
+    first 20): generic ``ssim_windows`` launches against what the code
+    implies (VIF 26 a channel, SCC 5 a channel, RMSE-SW 1 an update; UQI 1
+    and RASE 2 a compute), never the fused entry; the first batch's values
+    against the same functionals on CPU copies; updates/s, the idle share
+    of a profiled window and the peak memory."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import functional as tmf
+    from torchmetrics_tpu_torch import image as tmi
+    from torchmetrics_tpu_torch.models.lpips import lpips_network
+    from torchmetrics_tpu_torch.ops import kernels, ssim_kernel
+
+    name = "div2k_x4_val"
+    b, c = DIV2K["batch"], DIV2K["channels"]
+    updates, list_updates = DIV2K["images"] // b, DIV2K["list_images"] // b
+    alex = _lpips_state("alex", SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stream = MetricCollection({
+        "psnr": tmi.PeakSignalNoiseRatio(data_range=1.0, device=dev),
+        "rmse_sw": tmi.RootMeanSquaredErrorUsingSlidingWindow(window_size=8, device=dev),
+        "scc": tmi.SpatialCorrelationCoefficient(device=dev),
+        "vif": tmi.VisualInformationFidelity(device=dev),
+        "lpips": tmi.LearnedPerceptualImagePatchSimilarity(net_type="alex", params=alex, normalize=True, device=dev),
+    }, device=dev)
+    lists = MetricCollection({
+        "uqi": tmi.UniversalImageQualityIndex(device=dev),
+        "sam": tmi.SpectralAngleMapper(device=dev),
+        "ergas": tmi.ErrorRelativeGlobalDimensionlessSynthesis(ratio=4, device=dev),
+        "rase": tmi.RelativeAverageSpectralError(window_size=8, device=dev),
+    }, device=dev)
+    psnrb = tmi.PeakSignalNoiseRatioWithBlockedEffect(device=dev)
+    tv = tmi.TotalVariation(device=dev)
+
+    def update(i: int, preds, target) -> None:
+        stream.update(preds, target)
+        psnrb.update(_luma(preds), _luma(target))
+        tv.update(preds)
+        if i < list_updates:
+            lists.update(preds, target)
+
+    kernels.reset_gate_log()
+    ssim_kernel.launches = 0
+    step_s, first = [], None
+    for i in range(updates):
+        preds, target = _div2k_batch(i, dev)
+        if i == 0:
+            first = (preds, target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(i, preds, target)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    update_launches = ssim_kernel.launches
+    t0 = time.perf_counter()
+    result = {**stream.compute(), **lists.compute(), "psnrb": psnrb.compute(), "tv": tv.compute()}
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    compute_launches = ssim_kernel.launches - update_launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {"update": updates * (26 * c + 5 * c + 1), "compute": 1 + 2}
+    _generic_check(name, update_launches + compute_launches, expected["update"] + expected["compute"])
+    _check(compute_launches == expected["compute"], f"{name}: {compute_launches} launches in the compute, expected 3")
+    for key, value in result.items():
+        _check(bool(torch.isfinite(value).all()), f"{name}: {key} = {value} is not finite")
+
+    # the first batch: each member's value on the card against the same
+    # port functional on CPU copies (the plain bodies)
+    preds, target = first
+    cpu_preds, cpu_target = preds.cpu(), target.cpu()
+    alex_cpu = lpips_network("alex", alex, device="cpu")
+    alex_card = stream["lpips"].net
+    checks: dict = {}
+    tol = REST_IMAGE_RTOL
+    pairs = {
+        "psnr": (lambda p, t: tmf.peak_signal_noise_ratio(p, t, data_range=1.0), tol["plain"]),
+        "psnrb": (lambda p, t: tmf.peak_signal_noise_ratio_with_blocked_effect(_luma(p), _luma(t)), tol["plain"]),
+        "tv": (lambda p, t: tmf.total_variation(p), tol["plain"]),
+        "sam": (tmf.spectral_angle_mapper, tol["plain"]),
+        "ergas": (lambda p, t: tmf.error_relative_global_dimensionless_synthesis(p, t, ratio=4), tol["plain"]),
+        "rmse_sw": (lambda p, t: tmf.root_mean_squared_error_using_sliding_window(p, t, window_size=8), tol["windowed"]),
+        "scc": (tmf.spatial_correlation_coefficient, tol["windowed"]),
+        "vif": (tmf.visual_information_fidelity, tol["windowed"]),
+        "uqi": (tmf.universal_image_quality_index, tol["windowed"]),
+        "rase": (lambda p, t: tmf.relative_average_spectral_error(p, t, window_size=8), tol["windowed"]),
+    }
+    for key, (fn, rtol) in pairs.items():
+        _compare(key, checks, fn(preds, target), fn(cpu_preds, cpu_target), rtol)
+    with torch.no_grad():
+        _compare("lpips", checks, tmf.learned_perceptual_image_patch_similarity(preds, target, net=alex_card, normalize=True),
+                 tmf.learned_perceptual_image_patch_similarity(cpu_preds, cpu_target, net=alex_cpu, normalize=True),
+                 tol["windowed"])
+    del first, preds, target, cpu_preds, cpu_target
+
+    profile_batch = _div2k_batch(updates, dev)
+    profile = _rest_idle_share(lambda i: update(updates, *profile_batch), 3)
+    update_s = sum(step_s)
+    step_ms = sorted(t * 1e3 for t in step_s)
+    return _emit({
+        "phase": name, "images": DIV2K["images"], "shape": [c, DIV2K["height"], DIV2K["width"]], "batch": b,
+        "updates": updates, "list_state_images": DIV2K["list_images"],
+        "reduced": ["one landscape shape for all 100 images", "UQI, SAM, ERGAS, RASE over the first 20 images (5 updates)"],
+        "ssim_windows_generic_launches": update_launches + compute_launches,
+        "expected_launches": {"per_update": 26 * c + 5 * c + 1, **expected}, "fused_launches": 0,
+        "updates_per_s": updates / update_s, "images_per_s": DIV2K["images"] / update_s,
+        "update_ms": {"min": step_ms[0], "p50": step_ms[updates // 2], "max": step_ms[-1]}, "compute_s": compute_s,
+        "base_mem_bytes": base, "peak_mem_bytes": peak, "peak_mem_above_base_bytes": peak - base,
+        "device_idle_share": profile["device_idle_share"], "profile": profile,
+        "values": {k: float(v) for k, v in result.items()}, "first_batch_checks": checks,
+    })
+
+
+def _wv3_batch(i: int, full: bool, dev):
+    """Sample batch ``i``: 8-band ground truth of smooth random fields, the
+    fused image (truth plus N(0, 0.01)), and for full resolution the MS
+    image (truth 4x4-averaged, plus N(0, 0.005)) and the PAN image (the band
+    mean plus fine detail) repeated over the bands."""
+    import torch
+    import torch.nn.functional as F
+
+    b, bands = WV3["batch"], WV3["bands"]
+    side = WV3["pan"] if full else WV3["reduced"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 104729 * i + int(full))
+    coarse = torch.rand((b, bands, side // 16, side // 16), generator=g, device=dev)
+    truth = F.interpolate(coarse, size=(side, side), mode="bicubic", align_corners=False)
+    truth = (0.2 + 0.6 * truth + 0.02 * torch.randn((b, bands, side, side), generator=g, device=dev)).clamp(0, 1)
+    fused = (truth + 0.01 * torch.randn(truth.shape, generator=g, device=dev)).clamp(0, 1)
+    if not full:
+        return fused, truth
+    ms = F.avg_pool2d(truth, WV3["ratio"])
+    ms = (ms + 0.005 * torch.randn(ms.shape, generator=g, device=dev)).clamp(0, 1)
+    pan = (truth.mean(1, keepdim=True) + 0.01 * torch.randn((b, 1, side, side), generator=g, device=dev)).clamp(0, 1)
+    return fused, ms, pan.expand(b, bands, side, side).contiguous()
+
+
+class _SeededGenerator:
+    """A generator model for PPL: 512-d latents on the unit sphere (as
+    StyleGAN normalises z, so that ``slerp_unit`` keeps them there), scaled
+    by sqrt(512), a linear layer to 256 x 4 x 4, six 4 x 4 stride-2
+    transposed convolutions to 3 x 256 x 256, and ``127.5 (1 + tanh)`` to
+    [0, 255]; weights He-scaled from a seed. Runs in full float32 (TF32
+    rounding would swamp PPL's epsilon-sized image differences). ``sample``
+    draws with the key it is handed and records the latents."""
+
+    def __init__(self, dev, seed: int = SEED):
+        import torch
+
+        g = torch.Generator().manual_seed(seed)
+        chans = [256, 128, 64, 32, 16, 8, 3]
+        self.fc = (torch.randn((256 * 16, PPL["latent"]), generator=g) / PPL["latent"] ** 0.5).to(dev)
+        self.convs = [
+            (torch.randn((cin, cout, 4, 4), generator=g) * (2.0 / (cin * 4)) ** 0.5).to(dev)
+            for cin, cout in zip(chans[:-1], chans[1:])
+        ]
+        self.drawn = []
+
+    def sample(self, key, num_samples: int):
+        import torch
+
+        z = torch.randn((num_samples, PPL["latent"]), generator=key, device=key.device)
+        z = z / torch.linalg.vector_norm(z, dim=1, keepdim=True)
+        self.drawn.append(z)
+        return z
+
+    def __call__(self, z):
+        import torch
+        import torch.nn.functional as F
+
+        from torchmetrics_tpu_torch.utils.compute import full_float32
+
+        with torch.no_grad(), full_float32():
+            x = F.relu(PPL["latent"] ** 0.5 * z @ self.fc.to(z.device).T).reshape(-1, 256, 4, 4)
+            for i, w in enumerate(self.convs):
+                x = F.conv_transpose2d(x, w.to(z.device), stride=2, padding=1)
+                x = F.relu(x) if i < len(self.convs) - 1 else 127.5 * (1 + torch.tanh(x))
+        return x
+
+
+class _Replay:
+    """The same model on the CPU, whose ``sample`` returns the latents the
+    card's run drew, in order."""
+
+    def __init__(self, model: _SeededGenerator):
+        self.model, self.calls = model, 0
+
+    def sample(self, key, num_samples: int):
+        z = self.model.drawn[self.calls].cpu()
+        self.calls += 1
+        return z
+
+    def __call__(self, z):
+        return self.model(z)
+
+
+def phase_ppl(dev, vgg: dict) -> dict:
+    """Perceptual path length of the seeded generator, lerp and slerp_unit,
+    on the card and, from the same latents, on the CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch import image as tmi
+
+    model = _SeededGenerator(dev)
+    out = {}
+    for method in ("lerp", "slerp_unit"):
+        model.drawn = []
+        ppl = tmi.PerceptualPathLength(
+            num_samples=PPL["samples"], batch_size=PPL["batch"], interpolation_method=method, resize=PPL["resize"],
+            sim_net="vgg", sim_params=vgg, key=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+        )
+        ppl.update(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, std, kept = ppl.compute()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cpu = tmi.PerceptualPathLength(
+            num_samples=PPL["samples"], batch_size=PPL["batch"], interpolation_method=method, resize=PPL["resize"],
+            sim_net="vgg", sim_params=vgg, device="cpu",
+        )
+        cpu.update(_Replay(model))
+        cpu_mean, cpu_std, cpu_kept = cpu.compute()
+        checks: dict = {}
+        _compare(f"{method}_mean", checks, mean, cpu_mean, PPL_RTOL)
+        _compare(f"{method}_std", checks, std, cpu_std, PPL_RTOL)
+        _check(kept.shape == cpu_kept.shape, f"ppl {method}: kept {tuple(kept.shape)} on the card, {tuple(cpu_kept.shape)} on the CPU")
+        out[method] = {"mean": float(mean), "std": float(std), "kept": kept.numel(), "compute_s": seconds,
+                       "samples_per_s": PPL["samples"] / seconds, "checks": checks}
+    return out
+
+
+def phase_wv3(dev) -> dict:
+    """WorldView-3 pan-sharpening: reduced resolution through SAM, ERGAS,
+    UQI and D_lambda (one compute group of list states), full resolution
+    through D_lambda, D_s and QNR; generic ``ssim_windows`` launches at the
+    computes against the code's (UQI 1, D_lambda 2, D_s 1 + 2 x 8, QNR 19),
+    never the fused entry; the first batch's values against CPU copies; then
+    PPL."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import functional as tmf
+    from torchmetrics_tpu_torch import image as tmi
+    from torchmetrics_tpu_torch.ops import kernels, ssim_kernel
+
+    name = "wv3_pansharpening"
+    bands, updates = WV3["bands"], WV3["samples"] // WV3["batch"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reduced = MetricCollection({
+        "sam": tmi.SpectralAngleMapper(device=dev),
+        "ergas": tmi.ErrorRelativeGlobalDimensionlessSynthesis(ratio=WV3["ratio"], device=dev),
+        "uqi": tmi.UniversalImageQualityIndex(device=dev),
+        "d_lambda": tmi.SpectralDistortionIndex(device=dev),
+    }, device=dev)
+    d_lambda = tmi.SpectralDistortionIndex(device=dev)
+    full = MetricCollection({
+        "d_s": tmi.SpatialDistortionIndex(window_size=7, device=dev),
+        "qnr": tmi.QualityWithNoReference(window_size=7, device=dev),
+    }, device=dev)
+
+    def update(i: int) -> None:
+        reduced.update(*_wv3_batch(i, False, dev))
+        fused, ms, pan = _wv3_batch(i, True, dev)
+        d_lambda.update(fused, ms)
+        full.update(fused, {"ms": ms, "pan": pan})
+
+    kernels.reset_gate_log()
+    ssim_kernel.launches = 0
+    step_s = []
+    for i in range(updates):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    update_launches = ssim_kernel.launches
+    t0 = time.perf_counter()
+    result = {**{f"rr_{k}": v for k, v in reduced.compute().items()}, "fr_d_lambda": d_lambda.compute(),
+              **{f"fr_{k}": v for k, v in full.compute().items()}}
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    launches = ssim_kernel.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {"update": 0, "compute": (1 + 2) + 2 + (1 + 2 * bands) + (2 + 1 + 2 * bands)}
+    _check(update_launches == 0, f"{name}: {update_launches} launches in the updates (list states launch at compute)")
+    _generic_check(name, launches, expected["compute"])
+    for key, value in result.items():
+        _check(bool(torch.isfinite(value).all()), f"{name}: {key} = {value} is not finite")
+
+    checks: dict = {}
+    tol = REST_IMAGE_RTOL
+    fused_rr, truth = _wv3_batch(0, False, dev)
+    for key, fn, rtol in (
+        ("rr_sam", tmf.spectral_angle_mapper, tol["plain"]),
+        ("rr_ergas", lambda p, t: tmf.error_relative_global_dimensionless_synthesis(p, t, ratio=4), tol["plain"]),
+        ("rr_uqi", tmf.universal_image_quality_index, tol["windowed"]),
+        ("rr_d_lambda", tmf.spectral_distortion_index, tol["windowed"]),
+    ):
+        _compare(key, checks, fn(fused_rr, truth), fn(fused_rr.cpu(), truth.cpu()), rtol)
+    fused, ms, pan = _wv3_batch(0, True, dev)
+    _compare(
+        "fr_d_lambda", checks, tmf.spectral_distortion_index(fused, ms), tmf.spectral_distortion_index(fused.cpu(), ms.cpu()),
+        tol["windowed"],
+    )
+    for key, fn in (("fr_d_s", tmf.spatial_distortion_index), ("fr_qnr", tmf.quality_with_no_reference)):
+        _compare(key, checks, fn(fused, ms, pan, window_size=7), fn(fused.cpu(), ms.cpu(), pan.cpu(), window_size=7), tol["windowed"])
+    del fused_rr, truth, fused, ms, pan
+
+    vgg = _lpips_state("vgg", SEED + 1)
+    ppl = phase_ppl(dev, vgg)
+    profile = _rest_idle_share(lambda i: (update(i), full.compute(), d_lambda.compute(), reduced.compute()), 2)
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "samples": WV3["samples"], "batch": WV3["batch"], "bands": bands, "updates": updates,
+        "reduced": ["20 samples of each resolution", "PPL over 1,024 samples (StyleGAN: 100,000)"],
+        "ssim_windows_generic_launches": launches, "expected_launches": expected, "fused_launches": 0,
+        "updates_per_s": updates / update_s, "compute_s": compute_s,
+        "base_mem_bytes": base, "peak_mem_bytes": peak, "peak_mem_above_base_bytes": peak - base,
+        "device_idle_share": profile["device_idle_share"], "profile": profile,
+        "values": {k: float(v) for k, v in result.items()}, "first_batch_checks": checks, "ppl": ppl,
+    })
 
 
 def _device_rows(prof) -> list:
@@ -2694,6 +3159,7 @@ def main() -> int:
     cifar = phase_cifar10(dev)
     sync = phase_sync(dev)
     rest = [phase_imagenet_rest(dev), phase_coco_multilabel(dev), phase_civilcomments_fairness(dev)]
+    image_rest = [phase_div2k(dev), phase_wv3(dev)]
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -2711,7 +3177,7 @@ def main() -> int:
     main = next(r for r in rows if r["shape"] == "cityscapes_confmat_weightless")
     curve = next(r for r in curve_rows if r["shape"] == "config6_int64_ignore")
     topk = next(r for r in topk_rows if r["shape"] == "msmarco_k10")
-    window = next(r for r in ssim["rows"] if r["shape"] == "uvg_1080p")
+    window = next(r for r in ssim["rows"] if r["shape"] == "div2k_vif17")
     fused = next(r for r in ssim["fused"] if r["shape"] == "uvg_1080p")
     root = next(r for r in sqrtm_rows if r["shape"] == "f2048_d1")
     _emit({"kernels": [
@@ -2771,11 +3237,13 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/ssim_windows.cu",
             "replaces": "torchmetrics_tpu/ops/ssim_kernel.py:52",
-            "launches": uvg["ssim_launches"],
+            "launches": uvg["ssim_launches"] + sum(r["ssim_windows_generic_launches"] for r in image_rest),
+            "fused_launches": uvg["ssim_launches"],
+            "generic_launches": sum(r["ssim_windows_generic_launches"] for r in image_rest),
             "max_abs_err": max([r["max_abs_err"] for r in ssim["rows"]] + [r["max_abs_err_ssim"] for r in ssim["fused"]]),
-            # the headline is the entry every main-path launch takes: SSIM
-            # fused around the windows (tm_ssim_fused), one launch an SSIM
-            # call, at the UVG update's full scale
+            # the headline is SSIM's entry: SSIM fused around the windows
+            # (tm_ssim_fused), one launch an SSIM call, at the UVG update's
+            # full scale
             "entry": "tm_ssim_fused",
             "ms": fused["ms"],
             "plain_ms": fused["plain_ms"],
@@ -2785,10 +3253,14 @@ def main() -> int:
             # windows alone, without TF32)
             "library_ms": fused["library_ms"],
             "shapes": ssim["fused"],
-            # the second entry, the route when a gradient is needed: the
-            # generic windowed sum (tm_ssim_windows) and its backward
+            # the second entry: the generic windowed sum (tm_ssim_windows)
+            # and its backward, the rest of image's route (UQI, RMSE-SW,
+            # RASE, SCC, VIF, D_lambda, D_s, QNR) and SSIM's with a
+            # gradient; its headline is the heaviest main-path launch, VIF's
+            # 17-tap scale-0 window over a DIV2K batch's channel
             "generic": {
                 "entry": "tm_ssim_windows",
+                "shape": window["shape"],
                 "max_abs_err": max(r["max_abs_err"] for r in ssim["rows"]),
                 "ms": window["ms"],
                 "plain_ms": window["plain_ms"],

@@ -1101,3 +1101,148 @@ def test_fixed_points_share_one_count_with_auroc_on_card(cuda_device):
         )
     assert bincount.launches - before == 3 + 3
     assert [len(group) for group in coll.compute_groups.values()] == [3]
+
+
+# ------------------------------------------------- the rest of image (generic ssim_windows)
+
+#: the generic entry's main-path shapes of the rest of image: VIF's 17-tap
+#: scale-0 window at DIV2K's 1356 x 2040 (batch 4), UQI's 11-tap window over
+#: its 5·B·C stack, the 8-tap uniform window of RMSE-SW, RASE and SCC, and
+#: D_s's 7-tap uniform window at 512 x 512 (20 images x 8 bands)
+REST_OF_IMAGE_SHAPES = [
+    (4, 1356, 2040, 17, 17),
+    (60, 1366, 2050, 11, 11),
+    (12, 1363, 2047, 8, 8),
+    (160, 518, 518, 7, 7),
+]
+
+
+@pytest.mark.parametrize("m,hp,wp,kh,kw", REST_OF_IMAGE_SHAPES)
+def test_ssim_windows_kernel_at_the_rest_of_image_shapes(cuda_device, m, hp, wp, kh, kw):
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    x, g_h, g_w = (a.to(cuda_device) for a in _window_case(m + kh, m, hp, wp, kh, kw))
+    before = ssim_kernel.launches
+    got = ssim_kernel._windowed_cuda(x, g_h, g_w)
+    torch.cuda.synchronize()
+    assert ssim_kernel.launches == before + 1
+    torch.testing.assert_close(got, ssim_kernel._windowed_reference(x, g_h, g_w), rtol=SSIM_TOL, atol=SSIM_TOL)
+
+
+@pytest.mark.parametrize("taps", [17, 9, 5, 3])
+def test_ssim_windows_backward_at_vif_taps(cuda_device, taps):
+    """VIF's gaussians through the kernel's backward (the same kernel over
+    the padded gradient with reversed taps) against autograd of the plain body."""
+    from torchmetrics_tpu_torch.functional.image.vif import _filter_1d
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    x, _, _ = _window_case(taps, 3, 90, 75, taps, taps)
+    g = _filter_1d(taps, taps / 5)
+    weight = torch.rand((3, 90 - taps + 1, 75 - taps + 1), generator=torch.Generator().manual_seed(taps))
+    x_card = x.to(cuda_device).requires_grad_()
+    x_cpu = x.clone().requires_grad_()
+    (ssim_kernel._windowed_cuda(x_card, g.to(cuda_device), g.to(cuda_device)) * weight.to(cuda_device)).sum().backward()
+    (ssim_kernel._windowed_reference(x_cpu, g, g) * weight).sum().backward()
+    torch.testing.assert_close(x_card.grad.cpu(), x_cpu.grad, rtol=1e-5, atol=1e-6)
+
+
+def _image_pair(seed, shape):
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, shape[-2]), np.linspace(0, 1, shape[-1]), indexing="ij")
+    preds = np.clip(0.5 + 0.3 * np.sin(6 * yy + rng.rand(*shape[:-2], 1, 1)) * np.cos(4 * xx) + 0.05 * rng.randn(*shape), 0, 1)
+    target = np.clip(preds + 0.05 * rng.randn(*shape), 0, 1)
+    return torch.from_numpy(preds.astype(np.float32)), torch.from_numpy(target.astype(np.float32))
+
+
+def _generic_launches(fn, *args, **kwargs):
+    """``fn``'s value and the generic entry's launches it made (the fused
+    entry must launch none)."""
+    from torchmetrics_tpu_torch.ops import ssim_kernel
+
+    kernels.reset_gate_log()
+    before = ssim_kernel.launches
+    value = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    gate = kernels.gate_snapshot()
+    assert "ssim_fused" not in gate and gate["ssim_windows"]["selections"] == {"cuda": ssim_kernel.launches - before}
+    return value, ssim_kernel.launches - before
+
+
+@pytest.mark.parametrize(
+    "name, kwargs, launches, rtol",
+    [
+        ("universal_image_quality_index", {}, 1, 1e-4),
+        ("root_mean_squared_error_using_sliding_window", {"window_size": 8}, 1, 1e-5),
+        ("relative_average_spectral_error", {"window_size": 7}, 2, 1e-5),
+        ("spatial_correlation_coefficient", {"window_size": 8}, 15, 1e-4),
+        ("visual_information_fidelity", {}, 78, 1e-4),
+        ("spectral_distortion_index", {}, 2, 1e-4),
+    ],
+)
+def test_rest_of_image_on_card_equals_cpu(cuda_device, name, kwargs, launches, rtol):
+    """Each metric that windows on ``ssim_windows``: the card's value (every
+    window one generic launch) against the CPU's plain bodies."""
+    from torchmetrics_tpu_torch import functional as F_
+
+    preds, target = _image_pair(1, (2, 3, 64, 70))
+    fn = getattr(F_, name)
+    got, n = _generic_launches(fn, preds.to(cuda_device), target.to(cuda_device), **kwargs)
+    assert n == launches
+    torch.testing.assert_close(got.cpu(), fn(preds, target, **kwargs), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_lr", [False, True])
+def test_pansharpening_on_card_equals_cpu(cuda_device, with_lr):
+    """D_s (two UQI launches a band, and one for the pan image's low-pass
+    unless ``pan_lr`` is given) and QNR (D_lambda's two more) on the card
+    against the CPU."""
+    from torchmetrics_tpu_torch.functional import quality_with_no_reference, spatial_distortion_index
+
+    preds, pan = _image_pair(2, (2, 4, 64, 64))
+    ms = preds[:, :, ::4, ::4].contiguous() * 0.9
+    pan_lr = pan[:, :, ::4, ::4].contiguous() if with_lr else None
+    args = (preds, ms, pan, pan_lr)
+    on_card = [a if a is None else a.to(cuda_device) for a in args]
+    d_s, n = _generic_launches(spatial_distortion_index, *on_card)
+    assert n == 2 * 4 + (0 if with_lr else 1)
+    qnr, n = _generic_launches(quality_with_no_reference, *on_card)
+    assert n == 2 + 2 * 4 + (0 if with_lr else 1)
+    torch.testing.assert_close(d_s.cpu(), spatial_distortion_index(*args), rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(qnr.cpu(), quality_with_no_reference(*args), rtol=1e-4, atol=1e-6)
+
+
+def test_vif_gradient_on_card_equals_cpu(cuda_device):
+    from torchmetrics_tpu_torch.functional import visual_information_fidelity
+
+    preds, target = _image_pair(3, (1, 2, 48, 52))
+    p_card, p_cpu = preds.to(cuda_device).requires_grad_(), preds.clone().requires_grad_()
+    visual_information_fidelity(p_card, target.to(cuda_device)).backward()
+    visual_information_fidelity(p_cpu, target).backward()
+    torch.testing.assert_close(p_card.grad.cpu(), p_cpu.grad, rtol=1e-3, atol=1e-8)
+
+
+def test_del_frees_card_memory_without_the_cyclic_gc(cuda_device):
+    """With the cyclic garbage collector off, ``del`` of an updated metric
+    and of a collection gives their card memory back at once."""
+    import gc
+
+    was_enabled = gc.isenabled()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    gc.disable()
+    try:
+        coll = tm.MetricCollection(
+            {"confmat": MulticlassConfusionMatrix(num_classes=2048, device=cuda_device),
+             "acc": MulticlassAccuracy(num_classes=2048, device=cuda_device)},
+            device=cuda_device,
+        )
+        coll.update(torch.randint(0, 2048, (4096,), device=cuda_device), torch.randint(0, 2048, (4096,), device=cuda_device))
+        coll.compute()
+        assert torch.cuda.memory_allocated(cuda_device) > base + 2048 * 2048 * 4
+        del coll
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(cuda_device) == base
+    finally:
+        if was_enabled:
+            gc.enable()

@@ -6,7 +6,11 @@ the functional API, state export and merge. Float values agree within
 rtol=1e-6, counts exactly. The port-only behaviour (device placement, the
 transaction rollback, sync in a single process) is pinned here too.
 """
+import copy
+import gc
+import inspect
 import pickle
+import weakref
 import warnings
 
 import jax.numpy as jnp
@@ -193,6 +197,68 @@ def test_reset_clone_and_pickle():
     # the defaults survive a reset followed by an update
     m.update(torch.tensor([0]), torch.tensor([0]))
     assert int(m._defaults["tp"].sum()) == 0
+
+
+def _state_refs(metric):
+    """Weak references to every state tensor of a metric or a collection."""
+    metrics = metric.values() if isinstance(metric, tm.MetricCollection) else [metric]
+    return [weakref.ref(v) for m in metrics for v in m._state.values() if isinstance(v, torch.Tensor)]
+
+
+def _collection():
+    return tm.MetricCollection(
+        {
+            "acc": classification.MulticlassAccuracy(num_classes=3, device="cpu"),
+            "f1": classification.MulticlassF1Score(num_classes=3, device="cpu"),
+            "confmat": classification.MulticlassConfusionMatrix(num_classes=3, device="cpu"),
+        },
+        device="cpu",
+    )
+
+
+@pytest.mark.parametrize("make", ["metric", "collection"])
+@pytest.mark.parametrize("copy_with", ["none", "pickle", "clone", "deepcopy"])
+def test_del_frees_the_state_without_the_cyclic_gc(make, copy_with):
+    """A metric is no reference cycle: with the cyclic garbage collector
+    off, ``del`` frees every state tensor at once, for a metric or a
+    collection as built, updated and computed, and for its copies."""
+    was_enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        metric = classification.MulticlassF1Score(num_classes=3, device="cpu") if make == "metric" else _collection()
+        metric.update(torch.tensor([0, 1, 2, 2]), torch.tensor([0, 2, 2, 1]))
+        metric.compute()
+        if copy_with != "none":
+            metric = {"pickle": lambda m: pickle.loads(pickle.dumps(m)), "clone": lambda m: m.clone(),
+                      "deepcopy": copy.deepcopy}[copy_with](metric)
+            metric.update(torch.tensor([1]), torch.tensor([1]))
+            metric.compute()
+        refs = _state_refs(metric)
+        assert refs and all(r() is not None for r in refs)
+        del metric
+        assert all(r() is None for r in refs)
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
+def test_update_on_a_temporary_metric_and_through_super():
+    """The transactional ``update`` holds its metric while it runs, and an
+    override reaches its parent's plain method through ``super()``."""
+    classification.MulticlassAccuracy(num_classes=3, device="cpu").update(torch.tensor([0]), torch.tensor([0]))
+
+    class Doubled(tm.SumMetric):
+        def update(self, value):
+            super().update(2 * value)
+
+        def compute(self):
+            return super().compute() + 1
+
+    m = Doubled(device="cpu")
+    m.update(torch.tensor(3.0))
+    assert m.update_count == 1 and float(m.compute()) == 7.0
+    assert list(inspect.signature(m.update).parameters) == ["value"]
 
 
 def test_compositional_metric_matches_jax():

@@ -1,24 +1,39 @@
 """Image-kernel utilities: gaussian and uniform separable windows, reflection
-padding and the pooling of MS-SSIM.
+and scipy-style symmetric padding, the plain convolution and the pooling of
+MS-SSIM.
 
 Every 2-D windowed sum goes through the ``ssim_windows`` kernel
-(ops/ssim_kernel.py), whose fused entry reflects indices itself as
-:func:`_reflect_index` does. The 3-D window is plain PyTorch in full
-float32, as the JAX package leaves it to XLA.
+(ops/ssim_kernel.py): :func:`_separable_window_2d` (UQI, RMSE-SW, RASE,
+SCC, VIF and the pan-sharpening family) takes its generic entry, and the
+fused entry reflects indices itself as :func:`_reflect_index` does. The 3-D
+window and :func:`_conv2d` are plain PyTorch in full float32, as the JAX
+package leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from torchmetrics_tpu_torch.ops.ssim_kernel import _WINDOW_GEMM_MAX_DIM, _band_matrix, full_float32
+from torchmetrics_tpu_torch.ops.ssim_kernel import _WINDOW_GEMM_MAX_DIM, _band_matrix, full_float32, windowed_sum_2d
 
 
 def _gaussian(kernel_size: int, sigma: float, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
-    """1-D gaussian window of ``kernel_size`` taps, summing to 1."""
-    dist = torch.arange((1 - kernel_size) / 2, (1 + kernel_size) / 2, 1, dtype=dtype, device=device)
+    """1-D gaussian window of ``kernel_size`` taps, summing to 1: formed in
+    float64 on the host and rounded, so every device windows with the same
+    taps (a window's moments cancel in ``E[x²] − μ²``, where taps that sum
+    to 1 give or take a device's ulp shift every variance alike)."""
+    dist = torch.arange((1 - kernel_size) / 2, (1 + kernel_size) / 2, 1, dtype=torch.float64)
     gauss = torch.exp(-torch.pow(dist / sigma, 2) / 2)
-    return gauss / gauss.sum()
+    return (gauss / gauss.sum()).to(dtype=dtype, device=device)
+
+
+def _separable_window_2d(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tensor:
+    """Valid separable windowed sum of NCHW ``x`` with 1-D taps ``g_h``
+    (down) and ``g_w`` (across): one ``ssim_windows`` call over the
+    ``(N·C, H, W)`` plane stack, whatever the image size."""
+    n, c, h, w = x.shape
+    out = windowed_sum_2d(x.reshape(n * c, h, w), g_h, g_w)
+    return out.reshape(n, c, out.shape[-2], out.shape[-1]).to(x.dtype)
 
 
 def _separable_window_3d(x: torch.Tensor, g_d: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tensor:
@@ -39,6 +54,37 @@ def _separable_window_3d(x: torch.Tensor, g_d: torch.Tensor, g_h: torch.Tensor, 
         out = torch.einsum("ncdhw,de->ncehw", x, bd)
         out = torch.einsum("ncehw,hi->nceiw", out, bh)
         return torch.einsum("nceiw,wj->nceij", out, bw)
+
+
+def _conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Plain valid convolution of NCHW ``x`` with an OIHW ``kernel``, in full
+    float32 (cuDNN would otherwise take TF32 on the card)."""
+    with full_float32():
+        return F.conv2d(x, kernel.to(x))
+
+
+def _single_dimension_pad(inputs: torch.Tensor, dim: int, pad: int, outer_pad: int = 0) -> torch.Tensor:
+    """Scipy-style symmetric padding of one axis (the edge repeated): the
+    first ``pad`` elements reversed before, the last ``pad + outer_pad - 1``
+    reversed after."""
+    n = inputs.shape[dim]
+    before = torch.arange(pad - 1, -1, -1, device=inputs.device)
+    after = torch.arange(n - 1, n - pad - outer_pad, -1, device=inputs.device)
+    return torch.cat((inputs.index_select(dim, before), inputs, inputs.index_select(dim, after)), dim=dim)
+
+
+def _reflection_pad_2d(inputs: torch.Tensor, pad: int, outer_pad: int = 0) -> torch.Tensor:
+    """Scipy-style symmetric padding of H and W."""
+    for dim in (2, 3):
+        inputs = _single_dimension_pad(inputs, dim, pad, outer_pad)
+    return inputs
+
+
+def _uniform_filter(inputs: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Uniform (box) filter with scipy's padding: an output the size of the input."""
+    inputs = _reflection_pad_2d(inputs, window_size // 2, window_size % 2)
+    uniform = torch.full((window_size,), 1.0 / window_size, dtype=inputs.dtype, device=inputs.device)
+    return _separable_window_2d(inputs, uniform, uniform)
 
 
 def _reflect_index(n: int, pad: int, device) -> torch.Tensor:

@@ -90,6 +90,92 @@ def _as_state_tensor(value: Any, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+class _BoundPerAccess:
+    """A metric class's own ``update`` or ``compute``, wrapped in ``body``
+    (the transaction, or the cached and synced compute) afresh on every
+    access through an instance. Nothing is stored on the instance, so a
+    metric is no reference cycle: ``del m`` frees its state at once, without
+    a pass of the cyclic garbage collector. Through the class, or through
+    ``super()`` from an override, it is the plain function."""
+
+    def __init__(self, func: Callable, body: Callable) -> None:
+        functools.update_wrapper(self, func)
+        self.func, self.body = func, body
+        sig = inspect.signature(func)
+        self.signature = sig.replace(parameters=list(sig.parameters.values())[1:])
+        self._outermost: Dict[type, bool] = {}
+
+    def _is_outermost(self, cls: type) -> bool:
+        """Whether ``cls``'s attribute lookup finds this wrapper (not an override's)."""
+        found = self._outermost.get(cls)
+        if found is None:
+            owner = next(k for k in cls.__mro__ if self.__name__ in k.__dict__)
+            found = self._outermost[cls] = owner.__dict__[self.__name__] is self
+        return found
+
+    def __get__(self, obj: Any, objtype: Optional[type] = None) -> Callable:
+        if obj is None:
+            return self.func
+        if not self._is_outermost(type(obj)):
+            return self.func.__get__(obj, objtype)
+        func, body = self.func, self.body
+
+        @functools.wraps(func)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            return body(obj, func, *args, **kwargs)
+
+        wrapped_func.__signature__ = self.signature
+        return wrapped_func
+
+
+def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs: Any) -> None:
+    # transactional contract: any exception out of this call leaves
+    # (_state, _update_count, _computed) exactly as they were before it
+    _check_same_device(self._device, args, kwargs, type(self).__name__)
+    pre_count, pre_computed = self._update_count, self._computed
+    self._update_count += 1
+    self._computed = None
+    snapshot = self._state_snapshot()
+    try:
+        update(self, *args, **kwargs)
+    except TypeError as err:
+        self._rollback(snapshot, pre_count, pre_computed)
+        if "got an unexpected keyword argument" in str(err) or "positional argument" in str(err):
+            raise TypeError(f"Encountered an error while calling `update` of {type(self).__name__}: {err}") from err
+        raise
+    except BaseException:
+        self._rollback(snapshot, pre_count, pre_computed)
+        raise
+
+
+def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any) -> Any:
+    if self._update_count == 0:
+        rank_zero_warn(
+            f"The ``compute`` method of metric {type(self).__name__}"
+            " was called before the ``update`` method which may lead to errors,"
+            " as metric states have not yet been updated.",
+            UserWarning,
+        )
+    if self._computed is not None:
+        return self._computed
+    self.__dict__.pop("_serve_last_good", None)
+    with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync):
+        if self.__dict__.pop("_serve_last_good", False):
+            # the sync just failed under on_sync_failure="last_good":
+            # serve the cached value with its staleness (never cached
+            # as _computed: it is stale by definition)
+            count, cached = self.__dict__["_last_good_compute"]
+            return DegradedValue(value=cached, updates_behind=int(self._update_count) - count, age_updates=count)
+        value = _squeeze_if_scalar(compute(self, *args, **kwargs))
+    if self.compute_with_cache:
+        self._computed = value
+    if self._last_sync_ok:
+        # the cache behind on_sync_failure="last_good": only values
+        # whose sync (if any) succeeded qualify
+        self.__dict__["_last_good_compute"] = (int(self._update_count), value)
+    return value
+
+
 class Metric:
     """Base class for all metrics.
 
@@ -199,10 +285,6 @@ class Metric:
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
 
         self._update_signature = inspect.signature(self.update)
-        self._update_fn: Callable = self.update  # raw bound method (pre-wrap)
-        self._compute_fn: Callable = self.compute
-        self.update: Callable = self._wrap_update(self.update)
-        self.compute: Callable = self._wrap_compute(self.compute)
         self._computed: Any = None
         self._update_count: int = 0
         self._to_sync = self.sync_on_compute
@@ -283,70 +365,24 @@ class Metric:
         self.__dict__["_update_count"] = update_count
         self.__dict__["_computed"] = computed
 
-    def _wrap_update(self, update: Callable) -> Callable:
-        @functools.wraps(update)
-        def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            # transactional contract: any exception out of this call leaves
-            # (_state, _update_count, _computed) exactly as they were before it
-            _check_same_device(self._device, args, kwargs, type(self).__name__)
-            pre_count, pre_computed = self._update_count, self._computed
-            self._update_count += 1
-            self._computed = None
-            snapshot = self._state_snapshot()
-            try:
-                self._update_fn(*args, **kwargs)
-            except TypeError as err:
-                self._rollback(snapshot, pre_count, pre_computed)
-                if "got an unexpected keyword argument" in str(err) or "positional argument" in str(err):
-                    raise TypeError(
-                        f"Encountered an error while calling `update` of {type(self).__name__}: {err}"
-                    ) from err
-                raise
-            except BaseException:
-                self._rollback(snapshot, pre_count, pre_computed)
-                raise
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        _wrap_methods(cls)
 
-        return wrapped_func
+    @property
+    def _update_fn(self) -> Callable:
+        """The class's own ``update``, without the transaction."""
+        return type(self).update.__get__(self)
 
-    def _wrap_compute(self, compute: Callable) -> Callable:
-        @functools.wraps(compute)
-        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
-            if self._update_count == 0:
-                rank_zero_warn(
-                    f"The ``compute`` method of metric {type(self).__name__}"
-                    " was called before the ``update`` method which may lead to errors,"
-                    " as metric states have not yet been updated.",
-                    UserWarning,
-                )
-            if self._computed is not None:
-                return self._computed
-            self.__dict__.pop("_serve_last_good", None)
-            with self.sync_context(
-                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
-            ):
-                if self.__dict__.pop("_serve_last_good", False):
-                    # the sync just failed under on_sync_failure="last_good":
-                    # serve the cached value with its staleness (never cached
-                    # as _computed: it is stale by definition)
-                    count, cached = self.__dict__["_last_good_compute"]
-                    return DegradedValue(
-                        value=cached, updates_behind=int(self._update_count) - count, age_updates=count
-                    )
-                value = _squeeze_if_scalar(self._compute_fn(*args, **kwargs))
-            if self.compute_with_cache:
-                self._computed = value
-            if self._last_sync_ok:
-                # the cache behind on_sync_failure="last_good": only values
-                # whose sync (if any) succeeded qualify
-                self.__dict__["_last_good_compute"] = (int(self._update_count), value)
-            return value
+    @property
+    def _compute_fn(self) -> Callable:
+        """The class's own ``compute``, without the cache and the sync."""
+        return type(self).compute.__get__(self)
 
-        return wrapped_func
-
-    def update(self, *_: Any, **__: Any) -> None:  # overridden by subclass; rebound in __init__
+    def update(self, *_: Any, **__: Any) -> None:  # overridden by subclass; wrapped by _BoundPerAccess
         raise NotImplementedError
 
-    def compute(self) -> Any:  # overridden by subclass; rebound in __init__
+    def compute(self) -> Any:  # overridden by subclass; wrapped by _BoundPerAccess
         raise NotImplementedError
 
     # ----------------------------------------------------------- forward paths
@@ -848,18 +884,12 @@ class Metric:
     # ----------------------------------------------------------- pickling
     def __getstate__(self) -> Dict[str, Any]:
         state = self.__dict__.copy()
-        # the wrapped bound methods are re-created in __setstate__
-        for key in ("update", "compute", "_update_fn", "_compute_fn", "_update_signature"):
-            state.pop(key, None)
+        state.pop("_update_signature", None)  # re-created in __setstate__
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
-        self._update_fn = type(self).update.__get__(self)
-        self._compute_fn = type(self).compute.__get__(self)
-        self._update_signature = inspect.signature(self._update_fn)
-        object.__setattr__(self, "update", self._wrap_update(self._update_fn))
-        object.__setattr__(self, "compute", self._wrap_compute(self._compute_fn))
+        self._update_signature = inspect.signature(self.update)
 
     def __deepcopy__(self, memo: Optional[dict] = None) -> "Metric":
         cls = self.__class__
@@ -977,6 +1007,17 @@ class Metric:
 
 def _neg(x: torch.Tensor) -> torch.Tensor:
     return -torch.abs(x)
+
+
+def _wrap_methods(cls: type) -> None:
+    """Wrap the ``update`` and ``compute`` that ``cls`` itself defines."""
+    for name, body in (("update", _transactional_update), ("compute", _cached_compute)):
+        func = cls.__dict__.get(name)
+        if inspect.isfunction(func):
+            setattr(cls, name, _BoundPerAccess(func, body))
+
+
+_wrap_methods(Metric)
 
 
 class CompositionalMetric(Metric):
