@@ -65,7 +65,22 @@ evaluation workloads:
   D_lambda, D_s and QNR) and the perceptual path length of a seeded
   generator (1,024 samples, LPIPS-VGG); generic launches against what the
   code implies, never the fused entry, the first batch's values against
-  the same functionals on CPU copies.
+  the same functionals on CPU copies;
+- regression and pairwise distances, on plain PyTorch (no kernel of the
+  port launches there, and the counts are checked to stay at 0): NYU Depth
+  V2's Eigen test split (654 images of 480 x 640, batch 8) through fifteen
+  error and correlation metrics in one collection, with Spearman over the
+  first 20 images; WeatherBench 2's headline scores at 1.5 degrees (732
+  initialisations of a 121 x 240 grid, eight variables in raw units: 21.3M
+  rows, past 2**24 in Pearson's exact count) through MSE, RMSE, R2,
+  explained variance, Pearson, concordance and CSI on TP24h at 1 mm;
+  NAS-Bench-201's 15,625 cells through Kendall tau-b and tau-c (with its
+  t-test), Spearman and Pearson, against scipy; DeepFashion In-shop's
+  14,218 queries against its 12,612-image gallery (512-d) through the five
+  pairwise functions, Manhattan and Minkowski in row chunks; every value
+  against float64 of the same data, within the bound float32's summation
+  gives (scaled by each statistic's cancellation), with updates/s, compute
+  ms and peak memory.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -98,6 +113,7 @@ exits non-zero, and so does a run without a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1870,7 +1886,7 @@ CIVILCOMMENTS = {
 #: the threshold of an unattainable operating point
 SENTINEL = 1e6
 SYNC = {"imagenet_batches": 8, "curve_batches": 4, "fid_features": 2048, "fid_batches": 4, "fid_batch": 600,
-        "repeats": 5}
+        "weather_batches": 4, "repeats": 5}
 #: Matthews correlation and Cohen's kappa on the synced ImageNet counts
 #: against float64 from the plain count: float32 near 0
 SYNC_ATOL = 1e-5
@@ -1890,6 +1906,7 @@ def _sync_families(dev) -> dict:
         MulticlassSpecificity,
     )
     from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+    from torchmetrics_tpu_torch.regression import MeanSquaredError, PearsonCorrCoef
 
     imagenet = _imagenet(dev)
     c = imagenet["num_classes"]
@@ -1924,6 +1941,9 @@ def _sync_families(dev) -> dict:
         m.update(batch[0], real=True)
         m.update(batch[1], real=False)
 
+    nv = len(WEATHERBENCH["variables"])
+    weather = tm.MetricCollection({"pearson": PearsonCorrCoef(num_outputs=nv), "mse": MeanSquaredError(num_outputs=nv)})
+    weather_batches = [_weatherbench_batch(i, dev) for i in range(SYNC["weather_batches"])]
     return {
         "imagenet_counts": (counts, image_batches, lambda m, b: m.update(*b)),
         "aggregators": (
@@ -1933,6 +1953,7 @@ def _sync_families(dev) -> dict:
         "binary_auroc": (curves, list(_binary_curve(dev)["batches"](SYNC["curve_batches"])), lambda m, b: m.update(*b)),
         "msmarco": (msmarco["collection"](), list(msmarco["batches"]()), msmarco["update"]),
         "fid": (fid, list(features()), update_fid),
+        "weatherbench_moments": (weather, weather_batches, lambda m, b: m.update(*b)),
     }
 
 
@@ -2930,6 +2951,550 @@ def phase_wv3(dev) -> dict:
     })
 
 
+# ------------------------------------------------ regression and pairwise
+
+#: NYU Depth V2, Eigen test split, as monocular depth papers score it: 654
+#: images of 480 x 640, batch 8 (81 updates and one of 6); depth in
+#: [0.7, 10] m. Spearman keeps every pixel in its list state, so it takes
+#: the first 20 images (6.1M pixels, under 2**23)
+NYU = {"images": 654, "batch": 8, "height": 480, "width": 640, "depth": (0.7, 10.0), "spearman_images": 20,
+       "noise": 0.1, "scale": 1.03, "bias": 0.05}
+#: WeatherBench 2's deterministic headline scores on the 1.5 degree grid
+#: (121 x 240): eight variables, 732 initialisations (2020, 00 and 12 UTC)
+#: at one lead time, 4 an update; climatological mean and spread in each
+#: variable's raw units (m²/s², K, kg/kg, m/s, Pa; TP24h in mm), the
+#: forecast error a fraction of the spread, CSI on TP24h at 1 mm
+WEATHERBENCH = {
+    "inits": 732, "batch": 4, "lat": 121, "lon": 240, "tp_threshold": 1.0, "error": 0.15, "bias": 0.02,
+    "variables": ("z500", "t850", "q700", "u850", "v850", "t2m", "msl", "tp24h"),
+    "climate": ((54_000.0, 3_000.0), (275.0, 15.0), (0.003, 0.002), (2.0, 8.0), (0.0, 6.0), (280.0, 20.0),
+                (101_100.0, 1_200.0)),
+}
+#: NAS-Bench-201's 15,625 cells: a predictor's scores against the true
+#: CIFAR-10 test accuracy, which the table rounds to 0.01 (so ties occur),
+#: batches of 1,000
+NASBENCH = {"cells": 15_625, "batch": 1_000, "best": 94.37, "degenerate": 0.03, "predictor_noise": 1.5}
+#: DeepFashion In-shop Clothes Retrieval: 14,218 queries against a
+#: 12,612-image gallery of 3,997 items, 512-d L2-normalised embeddings;
+#: Manhattan and Minkowski are held to float64 on every 8th query row
+INSHOP = {"queries": 14_218, "gallery": 12_612, "items": 3_997, "dim": 512, "spread": 0.6, "check_every": 8}
+#: pairwise values against float64: max |d| over max |float64 value|
+#: (cosine: values in [-1, 1], so an absolute error); the row means of
+#: the "mean" reduction, absolutely
+PAIRWISE_RTOL = 1e-5
+PAIRWISE_MEAN_ATOL = 1e-5
+#: Kendall's tau from exact counts in float64 (then float32), Spearman's
+#: and Pearson's float32 moments, against scipy
+NAS_ATOL = {"kendall": 1e-6, "spearman": 1e-5, "pearson": 1e-5, "p_value": 1e-6}
+#: Spearman over NYU's first 20 images (float32 ranks, exact there) against scipy
+NYU_SPEARMAN_ATOL = 1e-5
+
+
+def _f32_rtol(updates: int, batch: int) -> float:
+    """The bound of a float32 sum accumulated as the states are: a tree sum
+    over an update's ``batch`` elements, then a running sum over
+    ``updates`` (relative to the sum of magnitudes, in units of 2**-24),
+    times 4 for the elementwise roundings and a margin."""
+    return 4 * (updates + math.ceil(math.log2(batch))) * 2.0**-24
+
+
+def _no_launches(name: str, launches: dict) -> dict:
+    """Every kernel's count over the phase: all must be 0."""
+    _check(not any(launches.values()), f"{name}: a kernel of the port launched: {launches}")
+    return launches
+
+
+def _hold(name: str, checks: dict, got, want, tol: float, relative: bool = True) -> None:
+    """Hold a card value to its float64 value: ``|got - want| <= tol``
+    (times ``|want|`` when ``relative``), elementwise."""
+    import torch
+
+    got = torch.as_tensor(got).detach().double().cpu().reshape(-1)
+    want = torch.as_tensor(want, dtype=torch.float64).detach().cpu().reshape(-1)
+    tol = torch.as_tensor(tol, dtype=torch.float64).cpu().reshape(-1)
+    bound = tol * want.abs() if relative else tol.expand_as(want)
+    err = (got - want).abs()
+    _check(bool(torch.isfinite(got).all()), f"{name}: not finite on the card ({got.tolist()})")
+    _check(bool((err <= bound).all()), f"{name}: card {got.tolist()} against float64 {want.tolist()} (|d| {err.tolist()} > {bound.tolist()})")
+    checks[name] = {"card": got.tolist(), "float64": want.tolist(), "abs_err": err.tolist(), "bound": bound.tolist()}
+
+
+def _nyu_batch(i: int, dev):
+    """Images ``8i`` to ``8i + 7`` (fewer at the end), flattened: the
+    target a smooth depth field over [0.7, 10] m (two low-frequency waves
+    of random frequency and phase and a vertical ramp), the prediction the
+    target with 10% multiplicative noise, a 3% scale error and a 5 cm bias."""
+    import torch
+
+    b = min(NYU["batch"], NYU["images"] - i * NYU["batch"])
+    h, w = NYU["height"], NYU["width"]
+    lo, hi = NYU["depth"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 2000 + i)
+    yy = torch.linspace(0, 1, h, device=dev)[:, None]
+    xx = torch.linspace(0, 1, w, device=dev)[None, :]
+    freq = 0.5 + 2.5 * torch.rand(b, 2, 1, 1, generator=g, device=dev)
+    phase = torch.rand(b, 2, 1, 1, generator=g, device=dev)
+    field = (0.4 * torch.sin(2 * math.pi * (freq[:, 0] * xx + phase[:, 0]))
+             + 0.4 * torch.cos(2 * math.pi * (freq[:, 1] * yy + phase[:, 1])) + 0.2 * (2 * yy - 1))
+    target = lo + (hi - lo) * (field + 1) / 2
+    noise = torch.randn(target.shape, generator=g, device=dev)
+    preds = (target * (1 + NYU["noise"] * noise) * NYU["scale"] + NYU["bias"]).clamp_min(1e-3)
+    return preds.reshape(-1), target.reshape(-1)
+
+
+def _nyu_float64(dev) -> dict:
+    """Every NYU value from float64 sums of the same batches on the card."""
+    import torch
+
+    updates = -(-NYU["images"] // NYU["batch"])
+    keys = ("n", "abs", "sq", "sqlog", "ape", "sape", "tabs", "cube", "logcosh", "logcosh_terms", "tweedie",
+            "tweedie_terms", "st", "stt", "sp", "spp", "spt", "sd", "sdd")
+    s = {k: torch.zeros((), dtype=torch.float64, device=dev) for k in keys}
+    for i in range(updates):
+        p, t = (x.double() for x in _nyu_batch(i, dev))
+        d = p - t
+        s["n"] += t.numel()
+        s["abs"] += d.abs().sum()
+        s["sq"] += (d * d).sum()
+        s["sqlog"] += ((torch.log1p(p) - torch.log1p(t)) ** 2).sum()
+        s["ape"] += (d.abs() / t.abs().clamp_min(1.17e-6)).sum()
+        s["sape"] += (d.abs() / (t.abs() + p.abs()).clamp_min(1.17e-6)).sum()
+        s["tabs"] += t.abs().sum()
+        s["cube"] += (d.abs() ** 3).sum()
+        s["logcosh"] += torch.log(torch.cosh(d)).sum()
+        # the port's terms: d + softplus(-2d) - log 2
+        s["logcosh_terms"] += (d.abs() + torch.nn.functional.softplus(-2 * d) + math.log(2.0)).sum()
+        # Tweedie deviance at power 1.5, and the magnitude of its three terms
+        terms = (t.clamp_min(0) ** 0.5 / -0.25, -t * p ** -0.5 / -0.5, p ** 0.5 / 0.5)
+        s["tweedie"] += (2 * sum(terms)).sum()
+        s["tweedie_terms"] += (2 * sum(x.abs() for x in terms)).sum()
+        s["st"] += t.sum(); s["stt"] += (t * t).sum()
+        s["sp"] += p.sum(); s["spp"] += (p * p).sum(); s["spt"] += (p * t).sum()
+        s["sd"] += (t - p).sum(); s["sdd"] += ((t - p) ** 2).sum()
+    s = {k: float(v) for k, v in s.items()}
+    n = s["n"]
+    tss, pss = s["stt"] - s["st"] ** 2 / n, s["spp"] - s["sp"] ** 2 / n
+    cov = s["spt"] - s["sp"] * s["st"] / n
+    err_var = s["sdd"] / n - (s["sd"] / n) ** 2
+    tgt_var = s["stt"] / n - (s["st"] / n) ** 2
+    pearson = cov / math.sqrt(tss * pss)
+    vx, vy = pss / (n - 1), tss / (n - 1)
+    values = {
+        "mae": s["abs"] / n, "mse": s["sq"] / n, "rmse": math.sqrt(s["sq"] / n), "msle": s["sqlog"] / n,
+        "abs_rel": s["ape"] / n, "smape": 2 * s["sape"] / n, "wmape": s["abs"] / s["tabs"], "rse": s["sq"] / tss,
+        "log_cosh": s["logcosh"] / n, "minkowski": s["cube"] ** (1 / 3), "tweedie": s["tweedie"] / n,
+        "r2": 1 - s["sq"] / tss, "explained_variance": 1 - err_var / tgt_var, "pearson": pearson,
+        "concordance": 2 * pearson * math.sqrt(vx) * math.sqrt(vy) / (vx + vy + (s["sp"] / n - s["st"] / n) ** 2),
+    }
+    # cancellation factors: the sum of squares over the centred sum it feeds
+    cancel = {"target": s["stt"] / tss, "error": (s["sdd"] / n) / err_var,
+              "log_cosh": s["logcosh_terms"] / s["logcosh"], "tweedie": s["tweedie_terms"] / s["tweedie"],
+              "moments": 1 + abs(s["sp"]) / math.sqrt(n * pss) + abs(s["st"]) / math.sqrt(n * tss)}
+    return {"values": values, "cancel": cancel, "pixels": int(n)}
+
+
+def phase_nyu_depth(dev) -> dict:
+    """NYU Depth V2 (Eigen test split) through MAE, MSE, RMSE, MSLE, MAPE
+    (AbsRel), SMAPE, WMAPE, RSE, LogCosh, Minkowski (p = 3), Tweedie (power
+    1.5), R2, explained variance, Pearson and concordance in one
+    collection, and Spearman over the first 20 images: every value against
+    float64 of the same pixels on the card (Spearman against scipy), the
+    compute groups (MSE with RMSE, Pearson with concordance, as the JAX
+    package forms them), no kernel launch, updates/s, compute ms and peak
+    memory."""
+    import numpy as np
+    import torch
+    from scipy.stats import spearmanr
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import regression as reg
+
+    name = "nyu_depth_v2"
+    b, hw = NYU["batch"], NYU["height"] * NYU["width"]
+    updates = -(-NYU["images"] // b)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    coll = MetricCollection({
+        "mae": reg.MeanAbsoluteError(), "mse": reg.MeanSquaredError(), "rmse": reg.MeanSquaredError(squared=False),
+        "msle": reg.MeanSquaredLogError(), "abs_rel": reg.MeanAbsolutePercentageError(),
+        "smape": reg.SymmetricMeanAbsolutePercentageError(), "wmape": reg.WeightedMeanAbsolutePercentageError(),
+        "rse": reg.RelativeSquaredError(), "log_cosh": reg.LogCoshError(), "minkowski": reg.MinkowskiDistance(p=3),
+        "tweedie": reg.TweedieDevianceScore(power=1.5), "r2": reg.R2Score(), "explained_variance": reg.ExplainedVariance(),
+        "pearson": reg.PearsonCorrCoef(), "concordance": reg.ConcordanceCorrCoef(),
+    })
+    spearman = reg.SpearmanCorrCoef()
+    spearman_pixels = NYU["spearman_images"] * hw
+    seen = [0]
+
+    def update(coll, batch) -> None:
+        preds, target = batch
+        coll.update(preds, target)
+        head = spearman_pixels - seen[0]
+        seen[0] += preds.numel()
+        if head > 0:
+            spearman.update(preds[:head], target[:head])
+
+    run = _drive(name, {
+        "collection": lambda: coll, "batches": lambda: (_nyu_batch(i, dev) for i in range(updates)),
+        "samples": NYU["images"] * hw, "update": update,
+    }, dev)
+    t0 = time.perf_counter()
+    result = {**run["result"], "spearman": spearman.compute()}
+    torch.cuda.synchronize()
+    spearman_ms = (time.perf_counter() - t0) * 1e3
+    launches = _no_launches(name, run["launches"])
+    groups = sorted(sorted(g) for g in coll.compute_groups.values())
+    _check(["concordance", "pearson"] in groups and ["mse", "rmse"] in groups and len(groups) == 13,
+           f"{name}: compute groups {groups}, expected MSE with RMSE, Pearson with concordance, the rest alone")
+
+    ref = _nyu_float64(dev)
+    base_tol = _f32_rtol(updates, b * hw)
+    checks: dict = {}
+    k_target, k_error = ref["cancel"]["target"], ref["cancel"]["error"]
+    want = ref["values"]
+    for key in ("mae", "mse", "rmse", "msle", "abs_rel", "smape", "wmape", "minkowski"):
+        _hold(key, checks, result[key], want[key], base_tol)
+    # an element's terms cancel: 4 units of 2**-24 of their magnitude each
+    for key in ("log_cosh", "tweedie"):
+        _hold(key, checks, result[key], want[key], base_tol + 4 * 2.0**-24 * ref["cancel"][key])
+    _hold("rse", checks, result["rse"], want["rse"], base_tol * (k_target + 1))
+    _hold("r2", checks, result["r2"], want["r2"], base_tol * (k_target + 1) * (1 - want["r2"]), relative=False)
+    _hold("explained_variance", checks, result["explained_variance"], want["explained_variance"],
+          base_tol * (k_target + k_error) * (1 - want["explained_variance"]), relative=False)
+    # the streaming update's first batch multiplies deviations by the raw
+    # values (the prior mean is 0): mean over spread scales its rounding
+    for key in ("pearson", "concordance"):
+        _hold(key, checks, result[key], want[key], 2 * base_tol * ref["cancel"]["moments"], relative=False)
+    heads = [_nyu_batch(i, dev) for i in range(-(-NYU["spearman_images"] // b))]
+    p_host = torch.cat([p for p, _ in heads])[:spearman_pixels].cpu().numpy().astype(np.float64)
+    t_host = torch.cat([t for _, t in heads])[:spearman_pixels].cpu().numpy().astype(np.float64)
+    del heads
+    _hold("spearman", checks, result["spearman"], spearmanr(p_host, t_host).statistic, NYU_SPEARMAN_ATOL, relative=False)
+    _check(int(coll["pearson"].n_total) == ref["pixels"], f"{name}: Pearson counted {int(coll['pearson'].n_total)} pixels")
+    out = run["out"]
+    return _emit({
+        **out, "images": NYU["images"], "shape": [NYU["height"], NYU["width"]], "batch": b,
+        "pixels": ref["pixels"], "spearman_pixels": spearman_pixels, "spearman_compute_ms": spearman_ms,
+        "reduced": ["Spearman over the first 20 images (its list state keeps every pixel, and float32 ranks round past 2**23)"],
+        "compute_groups": groups, "launches": launches,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": out["peak_mem_bytes"] - base,
+        "float32_sum_rtol": base_tol, "cancellation": ref["cancel"], "values": {k: float(v) for k, v in result.items()},
+        "checks": checks,
+    })
+
+
+def _weatherbench_batch(i: int, dev):
+    """Initialisations ``4i`` to ``4i + 3`` as (rows, 8) truth and forecast:
+    each variable its climatological mean plus its spread times a
+    planetary wave pattern (random wave number and phase per
+    initialisation) and 30% noise, the forecast that plus 15% of the spread
+    in noise and a 2% bias; TP24h 0 on 65% of the grid, else log-normal
+    around 2 mm, the forecast scaled by a log-normal factor."""
+    import torch
+
+    b, nlat, nlon = WEATHERBENCH["batch"], WEATHERBENCH["lat"], WEATHERBENCH["lon"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 3000 + i)
+    lat = torch.deg2rad(torch.linspace(-90, 90, nlat, device=dev))[:, None]
+    lon = torch.deg2rad(torch.arange(nlon, device=dev) * (360.0 / nlon))[None, :]
+    climate = torch.tensor(WEATHERBENCH["climate"], device=dev)
+    mean, spread = climate[:, 0].view(1, -1, 1, 1), climate[:, 1].view(1, -1, 1, 1)
+    nv = climate.shape[0]
+    wave = torch.randint(1, 7, (b, nv, 1, 1), generator=g, device=dev)
+    phase = 2 * math.pi * torch.rand(b, nv, 1, 1, generator=g, device=dev)
+    pattern = torch.cos(lat) * torch.sin(wave * lon + phase) + 0.5 * torch.sin(2 * lat)
+    truth = mean + spread * (0.7 * pattern + 0.3 * torch.randn(b, nv, nlat, nlon, generator=g, device=dev))
+    forecast = truth + spread * (WEATHERBENCH["error"] * torch.randn(truth.shape, generator=g, device=dev)
+                                 + WEATHERBENCH["bias"])
+    truth[:, 2].clamp_(min=0)
+    forecast[:, 2].clamp_(min=0)
+    wet = torch.rand(b, 1, nlat, nlon, generator=g, device=dev) < 0.35
+    tp = torch.where(wet, 2.0 * torch.exp(torch.randn(b, 1, nlat, nlon, generator=g, device=dev)), 0.0)
+    tp_forecast = tp * torch.exp(0.3 * torch.randn(tp.shape, generator=g, device=dev))
+    truth, forecast = torch.cat([truth, tp], 1), torch.cat([forecast, tp_forecast], 1)
+    return tuple(x.permute(0, 2, 3, 1).reshape(-1, nv + 1).contiguous() for x in (forecast, truth))
+
+
+def _weatherbench_float64(dev) -> dict:
+    """Per-variable values from float64 sums of the same rows on the card;
+    the TP24h contingency counts exactly (int64)."""
+    import torch
+
+    updates = WEATHERBENCH["inits"] // WEATHERBENCH["batch"]
+    thr = WEATHERBENCH["tp_threshold"]
+    s = {k: 0 for k in ("sp", "st", "spp", "stt", "spt", "sd", "sdd")}
+    n, hits, misses, false_alarms = 0, 0, 0, 0
+    for i in range(updates):
+        p, t = _weatherbench_batch(i, dev)
+        p64, t64 = p.double(), t.double()
+        d = t64 - p64
+        n += t.shape[0]
+        for k, v in (("sp", p64), ("st", t64), ("spp", p64 * p64), ("stt", t64 * t64), ("spt", p64 * t64),
+                     ("sd", d), ("sdd", d * d)):
+            s[k] = s[k] + v.sum(0)
+        pb, tb = p[:, -1] >= thr, t[:, -1] >= thr
+        hits += int((pb & tb).sum())
+        misses += int((~pb & tb).sum())
+        false_alarms += int((pb & ~tb).sum())
+    tss, pss = s["stt"] - s["st"] ** 2 / n, s["spp"] - s["sp"] ** 2 / n
+    cov = s["spt"] - s["sp"] * s["st"] / n
+    err_var = s["sdd"] / n - (s["sd"] / n) ** 2
+    tgt_var = s["stt"] / n - (s["st"] / n) ** 2
+    pearson = cov / torch.sqrt(tss * pss)
+    vx, vy = pss / (n - 1), tss / (n - 1)
+    return {
+        "rows": n,
+        "values": {
+            "mse": s["sdd"] / n, "rmse": torch.sqrt(s["sdd"] / n), "r2": 1 - s["sdd"] / tss,
+            "explained_variance": 1 - err_var / tgt_var, "pearson": pearson,
+            "concordance": 2 * pearson * torch.sqrt(vx) * torch.sqrt(vy) / (vx + vy + (s["sp"] / n - s["st"] / n) ** 2),
+        },
+        "cancel": {"target": s["stt"] / tss, "error": (s["sdd"] / n) / err_var,
+                   "moments": 1 + s["sp"].abs() / torch.sqrt(n * pss) + s["st"].abs() / torch.sqrt(n * tss)},
+        "csi": {"hits": hits, "misses": misses, "false_alarms": false_alarms,
+                "value": hits / (hits + misses + false_alarms)},
+    }
+
+
+def phase_weatherbench(dev) -> dict:
+    """WeatherBench 2 at 1.5 degrees: MSE and RMSE (8 outputs), R2 and
+    explained variance (raw values), Pearson and concordance (8 outputs) in
+    one collection, CSI on TP24h at 1 mm: 21.3M rows of 8 variables in raw
+    units, so Pearson's count passes 2**24 (held exact) and R2's float32
+    total sum of squares cancels (held within the bound float32's
+    algorithm gives, scaled by each variable's cancellation factor)."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import regression as reg
+
+    name = "weatherbench2_1p5deg"
+    nv = len(WEATHERBENCH["variables"])
+    updates = WEATHERBENCH["inits"] // WEATHERBENCH["batch"]
+    rows_per_update = WEATHERBENCH["batch"] * WEATHERBENCH["lat"] * WEATHERBENCH["lon"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    coll = MetricCollection({
+        "mse": reg.MeanSquaredError(num_outputs=nv), "rmse": reg.MeanSquaredError(squared=False, num_outputs=nv),
+        "r2": reg.R2Score(num_outputs=nv, multioutput="raw_values"),
+        "explained_variance": reg.ExplainedVariance(multioutput="raw_values"),
+        "pearson": reg.PearsonCorrCoef(num_outputs=nv), "concordance": reg.ConcordanceCorrCoef(num_outputs=nv),
+    })
+    csi = reg.CriticalSuccessIndex(threshold=WEATHERBENCH["tp_threshold"])
+
+    def update(coll, batch) -> None:
+        forecast, truth = batch
+        coll.update(forecast, truth)
+        csi.update(forecast[:, -1], truth[:, -1])
+
+    run = _drive(name, {
+        "collection": lambda: coll, "batches": lambda: (_weatherbench_batch(i, dev) for i in range(updates)),
+        "samples": updates * rows_per_update, "update": update,
+    }, dev)
+    result = {**run["result"], "csi": csi.compute()}
+    launches = _no_launches(name, run["launches"])
+    groups = sorted(sorted(g) for g in coll.compute_groups.values())
+    _check(["concordance", "pearson"] in groups and ["mse", "rmse"] in groups and len(groups) == 4,
+           f"{name}: compute groups {groups}")
+
+    ref = _weatherbench_float64(dev)
+    rows = ref["rows"]
+    n_total = coll["pearson"].n_total
+    _check(n_total.dtype == torch.int64 and bool((n_total == rows).all()),
+           f"{name}: Pearson counted {n_total.tolist()} rows of {rows}")
+    base_tol = _f32_rtol(updates, rows_per_update)
+    want, k_target, k_error = ref["values"], ref["cancel"]["target"], ref["cancel"]["error"]
+    checks: dict = {}
+    _hold("mse", checks, result["mse"], want["mse"], base_tol)
+    _hold("rmse", checks, result["rmse"], want["rmse"], base_tol)
+    _hold("r2", checks, result["r2"], want["r2"], base_tol * (k_target + 1) * (1 - want["r2"]), relative=False)
+    _hold("explained_variance", checks, result["explained_variance"], want["explained_variance"],
+          base_tol * (k_target + k_error) * (1 - want["explained_variance"]), relative=False)
+    # the streaming update's first batch multiplies deviations by the raw
+    # values (the prior mean is 0): mean over spread scales its rounding
+    for key in ("pearson", "concordance"):
+        _hold(key, checks, result[key], want[key], 2 * base_tol * ref["cancel"]["moments"], relative=False)
+    counts = {k: int(getattr(csi, k)) for k in ("hits", "misses", "false_alarms")}
+    _check(counts == {k: ref["csi"][k] for k in counts}, f"{name}: CSI counts {counts} against {ref['csi']}")
+    _hold("csi", checks, result["csi"], ref["csi"]["value"], 1e-6)
+    return _emit({
+        "phase": name, "variables": list(WEATHERBENCH["variables"]), "grid": [WEATHERBENCH["lat"], WEATHERBENCH["lon"]],
+        "initialisations": WEATHERBENCH["inits"], "rows": rows, "pearson_n_total": n_total.tolist(),
+        "rows_past_2_24": rows > 2**24,
+        "reduced": ["no cos-latitude weights (these metrics take none)", "one lead time"],
+        **{k: v for k, v in run["out"].items() if k != "phase"}, "compute_groups": groups, "launches": launches,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": run["out"]["peak_mem_bytes"] - base,
+        "float32_sum_rtol": base_tol, "cancellation": {k: v.tolist() for k, v in ref["cancel"].items()},
+        "csi_counts": counts, "values": {k: v.tolist() for k, v in result.items()}, "checks": checks,
+    })
+
+
+def _nasbench(dev):
+    """The true accuracies (rounded to 0.01, 3% of cells degenerate at 10%)
+    and a predictor's scores (the truth plus noise)."""
+    import torch
+
+    n = NASBENCH["cells"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 4000)
+    acc = (NASBENCH["best"] - torch.exp(0.9 * torch.randn(n, generator=g, device=dev) + 0.3)).clamp(10.0, NASBENCH["best"])
+    acc = torch.where(torch.rand(n, generator=g, device=dev) < NASBENCH["degenerate"], 10.0, acc)
+    truth = torch.round(acc * 100) / 100
+    scores = acc + NASBENCH["predictor_noise"] * torch.randn(n, generator=g, device=dev)
+    return scores, truth
+
+
+def phase_nasbench(dev) -> dict:
+    """NAS-Bench-201's 15,625 cells: Kendall tau-b and tau-c (with the
+    t-test), Spearman and Pearson of a predictor against the true accuracy,
+    against scipy; Kendall's tiled count keeps the peak memory far under
+    the JAX package's dense n x n form."""
+    import numpy as np
+    import torch
+    from scipy.stats import kendalltau, norm, pearsonr, spearmanr
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import regression as reg
+
+    name = "nasbench201_ranking"
+    n, b = NASBENCH["cells"], NASBENCH["batch"]
+    scores, truth = _nasbench(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    coll = MetricCollection({
+        "kendall_b": reg.KendallRankCorrCoef(variant="b"),
+        "kendall_c": reg.KendallRankCorrCoef(variant="c", t_test=True, alternative="two-sided"),
+        "spearman": reg.SpearmanCorrCoef(), "pearson": reg.PearsonCorrCoef(),
+    })
+    run = _drive(name, {
+        "collection": lambda: coll, "batches": lambda: [(scores[s:s + b], truth[s:s + b]) for s in range(0, n, b)],
+        "samples": n,
+    }, dev)
+    result = run["result"]
+    launches = _no_launches(name, run["launches"])
+    groups = sorted(sorted(g) for g in coll.compute_groups.values())
+    _check(groups == [["kendall_b", "kendall_c", "spearman"], ["pearson"]], f"{name}: compute groups {groups}")
+
+    x, y = scores.double().cpu().numpy(), truth.double().cpu().numpy()
+    tau_c, p_value = result["kendall_c"]
+    z = kendalltau(x, y, variant="c").statistic / math.sqrt(2 * (2 * n + 5) / (9 * n * (n - 1)))
+    checks: dict = {}
+    _hold("kendall_b", checks, result["kendall_b"], kendalltau(x, y, variant="b").statistic, NAS_ATOL["kendall"], relative=False)
+    _hold("kendall_c", checks, tau_c, kendalltau(x, y, variant="c").statistic, NAS_ATOL["kendall"], relative=False)
+    _hold("kendall_c_p_value", checks, p_value, 2 * norm.sf(abs(z)), NAS_ATOL["p_value"], relative=False)
+    _hold("spearman", checks, result["spearman"], spearmanr(x, y).statistic, NAS_ATOL["spearman"], relative=False)
+    _hold("pearson", checks, result["pearson"], pearsonr(x, y).statistic, NAS_ATOL["pearson"], relative=False)
+    ties = int(len(y) - len(np.unique(y)))
+    return _emit({
+        **run["out"], "cells": n, "batch": b, "tied_truth_values": ties, "compute_groups": groups, "launches": launches,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": run["out"]["peak_mem_bytes"] - base,
+        # the JAX package's dense form holds at least dx, dy and their sign
+        # product (three n x n float32) and the n(n - 1) int32 triangle
+        # indices at once: 16 n² bytes
+        "jax_dense_lower_bound_bytes": 16 * n * n,
+        "values": {k: ([float(t) for t in v] if isinstance(v, tuple) else float(v)) for k, v in result.items()},
+        "p_value_note": "scipy's own p-value corrects the variance for ties; held here to the port's formula in float64",
+        "checks": checks,
+    })
+
+
+def _inshop(dev):
+    """Query and gallery embeddings: each image its item's centre plus
+    noise, L2-normalised; the gallery covers every item."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5000)
+    centres = torch.randn(INSHOP["items"], INSHOP["dim"], generator=g, device=dev)
+    gallery_items = torch.arange(INSHOP["gallery"], device=dev) % INSHOP["items"]
+    query_items = torch.randint(0, INSHOP["items"], (INSHOP["queries"],), generator=g, device=dev)
+
+    def embed(items):
+        noise = torch.randn(items.shape[0], INSHOP["dim"], generator=g, device=dev)
+        return F.normalize(centres[items] + INSHOP["spread"] * noise, dim=1)
+
+    return embed(query_items), embed(gallery_items)
+
+
+def phase_inshop_pairwise(dev) -> dict:
+    """DeepFashion In-shop: the five pairwise functions of the 14,218
+    queries against the 12,612-image gallery (cosine, euclidean, linear in
+    full float32; Manhattan and Minkowski p = 3 in chunks), one
+    gallery-against-gallery call with the diagonal zeroed and one ``mean``
+    reduction: each call timed (host clock ending in a synchronise, after
+    a warm-up on 64 rows) and held to float64 on the card."""
+    import torch
+
+    from torchmetrics_tpu_torch import functional as tmf
+    from torchmetrics_tpu_torch.functional.pairwise import distances
+
+    name = "inshop_pairwise"
+    q, g = _inshop(dev)
+    q64, g64 = q.double(), g.double()
+    every = INSHOP["check_every"]
+
+    def cosine64(a, b):
+        return (a / a.norm(dim=1, keepdim=True)) @ (b / b.norm(dim=1, keepdim=True)).T
+
+    calls = {
+        "cosine": (lambda a, b: tmf.pairwise_cosine_similarity(a, b), lambda: cosine64(q64, g64), None),
+        "euclidean": (lambda a, b: tmf.pairwise_euclidean_distance(a, b), lambda: torch.cdist(q64, g64), None),
+        "linear": (lambda a, b: tmf.pairwise_linear_similarity(a, b), lambda: q64 @ g64.T, None),
+        "manhattan": (lambda a, b: tmf.pairwise_manhattan_distance(a, b), lambda: torch.cdist(q64[::every], g64, p=1.0), every),
+        "minkowski_p3": (lambda a, b: tmf.pairwise_minkowski_distance(a, b, exponent=3), lambda: torch.cdist(q64[::every], g64, p=3.0), every),
+    }
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    counters = _launch_counters()
+    for module in counters.values():
+        module.launches = 0
+    rows: dict = {}
+    for key, (fn, ref_fn, stride) in calls.items():
+        fn(q[:64], g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        got = fn(q, g)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        want = ref_fn()
+        checked = got if stride is None else got[::stride]
+        err = float((checked.double() - want).abs().max() / want.abs().max())
+        _check(bool(torch.isfinite(got).all()), f"{name}: {key} is not finite")
+        _check(err <= PAIRWISE_RTOL, f"{name}: {key} is {err} from float64 (relative to its largest value)")
+        rows[key] = {"ms": ms, "shape": list(got.shape), "rows_checked": int(checked.shape[0]), "max_rel_err": err,
+                     "peak_mem_above_base_bytes": peak}
+        del got, want, checked
+
+    # the gallery against itself, its diagonal zeroed (the default without y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gg = tmf.pairwise_cosine_similarity(g)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = cosine64(g64, g64)
+    want.fill_diagonal_(0)
+    _check(bool((gg.diagonal() == 0).all()), f"{name}: the zeroed diagonal holds nonzero values")
+    err = float((gg.double() - want).abs().max())
+    _check(err <= PAIRWISE_RTOL, f"{name}: gallery x gallery cosine is {err} from float64")
+    rows["gallery_zero_diagonal_cosine"] = {"ms": ms, "shape": list(gg.shape), "max_abs_err": err}
+    del gg, want
+
+    t0 = time.perf_counter()
+    mean = tmf.pairwise_cosine_similarity(q, g, reduction="mean")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float((mean.double() - cosine64(q64, g64).mean(1)).abs().max())
+    _check(err <= PAIRWISE_MEAN_ATOL, f"{name}: the mean reduction is {err} from float64")
+    rows["mean_reduction_cosine"] = {"ms": ms, "shape": list(mean.shape), "max_abs_err": err}
+    launches = _no_launches(name, {k: m.launches for k, m in counters.items()})
+    return _emit({
+        "phase": name, "queries": INSHOP["queries"], "gallery": INSHOP["gallery"], "dim": INSHOP["dim"],
+        "chunk_elements": distances._CHUNK_ELEMENTS, "launches": launches, "calls": rows,
+        "jax_broadcast_bytes": 4 * INSHOP["queries"] * INSHOP["gallery"] * INSHOP["dim"],
+        "rtol": PAIRWISE_RTOL, "mean_atol": PAIRWISE_MEAN_ATOL,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -3160,6 +3725,11 @@ def main() -> int:
     sync = phase_sync(dev)
     rest = [phase_imagenet_rest(dev), phase_coco_multilabel(dev), phase_civilcomments_fairness(dev)]
     image_rest = [phase_div2k(dev), phase_wv3(dev)]
+    # regression and pairwise: plain PyTorch, no kernel of the port
+    phase_nyu_depth(dev)
+    phase_weatherbench(dev)
+    phase_nasbench(dev)
+    phase_inshop_pairwise(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases

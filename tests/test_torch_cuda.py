@@ -1246,3 +1246,146 @@ def test_del_frees_card_memory_without_the_cyclic_gc(cuda_device):
     finally:
         if was_enabled:
             gc.enable()
+
+
+# ------------------------------------------------- regression and pairwise
+#
+# No kernel of the port runs on these paths: plain PyTorch on the card,
+# held to the same path on the CPU (rtol 1e-5: float32 sums in another
+# order), to float64 and to scipy.
+
+REGRESSION_ON_CARD = [
+    ("MeanAbsoluteError", {}, (4096,)),
+    ("MeanSquaredError", {"num_outputs": 3, "squared": False}, (4096, 3)),
+    ("MeanSquaredLogError", {}, (4096,)),
+    ("MeanAbsolutePercentageError", {}, (4096,)),
+    ("SymmetricMeanAbsolutePercentageError", {}, (4096,)),
+    ("WeightedMeanAbsolutePercentageError", {}, (4096,)),
+    ("RelativeSquaredError", {"num_outputs": 3}, (4096, 3)),
+    ("LogCoshError", {"num_outputs": 3}, (4096, 3)),
+    ("MinkowskiDistance", {"p": 3}, (4096,)),
+    ("TweedieDevianceScore", {"power": 1.5}, (4096,)),
+    ("CriticalSuccessIndex", {"threshold": 1.5}, (4096,)),
+    ("CriticalSuccessIndex", {"threshold": 1.5, "keep_sequence_dim": 1}, (64, 8, 32)),
+    ("PearsonCorrCoef", {"num_outputs": 3}, (4096, 3)),
+    ("ConcordanceCorrCoef", {}, (4096,)),
+    ("SpearmanCorrCoef", {}, (4096,)),
+    ("KendallRankCorrCoef", {"variant": "c", "t_test": True}, (2048,)),
+    ("R2Score", {"num_outputs": 3, "multioutput": "raw_values"}, (4096, 3)),
+    ("ExplainedVariance", {"multioutput": "variance_weighted"}, (4096, 3)),
+    ("CosineSimilarity", {"reduction": "mean"}, (512, 16)),
+    ("KLDivergence", {}, (512, 16)),
+]
+
+
+def _launch_counts():
+    from torchmetrics_tpu_torch.ops import binned_curve, sqrtm_kernel, ssim_kernel, topk_kernel
+
+    return [m.launches for m in (bincount, binned_curve, topk_kernel, ssim_kernel, sqrtm_kernel)]
+
+
+@pytest.mark.parametrize("name,kwargs,shape", REGRESSION_ON_CARD, ids=lambda v: v if isinstance(v, str) else None)
+def test_regression_class_on_card_equals_cpu(cuda_device, name, kwargs, shape):
+    from torchmetrics_tpu_torch import regression
+
+    rng = np.random.RandomState(len(name))
+    batches = []
+    for _ in range(3):
+        target = rng.uniform(0.5, 3.0, shape).astype(np.float32)
+        batches.append((target * rng.uniform(0.8, 1.2, shape).astype(np.float32), target))
+    card = getattr(regression, name)(device=cuda_device, **kwargs)
+    cpu = getattr(regression, name)(device="cpu", **kwargs)
+    before = _launch_counts()
+    for p, t in batches:
+        card.update(torch.from_numpy(p).to(cuda_device), torch.from_numpy(t).to(cuda_device))
+        cpu.update(torch.from_numpy(p), torch.from_numpy(t))
+    got, want = card.compute(), cpu.compute()
+    assert _launch_counts() == before
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
+
+
+def test_pearson_count_is_exact_past_2_24_on_card(cuda_device):
+    """2**24 + 3 samples in 17 updates: the count is exact (int64) and the
+    correlation is float64's within 1e-5."""
+    from torchmetrics_tpu_torch.regression import PearsonCorrCoef
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    m = PearsonCorrCoef(device=cuda_device)
+    n, sx, sy, sxx, syy, sxy = 0, 0.0, 0.0, 0.0, 0.0, 0.0
+    sizes = [1 << 20] * 16 + [3]
+    for size in sizes:
+        x = torch.randn(size, generator=g, device=cuda_device)
+        y = 0.6 * x + 0.8 * torch.randn(size, generator=g, device=cuda_device) + 5.0
+        m.update(x, y)
+        x64, y64 = x.double(), y.double()
+        n += size
+        sx, sy = sx + float(x64.sum()), sy + float(y64.sum())
+        sxx, syy, sxy = sxx + float((x64 * x64).sum()), syy + float((y64 * y64).sum()), sxy + float((x64 * y64).sum())
+    assert m.n_total.dtype == torch.int64 and int(m.n_total) == 2**24 + 3
+    r64 = (n * sxy - sx * sy) / np.sqrt((n * sxx - sx * sx) * (n * syy - sy * sy))
+    assert abs(float(m.compute()) - r64) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", ["b", "c"])
+def test_tiled_kendall_on_card_equals_scipy(cuda_device, variant, monkeypatch):
+    """n = 5,000 with ties, in tiles of 16 rows: tau within 1e-6 of scipy."""
+    from scipy.stats import kendalltau
+
+    from torchmetrics_tpu_torch.functional import kendall_rank_corrcoef
+    from torchmetrics_tpu_torch.functional.regression import rank_based
+
+    rng = np.random.RandomState(1)
+    x = np.round(rng.randn(5000), 1).astype(np.float32)
+    y = np.round(0.7 * x + 0.5 * rng.randn(5000), 1).astype(np.float32)
+    monkeypatch.setattr(rank_based, "_KENDALL_TILE_PAIRS", 16 * 5000)
+    got = kendall_rank_corrcoef(torch.from_numpy(x).to(cuda_device), torch.from_numpy(y).to(cuda_device), variant=variant)
+    want = kendalltau(x.astype(np.float64), y.astype(np.float64), variant=variant).statistic
+    assert abs(float(got) - want) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["pairwise_manhattan_distance", "pairwise_minkowski_distance"])
+def test_chunked_pairwise_on_card_equals_float64(cuda_device, name, monkeypatch):
+    """1,000 x 700 rows of 96 features in chunks of 9 rows: within rtol 1e-5
+    of float64 ``torch.cdist``."""
+    from torchmetrics_tpu_torch import functional
+    from torchmetrics_tpu_torch.functional.pairwise import distances
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(1000, 96, generator=g, device=cuda_device)
+    y = torch.randn(700, 96, generator=g, device=cuda_device)
+    monkeypatch.setattr(distances, "_CHUNK_ELEMENTS", 9 * 700 * 96)
+    p = 1.0 if name == "pairwise_manhattan_distance" else 3.0
+    got = getattr(functional, name)(x, y) if p == 1.0 else getattr(functional, name)(x, y, exponent=p)
+    want = torch.cdist(x.double(), y.double(), p=p)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize(
+    "name", ["pairwise_cosine_similarity", "pairwise_euclidean_distance", "pairwise_linear_similarity"]
+)
+def test_pairwise_products_stay_full_float32_under_global_tf32(cuda_device, name):
+    """With TF32 turned on globally, the products still run in full float32
+    (within 1e-5 of float64, where TF32's ten mantissa bits miss by about
+    1e-3), and the caller's setting is left as it was."""
+    from torchmetrics_tpu_torch import functional
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(512, 256, generator=g, device=cuda_device) + 3.0
+    y = torch.randn(384, 256, generator=g, device=cuda_device) + 3.0
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = getattr(functional, name)(x, y)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    x64, y64 = x.double(), y.double()
+    if name == "pairwise_linear_similarity":
+        want = x64 @ y64.T
+    elif name == "pairwise_cosine_similarity":
+        want = (x64 / x64.norm(dim=1, keepdim=True)) @ (y64 / y64.norm(dim=1, keepdim=True)).T
+    else:
+        want = torch.cdist(x64, y64)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)

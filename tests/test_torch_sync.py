@@ -26,7 +26,7 @@ import torch
 
 import torchmetrics_tpu_torch as tm
 from torchmetrics_tpu_torch import classification as cls
-from torchmetrics_tpu_torch import image, retrieval
+from torchmetrics_tpu_torch import image, regression, retrieval
 from torchmetrics_tpu_torch.parallel import sync as psync
 from helpers.torch_world import run_world
 
@@ -141,7 +141,15 @@ def _family_data(rank, world):
         "images": [(rng.rand(2, 1, 16, 16).astype(np.float32), rng.rand(2, 1, 16, 16).astype(np.float32)) for _ in range(n)],
         "features": [(rng.randn(6, 4).astype(np.float32), (rng.randn(6, 4) + 0.3).astype(np.float32)) for _ in range(n)],
         "losses": [rng.rand(4).astype(np.float32) for _ in range(n)],
+        "regression": [_regression_batch(rng) for _ in range(n)],
     }
+
+
+def _regression_batch(rng, rows=10):
+    """Two correlated outputs, on scales far apart (the Chan merge's cross
+    term carries the shift between the ranks' means)."""
+    preds = rng.randn(rows, 2).astype(np.float32) * np.float32([1.0, 30.0]) + np.float32([0.0, 100.0])
+    return preds, (0.8 * preds + rng.randn(rows, 2).astype(np.float32) * np.float32([0.5, 10.0])).astype(np.float32)
 
 
 def _features(x):
@@ -226,6 +234,21 @@ def _families():
             device="cpu",
         )
 
+    def regression_family():
+        return tm.MetricCollection(
+            {
+                "pearson": regression.PearsonCorrCoef(num_outputs=2, device="cpu"),
+                "concordance": regression.ConcordanceCorrCoef(num_outputs=2, device="cpu"),
+                "mse": regression.MeanSquaredError(num_outputs=2, device="cpu"),
+                "mae": regression.MeanAbsoluteError(device="cpu"),
+                "r2": regression.R2Score(num_outputs=2, multioutput="raw_values", device="cpu"),
+                "csi": regression.CriticalSuccessIndex(threshold=50.0, device="cpu"),
+                "spearman": regression.SpearmanCorrCoef(num_outputs=2, device="cpu"),
+                "kendall": regression.KendallRankCorrCoef(num_outputs=2, device="cpu"),
+            },
+            device="cpu",
+        )
+
     def update_inception(ms, batch):
         real, fake = (_t(x) for x in batch)
         for m in (ms["fid"], ms["kid"]):
@@ -248,6 +271,7 @@ def _families():
         "ssim": ("images", ssim, *plain),
         "inception": ("features", inception, update_inception, compute_inception),
         "aggregators": ("losses", aggregators, lambda m, b: m.update(_t(b)), lambda m: m.compute()),
+        "regression": ("regression", regression_family, *plain),
     }
 
 
@@ -372,6 +396,13 @@ def _rank_cases(rank, world):
             update(m, b)
         families[name] = _np(compute(m))
     out["families"] = families
+
+    # Pearson's moment states, local and synced (a None reduction stacks
+    # them, one entry a rank, and the compute merges the stack)
+    pearson = regression.PearsonCorrCoef(num_outputs=2, device="cpu")
+    for b in data["regression"]:
+        pearson.update(*(_t(x) for x in b))
+    out["pearson"] = {"local": _np(pearson.state()), "synced": _np(pearson.compute())}
     return out
 
 
@@ -662,3 +693,22 @@ def test_synced_family_equals_one_process_on_all_data(world, family):
         expected["running_sum"] = np.sum([x.sum() for win in windows for x in win])
     for res in results:
         _same_tree(res["families"][family], expected, family)
+
+
+def test_synced_pearson_equals_jax_chan_merge_of_the_rank_states(world):
+    """Every rank's synced Pearson value is the JAX package's
+    ``_final_aggregation`` (Chan merge) of the ranks' local moment states,
+    then its compute (the port's int64 counts handed to JAX as float32,
+    as its state holds them)."""
+    import jax.numpy as jnp
+
+    from torchmetrics_tpu.functional.regression.pearson import _final_aggregation, _pearson_corrcoef_compute
+
+    w, results = world
+    names = ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")
+    stacked = [jnp.asarray(np.stack([r["pearson"]["local"][k] for r in results]).astype(np.float32)) for k in names]
+    _, _, var_x, var_y, corr_xy, n_total = _final_aggregation(*stacked)
+    expected = np.asarray(_pearson_corrcoef_compute(var_x, var_y, corr_xy, n_total))
+    assert int(np.asarray(n_total).sum()) == sum(int(r["pearson"]["local"]["n_total"].sum()) for r in results)
+    for r in results:
+        _same(r["pearson"]["synced"], expected, "pearson")

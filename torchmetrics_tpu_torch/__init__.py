@@ -23,9 +23,14 @@ metric is built with ``device="cpu"``. Ported so far:
 - cross-process state sync on ``torch.distributed`` (``parallel/``: gloo
   on the CPU, NCCL on the card), with its timeout, retry and degradation
   policies (``io/retry.py``, ``quarantine.py``);
-- the aggregators (sum, mean, max, min, cat, running mean and sum).
+- the aggregators (sum, mean, max, min, cat, running mean and sum);
+- regression (errors, correlations, R², explained variance, cosine
+  similarity, KL divergence) and the pairwise distances, on plain PyTorch
+  (no kernel of the port);
+- ``plot`` on every metric and collection (matplotlib, imported only when
+  a plot is drawn).
 """
-from torchmetrics_tpu_torch import classification, functional, image, models, parallel, retrieval
+from torchmetrics_tpu_torch import classification, functional, image, models, parallel, regression, retrieval
 from torchmetrics_tpu_torch.aggregation import (
     CatMetric,
     MaxMetric,
@@ -41,6 +46,8 @@ from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 
@@ -60,8 +67,10 @@ __all__ = [
     "image",
     "models",
     "parallel",
+    "regression",
     "retrieval",
     *_classification_all,
     *_image_all,
+    *_regression_all,
     *_retrieval_all,
 ]

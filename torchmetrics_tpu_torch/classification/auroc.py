@@ -5,7 +5,7 @@ from typing import Any, Optional
 
 import torch
 
-from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _single_value_plot
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -64,6 +64,8 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     def compute(self) -> torch.Tensor:
         return _binary_auroc_compute(self._curve_state(), self.thresholds, self.max_fpr)
 
+    plot = _single_value_plot
+
 
 class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     """Multiclass one-vs-rest AUROC (modular interface).
@@ -104,6 +106,8 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
         fpr, tpr, _ = _multiclass_roc_compute(state, self.num_classes, self.thresholds)
         weights = self._class_weights(state) if self.average == "weighted" else None
         return _reduce_auroc(fpr, tpr, self.average, weights)
+
+    plot = _single_value_plot
 
 
 class MultilabelAUROC(MultilabelPrecisionRecallCurve):
@@ -150,6 +154,8 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
             return _binary_auroc_compute(self.confmat.sum(1), self.thresholds)
         fpr, tpr, _ = _multilabel_roc_compute(self._curve_state(), self.num_labels, self.thresholds, self._valid_state())
         return _reduce_auroc(fpr, tpr, self.average, self._label_weights())
+
+    plot = _single_value_plot
 
 
 class AUROC(_ClassificationTaskWrapper):

@@ -6,7 +6,7 @@ from typing import Any, Optional
 import torch
 
 from torchmetrics_tpu_torch.classification.auroc import _CLASS_AVERAGES, _LABEL_AVERAGES, _check_average
-from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _single_value_plot
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -46,6 +46,8 @@ class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
 
     def compute(self) -> torch.Tensor:
         return _binary_average_precision_compute(self._curve_state(), self.thresholds)
+
+    plot = _single_value_plot
 
 
 class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
@@ -87,6 +89,8 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
         precision, recall, _ = _multiclass_precision_recall_curve_compute(state, self.num_classes, self.thresholds)
         weights = self._class_weights(state) if self.average == "weighted" else None
         return _reduce_average_precision(precision, recall, self.average, weights)
+
+    plot = _single_value_plot
 
 
 class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
@@ -134,6 +138,8 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
             self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self._valid_state()
         )
         return _reduce_average_precision(precision, recall, self.average, self._label_weights())
+
+    plot = _single_value_plot
 
 
 class AveragePrecision(_ClassificationTaskWrapper):

@@ -5,7 +5,7 @@ from typing import Any, Optional
 
 import torch
 
-from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _single_value_plot
 from torchmetrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
 from torchmetrics_tpu_torch.classification.stat_scores import _check_int
 from torchmetrics_tpu_torch.functional.classification.cohen_kappa import _check_weights, _cohen_kappa_reduce
@@ -47,6 +47,8 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
     def compute(self) -> torch.Tensor:
         return _cohen_kappa_reduce(self.confmat, self.weights)
 
+    plot = _single_value_plot
+
 
 class MulticlassCohenKappa(MulticlassConfusionMatrix):
     """Multiclass Cohen's kappa.
@@ -82,6 +84,8 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
 
     def compute(self) -> torch.Tensor:
         return _cohen_kappa_reduce(self.confmat, self.weights)
+
+    plot = _single_value_plot
 
 
 class CohenKappa(_ClassificationTaskWrapper):

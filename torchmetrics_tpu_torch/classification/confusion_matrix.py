@@ -75,6 +75,13 @@ class BinaryConfusionMatrix(Metric):
     def compute(self) -> torch.Tensor:
         return _binary_confusion_matrix_compute(self.confmat, self.normalize)
 
+    def plot(self, val: Optional[torch.Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None) -> Any:
+        """Heatmap of the matrix (by default ``compute()``); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
+
 
 class MulticlassConfusionMatrix(Metric):
     """Multiclass confusion matrix (rows: target, columns: prediction).
@@ -122,6 +129,13 @@ class MulticlassConfusionMatrix(Metric):
 
     def compute(self) -> torch.Tensor:
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
+
+    def plot(self, val: Optional[torch.Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None) -> Any:
+        """Heatmap of the matrix (by default ``compute()``); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
 
 
 class MultilabelConfusionMatrix(Metric):

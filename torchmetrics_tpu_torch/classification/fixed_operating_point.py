@@ -54,11 +54,17 @@ class _BinaryFixedBase(BinaryPrecisionRecallCurve):
     def compute(self) -> Pair:  # type: ignore[override]
         return _binary_fixed_compute(self._curve_state(), self.thresholds, self.min_constraint, self._family)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the value only (by default ``compute()[0]``): the threshold
+        is the operating point, not a result."""
+        return self._plot(val if val is not None else self.compute()[0], ax)
+
 
 class _MulticlassFixedBase(MulticlassPrecisionRecallCurve):
     higher_is_better = True
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name = "Class"
     _family: str
     _min_arg_name: str
 
@@ -84,11 +90,17 @@ class _MulticlassFixedBase(MulticlassPrecisionRecallCurve):
         curves = None if self.thresholds is not None else _multiclass_curves(state, self.num_classes, self._family)
         return _multidim_fixed_compute(state, self.thresholds, self.min_constraint, self._family, curves)
 
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the value only (by default ``compute()[0]``): the threshold
+        is the operating point, not a result."""
+        return self._plot(val if val is not None else self.compute()[0], ax)
+
 
 class _MultilabelFixedBase(MultilabelPrecisionRecallCurve):
     higher_is_better = True
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name = "Label"
     _family: str
     _min_arg_name: str
 
@@ -115,6 +127,11 @@ class _MultilabelFixedBase(MultilabelPrecisionRecallCurve):
         if self.thresholds is None:
             curves = _multilabel_curves(state, self.num_labels, self._family, self.ignore_index, self._valid_state())
         return _multidim_fixed_compute(state, self.thresholds, self.min_constraint, self._family, curves)
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot the value only (by default ``compute()[0]``): the threshold
+        is the operating point, not a result."""
+        return self._plot(val if val is not None else self.compute()[0], ax)
 
 
 class BinaryRecallAtFixedPrecision(_BinaryFixedBase):

@@ -5,7 +5,7 @@ from typing import Any, Optional
 
 import torch
 
-from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _single_value_plot
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     MulticlassConfusionMatrix,
@@ -43,6 +43,8 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
     def compute(self) -> torch.Tensor:
         return _matthews_corrcoef_reduce(self.confmat)
 
+    plot = _single_value_plot
+
 
 class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     """Multiclass Matthews correlation coefficient.
@@ -71,6 +73,8 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     def compute(self) -> torch.Tensor:
         return _matthews_corrcoef_reduce(self.confmat)
 
+    plot = _single_value_plot
+
 
 class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
     """Multilabel Matthews correlation coefficient (the labels' matrices summed)."""
@@ -93,6 +97,8 @@ class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
 
     def compute(self) -> torch.Tensor:
         return _matthews_corrcoef_reduce(self.confmat)
+
+    plot = _single_value_plot
 
 
 class MatthewsCorrCoef(_ClassificationTaskWrapper):

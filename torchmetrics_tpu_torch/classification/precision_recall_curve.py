@@ -153,6 +153,16 @@ class BinaryPrecisionRecallCurve(_CurveMetric):
     def compute(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return _binary_precision_recall_curve_compute(self._curve_state(), self.thresholds)
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """The curve (by default ``compute()``), one line per class of a
+        per-class curve; ``score`` labels it (``True``: its area); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            (curve[1], curve[0], curve[2]), score=score, ax=ax, label_names=("Recall", "Precision"), name=type(self).__name__
+        )
+
 
 class MulticlassPrecisionRecallCurve(_CurveMetric):
     """Multiclass one-vs-rest PR curves (modular interface).
@@ -227,6 +237,16 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
 
     def compute(self):
         return _multiclass_precision_recall_curve_compute(self._curve_state(), self.num_classes, self.thresholds, self.average)
+
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """The curve (by default ``compute()``), one line per class of a
+        per-class curve; ``score`` labels it (``True``: its area); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            (curve[1], curve[0], curve[2]), score=score, ax=ax, label_names=("Recall", "Precision"), name=type(self).__name__
+        )
 
 
 class MultilabelPrecisionRecallCurve(_CurveMetric):
@@ -303,6 +323,16 @@ class MultilabelPrecisionRecallCurve(_CurveMetric):
     def compute(self):
         return _multilabel_precision_recall_curve_compute(
             self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self._valid_state()
+        )
+
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """The curve (by default ``compute()``), one line per class of a
+        per-class curve; ``score`` labels it (``True``: its area); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            (curve[1], curve[0], curve[2]), score=score, ax=ax, label_names=("Recall", "Precision"), name=type(self).__name__
         )
 
 

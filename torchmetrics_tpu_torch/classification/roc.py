@@ -36,6 +36,16 @@ class BinaryROC(BinaryPrecisionRecallCurve):
     def compute(self):
         return _binary_roc_compute(self._curve_state(), self.thresholds)
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """The curve (by default ``compute()``), one line per class of a
+        per-class curve; ``score`` labels it (``True``: its area); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            (curve[0], curve[1], curve[2]), score=score, ax=ax, label_names=("FPR", "TPR"), name=type(self).__name__
+        )
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """Multiclass one-vs-rest ROC (modular interface).
@@ -54,6 +64,16 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
     def compute(self):
         return _multiclass_roc_compute(self._curve_state(), self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """The curve (by default ``compute()``), one line per class of a
+        per-class curve; ``score`` labels it (``True``: its area); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            (curve[0], curve[1], curve[2]), score=score, ax=ax, label_names=("FPR", "TPR"), name=type(self).__name__
+        )
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """Per-label ROC (modular interface).
@@ -71,6 +91,16 @@ class MultilabelROC(MultilabelPrecisionRecallCurve):
 
     def compute(self):
         return _multilabel_roc_compute(self._curve_state(), self.num_labels, self.thresholds, self._valid_state())
+
+    def plot(self, curve: Any = None, score: Any = None, ax: Any = None) -> Any:
+        """The curve (by default ``compute()``), one line per class of a
+        per-class curve; ``score`` labels it (``True``: its area); needs matplotlib."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve if curve is not None else self.compute()
+        return plot_curve(
+            (curve[0], curve[1], curve[2]), score=score, ax=ax, label_names=("FPR", "TPR"), name=type(self).__name__
+        )
 
 
 class ROC(_ClassificationTaskWrapper):

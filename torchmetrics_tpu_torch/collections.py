@@ -553,6 +553,15 @@ class MetricCollection:
             self._compute_groups_create_state_ref()
         return self
 
+    def plot(self, val: Optional[Dict[str, Any]] = None, ax: Any = None, together: bool = False) -> Any:
+        """Plot every member's value (by default ``compute()``) into one
+        axes, a point or a line per member; needs matplotlib. ``together``
+        is accepted as in the JAX package, which draws one axes either way."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(val, ax=ax)
+
     @property
     def compute_groups(self) -> Dict[int, List[str]]:
         return self._groups

@@ -3,7 +3,11 @@ from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F40
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.pairwise import __all__ as _pairwise_all
+from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 
-__all__ = [*_classification_all, *_image_all, *_retrieval_all]
+__all__ = [*_classification_all, *_image_all, *_pairwise_all, *_regression_all, *_retrieval_all]

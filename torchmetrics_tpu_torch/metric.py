@@ -298,6 +298,8 @@ class Metric:
         name: str,
         default: Union[torch.Tensor, List],
         dist_reduce_fx: Reduction = None,
+        *,
+        dtype: Optional[torch.dtype] = None,
     ) -> None:
         """Register a metric state.
 
@@ -305,7 +307,8 @@ class Metric:
         metric's device) or an empty list (growing accumulator).
         ``dist_reduce_fx`` in {"sum","mean","max","min","cat", None, callable}
         declares how the state merges across batches (``forward``) and
-        processes.
+        processes. ``dtype`` keeps a tensor default in that dtype instead of
+        the JAX package's 32-bit one (an exact int64 count).
         """
         if not isinstance(default, (list, int, float, np.ndarray, torch.Tensor)):
             raise ValueError("state variable must be a tensor or an empty list")
@@ -317,7 +320,9 @@ class Metric:
                 f" got {dist_reduce_fx!r}"
             )
         if not isinstance(default, list):
-            default = _as_state_tensor(default, self._device)
+            default = _as_state_tensor(default, self._device) if dtype is None else torch.as_tensor(
+                default, dtype=dtype, device=self._device
+            )
         self._defaults[name] = default
         self._reductions[name] = dist_reduce_fx
         self._state[name] = [] if isinstance(default, list) else default.clone()
@@ -900,6 +905,38 @@ class Metric:
             memo[id(self.process_group)] = self.process_group  # a group is shared, never copied
         new_obj.__setstate__(copy.deepcopy(self.__getstate__(), memo))
         return new_obj
+
+    # ------------------------------------------------------------- plotting
+    def plot(self, *args: Any, **kwargs: Any) -> Any:
+        """Plot a value (by default ``compute()``): a point, a point per
+        class, or a line over a list of values (``utils/plot.py``); needs
+        matplotlib. ``ax`` draws into an existing axes."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = args[0] if args else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=kwargs.get("ax"),
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=type(self).__name__,
+        )
+
+    def _plot(self, val: Any = None, ax: Any = None) -> Any:
+        """The plain value plot, for overrides that choose what to plot."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            name=type(self).__name__,
+        )
 
     # --------------------------------------------------- composition algebra
     def __add__(self, other: Any) -> "CompositionalMetric":

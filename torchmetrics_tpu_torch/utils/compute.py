@@ -22,6 +22,16 @@ def full_float32() -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
 
 
+def _at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """Integer, bool and sub-32-bit float inputs as float32, for accumulation
+    (sums of squares overflow float16); float32, float64 and complex inputs
+    pass through."""
+    x = torch.as_tensor(x)
+    if x.is_complex() or (x.is_floating_point() and torch.finfo(x.dtype).bits >= 32):
+        return x
+    return x.to(torch.float32)
+
+
 def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 0.0) -> torch.Tensor:
     """Elementwise num/denom returning ``zero_division`` where denom == 0.
 
@@ -36,6 +46,23 @@ def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 
     zero = denom == 0
     quotient = num / torch.where(zero, torch.ones_like(denom), denom)
     return torch.where(zero, torch.full_like(quotient, zero_division), quotient)
+
+
+def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x * log(y)`` with ``0 * log(anything) = 0``, free of nan/inf where
+    ``x`` is 0."""
+    x = torch.as_tensor(x)
+    y = torch.as_tensor(y)
+    zero = x == 0
+    safe_y = torch.where(zero, torch.ones_like(y), y)
+    return torch.where(zero, torch.zeros_like(x * safe_y), x * torch.log(safe_y))
+
+
+def _safe_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` in full float32 (TF32 off inside, whatever the caller set),
+    as the JAX package's ``precision="highest"`` product."""
+    with full_float32():
+        return torch.matmul(x, y)
 
 
 def _adjust_weights_safe_divide(
