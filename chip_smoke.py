@@ -80,7 +80,23 @@ evaluation workloads:
   pairwise functions, Manhattan and Minkowski in row chunks; every value
   against float64 of the same data, within the bound float32's summation
   gives (scaled by each statistic's cancellation), with updates/s, compute
-  ms and peak memory.
+  ms and peak memory;
+- the wrappers and nominal association, on the ``bincount`` and
+  ``fid_sqrtm`` kernels: the ImageNet batches through two BootStrappers of
+  100 replicates (top-1 poisson, macro F1 multinomial, 95% quantiles), each
+  replicate's counts against a plain int64 count of the same resample and
+  exactly 9,800 launches, and the functional path with explicit indices;
+  three epochs of them through MetricTracker (top-1, top-5, macro F1),
+  MinMaxMetric and Running (16 batches); NYUv2 as multi-task papers score
+  it (654 images of 288 x 384, batch 8) through MultitaskWrapper with
+  mIoU, pixel accuracy, per-class IoU (ClasswiseWrapper), MAE and MAPE;
+  OGB ogbg-molpcba's test split (43,793 x 128 tasks, NaN labels) through
+  MultioutputWrapper of exact average precision; the ``cifar10_fid``
+  images through FeatureShare([FID, KID, MiFID]), one Inception forward an
+  update and values bit-equal to that phase's; UCI Census 1990's shape
+  (2,458,285 rows x 68 coded columns) through the Cramér's V and Theil's U
+  matrices, a collection of the four table metrics and Fleiss' kappa on
+  CIFAR-10H-shaped ratings, against float64 and scipy.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -1132,7 +1148,7 @@ def _drive(name: str, spec: dict, dev) -> dict:
         "coll": coll, "result": result, "launches": launches, "out": {
             "phase": name, "updates": steps, "samples": spec["samples"],
             "launches": launches,
-            "compute_groups": [list(g) for g in coll.compute_groups.values()],
+            "compute_groups": [list(g) for g in getattr(coll, "compute_groups", {}).values()],
             "updates_per_s": steps / update_s, "samples_per_s": spec["samples"] / update_s,
             "update_s": update_s, "compute_s": compute_s, "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
             "update_ms": {"min": step_ms[0], "p50": step_ms[steps // 2], "p90": step_ms[(9 * steps) // 10], "max": step_ms[-1]},
@@ -1858,6 +1874,8 @@ def phase_cifar10(dev) -> dict:
     _check(calls["kid"] == calls["is"] == 0, "cifar10_fid: KID or IS called fid_sqrtm")
     _check(network["fp32_max_err_scaled"] <= NETWORK_FP32_TOL, f"cifar10_fid: network in full float32 differs from the CPU by {network['fp32_max_err_scaled']}")
     _check(network["default_max_err_scaled"] <= NETWORK_TF32_TOL, f"cifar10_fid: network as configured differs from the CPU by {network['default_max_err_scaled']}")
+    # the calibrated network and the images, for the FeatureShare phase
+    out["_reuse"] = {"state": run["state"], "batches": run["batches"]}
     return out
 
 
@@ -3495,6 +3513,756 @@ def phase_inshop_pairwise(dev) -> dict:
     })
 
 
+# ------------------------------------------------------------- wrappers and nominal association
+
+#: ImageNet-1k val (IMAGENET's batches) through BootStrapper: 100 replicates
+#: of top-1 (poisson) and of macro F1 (multinomial), 95% intervals; the
+#: functional path once a batch with explicit indices (10 replicates)
+IMAGENET_BOOT = {"replicates": 100, "quantile": [0.025, 0.975], "functional_replicates": 10, "margin": 2.0}
+BOOT_ATOL = 1e-6
+#: three "epochs" of the ImageNet batches whose logits lean further to the
+#: target each epoch (top-1 rising), for MetricTracker, MinMaxMetric and
+#: Running (the last 16 batches)
+IMAGENET_TRACKED = {"margins": [1.0, 2.0, 3.0], "window": 16}
+#: NYUv2 as multi-task papers score it (MTAN, Liu et al., CVPR 2019): the
+#: 654 test images at 288 x 384, batch 8, 13-class segmentation
+#: (``ignore_index=-1`` on 5% of pixels) and depth in 0.5-10 m (valid
+#: everywhere: no depth mask)
+NYUV2 = {"images": 654, "batch": 8, "height": 288, "width": 384, "classes": 13, "ignored": 0.05, "block": 16,
+         "margin": 2.0, "depth": (0.5, 10.0), "depth_noise": 0.1}
+NYUV2_LABELS = ["bed", "books", "ceiling", "chair", "floor", "furniture", "objects", "picture", "sofa", "table",
+                "tv", "wall", "window"]
+#: OGB ogbg-molpcba's test split: 43,793 molecules x 128 binary tasks, batch
+#: 1,024; labels missing (NaN) at the rate and positive among the present at
+#: the rate below (the dataset's own label matrix is not in the repository;
+#: each task's positive rate is drawn from 0.25x to 1.75x of it)
+MOLPCBA = {"molecules": 43_793, "tasks": 128, "batch": 1_024, "missing": 0.6, "positive_rate": 0.014, "shift": 1.5}
+MOLPCBA_ATOL = 1e-5
+#: UCI "US Census Data (1990)": 2,458,285 rows x 68 coded categorical
+#: columns. Cut: synthetic columns of 2-20 categories (``CENSUS_CARDS``),
+#: associations planted through 8 shared latent codes (35% of a column's
+#: rows) and one global code (15%); the four table metrics over one column
+#: pair in batches of 65,536 rows; the no-correction matrices over the
+#: first 16 columns
+CENSUS = {"rows": 2_458_285, "columns": 68, "latents": 8, "codes": 20, "group": 0.35, "global": 0.15,
+          "batch": 65_536, "pair": (0, 1), "subset": 16}
+CENSUS_CARDS = [2 + (7 * j) % 19 for j in range(CENSUS["columns"])]
+#: CIFAR-10H's shape: 10,000 test images x 10 classes, 50 human labels each
+CIFAR10H = {"images": 10_000, "classes": 10, "raters": 50, "batch": 1_000}
+NOMINAL_ATOL = 1e-5
+
+
+def _lean_batches(dev, margin: float, seed: int):
+    """IMAGENET's batches: N(0, 1) logits plus ``margin`` on the target's."""
+    import torch
+
+    c = IMAGENET["num_classes"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for b in IMAGENET["batches"]:
+        target = torch.randint(0, c, (b,), generator=g, device=dev)
+        noise = torch.randn((b, c), generator=g, device=dev)
+        yield noise + margin * torch.nn.functional.one_hot(target, c).to(torch.float32), target
+
+
+def _class_counts(pred, target, c: int):
+    """Plain int64 per-class (tp, fp, fn) of label vectors (``torch.bincount``)."""
+    import torch
+
+    cm = torch.bincount(target * c + pred, minlength=c * c).view(c, c)
+    tp = cm.diagonal()
+    return torch.stack([tp, cm.sum(0) - tp, cm.sum(1) - tp])
+
+
+def _macro(counts, kind: str):
+    """Macro recall ("accuracy") or F1 in float64 over the present classes,
+    from ``(..., 3, C)`` int64 (tp, fp, fn)."""
+    tp, fp, fn = (counts[..., k, :].double() for k in range(3))
+    present = (tp + fp + fn) > 0
+    num, den = (tp, tp + fn) if kind == "accuracy" else (2 * tp, 2 * tp + fp + fn)
+    score = _safe(num, den) * present
+    return score.sum(-1) / present.sum(-1)
+
+
+def _hold_boot(name: str, checks: dict, got: dict, vals, quantile) -> None:
+    """A BootStrapper's mean, std (ddof 1) and linear quantiles against
+    float64 over the replicate values ``vals``."""
+    import torch
+
+    q = torch.tensor(quantile, dtype=torch.float64, device=vals.device)
+    want = {"mean": vals.mean(), "std": vals.std(correction=1), "quantile": torch.quantile(vals, q)}
+    for k, v in want.items():
+        _hold(f"{name}_{k}", checks, got[k], v, BOOT_ATOL, relative=False)
+
+
+def phase_imagenet_bootstrap(dev) -> dict:
+    """ImageNet-1k val through two BootStrappers (100 replicates each): every
+    replicate's counts against a plain int64 count of the same resample
+    (redrawn from a second ``RandomState(seed)``), mean, std and quantiles
+    against float64 over those counts, exactly 2 x 100 x 49 ``bincount``
+    launches, updates/s and the host's resampling share; then the
+    functional path with explicit indices against the stateful one fed the
+    same indices."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassF1Score
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.wrappers import BootStrapper, bootstrapping
+
+    name, spec, c = "imagenet_bootstrap", IMAGENET_BOOT, IMAGENET["num_classes"]
+    reps, updates = spec["replicates"], len(IMAGENET["batches"])
+    kw = {"num_classes": c, "validate_args": False}
+    seeds = {"accuracy": SEED + 20, "f1": SEED + 21}
+    strategies = {"accuracy": "poisson", "f1": "multinomial"}
+
+    def batches():
+        return _lean_batches(dev, spec["margin"], SEED + 22)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    boots = {
+        "accuracy": BootStrapper(MulticlassAccuracy(average="micro", **kw), num_bootstraps=reps,
+                                 sampling_strategy="poisson", quantile=spec["quantile"], seed=seeds["accuracy"]),
+        "f1": BootStrapper(MulticlassF1Score(average="macro", **kw), num_bootstraps=reps,
+                           sampling_strategy="multinomial", quantile=spec["quantile"], seed=seeds["f1"]),
+    }
+    sampler, sample_s = bootstrapping._bootstrap_sampler, [0.0]
+
+    def timed_sampler(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = sampler(*args, **kwargs)
+        sample_s[0] += time.perf_counter() - t0
+        return out
+
+    bootstrapping._bootstrap_sampler = timed_sampler
+    step_s = []
+    try:
+        bincount.launches = 0
+        for preds, target in batches():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for boot in boots.values():
+                boot.update(preds, target)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = bincount.launches
+        t0 = time.perf_counter()
+        result = {k: b.compute() for k, b in boots.items()}
+        torch.cuda.synchronize()
+        compute_s = time.perf_counter() - t0
+    finally:
+        bootstrapping._bootstrap_sampler = sampler
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check(launches == 2 * reps * updates, f"{name}: {launches} bincount launches, expected {2 * reps * updates}")
+
+    # the same resamples from second generators, counted plainly in int64
+    rngs = {k: np.random.RandomState(s) for k, s in seeds.items()}
+    counts = {k: torch.zeros((reps, 3, c), dtype=torch.int64, device=dev) for k in boots}
+    samples = {k: torch.zeros(reps, dtype=torch.int64, device=dev) for k in boots}
+    for preds, target in batches():
+        label = preds.argmax(1)
+        for k in boots:
+            for r in range(reps):
+                idx = torch.from_numpy(bootstrapping._bootstrap_sampler(target.shape[0], strategies[k], rngs[k])).to(dev)
+                counts[k][r] += _class_counts(label[idx], target[idx], c)
+                samples[k][r] += idx.numel()
+    exact = True
+    for r in range(reps):
+        acc, f1 = boots["accuracy"].metrics[r], boots["f1"].metrics[r]
+        tp, fp, fn = counts["accuracy"][r].sum(-1)
+        want = {"tp": tp, "fp": fp, "fn": fn, "tn": samples["accuracy"][r] * c - tp - fp - fn}
+        exact &= all(torch.equal(getattr(acc, k).to(torch.int64), v) for k, v in want.items())
+        tp, fp, fn = counts["f1"][r]
+        want = {"tp": tp, "fp": fp, "fn": fn, "tn": samples["f1"][r] - tp - fp - fn}
+        exact &= all(torch.equal(getattr(f1, k).to(torch.int64), v) for k, v in want.items())
+    _check(exact, f"{name}: a replicate's counts differ from the plain int64 count of its resample")
+    checks: dict = {}
+    micro = counts["accuracy"][:, 0].sum(-1).double() / samples["accuracy"].double()
+    _hold_boot("accuracy", checks, result["accuracy"], micro, spec["quantile"])
+    _hold_boot("f1", checks, result["f1"], _macro(counts["f1"], "f1"), spec["quantile"])
+
+    # the functional path: explicit indices, against the stateful children fed them
+    n_fn = spec["functional_replicates"]
+    functional = BootStrapper(MulticlassAccuracy(average="micro", **kw), num_bootstraps=n_fn, sampling_strategy="multinomial")
+    stateful = BootStrapper(MulticlassAccuracy(average="micro", **kw), num_bootstraps=n_fn, sampling_strategy="multinomial")
+    rng = np.random.RandomState(SEED + 23)
+    state, functional_launches = functional.functional_init(), 0
+    for preds, target in batches():
+        idx = torch.from_numpy(rng.randint(0, target.shape[0], (n_fn, target.shape[0]))).to(dev)
+        before = bincount.launches
+        state = functional.functional_update(state, preds, target, indices=idx)
+        functional_launches += bincount.launches - before
+        for i, m in enumerate(stateful.metrics):
+            m.update(preds.index_select(0, idx[i]), target.index_select(0, idx[i]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the children were updated directly, not through the wrapper
+        stateful_value = stateful.compute()
+    functional_value = functional.functional_compute(state)
+    live = stateful.state()
+    _check(all(torch.equal(state[k], live[k]) for k in state), f"{name}: functional state differs from the stateful one")
+    _check(all(torch.equal(functional_value[k], stateful_value[k]) for k in stateful_value),
+           f"{name}: functional {functional_value} != stateful {stateful_value}")
+    _check(functional_launches == n_fn * updates, f"{name}: functional path made {functional_launches} launches")
+
+    update_s = sum(step_s)
+    step_ms = sorted(t * 1e3 for t in step_s)
+    return _emit({
+        "phase": name, "updates": updates, "replicates": reps, "samples": sum(IMAGENET["batches"]),
+        "wrapper_updates_per_s": 2 * updates / update_s, "replicate_updates_per_s": 2 * reps * updates / update_s,
+        "update_s": update_s, "update_ms": {"min": step_ms[0], "p50": step_ms[updates // 2], "max": step_ms[-1]},
+        "resample_host_s": sample_s[0], "resample_share": sample_s[0] / update_s, "compute_s": compute_s,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+        "bincount_launches": launches, "functional_bincount_launches": functional_launches,
+        "values": {k: {kk: vv.tolist() for kk, vv in v.items()} for k, v in result.items()},
+        "counts_exact": True, "functional_equals_stateful": True, "checks": checks,
+    })
+
+
+def phase_imagenet_tracked(dev) -> dict:
+    """Three epochs of the ImageNet batches through MetricTracker (top-1,
+    top-5, macro F1), MinMaxMetric and Running (window 16) forwards: the
+    best epoch of each, Running against a plain count of the last 16
+    batches, MinMax's extrema against the batch values and its compute
+    against the plain count of every batch."""
+    import collections
+
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassF1Score
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.wrappers import MetricTracker, MinMaxMetric, Running
+
+    name, spec, c = "imagenet_tracked", IMAGENET_TRACKED, IMAGENET["num_classes"]
+    kw = {"num_classes": c, "validate_args": False}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tracker = MetricTracker(
+        MetricCollection({
+            "top1": MulticlassAccuracy(average="micro", **kw), "top5": MulticlassAccuracy(top_k=5, average="micro", **kw),
+            "f1": MulticlassF1Score(average="macro", **kw),
+        }),
+        maximize=[True, True, True],
+    )
+    minmax = MinMaxMetric(MulticlassAccuracy(**kw))
+    running = Running(MulticlassAccuracy(**kw), window=spec["window"])
+    window = collections.deque(maxlen=spec["window"])
+    total = torch.zeros((3, c), dtype=torch.int64, device=dev)
+    epoch_correct, raws, step_s = [], [], []
+    bincount.launches = 0
+    for epoch, margin in enumerate(spec["margins"]):
+        tracker.increment()
+        correct = 0
+        for preds, target in _lean_batches(dev, margin, SEED + 30 + epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.update(preds, target)
+            raws.append(minmax(preds, target)["raw"])
+            running(preds, target)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            label = preds.argmax(1)
+            window.append(_class_counts(label, target, c))
+            total += window[-1]
+            correct += int((label == target).sum())
+        epoch_correct.append(correct / sum(IMAGENET["batches"]))
+    launches = bincount.launches
+    extrema = {"min": minmax.min_val.clone(), "max": minmax.max_val.clone()}
+    t0 = time.perf_counter()
+    best, steps = tracker.best_metric(return_step=True)
+    everything = tracker.compute_all()
+    final = minmax.compute()
+    windowed = running.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    last = len(spec["margins"]) - 1
+    _check(steps == {"top1": last, "top5": last, "f1": last}, f"{name}: best steps {steps}, expected epoch {last} for all")
+    checks: dict = {}
+    _hold("top1_by_epoch", checks, everything["top1"], epoch_correct, 1e-5)
+    _hold("running", checks, windowed, _macro(sum(window), "accuracy"), 1e-5)
+    _hold("minmax_accumulated", checks, final["raw"], _macro(total, "accuracy"), 1e-5)
+    batch_values = torch.stack(raws)
+    _check(torch.equal(extrema["min"], batch_values.min()) and torch.equal(extrema["max"], batch_values.max()),
+           f"{name}: MinMax extrema {extrema} differ from the batch values' {float(batch_values.min())}, {float(batch_values.max())}")
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "epochs": len(spec["margins"]), "updates": len(step_s), "window": spec["window"],
+        "updates_per_s": len(step_s) / update_s, "update_s": update_s, "compute_s": compute_s,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base, "bincount_launches": launches,
+        "best": best, "best_step": steps, "by_epoch": {k: v.tolist() for k, v in everything.items()},
+        "minmax": {"min": float(extrema["min"]), "max": float(extrema["max"]), "accumulated": float(final["raw"])},
+        "running": float(windowed), "checks": checks,
+    })
+
+
+def _nyuv2_batch(i: int, dev):
+    """One NYUv2 batch: block-wise labels (16 x 16 pixel blocks) with 5%
+    ignored, logits leaning to the label, a smooth depth field and preds
+    with 10% multiplicative noise."""
+    import torch
+
+    spec = NYUV2
+    b = min(spec["batch"], spec["images"] - i * spec["batch"])
+    h, w, c, k = spec["height"], spec["width"], spec["classes"], spec["block"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+    labels = torch.randint(0, c, (b, h // k, w // k), generator=g, device=dev)
+    labels = labels.repeat_interleave(k, 1).repeat_interleave(k, 2)
+    logits = torch.randn((b, c, h, w), generator=g, device=dev)
+    logits += spec["margin"] * torch.nn.functional.one_hot(labels, c).permute(0, 3, 1, 2).to(torch.float32)
+    target = torch.where(torch.rand((b, h, w), generator=g, device=dev) < spec["ignored"], -1, labels)
+    lo, hi = spec["depth"]
+    coarse = torch.rand((b, 1, h // 32, w // 32), generator=g, device=dev)
+    depth = lo + (hi - lo) * torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)[:, 0]
+    pred_depth = depth * (1 + spec["depth_noise"] * torch.randn(depth.shape, generator=g, device=dev))
+    return logits, target, pred_depth, depth
+
+
+def phase_nyuv2_multitask(dev) -> dict:
+    """NYUv2 through MultitaskWrapper: segmentation (mIoU, pixel accuracy,
+    per-class IoU labeled by ClasswiseWrapper) and depth (MAE, MAPE). The
+    segmentation counts against a plain int64 count, one ``bincount``
+    launch an update for the segmentation group, depth against float64."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassJaccardIndex
+    from torchmetrics_tpu_torch.regression import MeanAbsoluteError, MeanAbsolutePercentageError
+    from torchmetrics_tpu_torch.wrappers import ClasswiseWrapper, MultitaskWrapper
+
+    name, spec = "nyuv2_multitask", NYUV2
+    c, b, hw = spec["classes"], spec["batch"], spec["height"] * spec["width"]
+    updates = -(-spec["images"] // b)
+    kw = {"num_classes": c, "ignore_index": -1, "validate_args": False}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    wrapper = MultitaskWrapper({
+        "segmentation": MetricCollection({
+            "miou": MulticlassJaccardIndex(**kw), "pixel_accuracy": MulticlassAccuracy(average="micro", **kw),
+            "iou": ClasswiseWrapper(MulticlassJaccardIndex(average=None, **kw), labels=NYUV2_LABELS, prefix="iou_"),
+        }),
+        "depth": MetricCollection({"mae": MeanAbsoluteError(), "mape": MeanAbsolutePercentageError()}),
+    })
+
+    def update(w, batch) -> None:
+        logits, target, pred_depth, depth = batch
+        w.update({"segmentation": logits, "depth": pred_depth}, {"segmentation": target, "depth": depth})
+
+    run = _drive(name, {
+        "collection": lambda: wrapper, "batches": lambda: (_nyuv2_batch(i, dev) for i in range(updates)),
+        "samples": spec["images"] * hw, "update": update,
+    }, dev)
+    launches = run["launches"]
+    _check(launches["bincount"] == updates, f"{name}: {launches['bincount']} bincount launches for {updates} updates")
+    _check(not any(v for k, v in launches.items() if k != "bincount"), f"{name}: another kernel launched: {launches}")
+    seg = wrapper.task_metrics["segmentation"]
+
+    # plain int64 confusion counts and float64 depth sums of the same batches
+    cm = torch.zeros((c, c), dtype=torch.int64, device=dev)
+    abs_sum = ape_sum = torch.zeros((), dtype=torch.float64, device=dev)
+    pixels = 0
+    for i in range(updates):
+        logits, target, pred_depth, depth = _nyuv2_batch(i, dev)
+        valid = target >= 0
+        cm += torch.bincount((target * c + logits.argmax(1))[valid], minlength=c * c).view(c, c)
+        err = (pred_depth.double() - depth.double()).abs()
+        abs_sum = abs_sum + err.sum()
+        ape_sum = ape_sum + (err / depth.double().abs().clamp(min=1.17e-06)).sum()
+        pixels += depth.numel()
+    tp = cm.diagonal()
+    fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+    valid_pixels = cm.sum()
+    miou = seg["miou"]
+    want = {"tp": tp, "fp": fp, "fn": fn, "tn": valid_pixels - tp - fp - fn}
+    _check(all(torch.equal(getattr(miou, k).to(torch.int64), v) for k, v in want.items()), f"{name}: IoU counts differ from plain int64")
+    acc = seg["pixel_accuracy"]
+    micro = {"tp": tp.sum(), "fp": fp.sum(), "fn": fn.sum()}
+    _check(all(torch.equal(getattr(acc, k).to(torch.int64), v) for k, v in micro.items()), f"{name}: pixel accuracy counts differ")
+    result = run["result"]
+    checks: dict = {}
+    iou = _safe(tp.double(), (tp + fp + fn).double())
+    _hold("miou", checks, result["segmentation"]["miou"], iou[(tp + fp + fn) > 0].mean(), 1e-5)
+    _hold("pixel_accuracy", checks, result["segmentation"]["pixel_accuracy"], tp.sum().double() / valid_pixels, 1e-5)
+    _hold("iou", checks, torch.stack([result["segmentation"][f"iou_{k}"] for k in NYUV2_LABELS]), iou, 1e-5)
+    tol = _f32_rtol(updates, b * hw)
+    _hold("mae", checks, result["depth"]["mae"], abs_sum / pixels, tol)
+    _hold("mape", checks, result["depth"]["mape"], ape_sum / pixels, tol)
+    out = run["out"]
+    return _emit({
+        **out, "images": spec["images"], "shape": [spec["height"], spec["width"]], "batch": b, "classes": c,
+        "valid_pixels": int(valid_pixels), "bincount_launches": launches["bincount"],
+        "reduced": ["depth valid everywhere (no depth mask)"],
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": out["peak_mem_bytes"] - base,
+        "values": {task: {k: float(v) for k, v in vals.items()} for task, vals in result.items()},
+        "counts_exact": True, "float32_sum_rtol": tol, "checks": checks,
+    })
+
+
+def _molpcba_rates(dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    return MOLPCBA["positive_rate"] * (0.25 + 1.5 * torch.rand(MOLPCBA["tasks"], generator=g, device=dev))
+
+
+def _molpcba_batch(i: int, rates, dev):
+    """One batch of scores in (0, 1) (positives' logits shifted up) and
+    labels in {0, 1} with NaN where missing."""
+    import torch
+
+    spec = MOLPCBA
+    b = min(spec["batch"], spec["molecules"] - i * spec["batch"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 51 + i)
+    shape = (b, spec["tasks"])
+    positive = torch.rand(shape, generator=g, device=dev) < rates
+    missing = torch.rand(shape, generator=g, device=dev) < spec["missing"]
+    preds = torch.sigmoid(torch.randn(shape, generator=g, device=dev) + spec["shift"] * positive)
+    return preds, torch.where(missing, float("nan"), positive.to(torch.float32))
+
+
+def _average_precision64(scores, labels) -> float:
+    """Exact average precision in float64 (the step sum over distinct
+    scores, as OGB's evaluator takes it from scikit-learn)."""
+    import numpy as np
+
+    order = np.argsort(-scores, kind="stable")
+    s, y = scores[order], labels[order]
+    ends = np.r_[np.nonzero(np.diff(s))[0], len(s) - 1]
+    tps = np.cumsum(y)[ends]
+    precision = tps / (ends + 1)
+    recall = tps / tps[-1]
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+def phase_ogbg_molpcba(dev) -> dict:
+    """OGB's ogbg-molpcba evaluator: MultioutputWrapper of exact binary AP
+    over 128 tasks with the missing labels' rows removed per task on the
+    card; every task's AP against float64 over its non-NaN rows."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.classification import BinaryAveragePrecision
+    from torchmetrics_tpu_torch.wrappers import MultioutputWrapper
+
+    name, spec = "ogbg_molpcba", MOLPCBA
+    updates = -(-spec["molecules"] // spec["batch"])
+    rates = _molpcba_rates(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    wrapper = MultioutputWrapper(BinaryAveragePrecision(thresholds=None, validate_args=False), num_outputs=spec["tasks"], remove_nans=True)
+    run = _drive(name, {
+        "collection": lambda: wrapper, "batches": lambda: (_molpcba_batch(i, rates, dev) for i in range(updates)),
+        "samples": spec["molecules"],
+    }, dev)
+    _no_launches(name, run["launches"])
+    got = run["result"].double().cpu().numpy()
+    batches = [_molpcba_batch(i, rates, dev) for i in range(updates)]
+    preds = torch.cat([p for p, _ in batches]).double().cpu().numpy()
+    target = torch.cat([t for _, t in batches]).double().cpu().numpy()
+    del batches
+    present = ~np.isnan(target)
+    want = np.array([_average_precision64(preds[present[:, t], t], target[present[:, t], t]) for t in range(spec["tasks"])])
+    err = np.abs(got - want)
+    _check(bool(np.isfinite(got).all()) and got.shape == (spec["tasks"],), f"{name}: AP not finite or of shape {got.shape}")
+    _check(bool((err <= MOLPCBA_ATOL).all()), f"{name}: task AP off float64 by {err.max()} > {MOLPCBA_ATOL}")
+    out = run["out"]
+    return _emit({
+        **out, "molecules": spec["molecules"], "tasks": spec["tasks"], "batch": spec["batch"],
+        "missing_share": float(1 - present.mean()), "positive_rate_of_present": float(target[present].mean()),
+        "positives_per_task": {"min": int(np.nansum(target, 0).min()), "max": int(np.nansum(target, 0).max())},
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": out["peak_mem_bytes"] - base,
+        "mean_ap": float(got.mean()), "mean_ap_float64": float(want.mean()), "max_abs_err": float(err.max()),
+        "atol": MOLPCBA_ATOL,
+    })
+
+
+def phase_cifar10_featureshare(dev, cifar: dict) -> dict:
+    """The ``cifar10_fid`` images through FeatureShare([FID, KID, MiFID]) at
+    ``feature=2048`` on the same calibrated network: one Inception forward
+    an update (the unshared members would run three), the values bit-equal
+    to the ``cifar10_fid`` phase's, 2 x 45 ``fid_sqrtm`` launches."""
+    import torch
+
+    from torchmetrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+    from torchmetrics_tpu_torch.ops import sqrtm_kernel
+    from torchmetrics_tpu_torch.wrappers import FeatureShare
+
+    name, spec, state = "cifar10_featureshare", CIFAR10, cifar["_reuse"]["state"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    fid = FrechetInceptionDistance(feature=2048, inception_params=state)
+    forwards = [0]
+    fid.feature_extractor.network.register_forward_hook(lambda *args: forwards.__setitem__(0, forwards[0] + 1))
+    shared = FeatureShare([
+        fid,
+        KernelInceptionDistance(feature=2048, inception_params=state, subsets=spec["kid_subsets"], subset_size=spec["kid_subset_size"]),
+        MemorizationInformedFrechetInceptionDistance(feature=2048, inception_params=state),
+    ])
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = _launch_counters()
+    for module in counters.values():
+        module.launches = 0
+    sqrtm_kernel.calls = 0
+    step_s = []
+    for real_imgs, fake_imgs in cifar["_reuse"]["batches"]():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shared.update(real_imgs, real=True)
+        shared.update(fake_imgs, real=False)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    values = shared.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    launches = {k: m.launches for k, m in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    updates = 2 * len(step_s)
+
+    def flat(v):
+        return [float(x) for x in v] if isinstance(v, tuple) else [float(v)]
+
+    got = {
+        "fid": flat(values["FrechetInceptionDistance"]), "kid": flat(values["KernelInceptionDistance"]),
+        "mifid": flat(values["MemorizationInformedFrechetInceptionDistance"]),
+    }
+    _check(forwards[0] == updates, f"{name}: {forwards[0]} Inception forwards for {updates} updates")
+    _check(launches["fid_sqrtm"] == 2 * (1 + 2 * sqrtm_kernel.KERNEL_ITERS), f"{name}: {launches['fid_sqrtm']} fid_sqrtm launches")
+    _check(not any(v for k, v in launches.items() if k != "fid_sqrtm"), f"{name}: another kernel launched: {launches}")
+    for k, v in got.items():
+        _check(v == cifar["values"][k], f"{name}: {k} {v} differs from the cifar10_fid phase's {cifar['values'][k]}")
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "images": {"real": spec["images"], "generated": spec["images"]}, "batch": spec["batch"],
+        "updates": updates, "inception_forwards": forwards[0], "unshared_forwards": 3 * updates,
+        "images_per_s": 2 * spec["images"] / update_s, "update_s": update_s, "compute_s": compute_s,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+        "cache": {"max_size": 3, "entries": len(shared["FrechetInceptionDistance"].feature_extractor._cache)},
+        "compute_groups": [list(g) for g in shared.compute_groups.values()],
+        "fid_sqrtm_launches": launches["fid_sqrtm"], "fid_sqrtm_calls": sqrtm_kernel.calls,
+        "values": got, "bit_equal_to_cifar10_fid": True,
+    })
+
+
+def _census(dev):
+    """(rows, 68) int64 codes: column j takes its latent group's code (j mod
+    8) on 35% of rows, the global code on 15%, its own uniform draw on the
+    rest, each shifted and wrapped into its CENSUS_CARDS[j] categories (so
+    every column carries both codes)."""
+    import torch
+
+    spec = CENSUS
+    n = spec["rows"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    latents = torch.randint(0, spec["codes"], (spec["latents"] + 1, n), generator=g, device=dev)
+    data = torch.empty((n, spec["columns"]), dtype=torch.int64, device=dev)
+    for j, card in enumerate(CENSUS_CARDS):
+        u = torch.rand(n, generator=g, device=dev)
+        own = torch.randint(0, card, (n,), generator=g, device=dev)
+        group = (latents[j % spec["latents"]] + 3 * j) % card
+        shared = (latents[-1] + j) % card
+        data[:, j] = torch.where(u < spec["group"], group, torch.where(u < spec["group"] + spec["global"], shared, own))
+    return data
+
+
+def _tables(data, pairs):
+    """Plain int64 contingency tables (rows: the second column's codes,
+    columns: the first's) of column pairs, by ``torch.bincount``; on the host."""
+    import numpy as np
+    import torch
+
+    out = []
+    for i, j in pairs:
+        ci, cj = CENSUS_CARDS[i], CENSUS_CARDS[j]
+        out.append(torch.bincount(data[:, j] * ci + data[:, i], minlength=ci * cj).view(cj, ci))
+    host = torch.cat([t.reshape(-1) for t in out]).cpu().numpy()
+    tables, at = [], 0
+    for (i, j) in pairs:
+        size = CENSUS_CARDS[i] * CENSUS_CARDS[j]
+        tables.append(host[at:at + size].reshape(CENSUS_CARDS[j], CENSUS_CARDS[i]))
+        at += size
+    return tables
+
+
+def _drop_empty(table):
+    return table[table.sum(1) > 0][:, table.sum(0) > 0]
+
+
+def _cramers_v_corrected64(table) -> float:
+    """The bias-corrected Cramér's V of the JAX package's algorithm in float64."""
+    import numpy as np
+
+    t = _drop_empty(table).astype(np.float64)
+    r, k = t.shape
+    n = t.sum()
+    expected = np.outer(t.sum(1), t.sum(0)) / n
+    if (r - 1) * (k - 1) == 1:
+        t = t + np.sign(expected - t) * np.minimum(0.5, np.abs(np.sign(expected - t)))
+    phi2 = float(((t - expected) ** 2 / expected).sum()) / n
+    phi2c = max(0.0, phi2 - (r - 1) * (k - 1) / (n - 1))
+    rc, kc = r - (r - 1) ** 2 / (n - 1), k - (k - 1) ** 2 / (n - 1)
+    return min(1.0, math.sqrt(phi2c / max(min(rc - 1, kc - 1), 1e-12)))
+
+
+def _theils_u64(table) -> float:
+    """Theil's U of the column variable given the row variable in float64."""
+    import numpy as np
+
+    p_xy = table.astype(np.float64) / table.sum()
+    p_y, p_x = np.broadcast_to(p_xy.sum(1, keepdims=True), p_xy.shape), p_xy.sum(0)
+    nz = p_xy > 0
+    s_xy = float((p_xy[nz] * np.log(p_y[nz] / p_xy[nz])).sum())
+    s_x = float(-(p_x[p_x > 0] * np.log(p_x[p_x > 0])).sum())
+    return 0.0 if s_x == 0 else (s_x - s_xy) / s_x
+
+
+def phase_census1990_nominal(dev) -> dict:
+    """Association between the census columns: Cramér's V (bias-corrected)
+    and Theil's U matrices over all 68 columns, the no-correction matrices
+    over the first 16 against scipy; the four table metrics over one pair as
+    one compute group with one ``bincount`` a batch; Fleiss' kappa over
+    CIFAR-10H-shaped ratings. Every value against float64 on the host."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from scipy.stats.contingency import association
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch import functional as F
+    from torchmetrics_tpu_torch.nominal import (
+        CramersV,
+        FleissKappa,
+        PearsonsContingencyCoefficient,
+        TheilsU,
+        TschuprowsT,
+    )
+    from torchmetrics_tpu_torch.ops import bincount
+
+    name, spec = "census1990_nominal", CENSUS
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    data = _census(dev)
+    torch.cuda.synchronize()
+    data_bytes = data.numel() * data.element_size()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = _launch_counters()
+    for module in counters.values():
+        module.launches = 0
+    timings, launches = {}, {}
+    matrices = {}
+    sub = data[:, : spec["subset"]]
+    for key, fn, arg, kwargs in (
+        ("cramers_v_matrix", F.cramers_v_matrix, data, {}),
+        ("theils_u_matrix", F.theils_u_matrix, data, {}),
+        ("cramers_v_matrix_subset_plain", F.cramers_v_matrix, sub, {"bias_correction": False}),
+        ("tschuprows_t_matrix_subset_plain", F.tschuprows_t_matrix, sub, {"bias_correction": False}),
+        ("pearsons_matrix_subset", F.pearsons_contingency_coefficient_matrix, sub, {}),
+    ):
+        before = bincount.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matrices[key] = fn(arg, **kwargs).double().cpu().numpy()
+        timings[key] = time.perf_counter() - t0
+        launches[key] = bincount.launches - before
+
+    # the four table metrics over one pair, batch by batch
+    num = max(CENSUS_CARDS[i] for i in spec["pair"])
+    coll = MetricCollection({
+        "cramers_v": CramersV(num, bias_correction=False), "tschuprows_t": TschuprowsT(num, bias_correction=False),
+        "pearson": PearsonsContingencyCoefficient(num), "theils_u": TheilsU(num),
+    })
+    i0, j0 = spec["pair"]
+    batch_launches, step_s = [], []
+    for start in range(0, spec["rows"], spec["batch"]):
+        before = bincount.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coll.update(data[start:start + spec["batch"], i0], data[start:start + spec["batch"], j0])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        batch_launches.append(bincount.launches - before)
+    pair_values = coll.compute()
+    groups = [list(g) for g in coll.compute_groups.values()]
+    _check(len(groups) == 1 and len(groups[0]) == 4, f"{name}: compute groups {groups}, expected one of four")
+    _check(all(n == 1 for n in batch_launches), f"{name}: bincount launches a batch {sorted(set(batch_launches))}")
+    pair_table = torch.bincount(data[:, j0] * num + data[:, i0], minlength=num * num).view(num, num)
+    _check(torch.equal(coll["cramers_v"].confmat, pair_table), f"{name}: the pair's int64 table differs from the plain count")
+
+    # Fleiss' kappa over CIFAR-10H-shaped ratings
+    fk = CIFAR10H
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    truth = torch.randint(0, fk["classes"], (fk["images"], 1), generator=g, device=dev)
+    easy = 0.5 + 0.5 * torch.rand((fk["images"], 1), generator=g, device=dev)
+    votes = torch.where(torch.rand((fk["images"], fk["raters"]), generator=g, device=dev) < easy, truth,
+                        torch.randint(0, fk["classes"], (fk["images"], fk["raters"]), generator=g, device=dev))
+    ratings = torch.nn.functional.one_hot(votes, fk["classes"]).sum(1)
+    kappa = FleissKappa(mode="counts")
+    for start in range(0, fk["images"], fk["batch"]):
+        kappa.update(ratings[start:start + fk["batch"]])
+    kappa_values = {"class": float(kappa.compute()), "functional": float(F.fleiss_kappa(ratings))}
+    peak = torch.cuda.max_memory_allocated(dev)
+    all_launches = {k: m.launches for k, m in counters.items()}
+
+    # float64 references on the host
+    pairs = list(itertools.combinations(range(spec["columns"]), 2))
+    tables = dict(zip(pairs, _tables(data, pairs)))
+    errs = {"cramers_v_corrected": 0.0, "theils_u": 0.0, "scipy": 0.0}
+    min_corrected = 1.0
+    for (i, j), t in tables.items():
+        v = _cramers_v_corrected64(t)
+        min_corrected = min(min_corrected, v)
+        errs["cramers_v_corrected"] = max(errs["cramers_v_corrected"], abs(matrices["cramers_v_matrix"][i, j] - v), abs(matrices["cramers_v_matrix"][j, i] - v))
+        errs["theils_u"] = max(errs["theils_u"], abs(matrices["theils_u_matrix"][i, j] - _theils_u64(t)),
+                               abs(matrices["theils_u_matrix"][j, i] - _theils_u64(t.T)))
+        if j < spec["subset"]:
+            d = _drop_empty(t)
+            for key, method in (("cramers_v_matrix_subset_plain", "cramer"), ("tschuprows_t_matrix_subset_plain", "tschuprow"),
+                                ("pearsons_matrix_subset", "pearson")):
+                errs["scipy"] = max(errs["scipy"], abs(matrices[key][i, j] - association(d, method=method)))
+    d = _drop_empty(tables[(i0, j0)])
+    pair_want = {"cramers_v": association(d, method="cramer"), "tschuprows_t": association(d, method="tschuprow"),
+                 "pearson": association(d, method="pearson"), "theils_u": _theils_u64(tables[(i0, j0)])}
+    errs["pair"] = max(abs(float(pair_values[k]) - v) for k, v in pair_want.items())
+    r = ratings.double().cpu().numpy()
+    raters = r.sum(1).max()
+    p_i = r.sum(0) / (r.shape[0] * raters)
+    p_j = ((r ** 2).sum(1) - raters) / (raters * (raters - 1))
+    kappa64 = (p_j.mean() - (p_i ** 2).sum()) / (1 - (p_i ** 2).sum() + 1e-5)
+    errs["fleiss_kappa"] = max(abs(v - kappa64) for v in kappa_values.values())
+    for key, err in errs.items():
+        _check(err <= NOMINAL_ATOL, f"{name}: {key} off float64 by {err} > {NOMINAL_ATOL}")
+    for key in ("cramers_v_matrix", "theils_u_matrix"):
+        _check(bool(np.isfinite(matrices[key]).all()), f"{name}: {key} is not finite")
+    expected_launches = {
+        "cramers_v_matrix": len(pairs), "theils_u_matrix": 2 * len(pairs),
+        **{k: spec["subset"] * (spec["subset"] - 1) // 2 for k in matrices if k.endswith(("_plain", "_subset"))},
+    }
+    _check(launches == expected_launches, f"{name}: launches {launches}, expected {expected_launches}")
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "rows": spec["rows"], "columns": spec["columns"], "cardinalities": CENSUS_CARDS,
+        "data_bytes": data_bytes, "reduced": ["synthetic columns with planted associations (the census rows are not in the repository)"],
+        "pairs": len(pairs), "matrix_s": timings, "ms_a_pair_call": {k: 1e3 * timings[k] / launches[k] for k in timings},
+        "matrix_launches": launches, "bincount_launches": all_launches["bincount"],
+        "collection": {"batch": spec["batch"], "updates": len(step_s), "updates_per_s": len(step_s) / update_s,
+                       "rows_per_s": spec["rows"] / update_s, "compute_groups": groups,
+                       "values": {k: float(v) for k, v in pair_values.items()}},
+        "fleiss_kappa": {**kappa_values, "float64": float(kappa64), "images": fk["images"], "raters": fk["raters"]},
+        "min_corrected_cramers_v": min_corrected, "max_abs_err": errs, "atol": NOMINAL_ATOL,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -3722,6 +4490,8 @@ def main() -> int:
     uvg = phase_uvg(dev)
     sqrtm_rows = phase_sqrtm_kernels(dev)
     cifar = phase_cifar10(dev)
+    featureshare = phase_cifar10_featureshare(dev, cifar)
+    del cifar["_reuse"]
     sync = phase_sync(dev)
     rest = [phase_imagenet_rest(dev), phase_coco_multilabel(dev), phase_civilcomments_fairness(dev)]
     image_rest = [phase_div2k(dev), phase_wv3(dev)]
@@ -3730,6 +4500,11 @@ def main() -> int:
     phase_weatherbench(dev)
     phase_nasbench(dev)
     phase_inshop_pairwise(dev)
+    # the wrappers and nominal association, on the bincount kernel
+    boot = phase_imagenet_bootstrap(dev)
+    wrapped = [boot, phase_imagenet_tracked(dev), phase_nyuv2_multitask(dev)]
+    phase_ogbg_molpcba(dev)
+    census = phase_census1990_nominal(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -3758,7 +4533,9 @@ def main() -> int:
             "replaces": "torchmetrics_tpu/ops/bincount.py:76",
             "launches": imagenet["bincount_launches"] + cityscapes["bincount_launches"]
             + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"]
-            + sum(r["bincount_launches"] for r in rest),
+            + sum(r["bincount_launches"] for r in rest)
+            + sum(r["bincount_launches"] for r in wrapped) + boot["functional_bincount_launches"]
+            + census["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -3847,8 +4624,9 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/fid_sqrtm.cu",
             "replaces": "torchmetrics_tpu/ops/sqrtm_kernel.py:82",
-            "launches": cifar["fid_sqrtm_launches_total"] + sync["launches"]["fid_sqrtm"],
-            "calls": sum(cifar["fid_sqrtm_calls"].values()),
+            "launches": cifar["fid_sqrtm_launches_total"] + sync["launches"]["fid_sqrtm"]
+            + featureshare["fid_sqrtm_launches"],
+            "calls": sum(cifar["fid_sqrtm_calls"].values()) + featureshare["fid_sqrtm_calls"],
             "max_abs_err": max(r["max_abs_err"] for r in sqrtm_rows if r["full_rank"]),
             "ms": root["ms"],
             "plain_ms": root["plain_ms"],

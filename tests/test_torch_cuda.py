@@ -1389,3 +1389,102 @@ def test_pairwise_products_stay_full_float32_under_global_tf32(cuda_device, name
     else:
         want = torch.cdist(x64, y64)
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+def _host_copies(monkeypatch):
+    """Record the element count of every tensor the code under test moves
+    from the card to the host (``cpu``, ``numpy``, ``tolist``, ``item`` and
+    ``to`` a CPU device)."""
+    seen = []
+    for name in ("cpu", "numpy", "tolist", "item"):
+        original = getattr(torch.Tensor, name)
+
+        def patched(self, *args, __original=original, **kwargs):
+            if self.is_cuda:
+                seen.append(self.numel())
+            return __original(self, *args, **kwargs)
+
+        monkeypatch.setattr(torch.Tensor, name, patched)
+    original_to = torch.Tensor.to
+
+    def to(self, *args, **kwargs):
+        out = original_to(self, *args, **kwargs)
+        if self.is_cuda and not out.is_cuda:
+            seen.append(self.numel())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    return seen
+
+
+def test_bootstrapper_indexes_the_batch_on_the_card(cuda_device, monkeypatch):
+    """Each replicate's resample is indexed on the card (its indices are the
+    only host-to-device copy), no batch is read back, and every replicate's
+    counts equal the same seed's on the CPU bit for bit."""
+    rng = np.random.RandomState(0)
+    batches = [(rng.rand(n, 50).astype(np.float32), rng.randint(0, 50, n)) for n in (256, 31)]
+    boot = {
+        dev: tm.BootStrapper(MulticlassAccuracy(50, average="macro", validate_args=False, device=dev), num_bootstraps=5, seed=7)
+        for dev in ("cpu", cuda_device)
+    }
+    for preds, target in batches:
+        boot["cpu"].update(torch.as_tensor(preds), torch.as_tensor(target))
+    launched = bincount.launches
+    seen = _host_copies(monkeypatch)
+    for preds, target in batches:
+        boot[cuda_device].update(torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert all(n < 31 for n in seen), seen
+    assert bincount.launches - launched == sum(m.update_count for m in boot[cuda_device].metrics)
+    for a, b in zip(boot["cpu"].metrics, boot[cuda_device].metrics):
+        for k in a._defaults:
+            assert torch.equal(a.metric_state[k], b.metric_state[k].cpu())
+
+
+def test_multioutput_drops_nan_rows_on_the_card(cuda_device, monkeypatch):
+    from torchmetrics_tpu_torch.regression import MeanSquaredError
+
+    rng = np.random.RandomState(1)
+    preds, target = rng.rand(500, 8).astype(np.float32), rng.rand(500, 8).astype(np.float32)
+    target[rng.rand(500, 8) < 0.2] = np.nan
+    cpu = tm.MultioutputWrapper(MeanSquaredError(device="cpu"), num_outputs=8)
+    card = tm.MultioutputWrapper(MeanSquaredError(device=cuda_device), num_outputs=8)
+    cpu.update(torch.as_tensor(preds), torch.as_tensor(target))
+    seen = _host_copies(monkeypatch)
+    card.update(torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert all(n < 500 for n in seen), seen
+    torch.testing.assert_close(card.compute().cpu(), cpu.compute(), rtol=1e-5, atol=0.0)
+
+
+def test_nominal_state_is_an_exact_int64_count_on_the_card(cuda_device):
+    rng = np.random.RandomState(2)
+    x, y = rng.randint(0, 7, 100_000), rng.randint(0, 7, 100_000)
+    cpu, card = tm.TheilsU(7, device="cpu"), tm.TheilsU(7, device=cuda_device)
+    launched = bincount.launches
+    for _ in range(2):
+        cpu.update(torch.as_tensor(x), torch.as_tensor(y))
+        card.update(torch.as_tensor(x, device=cuda_device), torch.as_tensor(y, device=cuda_device))
+    assert bincount.launches - launched == 2
+    assert card.confmat.dtype == torch.int64 and card.confmat.is_cuda
+    assert torch.equal(card.confmat.cpu(), cpu.confmat)
+    torch.testing.assert_close(card.compute().cpu(), cpu.compute(), rtol=1e-5, atol=1e-6)
+    card.load_state({"confmat": torch.full((7, 7), 2**24, dtype=torch.int64, device=cuda_device)})
+    card.update(torch.as_tensor(x, device=cuda_device), torch.as_tensor(y, device=cuda_device))
+    assert int(card.confmat.sum()) == 49 * 2**24 + 100_000
+
+
+def test_nominal_functionals_on_the_card_equal_the_cpu(cuda_device):
+    from torchmetrics_tpu_torch import functional
+
+    rng = np.random.RandomState(3)
+    matrix = rng.randint(0, 5, (20_000, 4)) * 3 + 1  # non-contiguous labels
+    matrix[:, 1] = np.where(rng.rand(20_000) < 0.5, matrix[:, 0], matrix[:, 1])
+    launched = bincount.launches
+    for name in ("cramers_v_matrix", "tschuprows_t_matrix", "pearsons_contingency_coefficient_matrix", "theils_u_matrix"):
+        got = getattr(functional, name)(torch.as_tensor(matrix, device=cuda_device))
+        want = getattr(functional, name)(torch.as_tensor(matrix))
+        torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-5)
+    assert bincount.launches - launched == 6 * 3 + 12

@@ -28,9 +28,23 @@ metric is built with ``device="cpu"``. Ported so far:
   similarity, KL divergence) and the pairwise distances, on plain PyTorch
   (no kernel of the port);
 - ``plot`` on every metric and collection (matplotlib, imported only when
-  a plot is drawn).
+  a plot is drawn);
+- the wrappers (bootstrap, tracker, running window, min-max, classwise,
+  multi-task, multi-output, feature share) and nominal association
+  (Cramér's V, Tschuprow's T, Pearson's contingency coefficient, Theil's U,
+  Fleiss' kappa), whose contingency tables run on the ``bincount`` kernel.
 """
-from torchmetrics_tpu_torch import classification, functional, image, models, parallel, regression, retrieval
+from torchmetrics_tpu_torch import (
+    classification,
+    functional,
+    image,
+    models,
+    nominal,
+    parallel,
+    regression,
+    retrieval,
+    wrappers,
+)
 from torchmetrics_tpu_torch.aggregation import (
     CatMetric,
     MaxMetric,
@@ -46,19 +60,39 @@ from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
+from torchmetrics_tpu_torch.wrappers import (
+    BootStrapper,
+    ClasswiseWrapper,
+    FeatureShare,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+    MultitaskWrapper,
+    Running,
+)
 
 __all__ = [
+    "BootStrapper",
     "CatMetric",
+    "ClasswiseWrapper",
     "CompositionalMetric",
+    "FeatureShare",
     "MaxMetric",
     "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
+    "MultitaskWrapper",
+    "Running",
     "RunningMean",
     "RunningSum",
     "SumMetric",
@@ -66,11 +100,14 @@ __all__ = [
     "functional",
     "image",
     "models",
+    "nominal",
     "parallel",
     "regression",
     "retrieval",
+    "wrappers",
     *_classification_all,
     *_image_all,
+    *_nominal_all,
     *_regression_all,
     *_retrieval_all,
 ]

@@ -159,7 +159,9 @@ class MetricCollection:
     def values(self) -> Iterable[Metric]:
         return self._modules.values()
 
-    def items(self, keep_base: bool = False) -> Iterable[Tuple[str, Metric]]:
+    def items(self, keep_base: bool = False, copy_state: bool = False) -> Iterable[Tuple[str, Metric]]:
+        """Name, member pairs (``copy_state`` is accepted as in the JAX
+        package: members are handed out as they are)."""
         if keep_base:
             return self._modules.items()
         return [(self._set_name(k), v) for k, v in self._modules.items()]

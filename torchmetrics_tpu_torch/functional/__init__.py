@@ -3,6 +3,9 @@ from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F40
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional import nominal
+from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.pairwise import __all__ as _pairwise_all
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
@@ -10,4 +13,4 @@ from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 
-__all__ = [*_classification_all, *_image_all, *_pairwise_all, *_regression_all, *_retrieval_all]
+__all__ = [*_classification_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all]

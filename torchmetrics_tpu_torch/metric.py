@@ -607,6 +607,19 @@ class Metric:
     #: merges — the only fields whose shape `validate="strict"` can check
     _SHAPE_INVARIANT_REDUCTIONS = ("sum", "mean", "max", "min")
 
+    def _copy_state_dict(self) -> Dict[str, Any]:
+        """The live declared states as a fresh dict (tensors by reference:
+        updates replace them, never mutate them), without the count key."""
+        return self._state_snapshot()
+
+    @staticmethod
+    def _restored_count(update_count: Optional[int], fallback: int = 1) -> int:
+        """The restore policy for ``load_state``'s update count: the explicit
+        value when given, else ``fallback`` (default exactly 1: a restored
+        state counts as updated). Wrappers whose exported state carries its
+        own count (MinMax, Running) pass that count as ``fallback``."""
+        return int(update_count) if update_count is not None else int(fallback)
+
     def state(self) -> Dict[str, Any]:
         """The live state as a dict, with the update count under the reserved
         key ``"_update_count"`` so :meth:`load_state` round-trips it."""
