@@ -96,7 +96,22 @@ evaluation workloads:
   update and values bit-equal to that phase's; UCI Census 1990's shape
   (2,458,285 rows x 68 coded columns) through the Cramér's V and Theil's U
   matrices, a collection of the four table metrics and Fleiss' kappa on
-  CIFAR-10H-shaped ratings, against float64 and scipy.
+  CIFAR-10H-shaped ratings, against float64 and scipy;
+- text, on the port's C++ edit-distance library (built with ``g++`` and
+  asserted loaded) and plain PyTorch, no kernel of the port launching:
+  WikiText-2 perplexity at GPT-2's vocabulary (71 updates of 8 x 1,024 x
+  50,257 float32 logits, windows of 1,024 at stride 512) against float64,
+  an unmasked out-of-range target giving NaN with the context alive;
+  LibriSpeech test-clean (2,620 utterances) through WER, CER, MER, WIL, WIP
+  and edit distance against exact counts; newstest2014 (3,003 sentences)
+  through SacreBLEU, BLEU, chrF++, TER (first 512) and EED (first 256);
+  CNN/DailyMail's 11,490 highlights through ROUGE-1/2/L (ROUGE-Lsum over
+  the first 2,048); SQuAD v1.1 dev's 10,570 questions; BERTScore on a
+  seeded 50,265 x 1,024 embedding table and InfoLM's nine measures on
+  seeded 30,522-token distributions, both on the card, against float64.
+  Text is synthetic, from seeded numpy generators, at each set's
+  published shape; each class is held to its functional over the same
+  data.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -4263,6 +4278,850 @@ def phase_census1990_nominal(dev) -> dict:
     })
 
 
+# ------------------------------------------------------------------------- text
+
+#: WikiText-2 raw test under GPT-2's tokenizer (287,644 tokens, vocabulary
+#: 50,257), scored as the Hugging Face guide "Perplexity of fixed-length
+#: models" scores it: windows of 1,024 tokens at stride 512, each window's
+#: targets the tokens past the previous window's end (the rest
+#: ignore_index=-100), 561 windows in 71 updates of 8 (the last padded with
+#: -100); the target logit of every position raised by U(6, 10) over N(0, 1)
+#: logits, so that perplexity is in the tens
+WIKITEXT = {"tokens": 287_644, "vocab": 50_257, "window": 1_024, "stride": 512, "batch": 8, "boost": (6.0, 10.0)}
+#: LibriSpeech test-clean: 2,620 utterances, 52,576 upper-case reference
+#: words, batch 32; hypotheses with 3% of words substituted, 1% inserted, 1%
+#: deleted; the character distances checked against Python on the first 128
+LIBRISPEECH = {"utterances": 2_620, "words": 52_576, "batch": 32, "vocab": 8_000, "sub": 0.03, "ins": 0.01,
+               "dele": 0.01, "char_subset": 128}
+#: WMT14 English-German newstest2014: 3,003 German references of 21 words
+#: on average, batch 128; hypotheses with 15% of words substituted, 5%
+#: inserted, 5% deleted and a moved phrase in 30% of sentences. TER's shift
+#: search and EED's DP are pure Python (6 and 7.5-10 ms a sentence on the
+#: host of an H100 machine): they score the first 512 and 256 sentences
+WMT14 = {"sentences": 3_003, "batch": 128, "vocab": 12_000, "mean_words": 21, "sub": 0.15, "ins": 0.05, "dele": 0.05,
+         "move": 0.3, "ter_prefix": 512, "eed_prefix": 256}
+#: CNN/DailyMail 3.0.0 test: 11,490 articles' highlights (3.75 sentences of
+#: about 14 words), batch 64, system summaries with 35% of words
+#: substituted; ROUGE-Lsum's union LCS is pure Python (0.7-1.3 ms an
+#: article on the host of an H100 machine): it scores the first 2,048
+#: articles; the native LCS and n-gram hits are held to Python over the
+#: first 512
+CNNDM = {"articles": 11_490, "batch": 64, "vocab": 20_000, "lsum_prefix": 2_048, "python_subset": 512}
+#: SQuAD v1.1 dev: 10,570 questions with 1-6 reference answers of 1-5
+#: words, batch 256
+SQUAD = {"questions": 10_570, "batch": 256, "vocab": 6_000}
+#: newstest2014's 3,003 pairs at roberta-large's width (1,024, vocabulary
+#: 50,265: a seeded float32 table on the card, 206 MB) and
+#: bert-base-uncased's vocabulary (30,522: seeded distributions on the card,
+#: 367 MB a side), InfoLM at temperature 0.25
+TEXT_MODELS = {"vocab": 50_265, "dim": 1_024, "mlm_vocab": 30_522, "temperature": 0.25}
+#: values formed in other float32 orders (BLEU's exp and log, chrF's and
+#: EED's means, ROUGE) against the functional over the whole corpus
+TEXT_RTOL = 1e-6
+#: BERTScore and InfoLM against float64 on the card (relative)
+TEXT_MODEL_RTOL = 1e-5
+INFOLM_MEASURES = (
+    ("kl_divergence", {}), ("alpha_divergence", {"alpha": 0.5}), ("beta_divergence", {"beta": 0.5}),
+    ("ab_divergence", {"alpha": 0.5, "beta": 0.5}), ("renyi_divergence", {"alpha": 0.5}), ("l1_distance", {}),
+    ("l2_distance", {}), ("l_infinity_distance", {}), ("fisher_rao_distance", {}),
+)
+
+
+class _Lexicon:
+    """A seeded vocabulary of random words drawn with Zipf weights (rank^-1.1)."""
+
+    def __init__(self, seed: int, size: int, letters: str) -> None:
+        import numpy as np
+
+        self.rng = np.random.RandomState(seed)
+        chars = list(letters)
+        words: set = set()
+        while len(words) < size:
+            words.add("".join(self.rng.choice(chars, self.rng.randint(1, 11))))
+        self.words = sorted(words)
+        self.cdf = np.cumsum(1.0 / np.arange(1, size + 1) ** 1.1)
+
+    def draw(self, n: int) -> list:
+        import numpy as np
+
+        picks = np.searchsorted(self.cdf, self.rng.random_sample(n) * self.cdf[-1], side="right")
+        return [self.words[min(i, len(self.words) - 1)] for i in picks]
+
+    def plant(self, words: list, sub: float, ins: float, dele: float, move: float = 0.0) -> list:
+        """``words`` with planted substitutions, insertions, deletions and
+        (with probability ``move``) one moved phrase."""
+        out = []
+        for w in words:
+            r = self.rng.rand()
+            if r < sub:
+                out.append(self.draw(1)[0])
+            elif r < sub + ins:
+                out.extend([w, self.draw(1)[0]])
+            elif r >= sub + ins + dele:
+                out.append(w)
+        if len(out) > 6 and self.rng.rand() < move:
+            i, j = sorted(self.rng.choice(len(out), 2, replace=False))
+            out = out[:i] + out[j:] + out[i:j]
+        return out
+
+
+def _text_start() -> dict:
+    """The launch counters set to 0 and the seam's gate log cleared, before a
+    text phase."""
+    from torchmetrics_tpu_torch import native
+    from torchmetrics_tpu_torch.ops import kernels
+
+    _check(native.native_available(), "the native text library did not build or load")
+    counters = _launch_counters()
+    for module in counters.values():
+        module.launches = 0
+    kernels.reset_gate_log()
+    return counters
+
+
+def _text_no_kernels(name: str, counters: dict) -> dict:
+    """No kernel of the port launched in the phase (the counts and the gate log)."""
+    from torchmetrics_tpu_torch.ops import kernels
+
+    launches = {k: m.launches for k, m in counters.items()}
+    gate = sorted(set(kernels.gate_snapshot()) & set(KERNELS))
+    _check(not any(launches.values()) and not gate, f"{name}: a kernel of the port launched: {launches}, gate log {gate}")
+    return launches
+
+
+def _text_close(name: str, checks: dict, got, want, rtol) -> None:
+    """``|got - want| <= rtol |want|``, elementwise (``rtol`` a number or one
+    a value), both read to the host."""
+    import numpy as np
+    import torch
+
+    got = np.asarray(torch.as_tensor(got).detach().double().cpu()).reshape(-1)
+    want = np.asarray(torch.as_tensor(want).detach().double().cpu()).reshape(-1)
+    rtol = np.asarray(torch.as_tensor(rtol).detach().double().cpu()).reshape(-1)
+    _check(got.shape == want.shape, f"{name}: shape {got.shape} against {want.shape}")
+    err = np.abs(got - want)
+    bad = ~(err <= rtol * np.abs(want))
+    _check(bool(np.isfinite(got).all()) and not bad.any(),
+           f"{name}: {got[bad][:4].tolist()} against {want[bad][:4].tolist()} (max |d| {err.max()}, rtol {rtol.max()})")
+    checks[name] = {"max_abs_err": float(err.max()) if err.size else 0.0, "max_rel_err": float((err / np.abs(want)).max()) if err.size else 0.0,
+                    "rtol": float(rtol.max()), "n": int(got.size)}
+
+
+def _timed_updates(metric, batches) -> list:
+    """Update ``metric`` over ``batches`` (argument tuples); the host time of
+    each update, ending in a synchronise."""
+    import torch
+
+    step_s = []
+    for args in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return step_s
+
+
+def _wikitext_windows() -> list:
+    """``(begin, end, first_target)`` of every window of the guide's loop."""
+    spec = WIKITEXT
+    windows, prev_end = [], 0
+    for begin in range(0, spec["tokens"], spec["stride"]):
+        end = min(begin + spec["window"], spec["tokens"])
+        windows.append((begin, end, prev_end))
+        prev_end = end
+        if end == spec["tokens"]:
+            break
+    return windows
+
+
+def _wikitext_batch(i: int, stream, windows: list, dev):
+    """Update ``i``: float32 logits (8, 1024, V) and aligned int64 targets,
+    -100 before each window's first target and in padding."""
+    import torch
+
+    spec = WIKITEXT
+    b, w, v = spec["batch"], spec["window"], spec["vocab"]
+    target = torch.full((b, w), -100, dtype=torch.int64, device=dev)
+    for k, (begin, end, first) in enumerate(windows[i * b : (i + 1) * b]):
+        target[k, first - begin : end - begin] = stream[first:end]
+    g = torch.Generator(device=dev).manual_seed(SEED + 13_000 + i)
+    logits = torch.randn(b, w, v, generator=g, device=dev)
+    lo, hi = spec["boost"]
+    boost = lo + (hi - lo) * torch.rand(b * w, 1, generator=g, device=dev)
+    logits.view(-1, v).scatter_add_(1, target.clamp_min(0).view(-1, 1), boost)
+    return logits, target
+
+
+def phase_wikitext2_perplexity(dev) -> dict:
+    """WikiText-2 perplexity at GPT-2's vocabulary through ``Perplexity``:
+    71 updates of (8, 1024, 50,257) float32 logits. The value against a
+    float64 perplexity of the same logits on the card within the float32
+    bound, the count equal to the unmasked tokens, an unmasked out-of-range
+    target giving NaN with the CUDA context left alive; the update's time
+    against its bytes bound, its temporaries and tokens/s."""
+    import torch
+
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    name, spec = "wikitext2_gpt2_perplexity", WIKITEXT
+    counters = _text_start()
+    windows = _wikitext_windows()
+    updates = -(-len(windows) // spec["batch"])
+    stream = torch.randint(0, spec["vocab"], (spec["tokens"],), generator=torch.Generator(device=dev).manual_seed(SEED + 12_999), device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    ppl = Perplexity(ignore_index=-100)
+    total64 = torch.zeros((), dtype=torch.float64, device=dev)
+    terms64 = torch.zeros((), dtype=torch.float64, device=dev)
+    magnitude64 = torch.zeros((), dtype=torch.float64, device=dev)
+    count = 0
+    step_s, update_peaks, batch_bytes = [], [], 0
+    for i in range(updates):
+        logits, target = _wikitext_batch(i, stream, windows, dev)
+        batch_bytes = logits.numel() * logits.element_size()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ppl.update(logits, target)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        update_peaks.append(torch.cuda.max_memory_allocated(dev) - before)
+        # float64 of the same logits, row chunks of 1,024
+        flat, tgt = logits.view(-1, spec["vocab"]), target.view(-1)
+        mask = tgt != -100
+        for s in range(0, flat.shape[0], 1024):
+            chunk = flat[s : s + 1024].double()
+            lse = torch.logsumexp(chunk, dim=1)
+            tok = chunk.gather(1, tgt[s : s + 1024].clamp_min(0)[:, None]).squeeze(1)
+            m = mask[s : s + 1024]
+            total64 += (lse - tok)[m].sum()
+            terms64 += (lse - tok).abs()[m].sum()
+            magnitude64 += (1 + lse.abs() + tok.abs())[m].sum()
+        count += int(mask.sum())
+        del logits, target, flat, tgt, chunk
+    t0 = time.perf_counter()
+    value = ppl.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    launches = _text_no_kernels(name, counters)
+
+    _check(count == spec["tokens"], f"{name}: {count} unmasked targets, expected {spec['tokens']}")
+    _check(int(ppl.count) == count and ppl.count.dtype == torch.int32, f"{name}: counted {int(ppl.count)} ({ppl.count.dtype})")
+    mean64 = float(total64) / count
+    ppl64 = math.exp(mean64)
+    # the float32 bound: the update's tree sum over 8,192 positions and the
+    # running sum over updates (PERF.md section 2), plus each position's
+    # log-sum-exp (a sum of V terms: ceil(log2 V) + 4 units of 2**-24 of its
+    # magnitude), then exp's rounding
+    sum_bound = _f32_rtol(updates, spec["batch"] * spec["window"]) * float(terms64)
+    element_bound = (math.ceil(math.log2(spec["vocab"])) + 4) * 2.0**-24 * float(magnitude64)
+    ppl_rtol = math.expm1((sum_bound + element_bound) / count) + 2.0**-23
+    checks: dict = {}
+    _text_close("perplexity", checks, value, ppl64, ppl_rtol)
+    _check(5.0 < ppl64 < 100.0, f"{name}: perplexity {ppl64} is not in the tens")
+
+    # an unmasked out-of-range target: NaN, and the context still runs
+    g = torch.Generator(device=dev).manual_seed(SEED + 13_500)
+    small = torch.randn(2, 4, 10, generator=g, device=dev)
+    bad = torch.tensor([[0, 1, 2, 3], [4, 10, 6, -3]], device=dev)
+    oob = Perplexity()
+    oob.update(small, bad)
+    nan_value = float(oob.compute())
+    masked = Perplexity(ignore_index=10)
+    masked.update(small, bad.clamp_min(0))
+    masked_value = float(masked.compute())
+    alive = int(torch.arange(5, device=dev).sum())
+    torch.cuda.synchronize()
+    _check(math.isnan(nan_value) and math.isfinite(masked_value) and alive == 10,
+           f"{name}: out-of-range target gave {nan_value} (masked {masked_value}, context check {alive})")
+
+    update_s = sum(step_s)
+    step_ms = sorted(t * 1e3 for t in step_s)
+    bound_ms = batch_bytes / HBM_BYTES_PER_S * 1e3
+    return _emit({
+        "phase": name, "tokens": spec["tokens"], "vocab": spec["vocab"], "windows": len(windows), "updates": updates,
+        "logits_shape": [spec["batch"], spec["window"], spec["vocab"]], "logits_bytes": batch_bytes,
+        "update_ms": {"min": step_ms[0], "p50": step_ms[updates // 2], "p90": step_ms[(9 * updates) // 10], "max": step_ms[-1]},
+        "update_bytes_bound_ms": bound_ms, "p50_over_bound": step_ms[updates // 2] / bound_ms,
+        "tokens_per_s": count / update_s, "positions_per_s": updates * spec["batch"] * spec["window"] / update_s,
+        "positions_per_s_after_first": (updates - 1) * spec["batch"] * spec["window"] / sum(step_s[1:]),
+        "compute_ms": compute_ms, "update_peak_above_inputs_bytes": max(update_peaks),
+        "base_mem_bytes": base, "value": float(value), "float64": ppl64, "ppl_rtol": ppl_rtol,
+        "count": count, "out_of_range": {"value": nan_value, "masked_value": masked_value, "context_alive": True},
+        "launches": launches, "checks": checks,
+    })
+
+
+def _librispeech() -> tuple:
+    """2,620 upper-case reference utterances of 52,576 words and their
+    hypotheses."""
+    spec = LIBRISPEECH
+    lex = _Lexicon(SEED + 14_000, spec["vocab"], "ABCDEFGHIJKLMNOPQRSTUVWXYZ'")
+    lengths = lex.rng.randint(4, 37, spec["utterances"])
+    while lengths.sum() != spec["words"]:
+        k = lex.rng.randint(spec["utterances"])
+        lengths[k] = max(1, lengths[k] + (1 if lengths.sum() < spec["words"] else -1))
+    refs = [lex.draw(int(n)) for n in lengths]
+    hyps = [lex.plant(r, spec["sub"], spec["ins"], spec["dele"]) for r in refs]
+    return [" ".join(r) for r in refs], [" ".join(h) for h in hyps]
+
+
+def phase_librispeech_asr(dev) -> dict:
+    """LibriSpeech test-clean through a collection of WER, CER, MER, WIL,
+    WIP and EditDistance: every word distance of the native library against
+    the Python DP, the character distances over a subset, the states equal
+    to the exact counts and every rate within its float32 rounding of the
+    ratio of those counts; utterances/s and the native calls' share."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection, native
+    from torchmetrics_tpu_torch.functional.text import helper
+    from torchmetrics_tpu_torch.text import (
+        CharErrorRate,
+        EditDistance,
+        MatchErrorRate,
+        WordErrorRate,
+        WordInfoLost,
+        WordInfoPreserved,
+    )
+
+    name, spec = "librispeech_test_clean_asr", LIBRISPEECH
+    refs, hyps = _librispeech()
+    counters = _text_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    coll = MetricCollection({
+        "wer": WordErrorRate(), "cer": CharErrorRate(), "mer": MatchErrorRate(), "wil": WordInfoLost(),
+        "wip": WordInfoPreserved(), "edit": EditDistance(),
+    })
+    native_s = [0.0]
+    plain = helper.batch_edit_distance
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return plain(*args, **kwargs)
+        finally:
+            native_s[0] += time.perf_counter() - t0
+
+    b = spec["batch"]
+    helper.batch_edit_distance = timed
+    try:
+        step_s = _timed_updates(coll, ((hyps[s : s + b], refs[s : s + b]) for s in range(0, len(refs), b)))
+        t0 = time.perf_counter()
+        result = coll.compute()
+        torch.cuda.synchronize()
+        compute_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        helper.batch_edit_distance = plain
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = _text_no_kernels(name, counters)
+
+    word_pairs = [(h.split(), r.split()) for h, r in zip(hyps, refs)]
+    char_pairs = [(list(h), list(r)) for h, r in zip(hyps, refs)]
+    word_d = native.batch_edit_distance(word_pairs)
+    char_d = native.batch_edit_distance(char_pairs)
+    t0 = time.perf_counter()
+    _check(word_d.tolist() == [native._py_edit_distance(a, r) for a, r in word_pairs],
+           f"{name}: a native word distance differs from the Python DP")
+    sub = spec["char_subset"]
+    _check(char_d[:sub].tolist() == [native._py_edit_distance(a, r) for a, r in char_pairs[:sub]],
+           f"{name}: a native character distance differs from the Python DP")
+    python_s = time.perf_counter() - t0
+
+    n_ref = sum(len(r) for _, r in word_pairs)
+    n_hyp = sum(len(h) for h, _ in word_pairs)
+    n_max = sum(max(len(h), len(r)) for h, r in word_pairs)
+    n_chars = sum(len(r) for _, r in char_pairs)
+    errors, char_errors = int(word_d.sum()), int(char_d.sum())
+    hits = n_max - errors
+    _check(n_ref == spec["words"], f"{name}: {n_ref} reference words")
+    exact_states = {
+        ("wer", "errors"): errors, ("wer", "total"): n_ref, ("cer", "errors"): char_errors, ("cer", "total"): n_chars,
+        ("mer", "total"): n_max, ("wil", "errors"): -hits, ("wil", "target_total"): n_ref,
+        ("wil", "preds_total"): n_hyp, ("edit", "edit_scores"): char_errors, ("edit", "num_elements"): len(refs),
+    }
+    for (key, state), want in exact_states.items():
+        got = getattr(coll[key], state)
+        _check(float(got) == want, f"{name}: {key}.{state} is {float(got)}, the exact count {want}")
+    wip = (hits / n_ref) * (hits / n_hyp)
+    want = {"wer": errors / n_ref, "cer": char_errors / n_chars, "mer": errors / n_max, "wip": wip, "wil": 1 - wip,
+            "edit": char_errors / len(refs)}
+    # one rounding of a ratio of exact float32 counts: within one ulp; WIP
+    # rounds two quotients and their product (3 units of 2**-24), WIL also 1 - WIP
+    tol = {k: float(np.spacing(np.float32(v))) for k, v in want.items()}
+    tol["wip"] = 3 * 2.0**-24 * wip
+    tol["wil"] = 3 * 2.0**-24 * wip + 2.0**-24 * (1 - wip)
+    errs = {k: abs(float(result[k]) - v) for k, v in want.items()}
+    _check(all(errs[k] <= tol[k] for k in want), f"{name}: rates {errs} beyond {tol}")
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "utterances": len(refs), "reference_words": n_ref, "reference_chars": n_chars, "batch": b,
+        "updates": len(step_s), "utterances_per_s": len(refs) / update_s, "update_s": update_s,
+        "native_s": native_s[0], "native_share": native_s[0] / update_s, "compute_ms": compute_ms,
+        "compute_groups": [list(g) for g in coll.compute_groups.values()],
+        "values": {k: float(v) for k, v in result.items()}, "exact": want, "abs_err": errs, "tolerance": tol,
+        "python_check_s": python_s, "char_subset": sub, "launches": launches,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+    })
+
+
+def _wmt14(seed: int = SEED + 15_000) -> tuple:
+    """3,003 German-like reference sentences (capitalised nouns, umlauts,
+    commas, numbers, final marks) and their hypotheses."""
+    spec = WMT14
+    lex = _Lexicon(seed, spec["vocab"], "abcdefghijklmnopqrstuvwxyzäöüß")
+    refs, hyps = [], []
+    for _ in range(spec["sentences"]):
+        n = int(min(90, max(2, round(lex.rng.gamma(2.2, spec["mean_words"] / 2.2)))))
+        words = [w.capitalize() if lex.rng.rand() < 0.25 else w for w in lex.draw(n)]
+        words[0] = words[0].capitalize()
+        for k in range(len(words) - 1):
+            r = lex.rng.rand()
+            if r < 0.08:
+                words[k] += ","
+            elif r < 0.10:
+                words[k] = str(lex.rng.randint(1, 3000))
+        words[-1] += ".?!"[int(lex.rng.choice(3, p=[0.9, 0.06, 0.04]))]
+        refs.append(words)
+        hyps.append(lex.plant(words, spec["sub"], spec["ins"], spec["dele"], spec["move"]))
+    return [" ".join(h) for h in hyps], [" ".join(r) for r in refs]
+
+
+def phase_wmt14_mt(dev) -> dict:
+    """newstest2014 En-De through SacreBLEU (13a), BLEU, chrF++ (sentence
+    scores), TER (sentence scores) and EED, each class in batches of 128
+    against its functional over the whole corpus (or the stated prefix):
+    counts and edits bit for bit, scores within 1e-6, the sentence lists as
+    long as the corpus."""
+    import torch
+
+    from torchmetrics_tpu_torch import functional as F
+    from torchmetrics_tpu_torch.functional.text.bleu import _bleu_score_update, _SacreBLEUTokenizer, _tokenize_fn
+    from torchmetrics_tpu_torch.functional.text.chrf import _chrf_score_compute, _chrf_score_update, _chrf_split
+    from torchmetrics_tpu_torch.functional.text.ter import _ter_compute, _ter_sentence_scores, _ter_update, _TercomTokenizer
+    from torchmetrics_tpu_torch.text import (
+        BLEUScore,
+        CHRFScore,
+        ExtendedEditDistance,
+        SacreBLEUScore,
+        TranslationEditRate,
+    )
+
+    name, spec = "wmt14_ende_mt", WMT14
+    hyps, refs = _wmt14()
+    targets = [[r] for r in refs]
+    counters = _text_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = {
+        "sacrebleu": (SacreBLEUScore(tokenize="13a"), len(hyps)),
+        "bleu": (BLEUScore(), len(hyps)),
+        "chrf++": (CHRFScore(n_word_order=2, return_sentence_level_score=True), len(hyps)),
+        "ter": (TranslationEditRate(return_sentence_level_score=True), spec["ter_prefix"]),
+        "eed": (ExtendedEditDistance(return_sentence_level_score=True), spec["eed_prefix"]),
+    }
+    b = spec["batch"]
+    timing, values = {}, {}
+    for key, (metric, n) in metrics.items():
+        step_s = _timed_updates(metric, ((hyps[s : min(s + b, n)], targets[s : min(s + b, n)]) for s in range(0, n, b)))
+        t0 = time.perf_counter()
+        values[key] = metric.compute()
+        torch.cuda.synchronize()
+        timing[key] = {"sentences": n, "updates": len(step_s), "sentences_per_s": n / sum(step_s),
+                       "update_s": sum(step_s), "compute_ms": (time.perf_counter() - t0) * 1e3}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    checks: dict = {}
+    t0 = time.perf_counter()
+    for key, tokenizer, functional in (
+        ("sacrebleu", lambda s: _SacreBLEUTokenizer.tokenize(s, "13a"), lambda: F.sacre_bleu_score(hyps, targets, tokenize="13a")),
+        ("bleu", _tokenize_fn, lambda: F.bleu_score(hyps, targets)),
+    ):
+        metric = metrics[key][0]
+        p_len, t_len, num, den = _bleu_score_update(hyps, targets, 4, tokenizer)
+        _check(metric.numerator.tolist() == [float(x) for x in num] and metric.denominator.tolist() == [float(x) for x in den]
+               and float(metric.preds_len) == p_len and float(metric.target_len) == t_len,
+               f"{name}: {key}'s counts differ from the functional's over the corpus")
+        _text_close(key, checks, values[key], functional(), TEXT_RTOL)
+    chrf = metrics["chrf++"][0]
+    totals, sentences = _chrf_score_update(hyps, targets, 6, 2, 8.0, 2.0, False, False)
+    stats = _chrf_split(torch.from_numpy(totals).to(dev), 6, 2)
+    _check(all(torch.equal(getattr(chrf, k), v) for k, v in zip(chrf._TOTALS, stats)),
+           f"{name}: chrF++'s n-gram totals differ from the functional's")
+    _text_close("chrf++", checks, values["chrf++"][0], _chrf_score_compute(*stats, 8.0, 2.0), TEXT_RTOL)
+    _check(values["chrf++"][1].shape == (len(hyps),) and values["chrf++"][1].tolist() == torch.tensor(sentences).tolist(),
+           f"{name}: chrF++'s sentence scores differ ({values['chrf++'][1].shape[0]} of {len(hyps)})")
+    n_ter = spec["ter_prefix"]
+    edits, lengths = _ter_update(hyps[:n_ter], targets[:n_ter], _TercomTokenizer())
+    ter = metrics["ter"][0]
+    _check(float(ter.total_num_edits) == sum(edits) and float(ter.total_tgt_length) == sum(lengths),
+           f"{name}: TER's edits {float(ter.total_num_edits)} against the functional's {sum(edits)}")
+    want_ter = _ter_compute(*torch.tensor([sum(edits), sum(lengths)], dtype=torch.float32, device=dev))
+    _text_close("ter", checks, values["ter"][0], want_ter, TEXT_RTOL)
+    _check(torch.equal(values["ter"][1], _ter_sentence_scores(edits, lengths, dev)) and values["ter"][1].shape == (n_ter,),
+           f"{name}: TER's sentence scores differ")
+    n_eed = spec["eed_prefix"]
+    eed_corpus, eed_sentences = F.extended_edit_distance(hyps[:n_eed], targets[:n_eed], return_sentence_level_score=True)
+    _text_close("eed", checks, values["eed"][0], eed_corpus, TEXT_RTOL)
+    _check(torch.equal(values["eed"][1], eed_sentences) and eed_sentences.shape == (n_eed,), f"{name}: EED's sentence scores differ")
+    functional_s = time.perf_counter() - t0
+    launches = _text_no_kernels(name, counters)
+    return _emit({
+        "phase": name, "sentences": len(hyps), "reference_words": sum(len(r.split()) for r in refs), "batch": b,
+        "metrics": timing, "functional_s": functional_s,
+        "values": {"sacrebleu": float(values["sacrebleu"]), "bleu": float(values["bleu"]), "chrf++": float(values["chrf++"][0]),
+                   "ter": float(values["ter"][0]), "eed": float(values["eed"][0])},
+        "sentence_scores": {"chrf++": int(values["chrf++"][1].shape[0]), "ter": n_ter, "eed": n_eed},
+        "reduced": [f"TER over the first {n_ter} sentences and EED over the first {n_eed} (pure-Python shift search and DP)"],
+        "checks": checks, "launches": launches, "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+    })
+
+
+def _cnndm() -> tuple:
+    """11,490 reference highlights (3-4 sentences) and system summaries."""
+    spec = CNNDM
+    lex = _Lexicon(SEED + 16_000, spec["vocab"], "abcdefghijklmnopqrstuvwxyz")
+    refs, preds = [], []
+    for _ in range(spec["articles"]):
+        sentences = [lex.draw(int(max(4, round(lex.rng.gamma(4.0, 3.5))))) for _ in range(int(lex.rng.choice([3, 4], p=[0.25, 0.75])))]
+        system = [lex.plant(s, 0.35, 0.1, 0.15) for s in sentences if lex.rng.rand() < 0.85] or [sentences[0]]
+        refs.append(" ".join(" ".join(s).capitalize() + "." for s in sentences))
+        preds.append(" ".join(" ".join(s).capitalize() + "." for s in system if s))
+    return preds, refs
+
+
+def phase_cnndm_rouge(dev) -> dict:
+    """CNN/DailyMail through ROUGE-1, -2 and -L over the 11,490 articles and
+    ROUGE-Lsum over the first 2,048, ``accumulate="best"``, batches of 64,
+    each class against the functional over the same articles within 1e-6;
+    the native LCS and n-gram hits against the Python bodies over the first
+    512 articles' token pairs, bit for bit."""
+    import torch
+
+    from torchmetrics_tpu_torch import functional as F
+    from torchmetrics_tpu_torch import native
+    from torchmetrics_tpu_torch.functional.text.rouge import _normalize_and_tokenize_text
+    from torchmetrics_tpu_torch.text import ROUGEScore
+
+    name, spec = "cnndm_rouge", CNNDM
+    preds, refs = _cnndm()
+    counters = _text_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    b, n_lsum = spec["batch"], spec["lsum_prefix"]
+    runs = {
+        "rouge1_2_L": (("rouge1", "rouge2", "rougeL"), len(preds)),
+        "rougeLsum": (("rougeLsum",), n_lsum),
+    }
+    timing, checks, values = {}, {}, {}
+    for key, (keys, n) in runs.items():
+        metric = ROUGEScore(rouge_keys=keys, accumulate="best")
+        step_s = _timed_updates(metric, ((preds[s : min(s + b, n)], refs[s : min(s + b, n)]) for s in range(0, n, b)))
+        t0 = time.perf_counter()
+        got = metric.compute()
+        torch.cuda.synchronize()
+        timing[key] = {"articles": n, "updates": len(step_s), "articles_per_s": n / sum(step_s), "update_s": sum(step_s),
+                       "compute_ms": (time.perf_counter() - t0) * 1e3}
+        want = F.rouge_score(preds[:n], refs[:n], accumulate="best", rouge_keys=keys)
+        for k in want:
+            _text_close(k, checks, got[k], want[k], TEXT_RTOL)
+            values[k] = float(got[k])
+    peak = torch.cuda.max_memory_allocated(dev)
+    sub = spec["python_subset"]
+    pairs = [(_normalize_and_tokenize_text(p), _normalize_and_tokenize_text(r)) for p, r in zip(preds[:sub], refs[:sub])]
+    t0 = time.perf_counter()
+    _check(native.batch_lcs(pairs).tolist() == [native._py_lcs(a, r) for a, r in pairs], f"{name}: a native LCS differs")
+    hits = native.batch_ngram_hits_multi(pairs, [1, 2])
+    for n in (1, 2):
+        _check(list(zip(*(c.tolist() for c in hits[n]))) == [native._py_ngram_hits(a, r, n) for a, r in pairs],
+               f"{name}: a native {n}-gram count differs")
+    python_s = time.perf_counter() - t0
+    launches = _text_no_kernels(name, counters)
+    return _emit({
+        "phase": name, "articles": len(preds), "batch": b, "runs": timing, "values": values,
+        "reduced": [f"ROUGE-Lsum over the first {n_lsum} articles (its union LCS is pure Python)"],
+        "python_subset": sub, "python_check_s": python_s, "checks": checks, "launches": launches,
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+    })
+
+
+def _squad_norm(text: str) -> str:
+    """SQuAD v1.1's answer normalisation: lower case, no punctuation, no
+    articles, single spaces."""
+    import re
+    import string
+
+    text = "".join(ch for ch in text.lower() if ch not in set(string.punctuation))
+    return " ".join(re.sub(r"\b(a|an|the)\b", " ", text).split())
+
+
+def _squad() -> tuple:
+    """10,570 questions: 1-6 reference answers of 1-5 words (variants of one
+    answer), and a prediction that is one answer reformatted, a partial
+    overlap or unrelated."""
+    spec = SQUAD
+    lex = _Lexicon(SEED + 17_000, spec["vocab"], "abcdefghijklmnopqrstuvwxyz")
+    preds, target = [], []
+    for q in range(spec["questions"]):
+        base = lex.draw(int(lex.rng.randint(1, 6)))
+        answers = []
+        for _ in range(int(lex.rng.choice(6, p=[0.1, 0.2, 0.45, 0.1, 0.1, 0.05])) + 1):
+            words = list(base)
+            if len(words) > 1 and lex.rng.rand() < 0.3:
+                words = words[1:] if lex.rng.rand() < 0.5 else words[:-1]
+            if lex.rng.rand() < 0.2:
+                words = ["the"] + words
+            answers.append(" ".join(words))
+        r = lex.rng.rand()
+        if r < 0.6:
+            pred = answers[int(lex.rng.randint(len(answers)))]
+            pred = (pred.upper() if lex.rng.rand() < 0.2 else pred) + ("." if lex.rng.rand() < 0.3 else "")
+        elif r < 0.85:
+            pred = " ".join(lex.plant(base, 0.3, 0.3, 0.1))
+        else:
+            pred = " ".join(lex.draw(int(lex.rng.randint(1, 5))))
+        preds.append({"prediction_text": pred, "id": str(q)})
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": str(q)})
+    return preds, target
+
+
+def phase_squad_v11(dev) -> dict:
+    """SQuAD v1.1 dev through the SQuAD class in batches of 256 against the
+    functional over the whole set: the exact-match sum and the count bit for
+    bit and equal to an exact count made here, F1 within 1e-6."""
+    import torch
+
+    from torchmetrics_tpu_torch import functional as F
+    from torchmetrics_tpu_torch.text import SQuAD
+
+    name, spec = "squad_v11_dev", SQUAD
+    preds, target = _squad()
+    counters = _text_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metric = SQuAD()
+    b = spec["batch"]
+    step_s = _timed_updates(metric, ((preds[s : s + b], target[s : s + b]) for s in range(0, len(preds), b)))
+    got = metric.compute()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = F.squad(preds, target)
+    exact = sum(
+        any(_squad_norm(p["prediction_text"]) == _squad_norm(a) for a in t["answers"]["text"]) for p, t in zip(preds, target)
+    )
+    _check(float(metric.exact_match) == exact and int(metric.total) == len(preds),
+           f"{name}: exact matches {float(metric.exact_match)} of {int(metric.total)}, counted {exact}")
+    _check(float(got["exact_match"]) == float(want["exact_match"]), f"{name}: EM {float(got['exact_match'])} against {float(want['exact_match'])}")
+    checks: dict = {}
+    _text_close("f1", checks, got["f1"], want["f1"], TEXT_RTOL)
+    launches = _text_no_kernels(name, counters)
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "questions": len(preds), "batch": b, "updates": len(step_s), "questions_per_s": len(preds) / update_s,
+        "update_s": update_s, "values": {k: float(v) for k, v in got.items()}, "exact_matches": exact, "checks": checks,
+        "launches": launches, "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base,
+    })
+
+
+def _token_ids(sentences: list, vocab: int):
+    """Each word's id (crc32 mod ``vocab``), zero-padded, and the mask."""
+    import zlib
+
+    import numpy as np
+
+    width = max(len(s.split()) for s in sentences)
+    ids = np.zeros((len(sentences), width), dtype=np.int64)
+    mask = np.zeros((len(sentences), width), dtype=bool)
+    for i, s in enumerate(sentences):
+        words = s.split()
+        ids[i, : len(words)] = [zlib.crc32(w.encode()) % vocab for w in words]
+        mask[i, : len(words)] = True
+    return ids, mask
+
+
+def _bertscore64(table, pred_ids, pred_mask, target_ids, target_mask, dev) -> tuple:
+    """Greedy-matched P, R, F in float64 on the card, IDF over the reference
+    ids from float64 logs."""
+    import numpy as np
+    import torch
+
+    n = target_ids.shape[0]
+    df: dict = {}
+    for row, m in zip(target_ids, target_mask):
+        for t in set(row[m].tolist()):
+            df[t] = df.get(t, 0) + 1
+
+    def idf(ids):
+        return torch.tensor(np.vectorize(lambda t: math.log((n + 1) / (df.get(int(t), 0) + 1)))(ids), dtype=torch.float64, device=dev)
+
+    def unit(ids):
+        e = table.double()[torch.from_numpy(ids).to(dev)]
+        return e / e.norm(dim=-1, keepdim=True)
+
+    pm, tm_ = torch.from_numpy(pred_mask).to(dev), torch.from_numpy(target_mask).to(dev)
+    sim = torch.bmm(unit(pred_ids), unit(target_ids).transpose(1, 2))
+    sim = torch.where(pm[:, :, None] & tm_[:, None, :], sim, -1e9)
+    pw, tw = idf(pred_ids) * pm, idf(target_ids) * tm_
+    p = (sim.amax(2) * pw).sum(1) / pw.sum(1).clamp_min(1e-12)
+    r = (sim.amax(1) * tw).sum(1) / tw.sum(1).clamp_min(1e-12)
+    # the definition's clamp: where P + R <= 1e-12 (cosines of random
+    # embeddings can be negative), F1 is 2PR / 1e-12
+    return p, r, 2 * p * r / (p + r).clamp_min(1e-12)
+
+
+def _infolm64(p, t, measure: str, kwargs: dict):
+    """An information measure in float64 (NaN and inf replaced as
+    ``nan_to_num`` replaces them)."""
+    import torch
+
+    a, b = kwargs.get("alpha", 0.0), kwargs.get("beta", 0.0)
+    if measure == "beta_divergence":
+        a = 1.0
+    if measure == "kl_divergence":
+        out = (t * torch.log(p / t)).sum(-1)
+    elif measure == "alpha_divergence":
+        out = (1 - (t**a * p ** (1 - a)).sum(-1)) / (a * (a - 1))
+    elif measure in ("ab_divergence", "beta_divergence"):
+        out = (torch.log((t ** (a + b)).sum(-1)) / (b * (a + b)) + torch.log((p ** (a + b)).sum(-1)) / (a * (a + b))
+               - torch.log((t**a * p**b).sum(-1)) / (a * b))
+    elif measure == "renyi_divergence":
+        out = torch.log((t**a * p ** (1 - a)).sum(-1)) / (a - 1)
+    elif measure == "l1_distance":
+        out = (t - p).abs().sum(-1)
+    elif measure == "l2_distance":
+        out = ((t - p) ** 2).sum(-1).sqrt()
+    elif measure == "l_infinity_distance":
+        out = (t - p).abs().amax(-1)
+    else:
+        out = 2 * torch.arccos(torch.sqrt(p * t).sum(-1).clamp(0, 1))
+    return torch.nan_to_num(out)
+
+
+def phase_wmt14_bertscore_infolm(dev) -> dict:
+    """newstest2014's pairs through BERTScore (``idf=True``) with a user
+    model that looks embeddings up in a seeded 50,265 x 1,024 table on the
+    card and returns ``(emb, mask, ids)`` as card tensors, and InfoLM with
+    all nine measures on seeded 30,522-token distributions on the card: P,
+    R, F and each measure against float64 on the card within 1e-5, no
+    embedding or distribution read back to the host; compute time and peak
+    memory."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.functional.text import helper
+    from torchmetrics_tpu_torch.text import BERTScore, InfoLM
+
+    name, spec = "wmt14_bertscore_infolm", TEXT_MODELS
+    hyps, refs = _wmt14()
+    counters = _text_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    table = torch.randn(spec["vocab"], spec["dim"], generator=torch.Generator(device=dev).manual_seed(SEED + 18_000), device=dev)
+    returned = [0]
+
+    def embedder(sentences):
+        ids, mask = _token_ids(sentences, spec["vocab"])
+        ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+        returned[0] += 1
+        return table[ids_t], mask_t, ids_t
+
+    def mlm(sentences):
+        g = torch.Generator(device=dev).manual_seed(zlib.crc32("\n".join(sentences).encode()))
+        d = torch.rand(len(sentences), spec["mlm_vocab"], generator=g, device=dev) ** 8 + 1e-4
+        returned[0] += 1
+        return d / d.sum(1, keepdim=True)
+
+    host_reads: list = []
+    plain_host, plain_on_device = sys.modules["torchmetrics_tpu_torch.functional.text.bert"]._host, helper._on_device
+
+    def host(value):
+        if isinstance(value, torch.Tensor):
+            host_reads.append((str(value.dtype), value.numel()))
+        return plain_host(value)
+
+    def on_device(value, *args, **kwargs):
+        out = plain_on_device(value, *args, **kwargs)
+        if isinstance(value, torch.Tensor) and value.is_floating_point():
+            _check(out is value, f"{name}: a model output was copied ({value.dtype} {tuple(value.shape)})")
+        return out
+
+    bert_module = sys.modules["torchmetrics_tpu_torch.functional.text.bert"]
+    infolm_module = sys.modules["torchmetrics_tpu_torch.functional.text.infolm"]
+    bert_module._host, bert_module._on_device = host, on_device
+    infolm_module._on_device = on_device
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bert = BERTScore(user_model=embedder, idf=True)
+        b = WMT14["batch"]
+        for s in range(0, len(hyps), b):
+            bert.update(hyps[s : s + b], refs[s : s + b])
+        t0 = time.perf_counter()
+        got = bert.compute()
+        torch.cuda.synchronize()
+        bert_ms = (time.perf_counter() - t0) * 1e3
+        bert_peak = torch.cuda.max_memory_allocated(dev) - base
+        infolm_ms, measures = {}, {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        for measure, kwargs in INFOLM_MEASURES:
+            metric = InfoLM(information_measure=measure, temperature=spec["temperature"], user_model=mlm,
+                            return_sentence_level_score=True, **kwargs)
+            metric.update(hyps, refs)
+            t0 = time.perf_counter()
+            measures[measure] = metric.compute()
+            torch.cuda.synchronize()
+            infolm_ms[measure] = (time.perf_counter() - t0) * 1e3
+        infolm_peak = torch.cuda.max_memory_allocated(dev) - base
+    finally:
+        bert_module._host, bert_module._on_device = plain_host, plain_on_device
+        infolm_module._on_device = plain_on_device
+    _check(all(dtype in ("torch.int64", "torch.bool") for dtype, _ in host_reads),
+           f"{name}: read back to the host: {host_reads}")
+    checks: dict = {}
+    pred_ids, pred_mask = _token_ids(hyps, spec["vocab"])
+    target_ids, target_mask = _token_ids(refs, spec["vocab"])
+    want = _bertscore64(table, pred_ids, pred_mask, target_ids, target_mask, dev)
+    # F1 divides by P + R, which cancels where the cosines are of both
+    # signs: its tolerance scales by (|P| + |R|) / |P + R|
+    cancel = ((want[0].abs() + want[1].abs()) / (want[0] + want[1]).abs()).clamp_min(1.0)
+    for key, w, rtol in zip(("precision", "recall", "f1"), want, (TEXT_MODEL_RTOL, TEXT_MODEL_RTOL, TEXT_MODEL_RTOL * cancel)):
+        _text_close(f"bertscore_{key}", checks, got[key], w, rtol)
+    clamped = int(((want[0] + want[1]) <= 1e-12).sum())
+    temperature = spec["temperature"]
+
+    def sharpened(sentences):
+        d = mlm(sentences).double() ** (1 / temperature)
+        return d / d.sum(1, keepdim=True)
+
+    p64, t64 = sharpened(hyps), sharpened(refs)
+    for measure, kwargs in INFOLM_MEASURES:
+        sentence64 = _infolm64(p64, t64, measure, kwargs)
+        _text_close(f"infolm_{measure}", checks, measures[measure][0], sentence64.mean(), TEXT_MODEL_RTOL)
+        _text_close(f"infolm_{measure}_sentences", checks, measures[measure][1], sentence64, TEXT_MODEL_RTOL)
+    del p64, t64
+    launches = _text_no_kernels(name, counters)
+    return _emit({
+        "phase": name, "pairs": len(hyps), "dim": spec["dim"], "vocab": spec["vocab"], "mlm_vocab": spec["mlm_vocab"],
+        "table_bytes": table.numel() * table.element_size(),
+        "bertscore": {"compute_ms": bert_ms, "peak_mem_above_base_bytes": bert_peak, "f1_clamped_pairs": clamped,
+                      "median": {k: float(v.median()) for k, v in got.items()}},
+        "infolm": {"compute_ms": infolm_ms, "peak_mem_above_base_bytes": infolm_peak,
+                   "values": {k: float(v[0]) for k, v in measures.items()}},
+        "host_reads": sorted(set(host_reads))[:4], "model_outputs_used_in_place": returned[0],
+        "checks": checks, "launches": launches, "base_mem_bytes": base,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -4457,6 +5316,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from torchmetrics_tpu_torch.native import build as build_text_library
     from torchmetrics_tpu_torch.ops import native
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4471,9 +5331,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     paths = native.build(KERNELS)
+    kernels_s = time.perf_counter() - t0
+    text_library = build_text_library()
     _emit({
-        "phase": "build", "seconds": time.perf_counter() - t0,
-        "libraries": {k: str(v.name) for k, v in paths.items()},
+        "phase": "build", "seconds": time.perf_counter() - t0, "kernels_s": kernels_s,
+        "libraries": {k: str(v.name) for k, v in paths.items()}, "text_library": text_library.name,
         "nvcc": {k: v.strip().splitlines() for k, v in native.build_logs.items()},
     })
 
@@ -4505,6 +5367,13 @@ def main() -> int:
     wrapped = [boot, phase_imagenet_tracked(dev), phase_nyuv2_multitask(dev)]
     phase_ogbg_molpcba(dev)
     census = phase_census1990_nominal(dev)
+    # text: host counting (the port's C++ library) and plain PyTorch, no kernel
+    phase_wikitext2_perplexity(dev)
+    phase_librispeech_asr(dev)
+    phase_wmt14_mt(dev)
+    phase_cnndm_rouge(dev)
+    phase_squad_v11(dev)
+    phase_wmt14_bertscore_infolm(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases

@@ -1488,3 +1488,130 @@ def test_nominal_functionals_on_the_card_equal_the_cpu(cuda_device):
         want = getattr(functional, name)(torch.as_tensor(matrix))
         torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-5)
     assert bincount.launches - launched == 6 * 3 + 12
+
+
+# ---------------------------------------------------------------------- text
+
+
+def test_text_native_library_is_built_and_loaded(cuda_device):
+    from torchmetrics_tpu_torch import native
+
+    assert native.native_available()
+    path = native.library_path()
+    assert path.exists() and path.parent.name == "_build" and path.name.startswith("libtm_text_native-")
+    pairs = [("a b c d".split(), "a c d e".split()), (list("kitten"), list("sitting"))]
+    assert native.batch_edit_distance(pairs).tolist() == [native._py_edit_distance(a, b) for a, b in pairs]
+
+
+def _ppl_inputs(seed, ignore_index):
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(4, 64, 1000) * 2).astype(np.float32))
+    target = torch.from_numpy(rng.randint(0, 1000, (4, 64)))
+    if ignore_index is not None:
+        target[torch.from_numpy(rng.rand(4, 64) < 0.3)] = ignore_index
+    return logits, target
+
+
+@pytest.mark.parametrize("ignore_index", [None, -100])
+def test_perplexity_on_the_card_equals_the_cpu_and_float64(cuda_device, ignore_index):
+    card, cpu = tm.Perplexity(ignore_index=ignore_index, device=cuda_device), tm.Perplexity(ignore_index=ignore_index, device="cpu")
+    total64, count = 0.0, 0
+    for seed in range(3):
+        logits, target = _ppl_inputs(seed, ignore_index)
+        card.update(logits.to(cuda_device), target.to(cuda_device))
+        cpu.update(logits, target)
+        mask = target != ignore_index if ignore_index is not None else torch.ones_like(target, dtype=torch.bool)
+        lp = torch.log_softmax(logits.double(), -1).gather(-1, target.clamp_min(0)[..., None]).squeeze(-1)
+        total64 -= float(lp[mask].sum())
+        count += int(mask.sum())
+    assert card.total_log_probs.is_cuda and card.count.dtype == torch.int32
+    assert int(card.count) == int(cpu.count) == count
+    torch.testing.assert_close(card.total_log_probs.cpu(), cpu.total_log_probs, rtol=1e-5, atol=0.0)
+    assert float(card.compute()) == pytest.approx(np.exp(total64 / count), rel=1e-5)
+
+
+def test_perplexity_out_of_range_target_is_nan_and_the_context_lives(cuda_device):
+    logits, target = _ppl_inputs(4, None)
+    target[1, 3], target[2, 5] = 1000, -7
+    value = tm.functional.perplexity(logits.to(cuda_device), target.to(cuda_device))
+    assert torch.isnan(value).item()
+    assert int(torch.arange(5, device=cuda_device).sum()) == 10
+    torch.cuda.synchronize()
+
+
+def _card_embedder(device):
+    table = torch.randn(500, 32, generator=torch.Generator().manual_seed(0))
+
+    def embed(sentences):
+        width = max(len(s.split()) for s in sentences)
+        ids = torch.zeros(len(sentences), width, dtype=torch.int64)
+        mask = torch.zeros(len(sentences), width, dtype=torch.bool)
+        for i, s in enumerate(sentences):
+            for j, w in enumerate(s.split()):
+                ids[i, j] = sum(map(ord, w)) % 500
+                mask[i, j] = True
+        return table[ids].to(device), mask.to(device), ids.to(device)
+
+    return embed
+
+
+def test_bertscore_with_card_tensors_equals_the_cpu(cuda_device):
+    preds = ["the cat sat on the mat", "a dog ran", "over the house"]
+    target = ["a cat sat on a mat", "the dog ran far", "house"]
+    card = tm.BERTScore(user_model=_card_embedder(cuda_device), idf=True, device=cuda_device)
+    card.update(preds, target)
+    got = card.compute()
+    want = tm.functional.bert_score(preds, target, user_model=_card_embedder("cpu"), idf=True, device="cpu")
+    for k in ("precision", "recall", "f1"):
+        assert got[k].is_cuda
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=1e-6)
+    with pytest.raises(RuntimeError, match="never copied"):
+        tm.functional.bert_score(preds, target, user_model=_card_embedder("cpu"), device=cuda_device)
+
+
+@pytest.mark.parametrize(
+    "measure,kwargs",
+    [("kl_divergence", {}), ("alpha_divergence", {"alpha": 0.5}), ("beta_divergence", {"beta": 0.5}),
+     ("ab_divergence", {"alpha": 0.5, "beta": 0.5}), ("renyi_divergence", {"alpha": 0.5}), ("l1_distance", {}),
+     ("l2_distance", {}), ("l_infinity_distance", {}), ("fisher_rao_distance", {})],
+)
+def test_infolm_with_card_tensors_equals_the_cpu(cuda_device, measure, kwargs):
+    def mlm(device):
+        def dist(sentences):
+            g = torch.Generator().manual_seed(len("".join(sentences)))
+            d = torch.rand(len(sentences), 300, generator=g) ** 4 + 1e-4
+            return (d / d.sum(1, keepdim=True)).to(device)
+
+        return dist
+
+    preds, target = ["the cat sat", "a dog ran"], ["a cat sat down", "the dog"]
+    got = tm.functional.infolm(preds, target, information_measure=measure, user_model=mlm(cuda_device), device=cuda_device,
+                               return_sentence_level_score=True, **kwargs)
+    want = tm.functional.infolm(preds, target, information_measure=measure, user_model=mlm("cpu"), device="cpu",
+                                return_sentence_level_score=True, **kwargs)
+    assert got[1].is_cuda
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-6)
+
+
+def test_text_class_state_stays_on_the_card(cuda_device):
+    preds, target = ["the cat sat on the mat", "a dog ran"], ["a cat sat on the mat", "the dog ran far"]
+    metrics = {
+        "wer": tm.WordErrorRate(device=cuda_device), "bleu": tm.BLEUScore(device=cuda_device),
+        "chrf": tm.CHRFScore(return_sentence_level_score=True, device=cuda_device),
+        "ter": tm.TranslationEditRate(return_sentence_level_score=True, device=cuda_device),
+        "eed": tm.ExtendedEditDistance(device=cuda_device), "rouge": tm.ROUGEScore(device=cuda_device),
+        "edit": tm.EditDistance(reduction="none", device=cuda_device),
+    }
+    for m in metrics.values():
+        m.update(preds, target)
+        for value in m.metric_state.values():
+            for t in value if isinstance(value, list) else [value]:
+                assert t.is_cuda, (type(m).__name__, t.device)
+    squad = tm.SQuAD(device=cuda_device)
+    squad.update([{"prediction_text": "a cat", "id": "1"}], [{"answers": {"text": ["the cat"]}, "id": "1"}])
+    assert all(v.is_cuda for v in squad.metric_state.values())
+    for m in [*metrics.values(), squad]:
+        out = m.compute()
+        values = out.values() if isinstance(out, dict) else (out if isinstance(out, tuple) else [out])
+        assert all(v.is_cuda for v in values)
+    assert tm.functional.word_error_rate(preds, target).device == cuda_device

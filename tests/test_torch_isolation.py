@@ -48,6 +48,9 @@ def test_sources_were_found():
         "torchmetrics_tpu_torch/ops/sqrtm_kernel.py",
         "torchmetrics_tpu_torch/models/inception.py",
         "torchmetrics_tpu_torch/utils/prng.py",
+        "torchmetrics_tpu_torch/native/__init__.py",
+        "torchmetrics_tpu_torch/functional/text/helper.py",
+        "torchmetrics_tpu_torch/text/model_based.py",
     } <= names
 
 
@@ -66,7 +69,8 @@ def _run(args, cwd, env=None):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.functional, torchmetrics_tpu_torch.utils.convert\n"
-        "import torchmetrics_tpu_torch.retrieval, torchmetrics_tpu_torch.image\n"
+        "import torchmetrics_tpu_torch.retrieval, torchmetrics_tpu_torch.image, torchmetrics_tpu_torch.text\n"
+        "import torchmetrics_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "assert not bad, bad\n"
     )

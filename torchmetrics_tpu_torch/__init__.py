@@ -32,7 +32,14 @@ metric is built with ``device="cpu"``. Ported so far:
 - the wrappers (bootstrap, tracker, running window, min-max, classwise,
   multi-task, multi-output, feature share) and nominal association
   (Cramér's V, Tschuprow's T, Pearson's contingency coefficient, Theil's U,
-  Fleiss' kappa), whose contingency tables run on the ``bincount`` kernel.
+  Fleiss' kappa), whose contingency tables run on the ``bincount`` kernel;
+- text: the ASR error rates (WER, CER, MER, WIL, WIP), edit distance and
+  EED, BLEU and SacreBLEU, chrF, TER, ROUGE, SQuAD, perplexity, BERTScore
+  and InfoLM; strings are counted on the host, the edit distances, LCS and
+  n-gram overlaps by the port's own C++ library (``native/``, built with
+  ``g++`` into ``_build/`` at first use), and perplexity, the greedy
+  BERTScore match and InfoLM's measures run on the device (no kernel of the
+  port).
 """
 from torchmetrics_tpu_torch import (
     classification,
@@ -43,6 +50,7 @@ from torchmetrics_tpu_torch import (
     parallel,
     regression,
     retrieval,
+    text,
     wrappers,
 )
 from torchmetrics_tpu_torch.aggregation import (
@@ -66,6 +74,8 @@ from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
+from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.text import __all__ as _text_all
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -104,10 +114,12 @@ __all__ = [
     "parallel",
     "regression",
     "retrieval",
+    "text",
     "wrappers",
     *_classification_all,
     *_image_all,
     *_nominal_all,
     *_regression_all,
     *_retrieval_all,
+    *_text_all,
 ]

@@ -12,5 +12,7 @@ from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
+from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
-__all__ = [*_classification_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all]
+__all__ = [*_classification_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all, *_text_all]
