@@ -112,6 +112,22 @@ evaluation workloads:
   Text is synthetic, from seeded numpy generators, at each set's
   published shape; each class is held to its functional over the same
   data.
+- audio, on plain PyTorch and the port's PESQ library (asserted loaded),
+  no kernel of the port launching, with speech-shaped signals made on the
+  card from the two formant-synthesised clips of
+  ``tests/fixtures_real/speech.npz`` (read circularly at random rates,
+  offsets and gains): Libri2Mix test (3,000 two-speaker mixtures at 8 kHz,
+  then Libri3Mix's first 256) through PIT with SI-SDR, SA-SDR, SNR, SI-SNR
+  and SDR at filter length 512; VoiceBank+DEMAND test (824 utterances at
+  16 kHz) through PESQ (wb, nb), STOI and ESTOI on the host path and with
+  ``on_device=True``, and SI-SDR; REVERB 2014's SimData evaluation set
+  (2,176 utterances) through SRMR on both paths; every value against
+  float64 or the CPU, the device paths against the host paths;
+- clustering on the ``bincount`` kernel: ImageNet-1k validation clustered
+  as SCAN scores it (50,000 samples, 1,000 clusters, 2,048-wide Gaussian
+  embeddings) through the nine label metrics, each contingency one
+  1,000,000-bin launch, and Calinski-Harabasz, Davies-Bouldin and Dunn,
+  against float64.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -136,8 +152,8 @@ card. With ``--profile`` it also traces a few updates of each workload with
 ``torch.profiler`` (device time by kernel, device idle share; for MS MARCO
 the compute too), and a few calls of each kernel at each of its checked
 shapes.
-Each phase prints one JSON line; then come the kernel table line, the card's
-name and power limit as ``nvidia-smi`` reports them, and the final line
+Each phase prints one JSON line; then come the script's wall time, the
+kernel table line, the card's name and power limit as ``nvidia-smi`` reports them, and the final line
 ``{"ok": true, "device": {...}}``. Any failed build, launch error or mismatch
 exits non-zero, and so does a run without a CUDA device.
 """
@@ -4365,18 +4381,24 @@ class _Lexicon:
         return out
 
 
-def _text_start() -> dict:
-    """The launch counters set to 0 and the seam's gate log cleared, before a
-    text phase."""
-    from torchmetrics_tpu_torch import native
+def _zero_counters() -> dict:
+    """The launch counters set to 0 and the seam's gate log cleared."""
     from torchmetrics_tpu_torch.ops import kernels
 
-    _check(native.native_available(), "the native text library did not build or load")
     counters = _launch_counters()
     for module in counters.values():
         module.launches = 0
     kernels.reset_gate_log()
     return counters
+
+
+def _text_start() -> dict:
+    """:func:`_zero_counters` before a text phase, whose native library must
+    be loaded."""
+    from torchmetrics_tpu_torch import native
+
+    _check(native.native_available(), "the native text library did not build or load")
+    return _zero_counters()
 
 
 def _text_no_kernels(name: str, counters: dict) -> dict:
@@ -5122,6 +5144,784 @@ def phase_wmt14_bertscore_infolm(dev) -> dict:
     })
 
 
+# ------------------------------------------------------- audio and clustering
+
+#: Libri2Mix test (Cosentino et al., 2020, "min" mode, 8 kHz): 3,000
+#: two-speaker mixtures in batches of 8, each batch cropped to a common
+#: length drawn from 3-15 s; then the first 256 mixtures of Libri3Mix test
+#: (three speakers, the 3! permutation table). A separator's estimates leak
+#: a share of the other speakers and noise, in a random speaker order. Cut:
+#: SDR (filter 512) is held to scipy's float64 Toeplitz solve over the first
+#: 64 mixtures (its FFTs of up to 2**18 points on the host cost about 10 ms
+#: a signal), every other SDR only to be finite
+LIBRI2MIX = {"mixtures": 3_000, "fs": 8_000, "batch": 8, "seconds": (3.0, 15.0), "filter_length": 512,
+             "libri3mix": 256, "leak": (0.05, 0.35), "noise": (0.01, 0.1), "sdr_check": 64}
+#: VoiceBank+DEMAND test (Valentini-Botinhao et al., 2016): 824 utterances
+#: at 16 kHz, noisy at 2.5, 7.5, 12.5 and 17.5 dB SNR (coloured noise in
+#: place of DEMAND's recordings); an enhancer's output keeps a fifth of the
+#: noise's amplitude. Batches of 8 cropped to a common length drawn from
+#: 1.5-5 s. Cut: PESQ (wb and nb) and the host STOI/ESTOI score the first
+#: 64 utterances (about 35 ms a PESQ call and 25 ms a host STOI an utterance
+#: on one core, each made twice: the class and its check)
+VOICEBANK = {"utterances": 824, "fs": 16_000, "batch": 8, "seconds": (1.5, 5.0), "snrs": (2.5, 7.5, 12.5, 17.5),
+             "residual": 0.2, "host_prefix": 64}
+#: REVERB Challenge 2014 SimData evaluation set at 16 kHz (Kinoshita et
+#: al., "A summary of the REVERB challenge", EURASIP J. Adv. Signal Process.
+#: 2016:7, its data overview: 2,176 SimData evaluation utterances, WSJCAM0
+#: sentences convolved with room impulse responses of three rooms, T60 0.25,
+#: 0.5 and 0.7 s, plus noise at 20 dB SNR; test utterances about 6.9 s long
+#: on average). The overview gives the mean length, not the spread: lengths
+#: are drawn uniform on 2.0-11.8 s, whose mean is that 6.9 s; the memory
+#: reckoning and the card against the CPU are also checked at both ends of
+#: the range and at a length whose Hilbert transform takes Bluestein's
+#: algorithm ("sweep"). The impulse responses here are exponentially
+#: decaying noise at those T60s. Batches of 16 cropped to a common length.
+#: Cuts: the host path scores the first 2 utterances (2-3 s a 7 s
+#: utterance on one core; its class is held to its functional on their
+#: first second); one utterance of every 4th batch is held to the CPU's
+#: device path (0.1-0.25 s a 7 s utterance on the host)
+REVERB = {"utterances": 2_176, "fs": 16_000, "batch": 16, "seconds": (2.0, 11.8), "t60": (0.25, 0.5, 0.7), "snr": 20.0,
+          "host_prefix": 2, "sweep_seconds": (2.0, 6.9, 11.8), "cpu_check_every": 4}
+#: ImageNet-1k validation clustered as SCAN (Van Gansbeke et al., ECCV 2020)
+#: scores it: 50,000 samples of 1,000 classes (50 each) against 1,000
+#: clusters, 30% of the assignments redrawn at random; 50,000 x 2,048 float32
+#: embeddings (ResNet-50's pool width) as Gaussian clusters; batches of 1,000
+IMAGENET_CLUSTERS = {"samples": 50_000, "classes": 1_000, "dim": 2_048, "reassigned": 0.3, "batch": 1_000, "spread": 0.5}
+#: dB values of float32 sums against float64 (absolute)
+AUDIO_DB_ATOL = 2e-3
+#: STOI's device path against its host path (JAX's stated agreement), and
+#: SRMR's (relative)
+STOI_PATHS_ATOL = 1e-3
+SRMR_PATHS_RTOL = 1e-3
+#: a device path on the card against the same path on the CPU
+DEVICE_PATH_ATOL = {"stoi": 1e-5, "srmr": 1e-4}
+CLUSTER_RTOL = 1e-5
+LABEL_METRICS = (
+    ("MutualInfoScore", "mutual_info_score", 1), ("NormalizedMutualInfoScore", "normalized_mutual_info_score", 3),
+    ("AdjustedMutualInfoScore", "adjusted_mutual_info_score", 3), ("RandScore", "rand_score", 1),
+    ("AdjustedRandScore", "adjusted_rand_score", 1), ("FowlkesMallowsIndex", "fowlkes_mallows_index", 1),
+    ("HomogeneityScore", "homogeneity_score", 3), ("CompletenessScore", "completeness_score", 3),
+    ("VMeasureScore", "v_measure_score", 3),
+)
+EMBEDDING_METRICS = (("CalinskiHarabaszScore", "calinski_harabasz_score"), ("DaviesBouldinScore", "davies_bouldin_score"),
+                     ("DunnIndex", "dunn_index"))
+
+
+def _audio_start() -> dict:
+    """:func:`_zero_counters` before an audio phase, whose PESQ library must
+    be loaded."""
+    from torchmetrics_tpu_torch import native
+
+    _check(native.pesq_available(), f"the PESQ library did not build or load: {native.pesq_build_error()}")
+    return _zero_counters()
+
+
+class _Speech:
+    """Speech-shaped sources made on the card from the two formant-
+    synthesised 16 kHz clips of ``tests/fixtures_real/speech.npz``: a clip
+    (decimated to ``fs``) read circularly from a random offset at a random
+    rate of 0.8-1.25 (pitch and tempo scaled), linearly interpolated, with a
+    gain of 0.3-1."""
+
+    def __init__(self, fs: int, seed: int, dev) -> None:
+        from pathlib import Path
+
+        import numpy as np
+        import torch
+
+        speech = np.load(Path(__file__).resolve().parent / "tests" / "fixtures_real" / "speech.npz")
+        step = int(speech["fs"]) // fs
+        clips = np.stack([speech["clip1"][::step], speech["clip2"][::step]]).astype(np.float32)
+        self.clips = torch.as_tensor(clips, device=dev)
+        self.g = torch.Generator(device=dev).manual_seed(seed)
+        self.rng = np.random.RandomState(seed)
+        self.dev = dev
+
+    def sources(self, count: int, length: int):
+        import torch
+
+        g, dev, n_clip = self.g, self.dev, self.clips.shape[1]
+        which = torch.randint(0, 2, (count, 1), generator=g, device=dev)
+        rate = 0.8 + 0.45 * torch.rand(count, 1, generator=g, device=dev)
+        offset = torch.rand(count, 1, generator=g, device=dev) * n_clip
+        gain = 0.3 + 0.7 * torch.rand(count, 1, generator=g, device=dev)
+        pos = torch.remainder(offset + rate * torch.arange(length, device=dev, dtype=torch.float32)[None], n_clip)
+        i0 = pos.floor().to(torch.int64).clamp(max=n_clip - 1)
+        frac = pos - i0
+        i1 = torch.remainder(i0 + 1, n_clip)
+        return gain * (self.clips[which, i0] * (1 - frac) + self.clips[which, i1] * frac)
+
+    def length(self, seconds: tuple, fs: int) -> int:
+        return int(self.rng.uniform(*seconds) * fs)
+
+
+def _hold_db(name: str, checks: dict, got, want, atol: float) -> None:
+    """``|got - want| <= atol`` elementwise (dB), both read to the host."""
+    import numpy as np
+    import torch
+
+    got = np.asarray(torch.as_tensor(got).detach().double().cpu()).reshape(-1)
+    want = np.asarray(torch.as_tensor(want).detach().double().cpu()).reshape(-1)
+    err = np.abs(got - want)
+    _check(got.shape == want.shape and bool(np.isfinite(got).all()) and bool((err <= atol).all()),
+           f"{name}: max |d| {err.max() if err.size else 0.0} beyond {atol}")
+    entry = checks.setdefault(name, {"max_abs_err": 0.0, "atol": atol, "n": 0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], float(err.max()) if err.size else 0.0)
+    entry["n"] += int(got.size)
+
+
+# float64 references, written out from the definitions (float64 tensors on
+# the card: the sums over up to 2.4M samples a pair are too slow in numpy
+# for every batch)
+_EPS32 = 1.1920928955078125e-07
+
+
+def _si_sdr64(p, t, zero_mean: bool = False):
+    import torch
+
+    if zero_mean:
+        p, t = p - p.mean(-1, keepdim=True), t - t.mean(-1, keepdim=True)
+    alpha = ((p * t).sum(-1, keepdim=True) + _EPS32) / ((t * t).sum(-1, keepdim=True) + _EPS32)
+    scaled = alpha * t
+    return 10 * torch.log10(((scaled * scaled).sum(-1) + _EPS32) / (((scaled - p) ** 2).sum(-1) + _EPS32))
+
+
+def _snr64(p, t):
+    import torch
+
+    return 10 * torch.log10(((t * t).sum(-1) + _EPS32) / (((t - p) ** 2).sum(-1) + _EPS32))
+
+
+def _sa_sdr64(p, t):
+    import torch
+
+    alpha = ((p * t).sum((-2, -1), keepdim=True) + _EPS32) / ((t * t).sum((-2, -1), keepdim=True) + _EPS32)
+    t = alpha * t
+    return 10 * torch.log10(((t * t).sum((-2, -1)) + _EPS32) / (((t - p) ** 2).sum((-2, -1)) + _EPS32))
+
+
+def _sdr64(p, t, filter_length: int):
+    """SDR of float64 rows by scipy: FFT correlations and a Levinson Toeplitz solve."""
+    import numpy as np
+    from scipy.linalg import solve_toeplitz
+
+    out = []
+    n_fft = 2 ** math.ceil(math.log2(2 * p.shape[-1] - 1))
+    for pp, tt in zip(p.reshape(-1, p.shape[-1]), t.reshape(-1, t.shape[-1])):
+        tt, pp = tt / max(np.linalg.norm(tt), 1e-6), pp / max(np.linalg.norm(pp), 1e-6)
+        tf = np.fft.rfft(tt, n_fft)
+        r = np.fft.irfft(np.abs(tf) ** 2, n_fft)[:filter_length]
+        b = np.fft.irfft(np.conj(tf) * np.fft.rfft(pp, n_fft), n_fft)[:filter_length]
+        coh = b @ solve_toeplitz(r, b)
+        out.append(10 * np.log10(coh / max(1 - coh, np.finfo(np.float64).eps)))
+    return np.asarray(out).reshape(p.shape[:-1])
+
+
+def _best_perm64(p, t):
+    """Brute-force best speaker order by float64 SI-SDR (over every pair, then
+    every order), and its margin over the runner-up (dB)."""
+    import itertools
+
+    import torch
+
+    b, spk = t.shape[:2]
+    pair = torch.stack([_si_sdr64(p, t[:, i : i + 1].expand_as(p)) for i in range(spk)], dim=1)  # (B, spk_t, spk_p)
+    perms = torch.as_tensor(list(itertools.permutations(range(spk))), device=p.device)
+    scores = pair[:, torch.arange(spk, device=p.device)[None, :], perms].mean(-1)  # (B, P)
+    top = torch.topk(scores, 2, dim=1)
+    return perms[top.indices[:, 0]], top.values[:, 0], top.values[:, 0] - top.values[:, 1]
+
+
+def _mixture_batches(spec: dict, speech: "_Speech", count: int, spk: int, dev):
+    """``(preds, target)`` batches of ``spk``-speaker mixtures: the target
+    sources, and a separator's estimates in a random speaker order, each
+    leaking the other speakers and noise."""
+    import torch
+
+    g = speech.g
+    for start in range(0, count, spec["batch"]):
+        b = min(spec["batch"], count - start)
+        length = speech.length(spec["seconds"], spec["fs"])
+        target = speech.sources(b * spk, length).reshape(b, spk, length)
+        order = torch.argsort(torch.rand(b, spk, generator=g, device=dev), dim=1)
+        est = torch.gather(target, 1, order[:, :, None].expand(-1, -1, length))
+        lo, hi = spec["leak"]
+        leak = lo + (hi - lo) * torch.rand(b, spk, 1, generator=g, device=dev)
+        others = est.sum(1, keepdim=True) - est
+        lo, hi = spec["noise"]
+        noise = (lo + (hi - lo) * torch.rand(b, spk, 1, generator=g, device=dev)) * est.abs().amax(-1, keepdim=True)
+        preds = est + leak * others / max(spk - 1, 1) + noise * torch.randn(est.shape, generator=g, device=dev)
+        yield preds, target
+
+
+def _timed(step_s: list, fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    step_s.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_libri2mix_separation(dev) -> dict:
+    """Libri2Mix test (then the first 256 mixtures of Libri3Mix) through
+    PIT with SI-SDR (speaker-wise, ``eval_func="max"``), and on the
+    PIT-ordered estimates SA-SDR, SNR, SI-SNR and SDR at ``filter_length``
+    512 (batched float64 Toeplitz solves on the card): every value against
+    float64 numpy (SDR against scipy over the first 64 mixtures), PIT's
+    order against a brute-force float64 search wherever the best order wins
+    by more than 1e-3 dB, each class against its functional; updates/s,
+    device time, peak memory."""
+    import torch
+
+    from torchmetrics_tpu_torch import audio
+    from torchmetrics_tpu_torch.functional import audio as fa
+
+    name, spec = "libri2mix_separation", LIBRI2MIX
+    started = time.perf_counter()
+    counters = _audio_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    speech = _Speech(spec["fs"], SEED + 20_000, dev)
+    checks: dict = {}
+    results = {}
+    for spk, count in ((2, spec["mixtures"]), (3, spec["libri3mix"])):
+        metrics = {
+            "pit_si_sdr": audio.PermutationInvariantTraining(fa.scale_invariant_signal_distortion_ratio, eval_func="max"),
+            "sa_sdr": audio.SourceAggregatedSignalDistortionRatio(), "snr": audio.SignalNoiseRatio(),
+            "si_snr": audio.ScaleInvariantSignalNoiseRatio(), "sdr": audio.SignalDistortionRatio(filter_length=spec["filter_length"]),
+        }
+        values = {k: [] for k in metrics}
+        step_s, samples, ties, sdr_checked = [], 0, 0, 0
+        for preds, target in _mixture_batches(spec, speech, count, spk, dev):
+
+            def update():
+                best, perm = fa.permutation_invariant_training(preds, target, fa.scale_invariant_signal_distortion_ratio)
+                aligned = fa.pit_permutate(preds, perm)
+                metrics["pit_si_sdr"].update(preds, target)
+                for key in ("sa_sdr", "snr", "si_snr", "sdr"):
+                    metrics[key].update(aligned, target)
+                return best, perm, aligned
+
+            best, perm, aligned = _timed(step_s, update)
+            samples += preds.shape[0] * preds.shape[-1]
+            # the functionals' values, for the classes and the float64 checks
+            vals = {
+                "pit_si_sdr": best, "sa_sdr": fa.source_aggregated_signal_distortion_ratio(aligned, target),
+                "snr": fa.signal_noise_ratio(aligned, target), "si_snr": fa.scale_invariant_signal_noise_ratio(aligned, target),
+                "sdr": fa.signal_distortion_ratio(aligned, target, filter_length=spec["filter_length"]),
+            }
+            for k, v in vals.items():
+                values[k].append(v.reshape(-1))
+            p64, t64, a64 = preds.double(), target.double(), aligned.double()
+            perm64, best64, margin = _best_perm64(p64, t64)
+            clear = margin > 1e-3
+            ties += int((~clear).sum())
+            _check(torch.equal(perm[clear], perm64[clear]), f"{name}: a PIT order differs from float64's")
+            _hold_db(f"pit_si_sdr_{spk}spk", checks, best, best64, AUDIO_DB_ATOL)
+            _hold_db("sa_sdr", checks, vals["sa_sdr"], _sa_sdr64(a64, t64), AUDIO_DB_ATOL)
+            _hold_db("snr", checks, vals["snr"], _snr64(a64, t64), AUDIO_DB_ATOL)
+            _hold_db("si_snr", checks, vals["si_snr"], _si_sdr64(a64, t64, zero_mean=True), AUDIO_DB_ATOL)
+            _check(bool(torch.isfinite(vals["sdr"]).all()), f"{name}: a non-finite SDR")
+            if spk == 2 and sdr_checked < spec["sdr_check"]:
+                sdr64 = _sdr64(a64.cpu().numpy(), t64.cpu().numpy(), spec["filter_length"])
+                _hold_db("sdr_512", checks, vals["sdr"], sdr64, AUDIO_DB_ATOL)
+                sdr_checked += preds.shape[0]
+        computed = {k: m.compute() for k, m in metrics.items()}
+        for k, m in metrics.items():
+            want = torch.cat(values[k]).double().mean()
+            _check(int(m.total) == torch.cat(values[k]).numel() and m.total.dtype == torch.int64, f"{name}: {k}'s count")
+            _check(abs(float(computed[k]) - float(want)) <= 1e-5 * max(1.0, abs(float(want))),
+                   f"{name}: {k} class {float(computed[k])} against its functional {float(want)}")
+        update_s = sum(step_s)
+        results[f"{spk}spk"] = {
+            "mixtures": count, "updates": len(step_s), "updates_per_s": len(step_s) / update_s, "update_s": update_s,
+            "audio_s_per_s": samples / spec["fs"] / update_s / spk,
+            "values": {k: float(v) for k, v in computed.items()}, "pit_near_ties": ties, "sdr_checked_mixtures": sdr_checked,
+        }
+    peak = torch.cuda.max_memory_allocated(dev)
+    preds, target = next(_mixture_batches(spec, speech, spec["batch"], 2, dev))
+    metrics = {"sdr": audio.SignalDistortionRatio(filter_length=spec["filter_length"]),
+               "pit": audio.PermutationInvariantTraining(fa.scale_invariant_signal_distortion_ratio)}
+    profile = _rest_idle_share(lambda i: [m.update(preds, target) for m in metrics.values()], 3)
+    launches = _text_no_kernels(name, counters)
+    return _emit({
+        "phase": name, "source": "Libri2Mix test, min, 8 kHz (Cosentino et al. 2020); Libri3Mix test's first 256",
+        "cuts": "SDR held to scipy over the first 64 mixtures", "results": results, "checks": checks,
+        "profile_sdr_pit_batch": profile, "launches": launches, "base_mem_bytes": base,
+        "peak_mem_above_base_bytes": peak - base, "phase_s": time.perf_counter() - started,
+    })
+
+
+def _coloured_noise(shape, alpha, g, dev):
+    """Noise with a 1/f**alpha power spectrum a row (alpha (rows, 1))."""
+    import torch
+
+    n = shape[-1]
+    white = torch.fft.rfft(torch.randn(shape, generator=g, device=dev), dim=-1)
+    f = torch.arange(white.shape[-1], device=dev, dtype=torch.float32).clamp(min=1.0)
+    noise = torch.fft.irfft(white * f[None, :] ** (-alpha / 2), n=n, dim=-1)
+    return noise / noise.square().mean(-1, keepdim=True).sqrt()
+
+
+def phase_voicebank_demand_enhancement(dev) -> dict:
+    """VoiceBank+DEMAND test through PESQ (wb, nb), STOI and ESTOI on the
+    host path and with ``on_device=True``, and SI-SDR: PESQ equal to the
+    native library called directly on float64 copies (bit for bit after the
+    float32 rounding), the two STOI paths within 1e-3, the device path on the
+    card within 1e-5 of the same path on the CPU (the first batch), SI-SDR
+    against float64, each class against its functional; updates/s, device
+    time, peak memory and the host share of PESQ and STOI."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import audio, native
+    from torchmetrics_tpu_torch.functional import audio as fa
+
+    name, spec = "voicebank_demand_enhancement", VOICEBANK
+    started = time.perf_counter()
+    counters = _audio_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fs = spec["fs"]
+    speech = _Speech(fs, SEED + 21_000, dev)
+    g = speech.g
+    host = {"pesq_wb": audio.PerceptualEvaluationSpeechQuality(fs, "wb"), "pesq_nb": audio.PerceptualEvaluationSpeechQuality(fs, "nb"),
+            "stoi": audio.ShortTimeObjectiveIntelligibility(fs), "estoi": audio.ShortTimeObjectiveIntelligibility(fs, extended=True)}
+    device = {"stoi_device": audio.ShortTimeObjectiveIntelligibility(fs, on_device=True),
+              "estoi_device": audio.ShortTimeObjectiveIntelligibility(fs, extended=True, on_device=True),
+              "si_sdr": audio.ScaleInvariantSignalDistortionRatio()}
+    values = {k: [] for k in (*host, *device)}
+    checks: dict = {}
+    # one call of each host scorer outside the timing: the first pays scipy's imports
+    warm = speech.sources(1, 3 * fs)
+    fa.short_time_objective_intelligibility(warm, warm, fs)
+    fa.perceptual_evaluation_speech_quality(warm, warm, fs, "wb")
+    step_s, host_s, device_s = [], {k: 0.0 for k in host}, 0.0
+    done = 0
+    snrs = torch.as_tensor(spec["snrs"], device=dev)
+    while done < spec["utterances"]:
+        b = min(spec["batch"], spec["utterances"] - done)
+        length = speech.length(spec["seconds"], fs)
+        clean = speech.sources(b, length)
+        alpha = 1.5 * torch.rand(b, 1, generator=g, device=dev)
+        snr = snrs[torch.randint(0, len(spec["snrs"]), (b,), generator=g, device=dev)][:, None]
+        noise = _coloured_noise((b, length), alpha, g, dev) * clean.square().mean(-1, keepdim=True).sqrt() * 10 ** (-snr / 20)
+        enhanced = clean + spec["residual"] * noise
+        in_prefix = done < spec["host_prefix"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if in_prefix:
+            for k, m in host.items():
+                t1 = time.perf_counter()
+                m.update(enhanced, clean)
+                host_s[k] += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        for m in device.values():
+            m.update(enhanced, clean)
+        torch.cuda.synchronize()
+        device_s += time.perf_counter() - t1
+        step_s.append(time.perf_counter() - t0)
+        vals = {"stoi_device": fa.short_time_objective_intelligibility(enhanced, clean, fs, on_device=True),
+                "estoi_device": fa.short_time_objective_intelligibility(enhanced, clean, fs, True, on_device=True),
+                "si_sdr": fa.scale_invariant_signal_distortion_ratio(enhanced, clean)}
+        _hold_db("si_sdr", checks, vals["si_sdr"], _si_sdr64(enhanced.double(), clean.double()), AUDIO_DB_ATOL)
+        c64, e64 = clean.double().cpu().numpy(), enhanced.double().cpu().numpy()
+        if done == 0:
+            for key, ext in (("stoi_device", False), ("estoi_device", True)):
+                cpu = fa.short_time_objective_intelligibility(enhanced.cpu(), clean.cpu(), fs, ext, on_device=True)
+                _hold_db(f"{key}_card_vs_cpu", checks, vals[key], cpu.numpy(), DEVICE_PATH_ATOL["stoi"])
+        if in_prefix:
+            # PESQ from the library's own call on float64 copies: the class's
+            # sum is held to it, and the functional to it on the first batch
+            for key, wide in (("pesq_wb", True), ("pesq_nb", False)):
+                vals[key] = torch.as_tensor(native.pesq_batch(c64, e64, fs, wide).astype(np.float32))
+                if done == 0:
+                    got = fa.perceptual_evaluation_speech_quality(enhanced, clean, fs, key[-2:])
+                    _check(got.cpu().numpy().tobytes() == vals[key].numpy().tobytes(), f"{name}: {key} differs from the library's own call")
+            vals["stoi"] = fa.short_time_objective_intelligibility(enhanced, clean, fs)
+            vals["estoi"] = fa.short_time_objective_intelligibility(enhanced, clean, fs, True)
+            _hold_db("stoi_paths", checks, vals["stoi_device"], vals["stoi"].cpu().numpy(), STOI_PATHS_ATOL)
+            _hold_db("estoi_paths", checks, vals["estoi_device"], vals["estoi"].cpu().numpy(), STOI_PATHS_ATOL)
+        for k, v in vals.items():
+            values[k].append(v.reshape(-1))
+        done += b
+    checks["pesq_bit_equal_to_the_library"] = True
+    computed = {k: m.compute() for k, m in {**host, **device}.items()}
+    for k, v in computed.items():
+        want = torch.cat([x.cpu() for x in values[k]]).double()
+        want = want[~want.isnan()].mean()
+        _check(abs(float(v) - float(want)) <= 1e-5 * max(1.0, abs(float(want))), f"{name}: {k} class {float(v)} against its functional {float(want)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    update_s = sum(step_s)
+    prefix_updates = -(-spec["host_prefix"] // spec["batch"])
+    clean = speech.sources(spec["batch"], int(3.25 * fs))
+    enhanced = clean + spec["residual"] * _coloured_noise(clean.shape, torch.ones(spec["batch"], 1, device=dev), g, dev) * 0.1
+    profile = _rest_idle_share(lambda i: [m.update(enhanced, clean) for m in device.values()], 3)
+    launches = _text_no_kernels(name, counters)
+    return _emit({
+        "phase": name, "source": "VoiceBank+DEMAND test, 824 utterances, 16 kHz (Valentini-Botinhao et al. 2016)",
+        "cuts": f"PESQ and the host STOI/ESTOI over the first {spec['host_prefix']} utterances; coloured noise for DEMAND's",
+        "utterances": done, "updates": len(step_s), "updates_per_s": len(step_s) / update_s, "update_s": update_s,
+        "host_s": host_s, "device_path_s": device_s,
+        "host_share_of_prefix_updates": sum(host_s.values()) / sum(step_s[:prefix_updates]),
+        "host_ms_per_utterance": {k: v / spec["host_prefix"] * 1e3 for k, v in host_s.items()},
+        "device_path_ms_per_utterance": device_s / done * 1e3,
+        "values": {k: float(v) for k, v in computed.items()}, "checks": checks,
+        "profile_device_batch_3p25s": profile, "launches": launches, "base_mem_bytes": base,
+        "peak_mem_above_base_bytes": peak - base, "phase_s": time.perf_counter() - started,
+    })
+
+
+def _reverberant(speech: "_Speech", spec: dict, b: int, length: int, dev):
+    """``b`` utterances convolved with exponentially decaying noise impulse
+    responses at the rooms' T60s (FFT convolution), plus noise at the stated SNR."""
+    import torch
+
+    g, fs = speech.g, spec["fs"]
+    clean = speech.sources(b, length)
+    t60 = torch.as_tensor(spec["t60"], device=dev)[torch.randint(0, len(spec["t60"]), (b,), generator=g, device=dev)][:, None]
+    taps = int(max(spec["t60"]) * fs)
+    t = torch.arange(taps, device=dev, dtype=torch.float32)[None] / fs
+    rir = torch.randn(b, taps, generator=g, device=dev) * torch.exp(-6.908 * t / t60)
+    rir[:, 0] = 1.0
+    n = 1 << (length + taps - 2).bit_length()  # a power of two past the linear length: few cuFFT plans
+    wet = torch.fft.irfft(torch.fft.rfft(clean, n=n) * torch.fft.rfft(rir, n=n), n=n)[:, :length]
+    noise = torch.randn(wet.shape, generator=g, device=dev) * wet.square().mean(-1, keepdim=True).sqrt() * 10 ** (-spec["snr"] / 20)
+    return wet + noise
+
+
+def _srmr_peak_ratio(srmr, dev, before: int, length: int, b: int, fs: int) -> float:
+    """The peak above ``before`` since the last reset, over the device path's
+    reckoning for a chunk of this batch (``_device_bytes_per_signal`` times
+    the signals a chunk holds)."""
+    import torch
+
+    per_signal = srmr._device_bytes_per_signal(length, fs, 23)
+    chunk = min(b, max(1, srmr.DEVICE_BUDGET_BYTES // per_signal))
+    return (torch.cuda.max_memory_allocated(dev) - before) / (per_signal * chunk)
+
+
+def phase_reverb_srmr(dev) -> dict:
+    """REVERB Challenge 2014 SimData evaluation utterances through SRMR with
+    ``on_device=True`` (all of them) and on the host path (a prefix): the
+    two paths within 1e-3 relative (the prefix); the device path on the card
+    within 1e-4 of the same path on the CPU on one utterance of every 4th
+    batch and at the sweep's lengths; every update's peak memory within the
+    path's reckoning; the class's sums against its functional (the checked
+    batches); updates/s, device time, and at the sweep's lengths the first
+    call's time (new cuFFT plans) beside a cached call's."""
+    import torch
+
+    from torchmetrics_tpu_torch import audio
+    from torchmetrics_tpu_torch.functional import audio as fa
+    from torchmetrics_tpu_torch.functional.audio import srmr
+
+    name, spec = "reverb_srmr", REVERB
+    started = time.perf_counter()
+    counters = _audio_start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    fs = spec["fs"]
+    speech = _Speech(fs, SEED + 22_000, dev)
+    device_metric = audio.SpeechReverberationModulationEnergyRatio(fs, on_device=True)
+    host_metric = audio.SpeechReverberationModulationEnergyRatio(fs)
+    checks: dict = {"card_vs_cpu_max_rel_err": 0.0, "card_vs_cpu_bluestein_max_rel_err": 0.0, "card_vs_cpu_n": 0,
+                    "class_vs_functional_max_rel_err": 0.0}
+    step_s, host_s, done, ratios, seconds, cpu_s = [], 0.0, 0, [], 0.0, 0.0
+
+    def hold_cpu(vals, wet, j: int, length: int) -> None:
+        # utterance j of the card's device path against the CPU's
+        nonlocal cpu_s
+        t0 = time.perf_counter()
+        cpu = fa.speech_reverberation_modulation_energy_ratio(wet[j : j + 1].cpu(), fs, on_device=True).double()
+        cpu_s += time.perf_counter() - t0
+        rel = float((vals[j].double().cpu() - cpu).abs().max() / cpu.abs().min())
+        _check(rel <= DEVICE_PATH_ATOL["srmr"], f"{name}: card and CPU device paths {rel} apart at length {length}")
+        checks["card_vs_cpu_max_rel_err"] = max(checks["card_vs_cpu_max_rel_err"], rel)
+        checks["card_vs_cpu_n"] += 1
+        if srmr._bluestein(srmr._hilbert_length(length)):
+            checks["card_vs_cpu_bluestein_max_rel_err"] = max(checks["card_vs_cpu_bluestein_max_rel_err"], rel)
+
+    while done < spec["utterances"]:
+        b = min(spec["batch"], spec["utterances"] - done)
+        length = speech.length(spec["seconds"], fs)
+        wet = _reverberant(speech, spec, b, length, dev)
+        checked = len(step_s) % spec["cpu_check_every"] == 0
+        before_sum = float(device_metric.msum) if checked else 0.0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _timed(step_s, lambda: device_metric.update(wet))
+        ratio = _srmr_peak_ratio(srmr, dev, before, length, b, fs)
+        _check(ratio <= 1.0, f"{name}: an update's peak {ratio:.3f}x its reckoning at length {length}")
+        ratios.append([length, ratio])
+        seconds += b * length / fs
+        if checked:
+            # the class's sum grew by the functional's scores; one of them against the CPU
+            vals = fa.speech_reverberation_modulation_energy_ratio(wet, fs, on_device=True)
+            _check(bool(torch.isfinite(vals).all()) and bool((vals > 0).all()), f"{name}: a non-finite or non-positive SRMR")
+            after_sum, want = float(device_metric.msum), float(vals.double().sum())
+            # float32: the batch's sum of b scores, then the running sum
+            rel = abs(after_sum - before_sum - want) / want
+            _check(rel * want <= 2.0**-24 * (b * want + 2 * after_sum),
+                   f"{name}: the class's sum grew {after_sum - before_sum}, its functional's {want}")
+            checks["class_vs_functional_max_rel_err"] = max(checks["class_vs_functional_max_rel_err"], rel)
+            hold_cpu(vals, wet, (len(step_s) // spec["cpu_check_every"]) % b, length)
+        if done == 0:
+            # the device path against the host path (a prefix); the host class
+            # against its functional on the prefix's first second
+            prefix = wet[: spec["host_prefix"]]
+            t0 = time.perf_counter()
+            host_vals = fa.speech_reverberation_modulation_energy_ratio(prefix, fs).double().cpu()
+            host_s += time.perf_counter() - t0
+            dev_vals = vals[: prefix.shape[0]].double().cpu()
+            rel = ((dev_vals - host_vals).abs() / host_vals).numpy()
+            _check(bool((rel <= SRMR_PATHS_RTOL).all()), f"{name}: device and host paths {rel.max()} apart")
+            checks["paths_max_rel_err"] = float(rel.max())
+            host_metric.update(prefix[:, :fs])
+            got, want = float(host_metric.compute()), float(fa.speech_reverberation_modulation_energy_ratio(prefix[:, :fs], fs).double().mean())
+            _check(abs(got - want) <= 1e-5 * abs(want), f"{name}: host class {got} against its functional {want}")
+        done += b
+    total = float(device_metric.compute())
+    _check(math.isfinite(total) and total > 0 and int(device_metric.total) == done, f"{name}: the mean SRMR {total} over {int(device_metric.total)}")
+    update_s = sum(step_s)
+
+    # the sweep: both ends of the length range and a Bluestein Hilbert length
+    # near the mean, a full batch each on new cuFFT plans, then cached
+    sweep = []
+    for sec in spec["sweep_seconds"]:
+        length = int(sec * fs)
+        if sec not in spec["seconds"]:
+            while not srmr._bluestein(srmr._hilbert_length(length)):
+                length += 1
+        wet = _reverberant(speech, spec, spec["batch"], length, dev)
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        first: list = []
+        vals = _timed(first, lambda: fa.speech_reverberation_modulation_energy_ratio(wet, fs, on_device=True))
+        ratio = _srmr_peak_ratio(srmr, dev, before, length, spec["batch"], fs)
+        _check(ratio <= 1.0, f"{name}: the sweep's peak {ratio:.3f}x its reckoning at length {length}")
+        cached: list = []
+        _timed(cached, lambda: fa.speech_reverberation_modulation_energy_ratio(wet, fs, on_device=True))
+        hold_cpu(vals, wet, 0, length)
+        hold_cpu(vals, wet, spec["batch"] - 1, length)
+        sweep.append({"length": length, "bluestein_hilbert": srmr._bluestein(srmr._hilbert_length(length)),
+                      "first_ms": first[0] * 1e3, "cached_ms": cached[0] * 1e3, "peak_ratio": ratio})
+
+    wet = _reverberant(speech, spec, spec["batch"], int(6.9 * fs), dev)
+    profile = _rest_idle_share(lambda i: device_metric.update(wet), 3)
+    launches = _text_no_kernels(name, counters)
+    bluestein = [r for r in ratios if srmr._bluestein(srmr._hilbert_length(r[0]))]
+    return _emit({
+        "phase": name, "source": "REVERB Challenge 2014 SimData evaluation set (Kinoshita et al., 2016): 2,176 utterances, "
+        "16 kHz, mean 6.9 s",
+        "cuts": f"host path over the first {spec['host_prefix']} utterances; lengths uniform on {spec['seconds']} s; "
+        "exponential-decay RIRs",
+        "utterances": done, "audio_s": seconds, "updates": len(step_s), "updates_per_s": len(step_s) / update_s,
+        "update_s": update_s, "device_audio_s_per_s": seconds / update_s, "bluestein_updates": len(bluestein),
+        "host_s_per_utterance": host_s / spec["host_prefix"], "cpu_check_s": cpu_s,
+        "values": {"device": total, "host_prefix": float(host_vals.mean()), "device_prefix": float(dev_vals.mean())},
+        "checks": checks, "device_budget_bytes": srmr.DEVICE_BUDGET_BYTES,
+        "max_peak_ratio": max(r for _, r in ratios), "peak_ratio_by_update": ratios, "sweep": sweep,
+        "profile_batch_6p9s": profile, "launches": launches, "base_mem_bytes": base,
+        "phase_s": time.perf_counter() - started,
+    })
+
+
+def _clusters(spec: dict, dev):
+    """ImageNet-shaped labels (50 a class, shuffled), cluster assignments
+    with a share redrawn at random, and Gaussian embeddings around per-class
+    centres, on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23_000)
+    n, k, d = spec["samples"], spec["classes"], spec["dim"]
+    target = torch.arange(k, device=dev).repeat_interleave(n // k)[torch.randperm(n, generator=g, device=dev)]
+    redraw = torch.rand(n, generator=g, device=dev) < spec["reassigned"]
+    perm = torch.randperm(k, generator=g, device=dev)  # cluster ids are a permutation of the classes
+    preds = torch.where(redraw, torch.randint(0, k, (n,), generator=g, device=dev), perm[target])
+    centres = torch.randn(k, d, generator=g, device=dev)
+    data = centres[target] + spec["spread"] * torch.randn(n, d, generator=g, device=dev)
+    return preds, target, data
+
+
+def _emi64(cont: "np.ndarray") -> float:
+    """The expected mutual information of the table's margins in float64,
+    from its definition (sklearn's sum over the hypergeometric cells, with
+    scipy's ``gammaln``), summed once for each distinct pair of row and
+    column sums and weighted by how many pairs share it."""
+    import numpy as np
+    from scipy.special import gammaln
+
+    n = int(cont.sum())
+    a_vals, a_count = np.unique(cont.sum(1), return_counts=True)
+    b_vals, b_count = np.unique(cont.sum(0), return_counts=True)
+    a, b = a_vals[:, None, None].astype(np.float64), b_vals[None, :, None].astype(np.float64)
+    nij = np.arange(1, int(min(a_vals.max(), b_vals.max())) + 1, dtype=np.float64)[None, None, :]
+    inside = (nij >= np.maximum(1.0, a + b - n)) & (nij <= np.minimum(a, b))
+    # the log of each cell's probability, clipped to a finite argument outside its support
+    log_p = (gammaln(a + 1) + gammaln(b + 1) + gammaln(n - a + 1) + gammaln(n - b + 1) - gammaln(n + 1) - gammaln(nij + 1)
+             - gammaln(np.maximum(a - nij, 0) + 1) - gammaln(np.maximum(b - nij, 0) + 1)
+             - gammaln(np.maximum(n - a - b + nij, 0) + 1))
+    terms = np.where(inside, nij / n * (np.log(n * nij) - np.log(a) - np.log(b)) * np.exp(np.where(inside, log_p, 0.0)), 0.0)
+    return float((terms.sum(-1) * a_count[:, None] * b_count[None, :]).sum())
+
+
+def _label_scores64(cont: "np.ndarray", emi: float) -> dict:
+    """The nine label scores in float64 from the exact table (sklearn's definitions)."""
+    import numpy as np
+
+    n = cont.sum()
+    a, b = cont.sum(1), cont.sum(0)
+    nz = cont > 0
+    mi = float(np.sum(cont[nz] / n * (np.log(n) + np.log(cont[nz]) - np.log(a[:, None] * b[None, :])[nz])))
+
+    def entropy(x):
+        p = x[x > 0] / n
+        return float(-(p * np.log(p)).sum())
+
+    h_t, h_p = entropy(a), entropy(b)
+    ss = float((cont.astype(np.float64) ** 2).sum())
+    cols, rows = float((b.astype(np.float64) ** 2).sum()), float((a.astype(np.float64) ** 2).sum())
+    tp, fp, fn = ss - n, cols - ss, rows - ss
+    tn = float(n) ** 2 - fp - fn - ss
+    homogeneity, completeness = mi / h_t, mi / h_p
+    return {
+        "mutual_info_score": mi, "normalized_mutual_info_score": mi / ((h_t + h_p) / 2),
+        "adjusted_mutual_info_score": (mi - emi) / ((h_t + h_p) / 2 - emi),
+        "rand_score": (tp + tn) / (tp + tn + fp + fn),
+        "adjusted_rand_score": 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn)),
+        "fowlkes_mallows_index": tp / math.sqrt(cols - n) / math.sqrt(rows - n),
+        "homogeneity_score": homogeneity, "completeness_score": completeness,
+        "v_measure_score": 2 * homogeneity * completeness / (homogeneity + completeness),
+    }
+
+
+def _embedding_scores64(data, labels, k: int) -> dict:
+    """Calinski-Harabasz, Davies-Bouldin and Dunn in float64 on the card,
+    unchunked (``torch.cdist`` for the centroid distances)."""
+    import torch
+
+    x = data.double()
+    n = x.shape[0]
+    counts = torch.zeros(k, dtype=torch.float64, device=x.device).index_add_(0, labels, torch.ones(n, dtype=torch.float64, device=x.device))
+    centroids = torch.zeros(k, x.shape[1], dtype=torch.float64, device=x.device).index_add_(0, labels, x) / counts[:, None]
+    resid = x - centroids[labels]
+    within = float(resid.square().sum())
+    between = float((counts * (centroids - x.mean(0)).square().sum(1)).sum())
+    dist = resid.square().sum(1).sqrt()
+    intra = torch.zeros(k, dtype=torch.float64, device=x.device).index_add_(0, labels, dist) / counts
+    cd = torch.cdist(centroids, centroids)
+    ratio = (intra[None] + intra[:, None]) / cd.fill_diagonal_(float("inf"))
+    radius = torch.zeros(k, dtype=torch.float64, device=x.device).scatter_reduce(0, labels, dist, "amax", include_self=False)
+    return {
+        "calinski_harabasz_score": between * (n - k) / (within * (k - 1)),
+        "davies_bouldin_score": float(ratio.amax(1).mean()),
+        "dunn_index": float(cd.min() / radius.max()),
+    }
+
+
+def phase_imagenet_clustering(dev) -> dict:
+    """ImageNet-1k validation clustered (SCAN's scoring): the nine label
+    metrics over 50 batches of labels against cluster assignments, each
+    contingency one 1,000,000-bin ``bincount`` launch (the launch counter
+    held to the count the metrics imply: 19 for the nine computes), the
+    table equal to an int64 numpy count, every value within 1e-5 of float64
+    from that table; Calinski-Harabasz, Davies-Bouldin (chunked centroid
+    distances) and Dunn on the 50,000 x 2,048 embeddings within 1e-5 of
+    float64 on the card; each class against its functional; updates/s,
+    compute ms, peak memory."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import clustering
+    from torchmetrics_tpu_torch.functional import clustering as fc
+    from torchmetrics_tpu_torch.functional.clustering import utils
+    from torchmetrics_tpu_torch.ops import bincount, kernels
+
+    name, spec = "imagenet_clustering", IMAGENET_CLUSTERS
+    started = time.perf_counter()
+    preds, target, data = _clusters(spec, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    label_metrics = {fn: getattr(clustering, cls)() for cls, fn, _ in LABEL_METRICS}
+    embedding_metrics = {fn: getattr(clustering, cls)() for cls, fn in EMBEDDING_METRICS}
+    counters = _zero_counters()
+    step_s = []
+    batch = spec["batch"]
+    for s in range(0, spec["samples"], batch):
+        def update():
+            for m in label_metrics.values():
+                m.update(preds[s : s + batch], target[s : s + batch])
+            for m in embedding_metrics.values():
+                m.update(data[s : s + batch], target[s : s + batch])
+
+        _timed(step_s, update)
+    compute_ms, computed, launches_per = {}, {}, {}
+    for fn, m in {**label_metrics, **embedding_metrics}.items():
+        before = bincount.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        computed[fn] = m.compute()
+        torch.cuda.synchronize()
+        compute_ms[fn] = (time.perf_counter() - t0) * 1e3
+        launches_per[fn] = bincount.launches - before
+    launches = {k: mod.launches for k, mod in counters.items()}
+    expected = {fn: count for _, fn, count in LABEL_METRICS}
+    _check(all(launches_per[fn] == expected.get(fn, 0) for fn in launches_per), f"{name}: bincount launches {launches_per} against {expected}")
+    _check(launches["bincount"] == sum(expected.values()) and sum(v for k, v in launches.items() if k != "bincount") == 0,
+           f"{name}: launches {launches}")
+    gate = kernels.gate_snapshot()["bincount"]
+    _check(gate["selections"] == {"cuda": sum(expected.values())}, f"{name}: gate log {gate['selections']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the contingency against an int64 numpy count, bit for bit
+    p_np, t_np = preds.cpu().numpy(), target.cpu().numpy()
+    cont = utils.calculate_contingency_matrix(preds, target)
+    _, p_idx = np.unique(p_np, return_inverse=True)
+    _, t_idx = np.unique(t_np, return_inverse=True)
+    cont64 = np.bincount(t_idx * cont.shape[1] + p_idx, minlength=cont.numel()).reshape(cont.shape)
+    _check(np.array_equal(cont.cpu().numpy(), cont64), f"{name}: the contingency differs from numpy's count")
+    # AMI's expected mutual information from its definition, apart from the port's chunked host sum
+    t0 = time.perf_counter()
+    emi = _emi64(cont64)
+    emi_s = time.perf_counter() - t0
+    want = _label_scores64(cont64, emi)
+    want.update(_embedding_scores64(data, target, spec["classes"]))
+    checks = {}
+    for fn, v in computed.items():
+        err = abs(float(v) - want[fn])
+        _check(err <= CLUSTER_RTOL * max(1.0, abs(want[fn])), f"{name}: {fn} {float(v)} against float64 {want[fn]}")
+        inputs = (data, target) if fn in embedding_metrics else (preds, target)
+        functional = getattr(fc, fn)(*inputs)
+        _check(abs(float(functional) - float(v)) <= 1e-6 * max(1.0, abs(float(v))), f"{name}: {fn} class against its functional")
+        checks[fn] = {"value": float(v), "float64": want[fn], "abs_err": err}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    fc.davies_bouldin_score(data, target)
+    torch.cuda.synchronize()
+    db_peak = torch.cuda.max_memory_allocated(dev) - before
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "source": "ImageNet-1k val as SCAN (ECCV 2020) scores clustering: 50,000 samples, 1,000 clusters",
+        "cuts": "synthetic labels (30% redrawn) and Gaussian embeddings at ResNet-50's 2,048 width",
+        "updates": len(step_s), "updates_per_s": len(step_s) / update_s, "update_s": update_s, "compute_ms": compute_ms,
+        "emi_float64_reference_s": emi_s, "checks": checks, "launches": launches, "bincount_launches": launches["bincount"],
+        "bincount_launches_per_compute": launches_per, "contingency_bins": cont.numel(),
+        "base_mem_bytes": base, "peak_mem_above_base_bytes": peak - base, "davies_bouldin_peak_above_inputs_bytes": db_peak,
+        "phase_s": time.perf_counter() - started,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -5311,12 +6111,14 @@ def phase_profile_cifar10(dev) -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from torchmetrics_tpu_torch.native import build as build_text_library
+    from torchmetrics_tpu_torch.native import build_pesq as build_pesq_library
     from torchmetrics_tpu_torch.ops import native
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -5333,9 +6135,11 @@ def main() -> int:
     paths = native.build(KERNELS)
     kernels_s = time.perf_counter() - t0
     text_library = build_text_library()
+    pesq_library = build_pesq_library()
     _emit({
         "phase": "build", "seconds": time.perf_counter() - t0, "kernels_s": kernels_s,
         "libraries": {k: str(v.name) for k, v in paths.items()}, "text_library": text_library.name,
+        "pesq_library": pesq_library.name,
         "nvcc": {k: v.strip().splitlines() for k, v in native.build_logs.items()},
     })
 
@@ -5374,6 +6178,11 @@ def main() -> int:
     phase_cnndm_rouge(dev)
     phase_squad_v11(dev)
     phase_wmt14_bertscore_infolm(dev)
+    # audio: the host PESQ library, plain PyTorch on the card; clustering on the bincount kernel
+    phase_libri2mix_separation(dev)
+    phase_voicebank_demand_enhancement(dev)
+    phase_reverb_srmr(dev)
+    clusters = phase_imagenet_clustering(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -5394,6 +6203,7 @@ def main() -> int:
     window = next(r for r in ssim["rows"] if r["shape"] == "div2k_vif17")
     fused = next(r for r in ssim["fused"] if r["shape"] == "uvg_1080p")
     root = next(r for r in sqrtm_rows if r["shape"] == "f2048_d1")
+    _emit({"phase": "done", "script_s": time.perf_counter() - started})
     _emit({"kernels": [
         {
             "name": "bincount",
@@ -5404,7 +6214,7 @@ def main() -> int:
             + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"]
             + sum(r["bincount_launches"] for r in rest)
             + sum(r["bincount_launches"] for r in wrapped) + boot["functional_bincount_launches"]
-            + census["bincount_launches"],
+            + census["bincount_launches"] + clusters["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],

@@ -1615,3 +1615,142 @@ def test_text_class_state_stays_on_the_card(cuda_device):
         values = out.values() if isinstance(out, dict) else (out if isinstance(out, tuple) else [out])
         assert all(v.is_cuda for v in values)
     assert tm.functional.word_error_rate(preds, target).device == cuda_device
+
+
+# --------------------------------------------------------------------- audio
+
+
+def _speech_batch(fs, seconds, count, seed):
+    """Speech-shaped float32 signals from the fixture clips (decimated to
+    ``fs``), shifted and scaled, and a noised, echoed estimate of each."""
+    from pathlib import Path
+
+    speech = np.load(Path(__file__).resolve().parent / "fixtures_real" / "speech.npz")
+    rng = np.random.RandomState(seed)
+    n = int(seconds * fs)
+    clean = []
+    for k in range(count):
+        clip = speech["clip1" if k % 2 == 0 else "clip2"].astype(np.float64)[:: 16000 // fs]
+        tiled = np.tile(clip, n // len(clip) + 2)
+        shift = rng.randint(0, len(clip))
+        clean.append(rng.uniform(0.5, 1.5) * tiled[shift : shift + n])
+    clean = np.stack(clean)
+    noisy = clean + 0.3 * np.roll(clean, 7, axis=-1) + 0.05 * np.abs(clean).max() * rng.randn(*clean.shape)
+    return noisy.astype(np.float32), clean.astype(np.float32)
+
+
+def _audio_calls():
+    from torchmetrics_tpu_torch import functional as fn
+
+    return [
+        ("sdr", lambda p, t: fn.signal_distortion_ratio(p.double(), t.double(), filter_length=128), 1e-9),
+        ("si_sdr", fn.scale_invariant_signal_distortion_ratio, 1e-5),
+        ("sa_sdr", lambda p, t: fn.source_aggregated_signal_distortion_ratio(p.reshape(2, 2, -1), t.reshape(2, 2, -1)), 1e-5),
+        ("snr", fn.signal_noise_ratio, 1e-5),
+        ("si_snr", fn.scale_invariant_signal_noise_ratio, 1e-5),
+        ("c_si_snr", lambda p, t: fn.complex_scale_invariant_signal_noise_ratio(p.reshape(4, 40, -1, 2), t.reshape(4, 40, -1, 2)), 1e-5),
+        ("pit_speaker_wise", lambda p, t: fn.permutation_invariant_training(p.reshape(2, 2, -1), t.reshape(2, 2, -1).flip(1), fn.scale_invariant_signal_distortion_ratio), 1e-5),
+        ("pit_permutation_wise", lambda p, t: fn.permutation_invariant_training(p.reshape(2, 2, -1), t.reshape(2, 2, -1), fn.source_aggregated_signal_distortion_ratio, mode="permutation-wise"), 1e-5),
+        ("pesq", lambda p, t: fn.perceptual_evaluation_speech_quality(p, t, 8000, "nb"), 0.0),
+        ("stoi_host", lambda p, t: fn.short_time_objective_intelligibility(p, t, 8000), 0.0),
+        ("srmr_host", lambda p, t: fn.speech_reverberation_modulation_energy_ratio(p, 8000), 0.0),
+    ]
+
+
+@pytest.mark.parametrize("case", range(11))
+def test_audio_functional_on_the_card_equals_the_cpu(cuda_device, case):
+    name, call, rtol = _audio_calls()[case]
+    preds, target = _speech_batch(8000, 1.6, 4, seed=case)
+    got = call(torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device))
+    want = call(torch.as_tensor(preds), torch.as_tensor(target))
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.device == cuda_device, name
+        torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=1e-4 if rtol else 0.0)
+
+
+@pytest.mark.parametrize("fs", [8000, 16000])
+@pytest.mark.parametrize("extended", [False, True])
+def test_stoi_on_device_on_the_card(cuda_device, fs, extended):
+    from torchmetrics_tpu_torch import functional as fn
+
+    preds, target = _speech_batch(fs, 2.0, 3, seed=fs)
+    got = fn.short_time_objective_intelligibility(
+        torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device), fs, extended, on_device=True
+    )
+    assert got.device == cuda_device and got.dtype == torch.float32 and got.shape == (3,)
+    cpu = fn.short_time_objective_intelligibility(torch.as_tensor(preds), torch.as_tensor(target), fs, extended, on_device=True)
+    host = fn.short_time_objective_intelligibility(torch.as_tensor(preds), torch.as_tensor(target), fs, extended)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0.0, atol=1e-5)
+    torch.testing.assert_close(got.cpu(), host, rtol=0.0, atol=2e-3)
+
+
+@pytest.mark.parametrize("fs", [8000, 16000])
+@pytest.mark.parametrize("norm", [False, True])
+def test_srmr_on_device_on_the_card(cuda_device, fs, norm, monkeypatch):
+    from torchmetrics_tpu_torch import functional as fn
+    from torchmetrics_tpu_torch.functional.audio import srmr
+
+    _, clean = _speech_batch(fs, 2.0, 3, seed=fs + 1)
+    x = torch.as_tensor(clean, device=cuda_device)
+    got = fn.speech_reverberation_modulation_energy_ratio(x, fs, norm=norm, on_device=True)
+    assert got.device == cuda_device and got.dtype == torch.float32 and got.shape == (3,)
+    cpu = fn.speech_reverberation_modulation_energy_ratio(x.cpu(), fs, norm=norm, on_device=True)
+    host = fn.speech_reverberation_modulation_energy_ratio(x.cpu(), fs, norm=norm)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got.cpu(), host, rtol=1e-3, atol=0.0)
+    monkeypatch.setattr(srmr, "DEVICE_BUDGET_BYTES", 1)  # one signal a chunk
+    torch.testing.assert_close(fn.speech_reverberation_modulation_energy_ratio(x, fs, norm=norm, on_device=True), got, rtol=1e-6, atol=0.0)
+
+
+def test_audio_class_state_stays_on_the_card(cuda_device):
+    preds, target = _speech_batch(8000, 1.6, 4, seed=9)
+    p, t = torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device)
+    for metric in (tm.SignalDistortionRatio(filter_length=64), tm.ShortTimeObjectiveIntelligibility(8000, on_device=True),
+                   tm.PerceptualEvaluationSpeechQuality(8000, "nb")):
+        metric.update(p, t)
+        assert metric.total.device == cuda_device and metric.total.dtype == torch.int64 and int(metric.total) == 4
+        assert metric.compute().device == cuda_device
+    with pytest.raises(RuntimeError, match="never"):
+        tm.SignalNoiseRatio().update(p.cpu(), t.cpu())
+
+
+# ---------------------------------------------------------------- clustering
+
+
+def test_clustering_contingency_is_one_bincount_launch_on_the_card(cuda_device):
+    from torchmetrics_tpu_torch.functional.clustering.utils import calculate_contingency_matrix
+
+    rng = np.random.RandomState(4)
+    target = rng.randint(0, 1000, 50_000)
+    preds = np.where(rng.rand(50_000) < 0.2, rng.randint(0, 1000, 50_000), target)
+    p, t = torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device)
+    kernels.reset_gate_log()
+    launched = bincount.launches
+    got = calculate_contingency_matrix(p, t)
+    torch.cuda.synchronize()
+    assert bincount.launches - launched == 1
+    assert kernels.gate_snapshot()["bincount"]["selections"] == {"cuda": 1}
+    assert got.is_cuda and got.dtype == torch.int64 and got.shape == (1000, 1000)
+    assert torch.equal(got.cpu(), calculate_contingency_matrix(p.cpu(), t.cpu()))
+
+
+def test_clustering_functionals_on_the_card_equal_the_cpu(cuda_device):
+    from torchmetrics_tpu_torch import functional as fn
+
+    rng = np.random.RandomState(5)
+    target = rng.randint(0, 40, 5_000) * 3 + 7
+    preds = np.where(rng.rand(5_000) < 0.3, rng.randint(0, 45, 5_000), target)
+    data = (rng.randn(40, 16)[(target - 7) // 3] + 0.5 * rng.randn(5_000, 16)).astype(np.float32)
+    launched = bincount.launches
+    for name in ("mutual_info_score", "normalized_mutual_info_score", "adjusted_mutual_info_score", "rand_score",
+                 "adjusted_rand_score", "fowlkes_mallows_index", "homogeneity_score", "completeness_score", "v_measure_score"):
+        got = getattr(fn, name)(torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device))
+        want = getattr(fn, name)(torch.as_tensor(preds), torch.as_tensor(target))
+        assert got.device == cuda_device, name
+        torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-5)
+    assert bincount.launches - launched == 4 + 5 * 3
+    for name in ("calinski_harabasz_score", "davies_bouldin_score", "dunn_index"):
+        got = getattr(fn, name)(torch.as_tensor(data, device=cuda_device), torch.as_tensor(target, device=cuda_device))
+        want = getattr(fn, name)(torch.as_tensor(data), torch.as_tensor(target))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0.0)

@@ -51,6 +51,12 @@ def test_sources_were_found():
         "torchmetrics_tpu_torch/native/__init__.py",
         "torchmetrics_tpu_torch/functional/text/helper.py",
         "torchmetrics_tpu_torch/text/model_based.py",
+        "torchmetrics_tpu_torch/functional/audio/pesq.py",
+        "torchmetrics_tpu_torch/functional/audio/stoi.py",
+        "torchmetrics_tpu_torch/functional/audio/srmr.py",
+        "torchmetrics_tpu_torch/audio/dsp.py",
+        "torchmetrics_tpu_torch/functional/clustering/utils.py",
+        "torchmetrics_tpu_torch/clustering/metrics.py",
     } <= names
 
 
@@ -70,7 +76,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.functional, torchmetrics_tpu_torch.utils.convert\n"
         "import torchmetrics_tpu_torch.retrieval, torchmetrics_tpu_torch.image, torchmetrics_tpu_torch.text\n"
-        "import torchmetrics_tpu_torch.native\n"
+        "import torchmetrics_tpu_torch.native, torchmetrics_tpu_torch.audio, torchmetrics_tpu_torch.clustering\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -65,11 +65,13 @@ def test_the_library_is_the_ports_own_build():
 
 
 def test_the_source_is_a_copy_of_the_jax_packages():
-    """The port carries its own copy of the C++ source (the JAX package's
-    ``pesq.cpp`` comes with the audio slice); the two stay byte-equal."""
+    """The port carries its own copy of the C++ source; the two stay
+    byte-equal. ``pesq.cpp`` is copied too and built as a library of its own
+    (``tests/test_torch_audio_native.py``), which the text library's hash
+    does not read."""
     ours = REPO / "torchmetrics_tpu_torch" / "native" / "edit_distance.cpp"
     assert ours.read_bytes() == (REPO / "torchmetrics_tpu" / "native" / "edit_distance.cpp").read_bytes()
-    assert not (REPO / "torchmetrics_tpu_torch" / "native" / "pesq.cpp").exists()
+    assert native.SOURCE == ours and native.PESQ_SOURCE != native.SOURCE
 
 
 def test_building_never_touches_the_jax_cache(tmp_path):

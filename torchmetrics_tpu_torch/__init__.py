@@ -40,9 +40,19 @@ metric is built with ``device="cpu"``. Ported so far:
   ``g++`` into ``_build/`` at first use), and perplexity, the greedy
   BERTScore match and InfoLM's measures run on the device (no kernel of the
   port).
+- audio: SDR (Toeplitz systems solved in float64), SI-SDR, SA-SDR, SNR,
+  SI-SNR, C-SI-SNR and PIT on the device; PESQ on the port's own C++
+  library (``native/pesq.cpp``, a library of its own in ``_build/``); STOI
+  and SRMR on the host in float64 or on the device (``on_device=True``);
+- clustering: mutual information and its normalised and adjusted forms,
+  rand and adjusted rand, Fowlkes-Mallows, homogeneity, completeness and
+  V-measure, whose contingency tables run on the ``bincount`` kernel, and
+  Calinski-Harabasz, Davies-Bouldin and Dunn on embeddings.
 """
 from torchmetrics_tpu_torch import (
+    audio,
     classification,
+    clustering,
     functional,
     image,
     models,
@@ -62,8 +72,12 @@ from torchmetrics_tpu_torch.aggregation import (
     RunningSum,
     SumMetric,
 )
+from torchmetrics_tpu_torch.audio import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.audio import __all__ as _audio_all
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
@@ -106,7 +120,9 @@ __all__ = [
     "RunningMean",
     "RunningSum",
     "SumMetric",
+    "audio",
     "classification",
+    "clustering",
     "functional",
     "image",
     "models",
@@ -116,7 +132,9 @@ __all__ = [
     "retrieval",
     "text",
     "wrappers",
+    *_audio_all,
     *_classification_all,
+    *_clustering_all,
     *_image_all,
     *_nominal_all,
     *_regression_all,

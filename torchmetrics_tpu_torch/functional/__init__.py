@@ -1,6 +1,10 @@
 """Functional metrics (pure functions of tensors)."""
+from torchmetrics_tpu_torch.functional.audio import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.audio import __all__ as _audio_all
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
 from torchmetrics_tpu_torch.functional import nominal
@@ -15,4 +19,4 @@ from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_al
 from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
-__all__ = [*_classification_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all, *_text_all]
+__all__ = [*_audio_all, *_classification_all, *_clustering_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all, *_text_all]

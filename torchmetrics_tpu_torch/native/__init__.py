@@ -1,18 +1,26 @@
-"""The host C++ library of the text metrics (``edit_distance.cpp``), loaded
-with ctypes.
+"""The port's host C++ libraries, loaded with ctypes: the text metrics'
+``edit_distance.cpp`` and PESQ's ``pesq.cpp``.
 
-It holds the batched Levenshtein distance, the longest common subsequence
-and ROUGE-N's clipped n-gram overlap over id-mapped token sequences. These
-run on the host, on token ids, and never on the card: strings are host data.
+``edit_distance.cpp`` holds the batched Levenshtein distance, the longest
+common subsequence and ROUGE-N's clipped n-gram overlap over id-mapped token
+sequences. ``pesq.cpp`` holds the ITU-T P.862 pipeline (level alignment,
+band-limit filtering, delay estimation, the Bark-loudness perceptual model
+and the P.862.1/P.862.2 MOS-LQO mapping; its header says what it
+simplifies). Both run on the host, never on the card: strings are host data,
+and PESQ's alignment and perceptual model are sequential float64 code.
 
-The library is compiled with ``g++ -O3 -shared -fPIC`` at first use into the
-package's gitignored ``_build/`` directory, under a name of its own hashed on
-the source (``libtm_text_native-<hash>.so``), so an edited source rebuilds
-and an unchanged one is reused. A build goes to a process-unique temporary
-file that is renamed over the final name, so concurrent processes never see a
-half-written library. Where no compiler is available, every entry point falls
-back to its pure-Python body with a ``RuntimeWarning``; :func:`native_available`
-says which one runs.
+Each source is compiled on its own with ``g++ -O3 -shared -fPIC`` at first
+use into the package's gitignored ``_build/`` directory, under a name of its
+own hashed on that source (``libtm_text_native-<hash>.so``,
+``libtm_pesq-<hash>.so``), so an edited source rebuilds and an unchanged one
+is reused, and neither library's build touches the other's. A build goes to a
+process-unique temporary file that is renamed over the final name, so
+concurrent processes never see a half-written library. Where the text
+library cannot be built, every text entry point falls back to its
+pure-Python body with a ``RuntimeWarning`` (:func:`native_available` says
+which one runs). PESQ has no pure-Python body: :func:`pesq_batch` returns
+None and the metric raises with the compiler's output
+(:func:`pesq_build_error`).
 """
 from __future__ import annotations
 
@@ -29,39 +37,64 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "edit_distance.cpp"
+PESQ_SOURCE = Path(__file__).resolve().parent / "pesq.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _SYMBOLS = ("tm_levenshtein", "tm_levenshtein_batch", "tm_lcs", "tm_lcs_batch", "tm_ngram_hits_batch")
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 _LOCK = threading.Lock()
+_PESQ_LIB: Optional[ctypes.CDLL] = None
+_PESQ_TRIED = False
+_PESQ_ERROR: Optional[str] = None
+
+
+def _hashed(source: Path, stem: str) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}-{digest}.so"
 
 
 def library_path() -> Path:
     """Where the library built from ``edit_distance.cpp`` lives (hashed on
     the source)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libtm_text_native-{digest}.so"
+    return _hashed(SOURCE, "libtm_text_native")
 
 
-def build() -> Path:
-    """Compile the library if it is not built yet and return its path.
-    Raises ``subprocess.CalledProcessError`` (with the compiler's output) or
+def pesq_library_path() -> Path:
+    """Where the library built from ``pesq.cpp`` lives (hashed on that
+    source alone)."""
+    return _hashed(PESQ_SOURCE, "libtm_pesq")
+
+
+def _build(source: Path, out: Path) -> Path:
+    """Compile ``source`` into ``out`` unless it is there already. Raises
+    ``subprocess.CalledProcessError`` (with the compiler's output) or
     ``FileNotFoundError`` (no ``g++``)."""
-    out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", str(SOURCE), "-o", str(tmp)],
+            ["g++", "-O3", "-shared", "-fPIC", str(source), "-o", str(tmp)],
             check=True, capture_output=True, text=True, timeout=120,
         )
         os.replace(tmp, out)  # atomic: a concurrent reader sees all or nothing
     finally:
         tmp.unlink(missing_ok=True)
     return out
+
+
+def build() -> Path:
+    """Compile the text library if it is not built yet and return its path
+    (raises as :func:`_build`)."""
+    return _build(SOURCE, library_path())
+
+
+def build_pesq() -> Path:
+    """Compile the PESQ library if it is not built yet and return its path
+    (raises as :func:`_build`)."""
+    return _build(PESQ_SOURCE, pesq_library_path())
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -263,3 +296,61 @@ def batch_ngram_hits_multi(pairs: Sequence[Tuple[Sequence, Sequence]], ns: Seque
 def batch_ngram_hits(pairs: Sequence[Tuple[Sequence, Sequence]], n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Single-``n`` form of :func:`batch_ngram_hits_multi`."""
     return batch_ngram_hits_multi(pairs, [n])[n]
+
+
+def _load_pesq() -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load the PESQ library once a process; None when
+    it cannot be built, with the reason kept for :func:`pesq_build_error`."""
+    global _PESQ_LIB, _PESQ_TRIED, _PESQ_ERROR
+    with _LOCK:
+        if _PESQ_TRIED:
+            return _PESQ_LIB
+        _PESQ_TRIED = True
+        try:
+            lib = ctypes.CDLL(str(build_pesq()))
+            d, i64 = ctypes.POINTER(ctypes.c_double), ctypes.c_int64
+            lib.tm_pesq.restype = ctypes.c_double
+            lib.tm_pesq.argtypes = [d, d, i64, i64, ctypes.c_int32]
+            lib.tm_pesq_batch.restype = None
+            lib.tm_pesq_batch.argtypes = [d, d, i64, i64, i64, ctypes.c_int32, d]
+            _PESQ_LIB = lib
+        except (OSError, subprocess.SubprocessError, AttributeError) as err:
+            _PESQ_ERROR = str(getattr(err, "stderr", None) or err)
+            _PESQ_LIB = None
+        return _PESQ_LIB
+
+
+def pesq_available() -> bool:
+    """Whether the PESQ library is built and loaded."""
+    return _load_pesq() is not None
+
+
+def pesq_build_error() -> Optional[str]:
+    """Why the PESQ library could not be built or loaded (the compiler's
+    output), or None."""
+    _load_pesq()
+    return _PESQ_ERROR
+
+
+def pesq_batch(ref: np.ndarray, deg: np.ndarray, fs: int, wideband: bool) -> Optional[np.ndarray]:
+    """MOS-LQO of ``(B, time)`` float64 reference/degraded pairs, one native
+    call for the batch (float64). None when the library is unavailable: PESQ
+    has no pure-Python body. A signal the library refuses (``fs`` outside
+    {8000, 16000}, or too short) scores NaN, with one ``RuntimeWarning``."""
+    lib = _load_pesq()
+    if lib is None:
+        return None
+    ref = np.ascontiguousarray(ref, dtype=np.float64)
+    deg = np.ascontiguousarray(deg, dtype=np.float64)
+    batch, n = ref.shape
+    out = np.empty(batch, dtype=np.float64)
+    d = ctypes.POINTER(ctypes.c_double)
+    lib.tm_pesq_batch(ref.ctypes.data_as(d), deg.ctypes.data_as(d), batch, n, fs, 1 if wideband else 0, out.ctypes.data_as(d))
+    if (out < 0).any():
+        warnings.warn(
+            "PESQ kernel reported errors for some signals (fs not in {8000,16000} or signal too"
+            " short); returning NaN for those entries.",
+            RuntimeWarning,
+        )
+        out = np.where(out < 0, np.nan, out)
+    return out
