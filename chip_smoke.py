@@ -127,7 +127,20 @@ evaluation workloads:
   as SCAN scores it (50,000 samples, 1,000 clusters, 2,048-wide Gaussian
   embeddings) through the nine label metrics, each contingency one
   1,000,000-bin launch, and Calinski-Harabasz, Davies-Bouldin and Dunn,
-  against float64.
+  against float64;
+- detection, segmentation and multimodal, on plain PyTorch but panoptic
+  quality's intersection tables, one ``bincount`` launch an update: COCO
+  2017 val box detection (5,000 images, 80 categories, 36,781 annotations,
+  100 detections an image) through mean AP with per-class results and the
+  four IoU classes, against the CPU over 500 images, a perfect detector and
+  float64 IoUs; mask mAP over the first 200 images at 640 x 480; COCO
+  panoptic val2017 (5,000 images at 640 x 480, 133 categories) through PQ
+  and modified PQ against a numpy copy of the JAX package's algorithm;
+  BraTS 2021's 219 cases of 240 x 240 x 155 through ``mask_edges`` and
+  ``surface_distance`` against ``scipy.ndimage``; CLIPScore over the
+  Karpathy test split and CLIP-IQA over KonIQ-10k on a seeded stand-in at
+  CLIP ViT-B/32's widths, against float64. Each mAP compute's peak is held
+  to the metric's own reckoning.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -5922,6 +5935,838 @@ def phase_imagenet_clustering(dev) -> dict:
     })
 
 
+# ------------------------------------- detection, segmentation, multimodal
+
+#: COCO 2017 val box detection (``instances_val2017.json``: 5,000 images, 80
+#: categories, 36,781 annotations, about 1% ``iscrowd``); object sizes split
+#: as the COCO detection-eval page gives them ("41% small, 34% medium, 24%
+#: large"; the remaining 1% drawn large); 100 detections an image (the
+#: eval's ``maxDets``). Stated choices, not from the source: images of 640 x
+#: 480; annotations spread over images and categories uniformly; areas
+#: log-uniform within each size range and aspect ratios log-uniform on
+#: 0.5-2; 90% of ground truths found (jittered by 8% of their size, 10%
+#: relabelled) and the rest of the 100 false positives; scores at three
+#: decimals, so ties occur across images.
+COCO_DET = {"images": 5_000, "categories": 80, "annotations": 36_781, "crowd": 0.01, "dets": 100,
+            "split": (0.41, 0.34), "width": 640, "height": 480, "batch": 50, "cpu_prefix": 500,
+            "found": 0.9, "jitter": 0.08, "relabel": 0.1}
+#: mask mAP over the first 200 of the same images at 640 x 480 (cut: 200 of
+#: 5,000 images, about 21,000 masks of 307,200 pixels; the CPU check over
+#: the first 8); each mask the ellipse inscribed in its box (a stated choice)
+COCO_SEGM = {"images": 200, "cpu_prefix": 8}
+#: COCO panoptic val2017's category ids (``panoptic_coco_categories.json``):
+#: 80 things and 53 stuffs; 0 is unlabeled (void)
+COCO_THINGS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 27, 28, 31, 32,
+               33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59,
+               60, 61, 62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87, 88, 89, 90)
+COCO_STUFFS = (92, 93, 95, 100, 107, 109, 112, 118, 119, 122, 125, 128, 130, 133, 138, 141, 144, 145, 147, 148, 149,
+               151, 154, 155, 156, 159, 161, 166, 168, 171, 175, 176, 177, 178, 180, 181, 184, 185, 186, 187, 188, 189,
+               190, 191, 192, 193, 194, 195, 196, 197, 198, 199, 200)
+#: COCO panoptic val2017: 5,000 images at 640 x 480 in batches of 8. Stated
+#: choices: stuff regions a 6 x 8 grid of stuff categories, 0-15 thing
+#: instances an image (ellipses); predictions shifted by up to 2 pixels,
+#: 16 x 16 blocks relabelled with probability 3%, 1% of pixels an unknown
+#: category (201); 2% of target pixels unlabeled (0, void). The numpy check
+#: over the first 2 batches.
+COCO_PANOPTIC = {"images": 5_000, "batch": 8, "height": 480, "width": 640, "grid": (6, 8), "things": 16,
+                 "shift": 2, "block": 16, "relabel": 0.03, "unknown": 0.01, "void": 0.02, "unknown_id": 201,
+                 "numpy_batches": 2}
+#: BraTS 2021 validation's shape: 219 cases of 240 x 240 x 155 at 1 mm.
+#: Stated choices: one tumour a case, an ellipsoid of radii 8-28 mm whose
+#: surface is perturbed by low-frequency ripples; the prediction its
+#: centre moved by 2 mm and radii by 10%. Cuts: the scipy checks over the
+#: first 4 cases; surface distances over the tumour-bearing axial slices
+#: of the first 2.
+BRATS = {"cases": 219, "shape": (240, 240, 155), "radii": (8.0, 28.0), "scipy_cases": 4, "slice_cases": 2}
+#: CLIPScore over the Karpathy test split of COCO (5,000 images, 5 captions
+#: each), 100 images (500 pairs) an update; CLIP-IQA over KonIQ-10k
+#: (10,073 images of 1024 x 768) in batches of 64, with the default prompt
+#: and with prompt pairs. Both on a seeded two-tower stand-in at CLIP
+#: ViT-B/32's widths (224 x 224 input, 32-pixel patches, a 768-wide patch
+#: embedding, 512-wide outputs, a 49,408-token vocabulary, 77-token
+#: contexts), not CLIP: no CLIP weights are in the repository. Its towers
+#: add one shared direction to their unit outputs, so that caption scores
+#: are positive; captions are synthetic words, hashed to token ids.
+KARPATHY = {"images": 5_000, "captions": 5, "batch": 100}
+KONIQ = {"images": 10_073, "height": 768, "width": 1024, "batch": 64,
+         "pairs": ("quality", ("Sharp photo.", "Blurry photo."), ("A well-lit photo.", "A dim photo."))}
+CLIP_B32 = {"image": 224, "patch": 32, "width": 768, "embed": 512, "vocab": 49_408, "context": 77}
+DET_TOL = 1e-6
+IOU64_ATOL = 1e-5
+PQ_RTOL = 1e-6
+EDT_ATOL = 1e-5
+CLIP_RTOL = 1e-5
+
+
+def _peak_above(dev, base: int) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def _coco_boxes(n: int, g, spec: dict, dev):
+    """``n`` xyxy float32 boxes in the image, their sizes split as COCO's."""
+    import torch
+
+    w_img, h_img = spec["width"], spec["height"]
+    u = torch.rand(n, generator=g, device=dev)
+    small, medium = spec["split"]
+    lo = torch.where(u < small, 16.0, torch.where(u < small + medium, 32.0**2, 96.0**2))
+    hi = torch.where(u < small, 32.0**2, torch.where(u < small + medium, 96.0**2, 0.6 * w_img * h_img))
+    area = torch.exp(torch.log(lo) + torch.rand(n, generator=g, device=dev) * (torch.log(hi) - torch.log(lo)))
+    aspect = torch.exp((torch.rand(n, generator=g, device=dev) * 2 - 1) * math.log(2.0))
+    w = torch.sqrt(area * aspect).clamp(max=w_img - 1)
+    h = (area / w).clamp(max=h_img - 1)
+    x1 = torch.rand(n, generator=g, device=dev) * (w_img - w)
+    y1 = torch.rand(n, generator=g, device=dev) * (h_img - h)
+    return torch.stack([x1, y1, x1 + w, y1 + h], dim=1)
+
+
+def _coco_detection(spec: dict, dev) -> dict:
+    """Ground truths and 100 detections an image, on the card, as per-image
+    lists of dicts (views of a few flat tensors)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31_000)
+    n_img, n_ann, k = spec["images"], spec["annotations"], spec["dets"]
+    things = torch.tensor(COCO_THINGS, device=dev)
+    ann_img = torch.sort(torch.randint(0, n_img, (n_ann,), generator=g, device=dev)).values
+    gt_boxes = _coco_boxes(n_ann, g, spec, dev)
+    gt_labels = things[torch.randint(0, spec["categories"], (n_ann,), generator=g, device=dev)]
+    crowd = torch.rand(n_ann, generator=g, device=dev) < spec["crowd"]
+    n_gt = torch.bincount(ann_img, minlength=n_img)
+    gt_first = torch.cumsum(n_gt, 0) - n_gt
+    slot = torch.arange(k, device=dev).repeat(n_img)
+    det_img = torch.arange(n_img, device=dev).repeat_interleave(k)
+    src = (gt_first[det_img] + slot).clamp(max=n_ann - 1)
+    found = (slot < n_gt[det_img]) & (torch.rand(n_img * k, generator=g, device=dev) < spec["found"])
+    size = (gt_boxes[src, 2:] - gt_boxes[src, :2]).repeat(1, 2)
+    jittered = gt_boxes[src] + spec["jitter"] * size * torch.randn(n_img * k, 4, generator=g, device=dev)
+    jittered = torch.cat([jittered[:, :2], torch.maximum(jittered[:, 2:], jittered[:, :2] + 1)], dim=1)
+    det_boxes = torch.where(found[:, None], jittered, _coco_boxes(n_img * k, g, spec, dev))
+    relabel = torch.rand(n_img * k, generator=g, device=dev) < spec["relabel"]
+    random_labels = things[torch.randint(0, spec["categories"], (n_img * k,), generator=g, device=dev)]
+    det_labels = torch.where(found & ~relabel, gt_labels[src], random_labels)
+    score = torch.where(found, 0.4 + 0.6 * torch.rand(n_img * k, generator=g, device=dev),
+                        0.6 * torch.rand(n_img * k, generator=g, device=dev))
+    score = torch.round(score * 1000) / 1000
+    counts = n_gt.tolist()
+    gts = zip(gt_boxes.split(counts), gt_labels.split(counts), crowd.split(counts))
+    target = [{"boxes": b, "labels": lab, "iscrowd": c} for b, lab, c in gts]
+    preds = [{"boxes": b, "labels": lab, "scores": s}
+             for b, lab, s in zip(det_boxes.split(k), det_labels.split(k), score.split(k))]
+    perfect = [{"boxes": t["boxes"], "labels": t["labels"], "scores": torch.ones_like(t["labels"], dtype=torch.float32)}
+               for t in target]
+    return {"preds": preds, "target": target, "perfect": perfect, "annotations": n_ann,
+            "crowds": int(crowd.sum()), "max_gt_an_image": max(counts)}
+
+
+def _to_cpu(items) -> list:
+    return [{k: v.cpu() for k, v in d.items()} for d in items]
+
+
+def _iou64(p, t, kind: str):
+    """The IoU family in float64 numpy over ``(N, 4)`` and ``(M, 4)`` boxes
+    (the JAX package's formulas and epsilons)."""
+    import numpy as np
+
+    eps = 1e-7
+    a1 = (p[:, 2] - p[:, 0]) * (p[:, 3] - p[:, 1])
+    a2 = (t[:, 2] - t[:, 0]) * (t[:, 3] - t[:, 1])
+    wh = np.clip(np.minimum(p[:, None, 2:], t[None, :, 2:]) - np.maximum(p[:, None, :2], t[None, :, :2]), 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    union = a1[:, None] + a2[None, :] - inter
+    iou = inter / (union + eps)
+    if kind == "iou":
+        return iou
+    hull = np.clip(np.maximum(p[:, None, 2:], t[None, :, 2:]) - np.minimum(p[:, None, :2], t[None, :, :2]), 0, None)
+    if kind == "giou":
+        area = hull[..., 0] * hull[..., 1]
+        return iou - (area - union) / (area + eps)
+    diag = hull[..., 0] ** 2 + hull[..., 1] ** 2 + eps
+    d = (p[:, None, :2] + p[:, None, 2:]) / 2 - (t[None, :, :2] + t[None, :, 2:]) / 2
+    diou = iou - (d[..., 0] ** 2 + d[..., 1] ** 2) / diag
+    if kind == "diou":
+        return diou
+    v = (4 / np.pi**2) * (np.arctan((t[:, 2] - t[:, 0]) / (t[:, 3] - t[:, 1] + eps))[None, :]
+                          - np.arctan((p[:, 2] - p[:, 0]) / (p[:, 3] - p[:, 1] + eps))[:, None]) ** 2
+    return diou - v / (1 - iou + v + eps) * v
+
+
+def _timed_compute(metric, dev) -> tuple:
+    """``metric.compute()`` timed on the host clock, with the peak above the
+    memory allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    value = metric.compute()
+    torch.cuda.synchronize()
+    return value, (time.perf_counter() - t0) * 1e3, _peak_above(dev, base)
+
+
+def _compute_ms(metric) -> tuple:
+    """``metric.compute()`` and its host-clock ms (the peak statistics left
+    running for the phase's own peak)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = metric.compute()
+    torch.cuda.synchronize()
+    return value, (time.perf_counter() - t0) * 1e3
+
+
+def _map_breakdown(metric) -> dict:
+    """One more compute with the pair build and each chunk's matcher timed
+    (synchronised around them): their ms beside the whole compute's and
+    the device part's (pairs, overlaps, matching, the read-back)."""
+    import torch
+
+    from torchmetrics_tpu_torch.detection import mean_ap
+
+    spent = {"pairs": 0.0, "matcher": 0.0, "device": 0.0, "chunks": 0}
+    cls = type(metric)
+    build, match, greedy = cls._build_pairs, cls._match, mean_ap._greedy_match
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += (time.perf_counter() - t0) * 1e3
+            spent["chunks"] += key == "matcher"
+            return out
+        return wrapper
+
+    cls._build_pairs, cls._match, mean_ap._greedy_match = timed("pairs", build), timed("device", match), timed("matcher", greedy)
+    try:
+        metric._computed = None
+        t0 = time.perf_counter()
+        metric.compute()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        cls._build_pairs, cls._match, mean_ap._greedy_match = build, match, greedy
+    return {"compute_ms": total, "pair_build_ms": spent["pairs"], "matcher_ms": spent["matcher"],
+            "device_part_ms": spent["device"], "host_accumulate_ms": total - spent["device"],
+            "matcher_share": spent["matcher"] / total, "host_share": (total - spent["device"]) / total,
+            "chunks": spent["chunks"]}
+
+
+def _hold_dicts(name: str, got: dict, want: dict, tol: float) -> float:
+    """Every entry of two summary dicts equal in shape and within ``tol``."""
+    import torch
+
+    _check(sorted(got) == sorted(want), f"{name}: keys {sorted(got)} against {sorted(want)}")
+    worst = 0.0
+    for k, w in want.items():
+        gv, wv = got[k].detach().double().cpu(), w.detach().double().cpu()
+        _check(gv.shape == wv.shape, f"{name}: {k} shape {tuple(gv.shape)} against {tuple(wv.shape)}")
+        err = float((gv - wv).abs().max()) if gv.numel() else 0.0
+        _check(err <= tol and bool(torch.isfinite(gv).all()), f"{name}: {k} {gv.tolist()} against {wv.tolist()}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_coco_val2017_bbox(dev) -> dict:
+    """COCO 2017 val box detection (``COCO_DET``): ``MeanAveragePrecision(
+    iou_type="bbox", class_metrics=True)`` over the 5,000 images in updates
+    of 50, and the four IoU classes. Hard checks: the summary dict on the
+    card equals the port's on the CPU over the first 500 images within 1e-6;
+    a perfect detector over all 5,000 images scores ``map`` 1.0; each IoU
+    class within 1e-5 of a float64 numpy IoU of the same boxes; the
+    compute's peak under the metric's reckoning; no kernel launch. Reports
+    images/s, compute ms (pair build, matcher, host accumulation), the
+    peak and the idle share of the card over one compute."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import detection
+
+    name, spec = "coco_val2017_bbox", COCO_DET
+    started = time.perf_counter()
+    sections = {}
+
+    def lap(label: str) -> None:
+        sections[label] = time.perf_counter() - started - sum(sections.values())
+
+    data = _coco_detection(spec, dev)
+    preds, target, batch = data["preds"], data["target"], spec["batch"]
+    counters = _zero_counters()
+    metric = detection.MeanAveragePrecision(iou_type="bbox", class_metrics=True)
+    step_s = []
+    for s in range(0, spec["images"], batch):
+        _timed(step_s, lambda: metric.update(preds[s : s + batch], target[s : s + batch]))
+    reckoned = metric._reckoned_peak_bytes()
+    print(json.dumps({"phase": name, "reckoned_compute_peak_bytes": reckoned}), flush=True)
+    result, compute_ms, peak = _timed_compute(metric, dev)
+    _check(peak <= reckoned, f"{name}: the compute's peak {peak} above its reckoning {reckoned}")
+    breakdown = _map_breakdown(metric)
+    launches = _text_no_kernels(name, counters)
+    lap("generate_update_compute")
+
+    # the card against the CPU over a prefix
+    n = spec["cpu_prefix"]
+    card = detection.MeanAveragePrecision(iou_type="bbox", class_metrics=True)
+    card.update(preds[:n], target[:n])
+    cpu = detection.MeanAveragePrecision(iou_type="bbox", class_metrics=True, device="cpu")
+    cpu.update(_to_cpu(preds[:n]), _to_cpu(target[:n]))
+    t0 = time.perf_counter()
+    cpu_result = cpu.compute()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    prefix_err = _hold_dicts(f"{name} card against the CPU", card.compute(), cpu_result, DET_TOL)
+    lap("cpu_prefix")
+
+    perfect = detection.MeanAveragePrecision(iou_type="bbox")
+    for s in range(0, spec["images"], batch):
+        perfect.update(data["perfect"][s : s + batch], target[s : s + batch])
+    perfect_map = float(perfect.compute()["map"])
+    _check(perfect_map == 1.0, f"{name}: a perfect detector scores map {perfect_map}")
+    lap("perfect")
+
+    # the IoU classes against float64 numpy
+    ious, iou_checks = {}, {}
+    for cls_name, kind in (("IntersectionOverUnion", "iou"), ("GeneralizedIntersectionOverUnion", "giou"),
+                           ("DistanceIntersectionOverUnion", "diou"), ("CompleteIntersectionOverUnion", "ciou")):
+        m = getattr(detection, cls_name)()
+        iou_steps = []
+        for s in range(0, spec["images"], batch):
+            _timed(iou_steps, lambda: m.update(preds[s : s + batch], target[s : s + batch]))
+        value, ms, _ = _timed_compute(m, dev)
+        ious[cls_name] = {"value": float(value[kind]), "images_per_s": spec["images"] / sum(iou_steps), "compute_ms": ms}
+    lap("iou_classes")
+    total, count = {k: 0.0 for k in ("iou", "giou", "diou", "ciou")}, 0
+    for p, t in zip(preds, target):
+        pb, tb = p["boxes"].double().cpu().numpy(), t["boxes"].double().cpu().numpy()
+        same = p["labels"].cpu().numpy()[:, None] == t["labels"].cpu().numpy()[None, :]
+        count += int(same.sum())
+        for kind in total:
+            total[kind] += float(_iou64(pb, tb, kind)[same].sum())
+    for cls_name, kind in zip(ious, total):
+        want = total[kind] / count
+        err = abs(ious[cls_name]["value"] - want)
+        _check(err <= IOU64_ATOL, f"{name}: {cls_name} {ious[cls_name]['value']} against float64 {want}")
+        iou_checks[cls_name] = {"float64": want, "abs_err": err}
+    lap("iou_float64")
+    idle = _rest_idle_share(lambda i: (setattr(metric, "_computed", None), metric.compute()), 1)
+    lap("profile")
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "source": "COCO 2017 val (instances_val2017): 5,000 images, 80 categories, 36,781 annotations; "
+        "the detection-eval page's 41% small, 34% medium, 24% large; maxDets 100",
+        "cuts": "synthetic boxes (stated choices in COCO_DET); the CPU check over the first 500 images",
+        "annotations": data["annotations"], "crowds": data["crowds"], "max_gt_an_image": data["max_gt_an_image"],
+        "updates": len(step_s), "images_per_s": spec["images"] / update_s, "update_s": update_s,
+        "compute_ms": compute_ms, "breakdown": breakdown, "peak_above_states_bytes": peak, "reckoned_bytes": reckoned,
+        "peak_over_reckoning": peak / reckoned, "map": float(result["map"]), "map_50": float(result["map_50"]),
+        "mar_100": float(result["mar_100"]), "cpu_prefix_images": n, "cpu_prefix_max_abs_err": prefix_err,
+        "cpu_prefix_compute_ms": cpu_ms, "perfect_map": perfect_map, "iou_classes": ious, "iou_float64": iou_checks,
+        "compute_idle": idle, "launches": launches, "sections_s": sections, "phase_s": time.perf_counter() - started,
+    })
+
+
+def _ellipse_masks(boxes, h: int, w: int):
+    """The ellipse inscribed in each xyxy box, as ``(N, h, w)`` bool."""
+    import torch
+
+    ys = torch.arange(h, device=boxes.device, dtype=torch.float32)[None, :, None] + 0.5
+    xs = torch.arange(w, device=boxes.device, dtype=torch.float32)[None, None, :] + 0.5
+    cx, cy = ((boxes[:, 0] + boxes[:, 2]) / 2)[:, None, None], ((boxes[:, 1] + boxes[:, 3]) / 2)[:, None, None]
+    rx, ry = ((boxes[:, 2] - boxes[:, 0]) / 2)[:, None, None], ((boxes[:, 3] - boxes[:, 1]) / 2)[:, None, None]
+    return ((xs - cx) / rx) ** 2 + ((ys - cy) / ry) ** 2 <= 1
+
+
+def phase_coco_val2017_segm(dev) -> dict:
+    """Mask mAP (``iou_type="segm"``) over the first 200 images of the same
+    detections (``COCO_SEGM``), each box's inscribed ellipse at 640 x 480.
+    Hard checks: the summary dict equals the port's on the CPU over the
+    first 8 images within 1e-6; the compute's peak under the reckoning; no
+    kernel launch. Reports the compute ms and its breakdown, the peak."""
+    import torch
+
+    from torchmetrics_tpu_torch import detection
+
+    name, spec = "coco_val2017_segm", COCO_SEGM
+    started = time.perf_counter()
+    boxes = _coco_detection(COCO_DET, dev)
+    h, w = COCO_DET["height"], COCO_DET["width"]
+    preds = [{"masks": _ellipse_masks(p["boxes"], h, w), "scores": p["scores"], "labels": p["labels"]}
+             for p in boxes["preds"][: spec["images"]]]
+    target = [{"masks": _ellipse_masks(t["boxes"], h, w), "labels": t["labels"], "iscrowd": t["iscrowd"]}
+              for t in boxes["target"][: spec["images"]]]
+    del boxes
+    counters = _zero_counters()
+    metric = detection.MeanAveragePrecision(iou_type="segm", class_metrics=True)
+    step_s = []
+    for s in range(0, spec["images"], COCO_DET["batch"]):
+        _timed(step_s, lambda: metric.update(preds[s : s + COCO_DET["batch"]], target[s : s + COCO_DET["batch"]]))
+    reckoned = metric._reckoned_peak_bytes()
+    print(json.dumps({"phase": name, "reckoned_compute_peak_bytes": reckoned}), flush=True)
+    result, compute_ms, peak = _timed_compute(metric, dev)
+    _check(peak <= reckoned, f"{name}: the compute's peak {peak} above its reckoning {reckoned}")
+    breakdown = _map_breakdown(metric)
+    launches = _text_no_kernels(name, counters)
+    n = spec["cpu_prefix"]
+    card = detection.MeanAveragePrecision(iou_type="segm", class_metrics=True)
+    card.update(preds[:n], target[:n])
+    cpu = detection.MeanAveragePrecision(iou_type="segm", class_metrics=True, device="cpu")
+    cpu.update(_to_cpu(preds[:n]), _to_cpu(target[:n]))
+    prefix_err = _hold_dicts(f"{name} card against the CPU", card.compute(), cpu.compute(), DET_TOL)
+    masks = sum(p["masks"].shape[0] for p in preds) + sum(t["masks"].shape[0] for t in target)
+    return _emit({
+        "phase": name, "source": "COCO 2017 val segm: the bbox phase's first 200 images, masks at 640 x 480",
+        "cuts": "200 of 5,000 images; inscribed ellipses for masks; the CPU check over the first 8",
+        "masks": masks, "mask_bytes": masks * h * w, "images_per_s": spec["images"] / sum(step_s),
+        "compute_ms": compute_ms, "breakdown": breakdown, "peak_above_states_bytes": peak,
+        "reckoned_bytes": reckoned, "peak_over_reckoning": peak / reckoned, "map": float(result["map"]),
+        "cpu_prefix_images": n, "cpu_prefix_max_abs_err": prefix_err, "launches": launches,
+        "phase_s": time.perf_counter() - started,
+    })
+
+
+def _panoptic_batch(i: int, spec: dict, dev):
+    """One batch of (category, instance) maps: ``(preds, target)`` int64
+    ``(B, H, W, 2)`` on the card (``COCO_PANOPTIC``'s stated choices)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 33_000 + i)
+    b, h, w = spec["batch"], spec["height"], spec["width"]
+    stuffs, things = torch.tensor(COCO_STUFFS, device=dev), torch.tensor(COCO_THINGS, device=dev)
+    grid = stuffs[torch.randint(0, len(COCO_STUFFS), (b, 1, *spec["grid"]), generator=g, device=dev)]
+    cat = F.interpolate(grid.float(), size=(h, w), mode="nearest").long()[:, 0]
+    inst = torch.zeros_like(cat)
+    count = torch.randint(0, spec["things"], (b,), generator=g, device=dev)
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    for k in range(spec["things"]):
+        c = torch.rand(b, 4, generator=g, device=dev)
+        cy, cx = (c[:, 0] * h)[:, None, None], (c[:, 1] * w)[:, None, None]
+        ry, rx = (8 + c[:, 2] * h / 4)[:, None, None], (8 + c[:, 3] * w / 4)[:, None, None]
+        inside = (((ys - cy) / ry) ** 2 + ((xs - cx) / rx) ** 2 <= 1) & (k < count)[:, None, None]
+        label = things[torch.randint(0, len(COCO_THINGS), (b,), generator=g, device=dev)][:, None, None]
+        cat = torch.where(inside, label, cat)
+        inst = torch.where(inside, torch.full_like(inst, k + 1), inst)
+    target = torch.stack([cat, inst], dim=-1)
+    shift = torch.randint(-spec["shift"], spec["shift"] + 1, (2,), generator=g, device=dev).tolist()
+    preds = torch.roll(target, shifts=shift, dims=(1, 2)).clone()
+    blocks = torch.rand(b, h // spec["block"], w // spec["block"], generator=g, device=dev) < spec["relabel"]
+    blocks = blocks.repeat_interleave(spec["block"], 1).repeat_interleave(spec["block"], 2)
+    every = torch.cat([things, stuffs])
+    preds[..., 0] = torch.where(blocks, every[torch.randint(0, every.numel(), (b, h, w), generator=g, device=dev)], preds[..., 0])
+    unknown = torch.rand(b, h, w, generator=g, device=dev) < spec["unknown"]
+    preds[..., 0] = torch.where(unknown, torch.full_like(cat, spec["unknown_id"]), preds[..., 0])
+    void = torch.rand(b, h, w, generator=g, device=dev) < spec["void"]
+    target[..., 0] = torch.where(void, torch.zeros_like(cat), target[..., 0])
+    return preds, target
+
+
+def _pq_numpy(preds, target, things, stuffs) -> dict:
+    """A numpy copy of the JAX package's per-sample panoptic statistics
+    (``functional/detection/panoptic_quality.py``: preprocessing, the
+    ``np.unique`` relabel, the void-corrected IoU, the matching and the FP/FN
+    filters), summed over the batch for plain PQ (``False``) and modified PQ
+    (``True``) from one relabel: float64 IoU sums and int64 counts."""
+    import numpy as np
+
+    cat_ids = sorted(things) + sorted(stuffs)
+    cont = {c: i for i, c in enumerate(cat_ids)}
+    void = np.asarray((1 + max(cat_ids), 0))
+
+    def prep(x):
+        out = np.array(x, dtype=np.int64).reshape(x.shape[0], -1, 2)
+        cats = out[:, :, 0]
+        is_stuff, is_thing = np.isin(cats, list(stuffs)), np.isin(cats, list(things))
+        out[:, :, 1] = np.where(is_stuff, 0, out[:, :, 1])
+        out[~(is_stuff | is_thing)] = void
+        return out
+
+    n = len(cat_ids)
+    stats = {m: [np.zeros(n), np.zeros(n, np.int64), np.zeros(n, np.int64), np.zeros(n, np.int64)] for m in (False, True)}
+    for p, t in zip(prep(preds), prep(target)):
+        up, pinv = np.unique(p, axis=0, return_inverse=True)
+        ut, tinv = np.unique(t, axis=0, return_inverse=True)
+        pinv, tinv = pinv.reshape(-1), tinv.reshape(-1)
+        pa = np.bincount(pinv, minlength=len(up)).astype(np.float64)
+        ta = np.bincount(tinv, minlength=len(ut)).astype(np.float64)
+        inter = np.bincount(pinv * len(ut) + tinv, minlength=len(up) * len(ut)).reshape(len(up), len(ut)).astype(np.float64)
+        p_void, t_void = (up == void).all(1), (ut == void).all(1)
+        pred_void, void_target = inter[:, t_void].sum(1), inter[p_void, :].sum(0)
+        union = pa[:, None] - pred_void[:, None] + ta[None, :] - void_target[None, :] - inter
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = np.where(inter > 0, inter / union, 0.0)
+            tvf = np.where(ta > 0, void_target / ta, 0.0)
+            pvf = np.where(pa > 0, pred_void / pa, 0.0)
+        considered = (up[:, :1] == ut[None, :, 0]) & (inter > 0) & ~t_void[None, :] & ~p_void[:, None]
+        ct = np.array([cont.get(int(c), -1) for c in ut[:, 0]])
+        cp = np.array([cont.get(int(c), -1) for c in up[:, 0]])
+        for modified, (iou_sum, tp, fp, fn) in stats.items():
+            mod = list(stuffs) if modified else []
+            t_mod, p_mod = np.isin(ut[:, 0], mod), np.isin(up[:, 0], mod)
+            matched = considered & (iou > 0.5) & ~t_mod[None, :]
+            a, b = np.nonzero(matched)
+            np.add.at(iou_sum, ct[b], iou[a, b])
+            np.add.at(tp, ct[b], 1)
+            a, b = np.nonzero(considered & (iou > 0) & t_mod[None, :])
+            np.add.at(iou_sum, ct[b], iou[a, b])
+            np.add.at(tp, ct[~t_void & t_mod], 1)
+            np.add.at(fn, ct[~matched.any(0) & ~t_void & ~t_mod & (tvf <= 0.5)], 1)
+            np.add.at(fp, cp[~matched.any(1) & ~p_void & ~p_mod & (pvf <= 0.5) & (cp >= 0)], 1)
+    return stats
+
+
+def _pq64(iou_sum, tp, fp, fn) -> float:
+    """The averaged PQ of float64 statistics (the JAX package's formula)."""
+    import numpy as np
+
+    sq = np.where(tp > 0, iou_sum / np.maximum(tp, 1), 0.0)
+    den = tp + 0.5 * fp + 0.5 * fn
+    rq = np.where(den > 0, tp / np.maximum(den, 1e-12), 0.0)
+    return float((sq * rq)[den > 0].mean())
+
+
+def phase_coco_panoptic_val2017(dev) -> dict:
+    """COCO panoptic val2017 (``COCO_PANOPTIC``): ``PanopticQuality`` and
+    ``ModifiedPanopticQuality`` over 5,000 images at 640 x 480 in batches of
+    8, 133 categories under COCO panoptic's ids. Hard checks: exactly one
+    ``bincount`` launch an update of each metric, on the kernel; TP, FP and
+    FN equal to a numpy copy of the JAX package's per-sample algorithm over
+    the first 2 batches, the IoU sums and both values within 1e-6 relative
+    of it. Reports images/s, compute ms, the peak and the idle share of the
+    card over a few updates."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import detection
+    from torchmetrics_tpu_torch.ops import kernels
+
+    name, spec = "coco_panoptic_val2017", COCO_PANOPTIC
+    started = time.perf_counter()
+    things, stuffs = set(COCO_THINGS), set(COCO_STUFFS)
+    pq = detection.PanopticQuality(things, stuffs, allow_unknown_preds_category=True, return_sq_and_rq=True)
+    mpq = detection.ModifiedPanopticQuality(things, stuffs, allow_unknown_preds_category=True)
+    batches = spec["images"] // spec["batch"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters = _zero_counters()
+    step_s, gen_s = [], 0.0
+    for i in range(batches):
+        t0 = time.perf_counter()
+        preds, target = _panoptic_batch(i, spec, dev)
+        torch.cuda.synchronize()
+        gen_s += time.perf_counter() - t0
+        _timed(step_s, lambda: (pq.update(preds, target), mpq.update(preds, target)))
+    launches = {k: m.launches for k, m in counters.items()}
+    _check(launches["bincount"] == 2 * batches and sum(launches.values()) == 2 * batches,
+           f"{name}: launches {launches}, expected {2 * batches} bincount")
+    gate = kernels.gate_snapshot()
+    _check(gate.get("bincount", {}).get("selections") == {"cuda": 2 * batches}, f"{name}: gate log {gate}")
+    value, compute_ms = _compute_ms(pq)
+    modified, mcompute_ms = _compute_ms(mpq)
+    peak = _peak_above(dev, base)
+
+    # a prefix against the numpy copy of the JAX algorithm
+    checks, n_cat = {}, len(things) + len(stuffs)
+    prefix = {"pq": detection.PanopticQuality(things, stuffs, allow_unknown_preds_category=True),
+              "modified": detection.ModifiedPanopticQuality(things, stuffs, allow_unknown_preds_category=True)}
+    want = {m: [np.zeros(n_cat), *(np.zeros(n_cat, np.int64) for _ in range(3))] for m in (False, True)}
+    iou32 = {m: np.zeros(n_cat, np.float32) for m in (False, True)}
+    for i in range(spec["numpy_batches"]):
+        preds, target = _panoptic_batch(i, spec, dev)
+        for m in prefix.values():
+            m.update(preds, target)
+        for modified, part in _pq_numpy(preds.cpu().numpy(), target.cpu().numpy(), things, stuffs).items():
+            iou32[modified] = iou32[modified] + part[0].astype(np.float32)  # rounded once an update
+            for acc, x in zip(want[modified], part):
+                acc += x
+    for (label, m), modified in zip(prefix.items(), (False, True)):
+        for k, w in zip(("true_positives", "false_positives", "false_negatives"), want[modified][1:]):
+            _check(np.array_equal(getattr(m, k).cpu().numpy(), w), f"{name}: {label} {k} differ from the numpy copy")
+        _check(np.allclose(m.iou_sum.cpu().numpy(), iou32[modified], rtol=PQ_RTOL, atol=0), f"{name}: {label} iou sums differ")
+        got, want_value = float(m.compute()), _pq64(*want[modified])
+        _check(abs(got - want_value) <= PQ_RTOL * abs(want_value), f"{name}: {label} {got} against float64 {want_value}")
+        checks[label] = {"value": got, "float64": want_value, "rel_err": abs(got - want_value) / abs(want_value),
+                         "tp": int(want[modified][1].sum()), "fp": int(want[modified][2].sum()), "fn": int(want[modified][3].sum())}
+    preds, target = _panoptic_batch(0, spec, dev)
+    idle = _rest_idle_share(lambda i: (pq.update(preds, target), mpq.update(preds, target)), 3)
+    update_s = sum(step_s)
+    return _emit({
+        "phase": name, "source": "COCO panoptic val2017: 5,000 images, 80 things and 53 stuffs (panoptic_coco_categories.json)",
+        "cuts": "synthetic maps at 640 x 480 (stated choices in COCO_PANOPTIC); the numpy check over the first 16 images",
+        "updates": batches, "images_per_s": spec["images"] / update_s, "update_ms": 1e3 * update_s / batches,
+        "generation_s": gen_s, "pq_sq_rq": [float(v) for v in value], "modified_pq": float(modified),
+        "compute_ms": {"pq": compute_ms, "modified": mcompute_ms}, "peak_above_base_bytes": peak,
+        "numpy_checks": checks, "launches": launches, "bincount_launches": launches["bincount"],
+        "update_idle": idle, "phase_s": time.perf_counter() - started,
+    })
+
+
+def _brats_case(case: int, spec: dict, grids, dev):
+    """A case's target and predicted tumour masks, ``(240, 240, 155)`` bool."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 34_000 + case)
+    zs, ys, xs = grids
+    shape = torch.tensor(spec["shape"], device=dev, dtype=torch.float32)
+    lo, hi = spec["radii"]
+    centre = shape * (0.3 + 0.4 * torch.rand(3, generator=g, device=dev))
+    radii = lo + (hi - lo) * torch.rand(3, generator=g, device=dev)
+    phase = 6.283 * torch.rand(3, generator=g, device=dev)
+
+    def ellipsoid(c, r):
+        d = ((zs - c[0]) / r[0]) ** 2 + ((ys - c[1]) / r[1]) ** 2 + ((xs - c[2]) / r[2]) ** 2
+        ripple = 0.15 * torch.sin(zs / 7 + phase[0]) * torch.cos(ys / 9 + phase[1]) * torch.sin(xs / 5 + phase[2])
+        return d <= 1 + ripple
+
+    target = ellipsoid(centre, radii)
+    pred = ellipsoid(centre + 2 * torch.randn(3, generator=g, device=dev), radii * (1 + 0.1 * torch.randn(3, generator=g, device=dev)))
+    return pred, target
+
+
+def _edges_scipy(mask, spacing: bool):
+    """A padded mask's edges from ``scipy.ndimage.binary_erosion``: the mask
+    minus its 6-connected erosion, or (``spacing``) the 2 x 2 x 2 cubes
+    neither all in nor all out."""
+    import numpy as np
+    from scipy import ndimage
+
+    m = np.pad(mask, 1)
+    if not spacing:
+        return m ^ ndimage.binary_erosion(m, ndimage.generate_binary_structure(m.ndim, 1))
+    cube = np.ones((2,) * m.ndim, bool)
+    valid = tuple(slice(0, s - 1) for s in m.shape)
+    all_in = ndimage.binary_erosion(m, cube, origin=-1)[valid]
+    all_out = ndimage.binary_erosion(~m, cube, origin=-1)[valid]
+    return ~all_in & ~all_out
+
+
+def phase_brats2021_surface(dev) -> dict:
+    """BraTS 2021 validation's shape (``BRATS``): ``mask_edges`` with
+    ``spacing=(1, 1, 1)`` (and without) on the 219 cases' 3-D tumour masks;
+    ``surface_distance`` (the ``"pytorch"`` distance transform) on the
+    tumour-bearing axial slices of the first 2 cases. Hard checks: edges
+    bit-equal to ``scipy.ndimage.binary_erosion`` references over the
+    first 4 cases; distances within 1e-5 of ``distance_transform_edt``; no
+    kernel launch. Reports cases/s, ms a slice, the peak."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from torchmetrics_tpu_torch.functional.segmentation import mask_edges, surface_distance
+
+    name, spec = "brats2021_surface", BRATS
+    started = time.perf_counter()
+    grids = torch.meshgrid(*[torch.arange(s, device=dev, dtype=torch.float32) for s in spec["shape"]], indexing="ij")
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, area_mm2, plain_s, cases = [], [], [], []
+    for case in range(spec["cases"]):
+        pred, target = _brats_case(case, spec, grids, dev)
+        out = _timed(step_s, lambda: mask_edges(pred, target, spacing=(1, 1, 1)))
+        area_mm2.append((float(out[2].sum()), float(out[3].sum())))
+        plain = _timed(plain_s, lambda: mask_edges(pred, target))
+        if case < spec["scipy_cases"]:
+            for got, mask in ((out[0], pred), (out[1], target)):
+                _check(np.array_equal(got.cpu().numpy(), _edges_scipy(mask.cpu().numpy(), True)), f"{name}: case {case} edges (spacing) differ from scipy")
+            for got, mask in ((plain[0], pred), (plain[1], target)):
+                _check(np.array_equal(got.cpu().numpy(), _edges_scipy(mask.cpu().numpy(), False)), f"{name}: case {case} edges differ from scipy")
+        if case < spec["slice_cases"]:
+            cases.append((pred, target))
+    peak = _peak_above(dev, base)
+
+    slice_s, worst, slices, distances = [], 0.0, 0, 0
+    for pred, target in cases:
+        for z in range(spec["shape"][2]):
+            p2, t2 = pred[:, :, z], target[:, :, z]
+            if not bool(p2.any()) or not bool(t2.any()):
+                continue
+            ep, et = mask_edges(p2, t2, crop=False)
+            got = _timed(slice_s, lambda: surface_distance(ep, et))
+            want = ndimage.distance_transform_edt(~et.cpu().numpy())[ep.cpu().numpy()]
+            err = float(np.abs(got.cpu().numpy().astype(np.float64) - want).max()) if want.size else 0.0
+            _check(err <= EDT_ATOL, f"{name}: slice {z} distances {err} from scipy")
+            worst, slices, distances = max(worst, err), slices + 1, distances + int(want.size)
+    launches = _text_no_kernels(name, counters)
+    idle = _rest_idle_share(lambda i: mask_edges(pred, target, spacing=(1, 1, 1)), 3)
+    return _emit({
+        "phase": name, "source": "BraTS 2021 validation: 219 cases of 240 x 240 x 155 at 1 mm",
+        "cuts": "synthetic ellipsoid tumours (stated choices in BRATS); scipy edge checks over 4 cases; "
+        "surface distances over the tumour-bearing slices of 2",
+        "cases_per_s": spec["cases"] / sum(step_s), "mask_edges_spacing_ms": 1e3 * sum(step_s) / len(step_s),
+        "mask_edges_plain_ms": 1e3 * sum(plain_s) / len(plain_s), "mean_surface_mm2": float(np.mean(area_mm2)),
+        "slices": slices, "distances": distances, "surface_distance_ms_a_slice": 1e3 * sum(slice_s) / max(1, slices),
+        "max_abs_err_vs_scipy": worst, "peak_above_base_bytes": peak, "mask_edges_idle": idle, "launches": launches,
+        "phase_s": time.perf_counter() - started,
+    })
+
+
+class _ClipStandIn:
+    """A seeded two-tower image-text embedder at CLIP ViT-B/32's widths (not
+    CLIP): patch embedding, GELU, a mean over the 49 patches and a 512-wide
+    projection; token embedding over a 49,408-token vocabulary, a masked
+    mean over 77 positions and a projection. Each tower's unit output plus
+    one shared direction."""
+
+    def __init__(self, dev):
+        import torch
+
+        s, g = CLIP_B32, torch.Generator(device=dev).manual_seed(SEED + 35_000)
+        patch_dim = 3 * s["patch"] ** 2
+        self.patch = torch.randn(patch_dim, s["width"], generator=g, device=dev) / math.sqrt(patch_dim)
+        self.pos = 0.02 * torch.randn((s["image"] // s["patch"]) ** 2, s["width"], generator=g, device=dev)
+        self.vproj = torch.randn(s["width"], s["embed"], generator=g, device=dev) / math.sqrt(s["width"])
+        self.tokens = 0.02 * torch.randn(s["vocab"], s["embed"], generator=g, device=dev)
+        self.tpos = 0.01 * torch.randn(s["context"], s["embed"], generator=g, device=dev)
+        self.tproj = torch.randn(s["embed"], s["embed"], generator=g, device=dev) / math.sqrt(s["embed"])
+        shared = torch.randn(s["embed"], generator=g, device=dev)
+        self.shared = shared / shared.norm()
+        self.dev = dev
+
+    def image(self, x):
+        import torch
+        import torch.nn.functional as F
+
+        p = CLIP_B32["patch"]
+        if x.shape[-1] != CLIP_B32["image"] or x.shape[-2] != CLIP_B32["image"]:
+            x = F.interpolate(x, size=(CLIP_B32["image"],) * 2, mode="bilinear", align_corners=False)
+        patches = x.unfold(2, p, p).unfold(3, p, p).permute(0, 2, 3, 1, 4, 5).reshape(x.shape[0], -1, 3 * p * p)
+        h = (F.gelu(patches @ self.patch + self.pos).mean(1)) @ self.vproj
+        return h / h.norm(dim=-1, keepdim=True) + self.shared
+
+    def text(self, captions):
+        import zlib
+
+        import torch
+
+        s = CLIP_B32
+        ids = torch.zeros(len(captions), s["context"], dtype=torch.int64)
+        for i, c in enumerate(captions):
+            words = [s["vocab"] - 2] + [zlib.crc32(w.encode()) % (s["vocab"] - 3) + 1 for w in c.split()] + [s["vocab"] - 1]
+            ids[i, : min(len(words), s["context"])] = torch.tensor(words[: s["context"]])
+        ids = ids.to(self.dev)
+        mask = (ids > 0).float()[..., None]
+        h = ((self.tokens[ids] + self.tpos) * mask).sum(1) / mask.sum(1)
+        h = h @ self.tproj
+        return h / h.norm(dim=-1, keepdim=True) + self.shared
+
+
+def _captions(n: int, seed: int) -> list:
+    """``n`` synthetic captions of 8-15 words drawn from 2,000 pseudo-words."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    syllables = ["ka", "lo", "mi", "ne", "su", "ta", "ri", "po", "de", "va", "zu", "he"]
+    words = ["".join(rng.choice(syllables, rng.randint(1, 4))) + str(k % 7) for k in range(2_000)]
+    return [" ".join(rng.choice(words, rng.randint(8, 16))) for _ in range(n)]
+
+
+def _smooth_images(n: int, h: int, w: int, g, dev):
+    import torch
+    import torch.nn.functional as F
+
+    low = torch.rand(n, 3, max(2, h // 32), max(2, w // 32), generator=g, device=dev)
+    return F.interpolate(low, size=(h, w), mode="bilinear", align_corners=False).clamp(0, 1)
+
+
+def phase_coco_karpathy_clipscore(dev) -> dict:
+    """``CLIPScore`` over the Karpathy test split (5,000 images x 5
+    captions, 100 images an update) and ``CLIPImageQualityAssessment`` over
+    KonIQ-10k (10,073 images of 1024 x 768 in batches of 64, resized to
+    224 by the hook) with the default prompt and prompt pairs, on the
+    seeded stand-in (``KARPATHY``, ``KONIQ``, ``CLIP_B32``). Hard checks:
+    the score and every image's probabilities within 1e-5 (relative, and
+    absolute for probabilities) of float64 computations from the same
+    features; no kernel launch. Reports pairs/s, images/s, the peak and the
+    idle share of the card over a few updates."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import multimodal
+
+    name = "coco_karpathy_clipscore"
+    started = time.perf_counter()
+    tower = _ClipStandIn(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 36_000)
+    captions = _captions(KARPATHY["images"] * KARPATHY["captions"], SEED + 36_000)
+    seen = []
+
+    def embed(images, texts):
+        pair = (tower.image(images), tower.text(texts))
+        seen.append((pair[0].double(), pair[1].double()))
+        return pair
+
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    score = multimodal.CLIPScore(embedding_fn=embed)
+    step_s, per = [], KARPATHY["batch"] * KARPATHY["captions"]
+    for b in range(KARPATHY["images"] // KARPATHY["batch"]):
+        images = _smooth_images(KARPATHY["batch"], 224, 224, g, dev).repeat_interleave(KARPATHY["captions"], 0)
+        _timed(step_s, lambda: score.update(images, captions[b * per : (b + 1) * per]))
+    value, compute_ms = _compute_ms(score)
+    value = float(value)
+    cos = torch.cat([(i / i.norm(dim=-1, keepdim=True) * (t / t.norm(dim=-1, keepdim=True))).sum(-1) for i, t in seen])
+    want = max(float(100 * cos.mean()), 0.0)
+    _check(abs(value - want) <= CLIP_RTOL * abs(want), f"{name}: CLIPScore {value} against float64 {want}")
+
+    iqa_feats = {"default": [], "pairs": []}
+    anchors = {}
+
+    def image_hook(key):
+        def hook(images):
+            f = tower.image(images)
+            iqa_feats[key].append(f.double())
+            return f
+        return hook
+
+    def text_hook(key):
+        def hook(prompts):
+            f = tower.text(prompts)
+            anchors[key] = f.double()
+            return f
+        return hook
+
+    iqa = {"default": multimodal.CLIPImageQualityAssessment(image_hook("default"), text_hook("default")),
+           "pairs": multimodal.CLIPImageQualityAssessment(image_hook("pairs"), text_hook("pairs"), prompts=KONIQ["pairs"])}
+    iqa_s = []
+    for s in range(0, KONIQ["images"], KONIQ["batch"]):
+        n = min(KONIQ["batch"], KONIQ["images"] - s)
+        images = _smooth_images(n, KONIQ["height"], KONIQ["width"], g, dev)
+        _timed(iqa_s, lambda: [m.update(images) for m in iqa.values()])
+    iqa_checks = {}
+    for key, m in iqa.items():
+        got, iqa_ms = _compute_ms(m)
+        got = torch.stack(list(got.values()), 1) if isinstance(got, dict) else got[:, None]
+        img = torch.cat(iqa_feats[key])
+        img = img / img.norm(dim=-1, keepdim=True)
+        anc = anchors[key] / anchors[key].norm(dim=-1, keepdim=True)
+        want_p = torch.softmax((100 * img @ anc.T).reshape(img.shape[0], -1, 2), dim=-1)[:, :, 0]
+        err = float((got.double() - want_p).abs().max())
+        _check(got.shape == want_p.shape and err <= CLIP_RTOL, f"{name}: CLIP-IQA {key} {err} from float64")
+        iqa_checks[key] = {"images": int(got.shape[0]), "max_abs_err": err, "mean": got.mean(0).tolist(), "compute_ms": iqa_ms}
+    peak = _peak_above(dev, base)
+    launches = _text_no_kernels(name, counters)
+    images = _smooth_images(KARPATHY["batch"], 224, 224, g, dev).repeat_interleave(KARPATHY["captions"], 0)
+    idle = _rest_idle_share(lambda i: score.update(images, captions[:per]), 3)
+    return _emit({
+        "phase": name, "source": "COCO Karpathy test split (5,000 images x 5 captions); KonIQ-10k (10,073 images, 1024 x 768); "
+        "CLIP ViT-B/32's widths",
+        "cuts": "a seeded two-tower stand-in, not CLIP; synthetic images and captions",
+        "clipscore": value, "clipscore_float64": want, "clipscore_compute_ms": compute_ms, "clipscore_rel_err": abs(value - want) / abs(want),
+        "pairs_per_s": KARPATHY["images"] * KARPATHY["captions"] / sum(step_s), "iqa_images_per_s": KONIQ["images"] / sum(iqa_s),
+        "iqa": iqa_checks, "peak_above_base_bytes": peak, "update_idle": idle, "launches": launches,
+        "phase_s": time.perf_counter() - started,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -6183,6 +7028,13 @@ def main() -> int:
     phase_voicebank_demand_enhancement(dev)
     phase_reverb_srmr(dev)
     clusters = phase_imagenet_clustering(dev)
+    # detection, segmentation, multimodal: plain PyTorch, but panoptic
+    # quality's intersection tables on the bincount kernel
+    phase_coco_val2017_bbox(dev)
+    phase_coco_val2017_segm(dev)
+    panoptic = phase_coco_panoptic_val2017(dev)
+    phase_brats2021_surface(dev)
+    phase_coco_karpathy_clipscore(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -6214,7 +7066,7 @@ def main() -> int:
             + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"]
             + sum(r["bincount_launches"] for r in rest)
             + sum(r["bincount_launches"] for r in wrapped) + boot["functional_bincount_launches"]
-            + census["bincount_launches"] + clusters["bincount_launches"],
+            + census["bincount_launches"] + clusters["bincount_launches"] + panoptic["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],

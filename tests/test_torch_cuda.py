@@ -1754,3 +1754,111 @@ def test_clustering_functionals_on_the_card_equal_the_cpu(cuda_device):
         got = getattr(fn, name)(torch.as_tensor(data, device=cuda_device), torch.as_tensor(target, device=cuda_device))
         want = getattr(fn, name)(torch.as_tensor(data), torch.as_tensor(target))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0.0)
+
+
+# ------------------------------------------- detection, segmentation, multimodal
+
+
+def _to(items, device):
+    return [{k: torch.as_tensor(np.asarray(v), device=device) for k, v in d.items()} for d in items]
+
+
+@pytest.mark.parametrize("iou_type", ["bbox", "segm"])
+def test_mean_ap_on_the_card_equals_the_cpu(cuda_device, iou_type, monkeypatch):
+    """The summary dict on the card equals the CPU's within 1e-6, for one
+    chunk of pairs and for chunks of one pair; the states stay on the card."""
+    from test_torch_mean_ap import crowded, segm_batch
+    from torchmetrics_tpu_torch.detection import mean_ap
+
+    batches = [crowded(s, images=12) for s in range(3)] if iou_type == "bbox" else [segm_batch(s) for s in range(3)]
+    for budget in (mean_ap.MATCH_BUDGET_BYTES, 1):
+        monkeypatch.setattr(mean_ap, "MATCH_BUDGET_BYTES", budget)
+        card = tm.MeanAveragePrecision(iou_type=iou_type, class_metrics=True)
+        cpu = tm.MeanAveragePrecision(iou_type=iou_type, class_metrics=True, device="cpu")
+        for preds, target in batches:
+            card.update(_to(preds, cuda_device), _to(target, cuda_device))
+            cpu.update(_to(preds, "cpu"), _to(target, "cpu"))
+        assert all(d.is_cuda for d in card.detections)
+        got, want = card.compute(), cpu.compute()
+        for k in want:
+            assert got[k].device == cuda_device, k
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=0.0, atol=1e-6)
+
+
+def test_panoptic_quality_takes_one_bincount_launch_an_update_on_the_card(cuda_device):
+    from test_torch_panoptic import STUFFS, THINGS, panoptic_maps
+
+    card = tm.PanopticQuality(THINGS, STUFFS, allow_unknown_preds_category=True, return_per_class=True, return_sq_and_rq=True)
+    cpu = tm.PanopticQuality(THINGS, STUFFS, allow_unknown_preds_category=True, return_per_class=True, return_sq_and_rq=True, device="cpu")
+    kernels.reset_gate_log()
+    launched = bincount.launches
+    for seed in range(4):
+        preds, target = panoptic_maps(seed, batch=3, spatial=(48, 40))
+        card.update(torch.as_tensor(preds, device=cuda_device), torch.as_tensor(target, device=cuda_device))
+        cpu.update(torch.as_tensor(preds), torch.as_tensor(target))
+    torch.cuda.synchronize()
+    assert bincount.launches - launched == 4
+    assert kernels.gate_snapshot()["bincount"]["selections"] == {"cuda": 4, "reference": 4}
+    for k in ("true_positives", "false_positives", "false_negatives"):
+        assert torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+    torch.testing.assert_close(card.iou_sum.cpu(), cpu.iou_sum, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(card.compute().cpu(), cpu.compute(), rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "chessboard", "taxicab"])
+def test_chunked_distance_transform_on_the_card_equals_one_chunk(cuda_device, metric, monkeypatch):
+    from torchmetrics_tpu_torch.functional.segmentation import utils
+
+    rng = np.random.RandomState(6)
+    x = torch.as_tensor(rng.rand(240, 240) > 0.02, device=cuda_device)
+    whole = utils.distance_transform(x, sampling=[1.0, 1.5], metric=metric)
+    monkeypatch.setattr(utils, "DISTANCE_BUDGET_BYTES", 1 << 20)
+    assert torch.equal(utils.distance_transform(x, sampling=[1.0, 1.5], metric=metric), whole)
+    cpu = utils.distance_transform(x.cpu(), sampling=[1.0, 1.5], metric=metric)
+    torch.testing.assert_close(whole.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_segmentation_and_iou_on_the_card_equal_the_cpu(cuda_device):
+    from test_torch_mean_ap import crowded
+    from torchmetrics_tpu_torch.functional.segmentation import utils
+
+    rng = np.random.RandomState(7)
+    vol = torch.as_tensor(rng.rand(2, 40, 36, 30) > 0.5, device=cuda_device)
+    for spacing in (None, (1, 1, 1)):
+        got = utils.mask_edges(vol[0], vol[1], spacing=spacing)
+        want = utils.mask_edges(vol[0].cpu(), vol[1].cpu(), spacing=spacing)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    preds, target = crowded(3, images=10)
+    for cls in ("IntersectionOverUnion", "CompleteIntersectionOverUnion"):
+        card, cpu = getattr(tm, cls)(class_metrics=True), getattr(tm, cls)(class_metrics=True, device="cpu")
+        card.update(_to(preds, cuda_device), _to(target, cuda_device))
+        cpu.update(_to(preds, "cpu"), _to(target, "cpu"))
+        got, want = card.compute(), cpu.compute()
+        for k in want:
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
+def test_clip_scores_on_the_card_equal_the_cpu(cuda_device):
+    w = torch.randn(3, 16, generator=torch.Generator().manual_seed(0))
+
+    def embed(images, texts):
+        feats = images.mean(dim=(2, 3)) @ w.to(images.device)
+        return feats, torch.stack([torch.full((16,), float(len(t)), device=images.device).cos() + feats[i] for i, t in enumerate(texts)])
+
+    imgs = torch.rand(6, 3, 16, 16, generator=torch.Generator().manual_seed(1))
+    texts = [f"caption {'x' * i}" for i in range(6)]
+    card, cpu = tm.CLIPScore(embedding_fn=embed), tm.CLIPScore(embedding_fn=embed, device="cpu")
+    card.update(imgs.to(cuda_device), texts)
+    cpu.update(imgs, texts)
+    assert card.score.is_cuda
+    torch.testing.assert_close(card.compute().cpu(), cpu.compute(), rtol=1e-5, atol=1e-5)
+    iqa = tm.CLIPImageQualityAssessment(lambda x: x.mean(dim=(2, 3)) @ w.to(x.device),
+                                        lambda p: torch.randn(len(p), 16, generator=torch.Generator().manual_seed(2)),
+                                        prompts=("quality", "sharpness"))
+    iqa.update(imgs.to(cuda_device))
+    ref = tm.CLIPImageQualityAssessment(lambda x: x.mean(dim=(2, 3)) @ w,
+                                        lambda p: torch.randn(len(p), 16, generator=torch.Generator().manual_seed(2)),
+                                        prompts=("quality", "sharpness"), device="cpu")
+    ref.update(imgs)
+    for k, v in ref.compute().items():
+        torch.testing.assert_close(iqa.compute()[k].cpu(), v, rtol=1e-5, atol=1e-5)

@@ -57,6 +57,11 @@ def test_sources_were_found():
         "torchmetrics_tpu_torch/audio/dsp.py",
         "torchmetrics_tpu_torch/functional/clustering/utils.py",
         "torchmetrics_tpu_torch/clustering/metrics.py",
+        "torchmetrics_tpu_torch/detection/mean_ap.py",
+        "torchmetrics_tpu_torch/detection/helpers.py",
+        "torchmetrics_tpu_torch/functional/detection/panoptic_quality.py",
+        "torchmetrics_tpu_torch/functional/segmentation/utils.py",
+        "torchmetrics_tpu_torch/multimodal/clip_score.py",
     } <= names
 
 
@@ -77,6 +82,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.functional, torchmetrics_tpu_torch.utils.convert\n"
         "import torchmetrics_tpu_torch.retrieval, torchmetrics_tpu_torch.image, torchmetrics_tpu_torch.text\n"
         "import torchmetrics_tpu_torch.native, torchmetrics_tpu_torch.audio, torchmetrics_tpu_torch.clustering\n"
+        "import torchmetrics_tpu_torch.detection, torchmetrics_tpu_torch.multimodal\n"
+        "import torchmetrics_tpu_torch.functional.segmentation, torchmetrics_tpu_torch.functional.multimodal\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "assert not bad, bad\n"
     )

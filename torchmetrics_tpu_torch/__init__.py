@@ -47,15 +47,22 @@ metric is built with ``device="cpu"``. Ported so far:
 - clustering: mutual information and its normalised and adjusted forms,
   rand and adjusted rand, Fowlkes-Mallows, homogeneity, completeness and
   V-measure, whose contingency tables run on the ``bincount`` kernel, and
-  Calinski-Harabasz, Davies-Bouldin and Dunn on embeddings.
+  Calinski-Harabasz, Davies-Bouldin and Dunn on embeddings;
+- detection: COCO mean average precision (boxes and masks, greedy matching
+  on the device), IoU, GIoU, DIoU and CIoU, and panoptic quality, whose
+  intersection tables run on the ``bincount`` kernel; the segmentation
+  utilities (erosion, distance transforms, mask edges, surface distances);
+  and CLIPScore and CLIP-IQA on the user's embedding functions.
 """
 from torchmetrics_tpu_torch import (
     audio,
     classification,
     clustering,
+    detection,
     functional,
     image,
     models,
+    multimodal,
     nominal,
     parallel,
     regression,
@@ -79,9 +86,13 @@ from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.clustering import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.detection import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.multimodal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.multimodal import __all__ as _multimodal_all
 from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
@@ -123,9 +134,11 @@ __all__ = [
     "audio",
     "classification",
     "clustering",
+    "detection",
     "functional",
     "image",
     "models",
+    "multimodal",
     "nominal",
     "parallel",
     "regression",
@@ -135,7 +148,9 @@ __all__ = [
     *_audio_all,
     *_classification_all,
     *_clustering_all,
+    *_detection_all,
     *_image_all,
+    *_multimodal_all,
     *_nominal_all,
     *_regression_all,
     *_retrieval_all,

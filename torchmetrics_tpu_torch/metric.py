@@ -523,7 +523,7 @@ class Metric:
         value whose sync succeeded, or degrades like ``"local"`` without one."""
 
         def sync_all() -> Dict[str, Any]:
-            return sync_states(self._state, self._reductions, group, timeout=self.sync_timeout, device=self._device)
+            return self._sync_states(self._state, self._reductions, group)
 
         try:
             if self.on_sync_failure == "retry":
@@ -822,6 +822,12 @@ class Metric:
             reductions[self._STATE_COUNT_KEY] = "sum"
         if self.dist_sync_fn is not None:
             return {k: self.dist_sync_fn(v, reductions.get(k), group) for k, v in state.items()}
+        return self._sync_states(state, reductions, group)
+
+    def _sync_states(self, state: Dict[str, Any], reductions: Dict[str, Reduction], group: Any) -> Dict[str, Any]:
+        """The built-in collectives of :meth:`sync` and :meth:`functional_sync`
+        (``parallel/sync.py``); a metric whose list states must keep their
+        entries apart overrides it."""
         return sync_states(state, reductions, group, timeout=self.sync_timeout, device=self._device)
 
     def merge_states(
