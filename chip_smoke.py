@@ -141,6 +141,18 @@ evaluation workloads:
   Karpathy test split and CLIP-IQA over KonIQ-10k on a seeded stand-in at
   CLIP ViT-B/32's widths, against float64. Each mAP compute's peak is held
   to the metric's own reckoning.
+- the runtime layers on the ImageNet collection (batches made from the seed
+  and their index): traced with every flag off, telemetry on, tracing on
+  and tracing with an ``observe_ready`` device span an update, in turns
+  over nine rounds, values bit-equal across them, spans counted, a Chrome
+  trace and Prometheus text parsed back (host µs an update and a span's
+  cost printed); a spawned child under ``Autosaver`` and the preemption
+  handler, killed by SIGTERM after update 30, its final snapshot restored
+  in this process and finished bit-equal to an uninterrupted run, then
+  again from the snapshot before a torn newest one (snapshot bytes, save,
+  final-save and restore ms printed); ``compute_async()`` every 8 updates
+  on the default and on a side stream, each future bit-equal to
+  ``compute()`` at its count.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -174,6 +186,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -6767,6 +6780,447 @@ def phase_coco_karpathy_clipscore(dev) -> dict:
     })
 
 
+# --------------------------------------------------------------------------
+# The runtime layers: observability, durability and asynchronous
+# reads on the ImageNet counting path.
+# --------------------------------------------------------------------------
+
+#: the runtime phases' ImageNet pass: an autosave every 8 updates into a
+#: store of the newest 3, SIGTERM after update 30, a compute_async every 8
+RUNTIME = {"every_n_updates": 8, "keep": 3, "kill_after": 30, "async_every": 8, "rounds": 9, "span_calls": 100_000,
+           "child_timeout_s": 300}
+
+
+def _runtime_dir(name: str):
+    """A fresh scratch directory for a runtime phase, under the port's
+    gitignored ``_build/``."""
+    import shutil
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "torchmetrics_tpu_torch" / "_build" / "runtime" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def _imagenet_batch(i: int, dev):
+    """ImageNet batch ``i``, from the seed and its index alone, so any
+    process makes the same batch."""
+    import torch
+
+    c = IMAGENET["num_classes"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 16_000 + i)
+    b = IMAGENET["batches"][i]
+    return torch.randn((b, c), generator=g, device=dev), torch.randint(0, c, (b,), generator=g, device=dev)
+
+
+def _imagenet_indexed(dev) -> dict:
+    """The ``imagenet_val`` workload with batches made by index."""
+    spec = _imagenet(dev)
+    spec["batches"] = lambda: (_imagenet_batch(i, dev) for i in range(len(IMAGENET["batches"])))
+    return spec
+
+
+def _values(result: dict) -> dict:
+    return {k: v for k, v in result.items() if k != "confmat"}
+
+
+def _same_result(name: str, got: dict, want: dict) -> None:
+    """Every value bit-equal (the confusion matrix too)."""
+    import torch
+
+    _check(got.keys() == want.keys(), f"{name}: keys {sorted(got)} != {sorted(want)}")
+    for k in want:
+        _check(
+            got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]),
+            f"{name}: {k} differs bit for bit ({got[k].flatten()[:4].tolist()} against {want[k].flatten()[:4].tolist()})",
+        )
+
+
+def _prometheus_families(text: str) -> dict:
+    """Parse a Prometheus text exposition: every sample line's value must be
+    a number and every family must carry HELP and TYPE."""
+    helped, typed, samples = set(), {}, {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            helped.add(line.split()[2])
+        elif line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            typed[name] = kind
+        elif line:
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    for name in samples:
+        family = name.split("{")[0]
+        base = next((f for f in typed if family == f or family.startswith(f + "_")), None)
+        _check(base is not None and base in helped, f"prometheus: sample {name} has no HELP/TYPE family")
+    return {"families": len(typed), "samples": len(samples)}
+
+
+def _span_cost_us(calls: int) -> float:
+    """Host µs of one ``with span(...)`` under the current flags, less the
+    empty loop's."""
+    from torchmetrics_tpu_torch import obs
+
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pass
+    empty = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        with obs.span(obs.SPAN_UPDATE, suffix="MulticlassAccuracy"):
+            pass
+    return (time.perf_counter() - t0 - empty) / calls * 1e6
+
+
+def phase_imagenet_val_traced(dev) -> dict:
+    """The ImageNet collection with every flag off, telemetry on (the
+    default), tracing on (``TORCHMETRICS_TPU_TRACE=1``), and tracing on with
+    an ``observe_ready`` device span after each update, in turns over
+    ``RUNTIME["rounds"]`` rounds (each round starting at the next mode).
+    Every run: 49 ``bincount`` launches, the
+    confusion state equal to the plain count, every value bit-equal across
+    runs. The traced runs: one ``tm_tpu.update/<member>`` span per member
+    update, one compute span per member, a Chrome trace written and parsed
+    back, Prometheus text that parses; with ``observe_ready``, one
+    device-completion span per update from a CUDA event. Printed: host µs
+    per update (the update call, no synchronise) per mode, a span's host
+    cost per mode, and the host time of a ``bincount`` call through the
+    kernel seam with the flight recorder's note and without it."""
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops import bincount
+
+    spec = _imagenet_indexed(dev)
+    plain = _plain_confmat(spec)
+    batches = list(spec["batches"]())
+    out_dir = _runtime_dir("traced")
+    modes = {"flags_off": (False, False, False), "telemetry": (True, False, False), "traced": (True, True, False),
+             "traced_ready": (True, True, True)}
+    host_us = {m: [] for m in modes}
+    span_us = {}
+    reference = None
+    traced = {}
+    seam_ms = {}
+    try:
+        for mode, (telemetry, tracing, ready) in modes.items():
+            if ready:
+                continue  # the same spans as "traced"
+            obs.set_telemetry(telemetry)
+            obs.set_tracing(tracing)
+            span_us[mode] = _span_cost_us(RUNTIME["span_calls"])
+        obs.set_telemetry(True)
+        obs.set_tracing(False)
+        seam_ms = _seam_host_ms(dev)
+        order = list(modes)
+        for r in range(RUNTIME["rounds"]):
+            # each round starts at another mode, so no mode always runs first
+            for mode in order[r % len(order):] + order[:r % len(order)]:
+                telemetry, tracing, ready = modes[mode]
+                obs.set_telemetry(telemetry)
+                obs.set_tracing(tracing)
+                obs.reset()
+                obs.reset_ring()
+                obs.reset_flight()
+                coll = spec["collection"]()
+                torch.cuda.synchronize()
+                bincount.launches = 0
+                steps = []
+                groups = []
+                for preds, target in batches:
+                    t0 = time.perf_counter()
+                    coll.update(preds, target)
+                    steps.append(time.perf_counter() - t0)
+                    groups.append(len(coll.compute_groups) if len(groups) else len(coll._modules))
+                    if ready:
+                        obs.observe_ready("imagenet_val.update.ready", coll["confmat"].confmat)
+                result = coll.compute()
+                torch.cuda.synchronize()
+                launches = bincount.launches
+                _check(launches == len(batches), f"imagenet_val_traced/{mode}: {launches} bincount launches")
+                _check(torch.equal(coll["confmat"].confmat.to(torch.int64), plain), f"imagenet_val_traced/{mode}: confusion state")
+                if reference is None:
+                    reference = result
+                _same_result(f"imagenet_val_traced/{mode}", result, reference)
+                steps_us = sorted(s * 1e6 for s in steps)
+                host_us[mode].append({"p50": steps_us[len(steps_us) // 2], "mean": statistics.fmean(steps_us)})
+                if tracing:
+                    traced[mode] = _check_trace(coll, groups, out_dir, ready)
+    finally:
+        obs.set_telemetry(None)
+        obs.set_tracing(None)
+    cm, tp, fp, fn, present = _derived(plain)
+    spec["check"](reference, tp, fp, fn, present.to(torch.float64))
+    return _emit({
+        "phase": "imagenet_val_traced", "updates": len(batches), "rounds": RUNTIME["rounds"],
+        "bincount_launches": len(batches) * len(modes) * RUNTIME["rounds"],
+        "host_us_per_update": host_us,
+        "host_us_median_of_rounds": {m: statistics.median(r["p50"] for r in rounds) for m, rounds in host_us.items()},
+        "span_cost_us": span_us, "trace": traced, "bincount_seam_host_ms": seam_ms,
+        "values": {k: float(v) for k, v in _values(reference).items()},
+    })
+
+
+def _seam_host_ms(dev) -> dict:
+    """Host ms of one ``bincount`` call through the kernel seam (the gate
+    log and, with telemetry, the flight recorder's note) at the Cityscapes
+    update's weightless shape, with the note on and off, in turns."""
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops import kernels
+
+    _, k, length, n, _ = next(s for s in KERNEL_SHAPES if s[0] == "cityscapes_confmat_weightless")
+    x, _ = _bincount_inputs(k, length, n, False, dev)
+    out = {"flight_on": [], "flight_off": []}
+    try:
+        for flight in (True, False, False, True):
+            obs.set_flight(flight)
+            out["flight_on" if flight else "flight_off"].append(_host_ms(lambda: kernels.dispatch("bincount", x, None, length)))
+    finally:
+        obs.set_flight(None)
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_trace(coll, groups: list, out_dir, ready: bool) -> dict:
+    """The traced run's spans, trace file and Prometheus text."""
+    from torchmetrics_tpu_torch import obs
+
+    _check(obs.flush_ready_observations(60.0), "imagenet_val_traced: ready observations did not land")
+    events = obs.peek_events()
+    names = [e.name for e in events]
+    member_classes = sorted(type(m).__name__ for m in coll.values())
+    update_spans = [n for n in names if n.startswith(obs.SPAN_UPDATE + "/")]
+    _check(len(update_spans) == sum(groups), f"imagenet_val_traced: {len(update_spans)} update spans for {sum(groups)} member updates")
+    compute_spans = sorted(n.split("/", 1)[1] for n in names if n.startswith(obs.SPAN_COMPUTE + "/"))
+    _check(compute_spans == member_classes, f"imagenet_val_traced: compute spans {compute_spans}")
+    ready_spans = [e for e in events if e.name == "imagenet_val.update.ready"]
+    want_ready = len(groups) if ready else 0
+    _check(len(ready_spans) == want_ready and all(e.t_end_ns >= e.t_start_ns and not (e.attrs or {}).get("error") for e in ready_spans),
+           f"imagenet_val_traced: {len(ready_spans)} device-completion spans, not {want_ready}")
+    path = obs.write_chrome_trace(str(out_dir / "imagenet_val.trace.json"), drain=True)
+    with open(path) as fh:
+        trace = json.load(fh)
+    complete = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    _check(len(complete) == len(events), f"imagenet_val_traced: the trace holds {len(complete)} of {len(events)} spans")
+    text = obs.prometheus_text()
+    parsed = _prometheus_families(text)
+    ready_us = sorted(e.duration_us for e in ready_spans) or [None]
+    return {
+        "spans": len(events), "update_spans": len(update_spans), "compute_spans": len(compute_spans),
+        "ready_spans": len(ready_spans), "ready_us_p50": ready_us[len(ready_us) // 2], "trace_bytes": os.path.getsize(path),
+        "prometheus": parsed,
+    }
+
+
+def _preempted_child(store: str, device: str, conn) -> None:
+    """The preempted process: the collection under an Autosaver and the
+    preemption handler; reports each committed update, and after
+    ``RUNTIME["kill_after"]`` waits for its SIGTERM."""
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.io import Autosaver, install_preemption_handler
+
+    dev = torch.device(device)
+    coll = _imagenet(dev)["collection"]()
+    saver = Autosaver(coll, store, every_n_updates=RUNTIME["every_n_updates"], keep=RUNTIME["keep"]).attach()
+    final_save = saver.final_save
+
+    def timed_final_save():
+        t0 = time.perf_counter()
+        path = final_save()
+        conn.send(("final_save", {"ms": (time.perf_counter() - t0) * 1e3, "path": path}))
+        return path
+
+    saver.final_save = timed_final_save
+    install_preemption_handler(saver)
+    tick_us = []
+    for i in range(RUNTIME["kill_after"]):
+        preds, target = _imagenet_batch(i, dev)
+        t0 = time.perf_counter()
+        coll.update(preds, target)
+        tick_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    saver.flush(60.0)
+    flight = obs.flight_snapshot()
+    conn.send(("committed", {
+        "updates": coll.update_count, "stats": {k: saver.stats[k] for k in ("saves", "skipped_inflight", "async_rides", "save_errors")},
+        "background_save_ms": [r["duration_us"] / 1e3 for r in flight.get("checkpoint", []) if r["name"].startswith(obs.SPAN_CKPT_SAVE)],
+        "autosave_tick_ms": [r["duration_us"] / 1e3 for r in flight.get("autosave", [])],
+        "update_us_p50": sorted(tick_us)[len(tick_us) // 2],
+    }))
+    deadline = time.monotonic() + RUNTIME["child_timeout_s"]
+    while time.monotonic() < deadline:  # the handler runs between these bytecodes
+        time.sleep(0.01)
+    sys.exit(3)  # no signal came
+
+
+def phase_imagenet_val_preempted(dev) -> dict:
+    """A real preemption. A spawned child updates the collection under
+    ``Autosaver(every_n_updates=8, keep=3)`` and the preemption handler;
+    after it reports update 30 committed the parent sends SIGTERM, the child
+    flushes a final snapshot and dies by the signal. The parent restores the
+    newest snapshot into a fresh collection and finishes batches 31-49:
+    values bit-equal to an uninterrupted run, the confusion matrix equal to
+    the plain count, every member at 49 updates. Then the newest snapshot is
+    torn: the restore skips it, takes the one before, and replaying from its
+    count gives the same values. Printed: snapshot bytes, background save
+    ms, final save ms, restore ms."""
+    import multiprocessing
+    import signal
+
+    import torch
+
+    from torchmetrics_tpu_torch.io import load_manifest, restore_state
+    from torchmetrics_tpu_torch.io.checkpoint import _list_snapshots
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.testing import torn_write
+
+    spec = _imagenet_indexed(dev)
+    n = len(IMAGENET["batches"])
+    store = str(_runtime_dir("preempted"))
+    ctx = multiprocessing.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=_preempted_child, args=(store, str(dev), child_conn))
+    t_spawn = time.perf_counter()
+    child.start()
+    messages = {}
+    deadline = time.monotonic() + RUNTIME["child_timeout_s"]
+    try:
+        while "committed" not in messages:
+            _check(child.is_alive() and time.monotonic() < deadline,
+                   f"imagenet_val_preempted: the child ended (exit code {child.exitcode}) or stalled before update 30")
+            if parent_conn.poll(1.0):
+                kind, body = parent_conn.recv()
+                messages[kind] = body
+        t_kill = time.perf_counter()
+        os.kill(child.pid, signal.SIGTERM)
+        child.join(RUNTIME["child_timeout_s"])
+        _check(not child.is_alive(), "imagenet_val_preempted: the child outlived its SIGTERM")
+        while parent_conn.poll(1.0):
+            kind, body = parent_conn.recv()
+            messages[kind] = body
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join(30)
+    _check(child.exitcode == -signal.SIGTERM, f"imagenet_val_preempted: child exit code {child.exitcode}, not -SIGTERM")
+    _check("final_save" in messages, "imagenet_val_preempted: the child flushed no final snapshot")
+    committed = messages["committed"]
+    _check(committed["updates"] == RUNTIME["kill_after"] and committed["stats"]["save_errors"] == 0,
+           f"imagenet_val_preempted: child state {committed}")
+
+    torch.cuda.synchronize()
+    bincount.launches = 0
+    whole = spec["collection"]()
+    for i in range(n):
+        whole.update(*_imagenet_batch(i, dev))
+    want = whole.compute()
+
+    def resume(expect_count: int, expect_skipped: int):
+        coll = spec["collection"]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manifest = restore_state(store, coll)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        _check(manifest["update_count"] == expect_count and manifest["fallbacks_skipped"] == expect_skipped,
+               f"imagenet_val_preempted: restored count {manifest['update_count']} skipped {manifest['fallbacks_skipped']}")
+        for i in range(expect_count, n):
+            coll.update(*_imagenet_batch(i, dev))
+        got = coll.compute()
+        _same_result(f"imagenet_val_preempted (from {expect_count})", got, want)
+        counts = {name: m._update_count for name, m in coll.items(keep_base=True)}
+        _check(all(c == n for c in counts.values()), f"imagenet_val_preempted: update counts {counts}")
+        return manifest, restore_ms, got
+
+    snaps = _list_snapshots(store)
+    newest = snaps[-1][1]
+    snapshot_bytes = os.path.getsize(newest)
+    manifest, restore_ms, got = resume(RUNTIME["kill_after"], 0)
+    _check(torch.equal(got["confmat"].to(torch.int64), _plain_confmat(spec)), "imagenet_val_preempted: confusion matrix")
+    torn_write(newest)
+    previous = load_manifest(snaps[-2][1])["update_count"]
+    manifest_torn, restore_torn_ms, _ = resume(previous, 1)
+    launches = bincount.launches
+    _check(launches == n + (n - RUNTIME["kill_after"]) + (n - previous),
+           f"imagenet_val_preempted: {launches} bincount launches")
+    return _emit({
+        "phase": "imagenet_val_preempted", "child_exitcode": child.exitcode, "kill_after": RUNTIME["kill_after"],
+        "child_s": t_kill - t_spawn, "child": committed, "final_save_ms": messages["final_save"]["ms"],
+        "snapshots": [os.path.basename(p) for _, p in snaps], "snapshot_bytes": snapshot_bytes,
+        "restore_ms": restore_ms, "restore_after_torn_ms": restore_torn_ms, "torn_fallback_count": previous,
+        "bincount_launches": launches, "values": {k: float(v) for k, v in _values(want).items()},
+    })
+
+
+def phase_imagenet_val_async(dev) -> dict:
+    """``compute_async()`` every 8 updates (and after the last) while the
+    loop goes on, on the default stream and then with the loop inside
+    ``torch.cuda.stream(s)``: each future bit-equal to a blocking
+    ``compute()`` at the same count, ``reads.inline_compute`` and
+    ``reads.inline_fallback`` 0. Printed: host µs of a ``compute_async``
+    call and of the blocking compute it replaces."""
+    from contextlib import nullcontext
+
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+
+    spec = _imagenet_indexed(dev)
+    batches = list(spec["batches"]())
+    n, every = len(batches), RUNTIME["async_every"]
+    points = [i for i in range(1, n + 1) if i % every == 0 or i == n]
+    torch.cuda.synchronize()
+    bincount.launches = 0
+    blocking, blocking_us = {}, []
+    coll = spec["collection"]()
+    for i, batch in enumerate(batches, 1):
+        coll.update(*batch)
+        if i in points:
+            t0 = time.perf_counter()
+            blocking[i] = coll.compute()
+            torch.cuda.synchronize()
+            blocking_us.append((time.perf_counter() - t0) * 1e6)
+    obs.reset()
+    runs = {}
+    for mode in ("default_stream", "side_stream"):
+        stream = torch.cuda.Stream(dev) if mode == "side_stream" else None
+        coll = spec["collection"]()
+        futures, submit_us = {}, []
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream) if stream is not None else nullcontext():
+            for i, batch in enumerate(batches, 1):
+                coll.update(*batch)
+                if i in points:
+                    t0 = time.perf_counter()
+                    futures[i] = coll.compute_async()
+                    submit_us.append((time.perf_counter() - t0) * 1e6)
+        for i, fut in futures.items():
+            _check(fut.submitted_count == i, f"imagenet_val_async/{mode}: future at count {fut.submitted_count}, not {i}")
+            _same_result(f"imagenet_val_async/{mode} at {i}", fut.result(120.0), blocking[i])
+        runs[mode] = {"futures": len(futures), "submit_us_p50": sorted(submit_us)[len(submit_us) // 2],
+                      "submit_us_max": max(submit_us)}
+    _check(drain_pipeline(60.0), "imagenet_val_async: the read pipeline did not drain")
+    counters = obs.counters_snapshot()
+    inline = {k: counters.get(k, 0) for k in ("reads.inline_compute", "reads.inline_fallback")}
+    _check(not any(inline.values()), f"imagenet_val_async: inline reads {inline}")
+    _check(counters.get("reads.async_completed", 0) == 2 * len(points), f"imagenet_val_async: {counters}")
+    launches = bincount.launches
+    _check(launches == 3 * n, f"imagenet_val_async: {launches} bincount launches for {3 * n} updates")
+    return _emit({
+        "phase": "imagenet_val_async", "updates": n, "reads_each": len(points), "runs": runs,
+        "blocking_compute_us_p50": sorted(blocking_us)[len(blocking_us) // 2], "inline": inline,
+        "bincount_launches": launches,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -7035,6 +7489,9 @@ def main() -> int:
     panoptic = phase_coco_panoptic_val2017(dev)
     phase_brats2021_surface(dev)
     phase_coco_karpathy_clipscore(dev)
+    # the runtime layers on the ImageNet counting path: tracing, a real
+    # preemption with autosave and restore, asynchronous reads
+    runtime = [phase_imagenet_val_traced(dev), phase_imagenet_val_preempted(dev), phase_imagenet_val_async(dev)]
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -7066,7 +7523,8 @@ def main() -> int:
             + imagenet_curve["bincount_launches"] + sync["launches"]["bincount"]
             + sum(r["bincount_launches"] for r in rest)
             + sum(r["bincount_launches"] for r in wrapped) + boot["functional_bincount_launches"]
-            + census["bincount_launches"] + clusters["bincount_launches"] + panoptic["bincount_launches"],
+            + census["bincount_launches"] + clusters["bincount_launches"] + panoptic["bincount_launches"]
+            + sum(r["bincount_launches"] for r in runtime),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],

@@ -1862,3 +1862,117 @@ def test_clip_scores_on_the_card_equal_the_cpu(cuda_device):
     ref.update(imgs)
     for k, v in ref.compute().items():
         torch.testing.assert_close(iqa.compute()[k].cpu(), v, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ runtime layers
+# Reads, autosaves and device timing on the card's streams: the worker
+# threads run on the default stream, so each waits on an event recorded on
+# the caller's stream before it reads (ops/async_read.py).
+
+
+def _runtime_collection(device):
+    c = 100
+    return tm.MetricCollection(
+        {
+            "accuracy": MulticlassAccuracy(num_classes=c, average="micro", validate_args=False),
+            "f1": MulticlassF1Score(num_classes=c, validate_args=False),
+            "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False),
+        },
+        device=device,
+    )
+
+
+def _runtime_batches(device, n=12, seed=16):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [
+        (torch.randn(1 << 16, 100, generator=g, device=device), torch.randint(0, 100, (1 << 16,), generator=g, device=device))
+        for _ in range(n)
+    ]
+
+
+def _assert_bit_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+def test_compute_async_on_a_side_stream_equals_compute(cuda_device):
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+
+    batches = _runtime_batches(cuda_device)
+    ref, blocking = _runtime_collection(cuda_device), {}
+    for i, batch in enumerate(batches, 1):
+        ref.update(*batch)
+        blocking[i] = ref.compute()
+    coll, futures = _runtime_collection(cuda_device), {}
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        for i, batch in enumerate(batches, 1):
+            coll.update(*batch)
+            futures[i] = coll.compute_async()
+    for i, fut in futures.items():
+        _assert_bit_equal(fut.result(60.0), blocking[i])
+    assert drain_pipeline(60.0)
+
+
+def test_autosave_on_a_side_stream_snapshots_exactly_its_count(cuda_device, tmp_path):
+    """Every background snapshot taken while the loop runs on a side stream,
+    restored and replayed from its count, ends bit-equal to the
+    uninterrupted run: no save read its state before the update wrote it."""
+    from torchmetrics_tpu_torch.io import Autosaver, load_manifest, restore_state
+    from torchmetrics_tpu_torch.io.checkpoint import _list_snapshots
+
+    batches = _runtime_batches(cuda_device, seed=17)
+    whole = _runtime_collection(cuda_device)
+    for batch in batches:
+        whole.update(*batch)
+    want = whole.compute()
+    coll = _runtime_collection(cuda_device)
+    saver = Autosaver(coll, str(tmp_path), every_n_updates=1, keep=len(batches)).attach()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    try:
+        with torch.cuda.stream(stream):
+            for batch in batches:
+                coll.update(*batch)
+        saver.flush(60.0)
+    finally:
+        saver.detach()
+    snaps = _list_snapshots(str(tmp_path))
+    assert snaps and saver.stats["saves"] == len(snaps) and saver.stats["save_errors"] == 0
+    for _, path in snaps:
+        count = load_manifest(path)["update_count"]
+        resumed = _runtime_collection(cuda_device)
+        restore_state(path, resumed)
+        for batch in batches[count:]:
+            resumed.update(*batch)
+        _assert_bit_equal(resumed.compute(), want)
+
+
+def test_observe_ready_times_a_cuda_event(cuda_device):
+    from torchmetrics_tpu_torch import obs
+
+    obs.set_tracing(True)
+    obs.reset_ring()
+    try:
+        x = torch.randn(4096, 4096, device=cuda_device)
+        y = x @ x
+        assert obs.observe_ready("tm_tpu.test.matmul", y) is y
+        assert obs.flush_ready_observations(30.0)
+        events = [e for e in obs.peek_events() if e.name == "tm_tpu.test.matmul"]
+        assert len(events) == 1 and not (events[0].attrs or {}).get("error")
+        assert events[0].t_end_ns >= events[0].t_start_ns
+    finally:
+        obs.set_tracing(None)
+        obs.reset_ring()
+
+
+def test_spans_name_the_profiler_ranges_on_the_card(cuda_device):
+    coll = _runtime_collection(cuda_device)
+    batch = _runtime_batches(cuda_device, n=1)[0]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+        coll.update(*batch)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert {"tm_tpu.update/MulticlassAccuracy", "tm_tpu.update/MulticlassConfusionMatrix"} <= names

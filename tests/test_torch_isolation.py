@@ -62,6 +62,16 @@ def test_sources_were_found():
         "torchmetrics_tpu_torch/functional/detection/panoptic_quality.py",
         "torchmetrics_tpu_torch/functional/segmentation/utils.py",
         "torchmetrics_tpu_torch/multimodal/clip_score.py",
+        "torchmetrics_tpu_torch/obs/__init__.py",
+        "torchmetrics_tpu_torch/obs/tracer.py",
+        "torchmetrics_tpu_torch/obs/flight.py",
+        "torchmetrics_tpu_torch/obs/registry.py",
+        "torchmetrics_tpu_torch/obs/export.py",
+        "torchmetrics_tpu_torch/io/checkpoint.py",
+        "torchmetrics_tpu_torch/ops/async_read.py",
+        "torchmetrics_tpu_torch/integrity.py",
+        "torchmetrics_tpu_torch/testing/__init__.py",
+        "torchmetrics_tpu_torch/testing/faults.py",
     } <= names
 
 

@@ -54,6 +54,8 @@ metric is built with ``device="cpu"``. Ported so far:
   utilities (erosion, distance transforms, mask edges, surface distances);
   and CLIPScore and CLIP-IQA on the user's embedding functions.
 """
+__version__ = "0.1.0"
+
 from torchmetrics_tpu_torch import (
     audio,
     classification,

@@ -18,8 +18,9 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from torchmetrics_tpu_torch.metric import Metric, resolve_device
-from torchmetrics_tpu_torch.ops.kernels import shared_scope
+from torchmetrics_tpu_torch import obs
+from torchmetrics_tpu_torch.metric import EAGER_REASON, Metric, resolve_device
+from torchmetrics_tpu_torch.ops.kernels import gate_snapshot, shared_scope
 from torchmetrics_tpu_torch.parallel.sync import sync_states
 from torchmetrics_tpu_torch.utils.data import _flatten_dict
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -192,6 +193,46 @@ class MetricCollection:
         """Updates committed into the collection (group leaders advance in lockstep)."""
         return max((m.update_count for m in self._modules.values()), default=0)
 
+    def __getstate__(self) -> Dict[str, Any]:
+        state = self.__dict__.copy()
+        state.pop("_update_observers", None)  # autosavers and fault hooks stay with the original
+        return state
+
+    # ------------------------------------------------------ update observers
+    def add_update_observer(self, callback: Any) -> Any:
+        """Register ``callback(collection)`` to fire once after every
+        committed collection-level ``update``/``forward``: the autosave
+        trigger point (``io/checkpoint.py``). Returns a detach function."""
+        observers = self.__dict__.setdefault("_update_observers", [])
+        observers.append(callback)
+
+        def detach() -> None:
+            current = self.__dict__.get("_update_observers")
+            if current is not None and callback in current:
+                current.remove(callback)
+
+        return detach
+
+    def _notify_update(self) -> None:
+        observers = self.__dict__.get("_update_observers")
+        if observers:
+            for callback in tuple(observers):
+                callback(self)
+
+    @property
+    def executor_status(self) -> Dict[str, Any]:
+        """The JAX package's executor diagnosis for the collection plus each
+        member's (see :attr:`Metric.executor_status`): the port runs eagerly."""
+        return {
+            "enabled": False,
+            "engaged": False,
+            "fallback_reason": EAGER_REASON,
+            "deferred_pending": False,
+            "stats": {},
+            "kernels": gate_snapshot(),
+            "members": {name: m.executor_status for name, m in self._modules.items()},
+        }
+
     # ------------------------------------------------------------- metric API
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update each compute group's leader once (every member before the
@@ -210,6 +251,7 @@ class MetricCollection:
             self._merge_compute_groups()
             self._compute_groups_create_state_ref()
             self._groups_checked = True
+        self._notify_update()
 
     def _merge_compute_groups(self, trial_states: Optional[Dict[str, Dict[str, Any]]] = None) -> None:
         """Union groups whose states compare equal, O(n^2). With
@@ -301,6 +343,7 @@ class MetricCollection:
                     self._compute_groups_create_state_ref()
                     self._groups_checked = True
         res, _ = _flatten_dict({self._set_name(k): v for k, v in res.items()})
+        self._notify_update()
         return res
 
     def _forward_group(self, cg: List[str], res: Dict[str, Any], args: tuple, kwargs: dict) -> None:
@@ -332,6 +375,24 @@ class MetricCollection:
 
     def compute(self) -> Dict[str, Any]:
         return self._flatten_results({k: m.compute() for k, m in self._modules.items()})
+
+    def compute_async(self) -> Any:
+        """Non-blocking :meth:`compute`: one
+        :class:`~torchmetrics_tpu_torch.ops.async_read.MetricFuture` resolving
+        to the renamed, flattened result dict a blocking ``compute()`` would
+        return for every member's state as of this call. Each member snapshots
+        its own state here, and the worker runs the member bodies as ONE
+        pipeline job."""
+        from torchmetrics_tpu_torch.ops import async_read as _async
+
+        owner = type(self).__name__
+        with obs.span(obs.SPAN_COMPUTE_ASYNC, suffix=owner):
+            bodies = {name: m._prepare_async_read() for name, m in self._modules.items()}
+
+            def job() -> Dict[str, Any]:
+                return self._flatten_results({name: body() for name, body in bodies.items()})
+
+            return _async.get_pipeline().submit(job, owner=owner, submitted_count=int(self.update_count))
 
     def _flatten_results(self, result: Dict[str, Any]) -> Dict[str, Any]:
         """Flatten dict-valued metric results with prefix dedup."""

@@ -1,4 +1,27 @@
-"""Transient-failure policy of the cross-process sync (``io/retry.py``)."""
+"""Durability: the atomic snapshot store, autosave and preemption flush
+(``io/checkpoint.py``), and the sync's transient-failure policy
+(``io/retry.py``)."""
+from torchmetrics_tpu_torch.io.checkpoint import (
+    Autosaver,
+    PreemptionHandle,
+    atomic_write_bytes,
+    install_preemption_handler,
+    load_manifest,
+    restore_state,
+    save_state,
+)
 from torchmetrics_tpu_torch.io.retry import RetryPolicy, backoff_delays, call_with_retries, default_sync_retries
 
-__all__ = ["RetryPolicy", "backoff_delays", "call_with_retries", "default_sync_retries"]
+__all__ = [
+    "Autosaver",
+    "PreemptionHandle",
+    "RetryPolicy",
+    "atomic_write_bytes",
+    "backoff_delays",
+    "call_with_retries",
+    "default_sync_retries",
+    "install_preemption_handler",
+    "load_manifest",
+    "restore_state",
+    "save_state",
+]

@@ -39,12 +39,14 @@ from __future__ import annotations
 import copy
 import functools
 import inspect
+import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.parallel.sync import SYNC_FAILURE_POLICIES, default_sync_timeout, sync_states
 from torchmetrics_tpu_torch.quarantine import DegradedValue
 from torchmetrics_tpu_torch.utils.checks import _check_same_device
@@ -133,11 +135,18 @@ def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs
     # (_state, _update_count, _computed) exactly as they were before it
     _check_same_device(self._device, args, kwargs, type(self).__name__)
     pre_count, pre_computed = self._update_count, self._computed
+    # the count moves BEFORE the cache clears: the async read's cache
+    # write-back checks the count around its write (ops/async_read.py)
     self._update_count += 1
     self._computed = None
     snapshot = self._state_snapshot()
+    patched = self.__dict__.get("_update_fn")  # the fault harness's seam (testing/faults.py)
     try:
-        update(self, *args, **kwargs)
+        with obs.span(obs.SPAN_UPDATE, suffix=type(self).__name__):
+            if patched is None:
+                update(self, *args, **kwargs)
+            else:
+                patched(*args, **kwargs)
     except TypeError as err:
         self._rollback(snapshot, pre_count, pre_computed)
         if "got an unexpected keyword argument" in str(err) or "positional argument" in str(err):
@@ -146,6 +155,9 @@ def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs
     except BaseException:
         self._rollback(snapshot, pre_count, pre_computed)
         raise
+    # post-commit: an observer raising here (a simulated preemption) does
+    # not unwind the committed update
+    self._notify_update()
 
 
 def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any) -> Any:
@@ -159,20 +171,38 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
     if self._computed is not None:
         return self._computed
     self.__dict__.pop("_serve_last_good", None)
-    with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync):
+    patched = self.__dict__.get("_compute_fn")  # the fault harness's seam (testing/faults.py)
+    with self.sync_context(
+        dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+    ), obs.span(obs.SPAN_COMPUTE, suffix=type(self).__name__):
         if self.__dict__.pop("_serve_last_good", False):
             # the sync just failed under on_sync_failure="last_good":
             # serve the cached value with its staleness (never cached
             # as _computed: it is stale by definition)
             count, cached = self.__dict__["_last_good_compute"]
-            return DegradedValue(value=cached, updates_behind=int(self._update_count) - count, age_updates=count)
-        value = _squeeze_if_scalar(compute(self, *args, **kwargs))
+            behind = int(self._update_count) - count
+            obs.histogram_observe("reads.staleness_age_updates", behind)
+            return DegradedValue(value=cached, updates_behind=behind, age_updates=count)
+        value = compute(self, *args, **kwargs) if patched is None else patched(*args, **kwargs)
+        value = _squeeze_if_scalar(value)
     if self.compute_with_cache:
         self._computed = value
     if self._last_sync_ok:
         # the cache behind on_sync_failure="last_good": only values
         # whose sync (if any) succeeded qualify
         self.__dict__["_last_good_compute"] = (int(self._update_count), value)
+    return value
+
+
+#: why ``executor_status`` reports no executor
+EAGER_REASON = "eager; no executor in the port"
+
+
+def _ready(event: Any, value: Any) -> Any:
+    """WORKER-SIDE: wait for the submitting stream, then return ``value``."""
+    from torchmetrics_tpu_torch.ops.async_read import wait_submitted
+
+    wait_submitted(event)
     return value
 
 
@@ -366,6 +396,7 @@ class Metric:
 
     def _rollback(self, state: Dict[str, Any], update_count: int, computed: Any) -> None:
         """Reinstall a pre-call snapshot after a failed update/forward."""
+        obs.counter_inc("rollback.count")
         object.__setattr__(self, "_state", state)
         self.__dict__["_update_count"] = update_count
         self.__dict__["_computed"] = computed
@@ -376,13 +407,15 @@ class Metric:
 
     @property
     def _update_fn(self) -> Callable:
-        """The class's own ``update``, without the transaction."""
-        return type(self).update.__get__(self)
+        """The class's own ``update``, without the transaction (or the body
+        the fault harness installed in its place, ``testing/faults.py``)."""
+        return self.__dict__.get("_update_fn") or type(self).update.__get__(self)
 
     @property
     def _compute_fn(self) -> Callable:
-        """The class's own ``compute``, without the cache and the sync."""
-        return type(self).compute.__get__(self)
+        """The class's own ``compute``, without the cache and the sync (or
+        the body the fault harness installed in its place)."""
+        return self.__dict__.get("_compute_fn") or type(self).compute.__get__(self)
 
     def update(self, *_: Any, **__: Any) -> None:  # overridden by subclass; wrapped by _BoundPerAccess
         raise NotImplementedError
@@ -392,10 +425,21 @@ class Metric:
 
     # ----------------------------------------------------------- forward paths
     def forward(self, *args: Any, **kwargs: Any) -> Any:
-        """Accumulate into global state AND return the batch value."""
-        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
-            return self._forward_full_state_update(*args, **kwargs)
-        return self._forward_reduce_state_update(*args, **kwargs)
+        """Accumulate into global state AND return the batch value.
+
+        The internal updates of a forward notify no update observer (their
+        intermediate states hold one batch only); one notification follows
+        the committed forward."""
+        self.__dict__["_forward_depth"] = self.__dict__.get("_forward_depth", 0) + 1
+        try:
+            if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+                batch_val = self._forward_full_state_update(*args, **kwargs)
+            else:
+                batch_val = self._forward_reduce_state_update(*args, **kwargs)
+        finally:
+            self.__dict__["_forward_depth"] -= 1
+        self._notify_update()
+        return batch_val
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """2x update strategy, transactional: any exception restores the
@@ -503,16 +547,19 @@ class Metric:
             return
         group = process_group if process_group is not None else self.process_group
         self._cache = self._state_snapshot()
+        t0 = time.perf_counter()
         try:
-            dist_sync_fn = dist_sync_fn or self.dist_sync_fn
-            if dist_sync_fn is not None:
-                self._state = {k: dist_sync_fn(v, self._reductions.get(k), group) for k, v in self._state.items()}
-            else:
-                self._sync_bounded(group)
+            with obs.span(obs.SPAN_REDUCE, owner=type(self).__name__, kind="sync"):
+                dist_sync_fn = dist_sync_fn or self.dist_sync_fn
+                if dist_sync_fn is not None:
+                    self._state = {k: dist_sync_fn(v, self._reductions.get(k), group) for k, v in self._state.items()}
+                else:
+                    self._sync_bounded(group)
         except BaseException:
             self._cache = None
             raise
         self._is_synced = True
+        self.__dict__["_last_reduce_us"] = round((time.perf_counter() - t0) * 1e6, 1)
 
     def _sync_bounded(self, group: Any) -> None:
         """The built-in sync under ``sync_timeout`` and ``on_sync_failure``:
@@ -541,6 +588,12 @@ class Metric:
             self._last_sync_ok = False
             if self.on_sync_failure == "last_good" and self.__dict__.get("_last_good_compute") is not None:
                 self.__dict__["_serve_last_good"] = True
+                obs.counter_inc("sync.degraded_last_good")
+                obs.fault_breadcrumb(
+                    "sync_degraded_last_good",
+                    domain="sync",
+                    data={"metric": type(self).__name__, "error": f"{type(err).__name__}: {err}"},
+                )
                 rank_zero_warn(
                     f"Sync of {type(self).__name__} failed ({type(err).__name__}: {err});"
                     " serving the last-good value per on_sync_failure='last_good'"
@@ -548,6 +601,12 @@ class Metric:
                     TorchMetricsUserWarning,
                 )
                 return
+            obs.counter_inc("sync.degraded_local")
+            obs.fault_breadcrumb(
+                "sync_degraded_local",
+                domain="sync",
+                data={"metric": type(self).__name__, "error": f"{type(err).__name__}: {err}"},
+            )
             rank_zero_warn(
                 f"Sync of {type(self).__name__} failed ({type(err).__name__}: {err});"
                 f" degrading to local-only state per on_sync_failure={self.on_sync_failure!r}."
@@ -598,6 +657,207 @@ class Metric:
             yield
         finally:
             self.unsync(should_unsync=self._is_synced and should_unsync)
+
+    # ------------------------------------------------------ update observers
+    def add_update_observer(self, callback: Callable[["Metric"], None]) -> Callable[[], None]:
+        """Register ``callback(metric)`` to fire after every COMMITTED
+        top-level ``update``/``forward``: the autosave trigger point
+        (``io/checkpoint.py``). A forward's internal updates, whose
+        intermediate states hold one batch only, never notify, so an
+        observer always sees a consistent accumulated state. Returns a
+        zero-argument detach function."""
+        observers = self.__dict__.setdefault("_update_observers", [])
+        observers.append(callback)
+
+        def detach() -> None:
+            current = self.__dict__.get("_update_observers")
+            if current is not None and callback in current:
+                current.remove(callback)
+
+        return detach
+
+    def _notify_update(self) -> None:
+        """Fire update observers, at top level only (not inside forward's
+        internal updates)."""
+        if self.__dict__.get("_forward_depth", 0):
+            return
+        observers = self.__dict__.get("_update_observers")
+        if observers:
+            for callback in tuple(observers):
+                callback(self)
+
+    @property
+    def executor_status(self) -> Dict[str, Any]:
+        """Whether this instance runs through a compiled executor, in the JAX
+        package's schema. The port runs eagerly and has no executor yet, so
+        ``enabled`` is False and ``fallback_reason`` says so; ``kernels``
+        carries the kernel seam's gate log (process-wide)."""
+        from torchmetrics_tpu_torch.ops.kernels import gate_snapshot
+
+        return {
+            "enabled": False,
+            "engaged": False,
+            "fallback_reason": EAGER_REASON,
+            "deferred_pending": False,
+            "last_reduce_us": self.__dict__.get("_last_reduce_us"),
+            "stats": {},
+            "kernels": gate_snapshot(),
+        }
+
+    # ----------------------------------------------------- asynchronous reads
+    #
+    # compute_async() (ops/async_read.py): the blocking tail of a read runs
+    # on the read pipeline's worker against a by-reference snapshot of the
+    # live state (updates replace tensors, never write into them), after the
+    # worker waited on a CUDA event recorded on the caller's stream at
+    # submission. The worker computes on a cached detached clone, because a
+    # compute on the live object swaps its state and races every update.
+
+    def _read_clone(self) -> "Metric":
+        """The detached clone the worker computes on (cached; rebuilt when the
+        declared state layout changes). Only its code and declared metadata
+        matter: every read installs a fresh state snapshot before running."""
+        sig = tuple(
+            (k, "list") if isinstance(v, list) else (k, str(v.dtype), tuple(v.shape))
+            for k, v in self._defaults.items()
+        )
+        cached = self.__dict__.get("_read_clone_cache")
+        if cached is not None and cached[0] == sig:
+            return cached[1]
+        clone = copy.deepcopy(self)
+        self.__dict__["_read_clone_cache"] = (sig, clone)
+        return clone
+
+    def _async_inline_reason(self) -> Optional[str]:
+        """Why this metric's reads must resolve inline (None: fully async).
+
+        A metric holding CHILD metrics (wrappers, compositional metrics)
+        keeps state outside ``_state``, so a snapshot-and-clone read would
+        serve the children's state as of the clone's creation. Those metrics
+        compute on the calling thread; the future still resolves through the
+        pipeline."""
+        cached = self.__dict__.get("_async_inline_reason_c", "?")
+        if cached != "?":
+            return cached
+        reason = None
+        for k, v in self.__dict__.items():
+            if k in ("_state", "_defaults", "_read_clone_cache"):
+                continue
+            if isinstance(v, Metric):
+                reason = f"holds child metric under attribute {k!r}"
+                break
+            if isinstance(v, (list, tuple)) and any(isinstance(el, Metric) for el in v):
+                reason = f"holds child metrics under attribute {k!r}"
+                break
+            if isinstance(v, dict) and any(isinstance(el, Metric) for el in v.values()):
+                reason = f"holds child metrics under attribute {k!r}"
+                break
+        self.__dict__["_async_inline_reason_c"] = reason
+        return reason
+
+    def _capture_read_flags(self) -> Dict[str, Any]:
+        """Submission-time bookkeeping a read job needs (the committed count,
+        the last-good cache, sync intent), captured so caller-side changes
+        after submission cannot bleed into an in-flight read."""
+        d = self.__dict__
+        return {
+            "count": int(d.get("_update_count", 0)),
+            "last_good": d.get("_last_good_compute"),
+            "to_sync": d.get("_to_sync", True),
+            "cache": bool(d.get("compute_with_cache", True)),
+        }
+
+    def compute_async(self) -> Any:
+        """Non-blocking :meth:`compute`: returns a
+        :class:`~torchmetrics_tpu_torch.ops.async_read.MetricFuture` resolving
+        to exactly what a blocking ``compute()`` would return for the state
+        as of THIS call (bit for bit, with the same ``on_sync_failure``
+        policies, ``DegradedValue`` serving and errors, re-raised by
+        ``future.result()``). Updating, resetting or loading the metric
+        before the future resolves is safe: the future serves the
+        submission-time value."""
+        from torchmetrics_tpu_torch.ops import async_read as _async
+
+        owner = type(self).__name__
+        with obs.span(obs.SPAN_COMPUTE_ASYNC, suffix=owner):
+            body = self._prepare_async_read()
+            return _async.get_pipeline().submit(body, owner=owner, submitted_count=int(self._update_count))
+
+    def _prepare_async_read(self) -> Callable[[], Any]:
+        """The caller-side half of one asynchronous compute: snapshot what
+        must stay consistent, record the submission event, and return the
+        worker-side body. Collections compose member bodies into one job
+        through this seam."""
+        from torchmetrics_tpu_torch.ops.async_read import submission_event
+
+        cached = self._computed
+        if cached is not None:
+            event = submission_event(cached)
+            return lambda: _ready(event, cached)
+        reason = self._async_inline_reason()
+        if reason is not None:
+            obs.counter_inc("reads.inline_compute")
+            value = self.compute()  # inline fallback: blocking semantics on the caller
+            event = submission_event(value)
+            return lambda: _ready(event, value)
+        snapshot = self._state_snapshot()  # by reference: updates replace, never write
+        flags = self._capture_read_flags()
+        clone = self._read_clone()
+        event = submission_event(snapshot)
+
+        def body() -> Any:
+            _ready(event, None)
+            return self._async_compute_job(clone, snapshot, flags)
+
+        return body
+
+    def _install_read_snapshot(self, clone: "Metric", snapshot: Dict[str, Any], flags: Dict[str, Any]) -> None:
+        """WORKER-SIDE: stage a submission-time snapshot into the read clone
+        so its ``compute`` replays blocking semantics against it (one worker
+        thread: the clone is used serially)."""
+        object.__setattr__(clone, "_state", dict(snapshot))
+        d = clone.__dict__
+        d["_update_count"] = flags["count"]
+        d["_computed"] = None
+        d["_is_synced"] = False
+        d["_cache"] = None
+        d["_last_sync_ok"] = True
+        d["_last_good_compute"] = flags["last_good"]
+        d.pop("_serve_last_good", None)
+        d["_to_sync"] = flags["to_sync"]
+        d["_should_unsync"] = True
+
+    def _async_compute_job(self, clone: "Metric", snapshot: Dict[str, Any], flags: Dict[str, Any]) -> Any:
+        """WORKER-SIDE: the read body (sync per policy, compute, wait for
+        the worker's stream), then the guarded cache write-back. The clone
+        drops the snapshot afterwards, so no tensor outlives its read."""
+        from torchmetrics_tpu_torch.ops.async_read import materialize
+
+        self._install_read_snapshot(clone, snapshot, flags)
+        try:
+            value = materialize(clone.compute())
+        finally:
+            object.__setattr__(clone, "_state", {})
+            clone.__dict__["_computed"] = None
+        self._writeback_read_result(clone, flags, value)
+        return value
+
+    def _writeback_read_result(self, clone: "Metric", flags: Dict[str, Any], value: Any) -> None:
+        """WORKER-SIDE cache coherence: a resolved read refreshes the live
+        compute cache and last-good/sync bookkeeping ONLY while the live
+        metric still sits at the submission-time count. An update bumps the
+        count before it clears the cache, and the count is checked again
+        after the write, so a concurrent update always wins."""
+        if self.__dict__.get("_update_count") != flags["count"]:
+            return
+        self.__dict__["_last_sync_ok"] = clone.__dict__.get("_last_sync_ok", True)
+        last_good = clone.__dict__.get("_last_good_compute")
+        if last_good is not None:
+            self.__dict__["_last_good_compute"] = last_good
+        if flags["cache"] and not isinstance(value, DegradedValue) and self.__dict__.get("_computed") is None:
+            self.__dict__["_computed"] = value
+            if self.__dict__.get("_update_count") != flags["count"]:
+                self.__dict__["_computed"] = None  # an update landed mid-write: drop the stale cache
 
     # ------------------------------------------------------- pure / functional
     #: reserved state key carrying the update count through state()/load_state
@@ -906,9 +1166,16 @@ class Metric:
         return f"{type(self).__name__}()"
 
     # ----------------------------------------------------------- pickling
+    #: per-instance attributes a copy or pickle never carries: observers
+    #: (autosavers, fault hooks), the fault harness's seams and the
+    #: async-read caches
+    _TRANSIENT_KEYS = ("_update_observers", "_update_fn", "_compute_fn", "_read_clone_cache", "_async_inline_reason_c")
+
     def __getstate__(self) -> Dict[str, Any]:
         state = self.__dict__.copy()
         state.pop("_update_signature", None)  # re-created in __setstate__
+        for key in self._TRANSIENT_KEYS:
+            state.pop(key, None)
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:

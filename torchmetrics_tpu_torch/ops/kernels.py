@@ -12,7 +12,8 @@ DEVICE OF THE TENSORS it is given, not by a process-wide backend:
   card.
 
 Each decision is recorded in a gate log (:func:`gate_snapshot`), so a run can
-show which body served it.
+show which body served it, and noted in the flight recorder's ``kernels``
+domain (``obs/flight.py``), which replays the last decisions after a fault.
 
 Shared-result memo: :func:`shared_result` lets several metrics updated
 against the SAME input tensors within one collection call reuse a single
@@ -28,6 +29,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from torchmetrics_tpu_torch.obs import flight as _flight
+from torchmetrics_tpu_torch.obs import tracer as _tracer
 
 
 @dataclass
@@ -63,17 +67,27 @@ def _record_gate(name: str, path: str, device: torch.device) -> None:
         entry = _GATE_LOG.get(name)
         if entry is None:
             entry = _GATE_LOG[name] = {"selections": {}}
+        if entry.get("path") != path or entry.get("device") != device:
+            # the flight note's text (``flight.note``'s format), formatted
+            # when the decision changes, not on every launch
+            entry["note"] = f"{name}[path={path},device={device}]"
         entry["path"] = path
         entry["device"] = device  # formatted by gate_snapshot, not on every launch
         selections = entry["selections"]
         selections[path] = selections.get(path, 0) + 1
+        note = entry["note"]
+    if _flight.enabled() and _tracer.telemetry_enabled():
+        _flight.record("kernels", note)  # a bounded deque append; never raises
 
 
 def gate_snapshot() -> Dict[str, Dict[str, Any]]:
     """Last decision plus per-path selection counts for every kernel that has
     dispatched in this process."""
     with _GATE_LOCK:
-        return {k: dict(v, device=str(v["device"]), selections=dict(v["selections"])) for k, v in _GATE_LOG.items()}
+        return {
+            k: {"path": v["path"], "device": str(v["device"]), "selections": dict(v["selections"])}
+            for k, v in _GATE_LOG.items()
+        }
 
 
 def reset_gate_log() -> None:

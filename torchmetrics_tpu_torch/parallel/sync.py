@@ -33,7 +33,10 @@ and :func:`_all_gather` (``async_op=True``), which count what they issue
 (``all_reduces``, ``all_gathers``) and which tests patch to count, hang or
 break the collectives. A ``timeout`` bounds each wait on a work handle and
 raises :class:`~torchmetrics_tpu_torch.utils.exceptions.SyncTimeoutError`
-when it expires. Under NCCL a timed-out collective leaves the communicator
+when it expires (counted ``sync.timeouts``, with a flight breadcrumb; a
+collective's own failure counts ``sync.gather_errors``). Each sync is one
+``tm_tpu.sync.gather`` span and adds its payload to ``sync.bytes_on_wire``.
+Under NCCL a timed-out collective leaves the communicator
 in an unknown state (PyTorch's watchdog may abort the process), so a
 timeout there is a signal to checkpoint and exit, not to retry.
 
@@ -50,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple, Un
 import torch
 import torch.distributed as dist
 
+from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.utils.exceptions import SyncTimeoutError
 
 Reduction = Union[str, Callable, None]
@@ -119,10 +123,20 @@ def _wait(work: Any, timeout: Optional[float], what: str) -> None:
         pause = 1e-5
         while not work.is_completed():
             if time.monotonic() >= deadline:
-                raise SyncTimeoutError(f"cross-process sync ({what}) did not complete within {timeout}s")
+                obs.counter_inc("sync.timeouts")
+                raise obs.flighted(
+                    SyncTimeoutError(f"cross-process sync ({what}) did not complete within {timeout}s"),
+                    domain="sync",
+                    kind="sync_timeout",
+                    timeout_s=timeout,
+                )
             time.sleep(pause)
             pause = min(2 * pause, 1e-3)
-    work.wait()
+    try:
+        work.wait()
+    except Exception:
+        obs.counter_inc("sync.gather_errors")
+        raise
 
 
 def _backend_devices(group: Any) -> Optional[Set[str]]:
@@ -282,6 +296,18 @@ def sync_states(
         (3, [1.0, 2.0])
         >>> dist.destroy_process_group()
     """
+    attrs = {"timeout_s": timeout} if timeout is not None else {"bounded": False}
+    with obs.span(obs.SPAN_SYNC_GATHER, **attrs):
+        return _sync_states(states, reductions, group, timeout, device)
+
+
+def _sync_states(
+    states: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    group: Any,
+    timeout: Optional[float],
+    device: Union[str, torch.device, None],
+) -> Dict[str, Any]:
     device = _default_device(group) if device is None else torch.device(device)
     _check_devices(states, group, device)
     world = dist.get_world_size(group)
@@ -298,6 +324,7 @@ def sync_states(
     reduces = []
     for (fx, _), items in fused.items():
         flat = torch.cat([t.reshape(-1) for _, t in items])
+        obs.counter_inc("sync.bytes_on_wire", flat.numel() * flat.element_size())
         reduces.append((fx, items, flat, _all_reduce(flat, _FUSED_OPS[fx], group)))
 
     gathers = []
@@ -322,8 +349,15 @@ def sync_states(
                 if payload is not None:
                     send[: payload.shape[0]] = payload
             outs = [torch.empty_like(send) for _ in range(world)]
+            obs.counter_inc("sync.bytes_on_wire", send.numel() * send.element_size())
             gathers.append((name, value, fx, layout, sizes, outs, _all_gather(outs, send, group)))
 
+    with obs.device_span(obs.SPAN_REDUCE):
+        return _finish(states, reduces, gathers, world, timeout, device)
+
+
+def _finish(states: Dict[str, Any], reduces: list, gathers: list, world: int, timeout: Optional[float], device: torch.device) -> Dict[str, Any]:
+    """Wait for the collectives and fold them into the synced states."""
     out: Dict[str, Any] = {}
     for fx, items, flat, work in reduces:
         _wait(work, timeout, f"all_reduce of {fx} {items[0][1].dtype}")

@@ -1,0 +1,262 @@
+"""Fault injection for the port's runtime layers (the subset of the JAX
+package's ``testing/faults.py`` that injects into them).
+
+Each primitive injects exactly one fault, deterministically, on one host,
+so the containment guarantees are asserted, not assumed:
+
+- :func:`raise_in_update` / :func:`raise_in_compute`: raise inside the
+  metric body, optionally after the state was written (the half-applied
+  update the transactional wrapper must roll back).
+- :func:`corrupt_state`: damage a state dict (shape/dtype/structure/NaN)
+  the way a torn resume checkpoint would (drives ``load_state(validate=...)``).
+- :func:`torn_write`: truncate, zero or bit-flip a snapshot FILE the way a
+  crash mid-write presents (drives ``restore_state``'s torn-write detection
+  and rotating fallback).
+- :func:`preempt_after`: raise a simulated preemption after the n-th
+  COMMITTED update (drives autosave and kill/restore tests).
+- :func:`shrink_world` / :func:`grow_world`: make the checkpoint layer's
+  world probe report another device count, as after a restart on another
+  machine (drives ``restore_state``'s topology gate).
+- :func:`pause_async_reads`: park the read pipeline's worker, so reads stay
+  in flight (drives back-pressure and staleness tests).
+
+All context managers restore the patched seam on exit, including when the
+body raises. They are process-local and not thread-safe (they patch module
+and instance attributes): use them from one test thread.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from contextlib import contextmanager
+from typing import Any, Dict, Generator, Optional
+
+import numpy as np
+import torch
+
+
+class FaultInjected(RuntimeError):
+    """Default exception raised by the injection primitives, distinct from
+    anything the framework raises itself."""
+
+
+class PreemptionInjected(BaseException):
+    """Raised by :func:`preempt_after`: a BaseException (like the
+    ``SystemExit``/``KeyboardInterrupt`` a real SIGTERM path produces), so
+    recovery code catching ``Exception`` cannot swallow the simulated kill."""
+
+
+# --------------------------------------------------------------- metric body
+
+@contextmanager
+def raise_in_update(metric: Any, exc: Optional[BaseException] = None, after_mutation: bool = True) -> Generator[None, None, None]:
+    """Make ``metric``'s update body raise.
+
+    With ``after_mutation=True`` (default) the real update body runs first,
+    so the live state is already written when the exception fires: the
+    half-applied case the transactional wrapper must roll back.
+    ``after_mutation=False`` raises before touching anything. The patch
+    takes the ``_update_fn`` seam, shared by ``update``, ``forward`` and
+    ``functional_update``.
+    """
+    orig = metric._update_fn
+    error = exc if exc is not None else FaultInjected("injected update failure")
+
+    def failing(*args: Any, **kwargs: Any) -> None:
+        if after_mutation:
+            orig(*args, **kwargs)
+        raise error
+
+    metric.__dict__["_update_fn"] = failing
+    try:
+        yield
+    finally:
+        metric.__dict__.pop("_update_fn", None)
+
+
+@contextmanager
+def raise_in_compute(metric: Any, exc: Optional[BaseException] = None) -> Generator[None, None, None]:
+    """Make ``metric``'s compute body raise (the ``_compute_fn`` seam, shared
+    by ``compute`` and ``functional_compute``)."""
+    error = exc if exc is not None else FaultInjected("injected compute failure")
+
+    def failing(*args: Any, **kwargs: Any) -> Any:
+        raise error
+
+    metric.__dict__["_compute_fn"] = failing
+    try:
+        yield
+    finally:
+        metric.__dict__.pop("_compute_fn", None)
+
+
+# -------------------------------------------------------------------- world
+
+@contextmanager
+def _resized_world(to: int) -> Generator[Dict[str, Any], None, None]:
+    """Shared body of :func:`shrink_world`/:func:`grow_world`: patch the
+    checkpoint layer's world probe to report ``to`` devices; yields the
+    world it reports."""
+    from torchmetrics_tpu_torch.io import checkpoint as checkpoint_mod
+
+    if to < 1:
+        raise ValueError(f"a resized world holds at least one device, got {to}")
+    orig = checkpoint_mod._world_topology
+
+    def patched() -> Dict[str, Any]:
+        out = dict(orig())
+        out["device_count"] = int(to)
+        return out
+
+    checkpoint_mod._world_topology = patched
+    try:
+        yield patched()
+    finally:
+        checkpoint_mod._world_topology = orig
+
+
+@contextmanager
+def shrink_world(to: int) -> Generator[Dict[str, Any], None, None]:
+    """Simulate a restart on a SMALLER world: snapshots saved (and restores
+    attempted) inside the context see ``to`` devices, so a snapshot whose
+    layout is bound to more hits ``restore_state``'s topology gate
+    (:class:`~torchmetrics_tpu_torch.utils.exceptions.TopologyMismatchError`).
+    Composes with :func:`preempt_after` and :func:`torn_write`."""
+    with _resized_world(to) as world:
+        yield world
+
+
+@contextmanager
+def grow_world(to: int) -> Generator[Dict[str, Any], None, None]:
+    """Simulate a restart on a BIGGER world (the same seam as :func:`shrink_world`)."""
+    with _resized_world(to) as world:
+        yield world
+
+
+# -------------------------------------------------------------------- reads
+
+@contextmanager
+def pause_async_reads(max_s: float = 30.0) -> Generator[threading.Event, None, None]:
+    """Park the async read pipeline's worker (``ops/async_read.py``) on a
+    barrier job, so every read submitted INSIDE the context stays in flight
+    until the context exits (or ``max_s`` elapses, a safety valve so a
+    crashed test cannot wedge the worker for the rest of the suite). Yields
+    the release event; set it to unpark early."""
+    from torchmetrics_tpu_torch.ops.async_read import get_pipeline
+
+    release = threading.Event()
+
+    def barrier() -> None:
+        release.wait(max_s)
+
+    get_pipeline().submit(barrier, owner="faults.pause_async_reads")
+    try:
+        yield release
+    finally:
+        release.set()
+
+
+# -------------------------------------------------------------- checkpoints
+
+def corrupt_state(state: Dict[str, Any], mode: str = "nan", field: Optional[str] = None, seed: int = 0) -> Dict[str, Any]:
+    """A damaged copy of a state dict, the way a torn or bit-flipped resume
+    checkpoint presents. The input is never modified.
+
+    Modes (``field`` picks the victim; default: the first eligible tensor):
+
+    - ``"shape"``: the field gains a bogus leading dim.
+    - ``"dtype"``: the field is cast float <-> int.
+    - ``"structure"``: the field's key is deleted.
+    - ``"nan"``: a random entry of a float field becomes NaN.
+    """
+    if mode not in ("shape", "dtype", "structure", "nan"):
+        raise ValueError(f"mode must be one of shape/dtype/structure/nan, got {mode!r}")
+    out = {k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}
+    candidates = [k for k, v in state.items() if isinstance(v, torch.Tensor) and k != "_update_count"]
+    if mode == "nan":
+        candidates = [k for k in candidates if state[k].is_floating_point()]
+    if field is not None:
+        if field not in state:
+            raise KeyError(f"field {field!r} not in state")
+        candidates = [field]
+    if not candidates:
+        raise ValueError(f"state has no tensor field eligible for mode {mode!r}")
+    victim = candidates[0]
+    value = state[victim]
+    if mode == "shape":
+        out[victim] = torch.stack([value, value])
+    elif mode == "dtype":
+        out[victim] = value.to(torch.int32) if value.is_floating_point() else value.to(torch.float32)
+    elif mode == "structure":
+        del out[victim]
+    else:
+        flat = value.detach().clone().reshape(-1)
+        flat[int(np.random.RandomState(seed).randint(0, flat.numel()))] = float("nan")
+        out[victim] = flat.reshape(value.shape)
+    return out
+
+
+def torn_write(path: Any, mode: str = "truncate", frac: float = 0.5, seed: int = 0) -> None:
+    """Damage a snapshot FILE in place, the way storage failures present:
+
+    - ``"truncate"`` (default): keep only the first ``frac`` of the bytes (a
+      crash mid-write that somehow reached the final name, e.g. a copied
+      partial file);
+    - ``"zero"``: overwrite the last ``1 - frac`` of the bytes with zeros,
+      same length (storage that acknowledged before persisting);
+    - ``"flip"``: flip one random byte (media bit rot, caught by the
+      per-leaf sha256).
+
+    Deterministic in ``seed``. ``restore_state`` must detect the damage
+    (typed ``CheckpointCorruptionError``), never install it.
+    """
+    path = os.fspath(path)
+    if mode not in ("truncate", "zero", "flip"):
+        raise ValueError(f"mode must be truncate/zero/flip, got {mode!r}")
+    if not 0 <= frac < 1:
+        raise ValueError(f"frac must be in [0, 1), got {frac}")
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if not data:
+        raise ValueError(f"{path} is empty; nothing to tear")
+    if mode == "truncate":
+        damaged = data[: max(1, int(len(data) * frac))]
+    elif mode == "zero":
+        cut = max(1, int(len(data) * frac))
+        damaged = data[:cut] + b"\x00" * (len(data) - cut)
+    else:
+        idx = np.random.RandomState(seed).randint(0, len(data))
+        damaged = data[:idx] + bytes([data[idx] ^ 0xFF]) + data[idx + 1:]
+    # deliberately NOT atomic: the damaged bytes stay under the real name,
+    # as the failure would leave them
+    with open(path, "wb") as fh:
+        fh.write(damaged)
+
+
+@contextmanager
+def preempt_after(metric: Any, n_updates: int, exc: Optional[BaseException] = None) -> Generator[None, None, None]:
+    """Simulate a preemption arriving after the ``n_updates``-th COMMITTED
+    top-level update/forward on ``metric`` (a ``Metric`` or
+    ``MetricCollection``).
+
+    The raise comes from the post-commit observer seam, so the state is
+    consistent (exactly n updates applied), as for a signal delivered
+    between steps. Raises :class:`PreemptionInjected`. Observers run in
+    attach order: attach an Autosaver first if the last update should still
+    be autosaved before the kill.
+    """
+    if n_updates < 1:
+        raise ValueError(f"n_updates must be >= 1, got {n_updates}")
+    error = exc if exc is not None else PreemptionInjected(f"injected preemption after update {n_updates}")
+    seen = {"n": 0}
+
+    def observer(_obj: Any) -> None:
+        seen["n"] += 1
+        if seen["n"] == n_updates:
+            raise error
+
+    detach = metric.add_update_observer(observer)
+    try:
+        yield
+    finally:
+        detach()

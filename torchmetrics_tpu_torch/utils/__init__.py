@@ -2,17 +2,23 @@
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum, select_topk
 from torchmetrics_tpu_torch.utils.enums import AverageMethod, ClassificationTask
 from torchmetrics_tpu_torch.utils.exceptions import (
+    CheckpointCorruptionError,
     StateCorruptionError,
+    StateDivergenceError,
     SyncTimeoutError,
+    TopologyMismatchError,
     TorchMetricsUserError,
     TorchMetricsUserWarning,
 )
 
 __all__ = [
     "AverageMethod",
+    "CheckpointCorruptionError",
     "ClassificationTask",
     "StateCorruptionError",
+    "StateDivergenceError",
     "SyncTimeoutError",
+    "TopologyMismatchError",
     "TorchMetricsUserError",
     "TorchMetricsUserWarning",
     "dim_zero_cat",

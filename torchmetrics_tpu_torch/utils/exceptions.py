@@ -31,3 +31,52 @@ class SyncTimeoutError(TorchMetricsUserError, TimeoutError):
     instead, flagged via ``Metric.last_sync_ok``; under ``"retry"`` the sync
     is retried with capped exponential backoff first, ``io/retry.py``).
     """
+
+
+class CheckpointCorruptionError(StateCorruptionError):
+    """A durable snapshot file is torn, truncated, or bit-rotted.
+
+    Raised by ``torchmetrics_tpu_torch.io.checkpoint.restore_state`` when the
+    file fails structural parsing (bad magic/manifest), its payload hash does
+    not match the manifest (the torn-write signature), or a per-leaf sha256
+    mismatches (bit flip). Distinct from a plain :class:`StateCorruptionError`
+    (a well-formed file whose *contents* fail the metric's spec); a rotating
+    store skips both in favour of an older valid snapshot.
+    """
+
+
+class TopologyMismatchError(StateCorruptionError):
+    """A snapshot's saved topology does not match the restoring world.
+
+    Raised by ``restore_state(..., topology="strict")`` when the manifest's
+    topology block (shard layout, class sharding) disagrees with the world
+    the restore runs in, and by ``topology="elastic"`` when the re-split it
+    would need belongs to ``parallel/reshard.py``, which the port does not
+    have yet. A rotating-store scan treats it like a torn file. Carries
+    ``saved`` and ``current`` topology descriptors for diagnostics.
+    """
+
+    def __init__(self, message: str, saved=None, current=None) -> None:
+        super().__init__(message)
+        self.saved = saved
+        self.current = current
+
+
+class StateDivergenceError(StateCorruptionError):
+    """Live or installed state failed a bit-exact fingerprint check.
+
+    Raised by ``restore_state`` when the state a metric installed does not
+    fingerprint-match the snapshot's pre-save fingerprints (surface
+    ``"restore"``). A :class:`StateCorruptionError`, so a rotating-store scan
+    falls back to the next older snapshot. Carries the attribution:
+    ``surface``, the offending ``field``, the ``shard`` when one is
+    implicated, and the ``expected``/``observed`` fingerprint words.
+    """
+
+    def __init__(self, message: str, surface=None, field=None, shard=None, expected=None, observed=None) -> None:
+        super().__init__(message)
+        self.surface = surface
+        self.field = field
+        self.shard = shard
+        self.expected = expected
+        self.observed = observed
