@@ -208,7 +208,9 @@ CITYSCAPES = {"num_classes": 19, "ignore_index": 255, "images": 500, "batch": 4,
 #: ignore_index mask folded into the index; the one-vs-rest curve count, a
 #: positive's bin shifted by (100 + 1) x 1000; Dice's (1000 + 1)^2
 #: out-of-range-aware confusion count; the 4 x 8 per-group fairness count;
-#: the COCO per-label curve count over 2 x 101 x 80 bins)
+#: the COCO per-label curve count over 2 x 101 x 80 bins; the laned FEMNIST
+#: round's row-folded count: 3,550 writers' 32-sample batches over
+#: 3,550 x 62 x 62 bins, one launch for the whole round)
 KERNEL_SHAPES = [
     ("binary_segmentation", 1, 4, 4 * 1024 * 2048, True),
     ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048, True),
@@ -221,6 +223,7 @@ KERNEL_SHAPES = [
     ("imagenet_dice_weightless", 1, 1001 * 1001, 1024, False),
     ("civilcomments_groups_weightless", 1, 4 * 8, 4096, False),
     ("coco_curve_weightless", 1, 2 * 101 * 80, 256 * 80, False),
+    ("femnist_rows_weightless", 1, 3_550 * 62 * 62, 3_550 * 32, False),
 ]
 #: one update past float32's last exact integer: 2**24 + 3 equal indices,
 #: whose weightless count must come out exactly (int64)
@@ -465,9 +468,10 @@ def phase_kernels(dev) -> list:
         in_range = (x >= 0) & (x < length)
         n_in = int(in_range.sum())
         # least work for this data: read every index once, the weights of the
-        # in-range ones once (none weightless), write the histogram once; one
-        # compare per index and K adds per in-range index
-        nbytes = n * 4 + (n_in * 4 * k if weighted else 0) + k * length * 4
+        # in-range ones once (none weightless), write the histogram once
+        # (float32 weighted, int64 weightless); one compare per index and K
+        # adds per in-range index
+        nbytes = n * 4 + (n_in * 4 * k if weighted else 0) + k * length * (4 if weighted else 8)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = (n + n_in * k) / FP32_OPS_PER_S * 1e3
         iters = 50 if n < 1 << 20 else 20
@@ -7221,6 +7225,401 @@ def phase_imagenet_val_async(dev) -> dict:
     })
 
 
+# ---------------------------------------------------------------------------
+# Session lanes (lanes.py, ops/ingest.py, quarantine.py): LEAF's FEMNIST
+# writers as sessions, one per writer, on the entry-shaped counting
+# collection at 62 classes, laned as one LanedCollection.
+
+#: LEAF FEMNIST (Caldas et al., "LEAF: A Benchmark for Federated Settings",
+#: Table 1): 3,550 writers, 805,263 samples, 226.83 +- 88.94 samples a writer,
+#: 62 classes. Evaluated per writer in batches of 32, about 80% top-1.
+FEMNIST = {"writers": 3_550, "samples": 805_263, "mean": 226.83, "std": 88.94, "classes": 62, "batch": 32,
+           "floor": 10, "top1": 0.8, "spread": 0.08, "margin": 6.0, "capacity": 1_024, "check_writers": 64,
+           "poisoned": 36, "whole_batch": 32_768}
+#: values against the unlaned collections (the counts are bit-equal)
+FEMNIST_ATOL = 1e-6
+
+
+def _femnist_counts() -> "np.ndarray":
+    """Samples per writer: LEAF's mean and spread from the seed, clipped at
+    the floor, rescaled to sum to the dataset's 805,263."""
+    import numpy as np
+
+    spec = FEMNIST
+    rng = np.random.RandomState(SEED + 17_000)
+    raw = np.clip(rng.normal(spec["mean"], spec["std"], spec["writers"]), spec["floor"], None)
+    counts = np.maximum(np.round(raw * spec["samples"] / raw.sum()).astype(np.int64), spec["floor"])
+    diff = spec["samples"] - int(counts.sum())
+    order = np.argsort(-counts)  # settle the rounding on the largest writers
+    counts[order[: abs(diff)]] += int(np.sign(diff))
+    return counts
+
+
+def _femnist_writer(w: int, n: int):
+    """Writer ``w``'s ``n`` samples from the seed and its index: float32
+    logits leaning to the target for about 80% top-1, with a per-writer
+    spread of skill."""
+    import numpy as np
+
+    spec = FEMNIST
+    c = spec["classes"]
+    rng = np.random.RandomState([SEED, 17_001, w])
+    skill = float(np.clip(rng.normal(spec["top1"], spec["spread"]), 0.3, 0.99))
+    target = rng.randint(0, c, n)
+    wrong = (target + rng.randint(1, c, n)) % c
+    picked = np.where(rng.rand(n) < skill, target, wrong)
+    logits = rng.randn(n, c).astype(np.float32)
+    logits[np.arange(n), picked] += np.float32(spec["margin"])
+    return logits, target
+
+
+def _femnist_data() -> dict:
+    """Every writer's samples and the traffic: one ``update_sessions`` call
+    with all full batches of 32 (one round per batch index), then each
+    writer's shorter last batch in calls grouped by length (the rows of a
+    round share a shape)."""
+    import numpy as np
+
+    counts = _femnist_counts()
+    batch = FEMNIST["batch"]
+    writers = [_femnist_writer(w, int(n)) for w, n in enumerate(counts)]
+    full, tails = [], {}
+    for w, (logits, target) in enumerate(writers):
+        n = len(target)
+        for b in range(n // batch):
+            full.append((w, (logits[b * batch:(b + 1) * batch], target[b * batch:(b + 1) * batch])))
+        rest = n % batch
+        if rest:
+            tails.setdefault(rest, []).append((w, (logits[n - rest:], target[n - rest:])))
+    calls = [full] + [tails[r] for r in sorted(tails)]
+    return {"counts": counts, "writers": writers, "calls": calls, "tail_writers": sorted(w for r in tails for w, _ in tails[r]),
+            "rounds": int(counts.max() // batch) + len(tails)}
+
+
+def _femnist_members(dev) -> dict:
+    """The entry-shaped counting collection at 62 classes (the JAX package's
+    ``__graft_entry__`` collection), ``validate_args=False``."""
+    from torchmetrics_tpu_torch.classification import (
+        MulticlassAccuracy,
+        MulticlassConfusionMatrix,
+        MulticlassF1Score,
+        MulticlassPrecision,
+        MulticlassRecall,
+    )
+
+    c = FEMNIST["classes"]
+    return {
+        "accuracy": MulticlassAccuracy(num_classes=c, average="micro", validate_args=False, device=dev),
+        "f1": MulticlassF1Score(num_classes=c, average="macro", validate_args=False, device=dev),
+        "precision": MulticlassPrecision(num_classes=c, average="macro", validate_args=False, device=dev),
+        "recall": MulticlassRecall(num_classes=c, average="macro", validate_args=False, device=dev),
+        "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False, device=dev),
+    }
+
+
+def _femnist_plain_counts(data: dict, dev, skip_last: tuple = ()) -> "torch.Tensor":
+    """Plain int64 per-writer confusion counts on the card, ``(W, C, C)``:
+    one ``index_add_`` of ones over every sample (a writer in ``skip_last``
+    without its last batch)."""
+    import numpy as np
+    import torch
+
+    c, batch = FEMNIST["classes"], FEMNIST["batch"]
+    idx = []
+    for w, (logits, target) in enumerate(data["writers"]):
+        n = len(target)
+        keep = n - (n % batch or batch) if w in skip_last else n
+        pred = logits[:keep].argmax(1)
+        idx.append((w * c + target[:keep]) * c + pred)
+    flat = torch.from_numpy(np.concatenate(idx).astype(np.int64)).to(dev)
+    out = torch.zeros(len(data["writers"]) * c * c, dtype=torch.int64, device=dev)
+    out.index_add_(0, flat, torch.ones_like(flat))
+    return out.reshape(len(data["writers"]), c, c)
+
+
+def _stats_of(confmat):
+    """Per-class (tp, fp, tn, fn) of ``(..., C, C)`` counts, int64."""
+    import torch
+
+    tp = torch.diagonal(confmat, dim1=-2, dim2=-1)
+    fp = confmat.sum(-2) - tp
+    fn = confmat.sum(-1) - tp
+    tn = confmat.sum((-2, -1))[..., None] - tp - fp - fn
+    return tp, fp, tn, fn
+
+
+def _femnist_route(dev, data: dict, pipeline: bool, guarded: bool = False, poisoned: tuple = ()) -> dict:
+    """One laned run over every writer's traffic; returns the collection,
+    the wall time of the updates, and the lanes.* telemetry of the run."""
+    import os
+    from contextlib import ExitStack
+
+    import torch
+
+    from torchmetrics_tpu_torch import lanes, obs
+    from torchmetrics_tpu_torch.ops import bincount, ingest
+    from torchmetrics_tpu_torch.testing import faults
+
+    saved = os.environ.get(ingest.PIPELINE_ENV)
+    os.environ[ingest.PIPELINE_ENV] = "1" if pipeline else "0"
+    try:
+        ingest.reset_for_tests()
+        obs.reset()
+        coll = lanes.LanedCollection(
+            _femnist_members(dev), capacity=FEMNIST["capacity"], on_lane_fault="quarantine" if guarded else None
+        )
+        _sync(dev)
+        base = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        launches0 = bincount.launches
+        rounds = 0
+        t0 = time.perf_counter()
+        rounds += coll.update_sessions(data["calls"][0])
+        with ExitStack() as stack:
+            for w in poisoned:  # each poisoned writer's LAST batch carries NaN logits
+                stack.enter_context(faults.poison_session(coll, w, seed=w))
+            for call in data["calls"][1:]:
+                rounds += coll.update_sessions(call)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        _check(ingest.drain_pipeline(60.0), "femnist: the ingest pipeline did not drain")
+        launches = bincount.launches - launches0
+        counters, hist = obs.counters_snapshot(), obs.histograms_snapshot()
+        peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else None
+    finally:
+        if saved is None:
+            os.environ.pop(ingest.PIPELINE_ENV, None)
+        else:
+            os.environ[ingest.PIPELINE_ENV] = saved
+        ingest.reset_for_tests()
+
+    def mean_us(name: str):
+        h = hist.get(name) or {}
+        return h["sum"] / h["count"] if h.get("count") else None
+
+    samples = int(data["counts"].sum())
+    return {
+        "coll": coll, "seconds": seconds, "rounds": rounds, "bincount_launches": launches,
+        "sessions_per_s": len(data["writers"]) / seconds, "samples_per_s": samples / seconds,
+        "pack_us_per_round": mean_us("lanes.pack_us"), "upload_us_per_round": mean_us("lanes.upload_us"),
+        "dispatch_us_per_round": mean_us("lanes.dispatch_us"),
+        "rows": int(counters.get("lanes.rows", 0)),
+        "pipelined_rounds": int(counters.get("lanes.pipelined_rounds", 0)),
+        "inline_packs": int(counters.get("lanes.inline_packs", 0)),
+        "h2d_bytes": int(counters.get("lanes.h2d_bytes", 0)), "peak_mem_above_base_bytes": peak,
+    }
+
+
+def _lane_rows(coll, writers, field: str, member: str = "confmat"):
+    """``field`` of ``member``'s lanes of ``writers``, in writer order."""
+    import torch
+
+    state = coll[member]._state[field]
+    lanes_of = [coll.sessions[w] for w in writers]
+    return state.index_select(0, torch.as_tensor(lanes_of, device=state.device))
+
+
+def _femnist_lanes_equal_plain(name: str, coll, plain, writers) -> None:
+    """Every lane's confusion matrix, stat scores and micro counts bit-equal
+    to the plain count of its writer."""
+    _check(_lane_rows(coll, writers, "confmat").to(plain.dtype).equal(plain),
+           f"{name}: a lane's confusion matrix differs from its plain count")
+    stats = _stats_of(plain)
+    for i, field in enumerate(("tp", "fp", "tn", "fn")):
+        _check(_lane_rows(coll, writers, field, "f1").to(plain.dtype).equal(stats[i]),
+               f"{name}: a lane's {field} differs from its plain count")
+        _check(_lane_rows(coll, writers, field, "accuracy").to(plain.dtype).equal(stats[i].sum(-1)),
+               f"{name}: a lane's micro {field} differs from its plain count")
+
+
+def _femnist_unlaned(dev, batches) -> "MetricCollection":
+    from torchmetrics_tpu_torch import MetricCollection
+
+    coll = MetricCollection(_femnist_members(dev), device=dev)
+    for logits, target in batches:
+        coll.update(*_to_dev(dev, logits, target))
+    return coll
+
+
+def _to_dev(dev, *arrays):
+    import torch
+
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _femnist_values_close(name: str, got: dict, want: dict) -> dict:
+    """Every value within ``FEMNIST_ATOL``; returns the largest difference
+    and whether every one was bit-equal."""
+    worst, bit_equal = 0.0, True
+    for k, v in want.items():
+        g = got[k]
+        g = g.value if hasattr(g, "value") and not hasattr(g, "shape") else g
+        diff = float((g.double() - v.double()).abs().max())
+        worst = max(worst, diff)
+        bit_equal = bit_equal and bool(g.equal(v))
+        _check(diff <= FEMNIST_ATOL, f"{name}: {k} differs by {diff} > {FEMNIST_ATOL}")
+    return {"max_abs_err": worst, "bit_equal": bit_equal}
+
+
+def phase_femnist_writers(dev, data: dict) -> dict:
+    """Every FEMNIST writer a session of one laned collection: one
+    ``update_sessions`` call with all full batches, then the shorter last
+    batches grouped by length; capacity starts at 1,024 and grows to 4,096.
+    Run with the ingest pipeline on (the default) and off
+    (``TORCHMETRICS_TPU_INGEST_PIPELINE=0``). Checks: every lane bit-equal
+    to a plain int64 count of its writer on the card, in both runs, and the
+    two runs bit-equal; ``lane_values()`` of 64 seeded writers against 64
+    separate unlaned collections within 1e-6; the all-lane ``compute()``
+    against one unlaned collection over all 805,263 samples (counts
+    bit-equal, values within 1e-6); bincount launches equal to the rounds
+    times the row chunks. Printed: sessions and samples a second of both
+    runs and of the separate collections, the pack, upload and dispatch µs
+    of a round, lane_values and compute ms, peak memory, bytes uploaded."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.lanes import lane_capacity_bucket
+    from torchmetrics_tpu_torch.ops import fused_classification as fc
+
+    writers = list(range(len(data["writers"])))
+    plain = _femnist_plain_counts(data, dev)
+    c = FEMNIST["classes"]
+    runs = {}
+    for mode, pipeline in (("pipelined", True), ("inline", False)):
+        run = _femnist_route(dev, data, pipeline)
+        _femnist_lanes_equal_plain(f"femnist_writers/{mode}", run["coll"], plain, writers)
+        runs[mode] = run
+    a, b = runs["pipelined"]["coll"], runs["inline"]["coll"]
+    _check(a.sessions == b.sessions, "femnist_writers: the two runs' directories differ")
+    for member in ("accuracy", "f1", "confmat"):
+        for field, value in a[member]._state.items():
+            _check(value.equal(b[member]._state[field]), f"femnist_writers: {member}.{field} differs between the runs")
+    _check(runs["pipelined"]["pipelined_rounds"] > 0, "femnist_writers: no round went through the pack pipeline")
+    chunks = -(-len(writers) // max(1, fc.ROW_BINS_LIMIT // (c * c)))
+    want_capacity = max(FEMNIST["capacity"], lane_capacity_bucket(len(writers)))
+    for mode, run in runs.items():
+        _check(run["rounds"] == data["rounds"], f"femnist_writers/{mode}: {run['rounds']} rounds, not {data['rounds']}")
+        _check(a.capacity == want_capacity, f"femnist_writers: capacity {a.capacity}, not {want_capacity}")
+        _check(run["bincount_launches"] == run["rounds"] * chunks,
+               f"femnist_writers/{mode}: {run['bincount_launches']} bincount launches for {run['rounds']} rounds")
+    # reads: every lane's values at once, and the all-lane aggregate
+    _sync(dev)
+    t0 = time.perf_counter()
+    values = a.lane_values()
+    _sync(dev)
+    lane_values_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    total = a.compute()
+    _sync(dev)
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    # 64 seeded writers against 64 separate unlaned collections
+    batch = FEMNIST["batch"]
+    picks = np.random.RandomState(SEED + 17_002).choice(len(writers), FEMNIST["check_writers"], replace=False)
+    _sync(dev)
+    t0 = time.perf_counter()
+    separate = {}
+    for w in picks:
+        logits, target = data["writers"][w]
+        separate[int(w)] = _femnist_unlaned(dev, [(logits[i:i + batch], target[i:i + batch]) for i in range(0, len(target), batch)])
+    _sync(dev)
+    separate_s = time.perf_counter() - t0
+    lane_check = {"max_abs_err": 0.0, "bit_equal": True}
+    for w, coll in separate.items():
+        got = _femnist_values_close(f"femnist_writers: writer {w}", values[w], coll.compute())
+        lane_check = {"max_abs_err": max(lane_check["max_abs_err"], got["max_abs_err"]),
+                      "bit_equal": lane_check["bit_equal"] and got["bit_equal"]}
+    # the all-lane aggregate against one unlaned collection over every sample
+    whole = np.concatenate([x for x, _ in data["writers"]]), np.concatenate([t for _, t in data["writers"]])
+    step = FEMNIST["whole_batch"]
+    unlaned = _femnist_unlaned(dev, [(whole[0][i:i + step], whole[1][i:i + step]) for i in range(0, len(whole[1]), step)])
+    want = unlaned.compute()
+    _check(total["confmat"].equal(want["confmat"]), "femnist_writers: the all-lane confusion matrix differs")
+    _check(total["confmat"].to(torch.int64).equal(plain.sum(0)), "femnist_writers: the all-lane counts differ from the plain count")
+    aggregate = _femnist_values_close("femnist_writers: all-lane compute()", total, want)
+    out = {
+        "phase": "femnist_writers", "writers": len(writers), "samples": int(data["counts"].sum()),
+        "samples_per_writer": {"min": int(data["counts"].min()), "max": int(data["counts"].max())},
+        "rounds": data["rounds"], "row_chunks": chunks, "capacity": a.capacity,
+        "lane_values_ms": lane_values_ms, "compute_ms": compute_ms,
+        "lane_values_route": {name: a[name]._lane_route() for name in a.keys()},
+        "separate": {"writers": len(separate), "seconds": separate_s, "sessions_per_s": len(separate) / separate_s},
+        "lanes_vs_separate": lane_check, "aggregate_vs_unlaned": aggregate,
+    }
+    for mode, run in runs.items():
+        out[mode] = {k: v for k, v in run.items() if k != "coll"}
+    out["bincount_launches"] = sum(run["bincount_launches"] for run in runs.values())
+    _emit(out)
+    out["_reuse"] = {"coll": a, "plain": plain, "seconds": runs["pipelined"]["seconds"]}
+    return out
+
+
+def phase_femnist_writers_guarded(dev, data: dict, clean: dict) -> dict:
+    """The same traffic with ``on_lane_fault="quarantine"``; 36 seeded
+    writers (1%) send their last batch with NaN logits (``poison_session``).
+    Checks: exactly those 36 are quarantined; each of their lanes equals the
+    plain count of all their batches but the last, and reads of them serve a
+    ``DegradedValue`` of that value; every other lane bit-equal to
+    ``femnist_writers``; the all-lane ``compute()`` equal to the plain count
+    over the other 3,514 writers. Printed: sessions a second and the
+    overhead against the unguarded run."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.quarantine import DegradedValue
+
+    rng = np.random.RandomState(SEED + 17_003)
+    poisoned = tuple(int(w) for w in rng.choice(data["tail_writers"], FEMNIST["poisoned"], replace=False))
+    run = _femnist_route(dev, data, pipeline=True, guarded=True, poisoned=poisoned)
+    coll = run["coll"]
+    quarantined = set(coll.guard.quarantined)
+    _check(quarantined == set(poisoned), f"femnist_writers_guarded: quarantined {sorted(quarantined)[:8]}..., not the 36")
+    writers = list(range(len(data["writers"])))
+    clean_writers = [w for w in writers if w not in quarantined]
+    plain = _femnist_plain_counts(data, dev, skip_last=poisoned)
+    _femnist_lanes_equal_plain("femnist_writers_guarded", coll, plain, writers)
+    reuse = clean["_reuse"]
+    for member in ("accuracy", "f1", "confmat"):
+        for field in coll[member].inner._defaults:
+            _check(_lane_rows(coll, clean_writers, field, member).equal(_lane_rows(reuse["coll"], clean_writers, field, member)),
+                   f"femnist_writers_guarded: a clean lane's {member}.{field} differs from femnist_writers")
+    values = coll.lane_values()
+    for w in poisoned:
+        dv = values[w]["confmat"]
+        _check(isinstance(dv, DegradedValue), f"femnist_writers_guarded: writer {w} did not read degraded")
+        _check(dv.value.to(torch.int64).equal(plain[w]), f"femnist_writers_guarded: writer {w}'s degraded value")
+        _check(dv.updates_behind >= 1, f"femnist_writers_guarded: writer {w}'s staleness {dv.updates_behind}")
+    total = coll.compute()
+    _check(total["confmat"].to(torch.int64).equal(plain[clean_writers].sum(0)),
+           "femnist_writers_guarded: the all-lane aggregate differs from the plain count of the 3,514 writers")
+    # the guard's round baseline: the JAX package fetches the touched lanes'
+    # rows of every member to the host each round; the port holds the
+    # pre-round state tensors by reference (updates replace them)
+    lane_bytes = sum(
+        coll[name]._state[f][0].nbytes for name in coll.keys()
+        for f in list(coll[name].inner._defaults) + list(coll[name]._LANE_AUX_FIELDS)
+    )
+    baseline = {"held": "pre-round state tensors, by reference", "bytes_copied": 0,
+                "a_rows_fetch_would_move_bytes": lane_bytes * run["rows"]}
+    out = {
+        "phase": "femnist_writers_guarded", "poisoned": len(poisoned), "quarantined": len(quarantined),
+        "baseline": baseline,
+        "clean_writers": len(clean_writers), "diverted_rows": coll.lane_status["diverted_rows"],
+        "faults": coll.lane_status["faults"],
+        "overhead_vs_unguarded": run["seconds"] / reuse["seconds"] - 1.0,
+        **{k: v for k, v in run.items() if k != "coll"},
+    }
+    return _emit(out)
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -7233,6 +7632,7 @@ def _device_rows(prof) -> list:
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
         and not ev.key.startswith("Activity Buffer")  # the profiler's own buffer traffic
         and not ev.key.startswith("ProfilerStep")  # a step's range repeats its kernels' time
+        and not ev.key.startswith("tm_tpu.")  # a span's profiler range repeats its kernels' time too
     ]
     return sorted(rows, key=lambda r: -r[1])
 
@@ -7295,6 +7695,39 @@ def phase_profile(name: str, dev, steps: int = 5) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us and complete else None,
         "top_device_kernels": [
             {"name": k[:120], "ms_per_update": us / steps / 1e3, "calls_per_update": n / steps, "ms_per_launch": us / n / 1e3}
+            for k, us, n in rows[:12]
+        ],
+    })
+
+
+def phase_profile_femnist(dev, data: dict, steps: int = 5) -> dict:
+    """Where a laned round's time goes: ``torch.profiler`` over ``steps``
+    full-batch rounds of every FEMNIST writer (one ``update_sessions`` call
+    each, after a warm-up round that admits the sessions): device time by
+    kernel and the device's idle share of the wall time."""
+    from torchmetrics_tpu_torch import lanes
+
+    batch = FEMNIST["batch"]
+    by_round = {}
+    for w, (logits, target) in enumerate(data["writers"]):
+        for b in range(min(len(target) // batch, steps + 2)):
+            by_round.setdefault(b, []).append((w, (logits[b * batch:(b + 1) * batch], target[b * batch:(b + 1) * batch])))
+    coll = lanes.LanedCollection(_femnist_members(dev), capacity=FEMNIST["capacity"])
+    coll.update_sessions(by_round[0])
+
+    def step(i: int) -> None:
+        coll.update_sessions(by_round[i + 2])
+
+    rows, wall_us = _profiled(step, steps)
+    busy_us = sum(r[1] for r in rows)
+    complete = _complete(rows, steps)
+    return _emit({
+        "phase": "profile_femnist_writers", "rounds": steps, "rows_per_round": [len(by_round[i + 2]) for i in range(steps)],
+        "complete": complete, "wall_ms_per_round": wall_us / steps / 1e3,
+        "device_ms_per_round": busy_us / steps / 1e3 if complete else None,
+        "device_idle_share": max(0.0, 1.0 - busy_us / wall_us) if wall_us and complete else None,
+        "top_device_kernels": [
+            {"name": k[:120], "ms_per_round": us / steps / 1e3, "calls_per_round": n / steps, "ms_per_launch": us / n / 1e3}
             for k, us, n in rows[:12]
         ],
     })
@@ -7492,6 +7925,12 @@ def main() -> int:
     # the runtime layers on the ImageNet counting path: tracing, a real
     # preemption with autosave and restore, asynchronous reads
     runtime = [phase_imagenet_val_traced(dev), phase_imagenet_val_preempted(dev), phase_imagenet_val_async(dev)]
+    # session lanes over LEAF FEMNIST's writers: the row-folded bincount a
+    # round, the staging-slab ingest and lane fault containment
+    femnist_data = _femnist_data()
+    femnist = phase_femnist_writers(dev, femnist_data)
+    femnist_guarded = phase_femnist_writers_guarded(dev, femnist_data, femnist)
+    del femnist["_reuse"], femnist_data
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -7499,6 +7938,7 @@ def main() -> int:
                 phase_profile(name, dev)
         phase_profile_cifar10(dev)
         phase_profile_kernel_shapes(dev)
+        phase_profile_femnist(dev, _femnist_data())
 
     # top-level numbers: each kernel's heaviest launch on its main path (the
     # Cityscapes update's weightless 361-bin count over 8.4M pixels; the config-6
@@ -7524,13 +7964,16 @@ def main() -> int:
             + sum(r["bincount_launches"] for r in rest)
             + sum(r["bincount_launches"] for r in wrapped) + boot["functional_bincount_launches"]
             + census["bincount_launches"] + clusters["bincount_launches"] + panoptic["bincount_launches"]
-            + sum(r["bincount_launches"] for r in runtime),
+            + sum(r["bincount_launches"] for r in runtime)
+            + femnist["bincount_launches"] + femnist_guarded["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
+            # the laned round's row-folded launch (femnist_writers)
+            "femnist_rows": next(r for r in rows if r["shape"] == "femnist_rows_weightless"),
             "shapes": rows,
         },
         {

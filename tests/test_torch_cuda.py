@@ -1976,3 +1976,103 @@ def test_spans_name_the_profiler_ranges_on_the_card(cuda_device):
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages()}
     assert {"tm_tpu.update/MulticlassAccuracy", "tm_tpu.update/MulticlassConfusionMatrix"} <= names
+
+
+# ---------------------------------------------------------------------------
+# Session lanes on the card (lanes.py, ops/ingest.py): the row-folded count
+# against the per-row plain count, rounds through a one-slab ring against
+# the plain pack, and a laned loop on a side stream.
+
+def _lane_members(device, c=62):
+    return {
+        "accuracy": MulticlassAccuracy(num_classes=c, average="micro", validate_args=False, device=device),
+        "f1": MulticlassF1Score(num_classes=c, validate_args=False, device=device),
+        "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False, device=device),
+    }
+
+
+def _lane_traffic(seed=0, sessions=300, rounds=4, batch=32, c=62):
+    rng = np.random.RandomState(seed)
+    return [
+        (f"w{s}", (rng.randn(batch, c).astype(np.float32), rng.randint(0, c, batch)))
+        for _ in range(rounds)
+        for s in range(sessions)
+    ]
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 7])
+def test_row_folded_count_on_card_equals_per_row_plain_count(cuda_device, monkeypatch, chunk_rows):
+    from torchmetrics_tpu_torch.ops import fused_classification as fc
+
+    c = 62
+    if chunk_rows is not None:
+        monkeypatch.setattr(fc, "ROW_BINS_LIMIT", chunk_rows * c * c)
+    rng = np.random.RandomState(3)
+    preds = torch.from_numpy(rng.randn(40, 32, c).astype(np.float32)).to(cuda_device)
+    target = torch.from_numpy(rng.randint(-1, c, (40, 32))).to(cuda_device)
+    before = bincount.launches
+    got = fc.multiclass_confusion_counts_rows(preds, target, c, -1)
+    torch.cuda.synchronize()
+    assert bincount.launches - before == (1 if chunk_rows is None else -(-40 // chunk_rows))
+    for r in range(40):
+        p, t = preds[r].argmax(1).cpu(), target[r].cpu()
+        idx = torch.where(t != -1, c * t + p, torch.full_like(t, -1)).to(torch.int32)
+        want = bincount._wbincount_reference(idx, None, c * c)[0].reshape(c, c)
+        assert torch.equal(got[r].cpu(), want), r
+
+
+@pytest.mark.parametrize("depth", ["1", "4"])
+def test_laned_rounds_through_the_slab_ring_equal_the_plain_pack(cuda_device, monkeypatch, depth):
+    """Back-to-back rounds, ring depth 1 (the one pinned slab rewritten
+    every round, retired by its event) against the plain pack and the CPU."""
+    from torchmetrics_tpu_torch import lanes, obs
+    from torchmetrics_tpu_torch.ops import ingest
+
+    items = _lane_traffic()
+    monkeypatch.setenv(ingest.RING_DEPTH_ENV, depth)
+    states = {}
+    for flag, device in (("1", cuda_device), ("0", cuda_device), ("1", torch.device("cpu"))):
+        monkeypatch.setenv(ingest.PIPELINE_ENV, flag)
+        ingest.reset_for_tests()
+        obs.reset()
+        coll = lanes.LanedCollection(_lane_members(device), capacity=64)
+        before = bincount.launches
+        assert coll.update_sessions(items) == 4
+        assert ingest.drain_pipeline(timeout=60.0)
+        if device.type == "cuda":
+            assert bincount.launches - before == 4
+        if flag == "1" and device.type == "cuda":
+            assert obs.counters_snapshot().get("lanes.pipelined_rounds", 0) >= 1
+        states[(flag, device.type)] = {k: {f: v.cpu() for f, v in st.items() if isinstance(v, torch.Tensor)} for k, st in coll.state().items()}
+    ingest.reset_for_tests()
+    ref = states[("1", "cpu")]
+    for key in (("1", "cuda"), ("0", "cuda")):
+        for leader in ref:
+            for f in ref[leader]:
+                assert torch.equal(states[key][leader][f], ref[leader][f]), (key, leader, f)
+
+
+def test_laned_loop_on_a_side_stream_equals_the_default_stream(cuda_device):
+    from torchmetrics_tpu_torch import lanes
+    from torchmetrics_tpu_torch.ops import ingest
+
+    items = _lane_traffic(seed=5)
+    ref = lanes.LanedCollection(_lane_members(cuda_device), capacity=64)
+    ref.update_sessions(items)
+    coll = lanes.LanedCollection(_lane_members(cuda_device), capacity=64)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        coll.update_sessions(items)
+        got = coll.compute_async().result(timeout=60.0)
+        values = coll.lane_values()
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    assert ingest.drain_pipeline(timeout=60.0)
+    ingest.reset_for_tests()
+    want = ref.compute()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    ref_values = ref.lane_values()
+    for sid in ("w0", "w17", "w299"):
+        for name in ref_values[sid]:
+            assert torch.equal(values[sid][name], ref_values[sid][name]), (sid, name)

@@ -72,6 +72,10 @@ def test_sources_were_found():
         "torchmetrics_tpu_torch/integrity.py",
         "torchmetrics_tpu_torch/testing/__init__.py",
         "torchmetrics_tpu_torch/testing/faults.py",
+        "torchmetrics_tpu_torch/lanes.py",
+        "torchmetrics_tpu_torch/quarantine.py",
+        "torchmetrics_tpu_torch/ops/ingest.py",
+        "torchmetrics_tpu_torch/ops/fused_classification.py",
     } <= names
 
 
@@ -94,6 +98,7 @@ def test_importing_the_port_loads_no_jax():
         "import torchmetrics_tpu_torch.native, torchmetrics_tpu_torch.audio, torchmetrics_tpu_torch.clustering\n"
         "import torchmetrics_tpu_torch.detection, torchmetrics_tpu_torch.multimodal\n"
         "import torchmetrics_tpu_torch.functional.segmentation, torchmetrics_tpu_torch.functional.multimodal\n"
+        "import torchmetrics_tpu_torch.lanes, torchmetrics_tpu_torch.quarantine, torchmetrics_tpu_torch.ops.ingest\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'torchmetrics_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -53,6 +53,11 @@ metric is built with ``device="cpu"``. Ported so far:
   intersection tables run on the ``bincount`` kernel; the segmentation
   utilities (erosion, distance transforms, mask edges, surface distances);
   and CLIPScore and CLIP-IQA on the user's embedding functions.
+- session lanes (``LanedMetric``, ``LanedCollection``): thousands of
+  independent per-session states advanced per round, the counting family
+  with one row-folded ``bincount`` launch a round; per-lane fault
+  containment (``LaneGuard``, ``quarantine.py``) and the staging-slab
+  ingest (``ops/ingest.py``).
 """
 __version__ = "0.1.0"
 
@@ -92,11 +97,13 @@ from torchmetrics_tpu_torch.detection import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
+from torchmetrics_tpu_torch.lanes import LanedCollection, LanedMetric, make_deferred_lane_step
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.multimodal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.multimodal import __all__ as _multimodal_all
 from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
+from torchmetrics_tpu_torch.quarantine import DegradedValue, LaneGuard
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
@@ -119,7 +126,11 @@ __all__ = [
     "CatMetric",
     "ClasswiseWrapper",
     "CompositionalMetric",
+    "DegradedValue",
     "FeatureShare",
+    "LaneGuard",
+    "LanedCollection",
+    "LanedMetric",
     "MaxMetric",
     "MeanMetric",
     "Metric",
@@ -138,6 +149,7 @@ __all__ = [
     "clustering",
     "detection",
     "functional",
+    "make_deferred_lane_step",
     "image",
     "models",
     "multimodal",

@@ -1,12 +1,12 @@
 """Modular confusion matrices, accumulating int32 counts across updates."""
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.stat_scores import _check_int
+from torchmetrics_tpu_torch.classification.stat_scores import _check_int, _merge_rows
 from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     _binary_confusion_matrix_arg_validation,
     _binary_confusion_matrix_compute,
@@ -44,6 +44,7 @@ class BinaryConfusionMatrix(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update: bool = False
+    lane_compute = "vmap"
 
     def __init__(
         self,
@@ -72,6 +73,17 @@ class BinaryConfusionMatrix(Metric):
         preds, target, valid = _binary_confusion_matrix_format(preds, target, self.threshold, self.ignore_index)
         self.confmat = self.confmat + _binary_confusion_matrix_update(preds, target, valid)
 
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """R sessions' updates with one row-folded ``bincount`` launch (see
+        :meth:`Metric.functional_update_rows`)."""
+        if not (len(args) == 2 and _fused.fused_enabled() and self._own_update_is(BinaryConfusionMatrix)):
+            return super().functional_update_rows(states, *args)
+        preds, target = args
+        if self.validate_args:
+            _binary_confusion_matrix_tensor_validation(_merge_rows(preds), _merge_rows(target), self.ignore_index)
+        counts = _fused.binary_confusion_counts_rows(preds, target, self.threshold, self.ignore_index)
+        return {**states, "confmat": states["confmat"] + counts.to(torch.int32)}
+
     def compute(self) -> torch.Tensor:
         return _binary_confusion_matrix_compute(self.confmat, self.normalize)
 
@@ -99,6 +111,7 @@ class MulticlassConfusionMatrix(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update: bool = False
+    lane_compute = "vmap"
 
     def __init__(
         self,
@@ -127,6 +140,19 @@ class MulticlassConfusionMatrix(Metric):
         preds, target, valid = _multiclass_confusion_matrix_format(preds, target, self.ignore_index)
         self.confmat = self.confmat + _multiclass_confusion_matrix_update(preds, target, valid, self.num_classes)
 
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """R sessions' updates with one row-folded ``bincount`` launch (see
+        :meth:`Metric.functional_update_rows`)."""
+        if not (len(args) == 2 and _fused.fused_enabled() and self._own_update_is(MulticlassConfusionMatrix)):
+            return super().functional_update_rows(states, *args)
+        preds, target = args
+        if self.validate_args:
+            _multiclass_confusion_matrix_tensor_validation(
+                _merge_rows(preds), _merge_rows(target), self.num_classes, self.ignore_index
+            )
+        counts = _fused.multiclass_confusion_counts_rows(preds, target, self.num_classes, self.ignore_index)
+        return {**states, "confmat": states["confmat"] + counts.to(torch.int32)}
+
     def compute(self) -> torch.Tensor:
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
 
@@ -144,6 +170,7 @@ class MultilabelConfusionMatrix(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update: bool = False
+    lane_compute = "vmap"
 
     def __init__(
         self,
@@ -177,6 +204,21 @@ class MultilabelConfusionMatrix(Metric):
             preds, target, self.num_labels, self.threshold, self.ignore_index
         )
         self.confmat = self.confmat + _multilabel_confusion_matrix_update(preds, target, valid, self.num_labels)
+
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """R sessions' updates with one row-folded ``bincount`` launch (see
+        :meth:`Metric.functional_update_rows`)."""
+        if not (len(args) == 2 and _fused.fused_enabled() and self._own_update_is(MultilabelConfusionMatrix)):
+            return super().functional_update_rows(states, *args)
+        preds, target = args
+        if self.validate_args:
+            _multilabel_confusion_matrix_tensor_validation(
+                _merge_rows(preds), _merge_rows(target), self.num_labels, self.ignore_index
+            )
+        counts = _fused.multilabel_confusion_counts_rows(
+            preds, target, self.num_labels, self.threshold, self.ignore_index
+        )
+        return {**states, "confmat": states["confmat"] + counts.to(torch.int32)}
 
     def compute(self) -> torch.Tensor:
         return _multilabel_confusion_matrix_compute(self.confmat, self.normalize)

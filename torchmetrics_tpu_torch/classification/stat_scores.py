@@ -5,7 +5,7 @@ across updates; ``"samplewise"`` keeps list states concatenated at compute.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -45,6 +45,9 @@ class _AbstractStatScores(Metric):
     ``TORCHMETRICS_TPU_TORCH_FUSED_CLASSIFICATION=0`` restores.
     """
 
+    #: the compute is plain tensor operations: laned reads vmap it
+    lane_compute = "vmap"
+
     def _create_state(self, size: int, multidim_average: str = "global") -> None:
         for name in ("tp", "fp", "tn", "fn"):
             if multidim_average == "samplewise":
@@ -67,6 +70,18 @@ class _AbstractStatScores(Metric):
 
     def _final_state(self) -> Stats:
         return tuple(dim_zero_cat(self._state[k]) for k in ("tp", "fp", "tn", "fn"))  # type: ignore[return-value]
+
+    @staticmethod
+    def _add_rows(states: Dict[str, Any], tp: torch.Tensor, fp: torch.Tensor, tn: torch.Tensor, fn: torch.Tensor) -> Dict[str, Any]:
+        """``states`` (R, ...) advanced by per-row (tp, fp, tn, fn), as
+        :meth:`_update_state` advances one state."""
+        return {**states, "tp": states["tp"] + tp, "fp": states["fp"] + fp, "tn": states["tn"] + tn, "fn": states["fn"] + fn}
+
+
+def _merge_rows(x: torch.Tensor) -> torch.Tensor:
+    """Row-batched inputs ``(R, B, ...)`` as one batch ``(R * B, ...)``: the
+    input validation of R batches at once."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
 class BinaryStatScores(_AbstractStatScores):
@@ -115,6 +130,17 @@ class BinaryStatScores(_AbstractStatScores):
             preds, target, valid = _binary_stat_scores_format(preds, target, self.threshold, self.ignore_index)
             tp, fp, tn, fn = _binary_stat_scores_update(preds, target, valid, self.multidim_average)
         self._update_state(tp, fp, tn, fn)
+
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """R sessions' updates with one row-folded ``bincount`` launch (see
+        :meth:`Metric.functional_update_rows`)."""
+        if not (len(args) == 2 and self._fused_active() and self._own_update_is(BinaryStatScores)):
+            return super().functional_update_rows(states, *args)
+        preds, target = args
+        if self.validate_args:
+            _binary_stat_scores_tensor_validation(_merge_rows(preds), _merge_rows(target), self.multidim_average, self.ignore_index)
+        confmat = _fused.binary_confusion_counts_rows(preds, target, self.threshold, self.ignore_index)
+        return self._add_rows(states, *_fused.binary_stats_rows(confmat))
 
     def compute(self) -> torch.Tensor:
         tp, fp, tn, fn = self._final_state()
@@ -180,6 +206,22 @@ class MulticlassStatScores(_AbstractStatScores):
             tp, fp, tn, fn = (s.sum(dtype=torch.int32) for s in (tp, fp, tn, fn))
         self._update_state(tp, fp, tn, fn)
 
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """R sessions' updates with one row-folded ``bincount`` launch (see
+        :meth:`Metric.functional_update_rows`)."""
+        if not (len(args) == 2 and self._fused_active() and self._own_update_is(MulticlassStatScores)):
+            return super().functional_update_rows(states, *args)
+        preds, target = args
+        if self.validate_args:
+            _multiclass_stat_scores_tensor_validation(
+                _merge_rows(preds), _merge_rows(target), self.num_classes, self.multidim_average, self.ignore_index
+            )
+        confmat = _fused.multiclass_confusion_counts_rows(preds, target, self.num_classes, self.ignore_index)
+        stats = _fused.multiclass_stats_rows(confmat)
+        if self.average == "micro":
+            stats = tuple(s.sum(1, dtype=torch.int32) for s in stats)
+        return self._add_rows(states, *stats)
+
     def compute(self) -> torch.Tensor:
         tp, fp, tn, fn = self._final_state()
         return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
@@ -232,6 +274,19 @@ class MultilabelStatScores(_AbstractStatScores):
             )
             tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, valid, self.multidim_average)
         self._update_state(tp, fp, tn, fn)
+
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """R sessions' updates with one row-folded ``bincount`` launch (see
+        :meth:`Metric.functional_update_rows`)."""
+        if not (len(args) == 2 and self._fused_active() and self._own_update_is(MultilabelStatScores)):
+            return super().functional_update_rows(states, *args)
+        preds, target = args
+        if self.validate_args:
+            _multilabel_stat_scores_tensor_validation(
+                _merge_rows(preds), _merge_rows(target), self.num_labels, self.multidim_average, self.ignore_index
+            )
+        confmat = _fused.multilabel_confusion_counts_rows(preds, target, self.num_labels, self.threshold, self.ignore_index)
+        return self._add_rows(states, *_fused.multilabel_stats_rows(confmat))
 
     def compute(self) -> torch.Tensor:
         tp, fp, tn, fn = self._final_state()

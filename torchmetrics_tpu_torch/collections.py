@@ -559,12 +559,12 @@ class MetricCollection:
         dtypes match its own defaults; ambiguity raises.
         """
 
-        def signature(st: Dict[str, Any]) -> tuple:
+        def signature(st: Dict[str, Any], reserved: Tuple[str, ...]) -> tuple:
             return tuple(
                 sorted(
                     (k, tuple(getattr(v, "shape", ())), str(getattr(v, "dtype", "")).replace("torch.", ""))
                     for k, v in st.items()
-                    if k != Metric._STATE_COUNT_KEY
+                    if k not in reserved
                 )
             )
 
@@ -572,8 +572,9 @@ class MetricCollection:
             if cg[0] in states:
                 st = states[cg[0]]
             else:
-                want = signature(self._modules[cg[0]].functional_init())
-                cands = [k for k, v in states.items() if signature(v) == want]
+                reserved = self._modules[cg[0]]._RESERVED_STATE_KEYS
+                want = signature(self._modules[cg[0]].functional_init(), reserved)
+                cands = [k for k, v in states.items() if signature(v, reserved) == want]
                 if len(cands) != 1:
                     raise KeyError(
                         f"state missing group leader {cg[0]!r} and"
@@ -628,6 +629,15 @@ class MetricCollection:
     @property
     def compute_groups(self) -> Dict[int, List[str]]:
         return self._groups
+
+    def laned(self, capacity: int = 8, max_capacity: Optional[int] = None, **kwargs: Any) -> Any:
+        """A :class:`~torchmetrics_tpu_torch.lanes.LanedCollection` holding N
+        independent copies of every member's state, all sharing one
+        session-to-lane table: the whole suite advances per traffic round
+        (``lanes.py``)."""
+        from torchmetrics_tpu_torch.lanes import LanedCollection
+
+        return LanedCollection(self, capacity=capacity, max_capacity=max_capacity, **kwargs)
 
     def __repr__(self) -> str:
         repr_str = self.__class__.__name__ + "("

@@ -82,6 +82,8 @@ DEFAULT_KEEP = 3
 #: reserved per-metric export keys
 _COUNT_KEY = "_update_count"
 _SHARDS_KEY = "_sharded_shards"
+#: a laned metric's quarantine records (lanes.py), a uint8 JSON blob leaf
+_LANE_QUARANTINE_KEY = "_lane_quarantine"
 
 
 def _sha256(data: bytes) -> str:
@@ -233,6 +235,14 @@ def _snapshot_bytes(obj: Any, state: Dict[str, Any], update_count: Optional[int]
         rank_zero_debug(f"torchmetrics_tpu_torch checkpoint: no state_spec for {type(obj).__name__} ({err})")
         spec = None
 
+    # laned objects (lanes.py) describe their occupancy in the manifest, so
+    # load_manifest answers "how many sessions does this snapshot hold"
+    # without touching the payload
+    lanes = None
+    status = getattr(obj, "lane_status", None)
+    if isinstance(status, dict):
+        lanes = {k: status.get(k) for k in ("capacity", "active", "compiled", "policy", "quarantined") if k in status}
+
     world = _world_topology()
     shard_counts = [
         int(sub[_SHARDS_KEY])
@@ -246,7 +256,7 @@ def _snapshot_bytes(obj: Any, state: Dict[str, Any], update_count: Optional[int]
         "mesh_shape": None,
         "sharded": bool(shard_counts),
         "num_shards": max(shard_counts) if shard_counts else None,
-        "lane_capacity": None,  # the port has no lanes yet
+        "lane_capacity": (lanes or {}).get("capacity"),
         "state_sharding": None,  # nor class-sharded states
     }
     manifest = {
@@ -257,7 +267,7 @@ def _snapshot_bytes(obj: Any, state: Dict[str, Any], update_count: Optional[int]
         "kind": "collection" if nested else "metric",
         "class": type(obj).__name__,
         "spec": spec,
-        "lanes": None,
+        "lanes": lanes,
         "windows": None,
         "topology": topology,
         "update_count": update_count,
@@ -577,6 +587,10 @@ def _verify_installed_state(path: str, manifest: Dict[str, Any], obj: Any) -> No
         return
     leaves, _ = _flatten_export(installed)
     for desc, arr in leaves:
+        if desc["field"] == _LANE_QUARANTINE_KEY:
+            # a JSON blob whose session order follows set iteration, so its
+            # bytes are not canonical; decoding it validated the content
+            continue
         entry = entries.get((desc["leader"], desc["field"], desc["index"]))
         if entry is None or list(arr.shape) != list(entry["shape"]) or str(arr.dtype) != entry["dtype"]:
             continue

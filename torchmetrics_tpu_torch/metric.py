@@ -863,6 +863,9 @@ class Metric:
     #: reserved state key carrying the update count through state()/load_state
     _STATE_COUNT_KEY = "_update_count"
 
+    #: export keys that are no state field (a collection's layout match skips them)
+    _RESERVED_STATE_KEYS: Tuple[str, ...] = (_STATE_COUNT_KEY, "_sharded_shards")
+
     #: reductions under which a state's shape is invariant across updates and
     #: merges — the only fields whose shape `validate="strict"` can check
     _SHAPE_INVARIANT_REDUCTIONS = ("sum", "mean", "max", "min")
@@ -1050,6 +1053,49 @@ class Metric:
     def functional_compute(self, state: Dict[str, Any]) -> Any:
         """Pure compute: ``state -> value``."""
         return self._with_state(state, lambda: _squeeze_if_scalar(self._compute_fn()))
+
+    #: how a laned read computes every lane's value at once (``lanes.py``):
+    #: ``"vmap"`` runs :meth:`functional_compute` under ``torch.func.vmap``
+    #: over the stacked states (a compute of plain tensor operations, with no
+    #: host read or data-dependent branch); ``"loop"`` computes lane by lane
+    lane_compute: str = "loop"
+
+    def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
+        """Row-batched pure update: every state leaf and every argument carry
+        a leading row axis R, and row r of the result is
+        ``functional_update(row r of states, *row r of args)``. The session
+        lanes (``lanes.py``) advance a round of sessions through it, where the
+        JAX package runs ``jax.vmap(functional_update)``.
+
+        This default is an exact per-row loop (its kernel launches are
+        counted as the rows' own). The counting family (stat scores and the
+        confusion matrices) overrides it with one row-folded ``bincount``
+        launch per row chunk.
+        """
+        rows = int(args[0].shape[0]) if args else int(next(iter(states.values())).shape[0])
+        obs.counter_inc("lanes.rows_looped", rows)
+        out = [
+            self.functional_update({k: v[r] for k, v in states.items()}, *(a[r] for a in args))
+            for r in range(rows)
+        ]
+        return {k: torch.stack([o[k] for o in out]) for k in states}
+
+    def _own_update_is(self, cls: type) -> bool:
+        """Whether this instance updates with ``cls``'s own ``update`` (no
+        subclass override, no fault-harness body): the condition for a
+        row-batched override on ``cls`` to stand for the per-row loop."""
+        if "_update_fn" in self.__dict__:
+            return False
+        return next(k for k in type(self).__mro__ if "update" in k.__dict__) is cls
+
+    def laned(self, capacity: int = 8, max_capacity: Optional[int] = None, **kwargs: Any) -> Any:
+        """A :class:`~torchmetrics_tpu_torch.lanes.LanedMetric` stacking N
+        independent copies of this metric's state along a lane axis, one
+        round advancing every active session (``lanes.py``). The wrapper
+        holds a detached clone; this instance is untouched."""
+        from torchmetrics_tpu_torch.lanes import LanedMetric
+
+        return LanedMetric(self, capacity=capacity, max_capacity=max_capacity, **kwargs)
 
     def functional_forward(
         self, state: Dict[str, Any], *args: Any, update_count: Optional[int] = None, **kwargs: Any

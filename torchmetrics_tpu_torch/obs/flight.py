@@ -48,7 +48,7 @@ _DEFAULT_CAPACITY = 64
 _BLOB_MAX_EVENTS = 32
 
 #: the async/fault domains, one ring each (the JAX package's; the port
-#: records into read, autosave, dispatch, sync, checkpoint and kernels)
+#: records into read, autosave, dispatch, sync, lanes, checkpoint and kernels)
 DOMAINS = (
     "read",        # async read pipeline: submit halves + worker resolution
     "compile",     # foreground/background compile, disk-cache load/store, warmup

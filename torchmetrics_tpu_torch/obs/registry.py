@@ -293,6 +293,17 @@ def dump_diagnostics(obj: Any = None) -> Dict[str, Any]:
         "env": env,
         "versions": versions,
     }
+    # laned objects (LanedMetric, LanedCollection) carry a per-session fault,
+    # quarantine and staleness table: a stalled-session report is one call
+    quarantine_table = getattr(obj, "quarantine_table", None)
+    if callable(quarantine_table):
+        try:
+            out["lane_quarantine"] = quarantine_table()
+        except Exception as err:  # diagnostics must not raise past a broken probe
+            from torchmetrics_tpu_torch.utils.prints import rank_zero_debug
+
+            rank_zero_debug(f"dump_diagnostics: quarantine_table probe failed ({err})")
+            out["lane_quarantine"] = {"error": f"{type(err).__name__}: {err}"}
     return out
 
 

@@ -60,9 +60,9 @@ _DEFAULT_CAPACITY = 65536
 
 # --------------------------------------------------------------- span names
 # The JAX package's canonical span names, kept verbatim. The executor's
-# (dispatch, compile, cache, warmup, pad) and the later layers' (lanes,
-# reshard, fleet, windows, integrity) are emitted by nothing in the port
-# yet; the exported formats keep them.
+# (dispatch, compile, cache, warmup, pad) and the later layers' (reshard,
+# fleet, windows, integrity) are emitted by nothing in the port yet; the
+# exported formats keep them.
 SPAN_DISPATCH = "tm_tpu.dispatch"          # compiled executor dispatch (per owner)
 SPAN_UPDATE = "tm_tpu.update"              # metric update body
 SPAN_COMPUTE = "tm_tpu.compute"            # metric compute

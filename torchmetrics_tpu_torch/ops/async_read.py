@@ -38,6 +38,7 @@ import os
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -316,3 +317,24 @@ def pending_reads() -> int:
     with _PIPELINE_LOCK:
         pipeline = _PIPELINE
     return 0 if pipeline is None else pipeline.pending()
+
+
+# -------------------------------------------------- laned read serialisation
+
+#: one RLock per LaneGuard (shared across a LanedCollection's members the way
+#: the guard itself is): the read worker's scan-and-attribute step and the
+#: lane router's guard and state mutations serialise on it. Held only around
+#: host bookkeeping, never around a device wait. Keyed weakly, so a guard
+#: stays picklable (a lock never rides a checkpoint).
+_GUARD_LOCKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_GUARD_LOCKS_LOCK = threading.Lock()
+
+
+def guard_lock(guard: Any) -> threading.RLock:
+    """The (lazily created) RLock serialising reads and mutations for ``guard``."""
+    with _GUARD_LOCKS_LOCK:
+        lock = _GUARD_LOCKS.get(guard)
+        if lock is None:
+            lock = threading.RLock()
+            _GUARD_LOCKS[guard] = lock
+        return lock

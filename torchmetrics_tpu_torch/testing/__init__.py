@@ -5,8 +5,11 @@ from torchmetrics_tpu_torch.testing.faults import (
     FaultInjected,
     PreemptionInjected,
     corrupt_state,
+    fail_lane_dispatch,
     grow_world,
     pause_async_reads,
+    poison_batch,
+    poison_session,
     preempt_after,
     raise_in_compute,
     raise_in_update,
@@ -18,8 +21,11 @@ __all__ = [
     "FaultInjected",
     "PreemptionInjected",
     "corrupt_state",
+    "fail_lane_dispatch",
     "grow_world",
     "pause_async_reads",
+    "poison_batch",
+    "poison_session",
     "preempt_after",
     "raise_in_compute",
     "raise_in_update",

@@ -19,6 +19,11 @@ so the containment guarantees are asserted, not assumed:
   machine (drives ``restore_state``'s topology gate).
 - :func:`pause_async_reads`: park the read pipeline's worker, so reads stay
   in flight (drives back-pressure and staleness tests).
+- :func:`poison_batch` / :func:`poison_session`: NaN or Inf in one
+  session's rows of every laned round (drives the lane containment
+  guarantees: every OTHER lane stays bit-equal to a fault-free run).
+- :func:`fail_lane_dispatch`: an attributed ``LaneFaultError`` from inside
+  the laned update, after the real update ran (drives the round rollback).
 
 All context managers restore the patched seam on exit, including when the
 body raises. They are process-local and not thread-safe (they patch module
@@ -88,6 +93,119 @@ def raise_in_compute(metric: Any, exc: Optional[BaseException] = None) -> Genera
         yield
     finally:
         metric.__dict__.pop("_compute_fn", None)
+
+
+# --------------------------------------------------------------------- inputs
+
+def poison_batch(*arrays: Any, mode: str = "nan", frac: float = 0.25, seed: int = 0) -> tuple:
+    """Corrupt a fraction of every floating-point array's entries with NaN
+    (``mode="nan"``) or +/-Inf (``mode="inf"``); integer arrays (labels) pass
+    through untouched. Deterministic in ``seed``, and the same entries as the
+    JAX package's ``poison_batch`` for the same inputs. Returns numpy arrays
+    for numpy (or list) inputs and tensors on the input's device for tensors.
+
+    >>> import numpy as np
+    >>> (x,) = poison_batch(np.zeros(8, np.float32), frac=0.5, seed=1)
+    >>> int(np.isnan(x).sum())
+    4
+    """
+    if mode not in ("nan", "inf"):
+        raise ValueError(f"mode must be 'nan' or 'inf', got {mode!r}")
+    rng = np.random.RandomState(seed)
+    out = []
+    for arr in arrays:
+        tensor = isinstance(arr, torch.Tensor)
+        a = arr.detach().cpu().numpy().copy() if tensor else np.array(arr)
+        if not np.issubdtype(a.dtype, np.floating):
+            out.append(arr)
+            continue
+        flat = a.reshape(-1)
+        k = max(1, int(round(frac * flat.size)))
+        idx = rng.choice(flat.size, size=min(k, flat.size), replace=False)
+        if mode == "nan":
+            flat[idx] = np.nan
+        else:
+            flat[idx] = np.where(rng.rand(len(idx)) < 0.5, np.inf, -np.inf)
+        a = flat.reshape(a.shape)
+        out.append(torch.from_numpy(a).to(arr.device) if tensor else a)
+    return tuple(out)
+
+
+# -------------------------------------------------------------------- lanes
+
+@contextmanager
+def poison_session(
+    laned: Any, session_id: Any, mode: str = "nan", frac: float = 0.25, seed: int = 0
+) -> Generator[None, None, None]:
+    """Corrupt ONLY ``session_id``'s rows in every ``update_sessions`` round
+    on ``laned`` (a ``LanedMetric`` or ``LanedCollection``): the
+    one-bad-session scenario the lane isolation property is asserted
+    against. ``mode``/``frac``/``seed`` are :func:`poison_batch`'s."""
+    orig = laned.update_sessions
+
+    def poisoned(items: Any, **kwargs: Any) -> int:
+        items = list(items.items()) if isinstance(items, dict) else list(items)
+        out = []
+        for sid, batch in items:
+            if sid == session_id:
+                was_tuple = isinstance(batch, tuple)
+                leaves = batch if was_tuple else (batch,)
+                leaves = poison_batch(*leaves, mode=mode, frac=frac, seed=seed)
+                batch = leaves if was_tuple else leaves[0]
+            out.append((sid, batch))
+        return orig(out, **kwargs)
+
+    laned.__dict__["update_sessions"] = poisoned
+    try:
+        yield
+    finally:
+        if laned.__dict__.get("update_sessions") is poisoned:
+            del laned.__dict__["update_sessions"]
+
+
+@contextmanager
+def fail_lane_dispatch(
+    laned: Any, session_id: Any, fail_n: Optional[int] = None, exc: Optional[BaseException] = None
+) -> Generator[None, None, None]:
+    """Raise an attributed ``LaneFaultError(session_id)`` from inside the
+    laned update whenever a round holds that session's lane, AFTER the real
+    update ran (the committed-then-faulted worst case). The router's
+    containment must roll the touched lanes back and re-dispatch the round
+    without the culprit. ``fail_n=k`` faults only the first k hits; ``None``
+    faults every one."""
+    from torchmetrics_tpu_torch.utils.exceptions import LaneFaultError
+
+    collection = getattr(laned, "collection", None)
+    target = collection if collection is not None else laned
+    orig = target.update
+    remaining = {"n": fail_n}
+
+    def should_fail(lane_ids: Any) -> bool:
+        lane = laned.sessions.get(session_id)
+        if lane is None or lane not in np.asarray(lane_ids).reshape(-1):
+            return False
+        if remaining["n"] is not None:
+            if remaining["n"] <= 0:
+                return False
+            remaining["n"] -= 1
+        return True
+
+    def failing(lane_ids: Any, *args: Any, **kwargs: Any) -> Any:
+        hit = should_fail(lane_ids)
+        out = orig(lane_ids, *args, **kwargs)
+        if hit:
+            raise exc if exc is not None else LaneFaultError(
+                f"injected lane dispatch failure for session {session_id!r}",
+                session_id=session_id,
+                where="dispatch",
+            )
+        return out
+
+    target.__dict__["update"] = failing
+    try:
+        yield
+    finally:
+        target.__dict__.pop("update", None)
 
 
 # -------------------------------------------------------------------- world

@@ -80,3 +80,22 @@ class StateDivergenceError(StateCorruptionError):
         self.shard = shard
         self.expected = expected
         self.observed = observed
+
+
+class LaneFaultError(TorchMetricsUserError):
+    """A fault attributed to ONE session's lane in a laned dispatch.
+
+    Raised by the lane fault-containment layer (``quarantine.py``,
+    ``lanes.py``) when admission screening rejects a session's row, a
+    dispatch failure is attributed to a session, or a read-point health scan
+    finds a lane poisoned, under the ``on_lane_fault="raise"`` policy.
+    Carries the attribution (``session_id``, ``lane``, ``where``) so callers,
+    and the router's containment loop, can act on the single offending
+    session instead of the whole dispatch.
+    """
+
+    def __init__(self, message: str, session_id=None, lane=None, where=None) -> None:
+        super().__init__(message)
+        self.session_id = session_id
+        self.lane = lane
+        self.where = where
