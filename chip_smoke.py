@@ -153,6 +153,18 @@ evaluation workloads:
   final-save and restore ms printed); ``compute_async()`` every 8 updates
   on the default and on a side stream, each future bit-equal to
   ``compute()`` at its count.
+- session lanes over LEAF FEMNIST's 3,550 writers (805,263 samples, 62
+  classes, batches of 32): the entry collection laned, one row-folded
+  ``bincount`` launch a round, with and without lane fault containment;
+- streaming windows: the Criteo Display Advertising Challenge train set
+  (45,840,617 rows cut into 168 hours) through the windowed binary entry
+  collection with binned AUROC and AP (a 24-hour ring, late clicks an hour
+  late admitted and two hours late dropped, async reads at the day's close,
+  a save and restore at hour 100), every ring and window against fresh
+  collections of the admitted rows bit for bit, advance and update µs at
+  W = 24 and 168; and the FEMNIST writers as windowed session lanes (a
+  4-batch ring, skewed clocks, late batches), every lane's ring against a
+  plain per-window count, one ``bincount`` launch a round.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -210,7 +222,10 @@ CITYSCAPES = {"num_classes": 19, "ignore_index": 255, "images": 500, "batch": 4,
 #: out-of-range-aware confusion count; the 4 x 8 per-group fairness count;
 #: the COCO per-label curve count over 2 x 101 x 80 bins; the laned FEMNIST
 #: round's row-folded count: 3,550 writers' 32-sample batches over
-#: 3,550 x 62 x 62 bins, one launch for the whole round)
+#: 3,550 x 62 x 62 bins, one launch for the whole round; the windowed
+#: Criteo collection's binary count over 4 bins at its three batch sizes:
+#: 32,768 rows, an hour's 7,714-row last batch and its 2,729-row late
+#: batch, the last two reaching the kernel's tail past a multiple of 4)
 KERNEL_SHAPES = [
     ("binary_segmentation", 1, 4, 4 * 1024 * 2048, True),
     ("cityscapes_confmat", 1, 19 * 19, 4 * 1024 * 2048, True),
@@ -224,6 +239,9 @@ KERNEL_SHAPES = [
     ("civilcomments_groups_weightless", 1, 4 * 8, 4096, False),
     ("coco_curve_weightless", 1, 2 * 101 * 80, 256 * 80, False),
     ("femnist_rows_weightless", 1, 3_550 * 62 * 62, 3_550 * 32, False),
+    ("criteo_batch_weightless", 1, 4, 32_768, False),
+    ("criteo_last_weightless", 1, 4, 7_714, False),
+    ("criteo_late_weightless", 1, 4, 2_729, False),
 ]
 #: one update past float32's last exact integer: 2**24 + 3 equal indices,
 #: whose weightless count must come out exactly (int64)
@@ -235,7 +253,8 @@ PAST_2_24 = 2**24 + 3
 #: bool mask; "int64_ignore": what the binned binary update hands the
 #: kernel, int64 targets with 5% of them ignore_index -1 and no mask;
 #: "int64": int64 targets, no mask and no ignore_index (the CivilComments
-#: update's fixed operating points)
+#: update's fixed operating points; the windowed Criteo AUROC and AP at
+#: their three batch sizes, 200 thresholds)
 CURVE_SHAPES = [
     ("config6", 1_000_000, 100, "grid", False, "int32_mask"),
     ("config6_int64_ignore", 1_000_000, 100, "grid", False, "int64_ignore"),
@@ -244,6 +263,9 @@ CURVE_SHAPES = [
     ("t50k", 1_000_000, 50_000, "random", False, "int32_mask"),
     ("edges", 1_000_000, 64, "random", True, "int32_mask"),
     ("civilcomments_int64", 4096, 100, "grid", False, "int64"),
+    ("criteo_batch_int64", 32_768, 200, "grid", False, "int64"),
+    ("criteo_last_int64", 7_714, 200, "grid", False, "int64"),
+    ("criteo_late_int64", 2_729, 200, "grid", False, "int64"),
 ]
 #: the JAX package's bench.py config 6: 50 updates of 1,000,000 binary scores,
 #: 100 thresholds; here with ignore_index=-1 on 5% of samples
@@ -2039,13 +2061,18 @@ def _sync_families(dev) -> dict:
 def _bit_equal(a, b) -> bool:
     """Equal bit for bit: dicts key by key, a list state concatenated (a
     synced list is one tensor, or one per rank), a None-reduced field (one
-    rank's stack) by its elements."""
+    rank's stack) by its elements; NaN where the other has NaN."""
     import torch
 
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(_bit_equal(a[k], b[k]) for k in a)
     a, b = (torch.cat([torch.atleast_1d(t) for t in x]) if isinstance(x, list) else x for x in (a, b))
-    return a.dtype == b.dtype and torch.equal(a.reshape(-1), b.reshape(-1))
+    if a.dtype != b.dtype or a.numel() != b.numel():
+        return False
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
 
 
 def _state_bytes(state) -> int:
@@ -7620,6 +7647,563 @@ def phase_femnist_writers_guarded(dev, data: dict, clean: dict) -> dict:
     return _emit(out)
 
 
+# ---------------------------------------------------------------------------
+# Streaming windows (windows.py and the windowed session lanes): Criteo's
+# seven days of clicks as the hourly windows of a click-through-rate
+# monitor, and LEAF FEMNIST's writers as windowed session lanes.
+
+#: The Criteo Display Advertising Challenge train set (Kaggle, 2014):
+#: 45,840,617 rows over 7 days of traffic in time order, 25.62% clicks. The
+#: set has no timestamps, so the rows are cut into 168 equal hours (hour h is
+#: rows [h*N//168, (h+1)*N//168)). Scores at an AUROC near 0.80 (the level
+#: DLRM-class models reach on this set); batches of 32,768 within an hour; a
+#: 24-hour ring with lateness 1; 1% of each hour delivered an hour late
+#: (admitted) and 0.1% two hours late (dropped), as delayed clicks arrive
+#: (Chapelle, KDD 2014).
+CRITEO = {"rows": 45_840_617, "hours": 168, "ctr": 0.2562, "auroc": 0.80, "batch": 32_768, "thresholds": 200,
+          "window": 24, "lateness": 1, "late": 0.01, "later": 0.001, "save_at": 100, "async_every": 24,
+          "checks": (24, 100, 168), "bench_windows": (24, 168), "bench_calls": 48}
+
+
+def _criteo_hour(h: int, dev) -> dict:
+    """Hour ``h``'s rows from the seed on the card: labels at the train
+    set's click rate, float32 probabilities from a binormal score (AUROC
+    Phi(d / sqrt 2) = 0.80); split into the on-time rows, the 1% an hour
+    late and the 0.1% two hours late."""
+    import math
+
+    import torch
+
+    spec = CRITEO
+    n = (h + 1) * spec["rows"] // spec["hours"] - h * spec["rows"] // spec["hours"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 18_000 + h)
+    labels = (torch.rand(n, generator=g, device=dev) < spec["ctr"]).to(torch.int64)
+    d = math.sqrt(2.0) * 0.8416212335729143  # Phi^-1(0.80)
+    scores = torch.sigmoid(torch.randn(n, generator=g, device=dev) + d * labels - 1.6)
+    n_later = round(n * spec["later"])
+    n_late = round(n * spec["late"])
+    on = n - n_late - n_later
+    b = spec["batch"]
+    return {
+        "rows": n,
+        "on": [(scores[i:min(on, i + b)], labels[i:min(on, i + b)]) for i in range(0, on, b)],
+        "late": (scores[on:on + n_late], labels[on:on + n_late]),
+        "later": (scores[on + n_late:], labels[on + n_late:]),
+    }
+
+
+def _criteo_members(dev) -> dict:
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAccuracy,
+        BinaryAUROC,
+        BinaryAveragePrecision,
+        BinaryConfusionMatrix,
+        BinaryF1Score,
+        BinaryPrecision,
+        BinaryRecall,
+    )
+
+    d = dict(validate_args=False, device=dev)
+    t = CRITEO["thresholds"]
+    return {
+        "accuracy": BinaryAccuracy(**d), "precision": BinaryPrecision(**d), "recall": BinaryRecall(**d),
+        "f1": BinaryF1Score(**d), "confmat": BinaryConfusionMatrix(**d),
+        "auroc": BinaryAUROC(thresholds=t, **d), "ap": BinaryAveragePrecision(thresholds=t, **d),
+    }
+
+
+def _criteo_windowed(dev, window: int):
+    from torchmetrics_tpu_torch import MetricCollection
+
+    return MetricCollection(_criteo_members(dev), device=dev).windowed(window, lateness=CRITEO["lateness"])
+
+
+def _launch_counts() -> dict:
+    from torchmetrics_tpu_torch.ops import bincount, binned_curve
+
+    return {"bincount": bincount.launches, "binned_curve": binned_curve.launches}
+
+
+def _launched(fn) -> tuple:
+    """``fn()`` and the kernel launches it made."""
+    before = _launch_counts()
+    out = fn()
+    after = _launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _criteo_reference(dev, hours: list, clock: int):
+    """A fresh unwindowed collection fed exactly the rows of ``hours``
+    admitted by ``clock``: an hour's on-time batches once it has passed,
+    its hour-late rows once they arrived (at the next clock)."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    ref = MetricCollection(_criteo_members(dev), device=dev)
+    for h in hours:
+        if h >= clock:
+            continue
+        data = _criteo_hour(h, dev)
+        for batch in data["on"]:
+            ref.update(*batch)
+        ref.update(*data["late"])
+    return ref
+
+
+def _criteo_hard_check(dev, wc, clock: int) -> dict:
+    """At ``clock``: every member's folded ring bit-equal to a fresh
+    collection fed the live windows' admitted rows, and ``compute_window(k)``
+    of every live k bit-equal to a fresh collection of window k's rows."""
+    from torchmetrics_tpu_torch.parallel.sync import live_window_mask
+
+    w = CRITEO["window"]
+    live = list(range(max(0, clock - w + 1), clock + 1))
+    ref = _criteo_reference(dev, live, clock)
+    for name, m in wc.items():
+        folded = m._fold_windows(m._state, live_window_mask(m._state["window_head"], w))
+        for f, v in folded.items():
+            _check(v.equal(ref[name]._state[f]), f"criteo: at clock {clock} the folded {name}.{f} differs from the live windows' rows")
+    t0 = time.perf_counter()
+    windows = {k: wc.compute_window(k) for k in live}
+    _sync(dev)
+    window_ms = (time.perf_counter() - t0) * 1e3 / len(live)
+    for k in live:
+        want = _criteo_reference(dev, [k], clock).compute()
+        for name, v in windows[k].items():
+            _check(_bit_equal(v, want[name]), f"criteo: compute_window({k}) {name} differs at clock {clock}")
+    return {"clock": clock, "live": [live[0], live[-1]], "compute_window_ms": window_ms}
+
+
+def _criteo_ring_bench(dev, window: int) -> dict:
+    """Advance and update µs of the windowed collection at one ring size,
+    against the unwindowed update of the same batch: host wall time of
+    ``bench_calls`` calls ending in a synchronise; the stream's elapsed
+    time between CUDA events around them (which counts the device's waits
+    for the host); and the device's busy time from ``torch.profiler`` over
+    8 calls (the kernels' own time, which the ring copies grow)."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+
+    calls = CRITEO["bench_calls"]
+    batch = _criteo_hour(0, dev)["on"][0]
+    wc = _criteo_windowed(dev, window)
+    plain = MetricCollection(_criteo_members(dev), device=dev)
+    for _ in range(3):  # groups resolved, allocator warm
+        wc.update(*batch)
+        plain.update(*batch)
+        wc.advance()
+    out = {"window": window}
+    for name, fn in (("advance", lambda: wc.advance()), ("update", lambda: wc.update(*batch)),
+                     ("unwindowed_update", lambda: plain.update(*batch))):
+        _sync(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        _sync(dev)
+        out[f"{name}_us"] = (time.perf_counter() - t0) * 1e6 / calls
+        out[f"{name}_event_us"] = start.elapsed_time(end) * 1e3 / calls
+        rows, _ = _profiled(lambda i, fn=fn: fn(), 8)
+        out[f"{name}_device_us"] = sum(r[1] for r in rows) / 8
+    held = {id(v): v.nbytes for m in wc.collection._modules.values() for v in m._state.values()}
+    out["ring_bytes"] = sum(held.values())  # a compute group's rings once
+    return out
+
+
+def phase_criteo_kaggle_hourly_windows(dev) -> dict:
+    """The Criteo train set's 168 hours through the windowed entry
+    collection ``MetricCollection(...).windowed(24, lateness=1)``: each
+    hour's on-time batches, then ``advance()`` (under sync debug mode
+    "error") and ``compute()``; 1% of an hour delivered after the next
+    advance by ``update_window`` (admitted), 0.1% two hours late (dropped);
+    ``compute_async()`` at every 24th close, resolved after the next hour's
+    updates; at hour 100's close a save to a rotating store, restored into a
+    fresh collection that runs on beside the first. Checks: at clocks 24,
+    100 and 168 the folded ring and every live ``compute_window`` bit-equal
+    to fresh collections of the admitted rows; every async read bit-equal to
+    the compute at its close; the restored run bit-equal to the
+    uninterrupted one; the manifest's windows block; the windows.* counters;
+    kernel launches equal to the unwindowed collection's for the landed
+    batches (none for a dropped one). Printed: rows/s and update µs windowed
+    against unwindowed, advance and update µs at W = 24 and 168, compute,
+    compute_window and save/restore ms, peak memory above base."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection, obs
+    from torchmetrics_tpu_torch.io import load_manifest, restore_state, save_state
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+
+    spec = CRITEO
+    hours, w = spec["hours"], spec["window"]
+    bench = [_criteo_ring_bench(dev, k) for k in spec["bench_windows"] + spec["bench_windows"]][len(spec["bench_windows"]):]
+    obs.reset()
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    wc = _criteo_windowed(dev, w)
+    plain = MetricCollection(_criteo_members(dev), device=dev)
+    twin = None
+    store = str(_runtime_dir("criteo"))
+    win_launches = {"bincount": 0, "binned_curve": 0}
+    plain_launches = {"bincount": 0, "binned_curve": 0}
+    landed = dropped_launches = 0
+    win_s = plain_s = 0.0
+    on_rows = on_calls = 0
+    compute_ms, checks, reads, pending = [], [], [], []
+    late, later = {}, {}
+    save = None
+
+    def land(fn_win, fn_plain):
+        nonlocal landed
+        _, a = _launched(fn_win)
+        _, b = _launched(fn_plain)
+        for k in win_launches:
+            win_launches[k] += a[k]
+            plain_launches[k] += b[k]
+        landed += 1
+
+    for clock in range(hours + 1):
+        # the delayed clicks of earlier hours arrive
+        if clock - 1 in late:
+            rows = late.pop(clock - 1)
+            if twin is not None:
+                _check(twin.update_window(clock - 1, *rows), "criteo: the restored run dropped an hour-late batch")
+            land(lambda: _check(wc.update_window(clock - 1, *rows), f"criteo: hour {clock - 1}'s late rows were dropped"),
+                 lambda: plain.update(*rows))
+        if clock - 2 in later:
+            rows = later.pop(clock - 2)
+            if twin is not None:
+                _check(not twin.update_window(clock - 2, *rows), "criteo: the restored run admitted a two-hour-late batch")
+            got, n = _launched(lambda: wc.update_window(clock - 2, *rows))
+            _check(not got, f"criteo: hour {clock - 2}'s two-hour-late rows were admitted")
+            dropped_launches += sum(n.values())
+        if clock in spec["checks"]:
+            checks.append(_criteo_hard_check(dev, wc, clock))
+        if clock == hours:
+            break
+        data = _criteo_hour(clock, dev)
+        _sync(dev)
+        order = ((wc, "win"), (plain, "plain")) if clock % 2 == 0 else ((plain, "plain"), (wc, "win"))
+        for coll, kind in order:
+            t0 = time.perf_counter()
+            for batch in data["on"]:
+                if kind == "win":
+                    land(lambda: wc.update(*batch), lambda: None)
+                else:
+                    _, n = _launched(lambda: plain.update(*batch))
+                    for k in plain_launches:
+                        plain_launches[k] += n[k]
+            _sync(dev)
+            if kind == "win":
+                win_s += time.perf_counter() - t0
+            else:
+                plain_s += time.perf_counter() - t0
+        if twin is not None:
+            for batch in data["on"]:
+                twin.update(*batch)
+        on_calls += len(data["on"])
+        on_rows += sum(int(b[1].numel()) for b in data["on"])
+        late[clock], later[clock] = data["late"], data["later"]
+        # resolve the reads submitted at the previous close, after this hour's updates
+        for at, future, value in pending:
+            got = future.result(120.0)
+            for k, v in value.items():
+                _check(_bit_equal(got[k], v), f"criteo: the async read at clock {at} differs in {k}")
+            reads.append(at)
+        pending = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wc.advance()
+            if twin is not None:
+                twin.advance()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        future = wc.compute_async() if wc.clock % spec["async_every"] == 0 else None
+        _sync(dev)
+        t0 = time.perf_counter()
+        value = wc.compute()
+        _sync(dev)
+        compute_ms.append((time.perf_counter() - t0) * 1e3)
+        if future is not None:
+            pending.append((wc.clock, future, value))
+        if wc.clock == spec["save_at"]:
+            t0 = time.perf_counter()
+            path = save_state(wc, store, keep=3)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            block = load_manifest(path)["windows"]
+            _check(block == {"window": w, "lateness": spec["lateness"], "clock": 100, "head": 4},
+                   f"criteo: the manifest's windows block is {block}")
+            twin = _criteo_windowed(dev, w)
+            t0 = time.perf_counter()
+            restore_state(store, twin)
+            _sync(dev)
+            save = {"save_ms": save_ms, "restore_ms": (time.perf_counter() - t0) * 1e3, "windows_block": block}
+            _check(twin.clock == wc.clock, "criteo: the restored clock differs")
+    for at, future, value in pending:
+        got = future.result(120.0)
+        for k, v in value.items():
+            _check(_bit_equal(got[k], v), f"criteo: the async read at clock {at} differs in {k}")
+        reads.append(at)
+    _check(drain_pipeline(60.0), "criteo: the read pipeline did not drain")
+    _check(reads == list(range(spec["async_every"], hours + 1, spec["async_every"])), f"criteo: async reads at {reads}")
+    for name, m in wc.items():
+        for f, v in m._state.items():
+            _check(v.equal(twin[name]._state[f]), f"criteo: the restored run's {name}.{f} differs from the uninterrupted run's")
+    peak = _peak_above(dev, base)
+    counters = obs.counters_snapshot()
+    members = len(wc.keys())
+    # each member counts a late event or a drop (the JAX package walks the
+    # members); the restored run delivers from clock 100 on
+    twin_clocks = hours - spec["save_at"] + 1
+    want = {"windows.late_events": members * (hours + twin_clocks), "windows.dropped_late": members * (hours - 1 + twin_clocks)}
+    got = {k: int(counters.get(k, 0)) for k in want}
+    _check(got == want, f"criteo: counters {got}, not {want}")
+    _check(win_launches == plain_launches, f"criteo: windowed launches {win_launches} != unwindowed {plain_launches}")
+    _check(win_launches["bincount"] == landed, f"criteo: {win_launches['bincount']} bincount launches for {landed} landed calls")
+    _check(dropped_launches == 0, f"criteo: dropped batches launched {dropped_launches} kernels")
+    out = {
+        "phase": "criteo_kaggle_hourly_windows", "rows": spec["rows"], "hours": hours, "window": w,
+        "landed_update_calls": landed, "on_time_calls": on_calls, "on_time_rows": on_rows,
+        "bincount_launches": win_launches["bincount"], "binned_curve_launches": win_launches["binned_curve"],
+        "unwindowed_launches": plain_launches, "compute_groups": sorted(map(sorted, wc.collection.compute_groups.values())),
+        "rows_per_s": {"windowed": on_rows / win_s, "unwindowed": on_rows / plain_s},
+        "update_us": {"windowed": win_s * 1e6 / on_calls, "unwindowed": plain_s * 1e6 / on_calls},
+        "ring_bench": bench,
+        "compute_ms_p50": sorted(compute_ms)[len(compute_ms) // 2], "checks": checks, "async_reads": len(reads),
+        "save_restore": save, "counters": got, "peak_mem_above_base_bytes": peak,
+    }
+    return _emit(out)
+
+
+def _femnist_schedule(data: dict) -> dict:
+    """The per-clock traffic: at clock t every writer's batch t (the full
+    batches in one call, the short last batches in calls grouped by length);
+    36 seeded writers' clocks skewed one window ahead after clock 0; 36
+    others each send one batch one window late (admitted) and 36 more one
+    batch two windows late (dropped)."""
+    import numpy as np
+
+    batch = FEMNIST["batch"]
+    nb = [-(-len(t) // batch) for _, t in data["writers"]]
+    rng = np.random.RandomState(SEED + 18_100)
+    eligible = [w for w, n in enumerate(nb) if n >= 3]
+    picked = rng.choice(eligible, 3 * FEMNIST["poisoned"], replace=False)
+    k = FEMNIST["poisoned"]
+    skewed = sorted(int(w) for w in picked[:k])
+    # a full batch each (never the short last one): one late call a writer
+    late = {int(w): int(rng.randint(1, nb[w] - 1)) for w in picked[k:2 * k]}
+    later = {int(w): int(rng.randint(1, nb[w] - 1)) for w in picked[2 * k:]}
+    clocks = max(nb)
+    calls = []
+    for t in range(clocks):
+        full, tails = [], {}
+        for w, (logits, target) in enumerate(data["writers"]):
+            lo = t * batch
+            if lo >= len(target) or late.get(w) == t or later.get(w) == t:
+                continue
+            hi = min(len(target), lo + batch)
+            item = (w, (logits[lo:hi], target[lo:hi]))
+            (full if hi - lo == batch else tails.setdefault(hi - lo, [])).append(item)
+        calls.append([full] + [tails[r] for r in sorted(tails)])
+    return {"nb": nb, "skewed": skewed, "late": late, "later": later, "clocks": clocks, "calls": calls}
+
+
+def _femnist_window_plain(data: dict, sched: dict, clock: int, dev) -> "torch.Tensor":
+    """Plain int64 ``(writers, 4, C, C)`` counts on the card: every batch
+    that landed in a window live at ``clock`` (each writer's own clock: the
+    skewed ones run one ahead), in its ring slot."""
+    import numpy as np
+    import torch
+
+    c, batch, ring = FEMNIST["classes"], FEMNIST["batch"], FEMNIST_WINDOWS["window"]
+    skewed = set(sched["skewed"])
+    idx = []
+    for w, (logits, target) in enumerate(data["writers"]):
+        shift = 1 if w in skewed else 0
+        own = clock + shift
+        for b in range(sched["nb"][w]):
+            if sched["later"].get(w) == b:
+                continue  # dropped by the watermark
+            if sched["late"].get(w) == b:
+                if b + 1 > clock:
+                    continue  # not delivered yet
+                k = b
+            else:
+                if b > clock:
+                    continue
+                k = b + shift if b > 0 else 0  # batch 0 landed before the skew
+            if not own - ring < k <= own:
+                continue
+            lo, hi = b * batch, min(len(target), (b + 1) * batch)
+            pred = logits[lo:hi].argmax(1)
+            idx.append(((w * ring + k % ring) * c + target[lo:hi]) * c + pred)
+    flat = torch.from_numpy(np.concatenate(idx).astype(np.int64)).to(dev)
+    out = torch.zeros(len(data["writers"]) * ring * c * c, dtype=torch.int64, device=dev)
+    out.index_add_(0, flat, torch.ones_like(flat))
+    return out.reshape(len(data["writers"]), ring, c, c)
+
+
+#: the windowed lanes: a 4-batch ring per writer, lateness 1
+FEMNIST_WINDOWS = {"window": 4, "lateness": 1, "check_clocks": (3, 9)}
+
+
+def _femnist_rings_equal_plain(name: str, coll, plain, writers) -> None:
+    """Every lane's confusion ring, stat-score rings and micro rings bit-equal
+    to the plain per-window counts of its writer."""
+    _check(_lane_rows(coll, writers, "confmat").to(plain.dtype).equal(plain),
+           f"{name}: a lane's confusion ring differs from its plain count")
+    stats = _stats_of(plain)
+    for i, field in enumerate(("tp", "fp", "tn", "fn")):
+        _check(_lane_rows(coll, writers, field, "f1").to(plain.dtype).equal(stats[i]),
+               f"{name}: a lane's {field} ring differs from its plain count")
+        _check(_lane_rows(coll, writers, field, "accuracy").to(plain.dtype).equal(stats[i].sum(-1)),
+               f"{name}: a lane's micro {field} ring differs from its plain count")
+
+
+def phase_femnist_writers_windowed(dev, data: dict) -> dict:
+    """The ``femnist_writers`` traffic, not cut, clock by clock through the entry
+    collection as ``.windowed(4, lateness=1).laned(capacity=1024)`` (grown
+    to 4,096): at clock t every writer's batch t, then
+    ``advance_windows()`` under sync debug mode "error" (the clock mirror
+    warm); ``skew_clock`` runs 36 writers one window ahead; ``late_event``
+    delivers 36 writers' batch one window late (admitted) and 36 others' two
+    windows late (dropped). Checks, at two clocks and at the end: every
+    lane's ring (every live window) and its folded value bit-equal to a
+    plain count of the batches that landed there; one ``bincount`` launch
+    per dispatched round and row chunk, ``lanes.rows_looped`` 0; exactly the
+    36 two-late batches dropped. Printed: sessions/s windowed against the
+    unwindowed rounds on the same writers, dispatch µs a round,
+    ``lane_values`` ms, peak memory above base."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection, lanes, obs
+    from torchmetrics_tpu_torch.lanes import lane_capacity_bucket
+    from torchmetrics_tpu_torch.ops import bincount, ingest
+    from torchmetrics_tpu_torch.ops import fused_classification as fc
+    from torchmetrics_tpu_torch.testing import faults
+
+    sched = _femnist_schedule(data)
+    spec = FEMNIST_WINDOWS
+    writers = list(range(len(data["writers"])))
+    c = FEMNIST["classes"]
+    chunk_rows = max(1, fc.ROW_BINS_LIMIT // (c * c))
+    # the unwindowed rounds of ``femnist_writers`` on the same writers and calls (every
+    # batch on time), for the rate
+    ingest.reset_for_tests()
+    plain_coll = lanes.LanedCollection(_femnist_members(dev), capacity=FEMNIST["capacity"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t, calls in enumerate(sched["calls"]):
+        for call in calls:
+            plain_coll.update_sessions(call)
+        extra = [(w, _femnist_batch(data, w, t)) for w in list(sched["late"]) + list(sched["later"]) if sched["late"].get(w) == t or sched["later"].get(w) == t]
+        if extra:
+            plain_coll.update_sessions(extra)
+    _sync(dev)
+    unwindowed_s = time.perf_counter() - t0
+    del plain_coll
+    _check(ingest.drain_pipeline(60.0), "femnist_writers_windowed: the ingest pipeline did not drain")
+    ingest.reset_for_tests()
+    obs.reset()
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    coll = MetricCollection(_femnist_members(dev), device=dev).windowed(spec["window"], lateness=spec["lateness"]).laned(
+        capacity=FEMNIST["capacity"]
+    )
+    bincount.launches = 0
+    rounds, checked, peaks, advance_s = 0, [], [], 0.0
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(sched["clocks"] + 2):
+        for w, b in sched["late"].items():
+            if b + 1 == t:
+                rounds += faults.late_event(coll, w, _femnist_batch(data, w, b), age=1)
+        for w, b in sched["later"].items():
+            if b + 2 == t:
+                _check(faults.late_event(coll, w, _femnist_batch(data, w, b), age=2) == 0,
+                       f"femnist_writers_windowed: writer {w}'s two-late batch landed")
+        for call in sched["calls"][t] if t < sched["clocks"] else []:
+            rounds += coll.update_sessions(call)
+        if t == 0:
+            for w in sched["skewed"]:
+                faults.skew_clock(coll, coll.sessions[w], 1)
+        if t in spec["check_clocks"]:
+            _sync(dev)
+            checked.append(t)
+            peaks.append(_peak_above(dev, base))  # the traffic's peak, not the check's
+            pause = time.perf_counter()
+            _femnist_rings_equal_plain(f"femnist_writers_windowed at clock {t}", coll,
+                                       _femnist_window_plain(data, sched, t, dev), writers)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 += time.perf_counter() - pause  # the checks are no traffic
+        a0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            coll.advance_windows()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        advance_s += time.perf_counter() - a0
+    _sync(dev)
+    windowed_s = time.perf_counter() - t0
+    launches = bincount.launches
+    peaks.append(_peak_above(dev, base))
+    _check(ingest.drain_pipeline(60.0), "femnist_writers_windowed: the ingest pipeline did not drain")
+    counters, hist = obs.counters_snapshot(), obs.histograms_snapshot()
+    end = sched["clocks"] + 2
+    plain = _femnist_window_plain(data, sched, end, dev)
+    _femnist_rings_equal_plain("femnist_writers_windowed at the end", coll, plain, writers)
+    _sync(dev)
+    t1 = time.perf_counter()
+    values = coll.lane_values()
+    _sync(dev)
+    lane_values_ms = (time.perf_counter() - t1) * 1e3
+    folded = torch.stack([values[w]["confmat"] for w in writers]).to(torch.int64)
+    _check(folded.equal(plain.sum(1)), "femnist_writers_windowed: a lane's folded value differs from its plain count")
+    want_capacity = max(FEMNIST["capacity"], lane_capacity_bucket(len(writers)))
+    _check(coll.capacity == want_capacity, f"femnist_writers_windowed: capacity {coll.capacity}, not {want_capacity}")
+    _check(launches == rounds, f"femnist_writers_windowed: {launches} bincount launches for {rounds} rounds of one row chunk")
+    _check(len(writers) <= chunk_rows, "femnist_writers_windowed: a round spans more than one row chunk")
+    _check(int(counters.get("lanes.rows_looped", 0)) == 0, f"femnist_writers_windowed: {counters.get('lanes.rows_looped')} rows looped")
+    dropped, admitted = int(counters.get("windows.dropped_late", 0)), int(counters.get("windows.late_events", 0))
+    _check(dropped == len(sched["later"]) and admitted == len(sched["late"]),
+           f"femnist_writers_windowed: {dropped} dropped and {admitted} admitted late batches")
+    clocks = coll.window_spec()["lane_clocks"]
+    skewed = set(sched["skewed"])
+    _check(all(clocks[coll.sessions[w]] == end + (w in skewed) for w in writers), "femnist_writers_windowed: lane clocks")
+    # the device's busy time of one advance of the 4,096 x 4-slot rings
+    rows, _ = _profiled(lambda i: coll.advance_windows(), 4)
+    advance_device_us = sum(r[1] for r in rows) / 4
+
+    def mean_us(name: str):
+        h = hist.get(name) or {}
+        return h["sum"] / h["count"] if h.get("count") else None
+
+    out = {
+        "phase": "femnist_writers_windowed", "writers": len(writers), "samples": int(data["counts"].sum()),
+        "window": spec["window"], "lateness": spec["lateness"], "clocks": end, "capacity": coll.capacity,
+        "rounds": rounds, "bincount_launches": launches, "rows_looped": int(counters.get("lanes.rows_looped", 0)),
+        "skewed": len(sched["skewed"]), "late_admitted": admitted, "late_dropped": dropped, "checked_clocks": checked + [end],
+        "sessions_per_s": {"windowed": len(writers) / windowed_s, "unwindowed": len(writers) / unwindowed_s},
+        "seconds": {"windowed": windowed_s, "unwindowed": unwindowed_s, "advances": advance_s},
+        "advance_windows_us": advance_s * 1e6 / end, "advance_windows_device_us": advance_device_us,
+        "dispatch_us_per_round": mean_us("lanes.dispatch_us"),
+        "windows_advance_us": mean_us("windows.advance_us"), "lane_values_ms": lane_values_ms,
+        "lane_values_route": coll["confmat"]._lane_route(), "peak_mem_above_base_bytes": max(peaks),
+        "confmat_ring_bytes": coll["confmat"]._state["confmat"].nbytes,
+    }
+    return _emit(out)
+
+
+def _femnist_batch(data: dict, w: int, b: int) -> tuple:
+    logits, target = data["writers"][w]
+    batch = FEMNIST["batch"]
+    return logits[b * batch:(b + 1) * batch], target[b * batch:(b + 1) * batch]
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -7930,7 +8514,12 @@ def main() -> int:
     femnist_data = _femnist_data()
     femnist = phase_femnist_writers(dev, femnist_data)
     femnist_guarded = phase_femnist_writers_guarded(dev, femnist_data, femnist)
-    del femnist["_reuse"], femnist_data
+    del femnist["_reuse"]
+    # streaming windows: Criteo's hours as a click-through-rate monitor's
+    # windows, and the FEMNIST writers as windowed session lanes
+    criteo = phase_criteo_kaggle_hourly_windows(dev)
+    femnist_windowed = phase_femnist_writers_windowed(dev, femnist_data)
+    del femnist_data
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -7965,7 +8554,8 @@ def main() -> int:
             + sum(r["bincount_launches"] for r in wrapped) + boot["functional_bincount_launches"]
             + census["bincount_launches"] + clusters["bincount_launches"] + panoptic["bincount_launches"]
             + sum(r["bincount_launches"] for r in runtime)
-            + femnist["bincount_launches"] + femnist_guarded["bincount_launches"],
+            + femnist["bincount_launches"] + femnist_guarded["bincount_launches"]
+            + criteo["bincount_launches"] + femnist_windowed["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -7982,7 +8572,7 @@ def main() -> int:
             "source": "torchmetrics_tpu_torch/csrc/binned_curve.cu",
             "replaces": "torchmetrics_tpu/ops/binned_curve.py:103",
             "launches": binary["binned_curve_launches"] + sync["launches"]["binned_curve"]
-            + sum(r["binned_curve_launches"] for r in rest),
+            + sum(r["binned_curve_launches"] for r in rest) + criteo["binned_curve_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in curve_rows),
             "ms": curve["ms"],
             "plain_ms": curve["plain_ms"],

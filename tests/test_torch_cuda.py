@@ -2076,3 +2076,139 @@ def test_laned_loop_on_a_side_stream_equals_the_default_stream(cuda_device):
     for sid in ("w0", "w17", "w299"):
         for name in ref_values[sid]:
             assert torch.equal(values[sid][name], ref_values[sid][name]), (sid, name)
+
+
+# ---------------------------------------------------------------------------
+# Streaming windows on the card (windows.py, windowed lanes): the ring on the
+# card against the CPU, advances free of device syncs, the windowed laned
+# round's one row-folded count, and the asynchronous read's pinned clock.
+
+def _windowed_entry(device, window=4):
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    coll = tm.MetricCollection(_lane_members(device, c=10), device=device).windowed(window, lateness=1)
+    auroc = BinaryAUROC(thresholds=50, validate_args=False, device=device).windowed(window, lateness=1)
+    return coll, auroc
+
+
+def _windowed_steps(device, seed=7, steps=10):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        out.append((torch.randn(4096, 10, generator=g), torch.randint(0, 10, (4096,), generator=g),
+                    torch.rand(4096, generator=g), torch.randint(0, 2, (4096,), generator=g)))
+    return [tuple(t.to(device) for t in s) for s in out]
+
+
+def _drive_windowed(coll, auroc, steps):
+    for i, (preds, target, probs, labels) in enumerate(steps):
+        if i % 3 == 2:
+            coll.update_window(coll.clock - 1, preds, target)
+            auroc.update_window(auroc.clock - 1, probs, labels)
+        else:
+            coll.update(preds, target)
+            auroc.update(probs, labels)
+        if i % 2:
+            coll.advance()
+            auroc.advance()
+
+
+def test_windowed_update_and_advance_on_the_card_equal_the_cpu(cuda_device):
+    cpu = torch.device("cpu")
+    runs = {}
+    for device in (cuda_device, cpu):
+        coll, auroc = _windowed_entry(device)
+        _drive_windowed(coll, auroc, _windowed_steps(device))
+        runs[device.type] = (coll, auroc)
+    (gc, ga), (cc, ca) = runs["cuda"], runs["cpu"]
+    for name in cc.keys():
+        for f, v in cc[name]._state.items():
+            assert torch.equal(gc[name]._state[f].cpu(), v), (name, f)
+    for f, v in ca._state.items():
+        assert torch.equal(ga._state[f].cpu(), v), f
+    assert gc["confmat"].window_head.dtype == torch.int32
+    for k, v in cc.compute().items():
+        torch.testing.assert_close(gc.compute()[k].cpu(), v, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ga.compute().cpu(), ca.compute(), rtol=0, atol=1e-6)
+
+
+def test_advances_make_no_device_sync(cuda_device):
+    """``advance`` (the ring's slot from the host clock) and
+    ``advance_windows`` on a warm clock mirror (each lane's slot from its
+    head, on the device) run under sync debug mode "error"."""
+    coll, auroc = _windowed_entry(cuda_device)
+    _drive_windowed(coll, auroc, _windowed_steps(cuda_device, steps=3))
+    laned = tm.MetricCollection(_lane_members(cuda_device), device=cuda_device).windowed(4, lateness=1).laned(capacity=64)
+    laned.update_sessions(_lane_traffic(sessions=50, rounds=1))
+    laned.advance_windows()  # warms the clock mirror
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        coll.advance()
+        auroc.advance(2)
+        laned.advance_windows()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert laned.window_spec()["clock"] == 2 and coll.clock == auroc.clock - 1
+
+
+def test_windowed_laned_round_of_3550_rows_is_one_bincount_launch(cuda_device):
+    """The FEMNIST-shaped windowed round: 3,550 sessions in one round of the
+    windowed entry collection, one row-folded launch, no per-row loop; its
+    lanes equal the same round on the CPU."""
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.ops import ingest
+
+    items = _lane_traffic(seed=9, sessions=3550, rounds=1)
+    states = {}
+    for device in (cuda_device, torch.device("cpu")):
+        obs.reset()
+        coll = tm.MetricCollection(_lane_members(device), device=device).windowed(4, lateness=1).laned(capacity=4096)
+        before = bincount.launches
+        assert coll.update_sessions(items) == 1
+        assert ingest.drain_pipeline(timeout=60.0)
+        if device.type == "cuda":
+            assert bincount.launches - before == 1
+        assert obs.counters_snapshot().get("lanes.rows_looped", 0) == 0
+        states[device.type] = {f: v.cpu() for f, v in coll["confmat"]._state.items()}
+    ingest.reset_for_tests()
+    for f, v in states["cpu"].items():
+        assert torch.equal(states["cuda"][f], v), f
+
+
+def test_windowed_collection_restores_onto_the_card(cuda_device, tmp_path):
+    """A windowed collection saved and restored in place: its leaves land on
+    the members' device, the ring and the clock bit-equal."""
+    from torchmetrics_tpu_torch.io import restore_state, save_state
+
+    coll, auroc = _windowed_entry(cuda_device)
+    _drive_windowed(coll, auroc, _windowed_steps(cuda_device, steps=5))
+    save_state(coll, str(tmp_path / "win.tmsnap"))
+    twin, _ = _windowed_entry(cuda_device)
+    restore_state(str(tmp_path / "win.tmsnap"), twin)
+    assert twin.clock == coll.clock
+    for name in coll.keys():
+        for f, v in coll[name]._state.items():
+            assert twin[name]._state[f].device == v.device and torch.equal(twin[name]._state[f], v), (name, f)
+
+
+def test_windowed_async_read_pins_its_clock_on_the_card_stream(cuda_device):
+    """A read submitted at a window's close on a side stream resolves
+    bit-equal to the blocking compute at that close, though later updates
+    and advances ran on that stream before the worker read it."""
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+
+    steps = _windowed_steps(cuda_device, seed=11, steps=8)
+    coll, auroc = _windowed_entry(cuda_device)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        _drive_windowed(coll, auroc, steps[:4])
+        at_close = coll.compute()
+        future = coll.compute_async()
+        _drive_windowed(coll, auroc, steps[4:])
+    got = future.result(timeout=60.0)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    assert drain_pipeline(60.0)
+    _assert_bit_equal(got, at_close)

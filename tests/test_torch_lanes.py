@@ -5,8 +5,9 @@ per-lane values and the all-lane aggregate, the session-to-lane directory,
 ``lane_status``; the row-batched count's plain body against the per-row
 count (sentinel rows, ``ignore_index``, the row-chunk boundary); lifecycle,
 growth and compute-group aliasing; laned snapshots restored across the two
-packages both ways; and the refusals of the layers the port does not have
-yet (windowed and deferred lanes).
+packages both ways; and the refusal of the layer the port does not have
+yet (deferred lanes). Windowed lanes are held to the JAX package in
+``tests/test_torch_windowed_lanes.py``.
 
 The JAX side compiles a vmapped update per round shape, so the traffic is
 built once per module and shared by the tests that read it.
@@ -470,21 +471,6 @@ def test_wrapping_and_forward_are_refused():
 
 
 # -------------------------------------------------------------- refusals
-
-def test_windowed_lanes_name_the_missing_layer():
-    laned = tl.LanedMetric(SumMetric(device=CPU))
-    coll = _port_collection()
-    for call in (
-        lambda: laned.update_sessions([("a", np.ones(1, np.float32))], window=0),
-        lambda: laned.advance_windows(),
-        lambda: laned.advance_lane_windows(0),
-        lambda: laned.window_spec(),
-        lambda: coll.update_sessions([], window=1),
-        lambda: coll.advance_windows(),
-    ):
-        with pytest.raises(TorchMetricsUserError, match="streaming-window layer"):
-            call()
-
 
 def test_deferred_lanes_name_the_missing_layer():
     with pytest.raises(TorchMetricsUserError, match="deferred reduction layouts"):

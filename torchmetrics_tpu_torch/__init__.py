@@ -58,6 +58,9 @@ metric is built with ``device="cpu"``. Ported so far:
   with one row-folded ``bincount`` launch a round; per-lane fault
   containment (``LaneGuard``, ``quarantine.py``) and the staging-slab
   ingest (``ops/ingest.py``).
+- streaming windows (``WindowedMetric``, ``WindowedCollection``): W
+  per-window states on a ring axis with a watermark for late events, and
+  windowed session lanes (``metric.windowed(W).laned(N)``).
 """
 __version__ = "0.1.0"
 
@@ -110,6 +113,7 @@ from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.text import __all__ as _text_all
+from torchmetrics_tpu_torch.windows import WindowedCollection, WindowedMetric
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -144,6 +148,8 @@ __all__ = [
     "RunningMean",
     "RunningSum",
     "SumMetric",
+    "WindowedCollection",
+    "WindowedMetric",
     "audio",
     "classification",
     "clustering",

@@ -311,6 +311,13 @@ class MetricCollection:
                 return False
         return True
 
+    def _compute_group_followers(self) -> set:
+        """The names that share a leader's state (none before the groups are
+        resolved)."""
+        if not self._groups_checked:
+            return set()
+        return {name for cg in self._groups.values() for name in cg[1:]}
+
     def _compute_groups_create_state_ref(self) -> None:
         """Point follower states at the leader's tensors."""
         for cg in self._groups.values():
@@ -629,6 +636,14 @@ class MetricCollection:
     @property
     def compute_groups(self) -> Dict[int, List[str]]:
         return self._groups
+
+    def windowed(self, window: int = 8, lateness: int = 0, **kwargs: Any) -> Any:
+        """A :class:`~torchmetrics_tpu_torch.windows.WindowedCollection`
+        stacking W per-window copies of every member's state on a ring axis:
+        the whole suite advances its windows together (``windows.py``)."""
+        from torchmetrics_tpu_torch.windows import WindowedCollection
+
+        return WindowedCollection(self, window=window, lateness=lateness, **kwargs)
 
     def laned(self, capacity: int = 8, max_capacity: Optional[int] = None, **kwargs: Any) -> Any:
         """A :class:`~torchmetrics_tpu_torch.lanes.LanedCollection` holding N

@@ -243,6 +243,21 @@ def _snapshot_bytes(obj: Any, state: Dict[str, Any], update_count: Optional[int]
     if isinstance(status, dict):
         lanes = {k: status.get(k) for k in ("capacity", "active", "compiled", "policy", "quarantined") if k in status}
 
+    # windowed objects (windows.py) describe their ring in the manifest (W,
+    # the open head slot and the clock), so load_manifest answers "which
+    # windows does this snapshot hold" without touching the payload
+    windows = None
+    try:
+        spec_fn = getattr(obj, "window_spec", None)
+        if spec_fn is None:
+            spec_fn = getattr(getattr(obj, "inner", None), "window_spec", None)
+        if callable(spec_fn):
+            ws = spec_fn()
+            if isinstance(ws, dict):
+                windows = {k: ws.get(k) for k in ("window", "lateness", "clock", "head", "compiled") if k in ws}
+    except Exception as err:  # a broken window probe must not block the save
+        rank_zero_debug(f"torchmetrics_tpu_torch checkpoint: window_spec probe failed ({err})")
+
     world = _world_topology()
     shard_counts = [
         int(sub[_SHARDS_KEY])
@@ -268,7 +283,7 @@ def _snapshot_bytes(obj: Any, state: Dict[str, Any], update_count: Optional[int]
         "class": type(obj).__name__,
         "spec": spec,
         "lanes": lanes,
-        "windows": None,
+        "windows": windows,
         "topology": topology,
         "update_count": update_count,
         "reduce_policy": getattr(obj, "reduce_policy", None),

@@ -68,12 +68,24 @@ lane axis; those run an exact per-lane loop on the host (the eager mode):
 every lifecycle and correctness guarantee holds, only the batched round does
 not.
 
-Not here yet: windowed lanes (``update_sessions(window=...)``,
-``advance_windows``, ``advance_lane_windows``, ``window_spec``) wait for the
-streaming-window layer (``windows.py``); the deferred (sharded) lane layout
-(``reduce="deferred"``, ``DeferredLaneStep``, ``make_deferred_lane_step``)
-waits for the port's deferred reduction layouts. Each raises
-:class:`TorchMetricsUserError` naming that layer.
+Windowed lanes
+    ``LanedMetric(WindowedMetric(m))`` (or ``collection.windowed(W).laned(N)``)
+    stacks the window axis under the lane axis: state ``(lanes, W, *field)``
+    and one ``window_head`` clock per lane. A round gathers only each row's
+    open slot, viewing the ring as ``(lanes * W, ...)`` and taking row
+    ``lane * W + slot`` (the slot from the lane's device head, or from the
+    round's stamped window ``k``), runs the inner metric's own row-batched
+    update on those rows (the counting family's one row-folded ``bincount``
+    launch) and writes them back out of place. ``update_sessions(window=k)``
+    admits each session against its own clock (a host mirror of the heads,
+    so admission reads no device state); ``advance_windows`` retires every
+    lane's next slot at once, the slots computed on the device from the
+    heads; ``advance_lane_windows`` moves one lane's clock (skew).
+
+Not here yet: the deferred (sharded) lane layout (``reduce="deferred"``,
+``DeferredLaneStep``, ``make_deferred_lane_step``) waits for the port's
+deferred reduction layouts and raises :class:`TorchMetricsUserError` naming
+that layer.
 """
 from __future__ import annotations
 
@@ -87,7 +99,7 @@ import torch
 
 from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.metric import Metric, resolve_device
-from torchmetrics_tpu_torch.parallel.sync import reduction_identity
+from torchmetrics_tpu_torch.parallel.sync import live_window_mask, reduction_identity
 from torchmetrics_tpu_torch.quarantine import (
     DegradedValue,
     LaneGuard,
@@ -97,6 +109,14 @@ from torchmetrics_tpu_torch.quarantine import (
 )
 from torchmetrics_tpu_torch.utils.exceptions import LaneFaultError, StateCorruptionError, TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_debug, rank_zero_warn
+from torchmetrics_tpu_torch.windows import (
+    WindowedMetric,
+    _blob_bytes,
+    _decode_json_blob,
+    _encode_json_blob,
+    _late_verdict,
+    _now_us,
+)
 
 __all__ = [
     "DEFAULT_CAPACITY",
@@ -117,10 +137,7 @@ LANE_FLOOR = 8
 
 DEFAULT_CAPACITY = 8
 
-#: the refusal texts of the layers this module waits for
-_WINDOWS_MISSING = (
-    "windowed lanes need the streaming-window layer (windows.py), which the port does not have yet"
-)
+#: the refusal text of the layer this module waits for
 _DEFERRED_MISSING = (
     "the deferred (sharded) lane layout needs the port's deferred reduction layouts,"
     " which it does not have yet"
@@ -258,26 +275,6 @@ class LaneTable:
             table._free.remove(lane)
             table.last_seen[lane] = time.monotonic()
         return table
-
-
-def _blob_bytes(blob: Any) -> bytes:
-    """The bytes of a uint8 blob leaf (numpy, a list, or a tensor on any device)."""
-    if isinstance(blob, torch.Tensor):
-        blob = blob.detach().cpu().numpy()
-    return np.asarray(blob, dtype=np.uint8).tobytes()
-
-
-def _encode_json_blob(payload: Dict[str, Any]) -> np.ndarray:
-    return np.frombuffer(json.dumps(payload, sort_keys=True).encode("utf-8"), dtype=np.uint8).copy()
-
-
-def _decode_json_blob(blob: Any, what: str) -> Dict[str, Any]:
-    try:
-        return json.loads(_blob_bytes(blob).decode("utf-8"))
-    except Exception as err:
-        raise obs.flighted(
-            StateCorruptionError(f"{what} blob is unreadable ({type(err).__name__}: {err})"), domain="lanes"
-        ) from err
 
 
 def _encode_directory(table: LaneTable) -> np.ndarray:
@@ -777,6 +774,45 @@ def _run_rounds(
     return dispatches
 
 
+def _route_windowed(host: Any, k: int, items: Union[Dict[Any, Any], Iterable[Tuple[Any, Any]]]) -> int:
+    """Event-time routing for windowed lanes, shared by :class:`LanedMetric`
+    and :class:`LanedCollection`: each session is admitted against its OWN
+    lane clock (the host mirror, so no device read), events past the
+    watermark are dropped with a breadcrumb, and the kept rows go through
+    the ordinary round loop stamped with window ``k``."""
+    win = host._windowed_inner()
+    pairs = list(items.items()) if isinstance(items, dict) else list(items)
+    kept: List[Tuple[Any, Any]] = []
+    for sid, batch in pairs:
+        lane = host._router_admit(sid)
+        clock = int(host._window_clocks()[lane])  # re-read: an admit may have grown the lanes
+        if k > clock:
+            raise TorchMetricsUserError(
+                f"window {k} is ahead of lane clock {clock} for session {sid!r};"
+                " advance the window before routing events into it"
+            )
+        if not _late_verdict(k, clock, win.window, win.lateness, {"session": str(sid)}):
+            continue
+        if k < clock:
+            close_us = host._window_close_us().get(k)
+            if close_us is not None:
+                obs.histogram_observe("windows.lateness_us", max(0, _now_us() - close_us))
+        kept.append((sid, batch))
+    if not kept:
+        return 0
+    host.__dict__["_round_window"] = k
+    try:
+        return _route_rounds(host, kept)
+    finally:
+        host.__dict__.pop("_round_window", None)
+
+
+def _retired_slots(heads: torch.Tensor, window: int) -> torch.Tensor:
+    """``(lanes, W)`` one-hot of each lane's slot ``head % W``, on the device."""
+    slots = torch.arange(window, device=heads.device)
+    return slots.unsqueeze(0) == torch.remainder(heads.to(torch.int64), window).unsqueeze(1)
+
+
 class LanedMetric(Metric):
     """N independent copies of ``inner``'s state advanced together.
 
@@ -871,6 +907,14 @@ class LanedMetric(Metric):
         # list ("cat") accumulators cannot stack a lane axis: the exact host
         # per-lane loop (the eager mode)
         self.__dict__["_compiled_lanes"] = not any(isinstance(v, list) for v in inner._defaults.values())
+        if isinstance(inner, WindowedMetric) and not inner._compiled_windows:
+            # an eager windowed inner declares no tensor state: the lane axis
+            # would stack nothing and every session would share one ring
+            raise TorchMetricsUserError(
+                "LanedMetric needs a compiled ring to stack the lane axis over;"
+                f" {type(inner.inner).__name__} fell back to eager per-window state"
+                " (list/'cat'/custom reductions)"
+            )
         self.__dict__["_table"] = table if table is not None else LaneTable(capacity)
         if table is not None and table.capacity != capacity:
             capacity = table.capacity  # a shared table wins: members must agree
@@ -954,31 +998,57 @@ class LanedMetric(Metric):
         return list(self.inner._defaults)
 
     # ------------------------------------------------------------ update path
-    def update(self, lane_ids: Any, *args: Any) -> None:
+    def update(self, lane_ids: Any, *args: Any, window: Optional[int] = None) -> None:
         """Advance the lanes named by ``lane_ids`` with the row-stacked batch.
 
         ``lane_ids`` names one lane per row (a :class:`LaneRound`, an int
         tensor or array); every batch leaf carries a matching leading row
         axis. Rows whose lane is out of range (the router's sentinel
-        ``== capacity``) never land anywhere. Prefer :meth:`update_sessions`,
-        which packs, admits and stamps sessions for you.
+        ``== capacity``) never land anywhere. ``window`` (windowed inner
+        only) routes every row into that ABSOLUTE window's ring slot instead
+        of each lane's open one; :meth:`update_sessions` passes it after the
+        watermark admitted the round. Prefer :meth:`update_sessions`, which
+        packs, admits and stamps sessions for you.
         """
         rnd = LaneRound.of(lane_ids)
         if self._compiled_lanes:
-            self._update_compiled(rnd, args)
+            self._update_compiled(rnd, args, window)
         else:
+            if window is not None:
+                raise TorchMetricsUserError("explicit-window routing needs compiled (fixed-shape) lane states")
             self._update_eager(rnd, args)
 
-    def _update_compiled(self, rnd: LaneRound, args: Tuple[Any, ...]) -> None:
+    def _update_compiled(self, rnd: LaneRound, args: Tuple[Any, ...], window: Optional[int] = None) -> None:
         inner = self.inner
-        fields = self._inner_fields()
         lanes, rows_args = rnd.live_rows(self.capacity, args, self._device)
         if lanes.numel() == 0:
             return
-        states = {f: self._state[f] for f in fields}
-        gathered = {f: v.index_select(0, lanes) for f, v in states.items()}
+        if isinstance(inner, WindowedMetric):
+            # only each row's open slot: row lane * W + slot of the ring
+            # viewed as (lanes * W, ...), updated by the inner metric's own
+            # row-batched update
+            w = inner.window
+            fields = inner._inner_fields()
+            if window is None:
+                slots = torch.remainder(self._state["window_head"].index_select(0, lanes).to(torch.int64), w)
+            else:
+                slots = int(window) % w
+            index = lanes * w + slots
+            states = {f: self._state[f].flatten(0, 1) for f in fields}
+            row_metric = inner.inner
+        else:
+            if window is not None:
+                raise TorchMetricsUserError(
+                    f"update(window=...) needs a windowed inner metric, got {type(inner).__name__};"
+                    " build with LanedMetric(metric.windowed(W))"
+                )
+            fields = self._inner_fields()
+            index = lanes
+            states = {f: self._state[f] for f in fields}
+            row_metric = inner
+        gathered = {f: v.index_select(0, index) for f, v in states.items()}
         with obs.device_span(obs.SPAN_UPDATE, suffix=type(inner).__name__):
-            updated = inner.functional_update_rows(gathered, *rows_args)
+            updated = row_metric.functional_update_rows(gathered, *rows_args)
         # per-lane health scan, fused into the round: a row whose updated
         # state carries NaN/Inf counts in its lane's poisoned-update counter;
         # the host attributes faults by diffing it at the next read point
@@ -998,7 +1068,8 @@ class LanedMetric(Metric):
                 updated[f] = torch.where(m, updated[f].to(gathered[f].dtype), gathered[f])
             landed = keep.to(torch.int32)
         for f in fields:
-            self._state[f] = states[f].index_copy(0, lanes, updated[f].to(states[f].dtype))
+            written = states[f].index_copy(0, index, updated[f].to(states[f].dtype))
+            self._state[f] = written.view(self._state[f].shape)
         if landed is None:
             landed = torch.ones(lanes.shape, dtype=torch.int32, device=lanes.device)
         # committed counts follow the rows that landed; the health counter
@@ -1051,17 +1122,22 @@ class LanedMetric(Metric):
         buckets when full), and one update advances every session of a
         round; a session appearing k times spans k rounds. The rows of a
         round share a shape: send differently-shaped traffic in separate
-        calls. Returns the number of rounds dispatched. ``window`` is
-        refused: windowed lanes wait for the streaming-window layer.
+        calls. Returns the number of rounds dispatched.
+
+        ``window`` (windowed inner only) stamps the traffic with an
+        event-time window index: each session is admitted against its own
+        lane clock, events older than the lateness bound are dropped with a
+        ``window_late_drop`` breadcrumb, and admitted late events land in
+        their still-open ring slot.
 
         Guard-active rounds run under the shared read mutex, so an
         asynchronous read's scan-and-attribute step never interleaves with
         the round's guard and state mutations.
         """
-        if window is not None:
-            raise TorchMetricsUserError(f"update_sessions(window=...): {_WINDOWS_MISSING}")
         with self._read_mutex():
-            return _route_rounds(self, items)
+            if window is None:
+                return _route_rounds(self, items)
+            return _route_windowed(self, int(window), items)
 
     # ------------------------------------------------ shared-router adapters
     def _router_table(self) -> LaneTable:
@@ -1083,21 +1159,117 @@ class LanedMetric(Metric):
         return self.__dict__.setdefault("_screen_kind_memo", {})
 
     def _router_dispatch(self, lane_ids: LaneRound, batch: Tuple[Any, ...], rows: int, bucket: int) -> None:
+        k = self.__dict__.get("_round_window")
         with obs.span(obs.SPAN_LANES, owner=type(self.inner).__name__, histogram="lanes.dispatch_us", rows=rows, bucket=bucket):
-            self.update(lane_ids, *batch)
+            if k is None:
+                self.update(lane_ids, *batch)
+            else:
+                self.update(lane_ids, *batch, window=k)
 
     # ----------------------------------------------------------- window rings
+    def _windowed_inner(self) -> WindowedMetric:
+        inner = self.inner
+        if not isinstance(inner, WindowedMetric):
+            raise TorchMetricsUserError(
+                "window operations need a windowed inner metric;"
+                f" got {type(inner).__name__}; build with LanedMetric(metric.windowed(W))"
+            )
+        return inner
+
+    def _window_clocks(self) -> np.ndarray:
+        """Host mirror of the per-lane window clocks, int64 ``(capacity,)``.
+
+        It decides watermark admission only (the device ``window_head`` is
+        the clock that sync, checkpoints and reads use); any out-of-band
+        mutation drops it and the next use reads the heads back once. So a
+        round and an advance on a warm mirror read nothing from the device."""
+        clocks = self.__dict__.get("_window_clocks_host")
+        if clocks is None:
+            self._windowed_inner()
+            clocks = self._state["window_head"].cpu().numpy().astype(np.int64)
+            self.__dict__["_window_clocks_host"] = clocks
+        return clocks
+
     def advance_windows(self, n: int = 1) -> None:
-        """Refused: windowed lanes wait for the streaming-window layer."""
-        raise TorchMetricsUserError(f"advance_windows: {_WINDOWS_MISSING}")
+        """Close the open window on EVERY lane, ``n`` times. Each lane's
+        retiring slot comes from its own head, on the device: one masked
+        select a field returns those slots to the defaults in a new ring
+        (out of place, so its cost grows with W)."""
+        win = self._windowed_inner()
+        for _ in range(int(n)):
+            with obs.span(obs.SPAN_WINDOWS, owner=type(win.inner).__name__, histogram="windows.advance_us", window=win.window, lanes=self.capacity):
+                clocks = self._window_clocks()  # materialised BEFORE the device bump
+                heads = self._state["window_head"] + 1
+                self._retire(_retired_slots(heads, win.window), heads)
+                clocks += 1
+                self._window_close_stamp(int(clocks.max()) - 1, win)
+            obs.counter_inc("windows.advanced")
 
     def advance_lane_windows(self, lane: int, n: int = 1) -> None:
-        """Refused: windowed lanes wait for the streaming-window layer."""
-        raise TorchMetricsUserError(f"advance_lane_windows: {_WINDOWS_MISSING}")
+        """Close the open window on ONE lane ``n`` times (clock skew: a
+        session whose stream runs ahead closes its windows early while the
+        other lanes stay put)."""
+        win = self._windowed_inner()
+        lane = int(lane)
+        for _ in range(int(n)):
+            clocks = self._window_clocks()
+            one = torch.arange(self.capacity, device=self._device) == lane
+            heads = self._state["window_head"] + one.to(self._state["window_head"].dtype)
+            self._retire(_retired_slots(heads, win.window) & one.unsqueeze(1), heads)
+            clocks[lane] += 1
+            self._window_close_stamp(int(clocks.max()) - 1, win)
+            obs.counter_inc("windows.advanced")
+
+    def _follow_advance(self, n: int, lane: Optional[int] = None) -> None:
+        """A compute-group follower's advance (every lane, or ``lane``): its
+        clock mirror and close stamps move, and its ring, which is its
+        leader's, is pointed at the leader's new ring afterwards."""
+        win = self._windowed_inner()
+        for _ in range(int(n)):
+            clocks = self._window_clocks()
+            if lane is None:
+                clocks += 1
+            else:
+                clocks[int(lane)] += 1
+            self._window_close_stamp(int(clocks.max()) - 1, win)
+            obs.counter_inc("windows.advanced")
+        self._computed = None
+        self.__dict__["_lane_mirror"].invalidate()
+
+    def _retire(self, mask: torch.Tensor, heads: torch.Tensor) -> None:
+        """Reset the ring slots ``mask`` names (``(lanes, W)``) to the
+        defaults and install the new heads: new tensors, nothing in place."""
+        for f in self.inner._inner_fields():
+            v = self._state[f]
+            self._state[f] = torch.where(mask.reshape(tuple(mask.shape) + (1,) * (v.ndim - 2)), self._defaults[f], v)
+        self._state["window_head"] = heads
+        self._computed = None
+        self.__dict__["_lane_mirror"].invalidate()
 
     def window_spec(self) -> Dict[str, Any]:
-        """Refused: windowed lanes wait for the streaming-window layer."""
-        raise TorchMetricsUserError(f"window_spec: {_WINDOWS_MISSING}")
+        """The ring for manifests: W, lateness, the fleet's latest clock, the
+        open head slot at that clock, and every lane's clock."""
+        win = self._windowed_inner()
+        clocks = self._window_clocks()
+        clock = int(clocks.max())
+        return {
+            "window": win.window,
+            "lateness": win.lateness,
+            "clock": clock,
+            "head": clock % win.window,
+            "compiled": True,
+            "lane_clocks": [int(c) for c in clocks],
+        }
+
+    def _window_close_us(self) -> Dict[int, int]:
+        return self.__dict__.setdefault("_win_close_us", {})
+
+    def _window_close_stamp(self, closed: int, win: WindowedMetric) -> None:
+        closes = self._window_close_us()
+        closes[closed] = _now_us()
+        horizon = closed - int(win.lateness) - 1
+        for k in [k for k in closes if k < horizon]:
+            closes.pop(k, None)
 
     # ------------------------------------------------------ fault containment
     def _apply_fault_action(self, sid: Any, action: str, err: LaneFaultError) -> None:
@@ -1391,6 +1563,7 @@ class LanedMetric(Metric):
 
     def _reset_lane_indices(self, lanes: Sequence[int]) -> None:
         self.__dict__["_lane_mirror"].invalidate()  # an out-of-band state mutation
+        self.__dict__.pop("_window_clocks_host", None)  # the head resets with the lane
         if not self._compiled_lanes:
             inner = self.inner
             for lane in lanes:
@@ -1416,6 +1589,8 @@ class LanedMetric(Metric):
         are kept (a service reset clears accumulators, not its routing)."""
         super().reset()
         self.__dict__["_lane_mirror"].invalidate()
+        self.__dict__.pop("_window_clocks_host", None)
+        self.__dict__.pop("_win_close_us", None)
         self.__dict__["_health_seen"] = np.zeros((self.capacity,), np.int64)
         if not self._compiled_lanes:
             inner = self.inner
@@ -1447,6 +1622,7 @@ class LanedMetric(Metric):
     def _grow_state(self, target: int) -> None:
         old = self.capacity
         self.__dict__["_lane_mirror"].invalidate()
+        self.__dict__.pop("_window_clocks_host", None)
         seen = self.__dict__.get("_health_seen")
         grown_seen = np.zeros((target,), np.int64)
         if seen is not None:
@@ -1536,6 +1712,7 @@ class LanedMetric(Metric):
             self.__dict__["_health_seen"] = seen
             self.__dict__["_table"] = new_table
             self.__dict__["_lane_mirror"].invalidate()
+            self.__dict__.pop("_window_clocks_host", None)
             self._computed = None
             guard: LaneGuard = self.__dict__["_guard"]
             if guard.active:
@@ -1635,6 +1812,10 @@ class LanedMetric(Metric):
         inner = self.inner
         if not self._compiled_lanes:
             return "eager"
+        if isinstance(inner, WindowedMetric):
+            if "_compute_fn" in inner.__dict__:
+                return "loop"
+            inner = inner.inner
         if inner.lane_compute == "vmap" and "_compute_fn" not in inner.__dict__:
             return "vmap"
         return "loop"
@@ -1647,7 +1828,12 @@ class LanedMetric(Metric):
             vals = {lane: inner.functional_compute(self.__dict__["_lane_states"][lane]) for lane in lanes}
             return vals.__getitem__
         states = {f: self._state[f] for f in self._inner_fields()}
-        with obs.span(obs.SPAN_COMPUTE, suffix=f"Laned{type(inner).__name__}", route=route):
+        if isinstance(inner, WindowedMetric) and route == "vmap":
+            # each lane's ring folded with its own clock, then the vmapped
+            # compute of the metric inside the ring
+            states = inner._fold_windows(states, live_window_mask(states["window_head"], inner.window))
+            inner = inner.inner
+        with obs.span(obs.SPAN_COMPUTE, suffix=f"Laned{type(self.inner).__name__}", route=route):
             if route == "vmap":
                 stacked = torch.func.vmap(inner.functional_compute)(states)
                 return lambda lane: _tree_index(stacked, lane)
@@ -1884,7 +2070,7 @@ class LanedMetric(Metric):
         table: LaneTable = self.__dict__["_table"]
         if qblob is not None:
             guard.load_json(
-                _decode_json_blob(qblob, f"{type(self).__name__} quarantine state"),
+                _decode_json_blob(qblob, f"{type(self).__name__} quarantine state", domain="lanes"),
                 known_sessions=set(table.sessions),
             )
         if self._compiled_lanes:
@@ -1892,6 +2078,8 @@ class LanedMetric(Metric):
         else:
             self.__dict__["_health_seen"] = np.asarray(self.__dict__["_lane_health_counts"], dtype=np.int64)
         self.__dict__["_lane_mirror"].invalidate()
+        self.__dict__.pop("_window_clocks_host", None)  # the restored heads are the clocks now
+        self.__dict__.pop("_win_close_us", None)
 
     def _infer_capacity(self, state: Dict[str, Any]) -> int:
         for f in self._inner_fields() + ["lane_updates"]:
@@ -1915,6 +2103,7 @@ class LanedMetric(Metric):
             self._defaults[aux] = torch.zeros((capacity,), dtype=torch.int32, device=self._device)
             self._state[aux] = torch.zeros((capacity,), dtype=torch.int32, device=self._device)
         self.__dict__["_lane_mirror"].invalidate()
+        self.__dict__.pop("_window_clocks_host", None)
         self.__dict__["_health_seen"] = np.zeros((capacity,), np.int64)
         table: LaneTable = self.__dict__["_table"]
         if capacity != table.capacity:
@@ -1994,6 +2183,8 @@ class LanedMetric(Metric):
         "_fault_owner",
         "_inner_clone_cache",
         "_screen_kind_memo",
+        "_window_clocks_host",
+        "_win_close_us",
     )
 
     def __getstate__(self) -> Dict[str, Any]:
@@ -2046,9 +2237,14 @@ class LanedCollection:
         **kwargs: Any,
     ) -> None:
         from torchmetrics_tpu_torch.collections import MetricCollection
+        from torchmetrics_tpu_torch.windows import WindowedCollection
 
         if isinstance(metrics, MetricCollection):
             metrics = {name: m for name, m in metrics.items(keep_base=True)}
+        elif isinstance(metrics, WindowedCollection):
+            # lane the windowed members: the window axis under the lane axis,
+            # every ring advancing in lockstep
+            metrics = dict(metrics.items())
         elif isinstance(metrics, Metric):
             metrics = {type(metrics).__name__: metrics}
         elif not isinstance(metrics, dict):
@@ -2154,24 +2350,67 @@ class LanedCollection:
     ) -> int:
         """Pack ``(session_id, batch)`` traffic and advance EVERY member with
         one collection update a round (see :meth:`LanedMetric.update_sessions`).
-        Returns the number of rounds. ``window`` is refused: windowed lanes
-        wait for the streaming-window layer."""
-        if window is not None:
-            raise TorchMetricsUserError(f"update_sessions(window=...): {_WINDOWS_MISSING}")
+        Returns the number of rounds. ``window`` (windowed members only)
+        stamps the traffic with an event-time window index; the watermark
+        admits each session once for the suite, whose members advance their
+        rings in lockstep."""
         with self._read_mutex():
-            return _route_rounds(self, items)
+            if window is None:
+                return _route_rounds(self, items)
+            return _route_windowed(self, int(window), items)
 
-    def advance_windows(self, n: int = 1) -> None:
-        """Refused: windowed lanes wait for the streaming-window layer."""
-        raise TorchMetricsUserError(f"advance_windows: {_WINDOWS_MISSING}")
+    def _windowed_named(self) -> List[Tuple[str, LanedMetric]]:
+        return [(name, m) for name, m in self._members.items() if isinstance(m.inner, WindowedMetric)]
 
-    def advance_lane_windows(self, lane: int, n: int = 1) -> None:
-        """Refused: windowed lanes wait for the streaming-window layer."""
-        raise TorchMetricsUserError(f"advance_lane_windows: {_WINDOWS_MISSING}")
+    def _first_windowed(self) -> LanedMetric:
+        members = [m for _, m in self._windowed_named()]
+        if not members:
+            raise TorchMetricsUserError(
+                "window operations need at least one windowed member;"
+                " build with MetricCollection(...).windowed(W).laned(capacity)"
+            )
+        return members[0]
+
+    def _windowed_inner(self) -> WindowedMetric:
+        return self._first_windowed().inner
+
+    def _window_clocks(self) -> np.ndarray:
+        """The suite's lane clocks: the members advance in lockstep, so the
+        first windowed member's mirror speaks for all."""
+        return self._first_windowed()._window_clocks()
+
+    def _window_close_us(self) -> Dict[int, int]:
+        return self._first_windowed()._window_close_us()
 
     def window_spec(self) -> Dict[str, Any]:
-        """Refused: windowed lanes wait for the streaming-window layer."""
-        raise TorchMetricsUserError(f"window_spec: {_WINDOWS_MISSING}")
+        """The suite's ring (see :meth:`LanedMetric.window_spec`)."""
+        return self._first_windowed().window_spec()
+
+    def advance_windows(self, n: int = 1) -> None:
+        """Close the open window on every lane of EVERY windowed member: the
+        suite's rings stay in lockstep (one clock, many metrics)."""
+        with self._read_mutex():
+            self._first_windowed()  # raises without a windowed member
+            followers = self.collection._compute_group_followers()
+            for name, m in self._windowed_named():
+                if name in followers:
+                    m._follow_advance(n)
+                else:
+                    m.advance_windows(n)
+            self._realias_groups()
+
+    def advance_lane_windows(self, lane: int, n: int = 1) -> None:
+        """Per-lane window advance (clock skew) in every windowed member, so
+        the suite's lane clocks stay coherent."""
+        with self._read_mutex():
+            self._first_windowed()  # raises without a windowed member
+            followers = self.collection._compute_group_followers()
+            for name, m in self._windowed_named():
+                if name in followers:
+                    m._follow_advance(n, lane)
+                else:
+                    m.advance_lane_windows(lane, n)
+            self._realias_groups()
 
     # ------------------------------------------------ shared-router adapters
     def _router_table(self) -> LaneTable:
@@ -2193,8 +2432,12 @@ class LanedCollection:
         return self.__dict__.setdefault("_screen_kind_memo", {})
 
     def _router_dispatch(self, lane_ids: LaneRound, batch: Tuple[Any, ...], rows: int, bucket: int) -> None:
+        k = self.__dict__.get("_round_window")
         with obs.span(obs.SPAN_LANES, owner="LanedCollection", histogram="lanes.dispatch_us", rows=rows, bucket=bucket):
-            self.collection.update(lane_ids, *batch)
+            if k is None:
+                self.collection.update(lane_ids, *batch)
+            else:
+                self.collection.update(lane_ids, *batch, window=k)
 
     def _apply_fault_action(self, sid: Any, action: str, err: LaneFaultError) -> None:
         """Suite-wide ``on_lane_fault`` action: eviction and reset span every

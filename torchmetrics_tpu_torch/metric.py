@@ -863,8 +863,9 @@ class Metric:
     #: reserved state key carrying the update count through state()/load_state
     _STATE_COUNT_KEY = "_update_count"
 
-    #: export keys that are no state field (a collection's layout match skips them)
-    _RESERVED_STATE_KEYS: Tuple[str, ...] = (_STATE_COUNT_KEY, "_sharded_shards")
+    #: export keys that are no state field (a collection's layout match skips
+    #: them): the count, the shard mark and a windowed metric's ring meta
+    _RESERVED_STATE_KEYS: Tuple[str, ...] = (_STATE_COUNT_KEY, "_sharded_shards", "_window_meta")
 
     #: reductions under which a state's shape is invariant across updates and
     #: merges — the only fields whose shape `validate="strict"` can check
@@ -1096,6 +1097,30 @@ class Metric:
         from torchmetrics_tpu_torch.lanes import LanedMetric
 
         return LanedMetric(self, capacity=capacity, max_capacity=max_capacity, **kwargs)
+
+    def windowed(self, window: int = 8, lateness: int = 0, **kwargs: Any) -> Any:
+        """A :class:`~torchmetrics_tpu_torch.windows.WindowedMetric` stacking
+        W per-window copies of this metric's state along a ring axis:
+        tumbling and sliding windows with watermark-bounded late events
+        (``windows.py``). The wrapper holds a detached clone; this instance
+        is untouched. Compose with lanes as ``metric.windowed(W).laned(capacity)``:
+        the window axis under the lane axis."""
+        from torchmetrics_tpu_torch.windows import WindowedMetric
+
+        return WindowedMetric(self, window=window, lateness=lateness, **kwargs)
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the floating-point states and their defaults to ``dst_type``;
+        integer and bool states keep theirs (the reference library's API).
+        The cast tensors are new ones: nothing is written in place."""
+
+        def cast(v: Any) -> Any:
+            return v.to(dst_type) if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+
+        for k, v in self._state.items():
+            self._state[k] = [cast(el) for el in v] if isinstance(v, list) else cast(v)
+        self._defaults = {k: ([cast(el) for el in v] if isinstance(v, list) else cast(v)) for k, v in self._defaults.items()}
+        return self
 
     def functional_forward(
         self, state: Dict[str, Any], *args: Any, update_count: Optional[int] = None, **kwargs: Any

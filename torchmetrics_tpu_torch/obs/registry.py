@@ -13,6 +13,13 @@
   ``reads.async_submitted`` / ``reads.async_completed`` /
   ``reads.async_degraded`` / ``reads.async_errors`` / ``reads.inline_fallback``
   and keeps the ``reads.pending`` gauge at the current in-flight depth.
+- **Lane and window telemetry**: the session lanes (``lanes.py``) count
+  ``lanes.*`` (dispatches, rows, admissions, ``rows_looped``, ...); the
+  streaming windows (``windows.py``) count ``windows.advanced``,
+  ``windows.late_events`` and ``windows.dropped_late`` and observe the
+  histograms ``windows.advance_us`` (the ``tm_tpu.windows.advance`` span)
+  and ``windows.lateness_us``; a dropped late event leaves a
+  ``window_late_drop`` breadcrumb in the ``windows`` flight domain.
 - **Breadcrumbs** (:func:`breadcrumb`): a bounded trail of fault-path
   records that :func:`dump_diagnostics` surfaces.
 

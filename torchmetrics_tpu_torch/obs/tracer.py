@@ -61,8 +61,8 @@ _DEFAULT_CAPACITY = 65536
 # --------------------------------------------------------------- span names
 # The JAX package's canonical span names, kept verbatim. The executor's
 # (dispatch, compile, cache, warmup, pad) and the later layers' (reshard,
-# fleet, windows, integrity) are emitted by nothing in the port yet; the
-# exported formats keep them.
+# fleet, integrity) are emitted by nothing in the port yet; the exported
+# formats keep them.
 SPAN_DISPATCH = "tm_tpu.dispatch"          # compiled executor dispatch (per owner)
 SPAN_UPDATE = "tm_tpu.update"              # metric update body
 SPAN_COMPUTE = "tm_tpu.compute"            # metric compute
@@ -88,7 +88,7 @@ SPAN_PACK = "tm_tpu.lanes.pack"            # ingest slab pack
 SPAN_CLASS_ROUTE = "tm_tpu.class_route"    # class-axis shard routing
 SPAN_FLEET_SHIP = "tm_tpu.fleet.ship"      # fleet leaf uplink
 SPAN_FLEET_MERGE = "tm_tpu.fleet.merge"    # fleet aggregator merge
-SPAN_WINDOWS = "tm_tpu.windows.advance"    # streaming ring advance
+SPAN_WINDOWS = "tm_tpu.windows.advance"    # streaming ring advance (windows.advance_us)
 SPAN_INTEGRITY = "tm_tpu.integrity.audit"  # state-integrity audit
 
 #: every canonical span name, for docs/tests

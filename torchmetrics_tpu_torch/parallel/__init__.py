@@ -4,7 +4,9 @@ from torchmetrics_tpu_torch.parallel.sync import (
     SYNC_TIMEOUT_ENV,
     class_reduce,
     default_sync_timeout,
+    fold_window_slots,
     gather_all_tensors,
+    live_window_mask,
     reduce,
     reduce_stacked,
     reduction_identity,
@@ -17,7 +19,9 @@ __all__ = [
     "SYNC_TIMEOUT_ENV",
     "class_reduce",
     "default_sync_timeout",
+    "fold_window_slots",
     "gather_all_tensors",
+    "live_window_mask",
     "reduce",
     "reduce_stacked",
     "reduction_identity",

@@ -268,6 +268,57 @@ def reduction_identity(reduction: Reduction, dtype: torch.dtype) -> Optional[tor
     return torch.zeros((), dtype=dtype)
 
 
+def live_window_mask(head: Any, window: int, device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """Boolean mask of the ring slots holding LIVE windows, ``head.shape + (window,)``.
+
+    ``head`` is the monotonic window clock: an int, or an integer tensor of
+    any shape (one clock per lane), whose device the mask takes (``device``
+    places an int's mask). Slot ``head % window`` houses the open window and
+    older slots wrap behind it. Before the clock has wrapped once
+    (``head < window - 1``) the slots not yet opened hold defaults, which
+    are not the fold identity of every family (a ``max`` state may default
+    to 0): the mask lets the fold replace them with
+    :func:`reduction_identity`. Plain tensor arithmetic, no host read.
+    """
+    if isinstance(head, torch.Tensor):
+        device = head.device
+        head = head.to(torch.int64).unsqueeze(-1)
+    slots = torch.arange(window, device=device)
+    age = torch.remainder(head % window - slots, window)
+    return (head - age) >= 0
+
+
+def fold_window_slots(value: torch.Tensor, reduction: Reduction, live: torch.Tensor) -> torch.Tensor:
+    """Collapse the WINDOW axis of a ring-stacked state field into the
+    sliding-window aggregate, masking dead slots with the reduction identity.
+
+    ``live`` is :func:`live_window_mask`'s mask; its shape is the leading
+    dims of ``value`` up to and including the window axis, so a ``(W,)``
+    mask folds axis 0 and a laned ``(lanes, W)`` mask folds axis 1 lane by
+    lane. Ring slots are disjoint segments of one accumulation stream, so
+    ``sum`` and ``mean`` states both ADD across them (the mean fold is
+    linear over contributors) and ``max``/``min`` take the masked extremum.
+    The fold keeps the state's dtype (``torch.sum`` would widen int32 to
+    int64 where ``jnp.sum`` keeps it). ``cat``/``None``/callable families
+    have no identity-masked fold: windows.py keeps those metrics on the
+    eager per-window path and never calls this.
+    """
+    if callable(reduction) or reduction in ("cat", None):
+        raise ValueError(
+            f"fold_window_slots is undefined for {reduction!r} reductions; eager"
+            " per-window states merge through Metric.merge_states instead"
+        )
+    axis = live.ndim - 1
+    mask = live.reshape(tuple(live.shape) + (1,) * (value.ndim - live.ndim))
+    # a Python scalar fill: no host-to-device copy of the identity
+    masked = value.masked_fill(~mask, reduction_identity(reduction, value.dtype).item())
+    if reduction in ("sum", "mean"):
+        return masked.sum(axis, dtype=value.dtype)
+    if reduction == "max":
+        return torch.amax(masked, axis)
+    return torch.amin(masked, axis)
+
+
 def sync_states(
     states: Dict[str, Any],
     reductions: Dict[str, Reduction],
@@ -445,7 +496,9 @@ __all__: Sequence[str] = [
     "SYNC_TIMEOUT_ENV",
     "class_reduce",
     "default_sync_timeout",
+    "fold_window_slots",
     "gather_all_tensors",
+    "live_window_mask",
     "reduce",
     "reduce_stacked",
     "reduction_identity",

@@ -24,6 +24,10 @@ so the containment guarantees are asserted, not assumed:
   guarantees: every OTHER lane stays bit-equal to a fault-free run).
 - :func:`fail_lane_dispatch`: an attributed ``LaneFaultError`` from inside
   the laned update, after the real update ran (drives the round rollback).
+- :func:`skew_clock` / :func:`late_event`: run one lane's window clock
+  ahead, or deliver one session's batch some windows late (drives the
+  windowed lanes' per-session watermark: admitted within the lateness
+  bound, dropped with a breadcrumb past it).
 
 All context managers restore the patched seam on exit, including when the
 body raises. They are process-local and not thread-safe (they patch module
@@ -209,6 +213,33 @@ def fail_lane_dispatch(
 
 
 # -------------------------------------------------------------------- world
+
+# ------------------------------------------------------------- window clocks
+
+def skew_clock(laned: Any, lane: int, by: int = 1) -> int:
+    """Run ONE lane's window clock ``by`` windows AHEAD of the others: the
+    per-session event-time drift scenario (a session whose stream runs fast
+    closes its windows early). The skew is real ring state (the lane's
+    retiring slots return to their defaults), so it is deliberately not
+    undone. Returns the lane's new clock."""
+    laned.advance_lane_windows(int(lane), int(by))
+    return int(laned._window_clocks()[int(lane)])
+
+
+def late_event(laned: Any, session_id: Any, batch: Any, age: int = 1) -> int:
+    """Deliver ``batch`` for ``session_id`` stamped ``age`` windows behind
+    the session's CURRENT lane clock: the watermark's fault primitive.
+    Within the lateness bound the event must land in its still-open ring
+    slot; beyond it the watermark must drop it with a ``window_late_drop``
+    breadcrumb and count ``windows.dropped_late``. Returns the number of
+    rounds dispatched (0: dropped)."""
+    lane = laned._router_admit(session_id)
+    clock = int(laned._window_clocks()[lane])
+    k = clock - int(age)
+    if k < 0:
+        raise ValueError(f"cannot inject an event {age} windows late: lane clock is only {clock}")
+    return laned.update_sessions({session_id: batch}, window=k)
+
 
 @contextmanager
 def _resized_world(to: int) -> Generator[Dict[str, Any], None, None]:
