@@ -165,6 +165,18 @@ evaluation workloads:
   W = 24 and 168; and the FEMNIST writers as windowed session lanes (a
   4-batch ring, skewed clocks, late batches), every lane's ring against a
   plain per-window count, one ``bincount`` launch a round.
+- class-axis state sharding at Google Landmarks v2-clean's scale (1,580,470
+  images, 81,313 classes, batches of 4,096; Zipf labels from the seed):
+  confusion matrix, micro accuracy and macro F1 with
+  ``state_sharding="class_axis", class_shards=8`` (a 26.45 GB stacked
+  confusion state), every (target, pred) cell against the host's counts,
+  one 3C ``bincount`` launch an update; the deferred (stacked) layouts:
+  the ImageNet collection with ``reduce="deferred"`` over 8 shards
+  (reduce, reshard 8 -> 4 -> 1, a snapshot restored elastic onto 4
+  shards), and the FEMNIST writers through ``make_deferred_lane_step``
+  with 8 shards, unwindowed and at W = 4, bit-equal to plain counts; and,
+  in the sync phase, ``sync_precision="quantized"`` at 8 and 16 bits on
+  the float families within ``reduce_error_bound``.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -2198,13 +2210,34 @@ def phase_sync(dev, backend: str = "nccl") -> dict:
                 bc = update_launches["bincount"]
                 _check(bc == len(batches), f"sync: {bc} bincount launches for {len(batches)} ImageNet updates")
         launches = {k: m.launches for k, m in counters.items()}
+        # sync_precision="quantized" on the float families; the integer
+        # ImageNet counts under the same policy stay bit-equal
+        quantized = {}
+        aggregators = families["aggregators"][0]
+        weather = families["weatherbench_moments"][0]
+        targets = (
+            ("fid", families["fid"][0], True), ("weatherbench_mse", weather["mse"], True),
+            ("weatherbench_pearson", weather["pearson"], False),
+            ("sum", aggregators["sum"], True), ("mean", aggregators["mean"], True),
+        )
+        for bits in QUANT["bits"]:
+            for name, metric, expect in targets:
+                quantized[f"{name}/int{bits}"] = _quantized_row(name, metric, bits, expect)
+            counts = families["imagenet_counts"][0]
+            for m in counts.values():
+                m.sync_precision, m.sync_quant_bits = "quantized", bits
+            st = counts.state()
+            _check(_bit_equal(_fields(counts.functional_sync(st)), _fields(st)),
+                   f"sync: the integer ImageNet counts changed under the int{bits} policy")
+            for m in counts.values():
+                m.sync_precision, m.sync_quant_bits = "exact", 8
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     on_path = ("bincount", "binned_curve", "retrieval_topk_stats", "fid_sqrtm")
     for k in on_path:
         _check(launches[k] > 0, f"sync: {k} was not launched on the synced path")
-    out = {"phase": "sync", "backend": backend, "world": 1, "launches": launches, "families": rows}
+    out = {"phase": "sync", "backend": backend, "world": 1, "launches": launches, "families": rows, "quantized": quantized}
     _emit(out)
     return out
 
@@ -8204,6 +8237,522 @@ def _femnist_batch(data: dict, w: int, b: int) -> tuple:
     return logits[b * batch:(b + 1) * batch], target[b * batch:(b + 1) * batch]
 
 
+# ------------------------------ class sharding, the deferred layouts, the quantized sync
+
+
+#: Google Landmarks Dataset v2, the clean training set (Weyand et al., CVPR
+#: 2020; the Kaggle Landmark Recognition 2020 training set): 1,580,470
+#: images of 81,313 landmark classes, scored in batches of 4,096 (385 full
+#: batches and one of 3,510). Cut: the real per-class counts need
+#: ``train_clean.csv``, which the repository does not hold, so the labels
+#: follow a Zipf law (s = 1) over the classes, drawn from the seed; a
+#: prediction is the target with probability 0.6, else uniform over the
+#: classes. Every metric runs with ``state_sharding="class_axis"`` over 8
+#: class shards: the confusion state is (8, 10,165, 81,313) int32, 26.45 GB,
+#: and an out-of-place update holds two of it (52.9 GB).
+GLDV2 = {"images": 1_580_470, "classes": 81_313, "batch": 4_096, "zipf_s": 1.0, "top1": 0.6, "class_shards": 8}
+#: accuracy and macro F1 against float64 values of the host's counts
+GLDV2_ATOL = 1e-6
+#: the deferred layouts: 8 stacked shards, the ImageNet snapshot taken
+#: after batch 24 and resumed on 4 shards
+DEFERRED = {"shards": 8, "resume_after": 24, "resume_shards": 4}
+#: the quantized rows of the sync phase
+QUANT = {"bits": (8, 16), "block": 256}
+
+
+def _gldv2_labels(dev):
+    """Every image's (target, prediction), int64 on the card, from the seed."""
+    import torch
+
+    spec = GLDV2
+    c, n = spec["classes"], spec["images"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 19_000)
+    weights = torch.arange(1, c + 1, dtype=torch.float64, device=dev) ** -spec["zipf_s"]
+    cdf = torch.cumsum(weights, 0) / weights.sum()
+    rank = torch.searchsorted(cdf, torch.rand(n, generator=g, dtype=torch.float64, device=dev)).clamp_(max=c - 1)
+    target = torch.randperm(c, generator=g, device=dev)[rank]
+    hit = torch.rand(n, generator=g, device=dev) < spec["top1"]
+    pred = torch.where(hit, target, torch.randint(0, c, (n,), generator=g, device=dev))
+    return target, pred
+
+
+def phase_gldv2_clean_class_sharded(dev) -> dict:
+    """GLDv2-clean's 1,580,470 images through a class-sharded collection
+    (confusion matrix, micro accuracy, macro F1; ``class_shards=8``).
+    Checks: the confusion total equals the images; the cell of every
+    distinct (target, pred) pair, gathered on the card, equals the host's
+    ``np.unique`` count, and ``count_nonzero`` equals the number of pairs
+    (so the counts are exact without a 26 GB host copy); the 7 pad rows are
+    zero; accuracy and F1 within 1e-6 of float64 from the host's counts;
+    one ``bincount`` launch an update (the stat-scores group's 3C count) and
+    none for the routed confusion matrix. Printed: update ms (wall and
+    device), compute ms, peak memory against the reckoning."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+    from torchmetrics_tpu_torch.ops import bincount
+
+    spec = GLDV2
+    c, shards, step = spec["classes"], spec["class_shards"], spec["batch"]
+    target, pred = _gldv2_labels(dev)
+    n = int(target.numel())
+    _sync(dev)
+    gc.collect()  # the state needs 53 GB: no earlier phase's garbage may hold the card
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kw = {"num_classes": c, "validate_args": False, "state_sharding": "class_axis", "class_shards": shards, "device": dev}
+    coll = MetricCollection({
+        "confmat": MulticlassConfusionMatrix(**kw),
+        "accuracy": MulticlassAccuracy(average="micro", **kw),
+        "f1": MulticlassF1Score(average="macro", **kw),
+    }, device=dev)
+    cm = coll["confmat"]
+    layout = cm._class_layout("confmat")
+    _check(layout is not None and tuple(cm.confmat.shape) == (shards, layout.shard_size, c),
+           f"gldv2: the confusion state is {tuple(cm.confmat.shape)}, not the class stack")
+    _check(coll["f1"]._class_layout("tp") is not None and coll["accuracy"]._class_layout("tp") is None,
+           "gldv2: F1's per-class counts must be class-sharded, micro accuracy's scalars replicated")
+    state_bytes = cm.confmat.numel() * cm.confmat.element_size()
+    bincount.launches = 0
+    wall_ms, device_ms = [], []
+    for lo in range(0, n, step):
+        p, t = pred[lo:lo + step], target[lo:lo + step]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        start.record()
+        coll.update(p, t)
+        end.record()
+        _sync(dev)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    launches = bincount.launches
+    updates = len(wall_ms)
+    peak = _peak_above(dev, base)
+    t0 = time.perf_counter()
+    result = coll.compute()
+    _sync(dev)
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    dense = result["confmat"]
+    _check(updates == -(-spec["images"] // step), f"gldv2: {updates} updates")
+    _check(launches == updates, f"gldv2: {launches} bincount launches for {updates} updates (one an update, none for the route)")
+    total = int(dense.sum())
+    _check(total == n, f"gldv2: the confusion total {total} is not the {n} images")
+    t_h, p_h = target.cpu().numpy(), pred.cpu().numpy()
+    pairs, counts = np.unique(t_h * c + p_h, return_counts=True)
+    rows = torch.from_numpy(pairs // c).to(dev)
+    cols = torch.from_numpy(pairs % c).to(dev)
+    got = dense[rows, cols].to(torch.int64).cpu().numpy()
+    _check(np.array_equal(got, counts), "gldv2: a (target, pred) cell differs from the host's count")
+    nonzero = sum(int(torch.count_nonzero(cm.confmat[s])) for s in range(shards))
+    _check(nonzero == len(pairs), f"gldv2: {nonzero} nonzero cells for {len(pairs)} distinct pairs")
+    pad = cm.confmat.reshape(-1, c)[c:]
+    _check(pad.shape[0] == layout.padded_classes - c and not bool(pad.any()), "gldv2: a pad row holds a count")
+    hits = t_h == p_h
+    tp = np.bincount(t_h[hits], minlength=c).astype(np.float64)
+    fp = np.bincount(p_h, minlength=c) - tp
+    fn = np.bincount(t_h, minlength=c) - tp
+    present = (tp + fp + fn) > 0
+    den = 2 * tp + fp + fn
+    f1 = np.where(den > 0, 2 * tp / np.where(den > 0, den, 1), 0.0)
+    want = {"accuracy": tp.sum() / n, "f1": f1[present].mean()}
+    errors = {k: abs(float(result[k]) - v) for k, v in want.items()}
+    for k, err in errors.items():
+        _check(err <= GLDV2_ATOL, f"gldv2: {k} {float(result[k])} is {err} from float64 {want[k]}")
+    reckoned = {"state_bytes": layout.padded_classes * c * 4, "update_peak_bytes": 2 * layout.padded_classes * c * 4,
+                "update_ms_at_3.35TB/s": 2 * layout.padded_classes * c * 4 / HBM_BYTES_PER_S * 1e3}
+    _check(state_bytes == reckoned["state_bytes"], f"gldv2: the state holds {state_bytes} bytes")
+    ms = sorted(wall_ms)
+    dms = sorted(device_ms)
+    out = {
+        "phase": "gldv2_clean_class_sharded", "images": n, "classes": c, "class_shards": shards,
+        "shard_size": layout.shard_size, "pad_rows": layout.padded_classes - c, "updates": updates,
+        "bincount_launches": launches, "distinct_pairs": len(pairs),
+        "update_ms": {"p50": ms[updates // 2], "p90": ms[(9 * updates) // 10], "max": ms[-1], "mean": sum(ms) / updates},
+        "update_device_ms": {"p50": dms[updates // 2], "mean": sum(dms) / updates},
+        "compute_ms": compute_ms, "state_bytes": state_bytes, "peak_mem_above_base_bytes": peak,
+        "reckoned": reckoned, "abs_err": errors, "values": {k: float(result[k]) for k in want},
+    }
+    del coll, cm, result, dense, pad
+    torch.cuda.empty_cache()
+    return _emit(out)
+
+
+def _deferred_update(coll, states: dict, shard: int, batch) -> dict:
+    """One batch into shard ``shard`` of a collection's stacked states: the
+    shard's slice updated by ``functional_update`` (every leader sharing
+    one count), written back out of place."""
+    import torch
+
+    sub = {leader: {k: v[shard] for k, v in st.items()} for leader, st in states.items()}
+    new = coll.functional_update(sub, *batch)
+    out = {}
+    for leader, st in states.items():
+        idx = torch.tensor([shard], device=next(iter(st.values())).device)
+        out[leader] = {k: v.index_copy(0, idx, new[leader][k].unsqueeze(0)) for k, v in st.items()}
+    return out
+
+
+def _deferred_collection(dev):
+    """The ImageNet collection with ``reduce="deferred"``, its compute groups
+    resolved on batch 0."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    members = dict(_imagenet(dev)["collection"]().items(keep_base=True))
+    coll = MetricCollection(members, reduce="deferred", device=dev)
+    coll.resolve_compute_groups(*_imagenet_batch(0, dev))
+    return coll
+
+
+def _fields(states: dict) -> dict:
+    from torchmetrics_tpu_torch import Metric
+
+    return {leader: {k: v for k, v in st.items() if k not in Metric._RESERVED_STATE_KEYS} for leader, st in states.items()}
+
+
+def phase_imagenet_val_deferred(dev) -> dict:
+    """ImageNet-1k val's collection with ``reduce="deferred"`` over 8 stacked
+    shards, batch b into shard b mod 8. Checks: ``reduce_sharded_states``
+    bit-equal to the eager collection's counts (and the computed values);
+    ``reshard_states`` 8 -> 4 -> 1 and 8 -> 1 reduce to the same counts; a
+    snapshot saved after batch 24 on 8 shards restores elastic onto 4
+    (``restore_state(..., topology="elastic", num_shards=4)``), finishes on
+    4 and reduces bit-equal to the uninterrupted run; one ``bincount``
+    launch an update. Printed: update, reduce, reshard, save and restore ms."""
+    import torch
+
+    from torchmetrics_tpu_torch.io import checkpoint
+    from torchmetrics_tpu_torch.ops import bincount
+
+    spec = DEFERRED
+    n = len(IMAGENET["batches"])
+    shards = spec["shards"]
+    eager = _imagenet(dev)["collection"]()
+    for i in range(n):
+        eager.update(*_imagenet_batch(i, dev))
+    want = _fields(eager.state())
+    want_values = eager.compute()
+    coll = _deferred_collection(dev)
+    states = coll.init_sharded_states(shards)
+    store = _runtime_dir("imagenet_val_deferred")
+    bincount.launches = 0
+    update_ms, snapshot = [], None
+    for i in range(n):
+        batch = _imagenet_batch(i, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        states = _deferred_update(coll, states, i % shards, batch)
+        _sync(dev)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == spec["resume_after"]:
+            export = {leader: {**st, "_update_count": i + 1} for leader, st in states.items()}
+            t0 = time.perf_counter()
+            snapshot = checkpoint.save_state(coll, str(store / "at24.ckpt"), states=export, sharded=True)
+            save_ms = (time.perf_counter() - t0) * 1e3
+    launches = bincount.launches
+    _check(launches == n, f"imagenet_val_deferred: {launches} bincount launches for {n} updates")
+    t0 = time.perf_counter()
+    reduced = coll.reduce_sharded_states(states)
+    _sync(dev)
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    _check(reduced.keys() == want.keys(), f"imagenet_val_deferred: leaders {sorted(reduced)} != {sorted(want)}")
+    _check(_bit_equal(reduced, want), "imagenet_val_deferred: the reduced counts differ from the eager collection's")
+    _check(_bit_equal(coll.functional_compute(reduced), want_values), "imagenet_val_deferred: the values differ from the eager ones")
+    t0 = time.perf_counter()
+    four = coll.reshard_states(states, 4)
+    one = coll.reshard_states(four, 1)
+    _sync(dev)
+    reshard_ms = (time.perf_counter() - t0) * 1e3
+    for name, st, s in (("8->4", four, 4), ("8->4->1", one, 1), ("8->1", coll.reshard_states(states, 1), 1)):
+        _check(all(v.shape[0] == s for sub in st.values() for v in sub.values()), f"imagenet_val_deferred: {name} shard axis")
+        _check(_bit_equal(coll.reduce_sharded_states(st), want), f"imagenet_val_deferred: reshard {name} changed the counts")
+    # the elastic restore: 8 shards saved after batch 24, resumed on 4
+    resumed = _deferred_collection(dev)
+    t0 = time.perf_counter()
+    manifest = checkpoint.restore_state(snapshot, resumed, topology="elastic", num_shards=spec["resume_shards"])
+    _sync(dev)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    _check(manifest["topology_action"] == "reshard", f"imagenet_val_deferred: restore action {manifest['topology_action']}")
+    _check(resumed.executor_status["deferred_pending"], "imagenet_val_deferred: the restored stack does not report a pending reduction")
+    rest = _fields(resumed.state())
+    _check(all(v.shape[0] == spec["resume_shards"] for sub in rest.values() for v in sub.values()),
+           "imagenet_val_deferred: the restored stack is not on 4 shards")
+    for i in range(spec["resume_after"] + 1, n):
+        rest = _deferred_update(resumed, rest, i % spec["resume_shards"], _imagenet_batch(i, dev))
+    _check(_bit_equal(resumed.reduce_sharded_states(rest), want),
+           "imagenet_val_deferred: the run resumed on 4 shards differs from the uninterrupted one")
+    ms = sorted(update_ms)
+    out = {
+        "phase": "imagenet_val_deferred", "updates": n, "shards": shards, "bincount_launches": launches,
+        "leaders": sorted(reduced), "state_bytes_stacked": sum(_state_bytes(st) for st in states.values()),
+        "update_ms": {"p50": ms[n // 2], "max": ms[-1], "mean": sum(ms) / n},
+        "reduce_ms": reduce_ms, "reshard_8_4_1_ms": reshard_ms, "save_ms": save_ms, "restore_elastic_ms": restore_ms,
+        "resumed_on": spec["resume_shards"], "bit_equal": True,
+    }
+    return _emit(out)
+
+
+def _femnist_rounds(data: dict, windowed: bool) -> list:
+    """The FEMNIST traffic as low-level rounds ``(clock, writers, logits,
+    targets)``: round b of the unwindowed run holds every writer's full batch
+    b, then the shorter last batches grouped by length; the windowed run
+    keeps that order clock by clock (clock t: every writer's batch t, full
+    batches first)."""
+    import numpy as np
+
+    batch = FEMNIST["batch"]
+    nb = [-(-len(t) // batch) for _, t in data["writers"]]
+    out = []
+    for t in range(max(nb)):
+        groups = {}
+        for w, (logits, target) in enumerate(data["writers"]):
+            lo = t * batch
+            if lo < len(target):
+                hi = min(len(target), lo + batch)
+                groups.setdefault(hi - lo, []).append((w, logits[lo:hi], target[lo:hi]))
+        for size in sorted(groups, reverse=True):
+            ws = groups[size]
+            out.append((t, [w for w, _, _ in ws], np.stack([x for _, x, _ in ws]), np.stack([y for _, _, y in ws])))
+    if windowed:
+        return out
+    full = [r for r in out if r[2].shape[1] == batch]
+    tails = {}
+    for r in out:
+        if r[2].shape[1] != batch:
+            tails.setdefault(r[2].shape[1], []).append(r)
+    merged = [(0, sum((r[1] for r in rs), []), np.concatenate([r[2] for r in rs]), np.concatenate([r[3] for r in rs]))
+              for _, rs in sorted(tails.items())]
+    return full + merged
+
+
+def _deferred_lane_run(dev, data: dict, window) -> dict:
+    """Every writer's traffic through ``make_deferred_lane_step`` (8 shards)
+    of three laned members (confusion matrix, macro F1, micro accuracy),
+    one shared ``bincount`` launch a round; rounds padded with sentinel rows
+    to a multiple of the shards. Windowed: ``advance_windows`` after every
+    clock. Returns the reduced, installed members and the launches."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.lanes import LanedMetric, LaneRound, lane_capacity_bucket, make_deferred_lane_step
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.ops.kernels import shared_scope
+
+    shards = DEFERRED["shards"]
+    writers = len(data["writers"])
+    capacity = lane_capacity_bucket(writers)
+    members = {k: m for k, m in _femnist_members(dev).items() if k in ("confmat", "f1", "accuracy")}
+    laned = {}
+    for k, m in members.items():
+        inner = m if window is None else m.windowed(window, lateness=FEMNIST_WINDOWS["lateness"])
+        laned[k] = LanedMetric(inner, capacity=capacity, reduce="deferred")
+        for w in range(writers):
+            laned[k].admit(w)
+        _check(laned[k].sessions[writers - 1] == writers - 1, "femnist_writers_deferred: lanes are not the writers")
+    steps = {k: make_deferred_lane_step(m, shards) for k, m in laned.items()}
+    states = {k: s.init_states() for k, s in steps.items()}
+    rounds = _femnist_rounds(data, windowed=window is not None)
+    _sync(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    from torchmetrics_tpu_torch.ops import fused_classification as fc
+
+    per_chunk = max(1, fc.ROW_BINS_LIMIT // (FEMNIST["classes"] ** 2))
+    chunks = sum(-(-len(ws) // per_chunk) for _, ws, _, _ in rounds)
+    bincount.launches = 0
+    clock, advance_s, round_ms = 0, 0.0, []
+    t_start = time.perf_counter()
+    for t, ws, logits, target in rounds:
+        while window is not None and clock < t:
+            a0 = time.perf_counter()
+            states = {k: steps[k].advance_windows(st) for k, st in states.items()}
+            advance_s += time.perf_counter() - a0
+            clock += 1
+        pad = (-len(ws)) % shards
+        ids = np.asarray(ws + [capacity] * pad, dtype=np.int32)
+        if pad:
+            logits = np.concatenate([logits, np.zeros((pad,) + logits.shape[1:], logits.dtype)])
+            target = np.concatenate([target, np.zeros((pad,) + target.shape[1:], target.dtype)])
+        x, y = _to_dev(dev, logits, target)
+        rnd = LaneRound(ids)
+        r0 = time.perf_counter()
+        with shared_scope():
+            states = {k: steps[k].local_step(st, rnd, x, y) for k, st in states.items()}
+        _sync(dev)
+        round_ms.append((time.perf_counter() - r0) * 1e3)
+    while window is not None and clock < max(r[0] for r in rounds) + 1:
+        states = {k: steps[k].advance_windows(st) for k, st in states.items()}
+        clock += 1
+    _sync(dev)
+    seconds = time.perf_counter() - t_start
+    launches = bincount.launches
+    peak = _peak_above(dev, base) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    for k in laned:
+        steps[k].install_reduced(steps[k].reduce(states[k]))
+    _sync(dev)
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    return {"laned": laned, "rounds": len(rounds), "row_chunks": chunks, "launches": launches, "seconds": seconds, "clock": clock,
+            "advance_s": advance_s, "round_ms": round_ms, "reduce_ms": reduce_ms, "peak": peak,
+            "stacked_state_bytes": sum(_state_bytes(st) for st in states.values())}
+
+
+def phase_femnist_writers_deferred(dev, data: dict) -> dict:
+    """PR 17's FEMNIST traffic (3,550 writers on 4,096 lanes) through
+    ``make_deferred_lane_step`` with 8 shards, unwindowed and at W = 4.
+    Checks: after the one reduce, every lane's confusion matrix, stat
+    scores and micro counts bit-equal to the plain count of its writer (the
+    counts ``femnist_writers`` is held to), and every lane's ring bit-equal
+    to the plain per-window count (the windowed run follows the on-time
+    schedule: the skew and late events of ``femnist_writers_windowed`` go
+    through the router's per-lane clock, which the deferred step, like the
+    JAX package's, does not have: it advances every lane at once); the
+    lane values against ``lane_values`` of a non-deferred run of the same
+    rounds; one ``bincount`` launch a round, the shard folded into the
+    row index. Printed: launches a round, rounds, ms a round, reduce ms."""
+    import torch
+
+    writers = list(range(len(data["writers"])))
+    plain = _femnist_plain_counts(data, dev)
+    runs = {}
+    for name, window in (("unwindowed", None), ("windowed", FEMNIST_WINDOWS["window"])):
+        run = _deferred_lane_run(dev, data, window)
+        laned = run["laned"]
+        _check(run["launches"] == run["row_chunks"],
+               f"femnist_writers_deferred/{name}: {run['launches']} bincount launches for {run['rounds']} rounds"
+               f" of {run['row_chunks']} row chunks")
+        if window is None:
+            want = plain
+        else:
+            nb = [-(-len(t) // FEMNIST["batch"]) for _, t in data["writers"]]
+            want = _femnist_window_plain(data, {"nb": nb, "skewed": [], "late": {}, "later": {}}, run["clock"], dev)
+        idx = torch.as_tensor(writers, device=dev)
+        _check(laned["confmat"]._state["confmat"].index_select(0, idx).to(torch.int64).equal(want),
+               f"femnist_writers_deferred/{name}: a lane's confusion counts differ from the plain count")
+        stats = _stats_of(want)
+        for i, field in enumerate(("tp", "fp", "tn", "fn")):
+            _check(laned["f1"]._state[field].index_select(0, idx).to(torch.int64).equal(stats[i]),
+                   f"femnist_writers_deferred/{name}: a lane's {field} differs from the plain count")
+            _check(laned["accuracy"]._state[field].index_select(0, idx).to(torch.int64).equal(stats[i].sum(-1)),
+                   f"femnist_writers_deferred/{name}: a lane's micro {field} differs from the plain count")
+        values = laned["confmat"].lane_values()
+        folded = torch.stack([values[w] for w in writers]).to(torch.int64)
+        _check(folded.equal(want if window is None else want.sum(1)), f"femnist_writers_deferred/{name}: lane values")
+        ms = sorted(run["round_ms"])
+        runs[name] = {
+            "rounds": run["rounds"], "row_chunks": run["row_chunks"], "bincount_launches": run["launches"],
+            "launches_per_round": run["launches"] / run["rounds"],
+            "seconds": run["seconds"], "sessions_per_s": len(writers) / run["seconds"],
+            "round_ms": {"p50": ms[len(ms) // 2], "max": ms[-1]}, "reduce_ms": run["reduce_ms"],
+            "advance_s": run["advance_s"], "clock": run["clock"], "peak_mem_above_base_bytes": run["peak"],
+            "stacked_state_bytes": run["stacked_state_bytes"], "capacity": laned["confmat"].capacity,
+        }
+        del run, laned
+    out = {"phase": "femnist_writers_deferred", "writers": len(writers), "shards": DEFERRED["shards"], **runs,
+           "bincount_launches": sum(r["bincount_launches"] for r in runs.values())}
+    return _emit(out)
+
+
+def _grouped_wire(fields: dict, reds: dict, qspecs: dict) -> dict:
+    """The state as the sync ships it: the quantized fields of one
+    (reduction, dtype, bits, block) group concatenated (they are encoded as
+    one payload), every other field as it is; ``state_wire_bytes`` of that
+    is what the sync puts on the wire."""
+    import torch
+
+    out, groups = {}, {}
+    for k, v in fields.items():
+        q = qspecs.get(k)
+        if q is not None and isinstance(v, torch.Tensor) and v.is_floating_point() and reds.get(k) in ("sum", "mean", "max", "min"):
+            groups.setdefault((reds[k], v.dtype, q), []).append(v.reshape(-1))
+        else:
+            out[k] = v
+    qspecs_out = {k: None for k in out}
+    for i, ((fx, _, q), parts) in enumerate(groups.items()):
+        out[f"_group{i}"] = torch.cat(parts)
+        qspecs_out[f"_group{i}"] = q
+    return {"states": out, "qspecs": qspecs_out}
+
+
+def _quantized_row(name: str, metric, bits: int, expect_quantized: bool = True) -> dict:
+    """``metric``'s state synced at ``sync_precision="quantized"`` in the
+    world of one: float fields within ``reduce_error_bound`` up to float32
+    rounding (the bound times 1 + 2^-7: the quotient's rounding can carry a
+    16-bit code one tie across; plus 1e-6 and 2^-22 of the value: code
+    times scale), integer
+    fields bit-equal, the bytes on the wire equal to ``state_wire_bytes`` of
+    the grouped payload (and beside it the per-field reckoning),
+    ``sync_async().result()`` equal to a blocking ``sync()``."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.parallel import quantized as q
+    from torchmetrics_tpu_torch.parallel import sync as psync
+
+    saved = (metric.sync_precision, metric.sync_quant_bits, metric.sync_quant_block)
+    metric.sync_precision, metric.sync_quant_bits, metric.sync_quant_block = "quantized", bits, QUANT["block"]
+    try:
+        state = metric.state()
+        qspecs = metric._sync_qspecs()
+        wire0 = obs.counters_snapshot().get("sync.bytes_on_wire", 0)
+        r0, g0 = psync.all_reduces, psync.all_gathers
+        _sync(metric.device)
+        t0 = time.perf_counter()
+        synced = metric.functional_sync(state)
+        _sync(metric.device)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        wire = obs.counters_snapshot().get("sync.bytes_on_wire", 0) - wire0
+        collectives = {"all_reduce": psync.all_reduces - r0, "all_gather": psync.all_gathers - g0}
+        fields = {k: state[k] for k in metric._defaults}
+        flat = dict(fields, _update_count=torch.tensor(0, dtype=torch.int64))
+        reds = dict(metric._reductions, _update_count="sum")
+        grouped = _grouped_wire(flat, reds, qspecs)
+        want_wire = q.state_wire_bytes(grouped["states"], reds, grouped["qspecs"])
+        per_field = q.state_wire_bytes(flat, reds, qspecs)["total"]
+        exact_wire = q.state_wire_bytes(flat, reds, None)["total"]
+        if obs.telemetry_enabled():
+            _check(wire == want_wire["total"], f"sync/{name}/int{bits}: {wire} bytes on the wire, not {want_wire['total']}")
+        max_err, quantized_fields, groups = 0.0, 0, {}
+        for k, v in fields.items():
+            fx = metric._reductions[k]
+            if qspecs[k] is None or not v.is_floating_point() or fx not in ("sum", "mean", "max", "min"):
+                _check(_bit_equal(synced[k], v), f"sync/{name}/int{bits}: the exact field {k} changed")
+                continue
+            groups.setdefault((fx, v.dtype), []).append(k)
+        for (fx, _), names in groups.items():
+            # the fields of a group are encoded as ONE payload, so a block
+            # may span two fields: the bound is the concatenation's
+            quantized_fields += len(names)
+            x = np.concatenate([fields[k].detach().double().cpu().numpy().reshape(-1) for k in names])
+            got = np.concatenate([synced[k].detach().double().cpu().numpy().reshape(-1) for k in names])
+            bound = q.reduce_error_bound(x[None], fx, bits, QUANT["block"])
+            err = np.abs(got - x)
+            _check(bool((err <= bound * (1 + 2.0**-7) + 1e-6 + np.abs(x) * 2.0**-22).all()),
+                   f"sync/{name}/int{bits}: {names} off by {float(err.max())}, past reduce_error_bound")
+            max_err = max(max_err, float(err.max()))
+        _check(quantized_fields > 0 or not expect_quantized, f"sync/{name}/int{bits}: no field took the quantized path")
+        fut = metric.sync_async()
+        async_state = fut.result(timeout=300)
+        metric.sync()
+        blocking = metric.state()
+        metric.unsync()
+        _check(_bit_equal(_fields({"m": async_state})["m"], _fields({"m": blocking})["m"]),
+               f"sync/{name}/int{bits}: sync_async().result() differs from sync()")
+    finally:
+        metric.sync_precision, metric.sync_quant_bits, metric.sync_quant_block = saved
+    return {"bits": bits, "block": QUANT["block"], "sync_ms": sync_ms, "collectives": collectives,
+            "wire_bytes": wire, "wire_reckoned": want_wire, "wire_per_field": per_field, "exact_wire_bytes": exact_wire,
+            "wire_ratio": wire / exact_wire, "max_abs_err": max_err, "quantized_fields": quantized_fields}
+
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -8519,7 +9068,12 @@ def main() -> int:
     # windows, and the FEMNIST writers as windowed session lanes
     criteo = phase_criteo_kaggle_hourly_windows(dev)
     femnist_windowed = phase_femnist_writers_windowed(dev, femnist_data)
+    # class-axis sharding at GLDv2-clean's 81,313 classes, and the deferred
+    # stacked layouts over ImageNet's collection and FEMNIST's lanes
+    femnist_deferred = phase_femnist_writers_deferred(dev, femnist_data)
     del femnist_data
+    gldv2 = phase_gldv2_clean_class_sharded(dev)
+    deferred = phase_imagenet_val_deferred(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -8555,7 +9109,8 @@ def main() -> int:
             + census["bincount_launches"] + clusters["bincount_launches"] + panoptic["bincount_launches"]
             + sum(r["bincount_launches"] for r in runtime)
             + femnist["bincount_launches"] + femnist_guarded["bincount_launches"]
-            + criteo["bincount_launches"] + femnist_windowed["bincount_launches"],
+            + criteo["bincount_launches"] + femnist_windowed["bincount_launches"]
+            + femnist_deferred["bincount_launches"] + gldv2["bincount_launches"] + deferred["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],

@@ -2212,3 +2212,101 @@ def test_windowed_async_read_pins_its_clock_on_the_card_stream(cuda_device):
     torch.cuda.current_stream(cuda_device).wait_stream(stream)
     assert drain_pipeline(60.0)
     _assert_bit_equal(got, at_close)
+
+
+# ---------------------- class sharding, the quantized sync, the large-C count
+
+
+def _route_case(seed, c=257, n=4096):
+    """Class indices with ignore holes (-1), labels >= C, and pads."""
+    rng = np.random.RandomState(seed)
+    rows = rng.randint(-2, c + 3, n)
+    cols = rng.randint(0, c, n)
+    return torch.from_numpy(rows), torch.from_numpy(cols)
+
+
+@pytest.mark.parametrize("shards", [1, 3, 8])
+def test_class_route_on_card_equals_cpu_with_sentinel_rows(cuda_device, shards):
+    from torchmetrics_tpu_torch.parallel import class_shard as cs
+
+    c = 257
+    layout = cs.shard_layout(c, shards)
+    rows, cols = _route_case(shards, c)
+    stack = torch.zeros((shards, layout.shard_size, c), dtype=torch.int32)
+    ones = torch.ones_like(rows, dtype=torch.int32)
+    cpu = cs.route_scatter_add(stack, rows, ones, inner_idx=cols, layout=layout)
+    card = cs.route_scatter_add(stack.to(cuda_device), rows.to(cuda_device), ones.to(cuda_device),
+                                inner_idx=cols.to(cuda_device), layout=layout)
+    torch.cuda.synchronize()
+    assert torch.equal(card.cpu(), cpu)
+    assert int(cpu.sum()) == int(((rows >= 0) & (rows < c)).sum())
+    assert not bool(cpu.reshape(-1, c)[c:].any())
+
+
+@pytest.mark.parametrize("bits,block", [(8, 256), (16, 256), (8, 37), (16, 1000)])
+def test_block_encode_on_card_equals_cpu(cuda_device, bits, block):
+    from torchmetrics_tpu_torch.parallel import quantized as q
+
+    g = torch.Generator().manual_seed(bits + block)
+    x = torch.randn(10_007, generator=g) * torch.linspace(0.01, 100.0, 10_007)
+    codes, scales = q.block_encode(x, bits=bits, block_size=block)
+    c2, s2 = q.block_encode(x.to(cuda_device), bits=bits, block_size=block)
+    assert torch.equal(c2.cpu(), codes) and torch.equal(s2.cpu(), scales)
+
+
+def test_nccl_quantized_sync_in_a_world_of_one_stays_in_its_bound(nccl_world):
+    from torchmetrics_tpu_torch.parallel import quantized as q
+
+    m = tm.MeanMetric(sync_precision="quantized", sync_quant_bits=8)
+    s = tm.SumMetric(sync_precision="quantized", sync_quant_bits=16)
+    g = torch.Generator(device=nccl_world).manual_seed(3)
+    for _ in range(4):
+        x = torch.randn(1000, generator=g, device=nccl_world) * 50
+        m.update(x)
+        s.update(x)
+    for metric, bits in ((m, 8), (s, 16)):
+        state = metric.state()
+        synced = metric.functional_sync(state)
+        floats = [k for k in metric._defaults if state[k].is_floating_point()]
+        for k in metric._defaults:
+            if k not in floats:
+                assert torch.equal(synced[k], state[k])
+        # the float "sum" fields are encoded as ONE payload: the bound is the
+        # concatenation's (a block may span two fields)
+        x = np.concatenate([state[k].double().cpu().numpy().reshape(-1) for k in floats])
+        got = np.concatenate([synced[k].double().cpu().numpy().reshape(-1) for k in floats])
+        bound = q.reduce_error_bound(x[None], "sum", bits, 256)
+        # float32 rounding of the quotient and of code x scale (see
+        # tests/test_torch_quantized.py:_within)
+        assert (np.abs(got - x) <= bound * (1 + 2.0**-7) + 1e-6 + np.abs(x) * 2.0**-22).all()
+        async_state = metric.sync_async().result(timeout=60.0)
+        metric.sync()
+        blocking = metric.state()
+        metric.unsync()
+        assert all(torch.equal(async_state[k], blocking[k]) for k in metric._defaults)
+
+
+def test_large_class_stat_scores_on_card_equal_cpu(cuda_device, monkeypatch):
+    """Past the C x C count's limit (lowered here) the 3C count: one launch
+    an update on the card, bit-equal to the CPU."""
+    from torchmetrics_tpu_torch.ops import fused_classification as fc
+
+    monkeypatch.setattr(fc, "ROW_BINS_LIMIT", 10_000)
+    c, n = 401, 50_000
+    g = torch.Generator().manual_seed(5)
+    target = torch.randint(-1, c, (n,), generator=g)
+    preds = torch.randint(0, c, (n,), generator=g)
+    out = {}
+    for device in ("cpu", cuda_device):
+        coll = tm.MetricCollection(
+            {"acc": MulticlassAccuracy(num_classes=c, average="micro", ignore_index=-1, validate_args=False, device=device),
+             "f1": MulticlassF1Score(num_classes=c, average=None, ignore_index=-1, validate_args=False, device=device)},
+            device=device)
+        before = bincount.launches
+        coll.update(preds.to(device), target.to(device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert bincount.launches == before + 1
+        out[str(device)] = {k: v.cpu() for k, v in coll.compute().items()}
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert all(torch.equal(cpu[k], card[k]) for k in cpu)

@@ -5,8 +5,7 @@ per-lane values and the all-lane aggregate, the session-to-lane directory,
 ``lane_status``; the row-batched count's plain body against the per-row
 count (sentinel rows, ``ignore_index``, the row-chunk boundary); lifecycle,
 growth and compute-group aliasing; laned snapshots restored across the two
-packages both ways; and the refusal of the layer the port does not have
-yet (deferred lanes). Windowed lanes are held to the JAX package in
+packages both ways; and what the deferred lane layout still refuses. Windowed lanes are held to the JAX package in
 ``tests/test_torch_windowed_lanes.py``.
 
 The JAX side compiles a vmapped update per round shape, so the traffic is
@@ -473,15 +472,20 @@ def test_wrapping_and_forward_are_refused():
 # -------------------------------------------------------------- refusals
 
 def test_deferred_lanes_name_the_missing_layer():
-    with pytest.raises(TorchMetricsUserError, match="deferred reduction layouts"):
-        tl.LanedMetric(SumMetric(device=CPU), reduce="deferred")
-    laned = tl.LanedMetric(SumMetric(device=CPU))
-    with pytest.raises(TorchMetricsUserError, match="deferred reduction layouts"):
-        tl.make_deferred_lane_step(laned, None)
-    with pytest.raises(TorchMetricsUserError, match="deferred reduction layouts"):
-        tl.DeferredLaneStep(laned)
-    with pytest.raises(TorchMetricsUserError, match="deferred reduction layouts"):
-        laned.load_state(laned.state(), sharded=True)
+    """The deferred lane layout exists now (``tests/test_torch_deferred_lanes.py``
+    holds it to the JAX package); what it still refuses is named: eager
+    (list-state) lanes, which carry no fixed-shape lane axis to stack."""
+    laned = tl.LanedMetric(SumMetric(device=CPU), reduce="deferred")
+    step = tl.make_deferred_lane_step(laned, None)
+    assert isinstance(step, tl.DeferredLaneStep) and step.num_shards == 1
+    assert laned.deferred_pending is False
+    restored = tl.LanedMetric(SumMetric(device=CPU))
+    restored.load_state({**restored.init_sharded_state(2), "_sharded_shards": 2})
+    assert restored.capacity == 8 and not restored.deferred_pending
+    with pytest.raises(TorchMetricsUserError, match="fixed-shape lane states"):
+        tl.make_deferred_lane_step(tl.LanedMetric(CatMetric(device=CPU)), 2)
+    with pytest.raises(ValueError, match="stacked shards"):
+        tl.make_deferred_lane_step(laned, 0)
 
 
 def test_prewarm_growth_reports_no_executor():

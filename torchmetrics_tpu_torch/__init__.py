@@ -22,7 +22,11 @@ metric is built with ``device="cpu"``. Ported so far:
   ``fid_sqrtm`` kernel (``csrc/fid_sqrtm.cu``);
 - cross-process state sync on ``torch.distributed`` (``parallel/``: gloo
   on the CPU, NCCL on the card), with its timeout, retry and degradation
-  policies (``io/retry.py``, ``quarantine.py``);
+  policies (``io/retry.py``, ``quarantine.py``), the block-quantized sync
+  (``sync_precision="quantized"``), class-axis state sharding
+  (``state_sharding="class_axis"``), the deferred stacked layouts
+  (``reduce="deferred"``, metrics, collections, lanes and windows) and the
+  elastic N->M re-split (``parallel/reshard.py``);
 - the aggregators (sum, mean, max, min, cat, running mean and sum);
 - regression (errors, correlations, R², explained variance, cosine
   similarity, KL divergence) and the pairwise distances, on plain PyTorch

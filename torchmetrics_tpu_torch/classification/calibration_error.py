@@ -52,10 +52,10 @@ class _CalibrationMetric(Metric):
         self.formulation = formulation
         if formulation == "binned":
             for name in ("bin_count", "bin_conf", "bin_acc"):
-                self.add_state(name, torch.zeros(n_bins, dtype=torch.float32), dist_reduce_fx="sum")
+                self.add_state(name, torch.zeros(n_bins, dtype=torch.float32), dist_reduce_fx="sum", state_sharding="replicated")
         elif formulation == "samples":
-            self.add_state("confidences", [], dist_reduce_fx="cat")
-            self.add_state("accuracies", [], dist_reduce_fx="cat")
+            self.add_state("confidences", [], dist_reduce_fx="cat", state_sharding="replicated")
+            self.add_state("accuracies", [], dist_reduce_fx="cat", state_sharding="replicated")
         else:
             raise ValueError(f"Argument `formulation` is expected to be 'binned' or 'samples' but got {formulation}")
 

@@ -26,7 +26,9 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.ops import fused_classification as _fused
+from torchmetrics_tpu_torch.parallel import class_shard as _class_shard
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
+from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 
 
 class BinaryConfusionMatrix(Metric):
@@ -128,11 +130,33 @@ class MulticlassConfusionMatrix(Metric):
         self.ignore_index = ignore_index
         self.normalize = normalize
         self.validate_args = validate_args
-        self.add_state("confmat", torch.zeros((num_classes, num_classes), dtype=torch.int32), dist_reduce_fx="sum")
+        if self.state_sharding != "class_axis" and num_classes * num_classes > _fused.ROW_BINS_LIMIT:
+            raise TorchMetricsUserError(
+                f"MulticlassConfusionMatrix: {num_classes} classes make {num_classes * num_classes} cells,"
+                f" more than one dense count holds ({_fused.ROW_BINS_LIMIT}); build it with"
+                ' state_sharding="class_axis" (and class_shards=S), which routes each sample'
+                " into a (S, ceil(C / S), C) stack instead"
+            )
+        # a broadcast zero: the class-sharded default stays a broadcast, so
+        # only the live state holds memory (the stack is C^2 int32)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device).expand(num_classes, num_classes)
+        self.add_state("confmat", zero, dist_reduce_fx="sum")
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
         if self.validate_args:
             _multiclass_confusion_matrix_tensor_validation(preds, target, self.num_classes, self.ignore_index)
+        layout = self._class_layout("confmat")
+        if layout is not None:
+            # class-sharded: route (target, pred, 1) contributions to the shard
+            # owning the target's row; the shared dense count is bypassed (it
+            # would build the whole C x C grid this layout exists to avoid)
+            preds, target, valid = _multiclass_confusion_matrix_format(preds, target, self.ignore_index)
+            cols = torch.clamp(preds.to(torch.int64), 0, self.num_classes - 1)
+            rows = torch.where(valid, target.to(torch.int64), torch.full_like(cols, -1))
+            self.confmat = _class_shard.route_scatter_add(
+                self.confmat, rows, torch.ones_like(rows, dtype=torch.int32), inner_idx=cols, layout=layout
+            )
+            return
         if _fused.fused_enabled():
             counts = _fused.multiclass_confusion_counts(preds, target, self.num_classes, self.ignore_index)
             self.confmat = self.confmat + counts.to(torch.int32)
@@ -143,7 +167,12 @@ class MulticlassConfusionMatrix(Metric):
     def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
         """R sessions' updates with one row-folded ``bincount`` launch (see
         :meth:`Metric.functional_update_rows`)."""
-        if not (len(args) == 2 and _fused.fused_enabled() and self._own_update_is(MulticlassConfusionMatrix)):
+        if not (
+            len(args) == 2
+            and _fused.fused_enabled()
+            and self._own_update_is(MulticlassConfusionMatrix)
+            and self._class_layout("confmat") is None
+        ):
             return super().functional_update_rows(states, *args)
         preds, target = args
         if self.validate_args:
@@ -154,7 +183,11 @@ class MulticlassConfusionMatrix(Metric):
         return {**states, "confmat": states["confmat"] + counts.to(torch.int32)}
 
     def compute(self) -> torch.Tensor:
-        return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
+        confmat = self.confmat
+        layout = self._class_layout("confmat")
+        if layout is not None:
+            confmat = _class_shard.gather_dense(confmat, layout)
+        return _multiclass_confusion_matrix_compute(confmat, self.normalize)
 
     def plot(self, val: Optional[torch.Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None) -> Any:
         """Heatmap of the matrix (by default ``compute()``); needs matplotlib."""
@@ -194,6 +227,21 @@ class MultilabelConfusionMatrix(Metric):
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
         if self.validate_args:
             _multilabel_confusion_matrix_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        layout = self._class_layout("confmat")
+        if layout is not None:
+            # label-axis sharded: each (sample, label) cell adds 1 to its
+            # label shard's 2x2 block at cell target * 2 + pred
+            preds, target, valid = _multilabel_confusion_matrix_format(
+                preds, target, self.num_labels, self.threshold, self.ignore_index
+            )
+            p = torch.clamp(preds.to(torch.int64), 0, 1)
+            t = torch.clamp(target.to(torch.int64), 0, 1)
+            labels = torch.arange(self.num_labels, device=t.device).expand(t.shape)
+            rows = torch.where(valid, labels, torch.full_like(labels, -1))
+            self.confmat = _class_shard.route_scatter_add(
+                self.confmat, rows, torch.ones_like(rows, dtype=torch.int32), inner_idx=t * 2 + p, layout=layout
+            )
+            return
         if _fused.fused_enabled():
             counts = _fused.multilabel_confusion_counts(
                 preds, target, self.num_labels, self.threshold, self.ignore_index
@@ -208,7 +256,12 @@ class MultilabelConfusionMatrix(Metric):
     def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
         """R sessions' updates with one row-folded ``bincount`` launch (see
         :meth:`Metric.functional_update_rows`)."""
-        if not (len(args) == 2 and _fused.fused_enabled() and self._own_update_is(MultilabelConfusionMatrix)):
+        if not (
+            len(args) == 2
+            and _fused.fused_enabled()
+            and self._own_update_is(MultilabelConfusionMatrix)
+            and self._class_layout("confmat") is None
+        ):
             return super().functional_update_rows(states, *args)
         preds, target = args
         if self.validate_args:
@@ -221,7 +274,11 @@ class MultilabelConfusionMatrix(Metric):
         return {**states, "confmat": states["confmat"] + counts.to(torch.int32)}
 
     def compute(self) -> torch.Tensor:
-        return _multilabel_confusion_matrix_compute(self.confmat, self.normalize)
+        confmat = self.confmat
+        layout = self._class_layout("confmat")
+        if layout is not None:
+            confmat = _class_shard.gather_dense(confmat, layout)
+        return _multilabel_confusion_matrix_compute(confmat, self.normalize)
 
 
 class ConfusionMatrix(_ClassificationTaskWrapper):

@@ -30,6 +30,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.ops import fused_classification as _fused
+from torchmetrics_tpu_torch.parallel import class_shard as _class_shard
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -43,6 +44,11 @@ class _AbstractStatScores(Metric):
     stat-scores-family group and the confusion matrix then accumulate from ONE
     ``bincount`` launch. Bit-exact against the per-metric path, which
     ``TORCHMETRICS_TPU_TORCH_FUSED_CLASSIFICATION=0`` restores.
+
+    With ``state_sharding="class_axis"`` the per-class ``(C,)`` counters live
+    as ``(class_shards, ceil(C / S))`` stacks: an update adds its dense
+    per-class vectors into the stack (``add_dense``), and the compute
+    gathers the dense view once.
     """
 
     #: the compute is plain tensor operations: laned reads vmap it
@@ -63,13 +69,28 @@ class _AbstractStatScores(Metric):
             self.tn.append(tn)
             self.fn.append(fn)
             return
+        layout = self._class_layout("tp")
+        if layout is not None:
+            self.tp = _class_shard.add_dense(self.tp, tp, layout)
+            self.fp = _class_shard.add_dense(self.fp, fp, layout)
+            self.tn = _class_shard.add_dense(self.tn, tn, layout)
+            self.fn = _class_shard.add_dense(self.fn, fn, layout)
+            return
         self.tp = self.tp + tp
         self.fp = self.fp + fp
         self.tn = self.tn + tn
         self.fn = self.fn + fn
 
     def _final_state(self) -> Stats:
+        layout = self._class_layout("tp")
+        if layout is not None:
+            return tuple(_class_shard.gather_dense(self._state[k], layout) for k in ("tp", "fp", "tn", "fn"))  # type: ignore[return-value]
         return tuple(dim_zero_cat(self._state[k]) for k in ("tp", "fp", "tn", "fn"))  # type: ignore[return-value]
+
+    def _rows_batchable(self) -> bool:
+        """Whether the row-batched override may stand in for the per-row
+        loop: dense states only (a class stack has no row-batched form)."""
+        return self._class_layout("tp") is None
 
     @staticmethod
     def _add_rows(states: Dict[str, Any], tp: torch.Tensor, fp: torch.Tensor, tn: torch.Tensor, fn: torch.Tensor) -> Dict[str, Any]:
@@ -194,8 +215,7 @@ class MulticlassStatScores(_AbstractStatScores):
                 preds, target, self.num_classes, self.multidim_average, self.ignore_index
             )
         if self._fused_active():
-            confmat = _fused.multiclass_confusion_counts(preds, target, self.num_classes, self.ignore_index)
-            tp, fp, tn, fn = _fused.multiclass_stats(confmat)
+            tp, fp, tn, fn = _fused.multiclass_stat_counts(preds, target, self.num_classes, self.ignore_index)
         else:
             if self.top_k == 1:
                 preds, target = _multiclass_stat_scores_format(preds, target, self.top_k)
@@ -209,7 +229,13 @@ class MulticlassStatScores(_AbstractStatScores):
     def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
         """R sessions' updates with one row-folded ``bincount`` launch (see
         :meth:`Metric.functional_update_rows`)."""
-        if not (len(args) == 2 and self._fused_active() and self._own_update_is(MulticlassStatScores)):
+        if not (
+            len(args) == 2
+            and self._fused_active()
+            and self._own_update_is(MulticlassStatScores)
+            and self._rows_batchable()
+            and self.num_classes**2 <= _fused.ROW_BINS_LIMIT
+        ):
             return super().functional_update_rows(states, *args)
         preds, target = args
         if self.validate_args:
@@ -278,7 +304,7 @@ class MultilabelStatScores(_AbstractStatScores):
     def functional_update_rows(self, states: Dict[str, Any], *args: Any) -> Dict[str, Any]:
         """R sessions' updates with one row-folded ``bincount`` launch (see
         :meth:`Metric.functional_update_rows`)."""
-        if not (len(args) == 2 and self._fused_active() and self._own_update_is(MultilabelStatScores)):
+        if not (len(args) == 2 and self._fused_active() and self._own_update_is(MultilabelStatScores) and self._rows_batchable()):
             return super().functional_update_rows(states, *args)
         preds, target = args
         if self.validate_args:

@@ -21,7 +21,12 @@ import torch
 from torchmetrics_tpu_torch import obs
 from torchmetrics_tpu_torch.metric import EAGER_REASON, Metric, resolve_device
 from torchmetrics_tpu_torch.ops.kernels import gate_snapshot, shared_scope
-from torchmetrics_tpu_torch.parallel.sync import sync_states
+from torchmetrics_tpu_torch.parallel.sync import (
+    REDUCE_POLICIES,
+    fold_sharded_states,
+    init_sharded_states,
+    sync_states,
+)
 from torchmetrics_tpu_torch.utils.data import _flatten_dict
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -39,6 +44,10 @@ class MetricCollection:
         device: where every member's state lives; ``None`` (default) is the
             current CUDA device and raises without one, ``"cpu"`` opts out.
             Members on another device are moved there.
+        reduce: the reduction policy applied to EVERY member: ``"step"`` or
+            ``"deferred"`` (local accumulation, each declared reduction
+            applied once at the read point). ``None`` (default) leaves each
+            member's own policy.
 
     Example:
         >>> import torch
@@ -58,7 +67,11 @@ class MetricCollection:
         postfix: Optional[str] = None,
         compute_groups: Union[bool, List[List[str]]] = True,
         device: Union[str, torch.device, None] = None,
+        reduce: Optional[str] = None,
     ) -> None:
+        if reduce is not None and reduce not in REDUCE_POLICIES:
+            raise ValueError(f"Expected keyword argument `reduce` to be one of {REDUCE_POLICIES} but got {reduce}")
+        self.reduce_policy = reduce
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
         self._enable_compute_groups = compute_groups
@@ -131,6 +144,14 @@ class MetricCollection:
         for m in self._modules.values():
             if m.device != self._device:
                 m.to(self._device)
+        if self.__dict__.get("reduce_policy") is not None:
+            for name, m in self._modules.items():
+                if self.reduce_policy == "deferred" and m.dist_sync_on_step:
+                    raise ValueError(
+                        f"Member {name!r} has dist_sync_on_step=True, which conflicts with the"
+                        " collection's reduce='deferred' policy (a per-step sync IS the step policy)"
+                    )
+                m.reduce_policy = self.reduce_policy
         self._groups_checked = False
         if self._enable_compute_groups:
             self._init_compute_groups()
@@ -227,7 +248,7 @@ class MetricCollection:
             "enabled": False,
             "engaged": False,
             "fallback_reason": EAGER_REASON,
-            "deferred_pending": False,
+            "deferred_pending": any(m.deferred_pending for m in self._modules.values()),
             "stats": {},
             "kernels": gate_snapshot(),
             "members": {name: m.executor_status for name, m in self._modules.items()},
@@ -329,6 +350,10 @@ class MetricCollection:
                     follower._state[state] = list(val) if isinstance(val, list) else val
                 follower._update_count = m0._update_count
                 follower._computed = None
+                # followers read the leader's tensors: their deferred flags
+                # describe the same state
+                follower.__dict__["_reduced"] = m0.__dict__.get("_reduced", True)
+                follower.__dict__["_pending_shards"] = m0.__dict__.get("_pending_shards")
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Batch values for every metric, one shared update per compute group.
@@ -464,6 +489,40 @@ class MetricCollection:
                 out[cg[0]] = m0.functional_update(states[cg[0]], *args, **m0._filter_kwargs(**kwargs))
         return out
 
+    # ------------------------------------------------- sharded (deferred) API
+    def init_sharded_states(self, num_shards: int) -> Dict[str, Dict[str, Any]]:
+        """Fresh states in the deferred layout (a leading shard axis on every
+        field), one tree per group leader. Step shard ``s`` with
+        :meth:`functional_update` on ``{leader: {k: v[s]}}``."""
+        return init_sharded_states(self.functional_init(), num_shards)
+
+    def sharded_state_spec(self, axis_name: str = "batch") -> Dict[str, Any]:
+        """Per leader and field, the axis the shard axis occupies (0); see
+        :meth:`Metric.sharded_state_spec`."""
+        return {cg[0]: self._modules[cg[0]].sharded_state_spec(axis_name) for cg in self._groups.values()}
+
+    def reduce_sharded_states(
+        self, states: Dict[str, Dict[str, Any]], process_group: Any = None
+    ) -> Dict[str, Dict[str, Any]]:
+        """The deferred read point of the whole collection: fold every
+        leader's local shard axis, then, in an initialised process group,
+        ONE :meth:`functional_sync` (one collective per reduction, dtype and
+        quantization spec across every compute group)."""
+        folded = {
+            leader: fold_sharded_states(
+                {k: v for k, v in sub.items() if k not in Metric._RESERVED_STATE_KEYS}, self._modules[leader]._reductions
+            )
+            for leader, sub in states.items()
+        }
+        if not any(m.distributed_available_fn() for m in self._modules.values()):
+            return folded
+        return self.functional_sync(folded, process_group)
+
+    def reshard_states(self, states: Dict[str, Dict[str, Any]], to_num_shards: int) -> Dict[str, Dict[str, Any]]:
+        """Re-split every leader's stacked state onto ``to_num_shards``
+        through :meth:`Metric.reshard_state` (``parallel/reshard.py``)."""
+        return {leader: self._modules[leader].reshard_state(sub, to_num_shards) for leader, sub in states.items()}
+
     def functional_sync(
         self, states: Dict[str, Dict[str, Any]], process_group: Any = None
     ) -> Dict[str, Dict[str, Any]]:
@@ -491,7 +550,12 @@ class MetricCollection:
         for group, leaders in by_group.values():
             flat: Dict[str, Any] = {}
             reductions: Dict[str, Any] = {}
+            qspecs: Dict[str, Any] = {}
             for leader in leaders:
+                # each leader's resolved precision rides into the fused call:
+                # a quantized field fuses only with same-(bits, block) peers
+                for field, spec in self._modules[leader]._sync_qspecs().items():
+                    qspecs[f"{leader}\x00{field}"] = spec
                 for field, value in states[leader].items():
                     key = f"{leader}\x00{field}"
                     if field == count_key:
@@ -502,7 +566,7 @@ class MetricCollection:
                         reductions[key] = self._modules[leader]._reductions.get(field)
             timeouts = [self._modules[leader].sync_timeout for leader in leaders]
             timeout = min((t for t in timeouts if t is not None), default=None)
-            synced = sync_states(flat, reductions, group, timeout=timeout, device=self._device)
+            synced = sync_states(flat, reductions, group, timeout=timeout, device=self._device, qspecs=qspecs)
             for leader in leaders:
                 out[leader] = {field: synced[f"{leader}\x00{field}"] for field in states[leader]}
         return {leader: out[leader] for leader in states}
@@ -556,8 +620,10 @@ class MetricCollection:
         update_count: Optional[int] = None,
         validate: str = "strict",
         check_finite: bool = False,
+        sharded: Optional[bool] = None,
     ) -> None:
-        """Install leader-keyed states into every member of each group.
+        """Install leader-keyed states into every member of each group
+        (``sharded`` as in :meth:`Metric.load_state`).
 
         The saved keys reflect the SOURCE collection's groups, which may be
         coarser than this one's (saved after auto-grouping, loaded into a
@@ -566,10 +632,13 @@ class MetricCollection:
         dtypes match its own defaults; ambiguity raises.
         """
 
-        def signature(st: Dict[str, Any], reserved: Tuple[str, ...]) -> tuple:
+        def signature(st: Dict[str, Any], reserved: Tuple[str, ...], saved: bool = True) -> tuple:
+            # a stacked (sharded) saved state matches by its per-shard shape
+            stacked = sharded or (sharded is None and st.get(Metric._STATE_SHARDS_KEY) is not None)
+            lead = 1 if (saved and stacked) else 0
             return tuple(
                 sorted(
-                    (k, tuple(getattr(v, "shape", ())), str(getattr(v, "dtype", "")).replace("torch.", ""))
+                    (k, tuple(getattr(v, "shape", ()))[lead:], str(getattr(v, "dtype", "")).replace("torch.", ""))
                     for k, v in st.items()
                     if k not in reserved
                 )
@@ -580,7 +649,7 @@ class MetricCollection:
                 st = states[cg[0]]
             else:
                 reserved = self._modules[cg[0]]._RESERVED_STATE_KEYS
-                want = signature(self._modules[cg[0]].functional_init(), reserved)
+                want = signature(self._modules[cg[0]].functional_init(), reserved, saved=False)
                 cands = [k for k, v in states.items() if signature(v, reserved) == want]
                 if len(cands) != 1:
                     raise KeyError(
@@ -598,8 +667,9 @@ class MetricCollection:
                         " collection."
                     )
             for name in cg:
+                extra = {} if sharded is None else {"sharded": sharded}
                 self._modules[name].load_state(
-                    st, update_count=update_count, validate=validate, check_finite=check_finite
+                    st, update_count=update_count, validate=validate, check_finite=check_finite, **extra
                 )
 
     def reset(self) -> None:

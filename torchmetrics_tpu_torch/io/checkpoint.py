@@ -31,10 +31,17 @@ refused with :class:`StateCorruptionError` otherwise. After installing, the
 state is re-fingerprinted against the manifest (``integrity.py``).
 
 Topology (manifest v2): ``"strict"`` restores a snapshot whose layout
-matches this world and refuses one that does not. The port has no stacked
-(deferred) or class-sharded layouts and no ``parallel/reshard.py`` yet, so
-an ``"elastic"`` restore that would need a re-split raises
-:class:`TopologyMismatchError` naming that layer rather than guess.
+matches this world and refuses one that does not. The block binds a
+stacked (deferred) snapshot to its shard count and a class-sharded one to
+its class shard count. The restoring world's shard count is the caller's
+``num_shards`` (the stacked shards this process steps; the port has no
+mesh), else the CUDA device count. ``"elastic"`` re-splits instead of
+refusing: a stacked snapshot goes through ``parallel/reshard.py`` onto
+``num_shards`` shards (or is folded to the canonical reduced form when
+``num_shards`` is None), and a class-layout change re-splits exactly
+(gather to dense, re-stack) in ``load_state``. Each such restore counts
+``checkpoint.elastic_restores``; its installed bits legitimately differ
+from the saved ones, so only matching restores are re-fingerprinted.
 """
 from __future__ import annotations
 
@@ -272,7 +279,7 @@ def _snapshot_bytes(obj: Any, state: Dict[str, Any], update_count: Optional[int]
         "sharded": bool(shard_counts),
         "num_shards": max(shard_counts) if shard_counts else None,
         "lane_capacity": (lanes or {}).get("capacity"),
-        "state_sharding": None,  # nor class-sharded states
+        "state_sharding": _class_shard_count_of(obj),
     }
     manifest = {
         "manifest_version": MANIFEST_VERSION,
@@ -538,10 +545,32 @@ def _to_tensors(path: str, obj: Any, state: Dict[str, Any]) -> Dict[str, Any]:
     return convert(state, fields_of(None))
 
 
-def _check_topology(path: str, manifest: Dict[str, Any], topology: str) -> str:
+def _class_shard_count_of(obj: Any) -> Optional[int]:
+    """The class shard count of ``obj``'s layout (a metric or a collection
+    member), or None when no field is class-sharded."""
+
+    def probe(m: Any) -> Optional[int]:
+        layouts = getattr(m, "_class_layouts", None) or {}
+        counts = [int(lay.num_shards) for lay in layouts.values()]
+        return max(counts) if counts else None
+
+    count = probe(obj)
+    if count is not None:
+        return count
+    for member in (getattr(obj, "_modules", None) or {}).values():
+        count = probe(member)
+        if count is not None:
+            return count
+    return None
+
+
+def _check_topology(path: str, manifest: Dict[str, Any], obj: Any, topology: str, num_shards: Optional[int]) -> str:
     """Compare the snapshot's saved topology block with this world; returns
-    ``"match"`` or ``"legacy"`` (a v1 snapshot without the block), or raises
-    :class:`TopologyMismatchError`."""
+    ``"match"``, ``"legacy"`` (a v1 snapshot without the block), or under
+    ``"elastic"`` the re-split to make: ``"fold"`` (a stacked snapshot onto
+    the reduced layout), ``"reshard"`` (onto ``num_shards`` shards) or
+    ``"class_reshard"`` (another class layout). Under ``"strict"`` a
+    mismatch raises :class:`TopologyMismatchError`."""
     saved = manifest.get("topology")
     if saved is None:
         obs.counter_inc("checkpoint.legacy_topology_reads")
@@ -552,34 +581,62 @@ def _check_topology(path: str, manifest: Dict[str, Any], topology: str) -> str:
         )
         return "legacy"
     world = _world_topology()
-    mismatch = None
-    if saved.get("sharded") and saved.get("num_shards") and saved["num_shards"] != world["device_count"]:
-        mismatch = (
+    current_shards = int(num_shards) if num_shards is not None else world["device_count"]
+    saved_class = saved.get("state_sharding")
+    current_class = _class_shard_count_of(obj)
+    if saved.get("sharded") and saved.get("num_shards") and saved["num_shards"] != current_shards:
+        message = (
             f"{path} holds a {saved['num_shards']}-shard stacked state but this world"
-            f" has {world['device_count']} device(s)",
-            {"saved_num_shards": saved["num_shards"], "device_count": world["device_count"]},
-            world,
+            f" steps {current_shards} shard(s)"
         )
-    elif saved.get("state_sharding"):
-        mismatch = (
-            f"{path} holds class-sharded state saved under {saved['state_sharding']} class shard(s)"
-            " but the port lays every state out dense",
-            {"saved_class_shards": saved["state_sharding"], "class_shards": None},
-            {"class_shards": None},
-        )
-    if mismatch is None:
+        data = {"saved_num_shards": saved["num_shards"], "num_shards": current_shards}
+        current: Dict[str, Any] = dict(world, num_shards=current_shards)
+        action = "fold" if num_shards is None else "reshard"
+    elif saved_class != current_class:
+        describe = lambda n: f"{n} class shard(s)" if n else "a dense (replicated) class layout"  # noqa: E731
+        message = f"{path} holds state laid out in {describe(saved_class)} but this instance uses {describe(current_class)}"
+        data = {"saved_class_shards": saved_class, "class_shards": current_class}
+        current = {"class_shards": current_class}
+        action = "class_reshard"
+    else:
         return "match"
-    message, data, current = mismatch
+    if topology == "elastic":
+        return action
     obs.counter_inc("checkpoint.topology_mismatches")
     obs.fault_breadcrumb("topology_mismatch", domain="checkpoint", data={"snapshot": os.path.basename(path), **data})
-    if topology == "strict":
-        message += "; restore on the saved topology"
-    else:
-        message += (
-            "; an elastic restore would re-split it through parallel/reshard.py, which the"
-            " port does not have yet"
-        )
+    message += "; restore on the saved topology, or with topology='elastic' to re-split through parallel/reshard.py"
     raise obs.flighted(TopologyMismatchError(message, saved=saved, current=current), domain="checkpoint")
+
+
+def _reshard_export(obj: Any, state: Dict[str, Any], num_shards: int) -> Dict[str, Any]:
+    """A stacked export re-split onto ``num_shards`` shards through the
+    target's own ``reshard_state`` (per group leader for a collection); the
+    reserved count rides along and the shard mark names the new count."""
+
+    def one(metric: Any, sub: Dict[str, Any]) -> Dict[str, Any]:
+        out = metric.reshard_state(sub, num_shards)
+        for key in (_COUNT_KEY,):
+            if key in sub:
+                out[key] = sub[key]
+        out[_SHARDS_KEY] = int(num_shards)
+        return out
+
+    modules = getattr(obj, "_modules", None)
+    if modules is not None and all(isinstance(v, dict) for v in state.values()):
+        return {leader: one(modules[leader], sub) for leader, sub in state.items()}
+    return one(obj, state)
+
+
+def _force_fold(obj: Any) -> None:
+    """Fold any pending stacked install to the reduced layout now."""
+    fold = getattr(obj, "_fold_pending", None)
+    if callable(fold):
+        fold()
+        return
+    for member in (getattr(obj, "_modules", None) or {}).values():
+        member_fold = getattr(member, "_fold_pending", None)
+        if callable(member_fold):
+            member_fold()
 
 
 def _verify_installed_state(path: str, manifest: Dict[str, Any], obj: Any) -> None:
@@ -634,14 +691,18 @@ def _verify_installed_state(path: str, manifest: Dict[str, Any], obj: Any) -> No
             )
 
 
-def _restore_file(path: str, obj: Any, validate: str, check_finite: bool, topology: str) -> Dict[str, Any]:
+def _restore_file(
+    path: str, obj: Any, validate: str, check_finite: bool, topology: str, num_shards: Optional[int] = None
+) -> Dict[str, Any]:
     manifest, payload = _read_file(path)
     if validate != "off" and manifest.get("class") not in (None, type(obj).__name__):
         raise obs.flighted(StateCorruptionError(
             f"{path} holds state for {manifest.get('class')!r}, not {type(obj).__name__!r} (use validate='off' to force)"
         ), domain="checkpoint")
-    action = _check_topology(path, manifest, topology)
+    action = _check_topology(path, manifest, obj, topology, num_shards)
     state = _to_tensors(path, obj, _decode_state(path, manifest, payload))
+    if action == "reshard":
+        state = _reshard_export(obj, state, int(num_shards))
     # wrappers with their own state layouts override load_state without the
     # validate/check_finite kwargs: forward only what the target accepts
     params = inspect.signature(obj.load_state).parameters
@@ -651,7 +712,13 @@ def _restore_file(path: str, obj: Any, validate: str, check_finite: bool, topolo
     if "check_finite" in params:
         kwargs["check_finite"] = check_finite
     obj.load_state(state, **kwargs)
-    _verify_installed_state(path, manifest, obj)
+    if action in ("match", "legacy"):
+        _verify_installed_state(path, manifest, obj)
+    else:
+        if action == "fold":
+            _force_fold(obj)
+        obs.counter_inc("checkpoint.elastic_restores")
+        rank_zero_debug(f"torchmetrics_tpu_torch checkpoint: elastic restore ({action}) of {path}")
     manifest["topology_action"] = action
     return manifest
 
@@ -663,15 +730,17 @@ def restore_state(
     check_finite: bool = False,
     on_fallback: Optional[Callable[[str, Exception], None]] = None,
     topology: str = "strict",
+    num_shards: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Restore ``obj``'s state from a snapshot file or rotating store.
 
     Single file: integrity checks (magic, manifest, payload and per-leaf
     sha256) raise :class:`CheckpointCorruptionError`; the decoded state then
     goes through ``obj.load_state(validate=..., check_finite=...)``.
-    ``topology`` is ``"strict"`` or ``"elastic"`` (see the module docstring:
-    in the port both raise :class:`TopologyMismatchError` on a layout this
-    world cannot hold as saved).
+    ``topology`` is ``"strict"`` or ``"elastic"`` and ``num_shards`` the
+    stacked shard count this process steps (see the module docstring): a
+    strict restore raises :class:`TopologyMismatchError` on a layout this
+    world does not hold as saved, an elastic one re-splits it.
 
     Rotating store (``path`` is a directory): snapshots are tried newest
     first; a torn, corrupt, invalid or topology-mismatched snapshot is
@@ -686,7 +755,7 @@ def restore_state(
         raise ValueError(f"topology must be one of {TOPOLOGY_POLICIES}, got {topology!r}")
     with obs.span(obs.SPAN_CKPT_RESTORE, owner=type(obj).__name__):
         obs.counter_inc("checkpoint.restores")
-        return _restore_state_body(path, obj, validate, check_finite, on_fallback, topology)
+        return _restore_state_body(path, obj, validate, check_finite, on_fallback, topology, num_shards)
 
 
 def _restore_state_body(
@@ -696,9 +765,10 @@ def _restore_state_body(
     check_finite: bool,
     on_fallback: Optional[Callable[[str, Exception], None]],
     topology: str,
+    num_shards: Optional[int],
 ) -> Dict[str, Any]:
     if not os.path.isdir(path):
-        manifest = _restore_file(path, obj, validate, check_finite, topology)
+        manifest = _restore_file(path, obj, validate, check_finite, topology, num_shards)
         manifest["path"] = path
         manifest["fallbacks_skipped"] = 0
         return manifest
@@ -710,7 +780,7 @@ def _restore_state_body(
     errors: List[str] = []
     for _, snap in reversed(snaps):
         try:
-            manifest = _restore_file(snap, obj, validate, check_finite, topology)
+            manifest = _restore_file(snap, obj, validate, check_finite, topology, num_shards)
         except (CheckpointCorruptionError, StateCorruptionError) as err:
             skipped += 1
             errors.append(f"{os.path.basename(snap)}: {type(err).__name__}: {err}")

@@ -82,10 +82,21 @@ Windowed lanes
     lane's next slot at once, the slots computed on the device from the
     heads; ``advance_lane_windows`` moves one lane's clock (skew).
 
-Not here yet: the deferred (sharded) lane layout (``reduce="deferred"``,
-``DeferredLaneStep``, ``make_deferred_lane_step``) waits for the port's
-deferred reduction layouts and raises :class:`TorchMetricsUserError` naming
-that layer.
+Deferred lanes
+    ``make_deferred_lane_step(laned, mesh=S)`` stacks the lane axis inside
+    the shard: state ``(S, lanes, *field)`` (``(S, lanes, W, *field)``
+    windowed). The JAX package places the shard axis on a mesh and steps it
+    in ``shard_map``; the port has no mesh, so ``mesh`` is the number of
+    shards this process stacks (None: one shard a rank) and a dispatch's
+    rows split into S equal contiguous slices, one a shard, as ``shard_map``
+    splits them over devices. The shard is folded into the lane index (row
+    lane ``l`` of shard ``s`` updates flat lane ``s * lanes + l``), so a
+    round is still ONE row-batched update, the counting family's one
+    row-folded ``bincount`` launch. ``reduce`` folds the shard axis per
+    declared reduction (the clock by ``max``) and, in a process group, syncs
+    across ranks; ``install_reduced`` hands the per-lane states to the read
+    paths. A sharded laned export restores through ``load_state``, which
+    folds it.
 """
 from __future__ import annotations
 
@@ -136,13 +147,6 @@ __all__ = [
 LANE_FLOOR = 8
 
 DEFAULT_CAPACITY = 8
-
-#: the refusal text of the layer this module waits for
-_DEFERRED_MISSING = (
-    "the deferred (sharded) lane layout needs the port's deferred reduction layouts,"
-    " which it does not have yet"
-)
-
 
 def lane_capacity_bucket(n: int) -> int:
     """Smallest power-of-two lane capacity holding ``n`` sessions (floor 8).
@@ -838,8 +842,8 @@ class LanedMetric(Metric):
             (``LanedCollection`` passes one, like ``table``); overrides the
             policy arguments above.
         kwargs: forwarded to :class:`~torchmetrics_tpu_torch.Metric`.
-            ``reduce="deferred"`` is refused: the deferred lane layout waits
-            for the port's deferred reduction layouts.
+            ``reduce="deferred"`` marks locally accumulated lane states as
+            owing their reduction (see :func:`make_deferred_lane_step`).
 
     Example:
         >>> import torch
@@ -883,11 +887,8 @@ class LanedMetric(Metric):
             raise ValueError(f"LanedMetric wraps a Metric, got {type(inner).__name__}")
         if isinstance(inner, LanedMetric):
             raise ValueError("LanedMetric cannot wrap another LanedMetric")
-        reduce = kwargs.pop("reduce", None)
-        if reduce == "deferred":
-            raise TorchMetricsUserError(f"reduce='deferred': {_DEFERRED_MISSING}")
-        if reduce not in (None, "step"):
-            raise ValueError(f"reduce must be 'step' or 'deferred', got {reduce!r}")
+        if kwargs.get("reduce") not in (None, "step", "deferred"):
+            raise ValueError(f"reduce must be 'step' or 'deferred', got {kwargs['reduce']!r}")
         asked = kwargs.get("device")
         if asked is not None and resolve_device(asked) != inner.device:
             raise ValueError(
@@ -1018,9 +1019,13 @@ class LanedMetric(Metric):
                 raise TorchMetricsUserError("explicit-window routing needs compiled (fixed-shape) lane states")
             self._update_eager(rnd, args)
 
-    def _update_compiled(self, rnd: LaneRound, args: Tuple[Any, ...], window: Optional[int] = None) -> None:
+    def _update_compiled(
+        self, rnd: LaneRound, args: Tuple[Any, ...], window: Optional[int] = None, capacity: Optional[int] = None
+    ) -> None:
+        """The batched round on the states in ``self._state``; ``capacity``
+        overrides the lane count (the deferred step's ``shards * lanes``)."""
         inner = self.inner
-        lanes, rows_args = rnd.live_rows(self.capacity, args, self._device)
+        lanes, rows_args = rnd.live_rows(self.capacity if capacity is None else int(capacity), args, self._device)
         if lanes.numel() == 0:
             return
         if isinstance(inner, WindowedMetric):
@@ -2020,16 +2025,19 @@ class LanedMetric(Metric):
         lanes, non-negative per-lane counts; ``check_finite=True`` names
         poisoned lanes). ``target_capacity`` remaps the restored directory
         into that capacity afterwards (:meth:`remap_capacity`). A sharded
-        (deferred) export is refused: that layout waits for the port's
-        deferred reduction layouts."""
+        (deferred) export, ``(S, lanes, *field)``, is validated per shard and
+        folded at once (lane counts and health sum across shards, window
+        clocks take the max)."""
         if not isinstance(state, dict):
             raise obs.flighted(
                 StateCorruptionError(f"{type(self).__name__}: state must be a dict, got {type(state).__name__}"),
                 domain="lanes",
             )
         state = dict(state)
-        if sharded or state.get("_sharded_shards") is not None:
-            raise TorchMetricsUserError(f"a sharded laned state: {_DEFERRED_MISSING}")
+        if sharded is None:
+            sharded = state.get(self._STATE_SHARDS_KEY) is not None
+        if sharded and not self._compiled_lanes:
+            raise TorchMetricsUserError("a sharded laned state needs fixed-shape lane states (no list/'cat' states)")
         if not self._compiled_lanes:
             self._load_state_eager(state, validate=validate, check_finite=check_finite)
             if target_capacity is not None and lane_capacity_bucket(int(target_capacity)) != self.capacity:
@@ -2038,7 +2046,7 @@ class LanedMetric(Metric):
         blob = state.pop(self._LANE_DIR_KEY, None)
         table = _decode_directory(blob) if blob is not None else None
         qblob = state.pop(self._QUARANTINE_KEY, None)
-        cap = self._infer_capacity(state)
+        cap = self._infer_capacity(state, sharded=bool(sharded))
         if "lane_health" not in state and "lane_updates" in state:
             # a checkpoint without the fused health counter: lanes were never
             # attributed, so a zero counter is the exact restore
@@ -2051,7 +2059,8 @@ class LanedMetric(Metric):
             ), domain="lanes")
         if cap != self.capacity:
             self._respec_capacity(cap)
-        super().load_state(state, update_count=update_count, validate=validate, check_finite=False)
+        super().load_state(state, update_count=update_count, validate=validate, check_finite=False, sharded=bool(sharded))
+        self._fold_pending()
         if table is not None:
             self.__dict__["_table"] = table
         self._validate_lanes(check_finite=check_finite, mode=validate)
@@ -2081,14 +2090,15 @@ class LanedMetric(Metric):
         self.__dict__.pop("_window_clocks_host", None)  # the restored heads are the clocks now
         self.__dict__.pop("_win_close_us", None)
 
-    def _infer_capacity(self, state: Dict[str, Any]) -> int:
+    def _infer_capacity(self, state: Dict[str, Any], sharded: bool = False) -> int:
+        axis = 1 if sharded else 0
         for f in self._inner_fields() + ["lane_updates"]:
             v = state.get(f)
             if v is None:
                 continue
             shape = np.shape(v) if not isinstance(v, torch.Tensor) else tuple(v.shape)
-            if len(shape) > 0:
-                return int(shape[0])
+            if len(shape) > axis:
+                return int(shape[axis])
         raise obs.flighted(StateCorruptionError(f"{type(self).__name__}: no state field carries a lane axis"), domain="lanes")
 
     def _respec_capacity(self, capacity: int) -> None:
@@ -2568,9 +2578,9 @@ class LanedCollection:
         """Restore every member, then re-link them onto ONE shared table
         (each member's restore decoded its own directory copy).
         ``target_capacity`` remaps the restored directory afterwards."""
-        if sharded:
-            raise TorchMetricsUserError(f"a sharded laned state: {_DEFERRED_MISSING}")
-        self.collection.load_state(states, update_count=update_count, validate=validate, check_finite=check_finite)
+        self.collection.load_state(
+            states, update_count=update_count, validate=validate, check_finite=check_finite, sharded=sharded
+        )
         self._relink_tables()
         self._realias_groups()
         if target_capacity is not None and lane_capacity_bucket(int(target_capacity)) != self.capacity:
@@ -2615,20 +2625,126 @@ class LanedCollection:
 
 
 # ---------------------------------------------------------------------------
-# the deferred (sharded) lane layout: refused until its layer exists
+# the deferred (sharded) lane layout: the lane axis stacks inside the shard
 # ---------------------------------------------------------------------------
 
 
 class DeferredLaneStep:
-    """Zero-collective laned accumulation on a mesh in the JAX package (the
-    lane axis stacked inside each device's shard). Refused: it needs the
-    port's deferred reduction layouts."""
+    """Laned accumulation over S stacked shards with no collective until
+    the read point: state ``(S, lanes, *field)``, each dispatch's rows split
+    into S equal contiguous slices (one a shard), and :meth:`reduce` applying
+    each declared reduction across shards once. Built by
+    :func:`make_deferred_lane_step`; the laned metric must hold fixed-shape
+    lane states. Every method returns new tensors (the states passed in are
+    read, never written), so ``donate`` has nothing to release."""
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise TorchMetricsUserError(f"DeferredLaneStep: {_DEFERRED_MISSING}")
+    def __init__(self, laned: LanedMetric, mesh: Any = None, axis_name: str = "batch", donate: bool = True) -> None:
+        if not laned._compiled_lanes:
+            raise TorchMetricsUserError("deferred lane accumulation needs fixed-shape lane states (no list/'cat' states)")
+        if mesh is not None and (not isinstance(mesh, int) or isinstance(mesh, bool) or mesh < 1):
+            raise ValueError(f"mesh is the number of stacked shards on this process (a positive int or None), got {mesh!r}")
+        self._laned = laned
+        self.num_shards = 1 if mesh is None else int(mesh)
+        self._axis = axis_name
+        self._donate = donate
+
+    def init_states(self) -> Dict[str, torch.Tensor]:
+        """Fresh sharded laned states, ``(S, lanes, *field)``."""
+        return self._laned.init_sharded_state(self.num_shards)
+
+    def _flat(self, states: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        s = self.num_shards
+        return {k: v.reshape((s * v.shape[1],) + tuple(v.shape[2:])) for k, v in states.items()}
+
+    def _stacked(self, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        s = self.num_shards
+        return {k: v.reshape((s, v.shape[0] // s) + tuple(v.shape[1:])) for k, v in flat.items()}
+
+    def _shard_round(self, lane_ids: Any) -> LaneRound:
+        """The round with each row's shard folded into its lane: row r of a
+        dispatch of R rows belongs to shard ``r // (R / S)``; a live lane
+        ``l`` becomes ``shard * lanes + l``, a sentinel stays out of range.
+        Memoised on the caller's round, so the members of a laned collection
+        stepping the same round share its cut rows (and their count)."""
+        rnd = LaneRound.of(lane_ids)
+        cap, s = self._laned.capacity, self.num_shards
+        key = ("deferred_shards", s, cap)
+        hit = rnd._memo.get(key)
+        if hit is not None:
+            return hit
+        rows = len(rnd)
+        if rows % s:
+            raise ValueError(f"a deferred round's {rows} rows must split evenly over {s} shards")
+        ids = rnd.host.astype(np.int64)
+        shard = np.arange(rows, dtype=np.int64) // max(1, rows // s)
+        live = (ids >= 0) & (ids < cap)
+        combined = LaneRound(np.where(live, ids + shard * cap, s * cap).astype(np.int32))
+        rnd._memo[key] = combined
+        return combined
+
+    def local_step(self, states: Dict[str, torch.Tensor], lane_ids: Any, *batch: Any, window: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """One dispatch: every shard's rows land in that shard's lane copies
+        (one row-batched update for all of them). ``window`` (windowed inner
+        only) routes every row into that absolute window's ring slot."""
+        laned = self._laned
+        rnd = self._shard_round(lane_ids)
+        if window is not None and isinstance(window, torch.Tensor):
+            window = int(window)
+        flat = self._flat(states)
+        saved = laned._state
+        with obs.span(obs.SPAN_LANES, owner=type(laned.inner).__name__, deferred=True):
+            object.__setattr__(laned, "_state", dict(flat))
+            try:
+                laned._update_compiled(rnd, tuple(batch), window, capacity=self.num_shards * laned.capacity)
+                out = {k: laned._state[k] for k in flat}
+            finally:
+                object.__setattr__(laned, "_state", saved)
+        laned._mark_unreduced()
+        return self._stacked(out)
+
+    def advance_windows(self, states: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Close the open window of every lane of every shard: each copy of
+        the clock moves by one and its retiring slot returns to the
+        defaults (every shard holds the same clocks, so they stay in
+        agreement without a collective)."""
+        laned = self._laned
+        win = laned._windowed_inner()
+        flat = self._flat(states)
+        with obs.span(obs.SPAN_WINDOWS, owner=type(win.inner).__name__, histogram="windows.advance_us", window=win.window, deferred=True):
+            heads = flat["window_head"] + 1
+            mask = _retired_slots(heads, win.window)
+            out = dict(flat)
+            for f in win._inner_fields():
+                v = flat[f]
+                default = laned._defaults[f][:1]  # one lane's (W, ...) ring of defaults
+                out[f] = torch.where(mask.reshape(tuple(mask.shape) + (1,) * (v.ndim - 2)), default, v)
+            out["window_head"] = heads
+        obs.counter_inc("windows.advanced")
+        return self._stacked(out)
+
+    def reduce(self, states: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The one deferred reduction: fold the shard axis per declared
+        reduction (and sync across ranks in a process group), returning
+        per-lane states ``(lanes, *field)``."""
+        laned = self._laned
+        with obs.span(obs.SPAN_REDUCE, owner=type(laned.inner).__name__, kind="lanes"):
+            return laned.reduce_sharded_state(states)
+
+    def install_reduced(self, states: Dict[str, torch.Tensor]) -> None:
+        """Install reduced per-lane states into the laned metric so its read
+        paths (``lane_values``/``compute``/checkpoints) serve them."""
+        laned = self._laned
+        new_state = dict(laned._state)
+        new_state.update({k: v for k, v in states.items() if k in laned._defaults})
+        object.__setattr__(laned, "_state", new_state)
+        laned.__dict__["_reduced"] = True
+        laned.__dict__["_pending_shards"] = None
+        laned.__dict__["_lane_mirror"].invalidate()
+        laned.__dict__.pop("_window_clocks_host", None)
+        laned._computed = None
 
 
 def make_deferred_lane_step(laned: LanedMetric, mesh: Any = None, axis_name: str = "batch", donate: bool = True) -> DeferredLaneStep:
-    """Refused: the deferred lane layout needs the port's deferred reduction
-    layouts (see :class:`DeferredLaneStep`)."""
-    raise TorchMetricsUserError(f"make_deferred_lane_step: {_DEFERRED_MISSING}")
+    """The deferred-reduction lane loop for ``laned`` over ``mesh`` stacked
+    shards (None: one shard a rank); see :class:`DeferredLaneStep`."""
+    return DeferredLaneStep(laned, mesh, axis_name, donate)

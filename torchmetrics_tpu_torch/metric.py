@@ -47,7 +47,26 @@ import numpy as np
 import torch
 
 from torchmetrics_tpu_torch import obs
-from torchmetrics_tpu_torch.parallel.sync import SYNC_FAILURE_POLICIES, default_sync_timeout, sync_states
+from torchmetrics_tpu_torch.parallel.class_shard import (
+    CLASS_SHARDABLE_REDUCTIONS,
+    STATE_SHARDINGS,
+    ClassShardLayout,
+    default_class_shards,
+    default_state_sharding,
+    identity_pad_value,
+    shard_layout,
+    stack_dense,
+)
+from torchmetrics_tpu_torch.parallel.quantized import DEFAULT_BITS, DEFAULT_BLOCK, SYNC_PRECISIONS, default_sync_precision
+from torchmetrics_tpu_torch.parallel.sync import (
+    REDUCE_POLICIES,
+    SYNC_FAILURE_POLICIES,
+    default_reduce_policy,
+    default_sync_timeout,
+    fold_sharded_states,
+    init_sharded_states,
+    sync_states,
+)
 from torchmetrics_tpu_torch.quarantine import DegradedValue
 from torchmetrics_tpu_torch.utils.checks import _check_same_device
 from torchmetrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
@@ -134,7 +153,11 @@ def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs
     # transactional contract: any exception out of this call leaves
     # (_state, _update_count, _computed) exactly as they were before it
     _check_same_device(self._device, args, kwargs, type(self).__name__)
+    # a sharded restore folds first, so the update runs on the reduced
+    # layout; the committed fold is itself a valid pre-call state
+    self._fold_pending()
     pre_count, pre_computed = self._update_count, self._computed
+    pre_reduced = self.__dict__.get("_reduced", True)
     # the count moves BEFORE the cache clears: the async read's cache
     # write-back checks the count around its write (ops/async_read.py)
     self._update_count += 1
@@ -148,13 +171,14 @@ def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs
             else:
                 patched(*args, **kwargs)
     except TypeError as err:
-        self._rollback(snapshot, pre_count, pre_computed)
+        self._rollback(snapshot, pre_count, pre_computed, reduced=pre_reduced)
         if "got an unexpected keyword argument" in str(err) or "positional argument" in str(err):
             raise TypeError(f"Encountered an error while calling `update` of {type(self).__name__}: {err}") from err
         raise
     except BaseException:
-        self._rollback(snapshot, pre_count, pre_computed)
+        self._rollback(snapshot, pre_count, pre_computed, reduced=pre_reduced)
         raise
+    self._mark_unreduced()
     # post-commit: an observer raising here (a simulated preemption) does
     # not unwind the committed update
     self._notify_update()
@@ -170,6 +194,7 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
         )
     if self._computed is not None:
         return self._computed
+    self._fold_pending()  # a sharded restore: fold before the sync and compute
     self.__dict__.pop("_serve_last_good", None)
     patched = self.__dict__.get("_compute_fn")  # the fault harness's seam (testing/faults.py)
     with self.sync_context(
@@ -193,6 +218,9 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
         self.__dict__["_last_good_compute"] = (int(self._update_count), value)
     return value
 
+
+#: the sync-precision knobs a read clone takes from its metric at every read
+_PRECISION_KNOBS = ("sync_precision", "sync_quant_bits", "sync_quant_block")
 
 #: why ``executor_status`` reports no executor
 EAGER_REASON = "eager; no executor in the port"
@@ -246,6 +274,26 @@ class Metric:
               moved on): the policies assume every rank sees the failure.
             - ``sync_retries``: re-attempts under ``"retry"`` (default
               ``TORCHMETRICS_TPU_SYNC_RETRIES``, else 3).
+            - ``reduce``: ``"step"`` or ``"deferred"`` (default
+              ``TORCHMETRICS_TPU_REDUCE``, else ``"step"``). Deferred state
+              accumulates locally, in the stacked layout of
+              :meth:`init_sharded_state` when the caller steps shards, and
+              is reduced once at the read point; it excludes
+              ``dist_sync_on_step``. :attr:`deferred_pending` says whether a
+              reduction is still owed.
+            - ``sync_precision``: ``"exact"`` or ``"quantized"`` (default
+              ``TORCHMETRICS_TPU_SYNC_PRECISION``, else ``"exact"``): float
+              sum/mean/max/min states sync as int codes with per-block
+              scales (``parallel/quantized.py``); integer and bool states
+              always sync exactly. ``sync_quant_bits`` (8 or 16, default 8)
+              and ``sync_quant_block`` (default 256) shape the codes.
+            - ``state_sharding``: ``"replicated"`` or ``"class_axis"``
+              (default ``TORCHMETRICS_TPU_STATE_SHARDING``, else
+              ``"replicated"``): eligible states (fixed-shape, rank >= 1,
+              sum/mean/max/min) live as ``(class_shards, ceil(C / S), ...)``
+              stacks (``parallel/class_shard.py``). ``class_shards``
+              defaults to the number of CUDA devices for a metric on the
+              card and to 1 on the CPU.
 
     Example:
         >>> import torch
@@ -277,6 +325,11 @@ class Metric:
         object.__setattr__(self, "_state", {})
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Reduction] = {}
+        #: declared per-state sync_precision overrides (None: the metric's policy)
+        self._sync_precisions: Dict[str, Optional[str]] = {}
+        #: RESOLVED per-state placement and the layout of every class_axis field
+        self._state_shardings: Dict[str, str] = {}
+        self._class_layouts: Dict[str, ClassShardLayout] = {}
         self._device = resolve_device(kwargs.pop("device", None))
 
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
@@ -310,6 +363,46 @@ class Metric:
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         if not isinstance(self.compute_with_cache, bool):
             raise ValueError(f"Expected keyword argument `compute_with_cache` to be a `bool` but got {self.compute_with_cache}")
+        self.reduce_policy = kwargs.pop("reduce", None)
+        if self.reduce_policy is None:
+            self.reduce_policy = default_reduce_policy()
+        elif self.reduce_policy not in REDUCE_POLICIES:
+            raise ValueError(f"Expected keyword argument `reduce` to be one of {REDUCE_POLICIES} but got {self.reduce_policy}")
+        if self.reduce_policy == "deferred" and self.dist_sync_on_step:
+            raise ValueError(
+                "`reduce='deferred'` defers every collective to compute()/sync() and cannot"
+                " be combined with `dist_sync_on_step=True` (a per-step sync IS the step policy)"
+            )
+        self.sync_precision = kwargs.pop("sync_precision", None)
+        if self.sync_precision is None:
+            self.sync_precision = default_sync_precision()
+        elif self.sync_precision not in SYNC_PRECISIONS:
+            raise ValueError(f"Expected keyword argument `sync_precision` to be one of {SYNC_PRECISIONS} but got {self.sync_precision}")
+        self.sync_quant_bits = kwargs.pop("sync_quant_bits", None)
+        if self.sync_quant_bits is None:
+            self.sync_quant_bits = DEFAULT_BITS
+        elif self.sync_quant_bits not in (8, 16) or isinstance(self.sync_quant_bits, bool):
+            raise ValueError(f"Expected keyword argument `sync_quant_bits` to be 8 or 16 but got {self.sync_quant_bits}")
+        self.sync_quant_block = kwargs.pop("sync_quant_block", None)
+        if self.sync_quant_block is None:
+            self.sync_quant_block = DEFAULT_BLOCK
+        elif not isinstance(self.sync_quant_block, int) or isinstance(self.sync_quant_block, bool) or self.sync_quant_block < 1:
+            raise ValueError(f"Expected keyword argument `sync_quant_block` to be a positive int but got {self.sync_quant_block}")
+        self.state_sharding = kwargs.pop("state_sharding", None)
+        if self.state_sharding is None:
+            self.state_sharding = default_state_sharding()
+        elif self.state_sharding not in STATE_SHARDINGS:
+            raise ValueError(f"Expected keyword argument `state_sharding` to be one of {STATE_SHARDINGS} but got {self.state_sharding}")
+        self.class_shards = kwargs.pop("class_shards", None)
+        if self.class_shards is None:
+            self.class_shards = default_class_shards(self._device)
+        elif not isinstance(self.class_shards, int) or isinstance(self.class_shards, bool) or self.class_shards < 1:
+            raise ValueError(f"Expected keyword argument `class_shards` to be a positive int but got {self.class_shards}")
+        # deferred-reduction bookkeeping: _reduced is False while locally
+        # accumulated state owes its reduction; _pending_shards is the shard
+        # count of an installed stacked state awaiting its fold
+        self._reduced = True
+        self._pending_shards: Optional[int] = None
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -330,6 +423,8 @@ class Metric:
         dist_reduce_fx: Reduction = None,
         *,
         dtype: Optional[torch.dtype] = None,
+        sync_precision: Optional[str] = None,
+        state_sharding: Optional[str] = None,
     ) -> None:
         """Register a metric state.
 
@@ -339,6 +434,19 @@ class Metric:
         declares how the state merges across batches (``forward``) and
         processes. ``dtype`` keeps a tensor default in that dtype instead of
         the JAX package's 32-bit one (an exact int64 count).
+
+        ``sync_precision`` overrides the metric's policy for THIS state
+        (``"exact"`` or ``"quantized"``; None inherits). Integer and bool
+        states sync exactly whatever is declared.
+
+        ``state_sharding`` places THIS state: ``"class_axis"`` stores it as
+        the ``(class_shards, ceil(C / S), *rest)`` stack of
+        ``parallel/class_shard.py`` (the padded tail rows hold the
+        reduction's identity), ``"replicated"`` pins the dense layout, None
+        inherits the metric's policy. Only fixed-shape tensors of rank >= 1
+        with ``dist_reduce_fx`` in {"sum","mean","max","min"} are eligible:
+        an explicit ``"class_axis"`` on anything else raises, while an
+        inherited policy leaves an ineligible state replicated.
         """
         if not isinstance(default, (list, int, float, np.ndarray, torch.Tensor)):
             raise ValueError("state variable must be a tensor or an empty list")
@@ -349,10 +457,44 @@ class Metric:
                 "`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None],"
                 f" got {dist_reduce_fx!r}"
             )
+        if sync_precision is not None and sync_precision not in SYNC_PRECISIONS:
+            raise ValueError(f"`sync_precision` must be None or one of {SYNC_PRECISIONS}, got {sync_precision!r}")
+        if state_sharding is not None and state_sharding not in STATE_SHARDINGS:
+            raise ValueError(f"`state_sharding` must be None or one of {STATE_SHARDINGS}, got {state_sharding!r}")
         if not isinstance(default, list):
             default = _as_state_tensor(default, self._device) if dtype is None else torch.as_tensor(
                 default, dtype=dtype, device=self._device
             )
+        # class-axis placement, resolved once at declaration
+        eligible = not isinstance(default, list) and default.ndim >= 1 and dist_reduce_fx in CLASS_SHARDABLE_REDUCTIONS
+        if state_sharding == "class_axis" and not eligible:
+            kind = "list" if isinstance(default, list) else f"rank-{default.ndim} array"
+            raise ValueError(
+                f"state {name!r}: state_sharding='class_axis' requires a fixed-shape array"
+                f" state of rank >= 1 with dist_reduce_fx in {CLASS_SHARDABLE_REDUCTIONS};"
+                f" got a {kind} with dist_reduce_fx={dist_reduce_fx!r}"
+            )
+        resolved = state_sharding
+        if resolved is None:
+            policy = self.__dict__.get("state_sharding", "replicated")
+            resolved = "class_axis" if (policy == "class_axis" and eligible) else "replicated"
+        if resolved == "class_axis":
+            layout = shard_layout(int(default.shape[0]), int(self.class_shards))
+            pad = identity_pad_value(dist_reduce_fx, default.dtype)
+            corner = default[(0,) * default.ndim]
+            if all(st == 0 for st in default.stride()) and corner.item() == pad:
+                # a broadcast of the identity (a zero count matrix passed as an
+                # expanded scalar): the stacked default stays a broadcast too,
+                # so only the live state holds memory
+                default = corner.expand((layout.num_shards, layout.shard_size) + tuple(default.shape[1:]))
+            else:
+                default = stack_dense(default, layout, pad_value=pad)
+            self._class_layouts[name] = layout
+            obs.counter_inc("shards.class_sharded_states")
+        else:
+            self._class_layouts.pop(name, None)
+        self._state_shardings[name] = resolved
+        self._sync_precisions[name] = sync_precision
         self._defaults[name] = default
         self._reductions[name] = dist_reduce_fx
         self._state[name] = [] if isinstance(default, list) else default.clone()
@@ -394,12 +536,118 @@ class Metric:
         references suffice; list states are list-copied."""
         return {k: (list(v) if isinstance(v, list) else v) for k, v in self._state.items()}
 
-    def _rollback(self, state: Dict[str, Any], update_count: int, computed: Any) -> None:
-        """Reinstall a pre-call snapshot after a failed update/forward."""
+    def _rollback(self, state: Dict[str, Any], update_count: int, computed: Any, reduced: Optional[bool] = None) -> None:
+        """Reinstall a pre-call snapshot after a failed update/forward
+        (``reduced`` restores the deferred-reduction flag taken with it)."""
         obs.counter_inc("rollback.count")
         object.__setattr__(self, "_state", state)
         self.__dict__["_update_count"] = update_count
         self.__dict__["_computed"] = computed
+        if reduced is not None:
+            self.__dict__["_reduced"] = reduced
+
+    # ------------------------------------------------- class-axis placement
+    def _class_layout(self, name: str) -> Optional[ClassShardLayout]:
+        """The :class:`~torchmetrics_tpu_torch.parallel.class_shard.ClassShardLayout`
+        of a class-sharded field, or None when ``name`` is replicated."""
+        return self.__dict__.get("_class_layouts", {}).get(name)
+
+    def _sync_qspecs(self) -> Dict[str, Optional[Tuple[int, int]]]:
+        """The RESOLVED per-state quantization: field -> None (exact) or
+        ``(bits, block)``. The ``add_state`` override wins, else the
+        metric's ``sync_precision``; a non-float tensor state is always
+        exact."""
+        d = self.__dict__
+        policy = d.get("sync_precision", "exact")
+        overrides = d.get("_sync_precisions", {})
+        bits, block = int(d.get("sync_quant_bits", DEFAULT_BITS)), int(d.get("sync_quant_block", DEFAULT_BLOCK))
+        out: Dict[str, Optional[Tuple[int, int]]] = {}
+        for name, default in self._defaults.items():
+            resolved = overrides.get(name) or policy
+            if resolved != "quantized" or (not isinstance(default, list) and not default.is_floating_point()):
+                out[name] = None
+            else:
+                out[name] = (bits, block)
+        return out
+
+    def _adopt_class_layouts(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """Re-split incoming class-axis fields into THIS metric's layout.
+
+        A snapshot may carry a field dense (saved by a replicated twin) or
+        stacked for another shard count; both re-split exactly (gather to
+        dense, trim, re-stack). In the other direction a stacked field
+        arriving at a replicated field of a shardable reduction is gathered
+        back to dense. Other shapes pass through for :meth:`validate_state`
+        to judge; only the exact ``(d, ceil(C / d), *rest)`` geometry heals.
+        """
+        if not isinstance(state, dict):
+            return state
+
+        def stacked(shape: Tuple[int, ...], num_classes: int, rest: Tuple[int, ...]) -> bool:
+            # any shard count d gives (d, ceil(C / d), *rest)
+            return len(shape) == 2 + len(rest) and shape[2:] == rest and shape[0] >= 1 and shape[1] == -(-num_classes // shape[0])
+
+        layouts = self.__dict__.get("_class_layouts") or {}
+        out = dict(state)
+        for name, policy in (self.__dict__.get("_state_shardings") or {}).items():
+            if policy != "replicated" or name in layouts:
+                continue
+            fx = self._reductions.get(name)
+            value = out.get(name)
+            default = self._defaults.get(name)
+            if fx not in CLASS_SHARDABLE_REDUCTIONS or not isinstance(value, torch.Tensor) or default.ndim < 1:
+                continue
+            num_classes, rest = int(default.shape[0]), tuple(default.shape[1:])
+            shape = tuple(value.shape)
+            if stacked(shape, num_classes, rest):
+                out[name] = value.reshape((shape[0] * shape[1],) + rest)[:num_classes]
+        for name, layout in layouts.items():
+            value = out.get(name)
+            if not isinstance(value, torch.Tensor):
+                continue
+            rest = tuple(self._defaults[name].shape[2:])
+            shape = tuple(value.shape)
+            if shape == (layout.num_shards, layout.shard_size) + rest:
+                continue
+            pad = identity_pad_value(self._reductions.get(name), value.dtype)
+            if shape == (layout.num_classes,) + rest:
+                out[name] = stack_dense(value, layout, pad_value=pad)
+            elif stacked(shape, layout.num_classes, rest):
+                dense = value.reshape((shape[0] * shape[1],) + rest)[: layout.num_classes]
+                out[name] = stack_dense(dense, layout, pad_value=pad)
+        return out
+
+    # --------------------------------------------------- deferred reduction
+    @property
+    def deferred_pending(self) -> bool:
+        """True while local state still owes its deferred reduction: the
+        ``reduce="deferred"`` policy holds unreduced updates, or a stacked
+        state was installed (``load_state(..., sharded=True)``) and not yet
+        folded."""
+        if self.__dict__.get("_pending_shards") is not None:
+            return True
+        return self.__dict__.get("reduce_policy") == "deferred" and not self.__dict__.get("_reduced", True)
+
+    def _fold_pending(self) -> None:
+        """Fold an installed stacked state into the reduced layout: the
+        on-demand reduce that keeps update/compute/sync right after a
+        sharded restore."""
+        if self.__dict__.get("_pending_shards") is None:
+            return
+        t0 = time.perf_counter()
+        with obs.span(obs.SPAN_REDUCE, owner=type(self).__name__, kind="fold_pending"):
+            folded = fold_sharded_states({k: self._state[k] for k in self._defaults}, self._reductions)
+        new_state = dict(self._state)
+        new_state.update(folded)
+        object.__setattr__(self, "_state", new_state)
+        self.__dict__["_pending_shards"] = None
+        self.__dict__["_last_reduce_us"] = round((time.perf_counter() - t0) * 1e6, 1)
+
+    def _mark_unreduced(self) -> None:
+        """Record that state now holds locally accumulated values (a no-op
+        outside the deferred policy)."""
+        if self.__dict__.get("reduce_policy") == "deferred":
+            self.__dict__["_reduced"] = False
 
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
@@ -542,6 +790,7 @@ class Metric:
         """
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
+        self._fold_pending()  # a sharded restore: fold the shards before the collectives
         distributed_available = distributed_available or self.distributed_available_fn
         if not should_sync or not distributed_available():
             return
@@ -559,6 +808,9 @@ class Metric:
             self._cache = None
             raise
         self._is_synced = True
+        # the state now holds reduced values; unsync restores the flag
+        self.__dict__["_reduced_pre_sync"] = self.__dict__.get("_reduced", True)
+        self.__dict__["_reduced"] = True
         self.__dict__["_last_reduce_us"] = round((time.perf_counter() - t0) * 1e6, 1)
 
     def _sync_bounded(self, group: Any) -> None:
@@ -635,6 +887,7 @@ class Metric:
         self._state = self._cache
         self._cache = None
         self._is_synced = False
+        self.__dict__["_reduced"] = self.__dict__.pop("_reduced_pre_sync", True)
 
     @contextmanager
     def sync_context(
@@ -698,7 +951,7 @@ class Metric:
             "enabled": False,
             "engaged": False,
             "fallback_reason": EAGER_REASON,
-            "deferred_pending": False,
+            "deferred_pending": self.deferred_pending,
             "last_reduce_us": self.__dict__.get("_last_reduce_us"),
             "stats": {},
             "kernels": gate_snapshot(),
@@ -765,6 +1018,11 @@ class Metric:
             "last_good": d.get("_last_good_compute"),
             "to_sync": d.get("_to_sync", True),
             "cache": bool(d.get("compute_with_cache", True)),
+            "reduced": d.get("_reduced", True),
+            "pending_shards": d.get("_pending_shards"),
+            # the sync policy as of submission: the cached clone keeps
+            # the knobs it was copied with
+            "precision": tuple(d.get(k) for k in _PRECISION_KNOBS),
         }
 
     def compute_async(self) -> Any:
@@ -826,6 +1084,10 @@ class Metric:
         d.pop("_serve_last_good", None)
         d["_to_sync"] = flags["to_sync"]
         d["_should_unsync"] = True
+        d["_reduced"] = flags.get("reduced", True)
+        d["_pending_shards"] = flags.get("pending_shards")
+        for knob, value in zip(_PRECISION_KNOBS, flags.get("precision", ())):
+            d[knob] = value
 
     def _async_compute_job(self, clone: "Metric", snapshot: Dict[str, Any], flags: Dict[str, Any]) -> Any:
         """WORKER-SIDE: the read body (sync per policy, compute, wait for
@@ -859,9 +1121,69 @@ class Metric:
             if self.__dict__.get("_update_count") != flags["count"]:
                 self.__dict__["_computed"] = None  # an update landed mid-write: drop the stale cache
 
+    def sync_async(self, process_group: Any = None) -> Any:
+        """Non-blocking read-side :meth:`sync`: a
+        :class:`~torchmetrics_tpu_torch.ops.async_read.MetricFuture` resolving
+        to the SYNCED state dict (what :meth:`state` exports after a blocking
+        ``sync()``) for the state as of this call. The live metric is never
+        touched: the worker syncs a detached clone holding a by-reference
+        snapshot, under ``sync_timeout`` and ``on_sync_failure``; failures
+        surface through ``future.result()``. Every rank must call it in the
+        same order as its other collectives."""
+        from torchmetrics_tpu_torch.ops import async_read as _async
+
+        owner = type(self).__name__
+        with obs.span(obs.SPAN_COMPUTE_ASYNC, suffix=owner, kind="sync"):
+            body = self._prepare_async_sync(process_group)
+            return _async.get_pipeline().submit(body, owner=owner, submitted_count=int(self._update_count))
+
+    def _prepare_async_sync(self, process_group: Any = None) -> Callable[[], Any]:
+        """Caller-side half of one asynchronous sync (see :meth:`_prepare_async_read`)."""
+        from torchmetrics_tpu_torch.ops.async_read import materialize, submission_event
+
+        self._fold_pending()
+        reason = self._async_inline_reason()
+        if reason is not None:
+            obs.counter_inc("reads.inline_compute")
+            with self.sync_context(should_sync=True, should_unsync=True, process_group=process_group):
+                out = self.state()  # inline fallback: blocking semantics on the caller
+            event = submission_event(out)
+            return lambda: _ready(event, materialize(out))
+        snapshot = self._state_snapshot()
+        flags = self._capture_read_flags()
+        clone = self._read_clone()
+        event = submission_event(snapshot)
+
+        def body() -> Any:
+            _ready(event, None)
+            return self._async_sync_job(clone, snapshot, flags, process_group)
+
+        return body
+
+    def _async_sync_job(self, clone: "Metric", snapshot: Dict[str, Any], flags: Dict[str, Any], process_group: Any) -> Dict[str, Any]:
+        """WORKER-SIDE: the bounded sync on the snapshot through the clone,
+        then the materialised state export."""
+        from torchmetrics_tpu_torch.ops.async_read import materialize
+
+        self._install_read_snapshot(clone, snapshot, flags)
+        try:
+            clone.sync(should_sync=True, process_group=process_group)
+            out = materialize(clone.state())
+        finally:
+            object.__setattr__(clone, "_state", {})
+            clone.__dict__["_cache"] = None
+            clone.__dict__["_is_synced"] = False
+        if self.__dict__.get("_update_count") == flags["count"]:
+            self.__dict__["_last_sync_ok"] = clone.__dict__.get("_last_sync_ok", True)
+        return out
+
     # ------------------------------------------------------- pure / functional
     #: reserved state key carrying the update count through state()/load_state
     _STATE_COUNT_KEY = "_update_count"
+
+    #: reserved state key marking a sharded export (value = shard count),
+    #: set by state() while a sharded restore awaits its fold
+    _STATE_SHARDS_KEY = "_sharded_shards"
 
     #: export keys that are no state field (a collection's layout match skips
     #: them): the count, the shard mark and a windowed metric's ring meta
@@ -889,6 +1211,9 @@ class Metric:
         key ``"_update_count"`` so :meth:`load_state` round-trips it."""
         out = self._state_snapshot()
         out[self._STATE_COUNT_KEY] = int(self._update_count)
+        shards = self.__dict__.get("_pending_shards")
+        if shards is not None:
+            out[self._STATE_SHARDS_KEY] = int(shards)
         return out
 
     def state_spec(self) -> Dict[str, Any]:
@@ -899,6 +1224,10 @@ class Metric:
              "fields": {name: {"kind": "array"|"list", "shape": tuple|None,
                                "dtype": str|None, "reduction": str|None,
                                "shape_invariant": bool}}}
+
+        A class-sharded field also carries ``"state_sharding": "class_axis"``,
+        ``"num_classes"`` and ``"class_shards"`` (its shape is the stacked
+        one); a replicated field's spec has no such keys.
         """
         fields: Dict[str, Any] = {}
         for name, default in self._defaults.items():
@@ -917,6 +1246,11 @@ class Metric:
                     "reduction": reduction,
                     "shape_invariant": fx in self._SHAPE_INVARIANT_REDUCTIONS,
                 }
+                layout = self._class_layout(name)
+                if layout is not None:
+                    fields[name]["state_sharding"] = "class_axis"
+                    fields[name]["num_classes"] = int(layout.num_classes)
+                    fields[name]["class_shards"] = int(layout.num_shards)
         return {
             "spec_version": 1,
             "class": type(self).__name__,
@@ -924,7 +1258,9 @@ class Metric:
             "fields": fields,
         }
 
-    def validate_state(self, state: Dict[str, Any], mode: str = "strict", check_finite: bool = False) -> Dict[str, Any]:
+    def validate_state(
+        self, state: Dict[str, Any], mode: str = "strict", check_finite: bool = False, sharded: bool = False
+    ) -> Dict[str, Any]:
         """Check a state dict against :meth:`state_spec` and return it.
 
         - ``"strict"``: every declared field present as a tensor of the
@@ -934,8 +1270,10 @@ class Metric:
           instead of raising (shape and structure problems still raise);
         - ``"off"``: no checks.
 
-        ``check_finite=True`` also rejects NaN/Inf in float fields. Raises
-        :class:`StateCorruptionError`.
+        ``check_finite=True`` also rejects NaN/Inf in float fields.
+        ``sharded=True`` checks the stacked layout instead: every tensor
+        field carries a leading shard axis, the same count in all of them,
+        and no list state may appear. Raises :class:`StateCorruptionError`.
         """
         if mode not in ("strict", "cast", "off"):
             raise ValueError(f"validate must be 'strict', 'cast' or 'off', got {mode!r}")
@@ -943,11 +1281,20 @@ class Metric:
             raise StateCorruptionError(f"{type(self).__name__}: state must be a dict, got {type(state).__name__}")
         owner = type(self).__name__
         out: Dict[str, Any] = dict(state)
+        shard_counts: Dict[str, int] = {}
         for name, fs in self.state_spec()["fields"].items():
             if name not in state:
                 raise StateCorruptionError(f"{owner}: state is missing declared field {name!r}")
             values = state[name]
             is_list = isinstance(values, (list, tuple))
+            if sharded:
+                if fs["kind"] == "list" or is_list:
+                    raise StateCorruptionError(f"{owner}: field {name!r} is a list state; list states cannot carry a shard axis")
+                if not isinstance(values, torch.Tensor) or values.ndim < 1:
+                    raise StateCorruptionError(f"{owner}: sharded field {name!r} carries no shard axis")
+                shard_counts[name] = int(values.shape[0])
+                if mode != "off":
+                    fs = dict(fs, shape=(int(values.shape[0]),) + tuple(fs["shape"]))
             if (fs["kind"] == "list") != is_list and mode != "off":
                 raise StateCorruptionError(
                     f"{owner}: field {name!r} is a{' list' if fs['kind'] == 'list' else 'n array'} state"
@@ -965,6 +1312,8 @@ class Metric:
                         )
                 checked.append(value)
             out[name] = checked if is_list else checked[0]
+        if sharded and len(set(shard_counts.values())) > 1:
+            raise StateCorruptionError(f"{owner}: sharded fields disagree on the shard count: {shard_counts}")
         return out
 
     def _validate_field(self, name: str, value: Any, fs: Dict[str, Any], mode: str) -> torch.Tensor:
@@ -998,6 +1347,7 @@ class Metric:
         update_count: Optional[int] = None,
         validate: str = "strict",
         check_finite: bool = False,
+        sharded: Optional[bool] = None,
     ) -> None:
         """Install a state dict as the live state (inverse of :meth:`state`).
 
@@ -1005,8 +1355,20 @@ class Metric:
         when omitted, the count the state carries under ``"_update_count"`` is
         used, else exactly 1. ``validate``/``check_finite`` as in
         :meth:`validate_state`; on any failure the live state is untouched.
+
+        ``sharded=True`` installs a stacked state (a leading shard axis on
+        every field, the deferred layout); it is kept as is and folded per
+        the declared reductions on demand, at the next update, compute or
+        sync. ``None`` (default) detects it from the ``"_sharded_shards"``
+        key a sharded :meth:`state` export carries. A class-axis field
+        re-splits a dense or differently sharded value into this metric's
+        class layout first.
         """
-        state = self.validate_state(state, mode=validate, check_finite=check_finite)
+        if sharded is None:
+            sharded = isinstance(state, dict) and state.get(self._STATE_SHARDS_KEY) is not None
+        if not sharded:
+            state = self._adopt_class_layouts(state)
+        state = self.validate_state(state, mode=validate, check_finite=check_finite, sharded=bool(sharded))
         carried = state.get(self._STATE_COUNT_KEY)
         if update_count is None and carried is not None:
             update_count = int(carried)
@@ -1016,9 +1378,17 @@ class Metric:
                 raise StateCorruptionError(f"state missing field {k!r}")
             v = state[k]
             staged[k] = list(v) if isinstance(v, (list, tuple)) else v
+        num_shards = None
+        if sharded:
+            num_shards = next((int(v.shape[0]) for v in staged.values() if isinstance(v, torch.Tensor) and v.ndim >= 1), None)
+            if num_shards is None:
+                raise StateCorruptionError(f"{type(self).__name__}: sharded=True but no array field carries a shard axis")
         self._state.update(staged)
         self._computed = None
         self._update_count = int(update_count) if update_count is not None else 1
+        self.__dict__["_pending_shards"] = num_shards
+        if sharded:
+            self.__dict__["_reduced"] = False
 
     def init_state(self) -> Dict[str, Any]:
         """A fresh default state (the pure analogue of ``reset``)."""
@@ -1027,6 +1397,48 @@ class Metric:
     def functional_init(self) -> Dict[str, Any]:
         """Alias of :meth:`init_state`, the name shared with ``MetricCollection``."""
         return self.init_state()
+
+    # ------------------------------------------------- sharded (deferred) API
+    def init_sharded_state(self, num_shards: int) -> Dict[str, Any]:
+        """A fresh state in the deferred layout: every field gains a leading
+        shard axis of ``num_shards``. Step shard ``s`` with
+        ``functional_update({k: v[s] ...}, *batch)`` and reduce with
+        :meth:`reduce_sharded_state`."""
+        if any(isinstance(v, list) for v in self._defaults.values()):
+            raise TorchMetricsUserError(
+                f"{type(self).__name__} holds list states, which cannot carry a shard axis;"
+                " deferred sharded accumulation needs fixed-shape states"
+            )
+        return init_sharded_states(self.init_state(), num_shards)
+
+    def sharded_state_spec(self, axis_name: Optional[str] = None) -> Dict[str, Any]:
+        """Per field, the axis of the deferred layout the shard axis occupies:
+        always 0 (the leading axis). The JAX package returns a
+        ``PartitionSpec`` tree for ``shard_map``; the port has no mesh, and
+        this keeps the name and the tree shape (``axis_name`` is accepted
+        for the same signature and ignored)."""
+        return {k: 0 for k in self._defaults}
+
+    def reduce_sharded_state(self, state: Dict[str, Any], process_group: Any = None) -> Dict[str, Any]:
+        """The deferred read point for this metric: fold the local shard axis
+        of every field per its declared reduction, then, in an initialised
+        process group, sync across the ranks (one rank standing for one
+        mesh device of the JAX package) through :meth:`functional_sync`:
+        ``dist_sync_fn``, the quantized policy and the reserved count key
+        apply as there."""
+        fields = {k: v for k, v in state.items() if k not in self._RESERVED_STATE_KEYS}
+        folded = fold_sharded_states(fields, self._reductions)
+        if not self.distributed_available_fn():
+            return folded
+        return self.functional_sync(folded, process_group)
+
+    def reshard_state(self, state: Dict[str, Any], to_num_shards: int) -> Dict[str, Any]:
+        """Re-split this metric's stacked sharded state onto ``to_num_shards``
+        shards through ``parallel/reshard.py``: exact for sum/mean/max/min;
+        ``cat``/``None``/callable fields raise ``TopologyMismatchError``."""
+        from torchmetrics_tpu_torch.parallel.reshard import ShardLayout, layout_of, reshard_states
+
+        return reshard_states(state, layout_of(state), ShardLayout(int(to_num_shards)), self._reductions)
 
     def _with_state(self, state: Dict[str, Any], fn: Callable[[], Any]) -> Any:
         """Run ``fn`` with ``state`` swapped in as the live state."""
@@ -1159,7 +1571,9 @@ class Metric:
         """The built-in collectives of :meth:`sync` and :meth:`functional_sync`
         (``parallel/sync.py``); a metric whose list states must keep their
         entries apart overrides it."""
-        return sync_states(state, reductions, group, timeout=self.sync_timeout, device=self._device)
+        return sync_states(
+            state, reductions, group, timeout=self.sync_timeout, device=self._device, qspecs=self._sync_qspecs()
+        )
 
     def merge_states(
         self, a: Dict[str, Any], b: Dict[str, Any], counts: Optional[Tuple[int, int]] = None
@@ -1200,6 +1614,8 @@ class Metric:
         self._state.update(self.init_state())
         self._cache = None
         self._is_synced = False
+        self.__dict__["_reduced"] = True
+        self.__dict__["_pending_shards"] = None
 
     def clone(self) -> "Metric":
         """Deep copy of the metric."""

@@ -26,6 +26,15 @@ drops it), and ONE weightless ``bincount`` launch over ``R * L`` bins, read
 as ``(R, L)``, counts every row. The folded index is int32, so the rows are
 cut into chunks of at most ``ROW_BINS_LIMIT // L`` rows, one launch each.
 Row r of the result is bit-equal to the per-row count of row r.
+
+Large class counts: the C x C count's flat index ``C * t + p`` is int32 and
+its output C^2 int64 bins. Past ``ROW_BINS_LIMIT`` bins (C > 46,340) the
+index would wrap and the output would not fit (52.9 GB at 81,313
+classes), so multiclass stat scores take their per-class counts from ONE
+weightless launch over 3C bins instead (:func:`multiclass_class_stats`):
+hits at ``t``, valid predictions at ``C + p``, valid targets at ``2C + t``;
+tn follows from the number of valid samples. Bit-equal to the C x C
+derivation wherever both fit.
 """
 from __future__ import annotations
 
@@ -129,6 +138,51 @@ def multiclass_confusion_counts_rows(
         return _row_counts(idx, num_classes * num_classes).reshape(rows, num_classes, num_classes)
 
     return kernels.shared_result((preds, target), spec, build)
+
+
+def multiclass_class_stats(
+    preds: torch.Tensor, target: torch.Tensor, num_classes: int, ignore_index: Optional[int]
+) -> Stats:
+    """Per-class (tp, fp, tn, fn) int32 from one weightless ``bincount`` over
+    3C bins, shared like :func:`multiclass_confusion_counts` (every
+    stat-scores metric updated against the same ``(preds, target)`` reads
+    one launch). A sample counts when its target lies in ``[0, C)`` and is
+    not ``ignore_index``; its prediction is clipped into range, as the
+    C x C count clips it."""
+    spec = ("mc_class", int(num_classes), ignore_index)
+    c = int(num_classes)
+
+    def build() -> torch.Tensor:
+        p = preds.argmax(dim=1) if preds.ndim == target.ndim + 1 else preds
+        t = target.reshape(-1)
+        p = torch.clamp(p.reshape(-1).to(torch.int32), 0, c - 1)
+        valid = (t >= 0) & (t < c)
+        if ignore_index is not None:
+            valid = valid & (t != ignore_index)
+        t32 = torch.where(valid, t, torch.zeros_like(t)).to(torch.int32)
+        drop = torch.full_like(p, -1)
+        hits = torch.where(valid & (p == t32), t32, drop)
+        pred_bins = torch.where(valid, p + c, drop)
+        target_bins = torch.where(valid, t32 + 2 * c, drop)
+        return _counts(torch.cat([hits, pred_bins, target_bins]), 3 * c)
+
+    counts = kernels.shared_result((preds, target), spec, build)
+    tp, predicted, actual = counts[:c], counts[c : 2 * c], counts[2 * c :]
+    fp = predicted - tp
+    fn = actual - tp
+    tn = actual.sum() - tp - fp - fn
+    return tuple(s.to(torch.int32) for s in (tp, fp, tn, fn))  # type: ignore[return-value]
+
+
+def multiclass_stat_counts(
+    preds: torch.Tensor, target: torch.Tensor, num_classes: int, ignore_index: Optional[int]
+) -> Stats:
+    """Per-class (tp, fp, tn, fn) int32 in one ``bincount`` launch: from the
+    shared C x C count while its C^2 bins fit ``ROW_BINS_LIMIT``, else from
+    the 3C count of :func:`multiclass_class_stats`."""
+    if int(num_classes) ** 2 > ROW_BINS_LIMIT:
+        return multiclass_class_stats(preds, target, num_classes, ignore_index)
+    return multiclass_stats(multiclass_confusion_counts(preds, target, num_classes, ignore_index))
 
 
 def multiclass_stats(confmat: torch.Tensor) -> Stats:

@@ -61,6 +61,11 @@ Reduction = Union[str, Callable, None]
 #: env var holding the default bound of a cross-process sync (seconds, float)
 SYNC_TIMEOUT_ENV = "TORCHMETRICS_TPU_SYNC_TIMEOUT"
 
+#: env var holding the process-wide default reduction policy ("step" | "deferred")
+REDUCE_POLICY_ENV = "TORCHMETRICS_TPU_REDUCE"
+
+REDUCE_POLICIES = ("step", "deferred")
+
 #: valid ``on_sync_failure`` policies: propagate, keep local-only state,
 #: retry with backoff, or serve the last successfully synced compute value
 #: with staleness metadata (``quarantine.DegradedValue``)
@@ -94,6 +99,18 @@ def default_sync_timeout() -> Optional[float]:
     except ValueError:
         raise ValueError(f"{SYNC_TIMEOUT_ENV} must be a number of seconds, got {raw!r}")
     return value if value > 0 else None
+
+
+def default_reduce_policy() -> str:
+    """The environment-configured reduction policy (``TORCHMETRICS_TPU_REDUCE``):
+    ``"step"`` (default) or ``"deferred"``, which accumulates locally and
+    applies each state's declared reduction once, at ``compute()``/``sync()``."""
+    raw = os.environ.get(REDUCE_POLICY_ENV, "").strip().lower()
+    if not raw:
+        return "step"
+    if raw not in REDUCE_POLICIES:
+        raise ValueError(f"{REDUCE_POLICY_ENV} must be one of {REDUCE_POLICIES}, got {raw!r}")
+    return raw
 
 
 def _all_reduce(tensor: torch.Tensor, op: Any, group: Any) -> Any:
@@ -325,6 +342,7 @@ def sync_states(
     group: Any = None,
     timeout: Optional[float] = None,
     device: Union[str, torch.device, None] = None,
+    qspecs: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Apply the declared reductions to every state field across ``group``
     (None: the world) and return the synced states; the inputs are read,
@@ -336,6 +354,15 @@ def sync_states(
     ``all_gather`` for each that holds data on some rank. ``timeout`` bounds
     each wait. ``device`` holds the sync's own buffers (default: from the
     backend, see :func:`_default_device`).
+
+    ``qspecs`` (``Metric._sync_qspecs()``) maps a field to ``None`` (exact)
+    or ``(bits, block)``: a float ``sum``/``mean``/``max``/``min`` field so
+    marked joins a group keyed by (reduction, dtype, bits, block), which is
+    ravelled once, block-encoded once and reduced through
+    :func:`~torchmetrics_tpu_torch.parallel.quantized.quantized_all_reduce`
+    (two gathers: codes and scales). Integer and bool fields take the exact
+    path whatever their spec. Gathered (``cat``/``None``) fields stay exact:
+    their lengths differ by rank, which the fixed-size codes cannot carry.
 
     Example (a one-process gloo world):
         >>> import tempfile, torch, torch.distributed as dist
@@ -349,7 +376,7 @@ def sync_states(
     """
     attrs = {"timeout_s": timeout} if timeout is not None else {"bounded": False}
     with obs.span(obs.SPAN_SYNC_GATHER, **attrs):
-        return _sync_states(states, reductions, group, timeout, device)
+        return _sync_states(states, reductions, group, timeout, device, qspecs or {})
 
 
 def _sync_states(
@@ -358,16 +385,22 @@ def _sync_states(
     group: Any,
     timeout: Optional[float],
     device: Union[str, torch.device, None],
+    qspecs: Dict[str, Any],
 ) -> Dict[str, Any]:
     device = _default_device(group) if device is None else torch.device(device)
     _check_devices(states, group, device)
     world = dist.get_world_size(group)
     fused: Dict[Tuple[str, torch.dtype], List[Tuple[str, torch.Tensor]]] = {}
+    qfused: Dict[Tuple[Any, ...], List[Tuple[str, torch.Tensor]]] = {}
     gathered: List[Tuple[str, Any, Reduction, Optional[torch.Tensor]]] = []
     for name, value in states.items():
         fx = reductions.get(name)
         if fx in _FUSED_OPS and isinstance(value, torch.Tensor) and value.dtype != torch.bool:
-            fused.setdefault((fx, value.dtype), []).append((name, value))
+            q = qspecs.get(name)
+            if q is not None and value.is_floating_point():
+                qfused.setdefault((fx, value.dtype, int(q[0]), int(q[1])), []).append((name, value))
+            else:
+                fused.setdefault((fx, value.dtype), []).append((name, value))
         else:
             gathered.append((name, value, fx, _payload(value)))
 
@@ -403,13 +436,36 @@ def _sync_states(
             obs.counter_inc("sync.bytes_on_wire", send.numel() * send.element_size())
             gathers.append((name, value, fx, layout, sizes, outs, _all_gather(outs, send, group)))
 
+    quantized: Dict[str, torch.Tensor] = {}
+    if qfused:
+        from torchmetrics_tpu_torch.parallel import quantized as _q
+
+        for (fx, _, bits, block), items in qfused.items():
+            # the quantized analogue of the fused reduce: one ravel, one
+            # encode, one gather of codes and one of scales per group
+            flat = torch.cat([t.reshape(-1) for _, t in items])
+            obs.counter_inc("sync.quantized_reduces")
+            obs.counter_inc("sync.bytes_on_wire", _q.quantized_wire_bytes(flat.numel(), bits, block)["total"])
+            reduced = _q.quantized_all_reduce(flat, fx, bits=bits, block_size=block, group=group, timeout=timeout)
+            for (name, t), part in zip(items, torch.split(reduced, [t.numel() for _, t in items])):
+                quantized[name] = part.reshape(t.shape)
+
     with obs.device_span(obs.SPAN_REDUCE):
-        return _finish(states, reduces, gathers, world, timeout, device)
+        out = _finish(states, reduces, gathers, world, timeout, device, quantized)
+    return out
 
 
-def _finish(states: Dict[str, Any], reduces: list, gathers: list, world: int, timeout: Optional[float], device: torch.device) -> Dict[str, Any]:
+def _finish(
+    states: Dict[str, Any],
+    reduces: list,
+    gathers: list,
+    world: int,
+    timeout: Optional[float],
+    device: torch.device,
+    quantized: Dict[str, torch.Tensor],
+) -> Dict[str, Any]:
     """Wait for the collectives and fold them into the synced states."""
-    out: Dict[str, Any] = {}
+    out: Dict[str, Any] = dict(quantized)
     for fx, items, flat, work in reduces:
         _wait(work, timeout, f"all_reduce of {fx} {items[0][1].dtype}")
         if fx == "mean":
@@ -457,6 +513,108 @@ def gather_all_tensors(result: torch.Tensor, group: Any = None) -> List[torch.Te
     return sync_value([result], None, group, device=result.device)
 
 
+def host_sync_value(
+    value: Any, reduction: Reduction, timeout: Optional[float] = None, group: Any = None
+) -> Any:
+    """Gather one state value from every process and reduce it per
+    ``reduction`` (the JAX package's ``process_allgather`` path; here the
+    same collectives as :func:`sync_value`), bounded by ``timeout``."""
+    return sync_value(value, reduction, group, timeout)
+
+
+# ---------------------------------------------------------------------------
+# Deferred reduction: stacked per-shard state, reduced once at the read point
+# ---------------------------------------------------------------------------
+#
+# Under the deferred policy a state carries a leading shard axis: the JAX
+# package places it on the mesh's data axis (one device a shard, stepped in
+# ``shard_map``). The port has no mesh: the stack lives on this process's
+# device, each shard is updated by plain ``functional_update`` calls on its
+# slice, and one rank of a ``torch.distributed`` world stands for one mesh
+# device. The read point folds the local shard axis per declared reduction
+# and then syncs across the process group, so the fold is exact for
+# sum/max/min and for a mean over equal shard counts.
+
+
+def local_accumulate_spec(states: Any, axis_name: str = "batch") -> Any:
+    """Per tensor leaf, the axis of a stacked state the shard axis occupies
+    (always 0). The JAX package returns a ``PartitionSpec`` tree for
+    ``shard_map``; the port has no mesh and keeps the name and the tree
+    shape (``axis_name`` is accepted and ignored)."""
+    if isinstance(states, dict):
+        return {k: local_accumulate_spec(v, axis_name) for k, v in states.items()}
+    return 0
+
+
+def init_sharded_states(init: Any, num_shards: int) -> Any:
+    """Stack a fresh state tree into the sharded layout: each tensor leaf
+    gains a leading shard axis of ``num_shards`` copies of its default (a
+    contiguous tensor; nested dicts recurse)."""
+    if isinstance(init, dict):
+        return {k: init_sharded_states(v, num_shards) for k, v in init.items()}
+    if isinstance(init, torch.Tensor):
+        return init.unsqueeze(0).expand((int(num_shards),) + tuple(init.shape)).contiguous()
+    return init
+
+
+def unshard_local_state(state: Any) -> Any:
+    """Drop a leading shard axis of size 1 (one shard's slice of a stack),
+    yielding the plain state ``functional_update`` expects."""
+    if isinstance(state, dict):
+        return {k: unshard_local_state(v) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        if state.ndim < 1 or state.shape[0] != 1:
+            raise ValueError(f"unshard_local_state expects a leading shard axis of size 1, got shape {tuple(state.shape)}")
+        return state.squeeze(0)
+    return state
+
+
+def reshard_local_state(state: Any) -> Any:
+    """Re-add the leading shard axis of size 1 after a local update."""
+    if isinstance(state, dict):
+        return {k: reshard_local_state(v) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state.unsqueeze(0)
+    return state
+
+
+def fold_stacked(value: torch.Tensor, reduction: Reduction) -> torch.Tensor:
+    """Collapse the leading shard axis of one stacked field per its declared
+    reduction, keeping the field's dtype for ``sum`` (``torch.sum`` would
+    widen int32 to int64 where the JAX package keeps it); the other
+    families as :func:`reduce_stacked`."""
+    if reduction == "sum" and value.dtype != torch.bool:
+        return value.sum(0, dtype=value.dtype)
+    return reduce_stacked(value, reduction)
+
+
+def fold_sharded_states(states: Dict[str, Any], reductions: Dict[str, Reduction]) -> Dict[str, Any]:
+    """Out-of-world fold of a stacked sharded state (leading axis = shards):
+    collapse the shard axis of every field per its declared reduction. What
+    ``Metric.load_state(..., sharded=True)`` folds on demand."""
+    with obs.device_span(obs.SPAN_REDUCE):
+        return {k: fold_stacked(v, reductions.get(k)) if isinstance(v, torch.Tensor) else v for k, v in states.items()}
+
+
+def reduce_sharded_states(
+    states: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    group: Any = None,
+    qspecs: Optional[Dict[str, Any]] = None,
+    timeout: Optional[float] = None,
+    device: Union[str, torch.device, None] = None,
+) -> Dict[str, Any]:
+    """The deferred read point: fold the local shard axis of every field,
+    then, in an initialised process group, apply the declared reductions
+    across ranks through ONE :func:`sync_states` (``qspecs`` routes marked
+    float fields through the quantized reduce). Without a process group the
+    fold alone is the result."""
+    folded = fold_sharded_states(states, reductions)
+    if not (dist.is_available() and dist.is_initialized()):
+        return folded
+    return sync_states(folded, reductions, group, timeout=timeout, device=device, qspecs=qspecs)
+
+
 # ---------------------------------------------------------------------------
 # Tensor-reduction helpers with the reference's API (utilities/distributed.py)
 # ---------------------------------------------------------------------------
@@ -492,16 +650,27 @@ def class_reduce(
 
 
 __all__: Sequence[str] = [
+    "REDUCE_POLICIES",
+    "REDUCE_POLICY_ENV",
     "SYNC_FAILURE_POLICIES",
     "SYNC_TIMEOUT_ENV",
     "class_reduce",
+    "default_reduce_policy",
     "default_sync_timeout",
+    "fold_sharded_states",
+    "fold_stacked",
     "fold_window_slots",
     "gather_all_tensors",
+    "host_sync_value",
+    "init_sharded_states",
     "live_window_mask",
+    "local_accumulate_spec",
     "reduce",
+    "reduce_sharded_states",
     "reduce_stacked",
     "reduction_identity",
+    "reshard_local_state",
     "sync_states",
     "sync_value",
+    "unshard_local_state",
 ]

@@ -81,15 +81,15 @@ class RetrievalMetric(Metric, ABC):
             raise ValueError(f"Argument `capacity` expected to be a positive integer, got {capacity}")
         self.capacity = capacity
         if capacity is not None:
-            self.add_state("indexes_buffer", torch.zeros(capacity, dtype=torch.int32), dist_reduce_fx="cat")
-            self.add_state("preds_buffer", torch.zeros(capacity, dtype=torch.float32), dist_reduce_fx="cat")
-            self.add_state("target_buffer", torch.zeros(capacity, dtype=torch.float32), dist_reduce_fx="cat")
-            self.add_state("valid_buffer", torch.zeros(capacity, dtype=torch.bool), dist_reduce_fx="cat")
+            self.add_state("indexes_buffer", torch.zeros(capacity, dtype=torch.int32), dist_reduce_fx="cat", state_sharding="replicated")
+            self.add_state("preds_buffer", torch.zeros(capacity, dtype=torch.float32), dist_reduce_fx="cat", state_sharding="replicated")
+            self.add_state("target_buffer", torch.zeros(capacity, dtype=torch.float32), dist_reduce_fx="cat", state_sharding="replicated")
+            self.add_state("valid_buffer", torch.zeros(capacity, dtype=torch.bool), dist_reduce_fx="cat", state_sharding="replicated")
             self.add_state("sample_count", torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
         else:
-            self.add_state("indexes", [], dist_reduce_fx=None)
-            self.add_state("preds", [], dist_reduce_fx=None)
-            self.add_state("target", [], dist_reduce_fx=None)
+            self.add_state("indexes", [], dist_reduce_fx=None, state_sharding="replicated")
+            self.add_state("preds", [], dist_reduce_fx=None, state_sharding="replicated")
+            self.add_state("target", [], dist_reduce_fx=None, state_sharding="replicated")
 
     def update(self, preds: torch.Tensor, target: torch.Tensor, indexes: torch.Tensor) -> None:
         if indexes is None:

@@ -3,6 +3,7 @@ from torchmetrics_tpu_torch.utils.data import dim_zero_cat, dim_zero_max, dim_ze
 from torchmetrics_tpu_torch.utils.enums import AverageMethod, ClassificationTask
 from torchmetrics_tpu_torch.utils.exceptions import (
     CheckpointCorruptionError,
+    ShardLossError,
     StateCorruptionError,
     StateDivergenceError,
     SyncTimeoutError,
@@ -15,6 +16,7 @@ __all__ = [
     "AverageMethod",
     "CheckpointCorruptionError",
     "ClassificationTask",
+    "ShardLossError",
     "StateCorruptionError",
     "StateDivergenceError",
     "SyncTimeoutError",

@@ -82,6 +82,20 @@ class StateDivergenceError(StateCorruptionError):
         self.observed = observed
 
 
+class ShardLossError(TorchMetricsUserError):
+    """A shard of deferred (locally accumulated) state is gone.
+
+    The deferred layout keeps unreduced state only in its shards; losing one
+    loses its accumulated counts. The bounded-lag host shadow
+    (``parallel/reshard.py:ShardShadow``) is what a caller serves or
+    reinstalls instead. Carries the (believed) lost ``shard`` index.
+    """
+
+    def __init__(self, message: str, shard=None) -> None:
+        super().__init__(message)
+        self.shard = shard
+
+
 class LaneFaultError(TorchMetricsUserError):
     """A fault attributed to ONE session's lane in a laned dispatch.
 

@@ -38,8 +38,14 @@ keeps a monotonic window clock:
 Composition: ``LanedMetric(WindowedMetric(m))`` stacks the window axis under
 the lane axis, state ``(lanes, W, *field)``, and one laned round updates
 each row's open slot (``lanes.py``); ``LanedMetric.advance_windows()``
-rotates every lane's ring at once. The deferred (sharded) composition waits
-for the port's deferred reduction layouts.
+rotates every lane's ring at once. Under the deferred layout the ring stacks
+inside the shard: ``init_sharded_state(S)`` gives ``(S, W, *field)`` (and
+``(S, lanes, W, *field)`` laned, ``lanes.DeferredLaneStep``), every shard
+keeps its own copy of the clock, and the fold takes the clock by ``max``
+(the shards agree, so it is exact) and each field by its reduction. A
+sharded windowed export restores through ``load_state``, which folds it.
+The wrapper syncs with the inner metric's ``sync_precision``,
+``sync_quant_bits`` and ``sync_quant_block`` unless told otherwise.
 
 Metrics holding list (``cat``) accumulators, ``None`` or callable
 reductions have no identity-masked fold: they run an exact eager
@@ -212,6 +218,10 @@ class WindowedMetric(Metric):
                 " a windowed metric lives on its inner metric's device"
             )
         kwargs["device"] = inner.device
+        # the wrapper's collectives ship the inner states stacked on a ring
+        # axis: inherit the inner sync precision unless overridden
+        for knob in ("sync_precision", "sync_quant_bits", "sync_quant_block"):
+            kwargs.setdefault(knob, inner.__dict__.get(knob))
         super().__init__(**kwargs)
         inner = inner.clone()
         self.__dict__["_inner"] = inner
@@ -222,7 +232,11 @@ class WindowedMetric(Metric):
         if compiled:
             for name, default in inner._defaults.items():
                 self.add_state(
-                    name, self._stacked_default(default, window), dist_reduce_fx=inner._reductions[name], dtype=default.dtype
+                    name,
+                    self._stacked_default(default, window),
+                    dist_reduce_fx=inner._reductions[name],
+                    dtype=default.dtype,
+                    sync_precision=inner._sync_precisions.get(name),
                 )
             self.add_state("window_head", torch.zeros((), dtype=torch.int32), dist_reduce_fx="max")
         else:
@@ -498,17 +512,18 @@ class WindowedMetric(Metric):
     ) -> None:
         """Install a windowed export: the meta blob re-anchors the clock and
         is checked against this instance's ring size (a W=64 snapshot never
-        installs into a W=8 ring). A sharded (deferred) export is refused:
-        that layout waits for the port's deferred reduction layouts."""
+        installs into a W=8 ring). A sharded (deferred) export, ``(S, W,
+        *field)`` with one clock a shard, is validated per shard and folded
+        at once (the clock by ``max``)."""
         if not isinstance(state, dict):
             raise obs.flighted(
                 StateCorruptionError(f"{type(self).__name__}: state must be a dict, got {type(state).__name__}"),
                 domain="windows",
             )
-        if sharded or state.get("_sharded_shards") is not None:
-            raise TorchMetricsUserError(
-                "a sharded windowed state needs the port's deferred reduction layouts, which it does not have yet"
-            )
+        if sharded is None:
+            sharded = state.get(self._STATE_SHARDS_KEY) is not None
+        if sharded and not self._compiled_windows:
+            raise TorchMetricsUserError("a sharded windowed state needs a compiled (fixed-shape) ring")
         state = dict(state)
         blob = state.pop(self._WINDOW_META_KEY, None)
         meta = _decode_json_blob(blob, f"{type(self).__name__} window meta") if blob is not None else None
@@ -521,7 +536,8 @@ class WindowedMetric(Metric):
                 domain="windows",
             )
         if self._compiled_windows:
-            super().load_state(state, update_count=update_count, validate=validate, check_finite=check_finite)
+            super().load_state(state, update_count=update_count, validate=validate, check_finite=check_finite, sharded=bool(sharded))
+            self._fold_pending()
         else:
             self._load_state_eager(state, validate=validate, check_finite=check_finite)
         if meta is not None:
