@@ -177,6 +177,17 @@ evaluation workloads:
   with 8 shards, unwindowed and at W = 4, bit-equal to plain counts; and,
   in the sync phase, ``sync_precision="quantized"`` at 8 and 16 bits on
   the float families within ``reduce_error_bound``.
+- state integrity and the fleet: the ``fingerprint`` kernel (XOR and
+  wrapping sum of a state tree's words, one launch a tree) against its
+  plain body on every state dtype, a tree, per-shard rows and a leaf of
+  2**31 + 3 words; the ImageNet collection with every member audited
+  (clean, and a flipped bit caught under ``"restore"``, ``"degraded"`` and
+  ``"raise"``); GLDv2's 26.45 GB class-sharded state audited over a second
+  pass of 32 batches, its fold against the 7.90 ms bytes bound; and a
+  federated evaluation of FEMNIST's writers as 64 sites under a two-level
+  aggregator tree, with dropped, duplicated, delayed, partitioned and
+  corrupted deltas and an aggregator's failover, converging bit for bit to
+  the fault-free fold, then the same traffic quantized at 8 bits.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -216,7 +227,7 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("bincount", "binned_curve", "retrieval_topk_stats", "ssim_windows", "fid_sqrtm")
+KERNELS = ("bincount", "binned_curve", "retrieval_topk_stats", "ssim_windows", "fid_sqrtm", "fingerprint")
 #: ImageNet-1k validation (torchvision references/classification eval):
 #: 50,000 images, 1,000 classes, eval batch 1024
 IMAGENET = {"num_classes": 1000, "batches": [1024] * 48 + [848]}
@@ -8378,9 +8389,11 @@ def phase_gldv2_clean_class_sharded(dev) -> dict:
         "compute_ms": compute_ms, "state_bytes": state_bytes, "peak_mem_above_base_bytes": peak,
         "reckoned": reckoned, "abs_err": errors, "values": {k: float(result[k]) for k in want},
     }
-    del coll, cm, result, dense, pad
-    torch.cuda.empty_cache()
-    return _emit(out)
+    del result, dense, pad
+    _emit(out)
+    # the finished collection, for gldv2_clean_audited's second pass
+    out["_reuse"] = {"coll": coll, "target": target, "pred": pred}
+    return out
 
 
 def _deferred_update(coll, states: dict, shard: int, batch) -> dict:
@@ -8753,6 +8766,786 @@ def _quantized_row(name: str, metric, bits: int, expect_quantized: bool = True) 
 
 
 
+# ------------------------------------------------ state integrity and the fleet
+
+
+#: the fingerprint kernel's checks: every dtype the states use at sizes that
+#: are not a multiple of 4 words (and an empty leaf), a per-shard fold of an
+#: (8, n) stack, and one leaf past 2**31 words (the kernel indexes in int64)
+FINGERPRINT = {
+    "dtypes": ("bool", "int8", "uint8", "int16", "float16", "bfloat16", "int32", "float32", "int64", "float64"),
+    "elements": 1_000_003, "stack": (8, 1_000_001), "large_words": 2**31 + 3, "iters": 20,
+}
+#: the audited ImageNet runs: the bit flip lands on the confusion matrix
+#: after this batch, and the timed audits, folds and captures
+AUDIT = {"flip_after": 25, "audit_calls": 20, "fold_calls": 50, "capture_calls": 100}
+#: GLDv2's audited second evaluation pass: the first 32 batches again, a
+#: capture every 8 updates; batch temporaries allowed above the two stacks
+GLDV2_AUDIT = {"batches": 32, "every": 8, "fold_iters": 5, "temporaries_bytes": 1 << 30}
+#: the FEMNIST fleet: 64 sites (writer w feeds leaf w mod 64) under a
+#: two-level tree of fanout 8, each leaf shipping every 8 of its batches;
+#: the ledgers' reorder watermark; the quantized pass's bits and block
+FLEET = {"leaves": 64, "fanout": 8, "ship_every": 8, "watermark": 8, "bits": 8, "block": 256}
+
+
+def _fp_leaf(dtype: str, n: int, dev, seed: int = 0):
+    """A leaf of ``n`` elements of ``dtype`` from the seed, on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30_000 + seed)
+    if dtype == "bool":
+        return torch.rand(n, generator=g, device=dev) < 0.5
+    dt = getattr(torch, dtype)
+    if dt.is_floating_point:
+        return (torch.randn(n, generator=g, device=dev) * 100).to(dt)
+    info = torch.iinfo(dt)
+    return torch.randint(info.min, info.max, (n,), generator=g, device=dev, dtype=torch.int64).to(dt)
+
+
+def _fp_launch_ms(segments, iters: int) -> float:
+    """Device time of the launch alone (the memset and the fold), with the
+    segment table built and copied once, outside the timing."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import fingerprint, native
+
+    device = segments[0].get_device()
+    rows = [(s.data_ptr(), s.numel() * s.element_size() // fingerprint._width(s), fingerprint._width(s)) for s in segments]
+    table = torch.tensor(rows, dtype=torch.int64, device=device)
+    out = torch.empty((len(segments), 2), dtype=torch.int32, device=device)
+    max_units = max(r[1] for r in rows)
+    entry = fingerprint._entry()
+    stream = native.current_stream(device)
+
+    def launch() -> None:
+        _check(entry(device, None, table.data_ptr(), len(segments), max_units, out.data_ptr(), stream) == 0,
+               "fingerprint: the raw launch failed")
+
+    return _time_ms(launch, iters)
+
+
+def _fp_row(name: str, segments, iters: int, call=None, host_calls: int = 1000) -> dict:
+    """The kernel against its plain body on ``segments`` (bit for bit), with
+    its time, host time, launch-alone device time and bound. ``call`` is the
+    timed entry (default: the wrapper on the segments)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    call = call or (lambda: fingerprint._fingerprint_cuda(*segments))
+    got = fingerprint._fingerprint_cuda(*segments)
+    ref = fingerprint._fingerprint_reference(*segments)
+    torch.cuda.synchronize()
+    _check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+           f"fingerprint {name}: the kernel's words differ from the plain body's")
+    nbytes = sum(s.numel() * s.element_size() for s in segments) + 8 * len(segments)
+    words = sum(s.numel() * s.element_size() // fingerprint._width(s) for s in segments)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * words / FP32_OPS_PER_S * 1e3  # one XOR and one add a word
+    return {
+        "shape": name, "segments": len(segments), "bytes": nbytes, "words": words,
+        "max_abs_err": 0, "tolerance": "exact (every word)",
+        "ms": _time_ms(call, iters),
+        "device_ms": _fp_launch_ms(segments, iters),
+        "host_ms": _host_ms(call, host_calls),
+        "plain_ms": _time_ms(lambda: fingerprint._fingerprint_reference(*segments), max(2, iters // 5)),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # no PyTorch call folds words with XOR (bitwise_xor is elementwise only)
+        "library_ms": None,
+    }
+
+
+def phase_fingerprint_kernels(dev) -> list:
+    """``fingerprint`` against its plain body, bit for bit: every state
+    dtype at 1,000,003 elements (no multiple of 4 words) and an empty leaf;
+    the ImageNet collection's states folded as a tree in ONE launch (and
+    nothing else in it); a per-shard fold of an (8, 1,000,001) stack; a leaf
+    of 2**31 + 3 int32 words (8.6 GB)."""
+    import torch
+
+    from torchmetrics_tpu_torch import integrity
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    spec, iters = FINGERPRINT, FINGERPRINT["iters"]
+    rows = []
+    for i, dtype in enumerate(spec["dtypes"]):
+        leaf = _fp_leaf(dtype, spec["elements"], dev, seed=i)
+        rows.append(_fp_row(f"{dtype}_{spec['elements']}", [leaf, leaf[:0]], iters))
+        del leaf
+    coll = _imagenet(dev)["collection"]()
+    for i in range(2):
+        coll.update(*_imagenet_batch(i, dev))
+    tree = {name: m._copy_state_dict() for name, m in coll.items(keep_base=True)}
+    leaves = [leaf.contiguous() for _, leaf in integrity._array_leaves(tree)]
+    before = fingerprint.launches
+    fps = integrity.device_fingerprints(tree)
+    _check(fingerprint.launches - before == 1, f"fingerprint: the ImageNet tree took {fingerprint.launches - before} launches")
+    packed = torch.stack([fps[k] for k, _ in integrity._array_leaves(tree)]).view(torch.int32)
+    ref = fingerprint._fingerprint_reference(*leaves).view(torch.int32)
+    _check(torch.equal(packed, ref), "fingerprint: the ImageNet tree's words differ from the plain body's")
+    row = _fp_row("imagenet_collection_tree", leaves, AUDIT["fold_calls"], call=lambda: integrity.device_fingerprints(tree))
+    row["leaves"] = len(leaves)
+    rows.append(row)
+    stack = _fp_leaf("int32", spec["stack"][0] * spec["stack"][1], dev, seed=20).reshape(spec["stack"])
+    got = integrity.device_shard_fingerprints({"s": stack})["['s']"]
+    want = fingerprint._fingerprint_reference(*stack.unbind(0))
+    _check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "fingerprint: the per-shard fold differs")
+    rows.append(_fp_row("int32_stack_8x1000001_per_shard", list(stack.unbind(0)), iters,
+                        call=lambda: integrity.device_shard_fingerprints({"s": stack})))
+    del stack
+    large = _fp_leaf("int32", spec["large_words"], dev, seed=21)
+    rows.append(_fp_row(f"int32_{spec['large_words']}", [large], 5, host_calls=20))
+    del large, coll, tree, leaves
+    torch.cuda.empty_cache()
+    _emit({"phase": "kernels", "kernel": "fingerprint", "checks": rows})
+    return rows
+
+
+def _member_stats(coll) -> dict:
+    """The auditors' stats summed over a collection's members."""
+    keys = ("captures", "audits", "stale_baselines", "divergences", "restores", "degraded_serves")
+    out = dict.fromkeys(keys, 0)
+    for _, m in coll.items(keep_base=True):
+        auditor = m.integrity
+        if auditor is not None:
+            for k in keys:
+                out[k] += auditor.stats[k]
+    return out
+
+
+def phase_imagenet_val_audited(dev) -> dict:
+    """ImageNet-1k val's collection with every member audited
+    (``attach_integrity(every_n_updates=1, snapshots=True)``), in four runs
+    beside an unaudited one: clean; ``"restore"``, ``"degraded"`` and
+    ``"raise"`` with ``flip_state_bits`` on the confusion matrix after batch
+    25 and a read after it. Checks: the clean run's values and states
+    bit-equal to the unaudited run's; the restore run's final values
+    bit-equal to the clean run's; the degraded read a ``DegradedValue``
+    with the last-good value; ``"raise"`` raising ``StateDivergenceError``
+    from ``compute`` and from ``compute_async``'s worker, flighted in the
+    ``integrity`` domain; ``bincount`` launches as the unaudited run's;
+    ``fingerprint`` launches one a capture plus one an audit that folds.
+    Printed: µs an update with and without the auditor (and with it under
+    ``snapshots=False``, a measurement run outside the launch counts), ms
+    an audit, device µs a fold of the collection's tree, and each member's
+    host µs a ``capture()`` with and without its host copy."""
+    import torch
+
+    from torchmetrics_tpu_torch import integrity, obs
+    from torchmetrics_tpu_torch.ops import bincount, fingerprint
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+    from torchmetrics_tpu_torch.quarantine import DegradedValue
+    from torchmetrics_tpu_torch.testing import faults
+    from torchmetrics_tpu_torch.utils.exceptions import StateDivergenceError
+
+    spec = _imagenet_indexed(dev)
+    batches = list(spec["batches"]())
+    n, flip_at = len(batches), AUDIT["flip_after"]
+
+    def run(policy, stop: int = None, at: int = None, snapshots: bool = True):
+        """Update through batch ``stop`` (all), reading at ``at``; the
+        collection, loop µs an update (no sync inside the loop) and the
+        read at ``at``."""
+        coll = spec["collection"]()
+        if policy is not None:
+            for _, m in coll.items(keep_base=True):
+                m.attach_integrity(every_n_updates=1, on_divergence=policy, snapshots=snapshots)
+        loop_us, mid = [], None
+        _sync(dev)
+        for i, batch in enumerate(batches[:stop], 1):
+            t0 = time.perf_counter()
+            coll.update(*batch)
+            loop_us.append((time.perf_counter() - t0) * 1e6)
+            if i == at:
+                mid = coll.compute()
+        _sync(dev)
+        return coll, loop_us, mid
+
+    torch.cuda.synchronize()
+    bincount.launches = 0
+    plain, plain_us, plain_at = run(None, at=flip_at)
+    plain_values, plain_state = plain.compute(), _fields({k: m.state() for k, m in plain.items(keep_base=True)})
+    plain_launches = bincount.launches
+    _check(plain_launches == n, f"imagenet_val_audited: {plain_launches} bincount launches unaudited for {n} updates")
+
+    bincount.launches, fp0 = 0, fingerprint.launches
+    clean, clean_us, _ = run("raise")
+    t0 = time.perf_counter()
+    _check(drain_pipeline(60.0), "imagenet_val_audited: the read pipeline did not drain")
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    clean_values = clean.compute()
+    _same_result("imagenet_val_audited clean", clean_values, plain_values)
+    _check(_bit_equal(_fields({k: m.state() for k, m in clean.items(keep_base=True)}), plain_state),
+           "imagenet_val_audited: the audited states differ from the unaudited ones")
+    _check(bincount.launches == plain_launches, f"imagenet_val_audited: {bincount.launches} bincount launches audited")
+    stats = _member_stats(clean)
+    folds = stats["captures"] + stats["audits"] - stats["stale_baselines"]
+    _check(fingerprint.launches - fp0 == folds,
+           f"imagenet_val_audited: {fingerprint.launches - fp0} fingerprint launches for {stats}")
+    _check(stats["divergences"] == 0, f"imagenet_val_audited: the clean run diverged: {stats}")
+    auditor = clean["confmat"].integrity
+    audit_ms = []
+    for _ in range(AUDIT["audit_calls"]):
+        t0 = time.perf_counter()
+        _check(auditor.audit().ok, "imagenet_val_audited: a clean audit failed")
+        audit_ms.append((time.perf_counter() - t0) * 1e3)
+    # the explicit audits are a user's entry point (main path); the timed
+    # folds below are a measurement and stay out of the count
+    launches = {"bincount": 2 * n, "fingerprint": fingerprint.launches - fp0}
+    tree = {name: m._copy_state_dict() for name, m in clean.items(keep_base=True)}
+    fold_us = _time_ms(lambda: integrity.device_fingerprints(tree), AUDIT["fold_calls"]) * 1e3
+    # what a capture costs the step loop: an audited run without host
+    # copies, and each member's capture() timed back to back with and
+    # without its host copy (measurements: outside the launch counts)
+    _, nosnap_us, _ = run("raise", snapshots=False)
+    _check(drain_pipeline(60.0), "imagenet_val_audited: the read pipeline did not drain")
+    capture_us = {}
+    for name, m in clean.items(keep_base=True):
+        for snapshots in (True, False):
+            m.integrity.snapshots = snapshots
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(AUDIT["capture_calls"]):
+                m.integrity.capture()
+            capture_us[f"{name}_{'with' if snapshots else 'without'}_host_copy"] = (
+                (time.perf_counter() - t0) / AUDIT["capture_calls"] * 1e6)
+            _sync(dev)
+    _check(drain_pipeline(60.0), "imagenet_val_audited: the read pipeline did not drain")
+
+    # "restore": the flip is caught at the next read and the verified host
+    # copy reinstalled; the run goes on and ends bit-equal to the clean one
+    bincount.launches, fp0 = 0, fingerprint.launches
+    coll, _, _ = run("restore", stop=flip_at)
+    drain_pipeline(60.0)
+    info = faults.flip_state_bits(coll["confmat"], field="confmat", seed=SEED)
+    mid = coll.compute()
+    _same_result("imagenet_val_audited restore at the read", mid, plain_at)
+    for batch in batches[flip_at:]:
+        coll.update(*batch)
+    drain_pipeline(60.0)
+    _same_result("imagenet_val_audited restore", coll.compute(), clean_values)
+    restore_stats = _member_stats(coll)
+    _check(restore_stats["restores"] == 1, f"imagenet_val_audited: restore stats {restore_stats}")
+    launches["bincount"] += bincount.launches
+    launches["fingerprint"] += fingerprint.launches - fp0
+
+    # "degraded": the read after the flip serves the last-good value
+    bincount.launches, fp0 = 0, fingerprint.launches
+    coll, _, _ = run("degraded", stop=flip_at, at=flip_at)
+    drain_pipeline(60.0)
+    faults.flip_state_bits(coll["confmat"], field="confmat", seed=SEED)
+    got = coll.compute()
+    served = got["confmat"]
+    _check(isinstance(served, DegradedValue), f"imagenet_val_audited: the degraded read served {type(served).__name__}")
+    _check(torch.equal(served.value, plain_at["confmat"]) and served.updates_behind == 0,
+           "imagenet_val_audited: the degraded read is not the last-good value")
+    _same_result("imagenet_val_audited degraded (other members)", _values(got), _values(plain_at))
+    launches["bincount"] += bincount.launches
+    launches["fingerprint"] += fingerprint.launches - fp0
+
+    # "raise": from compute, and from compute_async's worker
+    bincount.launches, fp0 = 0, fingerprint.launches
+    coll, _, _ = run("raise", stop=flip_at, at=flip_at)
+    drain_pipeline(60.0)
+    faults.flip_state_bits(coll["confmat"], field="confmat", seed=SEED)
+    raised = {}
+    for how, read in (("compute", lambda: coll.compute()), ("compute_async", lambda: coll.compute_async().result(120.0))):
+        try:
+            read()
+            raised[how] = None
+        except StateDivergenceError as err:
+            raised[how] = {"surface": err.surface, "field": err.field, "shard": err.shard}
+    _check(all(v is not None and v["field"] == "['confmat']" for v in raised.values()),
+           f"imagenet_val_audited: the raise run raised {raised}")
+    crumbs = [c for c in obs.dump_diagnostics()["breadcrumbs"]
+              if c.get("kind") == "state_divergence_error" and c.get("data", {}).get("owner") == "MulticlassConfusionMatrix"]
+    _check(len(crumbs) >= 2, f"imagenet_val_audited: {len(crumbs)} flighted divergences in the integrity domain")
+    launches["bincount"] += bincount.launches
+    launches["fingerprint"] += fingerprint.launches - fp0
+    drain_pipeline(60.0)
+
+    def p50(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    return _emit({
+        "phase": "imagenet_val_audited", "updates": n, "flip_after": flip_at, "flipped_bits": info["bits"],
+        "update_us": {"unaudited_p50": p50(plain_us), "audited_p50": p50(clean_us),
+                      "unaudited_mean": sum(plain_us) / n, "audited_mean": sum(clean_us) / n,
+                      "ratio_p50": p50(clean_us) / p50(plain_us),
+                      "audited_no_snapshots_p50": p50(nosnap_us),
+                      "ratio_no_snapshots_p50": p50(nosnap_us) / p50(plain_us)},
+        "capture_host_us": capture_us,
+        "drain_after_loop_ms": drain_ms, "audit_ms_p50": p50(audit_ms), "fold_device_us": fold_us,
+        "clean_stats": stats, "restore_stats": restore_stats, "raised": raised,
+        "bincount_launches": launches["bincount"], "fingerprint_launches": launches["fingerprint"],
+        "bit_equal": True,
+    })
+
+
+def phase_gldv2_clean_audited(dev, reuse: dict) -> dict:
+    """GLDv2-clean's finished class-sharded collection (from
+    ``gldv2_clean_class_sharded``) with the confusion matrix and macro F1
+    audited (``attach_integrity(every_n_updates=8, snapshots=False,
+    on_divergence="degraded")``), scoring its first 32 batches again as a
+    second evaluation pass. Checks: the kernel's fold of the 26.45 GB stack
+    equals the plain body's, whole and shard by shard; the total is the
+    images plus the 32 batches; after ``flip_state_bits`` on both, F1's next
+    read is a ``DegradedValue`` of its pre-flip value, and the confusion
+    matrix's raises ``StateDivergenceError`` naming ``['confmat']``: its
+    value is a view of the stack the flip reached, and without snapshots
+    there is no copy to serve; the per-shard map names the shard hit; the
+    peak above the base without the state stays within two stacks plus the
+    batch temporaries (neither a capture nor a last-good value holds a third
+    stack). Printed: the fold's ms against its bound, update ms with and
+    without a capture, peak memory."""
+    import torch
+
+    from torchmetrics_tpu_torch import integrity
+    from torchmetrics_tpu_torch.ops import bincount, fingerprint
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+    from torchmetrics_tpu_torch.quarantine import DegradedValue
+    from torchmetrics_tpu_torch.testing import faults
+    from torchmetrics_tpu_torch.utils.exceptions import StateDivergenceError
+
+    spec, step = GLDV2_AUDIT, GLDV2["batch"]
+    coll, target, pred = reuse["coll"], reuse["target"], reuse["pred"]
+    cm, f1 = coll["confmat"], coll["f1"]
+    state_bytes = cm.confmat.numel() * cm.confmat.element_size()
+    auditor, f1_auditor = (
+        m.attach_integrity(every_n_updates=spec["every"], snapshots=False, on_divergence="degraded") for m in (cm, f1)
+    )
+    _sync(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev) - state_bytes  # the base before the state existed
+    torch.cuda.reset_peak_memory_stats(dev)
+    bincount.launches, fp0 = 0, fingerprint.launches
+    with_capture, without = [], []
+    for b in range(spec["batches"]):
+        lo = b * step
+        _sync(dev)
+        t0 = time.perf_counter()
+        coll.update(pred[lo:lo + step], target[lo:lo + step])
+        _sync(dev)
+        (with_capture if (b + 1) % spec["every"] == 0 else without).append((time.perf_counter() - t0) * 1e3)
+    _check(drain_pipeline(120.0), "gldv2_clean_audited: the read pipeline did not drain")
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    launches = bincount.launches
+    captures = fingerprint.launches - fp0
+    _check(launches == spec["batches"], f"gldv2_clean_audited: {launches} bincount launches for {spec['batches']} updates")
+    _check(captures == 2 * (spec["batches"] // spec["every"]) == auditor.stats["captures"] + f1_auditor.stats["captures"],
+           f"gldv2_clean_audited: {captures} fingerprint launches for"
+           f" {auditor.stats['captures']} + {f1_auditor.stats['captures']} captures")
+    limit = 2 * state_bytes + spec["temporaries_bytes"]
+    _check(peak <= limit, f"gldv2_clean_audited: peak {peak} B above the base, beyond two stacks and temporaries ({limit})")
+    fp_read = fingerprint.launches
+    result = coll.compute()
+    main_launches = captures + fingerprint.launches - fp_read  # the read-point audit of the compute
+    total = int(result["confmat"].sum())
+    want_total = GLDV2["images"] + spec["batches"] * step
+    _check(total == want_total, f"gldv2_clean_audited: the confusion total {total} is not {want_total}")
+    stack = cm.confmat
+    fold_ms = _time_ms(lambda: integrity.device_fingerprints({"confmat": stack}), spec["fold_iters"])
+    shard_ms = _time_ms(lambda: integrity.device_shard_fingerprints({"confmat": stack}), spec["fold_iters"])
+    whole = integrity.device_fingerprints({"confmat": stack})["['confmat']"]
+    per_shard = integrity.device_shard_fingerprints({"confmat": stack})["['confmat']"]
+    t0 = time.perf_counter()
+    plain_whole = fingerprint._fingerprint_reference(stack)[0]
+    plain_shards = fingerprint._fingerprint_reference(*stack.unbind(0))
+    _sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _check(torch.equal(whole.view(torch.int32), plain_whole.view(torch.int32)),
+           "gldv2_clean_audited: the stack's fingerprint differs from the plain body's")
+    _check(torch.equal(per_shard.view(torch.int32), plain_shards.view(torch.int32)),
+           "gldv2_clean_audited: a shard's fingerprint differs from the plain body's")
+    f1_clean = result["f1"].clone()
+    info = faults.flip_state_bits(cm, field="confmat", seed=SEED)
+    f1_info = faults.flip_state_bits(f1, seed=SEED)
+    fp_read = fingerprint.launches
+    try:
+        read = cm.compute()
+    except StateDivergenceError as err:
+        read = err
+    f1_read = f1.compute()
+    main_launches += fingerprint.launches - fp_read
+    _check(isinstance(read, StateDivergenceError) and read.field == "['confmat']" and read.surface == "chain",
+           f"gldv2_clean_audited: the confusion matrix's read after the flip gave {read!r}")
+    _check(isinstance(f1_read, DegradedValue) and torch.equal(f1_read.value, f1_clean) and f1_read.updates_behind == 0,
+           f"gldv2_clean_audited: F1's read after the flip of {f1_info['field']} is not its last-good value")
+    last = auditor.stats["last_divergence"]
+    _check(last is not None and last["field"] == "['confmat']" and last["surface"] == "chain",
+           f"gldv2_clean_audited: the divergence is {last}")
+    flipped = integrity.device_shard_fingerprints({"confmat": stack})
+    _, found = integrity._compare_fps("chain", {"['confmat']": per_shard}, flipped)
+    shard_bytes = stack[0].numel() * stack.element_size()
+    hit = info["bits"][0] // 8 // shard_bytes
+    _check(len(found) == 1 and found[0].shard == hit, f"gldv2_clean_audited: the per-shard map named {found}, not shard {hit}")
+    auditor.detach()
+    f1_auditor.detach()
+    bytes_ms = (state_bytes + 8) / HBM_BYTES_PER_S * 1e3
+    return _emit({
+        "phase": "gldv2_clean_audited", "batches": spec["batches"], "captures": captures, "state_bytes": state_bytes,
+        "fold_ms": fold_ms, "fold_per_shard_ms": shard_ms, "fold_bound_ms": bytes_ms, "fold_plain_ms": plain_ms,
+        "fold_tb_per_s": state_bytes / fold_ms / 1e9,
+        "update_ms": {"with_capture_p50": sorted(with_capture)[len(with_capture) // 2],
+                      "without_p50": sorted(without)[len(without) // 2],
+                      "with_capture_mean": sum(with_capture) / len(with_capture), "without_mean": sum(without) / len(without)},
+        "peak_above_base_bytes": peak, "peak_limit_bytes": limit, "confmat_total": total,
+        "flipped_bit": info["bits"][0], "shard_hit": hit, "divergence": last,
+        "confmat_read": type(read).__name__, "f1_read": type(f1_read).__name__, "f1_flipped_field": f1_info["field"],
+        "bincount_launches": launches, "fingerprint_launches": main_launches,
+    })
+
+
+def _fleet_leaf(dev) -> dict:
+    """One FEMNIST site: the counting collection (62-class confusion matrix,
+    micro accuracy, macro F1) and the top probability's mean, max and
+    rows, all on the card."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric
+    from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+
+    c = FEMNIST["classes"]
+    cls = MetricCollection({
+        "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False, device=dev),
+        "accuracy": MulticlassAccuracy(num_classes=c, average="micro", validate_args=False, device=dev),
+        "f1": MulticlassF1Score(num_classes=c, average="macro", validate_args=False, device=dev),
+    }, device=dev)
+    # softmax probabilities are finite by construction: no NaN scan (a host
+    # sync an update) on the aggregators
+    kw = {"nan_strategy": "disable", "device": dev}
+    return {"cls": cls, "agg": {"mean": MeanMetric(**kw), "max": MaxMetric(**kw), "cat": CatMetric(**kw)}}
+
+
+def _fleet_source(leaf: dict):
+    """The site's fleet source: every member's ``metric_source`` under
+    ``"<member>.<field>"`` keys (the protocol is flat)."""
+    from torchmetrics_tpu_torch.fleet import metric_source
+
+    members = dict(leaf["cls"].items(keep_base=True))
+    members.update(leaf["agg"])
+    sources = {name: metric_source(m) for name, m in members.items()}
+
+    def source():
+        state, reds, count = {}, {}, 0
+        for name, src in sources.items():
+            st, rd, c = src()
+            for k, v in st.items():
+                state[f"{name}.{k}"] = v
+                reds[f"{name}.{k}"] = rd[k]
+            count = max(count, c)
+        return state, reds, count
+
+    return source
+
+
+def _hist_quantile(h: dict, q: float) -> float:
+    """A quantile of an ``obs`` histogram: the upper bound of its bucket."""
+    target, seen = q * h["count"], 0
+    for bound, count in zip(list(h["buckets"]) + [float("inf")], h["counts"]):
+        seen += count
+        if seen >= target:
+            return bound
+    return float("inf")
+
+
+def _timed_receive(agg, sink: list) -> None:
+    """Time every merge at ``agg`` into ``sink`` (an instance attribute over
+    the method the uplink calls)."""
+    receive = agg.receive
+
+    def timed(delta):
+        t0 = time.perf_counter()
+        try:
+            return receive(delta)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+
+    agg.receive = timed
+
+
+def phase_femnist_fleet(dev, data: dict) -> dict:
+    """A federated evaluation over LEAF FEMNIST's 3,550 writers as 64 sites
+    (writer w at site w mod 64) under ``FleetTopology(64 sites, fanout=8)``:
+    8 interior aggregators and a root, snapshots under a temporary directory.
+    Each site is a collection on the card (62-class confusion matrix, micro
+    accuracy, macro F1, and the mean, max and rows of each sample's top
+    probability: the add, replace, merge and suffix wire modes) shipping
+    every 8 of its batches; the tree is pumped after every round of ships.
+    Chaos on named sites: a drop within the retry budget and one past it, a
+    duplicate, a delay of 2 epochs, a 3-epoch partition (replayed in order),
+    a 12-epoch partition from the start (its outbox, bounded at the
+    watermark, collapses to a full resync), a corrupted payload (dropped,
+    quarantined, healed by a resync), and one interior aggregator killed and
+    failed over from its snapshot. A second pass ships the same traffic with
+    ``precision="quantized"`` at 8 bits. Checks: the root's read after the
+    last pump healthy and bit-equal to the fault-free fold of every site's
+    state in sorted site order (cat rows in the same order); the values from
+    the merged state within ``FEMNIST_ATOL`` of float64 from the plain
+    counts; during the long partition a ``DegradedValue`` at coverage 63/64
+    naming the partitioned site, and ``allow_degraded=False`` raising; the
+    quantized pass's integer fields bit-equal and float fields within
+    ``reduce_error_bound``; ``bincount`` one launch a site update. Printed:
+    deltas shipped, ms a ship and a merge, ``fleet.aggregation_lag_us``
+    p50/p99, wire bytes exact against quantized."""
+    import shutil
+    import tempfile
+    from contextlib import ExitStack
+
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch import obs
+    from torchmetrics_tpu_torch.fleet import FleetTopology, build_fleet
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.parallel.quantized import _qmax, reduce_error_bound, wire_payload_bytes
+    from torchmetrics_tpu_torch.parallel.reshard import merge_folded
+    from torchmetrics_tpu_torch.quarantine import DegradedValue
+    from torchmetrics_tpu_torch.testing import faults
+    from torchmetrics_tpu_torch.utils.exceptions import FleetProtocolError
+
+    spec, batch = FLEET, FEMNIST["batch"]
+    ids = [f"leaf/{i:02d}" for i in range(spec["leaves"])]
+    # each site's samples on the card once, and its batches: every writer's
+    # batches of 32 and its shorter last one, writers in order
+    sites = {lid: {"logits": [], "target": [], "bounds": []} for lid in ids}
+    for w, (logits, target) in enumerate(data["writers"]):
+        site = sites[ids[w % spec["leaves"]]]
+        off = sum(len(t) for t in site["target"])
+        n = len(target)
+        site["bounds"] += [(off + lo, off + min(lo + batch, n)) for lo in range(0, n, batch)]
+        site["logits"].append(logits)
+        site["target"].append(target)
+    for site in sites.values():
+        site["logits"] = torch.from_numpy(np.concatenate(site.pop("logits"))).to(dev)
+        site["target"] = torch.from_numpy(np.concatenate(site.pop("target"))).to(dev)
+    leaves = {lid: _fleet_leaf(dev) for lid in ids}
+    recorded = {lid: [] for lid in ids}
+
+    def recording(lid):
+        source = _fleet_source(leaves[lid])
+
+        def src():
+            out = source()
+            recorded[lid].append(out)
+            return out
+
+        return src
+
+    topo = FleetTopology(ids, fanout=spec["fanout"])
+    tmp = tempfile.mkdtemp(prefix="femnist_fleet_")
+    fleet = build_fleet(topo, snapshot_dir=tmp, watermark=spec["watermark"])
+    victim = topo.parent_of("leaf/08")
+    fleet.aggregators[victim].snapshot_every = 1  # the node that dies snapshots every applied delta
+    merge_ms: list = []
+    for agg in fleet.aggregators.values():
+        _timed_receive(agg, merge_ms)
+    exporters = {
+        lid: fleet.leaf_exporter(lid, recording(lid), outbox_limit=spec["watermark"] if lid == "leaf/05" else 64)
+        for lid in ids
+    }
+    rounds = -(-max(len(s["bounds"]) for s in sites.values()) // spec["ship_every"])
+    # (first round, last round, fault): nested, so the patched seam unwinds in order
+    schedule = [
+        (0, 11, lambda: faults.partition_leaf("leaf/05", epochs=12)),
+        (2, 2, lambda: faults.drop_delta("leaf/00", n=1)),
+        (3, 4, lambda: faults.drop_delta("leaf/01", n=4)),  # 3 attempts fail a send; the 4th, a round later, a retry
+        (5, 6, lambda: faults.duplicate_delta("leaf/02")),
+        (7, 10, lambda: faults.delay_delta("leaf/03", epochs=2)),
+        (12, 14, lambda: faults.partition_leaf("leaf/04", epochs=3)),
+        (16, 16, lambda: faults.corrupt_delta_payload("leaf/06", n=1)),
+        (18, 19, lambda: faults.kill_aggregator(fleet.aggregators[victim])),
+    ]
+    obs.reset()
+    bincount.launches = 0
+    export_ms, flush_ms, updates, counters, partition_read = [], [], 0, {}, None
+    leaf_bytes = {"exact": 0, "quantized": 0}  # the leaves' own deltas, without the interior links
+    open_faults = {}
+    t_run = time.perf_counter()
+    for r in range(rounds):
+        for i, (first, last, make) in enumerate(schedule):
+            if first == r:
+                open_faults[i] = ExitStack()
+                counters[i] = open_faults[i].enter_context(make())
+        for t in range(r * spec["ship_every"], (r + 1) * spec["ship_every"]):
+            for lid in ids:
+                site = sites[lid]
+                if t >= len(site["bounds"]):
+                    continue
+                lo, hi = site["bounds"][t]
+                logits, target = site["logits"][lo:hi], site["target"][lo:hi]
+                leaves[lid]["cls"].update(logits, target)
+                top = logits.softmax(-1).amax(-1)
+                for m in leaves[lid]["agg"].values():
+                    m.update(top)
+                updates += 1
+                if (t + 1) % spec["ship_every"] == 0 or t + 1 == len(site["bounds"]):
+                    t0 = time.perf_counter()
+                    leaf_bytes["exact"] += wire_payload_bytes(exporters[lid].export().payload)
+                    t1 = time.perf_counter()
+                    exporters[lid].flush()
+                    export_ms.append((t1 - t0) * 1e3)
+                    flush_ms.append((time.perf_counter() - t1) * 1e3)
+        fleet.pump()
+        if r == 6:  # inside the long partition: a degraded read naming the partitioned site
+            view = fleet.view()
+            read = view.read()
+            try:
+                view.read(allow_degraded=False)
+                refused = False
+            except FleetProtocolError:
+                refused = True
+            partition_read = {
+                "degraded": isinstance(read, DegradedValue),
+                "coverage": read.coverage if isinstance(read, DegradedValue) else None,
+                "partitioned_anchor": read.staleness["leaf/05"] if isinstance(read, DegradedValue) else None,
+                "refused": refused,
+            }
+        if r == 19:
+            successor = fleet.failover(victim)  # inside the kill: the successor from the newest snapshot
+            _timed_receive(successor, merge_ms)
+        for i, (first, last, make) in sorted(enumerate(schedule), key=lambda e: -e[0]):
+            if last == r and i in open_faults:
+                open_faults.pop(i).close()
+    for _ in range(12):  # drain every outbox (breakers probe their way back)
+        for ex in exporters.values():
+            ex.flush()
+        fleet.pump()
+        if all(ex.outbox_size == 0 for ex in exporters.values()):
+            break
+    run_s = time.perf_counter() - t_run
+    _check(all(ex.outbox_size == 0 for ex in exporters.values()), "femnist_fleet: the outboxes did not drain")
+    launches = bincount.launches
+    _check(launches == updates, f"femnist_fleet: {launches} bincount launches for {updates} site updates")
+    _check(partition_read is not None and partition_read["degraded"] and partition_read["refused"]
+           and partition_read["coverage"] == (spec["leaves"] - 1) / spec["leaves"]
+           and partition_read["partitioned_anchor"]["applied_epoch"] == 0,
+           f"femnist_fleet: the read during the partition was {partition_read}")
+    view = fleet.view()
+    got = view.read()
+    _check(view.healthy() and not isinstance(got, DegradedValue), "femnist_fleet: the root's final read is degraded")
+    # the fault-free fold: every site's state read directly, merged in sorted
+    # site order along the tree (each interior node's sites, then the
+    # interior nodes), the order the aggregators fold in
+    finals = {lid: _fleet_source(leaves[lid])() for lid in ids}
+    reds = finals[ids[0]][1]
+
+    def fold(states):
+        out = None
+        for state in states:
+            state = {k: np.asarray(v) for k, v in state.items()}
+            out = state if out is None else {k: np.asarray(v) for k, v in merge_folded(out, state, reds).items()}
+        return out
+
+    want = fold(fold(finals[lid][0] for lid in sorted(topo.children_of(node))) for node in sorted(topo.children_of(topo.root)))
+    _check(set(got) == set(want), f"femnist_fleet: fields {sorted(got)} != {sorted(want)}")
+    for k in want:
+        _check(got[k].dtype == want[k].dtype and got[k].shape == want[k].shape and np.array_equal(got[k], want[k]),
+               f"femnist_fleet: {k} differs from the fault-free fold")
+    _check(fleet.root.total_update_count() == updates, f"femnist_fleet: the root counts {fleet.root.total_update_count()} updates of {updates}")
+    # values from the merged state against float64 from the plain counts
+    plain = _femnist_plain_counts(data, dev).sum(0)
+    merged_cm = torch.from_numpy(got["confmat.confmat"]).to(dev)
+    _check(torch.equal(merged_cm.to(torch.int64), plain), "femnist_fleet: the merged confusion matrix differs from the plain counts")
+    fresh = _fleet_leaf(dev)
+    for name, m in fresh["cls"].items(keep_base=True):
+        m.load_state({f: torch.from_numpy(got[f"{name}.{f}"]).to(dev) for f in m._defaults}, update_count=1)
+    values = fresh["cls"].compute()
+    tp, fp, _, fn = (s.double() for s in _stats_of(plain))
+    present = (tp + fp + fn) > 0
+    f1 = torch.where(2 * tp + fp + fn > 0, 2 * tp / (2 * tp + fp + fn).clamp(min=1), torch.zeros_like(tp))
+    top = torch.cat([sites[lid]["logits"].softmax(-1).amax(-1) for lid in ids]).double()
+    value_errors = {
+        "accuracy": abs(float(values["accuracy"]) - float(tp.sum() / plain.sum())),
+        "f1": abs(float(values["f1"]) - float(f1[present].mean())),
+        "max": abs(float(got["max.max_value"]) - float(top.max())),
+        "mean": abs(float(got["mean.mean_value"]) / float(got["mean.weight"]) - float(top.mean())),
+    }
+    _check(value_errors["accuracy"] <= FEMNIST_ATOL and value_errors["f1"] <= FEMNIST_ATOL and value_errors["max"] == 0,
+           f"femnist_fleet: values from the merged state {value_errors}")
+    # float32 sums: a site's running sum of batch sums, then 64 merges
+    mean_tol = _f32_rtol(max(len(s["bounds"]) for s in sites.values()) + spec["leaves"], batch) * float(top.mean())
+    _check(value_errors["mean"] <= mean_tol, f"femnist_fleet: the mean is {value_errors['mean']} from float64 (> {mean_tol})")
+    _check(np.array_equal(np.sort(got["cat.value"]), np.sort(top.float().cpu().numpy())),
+           "femnist_fleet: the merged rows are not the samples' top probabilities")
+    corrupt_ledger = fleet.aggregators[topo.parent_of("leaf/06")].ledger("leaf/06")
+    _check(corrupt_ledger.stats["corrupt_dropped"] == 1 and corrupt_ledger.stats["resyncs"] >= 2,
+           f"femnist_fleet: the corrupted site's ledger {corrupt_ledger.stats}")
+    _check(exporters["leaf/05"].stats["outbox_overflows"] >= 1 and exporters["leaf/01"].stats["exports"] > 0,
+           f"femnist_fleet: the long partition's exporter {exporters['leaf/05'].stats}")
+    _check(counters[1]["dropped"] == 1 and counters[2]["dropped"] == 4 and counters[3]["duplicated"] >= 1
+           and counters[4]["delivered_late"] and counters[5]["dropped_epochs"] and counters[6]["corrupted"] == 1,
+           f"femnist_fleet: a fault did not fire: {counters}")
+    hist = obs.histograms_snapshot().get("fleet.aggregation_lag_us")
+    exact_bytes = fleet.uplink.stats["bytes"]
+    shipped = fleet.uplink.stats["sent"]
+
+    # the quantized pass: the same traffic (every recorded ship of every site,
+    # in order) through a fresh tree at 8 bits
+    qfleet = build_fleet(topo, watermark=spec["watermark"])
+    cursor = {lid: iter(recorded[lid]) for lid in ids}
+    qexporters = {lid: qfleet.leaf_exporter(lid, (lambda lid=lid: next(cursor[lid])), precision="quantized",
+                                             bits=spec["bits"], block_size=spec["block"]) for lid in ids}
+    order = []  # the exact pass's ship order, rebuilt from the recorded counts per round
+    for r in range(rounds):
+        for t in range(r * spec["ship_every"], (r + 1) * spec["ship_every"]):
+            for lid in ids:
+                n_batches = len(sites[lid]["bounds"])
+                if t < n_batches and ((t + 1) % spec["ship_every"] == 0 or t + 1 == n_batches):
+                    order.append((r, lid))
+    t0 = time.perf_counter()
+    last_round = 0
+    for r, lid in order:
+        if r != last_round:
+            qfleet.pump()
+            last_round = r
+        leaf_bytes["quantized"] += wire_payload_bytes(qexporters[lid].export().payload)
+        qexporters[lid].flush()
+    qfleet.pump()
+    qship_ms = (time.perf_counter() - t0) * 1e3 / max(1, len(order))
+    qgot = qfleet.view().read()
+    _check(not isinstance(qgot, DegradedValue), "femnist_fleet: the quantized root's read is degraded")
+    q_errors = {}
+    stacks = {k: np.stack([np.asarray(finals[lid][0][k]) for lid in sorted(ids)]) for k in want if reds[k] != "cat"}
+    for k in want:
+        if np.issubdtype(want[k].dtype, np.integer) or want[k].dtype == np.bool_:
+            _check(np.array_equal(qgot[k], want[k]), f"femnist_fleet: the quantized pass changed integer field {k}")
+            continue
+        err = np.abs(qgot[k].astype(np.float64) - want[k].astype(np.float64))
+        if reds[k] == "cat":
+            bound = np.abs(want[k]).max() / (2.0 * _qmax(spec["bits"])) + np.zeros_like(err)
+        else:
+            bound = reduce_error_bound(stacks[k], reds[k], bits=spec["bits"], block_size=spec["block"])
+        bound = bound + 1e-6 * np.abs(want[k])  # float32 rounding of the decoded sums
+        _check(bool((err <= bound).all()), f"femnist_fleet: quantized {k} off by {err.max()} beyond its bound")
+        q_errors[k] = {"max_abs_err": float(err.max()), "bound_max": float(np.max(bound))}
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def p(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    return _emit({
+        "phase": "femnist_fleet", "sites": spec["leaves"], "aggregators": len(topo.aggregators), "rounds": rounds,
+        "site_updates": updates, "deltas_shipped": shipped, "exports": len(export_ms), "run_s": run_s,
+        "ship_ms": {"p50": p(export_ms, 0.5), "p99": p(export_ms, 0.99), "mean": sum(export_ms) / len(export_ms)},
+        "flush_ms_p50": p(flush_ms, 0.5),
+        "merge_ms": {"p50": p(merge_ms, 0.5), "p99": p(merge_ms, 0.99), "mean": sum(merge_ms) / len(merge_ms),
+                     "merges": len(merge_ms)},
+        "aggregation_lag_us": {"p50": _hist_quantile(hist, 0.5), "p99": _hist_quantile(hist, 0.99),
+                               "count": hist["count"]} if hist else None,
+        "wire_bytes": {"exact": exact_bytes, "quantized": qfleet.uplink.stats["bytes"],
+                       "ratio": qfleet.uplink.stats["bytes"] / exact_bytes,
+                       "leaf_deltas": leaf_bytes, "leaf_ratio": leaf_bytes["quantized"] / leaf_bytes["exact"]},
+        "quantized_ship_ms_mean": qship_ms, "quantized_errors": q_errors,
+        "faults": {"drop_within": counters[1], "drop_past": counters[2], "duplicated": counters[3],
+                   "delayed": counters[4], "partition_3": sorted(counters[5]["dropped_epochs"]),
+                   "partition_12": sorted(counters[0]["dropped_epochs"]), "corrupted": counters[6]},
+        "partition_read": partition_read, "value_errors": value_errors, "bincount_launches": launches,
+        "bit_equal": True,
+    })
+
+
 def _device_rows(prof) -> list:
     """``(name, device us, calls)`` of a profile's device-side events only
     (kernels, memsets, copies; a CPU operator's row repeats the device time
@@ -9071,9 +9864,17 @@ def main() -> int:
     # class-axis sharding at GLDv2-clean's 81,313 classes, and the deferred
     # stacked layouts over ImageNet's collection and FEMNIST's lanes
     femnist_deferred = phase_femnist_writers_deferred(dev, femnist_data)
-    del femnist_data
     gldv2 = phase_gldv2_clean_class_sharded(dev)
     deferred = phase_imagenet_val_deferred(dev)
+    # state integrity and the fleet: the fingerprint kernel's checks, the
+    # audited ImageNet collection, GLDv2's second pass over its 26.45 GB
+    # class-sharded state, and a 64-site FEMNIST fleet under chaos
+    fp_rows = phase_fingerprint_kernels(dev)
+    audited = phase_imagenet_val_audited(dev)
+    gldv2_audited = phase_gldv2_clean_audited(dev, gldv2.pop("_reuse"))
+    torch.cuda.empty_cache()
+    femnist_fleet = phase_femnist_fleet(dev, femnist_data)
+    del femnist_data
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -9110,7 +9911,8 @@ def main() -> int:
             + sum(r["bincount_launches"] for r in runtime)
             + femnist["bincount_launches"] + femnist_guarded["bincount_launches"]
             + criteo["bincount_launches"] + femnist_windowed["bincount_launches"]
-            + femnist_deferred["bincount_launches"] + gldv2["bincount_launches"] + deferred["bincount_launches"],
+            + femnist_deferred["bincount_launches"] + gldv2["bincount_launches"] + deferred["bincount_launches"]
+            + audited["bincount_launches"] + gldv2_audited["bincount_launches"] + femnist_fleet["bincount_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -9214,6 +10016,26 @@ def main() -> int:
             "library_ms": root["library_ms"],
             "eigh_float32_ms": root["eigh_float32_ms"],
             "shapes": sqrtm_rows,
+        },
+        {
+            "name": "fingerprint",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/fingerprint.cu",
+            # an XLA fold (jitted jax.lax.reduce with bitwise_xor, and a uint32
+            # sum), no Pallas site
+            "replaces": "torchmetrics_tpu/integrity.py:112",
+            "replaces_kind": "XLA fold, no Pallas site",
+            "launches": audited["fingerprint_launches"] + gldv2_audited["fingerprint_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in fp_rows),
+            # the headline: GLDv2's 26.45 GB class-sharded stack, one leaf
+            "shape": "gldv2_confmat_stack",
+            "ms": gldv2_audited["fold_ms"],
+            "plain_ms": gldv2_audited["fold_plain_ms"],
+            "bound_ms": gldv2_audited["fold_bound_ms"],
+            "bound_by": "bytes",
+            # no PyTorch call folds words with XOR: bitwise_xor is elementwise
+            "library_ms": None,
+            "shapes": fp_rows,
         },
     ]})
     print(smi, flush=True)

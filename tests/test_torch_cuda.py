@@ -2310,3 +2310,135 @@ def test_large_class_stat_scores_on_card_equal_cpu(cuda_device, monkeypatch):
         out[str(device)] = {k: v.cpu() for k, v in coll.compute().items()}
     cpu, card = out["cpu"], out[str(cuda_device)]
     assert all(torch.equal(cpu[k], card[k]) for k in cpu)
+
+
+# ------------------------------------------------------ the fingerprint fold
+
+FP_DTYPES = ["bool", "int8", "uint8", "int16", "float16", "bfloat16", "int32", "float32", "int64", "float64"]
+
+
+def _fp_leaf(dtype, n, seed, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == "bool":
+        t = torch.rand(n, generator=g) < 0.5
+    elif getattr(torch, dtype).is_floating_point:
+        t = (torch.randn(n, generator=g) * 100).to(getattr(torch, dtype))
+    else:
+        info = torch.iinfo(getattr(torch, dtype))
+        t = torch.randint(info.min, info.max, (n,), generator=g, dtype=torch.int64).to(getattr(torch, dtype))
+    return t.to(device)
+
+
+def _words_equal(a, b):
+    return torch.equal(a.view(torch.int32).cpu(), b.view(torch.int32).cpu())
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 1003, 1 << 20])
+@pytest.mark.parametrize("dtype", FP_DTYPES)
+def test_fingerprint_kernel_matches_plain_version(cuda_device, dtype, n):
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    leaf = _fp_leaf(dtype, n, seed=n)
+    before = fingerprint.launches
+    got = fingerprint.fingerprint_segments([leaf.to(cuda_device)])
+    torch.cuda.synchronize()
+    assert fingerprint.launches == before + 1 and got.device.type == "cuda" and got.dtype == torch.uint32
+    assert _words_equal(got, fingerprint._fingerprint_reference(leaf))
+
+
+def test_fingerprint_one_launch_for_a_tree_of_mixed_dtypes(cuda_device):
+    from torchmetrics_tpu_torch import integrity
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    tree = {dtype: _fp_leaf(dtype, 1000 + i, seed=i, device=cuda_device) for i, dtype in enumerate(FP_DTYPES)}
+    tree["list"] = [_fp_leaf("float32", 7, 1, cuda_device), _fp_leaf("int64", 0, 2, cuda_device)]
+    before = fingerprint.launches
+    fps = integrity.device_fingerprints(tree)
+    torch.cuda.synchronize()
+    assert fingerprint.launches == before + 1
+    host = integrity.host_fingerprints({k: ([x.cpu() for x in v] if isinstance(v, list) else v.cpu()) for k, v in tree.items()})
+    assert {k: integrity._fp_host(v).tolist() for k, v in fps.items()} == {k: v.tolist() for k, v in host.items()}
+
+
+@pytest.mark.parametrize("row", [1, 2, 3, 5, 7, 1001, 4099])
+def test_fingerprint_per_shard_rows_at_any_alignment(cuda_device, row):
+    """Shard rows of a stack start at every 4-byte offset of a 16-byte line:
+    the head and tail words around the vector loads."""
+    from torchmetrics_tpu_torch import integrity
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    stack = _fp_leaf("int32", 8 * row, seed=row).reshape(8, row)
+    got = integrity.device_shard_fingerprints({"s": stack.to(cuda_device)})["['s']"]
+    torch.cuda.synchronize()
+    assert _words_equal(got, fingerprint._fingerprint_reference(*stack.unbind(0)))
+
+
+def test_fingerprint_leaf_past_2_31_words(cuda_device):
+    """2**31 + 3 int32 words (8.6 GB): the kernel indexes in int64."""
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    n = 2**31 + 3
+    leaf = torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32, device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(3))
+    got = fingerprint.fingerprint_segments([leaf])
+    want = fingerprint._fingerprint_reference(leaf)
+    torch.cuda.synchronize()
+    assert _words_equal(got, want)
+    del leaf
+    torch.cuda.empty_cache()
+
+
+def test_fingerprint_refuses_what_it_cannot_take(cuda_device):
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    x = torch.ones(4, 6, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fingerprint.fingerprint_segments([x.t()])
+    with pytest.raises(ValueError, match="devices"):
+        fingerprint.fingerprint_segments([x, torch.ones(3)])
+
+
+@pytest.mark.parametrize("policy", ["raise", "restore", "degraded"])
+def test_integrity_auditor_on_card(cuda_device, policy):
+    """A flipped bit in a card state, caught at the next read: raised,
+    restored bit for bit, or served as the last-good value."""
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+    from torchmetrics_tpu_torch.quarantine import DegradedValue
+    from torchmetrics_tpu_torch.testing import faults
+    from torchmetrics_tpu_torch.utils.exceptions import StateDivergenceError
+
+    c = 10
+    m = MulticlassConfusionMatrix(num_classes=c, validate_args=False, device=cuda_device)
+    m.attach_integrity(on_divergence=policy)
+    g = torch.Generator().manual_seed(7)
+    for _ in range(3):
+        m.update(torch.randint(0, c, (64,), generator=g).to(cuda_device), torch.randint(0, c, (64,), generator=g).to(cuda_device))
+    drain_pipeline(60.0)
+    clean = m.compute().clone()
+    faults.flip_state_bits(m, seed=11)
+    if policy == "raise":
+        with pytest.raises(StateDivergenceError):
+            m.compute()
+        with pytest.raises(StateDivergenceError):
+            m.compute_async().result(60.0)
+    elif policy == "restore":
+        assert torch.equal(m.compute(), clean)
+        assert m.integrity.stats["restores"] == 1
+    else:
+        got = m.compute()
+        assert isinstance(got, DegradedValue) and torch.equal(got.value, clean)
+
+
+def test_fingerprint_table_past_the_inline_limit(cuda_device):
+    """More segments than ride in the launch's parameters: the table goes
+    to the card by a copy, one launch all the same."""
+    from torchmetrics_tpu_torch import integrity
+    from torchmetrics_tpu_torch.ops import fingerprint
+
+    rows = fingerprint.INLINE_SEGMENTS + 72
+    stack = _fp_leaf("int64", rows * 33, seed=4).reshape(rows, 33)
+    before = fingerprint.launches
+    got = integrity.device_shard_fingerprints({"s": stack.to(cuda_device)})["['s']"]
+    torch.cuda.synchronize()
+    assert fingerprint.launches == before + 1
+    assert _words_equal(got, fingerprint._fingerprint_reference(*stack.unbind(0)))

@@ -65,6 +65,11 @@ metric is built with ``device="cpu"``. Ported so far:
 - streaming windows (``WindowedMetric``, ``WindowedCollection``): W
   per-window states on a ring axis with a watermark for late events, and
   windowed session lanes (``metric.windowed(W).laned(N)``).
+- state integrity (``integrity.py``: ``IntegrityAuditor`` through
+  ``metric.attach_integrity()``, ``DeferredIntegrity``), whose fingerprints
+  fold on the ``fingerprint`` kernel, and the fleet (``fleet/``): the
+  exactly-once delta protocol, uplinks, leaf exporters, the aggregator tree
+  and the global view.
 """
 __version__ = "0.1.0"
 
@@ -73,6 +78,7 @@ from torchmetrics_tpu_torch import (
     classification,
     clustering,
     detection,
+    fleet,
     functional,
     image,
     models,
@@ -104,6 +110,7 @@ from torchmetrics_tpu_torch.detection import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
+from torchmetrics_tpu_torch.integrity import DeferredIntegrity, IntegrityAuditor
 from torchmetrics_tpu_torch.lanes import LanedCollection, LanedMetric, make_deferred_lane_step
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.multimodal import *  # noqa: F401,F403
@@ -134,8 +141,10 @@ __all__ = [
     "CatMetric",
     "ClasswiseWrapper",
     "CompositionalMetric",
+    "DeferredIntegrity",
     "DegradedValue",
     "FeatureShare",
+    "IntegrityAuditor",
     "LaneGuard",
     "LanedCollection",
     "LanedMetric",
@@ -158,6 +167,7 @@ __all__ = [
     "classification",
     "clustering",
     "detection",
+    "fleet",
     "functional",
     "make_deferred_lane_step",
     "image",

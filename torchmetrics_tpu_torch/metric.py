@@ -195,6 +195,15 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
     if self._computed is not None:
         return self._computed
     self._fold_pending()  # a sharded restore: fold before the sync and compute
+    auditor = self.__dict__.get("_integrity_auditor")
+    if auditor is not None:
+        # the read-point integrity audit (integrity.py), before the sync:
+        # verify the bits before serving them; a divergence raises,
+        # restores the verified baseline in place, or hands back the
+        # last-good value to serve as a DegradedValue, per on_divergence
+        served = auditor.verify_read()
+        if served is not None:
+            return served
     self.__dict__.pop("_serve_last_good", None)
     patched = self.__dict__.get("_compute_fn")  # the fault harness's seam (testing/faults.py)
     with self.sync_context(
@@ -213,9 +222,13 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
     if self.compute_with_cache:
         self._computed = value
     if self._last_sync_ok:
-        # the cache behind on_sync_failure="last_good": only values
-        # whose sync (if any) succeeded qualify
-        self.__dict__["_last_good_compute"] = (int(self._update_count), value)
+        # only values whose sync (if any) succeeded are last-good reads
+        if self.on_sync_failure == "last_good":
+            # kept only where this policy serves it: a compute may return a
+            # state tensor itself (a sum, a confusion matrix), and a kept
+            # value would hold a replaced state's memory past the next update
+            self.__dict__["_last_good_compute"] = (int(self._update_count), value)
+        self._notify_compute(int(self._update_count), value)
     return value
 
 
@@ -929,6 +942,56 @@ class Metric:
 
         return detach
 
+    def attach_integrity(self, every_n_updates: int = 1, on_divergence: str = "raise", snapshots: bool = True) -> Any:
+        """Attach a bit-exact state-integrity auditor (``integrity.py``)
+        riding the committed-update observer seam: every
+        ``every_n_updates``-th commit captures the state's fingerprints (one
+        fold on the card, fetched on the read pipeline: the step loop never
+        waits), and every read verifies the live bits against them before
+        serving. ``on_divergence`` picks the policy (``"raise"``,
+        ``"degraded"`` or ``"restore"``: the ``on_shard_loss`` triple);
+        ``snapshots=False`` keeps fingerprints only (no host copy, so
+        ``"restore"`` escalates to ``"raise"``, and so does ``"degraded"``
+        where the computed value shares the state's storage). Returns the attached
+        :class:`~torchmetrics_tpu_torch.integrity.IntegrityAuditor`
+        (``auditor.detach()`` removes it; also :attr:`integrity`)."""
+        from torchmetrics_tpu_torch.integrity import IntegrityAuditor
+
+        existing = self.__dict__.get("_integrity_auditor")
+        if existing is not None:
+            existing.detach()
+        return IntegrityAuditor(
+            self, every_n_updates=every_n_updates, on_divergence=on_divergence, snapshots=snapshots
+        ).attach()
+
+    @property
+    def integrity(self) -> Any:
+        """The attached :class:`~torchmetrics_tpu_torch.integrity.IntegrityAuditor`
+        (None when :meth:`attach_integrity` was never called)."""
+        return self.__dict__.get("_integrity_auditor")
+
+    def add_compute_observer(self, callback: Callable[[int, Any], None]) -> Callable[[], None]:
+        """Register ``callback(update_count, value)`` to fire after every
+        compute whose sync (if any) succeeded, blocking or resolved on the
+        read pipeline's worker: the last-good value a ``"degraded"``
+        integrity auditor keeps (``integrity.py``). Returns a zero-argument
+        detach function."""
+        observers = self.__dict__.setdefault("_compute_observers", [])
+        observers.append(callback)
+
+        def detach() -> None:
+            current = self.__dict__.get("_compute_observers")
+            if current is not None and callback in current:
+                current.remove(callback)
+
+        return detach
+
+    def _notify_compute(self, count: int, value: Any) -> None:
+        observers = self.__dict__.get("_compute_observers")
+        if observers:
+            for callback in tuple(observers):
+                callback(count, value)
+
     def _notify_update(self) -> None:
         """Fire update observers, at top level only (not inside forward's
         internal updates)."""
@@ -1062,10 +1125,17 @@ class Metric:
         flags = self._capture_read_flags()
         clone = self._read_clone()
         event = submission_event(snapshot)
+        job: Callable[[], Any] = lambda: self._async_compute_job(clone, snapshot, flags)  # noqa: E731
+        auditor = self.__dict__.get("_integrity_auditor")
+        if auditor is not None:
+            # verify the submission-time snapshot ON THE WORKER before the
+            # read resolves (integrity.py): the future carries the outcome a
+            # blocking read would have, and the caller never waits
+            job = auditor.wrap_async_read(job, snapshot, flags)
 
         def body() -> Any:
             _ready(event, None)
-            return self._async_compute_job(clone, snapshot, flags)
+            return job()
 
         return body
 
@@ -1116,6 +1186,9 @@ class Metric:
         last_good = clone.__dict__.get("_last_good_compute")
         if last_good is not None:
             self.__dict__["_last_good_compute"] = last_good
+        if clone.__dict__.get("_last_sync_ok", True) and not isinstance(value, DegradedValue):
+            # the clone keeps no observers: the live metric's see the value
+            self._notify_compute(flags["count"], value)
         if flags["cache"] and not isinstance(value, DegradedValue) and self.__dict__.get("_computed") is None:
             self.__dict__["_computed"] = value
             if self.__dict__.get("_update_count") != flags["count"]:
@@ -1654,9 +1727,13 @@ class Metric:
 
     # ----------------------------------------------------------- pickling
     #: per-instance attributes a copy or pickle never carries: observers
-    #: (autosavers, fault hooks), the fault harness's seams and the
-    #: async-read caches
-    _TRANSIENT_KEYS = ("_update_observers", "_update_fn", "_compute_fn", "_read_clone_cache", "_async_inline_reason_c")
+    #: (autosavers, fault hooks), the fault harness's seams, the async-read
+    #: caches and the integrity auditor
+    _TRANSIENT_KEYS = (
+        "_update_observers", "_compute_observers", "_update_fn", "_compute_fn", "_read_clone_cache",
+        "_async_inline_reason_c",
+        "_integrity_auditor",  # holds a lock and a reference to the live metric
+    )
 
     def __getstate__(self) -> Dict[str, Any]:
         state = self.__dict__.copy()

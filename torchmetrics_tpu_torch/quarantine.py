@@ -58,8 +58,9 @@ class DegradedValue(NamedTuple):
     ``value`` is the most recent healthy result; ``updates_behind`` counts
     the updates offered to the owner since the value was captured (how stale
     it is); ``age_updates`` is the owner's update count at capture (how much
-    data the value reflects). ``coverage`` and ``staleness`` are kept for the
-    shape of the JAX package's fleet-scope reads and stay None here.
+    data the value reflects). ``coverage`` and ``staleness`` are filled by a
+    fleet-scope read (``fleet.GlobalView.read``): the fraction of expected
+    leaves folded in, and each leaf's version counters; None elsewhere.
     """
 
     value: Any

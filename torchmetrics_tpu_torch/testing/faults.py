@@ -28,6 +28,14 @@ so the containment guarantees are asserted, not assumed:
   ahead, or deliver one session's batch some windows late (drives the
   windowed lanes' per-session watermark: admitted within the lateness
   bound, dropped with a breadcrumb past it).
+- :func:`flip_state_bits` / :func:`skew_replica`: flip bits of a live
+  state leaf in place, or of one shard row of a stacked tree (drives the
+  integrity audits, ``integrity.py``).
+- :func:`corrupt_delta_payload`, :func:`drop_delta`,
+  :func:`duplicate_delta`, :func:`delay_delta`, :func:`partition_leaf`,
+  :func:`kill_aggregator`: transport faults at the fleet uplink's
+  ``Uplink.transmit`` seam and a dead aggregator (drives the exactly-once
+  delta protocol, ``fleet/``).
 
 All context managers restore the patched seam on exit, including when the
 body raises. They are process-local and not thread-safe (they patch module
@@ -409,3 +417,354 @@ def preempt_after(metric: Any, n_updates: int, exc: Optional[BaseException] = No
         yield
     finally:
         detach()
+
+
+# -------------------------------------------------------- silent corruption
+
+#: bit counts up to which positions come from numpy's ``choice`` without
+#: replacement, the JAX package's draw, which permutes every position; past
+#: it (a leaf above 32 MB) distinct ``randint`` draws from the same seed
+_PERMUTATION_BITS = 1 << 28
+
+
+def _bit_positions(total: int, n_bits: int, seed: int) -> np.ndarray:
+    """``min(n_bits, total)`` distinct flat bit positions out of ``total``,
+    deterministic in ``seed``: the JAX package's positions (``_flip_bits_host``)
+    up to :data:`_PERMUTATION_BITS`."""
+    rng = np.random.RandomState(seed)
+    size = min(int(n_bits), total)
+    if total <= _PERMUTATION_BITS:
+        return rng.choice(total, size=size, replace=False)
+    picked: list = []
+    while len(picked) < size:
+        pos = int(rng.randint(0, total, dtype=np.int64))
+        if pos not in picked:
+            picked.append(pos)
+    return np.asarray(picked, dtype=np.int64)
+
+
+def _flip_bits_host(arr: np.ndarray, n_bits: int, seed: int) -> tuple:
+    """Flip ``n_bits`` distinct random bits of ``arr``'s raw bytes; returns
+    the damaged copy and the flat bit positions hit (the JAX package's
+    ``_flip_bits_host`` bit for bit)."""
+    out = np.array(arr)
+    raw = out.reshape(-1).view(np.uint8)
+    if raw.size == 0:
+        raise ValueError("cannot flip bits of an empty array")
+    positions = _bit_positions(raw.size * 8, n_bits, seed)
+    for pos in positions:
+        raw[pos // 8] ^= np.uint8(1 << (pos % 8))
+    return out, [int(p) for p in positions]
+
+
+def _flip_tensor_bits_(t: torch.Tensor, n_bits: int, seed: int) -> list:
+    """Flip ``n_bits`` distinct bits of a contiguous tensor IN PLACE, through
+    a byte view on its own device (the positions of :func:`_flip_bits_host`
+    for the same bytes); returns the flat bit positions hit."""
+    if not t.is_contiguous():
+        raise ValueError("cannot flip bits of a non-contiguous tensor in place")
+    raw = t.view(-1).view(torch.uint8) if t.numel() else t.new_empty(0, dtype=torch.uint8)
+    if raw.numel() == 0:
+        raise ValueError("cannot flip bits of an empty array")
+    positions = _bit_positions(raw.numel() * 8, n_bits, seed)
+    masks: Dict[int, int] = {}
+    for pos in positions:
+        byte = int(pos) // 8
+        masks[byte] = masks.get(byte, 0) ^ (1 << (int(pos) % 8))
+    idx = torch.tensor(sorted(masks), dtype=torch.int64, device=t.device)
+    mask = torch.tensor([masks[b] for b in sorted(masks)], dtype=torch.uint8, device=t.device)
+    raw.index_put_((idx,), torch.bitwise_xor(raw.index_select(0, idx), mask))
+    return [int(p) for p in positions]
+
+
+def _leaves(tree: Any) -> list:
+    """The leaves of a state tree in the JAX package's flattening order
+    (``integrity._walk``: sorted dict keys, sequence positions)."""
+    from torchmetrics_tpu_torch.integrity import _walk
+
+    out: list = []
+    _walk(tree, "", out)
+    return [leaf for _, leaf in out]
+
+
+def _replace_leaf(tree: Any, index: int, new: Any) -> Any:
+    """A copy of ``tree`` (dicts, lists and tuples rebuilt) with its
+    ``index``-th leaf, in :func:`_leaves`' order, replaced by ``new``."""
+    counter = [0]
+
+    def rebuild(node: Any) -> Any:
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            rebuilt = {key: rebuild(node[key]) for key in sorted(node)}
+            return {k: rebuilt[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rebuild(getattr(node, f)) for f in node._fields))
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(el) for el in node)
+        i = counter[0]
+        counter[0] += 1
+        return new if i == index else node
+
+    return rebuild(tree)
+
+
+def flip_state_bits(target: Any, field: Optional[str] = None, n_bits: int = 1, seed: int = 0) -> Any:
+    """Silent data corruption: flip ``n_bits`` random bits of one state
+    leaf's raw bytes, the faulty-core or DMA-corruption signature the
+    integrity layer (``integrity.py``) exists to catch. No shape, dtype or
+    NaN tell: only the bits change. Deterministic in ``seed``, with the JAX
+    package's flat bit positions.
+
+    ``target`` is either a live ``Metric`` (the victim tensor's bits are
+    flipped IN PLACE, on its device, through a byte view, so every alias of
+    it, a compute group's followers included, sees the flip; returns an info
+    dict with the victim ``field`` and the flat ``bits`` hit) or a plain
+    state tree, e.g. a deferred loop's carried states (never modified;
+    returns ``(flipped_copy, info)``). ``field`` picks the victim leaf of a
+    Metric (default: the first tensor field); a tree flips its first array
+    leaf in the JAX package's flattening order.
+    """
+    if hasattr(target, "_state") and isinstance(getattr(target, "_state"), dict):
+        state = target._state
+        candidates = [
+            k for k, v in state.items()
+            if not isinstance(v, (list, tuple)) and hasattr(v, "dtype") and k != "_update_count"
+        ]
+        if field is not None:
+            if field not in state:
+                raise KeyError(f"field {field!r} not in state")
+            candidates = [field]
+        if not candidates:
+            raise ValueError("metric state has no array field to corrupt")
+        victim = candidates[0]
+        bits = _flip_tensor_bits_(state[victim], n_bits, seed)
+        target.__dict__["_computed"] = None  # a cached read would mask the flip
+        return {"field": victim, "bits": bits}
+
+    leaves = _leaves(target)
+    idx = next((i for i, leaf in enumerate(leaves) if hasattr(leaf, "dtype") and hasattr(leaf, "shape")), None)
+    if idx is None:
+        raise ValueError("tree has no array leaf to corrupt")
+    value = leaves[idx]
+    if isinstance(value, torch.Tensor):
+        flipped = value.detach().clone().contiguous()
+        bits = _flip_tensor_bits_(flipped, n_bits, seed)
+    else:
+        flipped, bits = _flip_bits_host(np.asarray(value), n_bits, seed)
+    return _replace_leaf(target, idx, flipped), {"leaf_index": idx, "bits": bits}
+
+
+def skew_replica(states: Any, shard: int = 0, n_bits: int = 1, seed: int = 0) -> tuple:
+    """Replica drift: flip ``n_bits`` bits in exactly ONE shard row of the
+    first stacked array leaf of ``states`` (a deferred loop's carried tree);
+    every other shard keeps the true bits, as one drifting device presents.
+    The per-shard fingerprint audit must name this shard. Returns
+    ``(skewed_copy, info)``; the input is never modified."""
+    leaves = _leaves(states)
+    idx = next(
+        (
+            i for i, leaf in enumerate(leaves)
+            if hasattr(leaf, "dtype") and len(getattr(leaf, "shape", ())) >= 1 and leaf.shape[0] > shard
+        ),
+        None,
+    )
+    if idx is None:
+        raise ValueError(f"states has no stacked array leaf with a shard {shard}")
+    value = leaves[idx]
+    if isinstance(value, torch.Tensor):
+        skewed = value.detach().clone().contiguous()
+        bits = _flip_tensor_bits_(skewed[shard], n_bits, seed)
+    else:
+        skewed = np.array(value)
+        skewed[shard], bits = _flip_bits_host(skewed[shard], n_bits, seed)
+    return _replace_leaf(states, idx, skewed), {"leaf_index": idx, "shard": int(shard), "bits": bits}
+
+
+# -------------------------------------------------------------- fleet uplink
+
+@contextmanager
+def corrupt_delta_payload(leaf: Any, n: int = 1, seed: int = 0) -> Generator[Dict[str, int], None, None]:
+    """Corrupt the first ``n`` of ``leaf``'s deltas IN FLIGHT at the
+    ``Uplink.transmit`` seam: a bit flips in the payload after the exporter
+    stamped its checksum (``fleet/delta.py`` ``payload_checksum``), as a
+    relay or serialisation fault presents. The receiving ledger must
+    hash-mismatch, drop without merging, quarantine the leaf and heal through
+    the full resync it asks for. The sender's outbox copy is never touched.
+    Yields counters (``corrupted``)."""
+    import copy
+    import dataclasses
+
+    from torchmetrics_tpu_torch.fleet import transport as transport_mod
+
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    orig = transport_mod.Uplink.transmit
+    counters = {"corrupted": 0}
+    rng = np.random.RandomState(seed)
+
+    def damaged(payload: Any) -> Any:
+        out = copy.deepcopy(payload)
+
+        def walk(value: Any) -> bool:
+            if isinstance(value, dict):
+                return any(walk(v) for v in value.values())
+            if isinstance(value, (list, tuple)):
+                return any(walk(v) for v in value)
+            if isinstance(value, np.ndarray) and value.size:
+                raw = value.reshape(-1).view(np.uint8)
+                pos = int(rng.randint(0, raw.size * 8))
+                raw[pos // 8] ^= np.uint8(1 << (pos % 8))
+                return True
+            return False
+
+        if not walk(out):
+            raise ValueError(f"delta payload for {leaf!r} has no array to corrupt")
+        return out
+
+    def patched(self: Any, node_id: str, delta: Any) -> Any:
+        if delta.leaf == leaf and counters["corrupted"] < n:
+            counters["corrupted"] += 1
+            delta = dataclasses.replace(delta, payload=damaged(delta.payload))
+        return orig(self, node_id, delta)
+
+    transport_mod.Uplink.transmit = patched
+    try:
+        yield counters
+    finally:
+        transport_mod.Uplink.transmit = orig
+
+
+@contextmanager
+def drop_delta(leaf: Any, n: int = 1) -> Generator[Dict[str, int], None, None]:
+    """Lose the first ``n`` delivery ATTEMPTS of ``leaf``'s deltas at the
+    ``Uplink.transmit`` seam (each retry consumes one: ``n`` past the retry
+    budget fails a whole ``send`` and the outbox keeps the delta). The
+    exactly-once ledger plus the outbox re-ship must converge bit for bit.
+    Yields counters (``dropped``)."""
+    from torchmetrics_tpu_torch.fleet import transport as transport_mod
+
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    orig = transport_mod.Uplink.transmit
+    counters = {"dropped": 0}
+
+    def patched(self: Any, node_id: str, delta: Any) -> Any:
+        if delta.leaf == leaf and counters["dropped"] < n:
+            counters["dropped"] += 1
+            raise ConnectionError(f"injected drop of {leaf!r} epoch {delta.epoch}")
+        return orig(self, node_id, delta)
+
+    transport_mod.Uplink.transmit = patched
+    try:
+        yield counters
+    finally:
+        transport_mod.Uplink.transmit = orig
+
+
+@contextmanager
+def duplicate_delta(leaf: Any) -> Generator[Dict[str, int], None, None]:
+    """Deliver every one of ``leaf``'s deltas TWICE (an ack lost on the way
+    back causes a re-send of an applied epoch). The ledger must drop the
+    duplicate idempotently. Yields counters (``duplicated``)."""
+    from torchmetrics_tpu_torch.fleet import transport as transport_mod
+
+    orig = transport_mod.Uplink.transmit
+    counters = {"duplicated": 0}
+
+    def patched(self: Any, node_id: str, delta: Any) -> Any:
+        ack = orig(self, node_id, delta)
+        if delta.leaf == leaf:
+            counters["duplicated"] += 1
+            orig(self, node_id, delta)  # second delivery; its ack is discarded
+        return ack
+
+    transport_mod.Uplink.transmit = patched
+    try:
+        yield counters
+    finally:
+        transport_mod.Uplink.transmit = orig
+
+
+@contextmanager
+def delay_delta(leaf: Any, epochs: int = 2) -> Generator[Dict[str, Any], None, None]:
+    """Hold ``leaf``'s NEXT delta back and inject it only after ``epochs``
+    later deliveries from that leaf went through: a genuine reorder at the
+    ledger (the successors wait in the pending buffer until the gap fills).
+    The hold answers with a synthetic ack (``durable_epoch=0``, so the outbox
+    keeps everything), as a transport that took the bytes and sat on them.
+    Yields counters (``held_epoch``, ``delivered_late``)."""
+    from torchmetrics_tpu_torch.fleet import transport as transport_mod
+
+    if epochs < 1:
+        raise ValueError(f"epochs must be >= 1, got {epochs}")
+    orig = transport_mod.Uplink.transmit
+    held: Dict[str, Any] = {"delta": None, "node": None, "later": 0}
+    counters: Dict[str, Any] = {"held_epoch": None, "delivered_late": False}
+
+    def synthetic(node_id: str, delta: Any) -> Dict[str, Any]:
+        return {"leaf": delta.leaf, "applied_epoch": delta.epoch, "durable_epoch": 0, "needs_full": False, "node": node_id}
+
+    def patched(self: Any, node_id: str, delta: Any) -> Any:
+        if delta.leaf != leaf or counters["delivered_late"]:
+            return orig(self, node_id, delta)
+        if held["delta"] is None:
+            held["delta"], held["node"] = delta, node_id
+            counters["held_epoch"] = delta.epoch
+            return synthetic(node_id, delta)
+        if delta.epoch == held["delta"].epoch:
+            return synthetic(node_id, delta)  # a re-ship of the held epoch: keep holding
+        ack = orig(self, node_id, delta)
+        held["later"] += 1
+        if held["later"] >= epochs:
+            orig(self, held["node"], held["delta"])  # the late, out-of-order arrival
+            counters["delivered_late"] = True
+        return ack
+
+    transport_mod.Uplink.transmit = patched
+    try:
+        yield counters
+    finally:
+        transport_mod.Uplink.transmit = orig
+
+
+@contextmanager
+def partition_leaf(leaf: Any, epochs: int = 3) -> Generator[Dict[str, Any], None, None]:
+    """Black-hole every delivery from ``leaf`` until ``epochs`` DISTINCT
+    epochs have tried the uplink: the network-partition signature (the leaf
+    keeps exporting into its outbox, possibly tripping its breaker, then
+    rejoins and re-ships the backlog in order). Partitions within the
+    watermark converge by replay, longer ones through quarantine and the
+    ``needs_full`` resync. Yields counters (``dropped_epochs``)."""
+    from torchmetrics_tpu_torch.fleet import transport as transport_mod
+
+    if epochs < 1:
+        raise ValueError(f"epochs must be >= 1, got {epochs}")
+    orig = transport_mod.Uplink.transmit
+    seen: set = set()
+    counters: Dict[str, Any] = {"dropped_epochs": seen}
+
+    def patched(self: Any, node_id: str, delta: Any) -> Any:
+        if delta.leaf == leaf and len(seen) < epochs:
+            seen.add(delta.epoch)
+            raise ConnectionError(f"injected partition of {leaf!r} (epoch {delta.epoch})")
+        return orig(self, node_id, delta)
+
+    transport_mod.Uplink.transmit = patched
+    try:
+        yield counters
+    finally:
+        transport_mod.Uplink.transmit = orig
+
+
+@contextmanager
+def kill_aggregator(aggregator: Any) -> Generator[None, None, None]:
+    """Take an aggregator down for the context: every ``receive`` raises
+    ``ConnectionError`` (the transport failure the uplink retries, breakers
+    on and outboxes absorb). Revives on exit; call ``Fleet.failover`` INSIDE
+    the context to drive the successor path instead."""
+    aggregator.kill()
+    try:
+        yield
+    finally:
+        aggregator.revive()

@@ -3,6 +3,7 @@ from torchmetrics_tpu_torch.utils.data import dim_zero_cat, dim_zero_max, dim_ze
 from torchmetrics_tpu_torch.utils.enums import AverageMethod, ClassificationTask
 from torchmetrics_tpu_torch.utils.exceptions import (
     CheckpointCorruptionError,
+    FleetProtocolError,
     ShardLossError,
     StateCorruptionError,
     StateDivergenceError,
@@ -16,6 +17,7 @@ __all__ = [
     "AverageMethod",
     "CheckpointCorruptionError",
     "ClassificationTask",
+    "FleetProtocolError",
     "ShardLossError",
     "StateCorruptionError",
     "StateDivergenceError",

@@ -113,3 +113,23 @@ class LaneFaultError(TorchMetricsUserError):
         self.session_id = session_id
         self.lane = lane
         self.where = where
+
+
+class FleetProtocolError(TorchMetricsUserError):
+    """A fleet delta-protocol invariant was violated (``fleet/``).
+
+    Raised by the exactly-once uplink ledger and its neighbours when a delta
+    cannot be merged safely: a delta offered to another leaf's ledger, an
+    unknown delta kind or a non-positive epoch, a reduction with no wire
+    mode, a ``cat`` field that shrank between exports, traffic for a leaf
+    the aggregator does not own, or a degraded global read refused under
+    ``allow_degraded=False``. Carries the attribution (``leaf``, ``epoch``,
+    ``node``) so a handler can act on the one offending uplink instead of
+    the whole fleet.
+    """
+
+    def __init__(self, message: str, leaf=None, epoch=None, node=None) -> None:
+        super().__init__(message)
+        self.leaf = leaf
+        self.epoch = epoch
+        self.node = node
