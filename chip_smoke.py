@@ -429,6 +429,7 @@ PROFILE = "--profile" in sys.argv[1:]
 
 def _emit(obj: dict) -> dict:
     print(json.dumps(obj), flush=True)
+    _note_executors()
     return obj
 
 
@@ -980,15 +981,17 @@ def _imagenet(dev) -> dict:
         for b in IMAGENET["batches"]:
             yield torch.randn((b, c), generator=g, device=dev), torch.randint(0, c, (b,), generator=g, device=dev)
 
-    def collection():
+    def collection(executor=None, **_):
+        kw = {"validate_args": False, "executor": executor}
         return MetricCollection(
             {
-                "accuracy": MulticlassAccuracy(num_classes=c, average="micro", validate_args=False),
-                "f1": MulticlassF1Score(num_classes=c, average="macro", validate_args=False),
-                "precision": MulticlassPrecision(num_classes=c, average="macro", validate_args=False),
-                "recall": MulticlassRecall(num_classes=c, average="macro", validate_args=False),
-                "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False),
-            }
+                "accuracy": MulticlassAccuracy(num_classes=c, average="micro", **kw),
+                "f1": MulticlassF1Score(num_classes=c, average="macro", **kw),
+                "precision": MulticlassPrecision(num_classes=c, average="macro", **kw),
+                "recall": MulticlassRecall(num_classes=c, average="macro", **kw),
+                "confmat": MulticlassConfusionMatrix(num_classes=c, **kw),
+            },
+            executor=executor,
         )
 
     def check(result, tp, fp, fn, w) -> None:
@@ -1026,13 +1029,15 @@ def _cityscapes(dev) -> dict:
             void = torch.rand(shape, generator=g, device=dev) < 0.05
             yield logits, torch.where(void, torch.full_like(target, ignore), target)
 
-    def collection():
+    def collection(executor=None, validate_args=True):
+        kw = {"ignore_index": ignore, "validate_args": validate_args, "executor": executor}
         return MetricCollection(
             {
-                "jaccard": MulticlassJaccardIndex(num_classes=c, ignore_index=ignore, average="macro"),
-                "accuracy": MulticlassAccuracy(num_classes=c, ignore_index=ignore),
-                "confmat": MulticlassConfusionMatrix(num_classes=c, ignore_index=ignore),
-            }
+                "jaccard": MulticlassJaccardIndex(num_classes=c, average="macro", **kw),
+                "accuracy": MulticlassAccuracy(num_classes=c, **kw),
+                "confmat": MulticlassConfusionMatrix(num_classes=c, **kw),
+            },
+            executor=executor,
         )
 
     def check(result, tp, fp, fn, w) -> None:
@@ -1065,9 +1070,11 @@ def _binary_curve(dev) -> dict:
             ignored = torch.rand(n, generator=g, device=dev) < 0.05
             yield scores, torch.where(ignored, torch.full_like(target, ignore), target)
 
-    def collection():
-        kw = {"thresholds": spec["thresholds"], "ignore_index": ignore, "validate_args": False}
-        return MetricCollection({"auroc": BinaryAUROC(**kw), "ap": BinaryAveragePrecision(**kw), "roc": BinaryROC(**kw)})
+    def collection(executor=None, **_):
+        kw = {"thresholds": spec["thresholds"], "ignore_index": ignore, "validate_args": False, "executor": executor}
+        return MetricCollection(
+            {"auroc": BinaryAUROC(**kw), "ap": BinaryAveragePrecision(**kw), "roc": BinaryROC(**kw)}, executor=executor
+        )
 
     return {"updates": spec["updates"], "samples": spec["updates"] * n, "batches": batches, "collection": collection}
 
@@ -1184,12 +1191,13 @@ def _uvg(dev) -> dict:
             noise = spec["noise"] * torch.randn(original.shape, generator=g, device=dev)
             yield (original + noise).clamp_(0.0, 1.0), original
 
-    def collection():
+    def collection(executor=None, **_):
         return MetricCollection(
             {
-                "ssim": StructuralSimilarityIndexMeasure(data_range=1.0),
-                "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0),
-            }
+                "ssim": StructuralSimilarityIndexMeasure(data_range=1.0, executor=executor),
+                "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, executor=executor),
+            },
+            executor=executor,
         )
 
     return {
@@ -1212,6 +1220,16 @@ def _update(spec: dict):
     """How one batch updates the workload's collection: ``coll.update(*batch)``
     unless the spec says otherwise."""
     return spec.get("update", lambda coll, batch: coll.update(*batch))
+
+
+def _executor_extra(coll, per_update: int = 1) -> int:
+    """Launches the captured executor adds to the eager path's, from its
+    counters: one row-0 update a padded replay (the padding's contribution
+    it subtracts; a padded call on a fresh key runs the batch as given) and
+    one eager oracle update a probe, each ``per_update`` launches. 0 where
+    the executor stepped aside or replayed no padded batch."""
+    stats = coll.executor_status["stats"]
+    return per_update * (stats["padded_calls"] + stats["probes"])
 
 
 def _launch_counters():
@@ -1273,12 +1291,14 @@ def phase_workload(name: str, dev) -> dict:
     launches = run["launches"]["bincount"]
     plain = _plain_confmat(spec)
     _check(torch.equal(coll["confmat"].confmat.to(torch.int64), plain), f"{name}: confusion state differs from the plain version")
-    _check(launches == spec["updates"], f"{name}: {launches} bincount launches for {out['updates']} updates")
+    extra = _executor_extra(coll)
+    _check(launches == spec["updates"] + extra, f"{name}: {launches} bincount launches for {out['updates']} updates (+{extra} the executor's)")
     cm, tp, fp, fn, present = _derived(plain)
     spec["check"](result, tp, fp, fn, present.to(torch.float64))
     _check(torch.equal(result["confmat"].to(torch.int64), plain), f"{name}: computed confusion matrix differs")
     out.update({
         "counted": int(cm.sum()), "num_classes": spec["num_classes"], "bincount_launches": launches,
+        "executor": _executor_summary(coll),
         "values": {k: float(v) for k, v in result.items() if k != "confmat"},
         "confmat_exact": True,
     })
@@ -1326,7 +1346,7 @@ def phase_binary_curve(dev) -> dict:
     for member in ("auroc", "ap", "roc"):
         _check(torch.equal(coll[member].confmat.to(torch.int64), plain), f"{name}: {member} state differs from the plain body")
     groups = out["compute_groups"]
-    expected = len(coll) + (spec["updates"] - 1) * len(groups)
+    expected = len(coll) + (spec["updates"] - 1) * len(groups) + _executor_extra(coll)
     _check(len(groups) == 1, f"{name}: the curves did not share one compute group: {groups}")
     _check(
         run["launches"]["binned_curve"] == expected,
@@ -1340,6 +1360,7 @@ def phase_binary_curve(dev) -> dict:
     out.update({
         "thresholds": BINARY_CURVE["thresholds"], "counted": int(plain[0].sum()),
         "binned_curve_launches": run["launches"]["binned_curve"], "expected_launches": expected,
+        "executor": _executor_summary(coll),
         "values": {"auroc": float(result["auroc"]), "ap": float(result["ap"])},
         "state_exact": True,
     })
@@ -1521,7 +1542,7 @@ def phase_uvg(dev) -> dict:
     spec = WORKLOADS[name](dev)
     run = _drive(name, spec, dev)
     result, out = run["result"], run["out"]
-    expected = spec["updates"] * (1 + 5)
+    expected = (spec["updates"] + _executor_extra(run["coll"])) * (1 + 5)
     launches = run["launches"]["ssim_windows"]
     _check(launches == expected, f"{name}: {launches} ssim_windows launches, expected {expected}")
     for key in ("ssim", "ms_ssim"):
@@ -1548,6 +1569,269 @@ def phase_uvg(dev) -> dict:
         out["device_ms_per_update"] = phase_profile(name, dev)["device_ms_per_update"]
     _emit(out)
     return out
+
+
+# ------------------------------------------------------- the captured executor
+#
+# Four phases drive an existing workload twice over the same batches (each
+# spec's batches come from a seeded generator): executor=False, then
+# executor=True. The executor replays one CUDA graph an update (the whole
+# collection's compute groups) over its own state slots.
+
+EXECUTOR_PHASES = {
+    # phase: (workload, the collection executor's keys, profiled updates)
+    "imagenet_val_executor": ("imagenet_val", 8),
+    "cityscapes_val_executor": ("cityscapes_val", 4),
+    "binary_curve_1m_executor": ("binary_curve_1m", 4),
+    "uvg_1080p_executor": ("uvg_1080p", 4),
+}
+#: the ImageNet run's checks of escaped and pending tensors: updates after
+#: the read, and the batches the check runs over
+EXECUTOR_ESCAPE = {"updates_after": 10, "batches": 4}
+
+_SERIALS = iter(range(1 << 62))
+#: every executor seen at a phase's emit (live then): serial -> its summary
+_EXECUTORS_SEEN: dict = {}
+
+
+def _executor_summary(obj) -> dict:
+    """The parts of ``executor_status`` a phase line carries."""
+    status = obj.executor_status
+    stats = status["stats"]
+    keys = ("calls", "compiles", "cache_hits", "padded_calls", "probes", "donated_calls", "copied_calls",
+            "skipped_calls", "dispatch_failures", "recovery_restores", "compile_us_total", "captured")
+    return {"enabled": status["enabled"], "engaged": status["engaged"], "fallback_reason": status["fallback_reason"],
+            **{k: stats[k] for k in keys}}
+
+
+def _note_executors() -> None:
+    """Record every live executor's state (called at each phase's emit,
+    while the phase's metrics are alive)."""
+    from torchmetrics_tpu_torch.obs import registry
+
+    for ex in list(registry._executors):
+        serial = ex.__dict__.setdefault("_chip_smoke_serial", next(_SERIALS))
+        reason = ex.stats_dict()["fallback_reason"]
+        _EXECUTORS_SEEN[serial] = {"owner": ex._owner_name(), "engaged": ex.stats["calls"] > 0, "reason": reason}
+
+
+def _executor_tally() -> dict:
+    """The closing summary: instances whose executor engaged, and the
+    fallback reasons by kind (a reason's text up to its first colon or
+    parenthesis; a failed capture's with its error)."""
+    import re
+
+    reasons: dict = {}
+    idle = 0
+    for rec in _EXECUTORS_SEEN.values():
+        if rec["engaged"]:
+            continue
+        if rec["reason"] is None:
+            idle += 1  # built (a collection leader's) and never needed on its own
+            continue
+        reason = rec["reason"]
+        # a capture's failure keeps its error's kind; other reasons their head
+        kind = reason[:120] if reason.startswith("capture failed") else re.split(r"[:(]", reason, maxsplit=1)[0].strip()
+        reasons[kind] = reasons.get(kind, 0) + 1
+    return {
+        "phase": "executor_summary", "instances": len(_EXECUTORS_SEEN),
+        "engaged": sum(1 for r in _EXECUTORS_SEEN.values() if r["engaged"]), "idle": idle,
+        "fallback_reasons": dict(sorted(reasons.items(), key=lambda kv: -kv[1])),
+    }
+
+
+def _expected_keys(sizes: list) -> int:
+    """Cache keys the collection executor builds: one per (bucket, padded)
+    of the batches after the first (the first update resolves the compute
+    groups, its members eager)."""
+    from torchmetrics_tpu_torch.ops.executor import bucket_size
+
+    return len({(bucket_size(n), bucket_size(n) != n) for n in sizes[1:]})
+
+
+def _leader_state(coll) -> dict:
+    return {cg[0]: {k: coll[cg[0]]._state[k].clone() for k in coll[cg[0]]._defaults} for cg in coll.compute_groups.values()}
+
+
+def _drive_executor(phase: str, spec: dict, dev, executor: bool) -> dict:
+    """Update a fresh collection over every batch (executor on or off) and
+    compute it, every launch count set to 0 just before and read just after;
+    then ``torch.profiler`` over a few more updates of a second collection,
+    for the device time an update."""
+    import torch
+
+    counters = _launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    coll = spec["collection"](executor=executor, validate_args=False)
+    for module in counters.values():
+        module.launches = 0
+    step_s, sizes, first = [], [], None
+    for batch in spec["batches"]():
+        sizes.append(int(batch[0].shape[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coll.update(*batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if first is None:  # the first update resolves the groups: every member updates
+            first = {name: module.launches for name, module in counters.items()}
+    launches = {name: module.launches for name, module in counters.items()}
+    state = _leader_state(coll)
+    result = coll.compute()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    summary = _executor_summary(coll)
+    ex = coll._executor_obj
+    pool, static = (ex.graph_pool_bytes(), ex.static_bytes()) if ex is not None else (0, 0)
+    steps = EXECUTOR_PHASES[phase][1]
+    prof = spec["collection"](executor=executor, validate_args=False)
+    gen = spec["batches"]()
+    warm = [next(gen) for _ in range(3)]
+    for batch in warm:  # resolve the groups and build the key before the profiled window
+        prof.update(*batch)
+    batches = [next(gen) for _ in range(steps + 1)]
+    rows, wall_us = _profiled(lambda i: prof.update(*batches[i + 1]), steps)
+    busy_us = sum(r[1] for r in rows)
+    del prof, batches, warm, gen
+    median_s = statistics.median(step_s)
+    return {
+        "coll": coll, "state": state, "result": result, "launches": launches, "first_launches": first, "sizes": sizes, "out": {
+            "executor": executor, "updates": len(step_s), "updates_per_s": len(step_s) / sum(step_s),
+            "update_ms_p50": median_s * 1e3,
+            "profiled_updates": steps, "wall_us_per_update_profiled": wall_us / steps, "device_us_per_update": busy_us / steps,
+            # wall minus device time: the median unprofiled update's, and
+            # inside the profiled window (where the profiler's own cost rides)
+            "host_us_per_update": median_s * 1e6 - busy_us / steps,
+            "host_us_per_update_profiled": (wall_us - busy_us) / steps, "profile_complete": _complete(rows, steps),
+            "peak_mem_above_base_bytes": peak, "graph_pool_bytes": pool, "static_bytes": static, "launches": launches,
+            "capture_ms": summary["compile_us_total"] / 1e3, "stats": summary,
+        },
+    }
+
+
+def _bit_equal_states(phase: str, on: dict, off: dict, atol: float) -> dict:
+    """Counts bit for bit; float states within ``atol`` (0: bit for bit too,
+    and whether they were is reported)."""
+    import torch
+
+    float_err = 0.0
+    for leader, fields in off.items():
+        for k, v in fields.items():
+            got = on[leader][k]
+            if v.is_floating_point():
+                err = float((got.to(torch.float64) - v.to(torch.float64)).abs().max()) if v.numel() else 0.0
+                float_err = max(float_err, err)
+                _check(err <= atol, f"{phase}: float state {leader}.{k} differs by {err} > {atol}")
+            else:
+                _check(torch.equal(got, v), f"{phase}: state {leader}.{k} differs from executor=False")
+    return {"max_float_state_err": float_err}
+
+
+def _escape_checks(dev) -> dict:
+    """ImageNet's constraint checks on the card, on a fresh executor
+    collection beside an eager one over the same batches: a tensor read by
+    reference and a pending ``compute_async`` keep their submission-time
+    values through ten more updates; a dispatch that fails after its replay
+    ran (``fail_dispatch(consume=True)``) leaves the state bit-equal."""
+    import torch
+
+    from torchmetrics_tpu_torch.testing import faults
+
+    spec = WORKLOADS["imagenet_val"](dev)
+    on = spec["collection"](executor=True)
+    off = spec["collection"](executor=False)
+    gen = spec["batches"]()
+    batches = [next(gen) for _ in range(EXECUTOR_ESCAPE["batches"])]
+    for b in batches[:3]:
+        on.update(*b)
+        off.update(*b)
+    held = on["confmat"].confmat
+    future = on.compute_async()
+    want = off["confmat"].confmat.clone()
+    want_values = off.compute()
+    for _ in range(EXECUTOR_ESCAPE["updates_after"]):
+        on.update(*batches[3])
+    torch.cuda.synchronize()
+    _check(torch.equal(held, want), "imagenet_val_executor: a tensor read by reference changed under later updates")
+    pending = future.result(60.0)
+    for k, v in want_values.items():
+        _check(torch.equal(pending[k], v), f"imagenet_val_executor: compute_async's {k} is not its submission-time value")
+    before = _leader_state(on)
+    count = on.update_count
+    stats = on.executor_status["stats"]
+    raised = False
+    with faults.fail_dispatch(consume=True):
+        try:
+            on.update(*batches[3])
+        except faults.FaultInjected:
+            raised = True
+    torch.cuda.synchronize()
+    after = on.executor_status["stats"]
+    _check(raised, "imagenet_val_executor: fail_dispatch did not propagate")
+    for leader, fields in before.items():
+        for k, v in fields.items():
+            _check(torch.equal(on[leader]._state[k], v), f"imagenet_val_executor: {leader}.{k} changed under a failed dispatch")
+    _check(on.update_count == count, "imagenet_val_executor: a failed dispatch moved the update count")
+    _check(after["dispatch_failures"] == stats["dispatch_failures"] + 1, "imagenet_val_executor: dispatch failure not counted")
+    _check(after["recovery_restores"] == stats["recovery_restores"] + len(before), "imagenet_val_executor: restores not counted")
+    return {
+        "escaped_unchanged": True, "async_unchanged": True, "failed_dispatch_kept_state": True,
+        "updates_after_read": EXECUTOR_ESCAPE["updates_after"], "donated_after_read": after["donated_calls"],
+    }
+
+
+def phase_executor(phase: str, dev) -> dict:
+    """One workload with the executor off and on over the same batches:
+    states bit-equal (SSIM's float sums within ``UVG_SSIM_ATOL``), launches
+    per kernel equal up to the executor's own (one row-0 update a padded
+    call, one oracle update a probe), the collection's executor engaged with
+    one capture per key the batches imply; updates/s, host us an update,
+    capture ms, padding and copies, peak memory and the graph pool's
+    bytes."""
+    import torch
+
+    workload = EXECUTOR_PHASES[phase][0]
+    spec = WORKLOADS[workload](dev)
+    off = _drive_executor(phase, spec, dev, False)
+    on = _drive_executor(phase, spec, dev, True)
+    coll = on["coll"]
+    status = coll.executor_status
+    stats = status["stats"]
+    _check(status["engaged"] and stats["captured"], f"{phase}: the collection's executor did not engage: {status['fallback_reason']}")
+    keys = _expected_keys(on["sizes"])
+    _check(stats["compiles"] == keys, f"{phase}: {stats['compiles']} captures, the batches imply {keys}")
+    atol = UVG_SSIM_ATOL if workload == "uvg_1080p" else 0.0
+    compared = _bit_equal_states(phase, on["state"], off["state"], atol)
+    for k, v in off["result"].items():
+        got, want = on["result"][k], v
+        pairs = list(zip(got, want)) if isinstance(want, (tuple, list)) else [(got, want)]
+        for g, w in pairs:
+            err = float((g.to(torch.float64) - w.to(torch.float64)).abs().max()) if w.numel() else 0.0
+            _check(err <= max(atol, 1e-6), f"{phase}: computed {k} differs from executor=False by {err}")
+    per_update = {}
+    for kernel, n in off["launches"].items():
+        # an update of the resolved groups (the first one updates every member)
+        later, calls = n - off["first_launches"][kernel], off["out"]["updates"] - 1
+        per_update[kernel] = later // calls if later % calls == 0 else None
+        want = n + (per_update[kernel] or 0) * (stats["padded_calls"] + stats["probes"])
+        _check(per_update[kernel] is not None and on["launches"][kernel] == want,
+               f"{phase}: {kernel} launched {on['launches'][kernel]} times with the executor, {want} expected ({n} without)")
+    out = {
+        "phase": phase, "workload": workload, "updates": off["out"]["updates"], "keys_implied": keys,
+        "off": off["out"], "on": on["out"], "launches_per_update_off": per_update,
+        "speedup_updates_per_s": on["out"]["updates_per_s"] / off["out"]["updates_per_s"],
+        **compared,
+    }
+    for run in (off, on):
+        for name, launched in run["launches"].items():
+            out[f"{name}_launches"] = out.get(f"{name}_launches", 0) + launched
+    if workload == "imagenet_val":
+        out["constraints"] = _escape_checks(dev)
+    del off, on, coll
+    return _emit(out)
 
 
 def _sample_covariance(
@@ -2837,7 +3121,8 @@ def phase_div2k(dev) -> dict:
     compute_s = time.perf_counter() - t0
     compute_launches = ssim_kernel.launches - update_launches
     peak = torch.cuda.max_memory_allocated(dev)
-    expected = {"update": updates * (26 * c + 5 * c + 1), "compute": 1 + 2}
+    # the executor pads DIV2K's batch of 4 to 8: a replay also updates row 0
+    expected = {"update": updates * (26 * c + 5 * c + 1) + _executor_extra(stream, 26 * c + 5 * c + 1), "compute": 1 + 2}
     _generic_check(name, update_launches + compute_launches, expected["update"] + expected["compute"])
     _check(compute_launches == expected["compute"], f"{name}: {compute_launches} launches in the compute, expected 3")
     for key, value in result.items():
@@ -7068,7 +7353,13 @@ def _check_trace(coll, groups: list, out_dir, ready: bool) -> dict:
     names = [e.name for e in events]
     member_classes = sorted(type(m).__name__ for m in coll.values())
     update_spans = [n for n in names if n.startswith(obs.SPAN_UPDATE + "/")]
-    _check(len(update_spans) == sum(groups), f"imagenet_val_traced: {len(update_spans)} update spans for {sum(groups)} member updates")
+    # the updates the executor served are one dispatch span each, no member's
+    served = coll.executor_status["stats"]["calls"]
+    dispatch_spans = [n for n in names if n.startswith(obs.SPAN_DISPATCH + "/MetricCollection")]
+    eager = sum(groups[: len(groups) - served])
+    _check(len(update_spans) == eager and len(dispatch_spans) == served,
+           f"imagenet_val_traced: {len(update_spans)} update spans for {eager} eager member updates,"
+           f" {len(dispatch_spans)} dispatch spans for {served} executor calls")
     compute_spans = sorted(n.split("/", 1)[1] for n in names if n.startswith(obs.SPAN_COMPUTE + "/"))
     _check(compute_spans == member_classes, f"imagenet_val_traced: compute spans {compute_spans}")
     ready_spans = [e for e in events if e.name == "imagenet_val.update.ready"]
@@ -8005,7 +8296,11 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
     want = {"windows.late_events": members * (hours + twin_clocks), "windows.dropped_late": members * (hours - 1 + twin_clocks)}
     got = {k: int(counters.get(k, 0)) for k in want}
     _check(got == want, f"criteo: counters {got}, not {want}")
-    _check(win_launches == plain_launches, f"criteo: windowed launches {win_launches} != unwindowed {plain_launches}")
+    # the unwindowed collection's executor pads its ragged batches: one
+    # row-0 update a padded replay and one oracle a probe (the windowed
+    # metrics step aside)
+    plain_eager = {k: v - _executor_extra(plain) for k, v in plain_launches.items()}
+    _check(win_launches == plain_eager, f"criteo: windowed launches {win_launches} != unwindowed {plain_eager} (executor's own removed)")
     _check(win_launches["bincount"] == landed, f"criteo: {win_launches['bincount']} bincount launches for {landed} landed calls")
     _check(dropped_launches == 0, f"criteo: dropped batches launched {dropped_launches} kernels")
     out = {
@@ -9416,7 +9711,8 @@ def phase_femnist_fleet(dev, data: dict) -> dict:
     run_s = time.perf_counter() - t_run
     _check(all(ex.outbox_size == 0 for ex in exporters.values()), "femnist_fleet: the outboxes did not drain")
     launches = bincount.launches
-    _check(launches == updates, f"femnist_fleet: {launches} bincount launches for {updates} site updates")
+    extra = sum(_executor_extra(leaf["cls"]) for leaf in leaves.values())
+    _check(launches == updates + extra, f"femnist_fleet: {launches} bincount launches for {updates} site updates (+{extra} the executor's)")
     _check(partition_read is not None and partition_read["degraded"] and partition_read["refused"]
            and partition_read["coverage"] == (spec["leaves"] - 1) / spec["leaves"]
            and partition_read["partitioned_anchor"]["applied_epoch"] == 0,
@@ -9812,6 +10108,8 @@ def main() -> int:
     ssim = phase_ssim_kernels(dev)
     msmarco = phase_msmarco(dev)
     uvg = phase_uvg(dev)
+    # the captured executor: four workloads with it off and on over the same batches
+    executor = [phase_executor(name, dev) for name in EXECUTOR_PHASES]
     sqrtm_rows = phase_sqrtm_kernels(dev)
     cifar = phase_cifar10(dev)
     featureshare = phase_cifar10_featureshare(dev, cifar)
@@ -9896,6 +10194,7 @@ def main() -> int:
     window = next(r for r in ssim["rows"] if r["shape"] == "div2k_vif17")
     fused = next(r for r in ssim["fused"] if r["shape"] == "uvg_1080p")
     root = next(r for r in sqrtm_rows if r["shape"] == "f2048_d1")
+    _emit(_executor_tally())
     _emit({"phase": "done", "script_s": time.perf_counter() - started})
     _emit({"kernels": [
         {
@@ -9912,7 +10211,8 @@ def main() -> int:
             + femnist["bincount_launches"] + femnist_guarded["bincount_launches"]
             + criteo["bincount_launches"] + femnist_windowed["bincount_launches"]
             + femnist_deferred["bincount_launches"] + gldv2["bincount_launches"] + deferred["bincount_launches"]
-            + audited["bincount_launches"] + gldv2_audited["bincount_launches"] + femnist_fleet["bincount_launches"],
+            + audited["bincount_launches"] + gldv2_audited["bincount_launches"] + femnist_fleet["bincount_launches"]
+            + sum(r["bincount_launches"] for r in executor),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],
@@ -9929,7 +10229,8 @@ def main() -> int:
             "source": "torchmetrics_tpu_torch/csrc/binned_curve.cu",
             "replaces": "torchmetrics_tpu/ops/binned_curve.py:103",
             "launches": binary["binned_curve_launches"] + sync["launches"]["binned_curve"]
-            + sum(r["binned_curve_launches"] for r in rest) + criteo["binned_curve_launches"],
+            + sum(r["binned_curve_launches"] for r in rest) + criteo["binned_curve_launches"]
+            + sum(r["binned_curve_launches"] for r in executor),
             "max_abs_err": max(r["max_abs_err"] for r in curve_rows),
             "ms": curve["ms"],
             "plain_ms": curve["plain_ms"],
@@ -9963,8 +10264,9 @@ def main() -> int:
             "route": "cuda",
             "source": "torchmetrics_tpu_torch/csrc/ssim_windows.cu",
             "replaces": "torchmetrics_tpu/ops/ssim_kernel.py:52",
-            "launches": uvg["ssim_launches"] + sum(r["ssim_windows_generic_launches"] for r in image_rest),
-            "fused_launches": uvg["ssim_launches"],
+            "launches": uvg["ssim_launches"] + sum(r["ssim_windows_generic_launches"] for r in image_rest)
+            + sum(r["ssim_windows_launches"] for r in executor),
+            "fused_launches": uvg["ssim_launches"] + sum(r["ssim_windows_launches"] for r in executor),
             "generic_launches": sum(r["ssim_windows_generic_launches"] for r in image_rest),
             "max_abs_err": max([r["max_abs_err"] for r in ssim["rows"]] + [r["max_abs_err_ssim"] for r in ssim["fused"]]),
             # the headline is SSIM's entry: SSIM fused around the windows

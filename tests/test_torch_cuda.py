@@ -1073,7 +1073,10 @@ def test_rest_of_classification_on_card_equals_cpu(cuda_device, case):
         on_card.update(*(t.to(cuda_device) for t in inputs))
         on_cpu.update(*inputs)
     launched = {k: m.launches - before[k] for k, m in counters.items()}
-    assert launched == {k: (3 if k == kernel else 0) for k in counters}
+    # the executor (on by default on the card) pads a ragged batch: a padded
+    # replay also updates row 0, and the first one runs the eager oracle
+    stats = on_card.executor_status["stats"]
+    assert launched == {k: (3 + stats["padded_calls"] + stats["probes"] if k == kernel else 0) for k in counters}
     _state_equal_to_cpu(on_card, on_cpu)
     _value_equal_to_cpu(on_card.compute(), on_cpu.compute())
 
@@ -2442,3 +2445,356 @@ def test_fingerprint_table_past_the_inline_limit(cuda_device):
     torch.cuda.synchronize()
     assert fingerprint.launches == before + 1
     assert _words_equal(got, fingerprint._fingerprint_reference(*stack.unbind(0)))
+
+
+# ------------------------------------------------------------ the executor
+#
+# The captured executor (ops/executor.py), on by default for a metric on the
+# card: each cache key is captured twice (one graph per state slot) and
+# replayed. Its runs are held bit for bit to executor=False on the same
+# batches.
+
+
+def _executor_workload(name, device, executor):
+    """A small collection of one of the four executor phases, and its
+    batches (ragged last batches where the phase has them)."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC, BinaryAveragePrecision, BinaryROC
+    from torchmetrics_tpu_torch.image import MultiScaleStructuralSimilarityIndexMeasure, StructuralSimilarityIndexMeasure
+
+    g = torch.Generator(device=device).manual_seed(7)
+    kw = {"executor": executor}
+    if name == "imagenet":
+        c = 100
+        members = {
+            "accuracy": MulticlassAccuracy(num_classes=c, average="micro", validate_args=False, **kw),
+            "f1": MulticlassF1Score(num_classes=c, average="macro", validate_args=False, **kw),
+            "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False, **kw),
+        }
+        batches = [(torch.randn((n, c), generator=g, device=device), torch.randint(0, c, (n,), generator=g, device=device)) for n in (256,) * 6 + (200,)]
+    elif name == "cityscapes":
+        c = 19
+        members = {
+            "jaccard": MulticlassJaccardIndex(num_classes=c, ignore_index=255, validate_args=False, **kw),
+            "confmat": MulticlassConfusionMatrix(num_classes=c, ignore_index=255, validate_args=False, **kw),
+        }
+        batches = []
+        for _ in range(5):
+            target = torch.randint(0, c, (4, 64, 96), generator=g, device=device)
+            target = torch.where(torch.rand(target.shape, generator=g, device=device) < 0.05, torch.full_like(target, 255), target)
+            batches.append((torch.randn((4, c, 64, 96), generator=g, device=device), target))
+    elif name == "binary_curve":
+        common = {"thresholds": 100, "ignore_index": -1, "validate_args": False, **kw}
+        members = {"auroc": BinaryAUROC(**common), "ap": BinaryAveragePrecision(**common), "roc": BinaryROC(**common)}
+        batches = []
+        for _ in range(5):
+            target = (torch.rand(100_000, generator=g, device=device) < 0.25).to(torch.int64)
+            scores = torch.sigmoid(torch.randn(100_000, generator=g, device=device) + 1.5 * target)
+            batches.append((scores, torch.where(torch.rand(100_000, generator=g, device=device) < 0.05, torch.full_like(target, -1), target)))
+    else:
+        members = {
+            "ssim": StructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+            "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+        }
+        batches = []
+        for _ in range(4):
+            original = torch.rand((8, 3, 192, 256), generator=g, device=device)
+            batches.append(((original + 0.02 * torch.randn(original.shape, generator=g, device=device)).clamp(0, 1), original))
+    return tm.MetricCollection(members, executor=executor), batches
+
+
+def _launches():
+    from torchmetrics_tpu_torch.ops import binned_curve, ssim_kernel
+
+    return {"bincount": bincount.launches, "binned_curve": binned_curve.launches, "ssim_windows": ssim_kernel.launches}
+
+
+def _run_workload(name, device, executor):
+    coll, batches = _executor_workload(name, device, executor)
+    for i, batch in enumerate(batches):
+        coll.update(*batch)
+        if i == 0:  # the first update resolves the groups: every member updates
+            before = _launches()
+    states = {cg[0]: {k: coll[cg[0]]._state[k].clone() for k in coll[cg[0]]._defaults} for cg in coll.compute_groups.values()}
+    value = coll.compute()
+    torch.cuda.synchronize()
+    return coll, states, value, {k: v - before[k] for k, v in _launches().items()}, len(batches) - 1
+
+
+@pytest.mark.parametrize("name", ["imagenet", "cityscapes", "binary_curve", "uvg"])
+def test_executor_replays_equal_executor_off(cuda_device, name):
+    off, off_states, off_value, off_launches, updates = _run_workload(name, cuda_device, False)
+    on, on_states, on_value, on_launches, _ = _run_workload(name, cuda_device, True)
+    status = on.executor_status
+    assert status["engaged"] and status["stats"]["captured"], status["fallback_reason"]
+    stats = status["stats"]
+    for leader, fields in off_states.items():
+        for k, v in fields.items():
+            if v.is_floating_point():
+                torch.testing.assert_close(on_states[leader][k], v, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(on_states[leader][k], v), (leader, k)
+    for k, v in off_value.items():
+        torch.testing.assert_close(on_value[k], v, rtol=1e-5, atol=1e-5)
+    # after the first update, every launch is the eager path's, plus one
+    # row-0 update a padded replay and one oracle update a probe
+    for k, n in off_launches.items():
+        assert n % updates == 0
+        assert on_launches[k] == n + n // updates * (stats["padded_calls"] + stats["probes"]), (k, n, on_launches, stats)
+
+
+def test_fifty_binned_curve_replays_equal_fifty_eager_calls(cuda_device):
+    """The per-stream scratch ``binned_curve`` keeps (left zeroed by every
+    launch) is baked into the graphs with the capture stream's buffer: fifty
+    replays hold bit for bit to fifty eager calls."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    on = BinaryAUROC(thresholds=200, ignore_index=-1, validate_args=False, executor=True)
+    off = BinaryAUROC(thresholds=200, ignore_index=-1, validate_args=False, executor=False)
+    for _ in range(50):
+        target = (torch.rand(4096, generator=g, device=cuda_device) < 0.3).to(torch.int64)
+        scores = torch.rand(4096, generator=g, device=cuda_device)
+        on.update(scores, target)
+        off.update(scores, target)
+        assert torch.equal(on._state["confmat"], off._state["confmat"])
+    stats = on.executor_status["stats"]
+    assert stats["calls"] == 50 and stats["compiles"] == 1 and stats["cache_hits"] == 49 and stats["donated_calls"] == 49
+
+
+def test_replays_add_their_graphs_launches(cuda_device):
+    """Launch counters count real launches only: the capture adds none, each
+    replay adds its graph's."""
+    m = MulticlassConfusionMatrix(num_classes=10, validate_args=False, executor=True)
+    x, t = torch.randint(0, 10, (512,), device=cuda_device), torch.randint(0, 10, (512,), device=cuda_device)
+    before = bincount.launches
+    m.update(x, t)  # fresh key: the eager run (one launch) and the capture (none)
+    assert bincount.launches == before + 1
+    for i in range(5):
+        m.update(x, t)
+        assert bincount.launches == before + 2 + i
+    torch.cuda.synchronize()
+    assert int(m.compute().sum()) == 6 * 512
+
+
+def test_escaped_tensors_never_change(cuda_device):
+    """Constraint (a): a tensor read by reference keeps its value through
+    ten more updates, and a compute_async in flight across updates returns
+    the value at its submission."""
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+
+    on, batches = _executor_workload("imagenet", cuda_device, True)
+    off, _ = _executor_workload("imagenet", cuda_device, False)
+    for batch in batches[:3]:
+        on.update(*batch)
+        off.update(*batch)
+    held = on["confmat"].confmat
+    want = off["confmat"].confmat.clone()
+    future = on.compute_async()
+    want_value = off.compute()
+    for _ in range(10):
+        on.update(*batches[0])
+    torch.cuda.synchronize()
+    assert torch.equal(held, want)
+    got = future.result(60.0)
+    for k, v in want_value.items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0)
+    drain_pipeline(60.0)
+    assert on.executor_status["stats"]["donated_calls"] >= 9
+
+
+def test_consumed_dispatch_failure_keeps_the_pre_call_state(cuda_device):
+    """Constraint (b): the replay runs (its output slot is written), then the
+    call raises; the live state is bit-equal to the pre-call one."""
+    from torchmetrics_tpu_torch.testing import faults
+
+    on, batches = _executor_workload("imagenet", cuda_device, True)
+    for batch in batches[:3]:
+        on.update(*batch)
+    before = {cg[0]: {k: on[cg[0]]._state[k].clone() for k in on[cg[0]]._defaults} for cg in on.compute_groups.values()}
+    count = on.update_count
+    with faults.fail_dispatch(consume=True), pytest.raises(faults.FaultInjected):
+        on.update(*batches[0])
+    torch.cuda.synchronize()
+    for leader, fields in before.items():
+        for k, v in fields.items():
+            assert torch.equal(on[leader]._state[k], v)
+    stats = on.executor_status["stats"]
+    assert on.update_count == count and stats["dispatch_failures"] == 1 and stats["recovery_restores"] == len(before)
+    on.update(*batches[0])
+    assert on.executor_status["stats"]["calls"] == stats["calls"] + 1
+
+
+def test_forward_value_is_no_graph_memory(cuda_device):
+    """Constraint (c): a forward's batch value shares no storage with the
+    executor's slots or its graphs' outputs."""
+    m = MulticlassConfusionMatrix(num_classes=10, validate_args=False, executor=True)
+    x, t = torch.randint(0, 10, (512,), device=cuda_device), torch.randint(0, 10, (512,), device=cuda_device)
+    values = [m(x, t) for _ in range(4)]
+    disp = m._executor_obj._dispatcher
+    owned = {v.data_ptr() for s in disp.slots for v in s}
+    for entry in disp.entries.values():
+        owned |= {v.data_ptr() for vals in entry.values for v in ([vals] if isinstance(vals, torch.Tensor) else [])}
+    assert m.executor_status["stats"]["calls"] == 4 and m.executor_status["stats"]["cache_hits"] == 3
+    for v in values:
+        assert v.data_ptr() not in owned
+    assert all(torch.equal(v, values[0]) for v in values)
+
+
+def test_update_inside_the_callers_capture_is_skipped(cuda_device):
+    """Inside the caller's own CUDA graph capture the executor steps aside
+    for the call (skipped_calls) and the eager body runs into that graph."""
+    m = tm.SumMetric(nan_strategy="ignore", executor=True)
+    x = torch.ones(8, device=cuda_device)
+    m.update(x)
+    m.update(x)  # warm: the eager body's kernels are built
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        m.update(x)
+    assert m.executor_status["stats"]["skipped_calls"] == 1
+
+
+def test_later_items_step_aside_on_the_card(cuda_device):
+    """Windowed and laned metrics and class-axis states step aside for now,
+    naming the roadmap item that brings them onto the executor."""
+    windowed = tm.WindowedMetric(tm.SumMetric(nan_strategy="ignore"), window=3)
+    windowed.update(torch.tensor([1.0, 2.0], device=cuda_device))
+    laned = tm.SumMetric(nan_strategy="ignore").laned(capacity=8)
+    laned.update(torch.tensor([0, 1], device=cuda_device), torch.tensor([1.0, 2.0], device=cuda_device))
+    sharded = MulticlassConfusionMatrix(num_classes=10, validate_args=False, state_sharding="class_axis", class_shards=2)
+    sharded.update(torch.tensor([0, 1], device=cuda_device), torch.tensor([1, 1], device=cuda_device))
+    for m in (windowed, laned, sharded):
+        status = m.executor_status
+        assert status["enabled"] and not status["engaged"]
+        assert "ROADMAP Queue A item 3" in status["fallback_reason"]
+
+
+def _binary_batch(g, device, n):
+    target = (torch.rand(n, generator=g, device=device) < 0.3).to(torch.int64)
+    target = torch.where(torch.rand(n, generator=g, device=device) < 0.05, torch.full_like(target, -1), target)
+    return torch.rand(n, generator=g, device=device), target
+
+
+@pytest.mark.parametrize("order", ["ladder_then_later_rung", "two_keys", "two_executors"])
+def test_binned_curve_graphs_replay_exact_whichever_replays_first(cuda_device, order):
+    """``binned_curve``'s zeroed tickets and histogram under capture: every
+    graph holds its own, zeroed at each replay, so a key captured after
+    another may replay first, in the same executor or another one, and a
+    later capture never frees what an earlier graph uses."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    kw = {"ignore_index": -1, "validate_args": False}
+    ons = [BinaryAUROC(thresholds=200, executor=True, **kw), BinaryAUROC(thresholds=300, executor=True, **kw)]
+    offs = [BinaryAUROC(thresholds=200, executor=False, **kw), BinaryAUROC(thresholds=300, executor=False, **kw)]
+    if order == "ladder_then_later_rung":
+        report = ons[0].warmup(_binary_batch(g, cuda_device, 4096), ladder=True)
+        assert report["warmed"] == 11 and not report["skipped"], report
+        plan = [(0, n) for n in (1000, 4096, 4096, 100, 1000, 4096)]
+    elif order == "two_keys":
+        ons[0].warmup(_binary_batch(g, cuda_device, 100), ladder=False)
+        ons[0].warmup(_binary_batch(g, cuda_device, 8192), ladder=False)
+        plan = [(0, n) for n in (8192, 8192, 100, 100, 8192)]
+    else:
+        batch = _binary_batch(g, cuda_device, 4096)
+        ons[0].update(*batch)  # a fresh key: its eager run, then its capture
+        offs[0].update(*batch)
+        ons[1].warmup(_binary_batch(g, cuda_device, 16384), ladder=False)
+        plan = [(1, 16384), (1, 16384), (0, 4096), (1, 16384), (0, 4096)]
+    for i, n in plan:
+        batch = _binary_batch(g, cuda_device, n)
+        ons[i].update(*batch)
+        offs[i].update(*batch)
+        torch.cuda.synchronize()
+        assert torch.equal(ons[i]._state["confmat"], offs[i]._state["confmat"]), (order, i, n)
+    if order == "two_executors":
+        del ons[1], offs[1]  # its graphs and pool go; the other executor's replays stay exact
+        import gc
+
+        gc.collect()
+        for _ in range(3):
+            batch = _binary_batch(g, cuda_device, 4096)
+            ons[0].update(*batch)
+            offs[0].update(*batch)
+        torch.cuda.synchronize()
+        assert torch.equal(ons[0]._state["confmat"], offs[0]._state["confmat"])
+    for m in {i: ons[i] for i, _ in plan if i < len(ons)}.values():
+        stats = m.executor_status["stats"]
+        assert m.executor_status["engaged"] and stats["captured"] and stats["cache_hits"] >= 1, stats
+
+
+def test_background_warmup_beside_another_collections_updates(cuda_device):
+    """One collection captures its ladder on a background thread while
+    another replays its updates on the main thread: both share the device's
+    capture stream, whose lock keeps each capture and replay apart, and the
+    updating collection's states equal executor=False's."""
+    on, batches = _executor_workload("imagenet", cuda_device, True)
+    off, _ = _executor_workload("imagenet", cuda_device, False)
+    warm, curve_batches = _executor_workload("binary_curve", cuda_device, True)
+    warm.update(*curve_batches[0])  # resolves the compute groups
+    handle = warm.warmup(curve_batches[1], ladder=True, background=True)
+    for i in range(30):
+        batch = batches[i % len(batches)]
+        on.update(*batch)
+        off.update(*batch)
+    report = handle.wait(600.0)
+    assert report is not None and report["warmed"] >= 10 and not report["skipped"], report
+    torch.cuda.synchronize()
+    for cg in off.compute_groups.values():
+        for k in off[cg[0]]._defaults:
+            assert torch.equal(on[cg[0]]._state[k], off[cg[0]]._state[k]), (cg[0], k)
+    assert on.executor_status["engaged"] and on.executor_status["stats"]["cache_hits"] >= 20
+    curve_off, _ = _executor_workload("binary_curve", cuda_device, False)
+    for batch in curve_batches:
+        curve_off.update(*batch)
+    for batch in curve_batches[1:]:
+        warm.update(*batch)
+    torch.cuda.synchronize()
+    stats = warm.executor_status["stats"]
+    assert stats["compiles"] == report["warmed"] and stats["cache_hits"] == len(curve_batches) - 1, stats
+    for cg in curve_off.compute_groups.values():
+        for k in curve_off[cg[0]]._defaults:
+            assert torch.equal(warm[cg[0]]._state[k], curve_off[cg[0]]._state[k]), (cg[0], k)
+
+
+def test_failed_capture_returns_its_memory(cuda_device):
+    """A capture that fails (an update that reads the host) disables the
+    executor for that metric, serves the call eagerly and hands its graph
+    pool back: after three such failures, freeing a large tensor and
+    emptying the cache, the reserved memory is back at its earlier level
+    (one small segment of slack)."""
+    import gc
+
+    class ReadsHost(tm.Metric):
+        full_state_update = False
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+        def update(self, x):
+            doubled = x * 2.0  # 64 MiB from the graph's pool under capture
+            self.total = self.total + float(doubled.sum())
+
+        def compute(self):
+            return self.total
+
+    x = torch.ones(1 << 24, device=cuda_device)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda_device)
+    for _ in range(3):
+        m = ReadsHost(executor=True)
+        m.update(x)
+        status = m.executor_status
+        assert not status["engaged"] and status["fallback_reason"].startswith("capture failed"), status
+        assert float(m.compute()) == 2.0 * (1 << 24)
+        del m
+    gc.collect()
+    torch.cuda.synchronize()
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=cuda_device)
+    del big
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda_device) <= before + (2 << 20)

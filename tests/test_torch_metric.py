@@ -316,6 +316,8 @@ def test_compute_before_update_warns_and_bad_kwargs_raise():
         m.compute()
     assert any("before the ``update``" in str(w.message) for w in caught)
     with pytest.raises(ValueError, match="Unexpected keyword"):
-        classification.BinaryAccuracy(device="cpu", executor=False)
+        classification.BinaryAccuracy(device="cpu", compiled=False)
+    with pytest.raises(ValueError, match="`executor` to be a `bool`"):
+        classification.BinaryAccuracy(device="cpu", executor="off")
     with pytest.raises(ValueError, match="dist_reduce_fx"):
         m.add_state("x", torch.tensor(0), dist_reduce_fx="median")

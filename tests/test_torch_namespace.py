@@ -1,0 +1,103 @@
+"""The port's public namespaces against the JAX package's.
+
+Every ``__all__`` of the JAX package's root, ``utils``, ``ops``, ``io``,
+``testing``, ``parallel`` and ``fleet`` is a subset of the port module's,
+less a named list: the names left out for good (no ``shard_map`` and no
+named axes in the port; the ingest router records its retire event
+itself) and the names of the executor's later parts (the deferred
+collection step and recovery, the compile cache; ROADMAP Queue A items 3-4).
+"""
+from __future__ import annotations
+
+import importlib
+
+import pytest
+
+MODULES = ("", ".utils", ".ops", ".io", ".testing", ".parallel", ".fleet")
+
+#: left out for good (ROADMAP Queue C)
+LEFT_OUT = {"shard_map_compat", "in_named_axis_context", "notify_dispatched"}
+
+#: ROADMAP Queue A items 3 and 4
+LATER_ITEMS = {
+    "make_synced_collection_step",
+    "DeferredCollectionStep",
+    "make_deferred_collection_step",
+    "latest_recovery_snapshot",
+    "deferred_source",
+    # the compile cache's
+    "CompileWorker",
+    "drain_worker",
+    "save_shape_manifest",
+    "load_shape_manifest",
+    "corrupt_cache_entry",
+    "stale_cache_version",
+}
+
+
+@pytest.mark.parametrize("module", MODULES, ids=[m or "root" for m in MODULES])
+def test_jax_names_are_exported_by_the_port(module):
+    ref = importlib.import_module(f"torchmetrics_tpu{module}")
+    port = importlib.import_module(f"torchmetrics_tpu_torch{module}")
+    missing = set(ref.__all__) - set(port.__all__) - LEFT_OUT - LATER_ITEMS
+    assert not missing
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
+@pytest.mark.parametrize("module", MODULES, ids=[m or "root" for m in MODULES])
+def test_the_named_list_is_still_missing(module):
+    """A name of the list that the port exports must leave the list."""
+    port = importlib.import_module(f"torchmetrics_tpu_torch{module}")
+    assert not (set(port.__all__) & (LEFT_OUT | LATER_ITEMS))
+
+
+@pytest.mark.parametrize(
+    "module,names",
+    [
+        ("utils", ("check_forward_full_state_property", "class_reduce", "reduce", "rank_zero_debug", "rank_zero_info",
+                   "to_onehot", "to_categorical", "allclose", "DataType", "MDMCAverageMethod")),
+        ("ops", ("gate_snapshot", "resolve_backend")),
+        ("testing", ("hang_sync", "break_sync", "fail_dispatch")),
+        ("", ("TorchMetricsUserError", "TorchMetricsUserWarning", "SyncTimeoutError", "StateCorruptionError",
+              "StateDivergenceError", "CheckpointCorruptionError", "TopologyMismatchError", "ShardLossError",
+              "LaneFaultError", "DispatchStallError", "Autosaver", "save_state", "restore_state",
+              "install_preemption_handler", "MetricFuture", "pending_reads", "drain_async_reads",
+              "dump_diagnostics", "telemetry_snapshot", "obs", "executor_stats")),
+    ],
+)
+def test_names_added_with_the_executor_are_the_jax_names(module, names):
+    suffix = "." + module if module else ""
+    port = importlib.import_module(f"torchmetrics_tpu_torch{suffix}")
+    homes = [importlib.import_module(f"torchmetrics_tpu{suffix}")]
+    if module == "utils":  # some live in JAX's submodules only
+        homes += [importlib.import_module(f"torchmetrics_tpu.utils.{sub}") for sub in ("checks", "data", "enums", "prints")]
+    for name in names:
+        assert name in port.__all__ and hasattr(port, name), name
+        assert any(hasattr(home, name) for home in homes), name
+
+
+def test_small_utils_match_jax():
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import torchmetrics_tpu.utils.data as jax_data
+    import torchmetrics_tpu_torch.utils as port_utils
+    from torchmetrics_tpu.utils import enums as jax_enums
+
+    labels = np.array([[0, 2], [1, 1]], dtype=np.int32)
+    np.testing.assert_array_equal(
+        port_utils.to_onehot(torch.from_numpy(labels), num_classes=3).numpy(),
+        np.asarray(jax_data.to_onehot(jnp.asarray(labels), num_classes=3)),
+    )
+    probs = np.random.RandomState(0).rand(4, 5).astype(np.float32)
+    np.testing.assert_array_equal(
+        port_utils.to_categorical(torch.from_numpy(probs)).numpy(), np.asarray(jax_data.to_categorical(jnp.asarray(probs)))
+    )
+    assert port_utils.allclose(torch.tensor([1.0, 2.0]), torch.tensor([1.0, 2.0 + 1e-9]))
+    assert not port_utils.allclose(torch.tensor([1.0]), torch.tensor([1.1]))
+    assert [m.value for m in port_utils.DataType] == [m.value for m in jax_enums.DataType]
+    assert [m.value for m in port_utils.MDMCAverageMethod] == [m.value for m in jax_enums.MDMCAverageMethod]
+    from torchmetrics_tpu_torch.ops import resolve_backend
+
+    assert resolve_backend("cpu") == "reference" and resolve_backend("cuda") == "cuda"

@@ -3,7 +3,9 @@
 held to the JAX package.
 
 ``block_encode``'s codes and scales are bit-equal to the JAX package's at 8
-and 16 bits over several block sizes, a ragged last block included (the
+and 16 bits over several block sizes for normal-range scales (a block whose
+scale is subnormal keeps it in the port and is flushed to 0 by the JAX
+package on the CPU: a reference quirk), a ragged last block included (the
 same float32 order of operations: max-abs scales, a true division, round
 half to even, clip); decoding matches; integer input raises ``TypeError``.
 In spawned gloo worlds of 2, 3 and 8 ranks a quantized sync of sum, mean,
@@ -72,6 +74,40 @@ def test_block_encode_is_bit_equal_to_jax(bits, block):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     bound = q.reduce_error_bound(x[None].astype(np.float64), "max", bits, block)
     assert _within(np.abs(got.numpy().astype(np.float64) - x), bound, x)
+
+
+@pytest.mark.parametrize(
+    "bits,x",
+    [
+        (8, [3e-38, -1e-38]),
+        (8, [0.5 * 127 * 2.0**-126, -0.2 * 127 * 2.0**-126]),
+        (16, [0.5 * 32767 * 2.0**-126, -0.2 * 32767 * 2.0**-126]),
+    ],
+    ids=["8bit_queue_case", "8bit_under_trigger", "16bit_under_trigger"],
+)
+def test_subnormal_scale_block_holds_the_bound_where_jax_flushes(bits, x):
+    """A block whose max |x| is below qmax x 2^-126 has a subnormal scale.
+    The port keeps it and its decode holds ``reduce_error_bound``; the JAX
+    package on the CPU flushes the scale to 0 and decodes zeros (a
+    reference quirk, ROADMAP Queue C), breaking its own bound."""
+    import jax.numpy as jnp
+
+    from torchmetrics_tpu.parallel import quantized as jq
+
+    x = np.asarray(x, dtype=np.float32)
+    codes, scales = q.block_encode(torch.from_numpy(x), bits=bits, block_size=2)
+    got = q.block_decode(codes, scales, x.size, x.shape, torch.float32).numpy().astype(np.float64)
+    bound = q.reduce_error_bound(x[None].astype(np.float64), "max", bits, 2)
+    assert 0 < float(scales[0]) < np.finfo(np.float32).tiny
+    # at these magnitudes _within's absolute slack would pass anything: hold
+    # the bound itself (with its float32 rounding allowance)
+    assert (np.abs(got - x) <= bound * (1 + 2.0**-7)).all() and int(codes.abs().max()) == 2 ** (bits - 1) - 1
+    jcodes, jscales = jq.block_encode(jnp.asarray(x), bits=bits, block_size=2)
+    jgot = np.asarray(jq.block_decode(jcodes, jscales, x.size, x.shape, jnp.float32)).astype(np.float64)
+    assert float(np.asarray(jscales)[0]) == 0.0 and not jgot.any()
+    assert (np.abs(jgot - x) > bound * (1 + 2.0**-7)).any()
+    if bits == 8 and x[0] == np.float32(3e-38):
+        assert np.asarray(jcodes).tolist() == [[127, 0]] and codes.tolist() == [[127, -42]]
 
 
 def test_block_encode_of_float64_and_a_tie_rounds_half_to_even():

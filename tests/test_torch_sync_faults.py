@@ -5,7 +5,8 @@ The JAX package's scenarios (``tests/test_fault_containment.py``,
 ``test_durability.py``, ``test_lane_faults.py``) hang, break or flake its
 multi-host gather seam; here each one is replayed on both packages, the
 port's in a one-rank gloo world in this process with its collective seams
-(``parallel.sync._all_reduce`` and ``_all_gather``) patched the same way,
+(``parallel.sync._all_reduce`` and ``_all_gather``) patched the same way
+(``testing.faults.hang_sync``/``break_sync``/``flaky_sync``),
 and the outcomes (value, exception, warning, ``last_sync_ok``, the state
 after the failure) must be the same. Only symmetric faults are replayed: a
 fault on one rank only leaves the collectives out of step in both packages.
@@ -23,6 +24,7 @@ import torch.distributed as dist
 import torchmetrics_tpu_torch as tm
 from torchmetrics_tpu_torch.io import retry as retry_mod
 from torchmetrics_tpu_torch.parallel import sync as psync
+from torchmetrics_tpu_torch.testing import faults
 from torchmetrics_tpu_torch.quarantine import DegradedValue
 
 
@@ -33,20 +35,6 @@ def gloo_world(tmp_path_factory):
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=1, rank=0)
     yield
     dist.destroy_process_group()
-
-
-class PortFault(RuntimeError):
-    """The fault injected at the port's seams."""
-
-
-class _NeverDone:
-    """A work handle whose collective never completes (a dead peer)."""
-
-    def is_completed(self):
-        return False
-
-    def wait(self, *_):
-        raise AssertionError("a hung collective was waited on without a bound")
 
 
 class _Port:
@@ -64,43 +52,14 @@ class _Port:
     def state(self, m, field):
         return float(m._state[field])
 
-    @contextmanager
-    def _patched(self, make):
-        orig = (psync._all_reduce, psync._all_gather)
-        psync._all_reduce, psync._all_gather = make(orig[0]), make(orig[1])
-        try:
-            yield
-        finally:
-            psync._all_reduce, psync._all_gather = orig
-
     def hang(self):
-        return self._patched(lambda orig: lambda *a: _NeverDone())
+        return faults.hang_sync(seconds=None)
 
     def broken(self):
-        def make(orig):
-            def failing(*a):
-                raise PortFault("injected sync failure")
+        return faults.break_sync()
 
-            return failing
-
-        return self._patched(make)
-
-    @contextmanager
     def flaky(self, fail_n):
-        counters = {"attempts": 0, "failures": 0}
-
-        def make(orig):
-            def sometimes(*a):
-                counters["attempts"] += 1
-                if counters["failures"] < fail_n:
-                    counters["failures"] += 1
-                    raise PortFault("injected transient sync failure")
-                return orig(*a)
-
-            return sometimes
-
-        with self._patched(make):
-            yield counters
+        return faults.flaky_sync(fail_n=fail_n)
 
 
 class _Jax:

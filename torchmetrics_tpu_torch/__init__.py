@@ -70,6 +70,10 @@ metric is built with ``device="cpu"``. Ported so far:
   fold on the ``fingerprint`` kernel, and the fleet (``fleet/``): the
   exactly-once delta protocol, uplinks, leaf exporters, the aggregator tree
   and the global view.
+- the captured executor (``ops/executor.py``): on the card every eager
+  ``update``/``forward`` of an eligible metric, and a collection's every
+  compute group, replays as one CUDA graph over the executor's own state
+  slots (``executor=``, ``TORCHMETRICS_TPU_EXECUTOR``; ``executor_stats``).
 """
 __version__ = "0.1.0"
 
@@ -110,13 +114,19 @@ from torchmetrics_tpu_torch.detection import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
+from torchmetrics_tpu_torch import io, obs
 from torchmetrics_tpu_torch.integrity import DeferredIntegrity, IntegrityAuditor
+from torchmetrics_tpu_torch.io import Autosaver, install_preemption_handler, restore_state, save_state
 from torchmetrics_tpu_torch.lanes import LanedCollection, LanedMetric, make_deferred_lane_step
 from torchmetrics_tpu_torch.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.multimodal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.multimodal import __all__ as _multimodal_all
 from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
+from torchmetrics_tpu_torch.obs import dump_diagnostics, telemetry_snapshot
+from torchmetrics_tpu_torch.ops.async_read import MetricFuture, pending_reads
+from torchmetrics_tpu_torch.ops.async_read import drain_pipeline as drain_async_reads
+from torchmetrics_tpu_torch.ops.executor import executor_stats
 from torchmetrics_tpu_torch.quarantine import DegradedValue, LaneGuard
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
@@ -124,6 +134,18 @@ from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.text import __all__ as _text_all
+from torchmetrics_tpu_torch.utils.exceptions import (
+    CheckpointCorruptionError,
+    DispatchStallError,
+    LaneFaultError,
+    ShardLossError,
+    StateCorruptionError,
+    StateDivergenceError,
+    SyncTimeoutError,
+    TopologyMismatchError,
+    TorchMetricsUserError,
+    TorchMetricsUserWarning,
+)
 from torchmetrics_tpu_torch.windows import WindowedCollection, WindowedMetric
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
@@ -137,14 +159,18 @@ from torchmetrics_tpu_torch.wrappers import (
 )
 
 __all__ = [
+    "Autosaver",
     "BootStrapper",
     "CatMetric",
+    "CheckpointCorruptionError",
     "ClasswiseWrapper",
     "CompositionalMetric",
     "DeferredIntegrity",
     "DegradedValue",
+    "DispatchStallError",
     "FeatureShare",
     "IntegrityAuditor",
+    "LaneFaultError",
     "LaneGuard",
     "LanedCollection",
     "LanedMetric",
@@ -152,6 +178,7 @@ __all__ = [
     "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MetricFuture",
     "MetricTracker",
     "MinMaxMetric",
     "MinMetric",
@@ -160,23 +187,40 @@ __all__ = [
     "Running",
     "RunningMean",
     "RunningSum",
+    "ShardLossError",
+    "StateCorruptionError",
+    "StateDivergenceError",
     "SumMetric",
+    "SyncTimeoutError",
+    "TopologyMismatchError",
+    "TorchMetricsUserError",
+    "TorchMetricsUserWarning",
     "WindowedCollection",
     "WindowedMetric",
     "audio",
     "classification",
     "clustering",
     "detection",
+    "drain_async_reads",
+    "dump_diagnostics",
+    "executor_stats",
     "fleet",
     "functional",
+    "install_preemption_handler",
+    "io",
     "make_deferred_lane_step",
     "image",
     "models",
     "multimodal",
     "nominal",
+    "obs",
     "parallel",
+    "pending_reads",
     "regression",
+    "restore_state",
     "retrieval",
+    "save_state",
+    "telemetry_snapshot",
     "text",
     "wrappers",
     *_audio_all,

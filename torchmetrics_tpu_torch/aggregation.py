@@ -73,6 +73,12 @@ class BaseAggregator(Metric):
         """Value that is a no-op for this aggregator's reduction."""
         return 0.0
 
+    def _executor_traceable(self) -> bool:
+        """The "error"/"warn" NaN strategies read the values on the host: a
+        replay would skip the raise or the warning, so those instances keep
+        the eager path (ops/executor.py consults this hook)."""
+        return self.nan_strategy not in ("error", "warn")
+
     def _cast_and_nan_check_input(
         self, x: Union[float, torch.Tensor], weight: Optional[Union[float, torch.Tensor]] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,16 +10,21 @@ Every update/forward runs inside one :class:`~torchmetrics_tpu_torch.ops.kernels
 the classification leaders of one call then share a single confusion-count
 kernel launch (ops/fused_classification.py), and nothing is memoized past
 the call.
+
+Once the groups are resolved, the collection's captured executor
+(``ops/executor.py``, on by default on the card) runs every group leader's
+update, or the whole forward, as one replay.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from copy import deepcopy
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from torchmetrics_tpu_torch import obs
-from torchmetrics_tpu_torch.metric import EAGER_REASON, Metric, resolve_device
+from torchmetrics_tpu_torch.metric import Metric, _metric_call, resolve_device
 from torchmetrics_tpu_torch.ops.kernels import gate_snapshot, shared_scope
 from torchmetrics_tpu_torch.parallel.sync import (
     REDUCE_POLICIES,
@@ -31,6 +36,7 @@ from torchmetrics_tpu_torch.utils.data import _flatten_dict
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 
 _PREFIX_SUFFIX_ERROR = "Expected input `{}` to be a string, but got {}"
+
 
 
 class MetricCollection:
@@ -48,6 +54,14 @@ class MetricCollection:
             ``"deferred"`` (local accumulation, each declared reduction
             applied once at the read point). ``None`` (default) leaves each
             member's own policy.
+        executor: route the collection's ``update``/``forward`` through ONE
+            captured dispatch once the compute groups are resolved
+            (``ops/executor.py``); ``None`` (default) follows
+            ``TORCHMETRICS_TPU_EXECUTOR`` on the card and is off on the CPU;
+            ``False`` keeps the per-group loop (members may still use their
+            own executors). It engages while every group leader's own
+            executor is enabled and eligible; where it does not, the
+            members run eagerly.
 
     Example:
         >>> import torch
@@ -68,9 +82,14 @@ class MetricCollection:
         compute_groups: Union[bool, List[List[str]]] = True,
         device: Union[str, torch.device, None] = None,
         reduce: Optional[str] = None,
+        executor: Optional[bool] = None,
     ) -> None:
         if reduce is not None and reduce not in REDUCE_POLICIES:
             raise ValueError(f"Expected keyword argument `reduce` to be one of {REDUCE_POLICIES} but got {reduce}")
+        if executor is not None and not isinstance(executor, bool):
+            raise ValueError(f"Expected keyword argument `executor` to be a `bool` but got {executor}")
+        self._executor_enabled = executor
+        self._executor_obj: Optional[Any] = None
         self.reduce_policy = reduce
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
@@ -217,7 +236,75 @@ class MetricCollection:
     def __getstate__(self) -> Dict[str, Any]:
         state = self.__dict__.copy()
         state.pop("_update_observers", None)  # autosavers and fault hooks stay with the original
+        state["_executor_obj"] = None  # captured graphs are process-local
         return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_executor_obj", None)
+        self.__dict__.setdefault("_executor_enabled", None)
+
+    # ---------------------------------------------------- captured dispatch
+    def _executor_on(self) -> bool:
+        enabled = self.__dict__.get("_executor_enabled")
+        if enabled is not None:
+            return enabled
+        from torchmetrics_tpu_torch.ops.executor import executor_enabled_default
+
+        return self._device.type == "cuda" and executor_enabled_default()
+
+    def _get_executor(self) -> Any:
+        """The lazily built collection executor, or None when it is off."""
+        if not self._executor_on():
+            return None
+        if self._executor_obj is None:
+            from torchmetrics_tpu_torch.ops.executor import CollectionExecutor
+
+            self._executor_obj = CollectionExecutor(self)
+        return self._executor_obj
+
+    def _resolve_groups_for_warmup(self, args: tuple, kwargs: dict) -> None:
+        if args and self._enable_compute_groups and not self._groups_checked:
+            self.resolve_compute_groups(*args, **kwargs)
+            self._compute_groups_create_state_ref()
+
+    def warmup(self, batch_specs: Any, forward: bool = False, ladder: bool = True, background: bool = False) -> Any:
+        """Build the collection's executor keys ahead of traffic (see
+        :meth:`Metric.warmup` for the spec forms). The compute groups are
+        resolved from the first spec's zero dummies first (the live states
+        are untouched), so the keys are those ``update``/``forward`` hit."""
+        from torchmetrics_tpu_torch.ops.executor import _normalize_warmup_specs
+
+        specs = _normalize_warmup_specs(batch_specs, self._device)
+        if specs:
+            self._resolve_groups_for_warmup(*specs[0])
+        ex = self._get_executor()
+        if ex is None:
+            return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
+        return ex.warmup(specs, forward=forward, ladder=ladder, background=background)
+
+    def warmup_from_manifest(self, manifest: Dict[str, Any], background: bool = False) -> Any:
+        """Build exactly the call shapes a :meth:`shape_profile` manifest
+        recorded (resolving the groups from its first spec)."""
+        from torchmetrics_tpu_torch.ops.executor import dummy_from_spec
+
+        specs = manifest.get("specs") or []
+        if specs:
+            self._resolve_groups_for_warmup(*dummy_from_spec(specs[0], self._device))
+        ex = self._get_executor()
+        if ex is None:
+            return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
+        return ex.warmup_from_manifest(manifest, background=background)
+
+    def shape_profile(self) -> Dict[str, Any]:
+        """Replayable manifest of the call shapes the collection's executor
+        has served (see :meth:`Metric.shape_profile`)."""
+        ex = self._get_executor()
+        if ex is None:
+            from torchmetrics_tpu_torch.ops.executor import PROFILE_VERSION
+
+            return {"profile_version": PROFILE_VERSION, "owner": type(self).__name__, "specs": []}
+        return ex.shape_profile()
 
     # ------------------------------------------------------ update observers
     def add_update_observer(self, callback: Any) -> Any:
@@ -242,14 +329,18 @@ class MetricCollection:
 
     @property
     def executor_status(self) -> Dict[str, Any]:
-        """The JAX package's executor diagnosis for the collection plus each
-        member's (see :attr:`Metric.executor_status`): the port runs eagerly."""
+        """The collection executor's diagnosis plus each member's (see
+        :attr:`Metric.executor_status`)."""
+        from torchmetrics_tpu_torch.ops.executor import executor_stats
+
+        enabled = self._executor_on()
+        stats = executor_stats(self)
         return {
-            "enabled": False,
-            "engaged": False,
-            "fallback_reason": EAGER_REASON,
+            "enabled": enabled,
+            "engaged": stats["calls"] > 0,
+            "fallback_reason": None if enabled is False else stats.get("fallback_reason"),
             "deferred_pending": any(m.deferred_pending for m in self._modules.values()),
-            "stats": {},
+            "stats": stats,
             "kernels": gate_snapshot(),
             "members": {name: m.executor_status for name, m in self._modules.items()},
         }
@@ -257,13 +348,28 @@ class MetricCollection:
     # ------------------------------------------------------------- metric API
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update each compute group's leader once (every member before the
-        groups are resolved), all inside one fusion scope."""
-        members = (
-            [self._modules[cg[0]] for cg in self._groups.values()]
-            if self._groups_checked
-            else list(self._modules.values())
-        )
-        with shared_scope():
+        groups are resolved), all inside one fusion scope; once they are, the
+        collection's executor runs every leader's update as one dispatch
+        when it can. With the collection's executor on, the members never
+        use their own (they run eagerly where it does not run them); with
+        ``executor=False`` they may."""
+        if self._groups_checked:
+            ex = self._get_executor()
+            if ex is not None and ex.run_update(args, kwargs):
+                self._compute_groups_create_state_ref()
+                # each leader committed an update, as in the per-group loop:
+                # its own observers (an autosaver, an integrity auditor) fire
+                for cg in self._groups.values():
+                    self._modules[cg[0]]._notify_update()
+                self._notify_update()
+                return
+            members = [self._modules[cg[0]] for cg in self._groups.values()]
+        else:
+            members = list(self._modules.values())
+        # with the collection's executor on, it is the one executor: members
+        # run eagerly here (before the groups resolve, or where it cannot
+        # engage), sharing their count launches as the eager loop does
+        with shared_scope(), _metric_call(self) if self._executor_on() else nullcontext():
             for m in members:
                 m.update(*args, **m._filter_kwargs(**kwargs))
         if self._groups_checked:
@@ -343,11 +449,18 @@ class MetricCollection:
         """Point follower states at the leader's tensors."""
         for cg in self._groups.values():
             m0 = self._modules[cg[0]]
+            if len(cg) > 1:
+                # the group's tensors are aliased by design: a leader's own
+                # executor copies in every call (the collection's manages the
+                # group as a whole)
+                m0.__dict__["_state_shared"] = True
             for name in cg[1:]:
                 follower = self._modules[name]
                 for state in m0._defaults:
                     val = m0._state[state]
                     follower._state[state] = list(val) if isinstance(val, list) else val
+                follower.__dict__["_state_shared"] = True
+                follower.__dict__["_slot_ids"] = m0.__dict__.get("_slot_ids", frozenset())
                 follower._update_count = m0._update_count
                 follower._computed = None
                 # followers read the leader's tensors: their deferred flags
@@ -363,7 +476,15 @@ class MetricCollection:
         its batch value and its global-state merge from it.
         """
         res: Dict[str, Any] = {}
-        with shared_scope():
+        if self._groups_checked and self._enable_compute_groups:
+            ex = self._get_executor()
+            fused = None if ex is None else ex.run_forward(args, kwargs)
+            if fused is not None:
+                self._compute_groups_create_state_ref()
+                out, _ = _flatten_dict({self._set_name(k): v for k, v in fused.items()})
+                self._notify_update()
+                return out
+        with shared_scope(), _metric_call(self) if self._executor_on() else nullcontext():
             if self._groups_checked and self._enable_compute_groups:
                 for cg in self._groups.values():
                     self._forward_group(cg, res, args, kwargs)
@@ -688,6 +809,7 @@ class MetricCollection:
 
     def to(self, device: Union[str, torch.device]) -> "MetricCollection":
         self._device = resolve_device(device)
+        self._executor_obj = None  # its slots and graphs live on the old device
         for m in self._modules.values():
             m.to(self._device)
         if self._groups_checked:

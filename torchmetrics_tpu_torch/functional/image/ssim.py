@@ -51,6 +51,14 @@ def _window(size: int, sigma: Optional[float], dtype: torch.dtype, device: torch
     return _gaussian(size, sigma, dtype, device)
 
 
+@functools.lru_cache(maxsize=64)
+def _betas(betas: Tuple[float, ...], dtype: torch.dtype, device: torch.device, inference: bool) -> torch.Tensor:
+    """MS-SSIM's scale weights as a tensor, made once per device (apart
+    under inference mode, as :func:`_window`): a copy from the host each
+    update would also be one a captured graph cannot hold (ops/executor.py)."""
+    return torch.tensor(betas, dtype=dtype, device=device)
+
+
 def _ssim_update(
     preds: torch.Tensor,
     target: torch.Tensor,
@@ -238,6 +246,8 @@ def multiscale_structural_similarity_index_measure(
         mcs_and_ssim = torch.clamp(mcs_and_ssim, min=0.0)
     elif normalize == "simple":
         mcs_and_ssim = (mcs_and_ssim + 1) / 2
-    betas_t = torch.tensor(betas, dtype=mcs_and_ssim.dtype, device=mcs_and_ssim.device)[:, None]
+    betas_t = _betas(
+        tuple(float(b) for b in betas), mcs_and_ssim.dtype, mcs_and_ssim.device, torch.is_inference_mode_enabled()
+    )[:, None]
     ms_ssim = torch.prod(mcs_and_ssim**betas_t, dim=0)
     return _reduce(ms_ssim, reduction)

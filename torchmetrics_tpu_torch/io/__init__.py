@@ -1,6 +1,6 @@
 """Durability: the atomic snapshot store, autosave and preemption flush
-(``io/checkpoint.py``), and the sync's transient-failure policy
-(``io/retry.py``)."""
+(``io/checkpoint.py``), and the transient-failure policy of the sync and
+the executor's dispatch, with the stall watchdog (``io/retry.py``)."""
 from torchmetrics_tpu_torch.io.checkpoint import (
     Autosaver,
     PreemptionHandle,
@@ -10,7 +10,15 @@ from torchmetrics_tpu_torch.io.checkpoint import (
     restore_state,
     save_state,
 )
-from torchmetrics_tpu_torch.io.retry import RetryPolicy, backoff_delays, call_with_retries, default_sync_retries
+from torchmetrics_tpu_torch.io.retry import (
+    RetryPolicy,
+    backoff_delays,
+    call_with_retries,
+    default_dispatch_deadline,
+    default_dispatch_retries,
+    default_sync_retries,
+    stall_watchdog,
+)
 
 __all__ = [
     "Autosaver",
@@ -19,9 +27,12 @@ __all__ = [
     "atomic_write_bytes",
     "backoff_delays",
     "call_with_retries",
+    "default_dispatch_deadline",
+    "default_dispatch_retries",
     "default_sync_retries",
     "install_preemption_handler",
     "load_manifest",
     "restore_state",
     "save_state",
+    "stall_watchdog",
 ]

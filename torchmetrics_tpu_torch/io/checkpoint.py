@@ -12,12 +12,13 @@ writes restores in the other wherever the two state specs agree:
   ``snapshot-%08d.ckpt`` files in a directory; ``restore_state`` walks them
   newest-first and skips torn or corrupt files (typed
   :class:`CheckpointCorruptionError`) in favour of the newest valid one.
-- :class:`Autosaver`: cadence-driven snapshots off the hot path. The port's
-  updates replace state tensors and never write into them, so staging
-  references to the live state is a free, consistent snapshot (the port's
-  analogue of the JAX executor's recovery snapshot); the device-to-host
-  copy, the serialisation and the fsync'd write ride the async read
-  pipeline's worker.
+- :class:`Autosaver`: cadence-driven snapshots off the hot path. It stages
+  ``state()``, references to the live state that no later update writes
+  (eager updates replace tensors; the captured executor's slots are copied
+  out first, ``Metric._escape_state``), so staging is a consistent snapshot
+  at the cost of at most one copy; the device-to-host copy, the
+  serialisation and the fsync'd write ride the async read pipeline's
+  worker.
 - :func:`install_preemption_handler`: a SIGTERM/SIGINT hook that flushes one
   final synchronous snapshot before the process dies.
 
@@ -829,8 +830,9 @@ class Autosaver:
     ``every_n_updates`` / ``every_s`` may be combined; whichever fires first
     wins and both clocks reset on a save. Loops that carry state outside the
     object call :meth:`step` with the external ``states``. The ``stats``
-    keys are the JAX package's; ``reused_recovery_snapshots`` stays 0, as
-    the port has no executor recovery snapshot to reuse.
+    keys are the JAX package's; ``reused_recovery_snapshots`` stays 0: the
+    reuse of the executor's recovery reference is not ported yet (ROADMAP
+    Queue A item 3).
     """
 
     def __init__(

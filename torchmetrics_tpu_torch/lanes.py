@@ -817,6 +817,13 @@ def _retired_slots(heads: torch.Tensor, window: int) -> torch.Tensor:
     return slots.unsqueeze(0) == torch.remainder(heads.to(torch.int64), window).unsqueeze(1)
 
 
+#: why the captured executor steps aside for a laned metric
+LANED_STEP_ASIDE = (
+    "laned state: the lane router's rounds choose the launches on the host;"
+    " its captured dispatch comes with ROADMAP Queue A item 3"
+)
+
+
 class LanedMetric(Metric):
     """N independent copies of ``inner``'s state advanced together.
 
@@ -997,6 +1004,9 @@ class LanedMetric(Metric):
 
     def _inner_fields(self) -> List[str]:
         return list(self.inner._defaults)
+
+    def _executor_step_aside(self) -> Optional[str]:
+        return LANED_STEP_ASIDE
 
     # ------------------------------------------------------------ update path
     def update(self, lane_ids: Any, *args: Any, window: Optional[int] = None) -> None:
@@ -1731,14 +1741,15 @@ class LanedMetric(Metric):
 
     def prewarm_growth(self, batch_specs: Any, rows: Union[int, Sequence[int]], levels: int = 1) -> Dict[str, Any]:
         """The JAX package precompiles the update executables of the next
-        capacity rungs here. The port compiles nothing ahead (it runs
-        eagerly), so the report says so, as the JAX package's does when
+        capacity rungs here. Laned updates do not run through the port's
+        captured executor yet (ROADMAP Queue A item 3), so nothing is built
+        ahead and the report says so, as the JAX package's does when
         compile-ahead is off."""
         report: Dict[str, Any] = {"warmed": 0, "already_warm": 0, "skipped": [], "rungs": []}
         if not self._compiled_lanes:
             report["skipped"].append("eager lane mode (list states): nothing to compile")
             return report
-        report["skipped"].append("no executor in the port: nothing to compile ahead")
+        report["skipped"].append(LANED_STEP_ASIDE)
         return report
 
     # ------------------------------------------------------------- read paths

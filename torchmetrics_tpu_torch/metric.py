@@ -24,8 +24,10 @@ Python or 64-bit integer default becomes int32, a float default float32.
 Updates replace state tensors rather than mutating them in place. The
 transactional snapshot of :meth:`update` and :meth:`forward` therefore holds
 plain references, and compute-group followers can share their leader's
-tensors; the states of this slice are at most a 1000 x 1000 count matrix, so
-an in-place add would save one small allocation per update.
+tensors. The one writer in place is the captured executor
+(``ops/executor.py``, on by default for a metric on the card): its state
+slots are never handed out, because every by-reference read first swaps the
+slot tensors it would hand out for copies (:meth:`Metric._escape_state`).
 
 Cross-process sync runs on ``torch.distributed`` (``parallel/sync.py``):
 :meth:`sync` is a no-op when no process group is initialised; with one, it
@@ -39,6 +41,7 @@ from __future__ import annotations
 import copy
 import functools
 import inspect
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
@@ -149,7 +152,38 @@ class _BoundPerAccess:
         return wrapped_func
 
 
+#: the metrics (and collections) whose update or forward is running on this
+#: thread, outermost first
+_CALLS = threading.local()
+
+
+@contextmanager
+def _metric_call(owner: Any) -> Generator[None, None, None]:
+    """Mark ``owner``'s update or forward as running on this thread."""
+    stack = getattr(_CALLS, "stack", None)
+    if stack is None:
+        stack = _CALLS.stack = []
+    stack.append(owner)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def _called_from_another(metric: Any) -> bool:
+    """Whether ``metric`` is updated from inside another metric's (a
+    wrapper's, a composition's) or a collection's call: its own executor
+    then steps aside, as the caller drives it."""
+    stack = getattr(_CALLS, "stack", None)
+    return bool(stack) and any(owner is not metric for owner in stack)
+
+
 def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs: Any) -> None:
+    with _metric_call(self):
+        _transactional_update_body(self, update, *args, **kwargs)
+
+
+def _transactional_update_body(self: "Metric", update: Callable, *args: Any, **kwargs: Any) -> None:
     # transactional contract: any exception out of this call leaves
     # (_state, _update_count, _computed) exactly as they were before it
     _check_same_device(self._device, args, kwargs, type(self).__name__)
@@ -162,6 +196,21 @@ def _transactional_update(self: "Metric", update: Callable, *args: Any, **kwargs
     # write-back checks the count around its write (ops/async_read.py)
     self._update_count += 1
     self._computed = None
+    ex = self._get_executor()
+    if ex is not None:
+        try:
+            with obs.span(obs.SPAN_UPDATE, suffix=type(self).__name__):
+                handled = ex.run_update(args, kwargs)
+        except BaseException:
+            # the executor left the live state at its pre-call slot; only
+            # the bookkeeping unwinds
+            self._update_count, self._computed = pre_count, pre_computed
+            self.__dict__["_reduced"] = pre_reduced
+            raise
+        if handled:
+            self._mark_unreduced()
+            self._notify_update()
+            return
     snapshot = self._state_snapshot()
     patched = self.__dict__.get("_update_fn")  # the fault harness's seam (testing/faults.py)
     try:
@@ -194,6 +243,7 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
         )
     if self._computed is not None:
         return self._computed
+    self._escape_state()  # a value may be a state tensor itself: never a slot the executor writes
     self._fold_pending()  # a sharded restore: fold before the sync and compute
     auditor = self.__dict__.get("_integrity_auditor")
     if auditor is not None:
@@ -234,10 +284,6 @@ def _cached_compute(self: "Metric", compute: Callable, *args: Any, **kwargs: Any
 
 #: the sync-precision knobs a read clone takes from its metric at every read
 _PRECISION_KNOBS = ("sync_precision", "sync_quant_bits", "sync_quant_block")
-
-#: why ``executor_status`` reports no executor
-EAGER_REASON = "eager; no executor in the port"
-
 
 def _ready(event: Any, value: Any) -> Any:
     """WORKER-SIDE: wait for the submitting stream, then return ``value``."""
@@ -307,6 +353,12 @@ class Metric:
               stacks (``parallel/class_shard.py``). ``class_shards``
               defaults to the number of CUDA devices for a metric on the
               card and to 1 on the CPU.
+            - ``executor``: run eager ``update``/``forward`` through the
+              captured executor (``ops/executor.py``). ``None`` (default)
+              follows ``TORCHMETRICS_TPU_EXECUTOR`` (on) for a metric on the
+              card and is off on the CPU, where no graph can be captured;
+              ``True`` on the CPU runs the executor's bookkeeping with direct
+              calls; ``False`` is the eager path.
 
     Example:
         >>> import torch
@@ -416,6 +468,16 @@ class Metric:
         # count of an installed stacked state awaiting its fold
         self._reduced = True
         self._pending_shards: Optional[int] = None
+        self._executor_enabled = kwargs.pop("executor", None)
+        if self._executor_enabled is not None and not isinstance(self._executor_enabled, bool):
+            raise ValueError(f"Expected keyword argument `executor` to be a `bool` but got {self._executor_enabled}")
+        # captured-dispatch bookkeeping (ops/executor.py), the executor built
+        # lazily: _state_escaped means the live state may not be the
+        # executor's current slot (the next call copies it in first),
+        # _state_shared that a collection's compute group aliases it
+        self._executor_obj: Optional[Any] = None
+        self._state_escaped = True
+        self._state_shared = False
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -514,9 +576,16 @@ class Metric:
 
     def __getattr__(self, name: str) -> Any:
         # only called when normal lookup fails
-        state = self.__dict__.get("_state")
+        d = self.__dict__
+        state = d.get("_state")
         if state is not None and name in state:
-            return state[name]
+            # handed out by reference: the next executor call copies first,
+            # and a tensor of the executor's slots is swapped for a copy
+            d["_state_escaped"] = True
+            value = state[name]
+            if id(value) in d.get("_slot_ids", ()) and not d.get("_exec_active"):
+                value = state[name] = value.clone()
+            return value
         raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
 
     def __setattr__(self, name: str, value: Any) -> None:
@@ -525,13 +594,36 @@ class Metric:
         state = self.__dict__.get("_state")
         if state is not None and name in state:
             state[name] = value
+            self.__dict__["_state_escaped"] = True
             return
         object.__setattr__(self, name, value)
+
+    def _escape_state(self) -> Dict[str, Any]:
+        """Prepare the live state to be held by reference past the next
+        update: every tensor of the executor's slots in it is swapped for a
+        copy (a slot is written again two calls later), and the state is
+        marked escaped, so the executor copies it back in first. Returns the
+        live state dict. Inside the executor's own bodies it only marks."""
+        d = self.__dict__
+        d["_state_escaped"] = True
+        state = d["_state"]
+        slots = d.get("_slot_ids")
+        if slots and not d.get("_exec_active"):
+            for k, v in state.items():
+                if id(v) in slots:
+                    state[k] = v.clone()
+        return state
+
+    def _escaped_snapshot(self) -> Dict[str, Any]:
+        """:meth:`_state_snapshot` of a state held past the next update."""
+        self._escape_state()
+        return self._state_snapshot()
 
     @property
     def metric_state(self) -> Dict[str, Any]:
         """Current (live) state values."""
-        return {attr: self._state[attr] for attr in self._defaults}
+        state = self._escape_state()
+        return {attr: state[attr] for attr in self._defaults}
 
     @property
     def update_count(self) -> int:
@@ -554,6 +646,7 @@ class Metric:
         (``reduced`` restores the deferred-reduction flag taken with it)."""
         obs.counter_inc("rollback.count")
         object.__setattr__(self, "_state", state)
+        self.__dict__["_state_escaped"] = True  # whoever saw the failure may hold these
         self.__dict__["_update_count"] = update_count
         self.__dict__["_computed"] = computed
         if reduced is not None:
@@ -653,6 +746,7 @@ class Metric:
         new_state = dict(self._state)
         new_state.update(folded)
         object.__setattr__(self, "_state", new_state)
+        self.__dict__["_state_escaped"] = True
         self.__dict__["_pending_shards"] = None
         self.__dict__["_last_reduce_us"] = round((time.perf_counter() - t0) * 1e6, 1)
 
@@ -693,25 +787,36 @@ class Metric:
         the committed forward."""
         self.__dict__["_forward_depth"] = self.__dict__.get("_forward_depth", 0) + 1
         try:
-            if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
-                batch_val = self._forward_full_state_update(*args, **kwargs)
-            else:
-                batch_val = self._forward_reduce_state_update(*args, **kwargs)
+            with _metric_call(self):
+                batch_val = self._forward_impl(*args, **kwargs)
         finally:
             self.__dict__["_forward_depth"] -= 1
         self._notify_update()
         return batch_val
 
+    def _forward_impl(self, *args: Any, **kwargs: Any) -> Any:
+        ex = self._get_executor()
+        if ex is not None:
+            _check_same_device(self._device, args, kwargs, type(self).__name__)
+            self._fold_pending()  # a sharded restore: fold before merging batches
+            handled, batch_val = ex.run_forward(args, kwargs)
+            if handled:
+                self._mark_unreduced()
+                return batch_val
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+            return self._forward_full_state_update(*args, **kwargs)
+        return self._forward_reduce_state_update(*args, **kwargs)
+
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """2x update strategy, transactional: any exception restores the
         pre-call accumulated state."""
-        pre_state = self._state_snapshot()
+        pre_state = self._escaped_snapshot()
         pre_count, pre_computed = self._update_count, self._computed
         try:
             self.update(*args, **kwargs)
             _update_count = self._update_count
             self._to_sync = self.dist_sync_on_step
-            cache = self._state_snapshot()
+            cache = self._escaped_snapshot()
             self._computed = None
             self.reset()
             self.update(*args, **kwargs)
@@ -732,7 +837,7 @@ class Metric:
         """1x update + state-merge strategy, transactional: a raise from the
         batch update, the batch compute or the merge restores the pre-call
         global state and count."""
-        global_state = self._state_snapshot()
+        global_state = self._escaped_snapshot()
         _update_count = self._update_count
         pre_computed = self._computed
         self.reset()
@@ -808,7 +913,7 @@ class Metric:
         if not should_sync or not distributed_available():
             return
         group = process_group if process_group is not None else self.process_group
-        self._cache = self._state_snapshot()
+        self._cache = self._escaped_snapshot()
         t0 = time.perf_counter()
         try:
             with obs.span(obs.SPAN_REDUCE, owner=type(self).__name__, kind="sync"):
@@ -1002,23 +1107,105 @@ class Metric:
             for callback in tuple(observers):
                 callback(self)
 
+    # -------------------------------------------------- captured dispatch
+    def _executor_on(self) -> bool:
+        """The resolved ``executor=``: the argument, else the environment's
+        default for a metric on the card and off on the CPU."""
+        enabled = self.__dict__.get("_executor_enabled")
+        if enabled is not None:
+            return enabled
+        from torchmetrics_tpu_torch.ops.executor import executor_enabled_default
+
+        return self._device.type == "cuda" and executor_enabled_default()
+
+    def _get_executor(self) -> Any:
+        """The lazily built captured executor, or None when it is off or the
+        call comes from inside another metric's call or a collection's whose
+        executor is on (a wrapper's children, a collection's members): the
+        caller drives them, and their own graphs would not replay."""
+        if not self._executor_on() or _called_from_another(self):
+            return None
+        ex = self.__dict__.get("_executor_obj")
+        if ex is None:
+            from torchmetrics_tpu_torch.ops.executor import MetricExecutor
+
+            cls = type(self)
+            ex = MetricExecutor(
+                self,
+                plain_functional=(
+                    cls.functional_update is Metric.functional_update and cls.functional_compute is Metric.functional_compute
+                ),
+                plain_forward=cls.functional_forward is Metric.functional_forward and cls.merge_states is Metric.merge_states,
+            )
+            object.__setattr__(self, "_executor_obj", ex)
+        return ex
+
+    def _executor_step_aside(self) -> Optional[str]:
+        """Why the executor steps aside for this instance whatever its
+        inputs, or None. A replay reruns no Python, so state that lives
+        elsewhere or launches chosen by host values step aside."""
+        if self.__dict__.get("_class_layouts"):
+            return "class-axis-sharded state: its captured dispatch comes with ROADMAP Queue A item 3"
+        reason = self._async_inline_reason()
+        if reason is not None:
+            return f"{reason}, whose state a replay would not follow"
+        return None
+
     @property
     def executor_status(self) -> Dict[str, Any]:
-        """Whether this instance runs through a compiled executor, in the JAX
-        package's schema. The port runs eagerly and has no executor yet, so
-        ``enabled`` is False and ``fallback_reason`` says so; ``kernels``
-        carries the kernel seam's gate log (process-wide)."""
+        """Whether (and why not) this instance runs through the captured
+        executor, in the JAX package's schema: ``enabled`` (the resolved
+        ``executor=``), ``engaged`` (a call ran through it),
+        ``fallback_reason`` (why it stepped aside), ``stats``
+        (:func:`~torchmetrics_tpu_torch.ops.executor.executor_stats`), the
+        deferred keys and ``kernels``, the kernel seam's gate log
+        (process-wide)."""
+        from torchmetrics_tpu_torch.ops.executor import executor_stats
         from torchmetrics_tpu_torch.ops.kernels import gate_snapshot
 
+        enabled = self._executor_on()
+        stats = executor_stats(self)
         return {
-            "enabled": False,
-            "engaged": False,
-            "fallback_reason": EAGER_REASON,
+            "enabled": enabled,
+            "engaged": stats["calls"] > 0,
+            "fallback_reason": None if enabled is False else stats.get("fallback_reason"),
             "deferred_pending": self.deferred_pending,
             "last_reduce_us": self.__dict__.get("_last_reduce_us"),
-            "stats": {},
+            "stats": stats,
             "kernels": gate_snapshot(),
         }
+
+    def warmup(self, batch_specs: Any, forward: bool = False, ladder: bool = True, background: bool = False) -> Any:
+        """Build the executor keys this metric's traffic will need, ahead of
+        it: one example batch or a sequence of them, tuples of tensors or
+        ``"meta"`` tensors (only shapes and dtypes matter; zero dummies run
+        and are discarded, the live state is never touched). ``ladder=True``
+        also builds one padded representative per bucket rung;
+        ``forward=True`` the forward keys too; ``background=True`` runs on a
+        daemon thread and returns a ``WarmupHandle``. Returns the report
+        ``{"warmed", "already_warm", "skipped", "seconds"}``."""
+        ex = self._get_executor()
+        if ex is None:
+            return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
+        return ex.warmup(batch_specs, forward=forward, ladder=ladder, background=background)
+
+    def warmup_from_manifest(self, manifest: Dict[str, Any], background: bool = False) -> Any:
+        """Build exactly the call shapes a :meth:`shape_profile` manifest
+        recorded (the dict; manifests on disk come with the compile cache)."""
+        ex = self._get_executor()
+        if ex is None:
+            return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
+        return ex.warmup_from_manifest(manifest, background=background)
+
+    def shape_profile(self) -> Dict[str, Any]:
+        """Replayable manifest of the call shapes this metric's executor has
+        served, for :meth:`warmup_from_manifest` in a later process."""
+        ex = self._get_executor()
+        if ex is None:
+            from torchmetrics_tpu_torch.ops.executor import PROFILE_VERSION
+
+            return {"profile_version": PROFILE_VERSION, "owner": type(self).__name__, "specs": []}
+        return ex.shape_profile()
 
     # ----------------------------------------------------- asynchronous reads
     #
@@ -1041,6 +1228,7 @@ class Metric:
         if cached is not None and cached[0] == sig:
             return cached[1]
         clone = copy.deepcopy(self)
+        clone.__dict__["_executor_enabled"] = False  # reads never dispatch through an executor
         self.__dict__["_read_clone_cache"] = (sig, clone)
         return clone
 
@@ -1121,7 +1309,7 @@ class Metric:
             value = self.compute()  # inline fallback: blocking semantics on the caller
             event = submission_event(value)
             return lambda: _ready(event, value)
-        snapshot = self._state_snapshot()  # by reference: updates replace, never write
+        snapshot = self._escaped_snapshot()  # by reference: no later update writes these
         flags = self._capture_read_flags()
         clone = self._read_clone()
         event = submission_event(snapshot)
@@ -1222,7 +1410,7 @@ class Metric:
                 out = self.state()  # inline fallback: blocking semantics on the caller
             event = submission_event(out)
             return lambda: _ready(event, materialize(out))
-        snapshot = self._state_snapshot()
+        snapshot = self._escaped_snapshot()
         flags = self._capture_read_flags()
         clone = self._read_clone()
         event = submission_event(snapshot)
@@ -1267,9 +1455,9 @@ class Metric:
     _SHAPE_INVARIANT_REDUCTIONS = ("sum", "mean", "max", "min")
 
     def _copy_state_dict(self) -> Dict[str, Any]:
-        """The live declared states as a fresh dict (tensors by reference:
-        updates replace them, never mutate them), without the count key."""
-        return self._state_snapshot()
+        """The live declared states as a fresh dict (tensors by reference,
+        none of them the executor's slots), without the count key."""
+        return self._escaped_snapshot()
 
     @staticmethod
     def _restored_count(update_count: Optional[int], fallback: int = 1) -> int:
@@ -1282,7 +1470,7 @@ class Metric:
     def state(self) -> Dict[str, Any]:
         """The live state as a dict, with the update count under the reserved
         key ``"_update_count"`` so :meth:`load_state` round-trips it."""
-        out = self._state_snapshot()
+        out = self._escaped_snapshot()
         out[self._STATE_COUNT_KEY] = int(self._update_count)
         shards = self.__dict__.get("_pending_shards")
         if shards is not None:
@@ -1457,6 +1645,7 @@ class Metric:
             if num_shards is None:
                 raise StateCorruptionError(f"{type(self).__name__}: sharded=True but no array field carries a shard axis")
         self._state.update(staged)
+        self.__dict__["_state_escaped"] = True  # the caller holds what was installed
         self._computed = None
         self._update_count = int(update_count) if update_count is not None else 1
         self.__dict__["_pending_shards"] = num_shards
@@ -1604,6 +1793,7 @@ class Metric:
 
         for k, v in self._state.items():
             self._state[k] = [cast(el) for el in v] if isinstance(v, list) else cast(v)
+        self.__dict__["_state_escaped"] = True
         self._defaults = {k: ([cast(el) for el in v] if isinstance(v, list) else cast(v)) for k, v in self._defaults.items()}
         return self
 
@@ -1685,6 +1875,7 @@ class Metric:
         self._update_count = 0
         self._computed = None
         self._state.update(self.init_state())
+        self.__dict__["_state_escaped"] = True
         self._cache = None
         self._is_synced = False
         self.__dict__["_reduced"] = True
@@ -1703,6 +1894,8 @@ class Metric:
 
         self._state.update({k: move(v) for k, v in self._state.items()})
         self._defaults = {k: move(v) for k, v in self._defaults.items()}
+        self.__dict__["_state_escaped"] = True
+        self.__dict__["_executor_obj"] = None  # its slots and graphs live on the old device
         return self
 
     # -------------------------------------------------------------- utilities
@@ -1733,6 +1926,7 @@ class Metric:
         "_update_observers", "_compute_observers", "_update_fn", "_compute_fn", "_read_clone_cache",
         "_async_inline_reason_c",
         "_integrity_auditor",  # holds a lock and a reference to the live metric
+        "_slot_ids", "_exec_active",  # the executor's bookkeeping, process-local
     )
 
     def __getstate__(self) -> Dict[str, Any]:
@@ -1740,10 +1934,17 @@ class Metric:
         state.pop("_update_signature", None)  # re-created in __setstate__
         for key in self._TRANSIENT_KEYS:
             state.pop(key, None)
+        # captured graphs and their slots are process-local: a copy or an
+        # unpickled metric builds its own executor
+        state["_executor_obj"] = None
+        state["_state_escaped"] = True
+        state["_state_shared"] = False
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
+        for key, default in (("_executor_obj", None), ("_executor_enabled", None), ("_state_escaped", True), ("_state_shared", False)):
+            self.__dict__.setdefault(key, default)
         self._update_signature = inspect.signature(self.update)
 
     def __deepcopy__(self, memo: Optional[dict] = None) -> "Metric":

@@ -4,11 +4,10 @@
   for the seams: sync timeouts and degradations, rollbacks, checkpoint
   saves/restores, autosave ticks, async reads. Counters are monotonic;
   gauges are last-write-wins. The names are the JAX package's.
-- **Executor aggregation**: :func:`register_executor` is the seam an
-  executor registers with, so :func:`telemetry_snapshot` can sum its stats
-  into ``executor.*`` counters. The port runs eagerly and has no executor
-  yet, so nothing registers and the snapshot carries no ``executor.*``
-  counter.
+- **Executor aggregation**: every captured executor (``ops/executor.py``)
+  registers with :func:`register_executor` at construction, so
+  :func:`telemetry_snapshot` sums the live executors' stats into
+  ``executor.*`` counters.
 - **Async-read telemetry**: the read pipeline (``ops/async_read.py``) counts
   ``reads.async_submitted`` / ``reads.async_completed`` /
   ``reads.async_degraded`` / ``reads.async_errors`` / ``reads.inline_fallback``
@@ -49,7 +48,7 @@ _counters: Dict[str, float] = {}
 _gauges: Dict[str, float] = {}
 _breadcrumbs: List[Dict[str, Any]] = []
 _histograms: Dict[str, "_Histogram"] = {}
-#: executors register here at construction (none in the port yet); weak so
+#: executors register here at construction; weak so
 #: a dropped metric releases its executor and its stats leave the global view
 _executors: "weakref.WeakSet" = weakref.WeakSet()
 
@@ -173,7 +172,8 @@ def breadcrumb(kind: str, data: Optional[Dict[str, Any]] = None) -> None:
 
 def register_executor(executor: Any) -> None:
     """The seam an executor registers with at construction: adds it to the
-    weak aggregation set (the port has no executor yet, so nothing calls it). Never raises — observability must not break dispatch."""
+    weak aggregation set. Never raises: observability must not break
+    dispatch."""
     try:
         _executors.add(executor)
     except TypeError:  # unweakrefable test double: stats just stay local to it

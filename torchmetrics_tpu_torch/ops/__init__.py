@@ -1,8 +1,16 @@
-"""Kernel layer: the dispatch seam, the hand-written CUDA kernels and the
-shared-count fusion built on them."""
+"""Kernel layer: the dispatch seam, the hand-written CUDA kernels, the
+shared-count fusion built on them, and the captured executor
+(``ops/executor.py``)."""
 from torchmetrics_tpu_torch.ops.bincount import weighted_bincount, weighted_bincount_multi
 from torchmetrics_tpu_torch.ops.binned_curve import binned_curve_counts, binned_curve_counts_classwise, sort_thresholds
-from torchmetrics_tpu_torch.ops.kernels import dispatch, registered_kernels, shared_result, shared_scope
+from torchmetrics_tpu_torch.ops.kernels import (
+    dispatch,
+    gate_snapshot,
+    registered_kernels,
+    resolve_backend,
+    shared_result,
+    shared_scope,
+)
 from torchmetrics_tpu_torch.ops.sqrtm_kernel import sqrtm_psd
 from torchmetrics_tpu_torch.ops.ssim_kernel import windowed_sum_2d
 from torchmetrics_tpu_torch.ops.topk_kernel import retrieval_topk_stats
@@ -11,7 +19,9 @@ __all__ = [
     "binned_curve_counts",
     "binned_curve_counts_classwise",
     "dispatch",
+    "gate_snapshot",
     "registered_kernels",
+    "resolve_backend",
     "retrieval_topk_stats",
     "shared_result",
     "shared_scope",

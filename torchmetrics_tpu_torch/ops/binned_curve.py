@@ -211,7 +211,9 @@ def _binned_counts_cuda(
     The lean launch path: one combined test of the arguments (the detailed
     errors come from :func:`_refuse` only when it fails), the device guard in
     the C entry, the output the only allocation (the tickets and histograms
-    the kernel reuses live per stream in :data:`_scratch`)."""
+    the kernel reuses live per stream in :data:`_scratch`). A launch
+    recorded into a CUDA graph takes buffers of its own from the graph's
+    pool instead, zeroed by the graph at every replay."""
     global launches
     device = preds.get_device()
     if device < 0 or not _fits(preds, target, valid, thr_sorted, order, ignore_index, device):
@@ -231,7 +233,8 @@ def _binned_counts_cuda(
         device, preds.data_ptr(), target.data_ptr(), valid_ptr, form, ignore, thr_sorted.data_ptr(),
         order.data_ptr(), None, 0, None, 0, out.data_ptr(), n, len_t, stream,
     ]
-    buffers = _scratch.get(device, stream)
+    kept = not torch.cuda.is_current_stream_capturing()
+    buffers = _scratch.get(device, stream) if kept else None
     err = _NEED_SCRATCH
     if buffers is not None:
         args[8:12] = buffers[2:]
@@ -240,11 +243,12 @@ def _binned_counts_cuda(
         sizes = (ctypes.c_int64 * 2)()
         err = query(device, code, n, len_t, sizes)
         if err == 0:
-            buffers = _scratch.grow(device, stream, sizes[0], sizes[1])
+            buffers = _scratch.grow(device, stream, sizes[0], sizes[1], keep=kept)
             args[8:12] = buffers[2:]
             err = launch(*args)
     if err != 0:
-        _scratch.drop(device, stream)
+        if kept:
+            _scratch.drop(device, stream)
         raise RuntimeError(f"binned_curve kernel launch failed with CUDA error {err}")
     launches += 1
     return out

@@ -42,9 +42,10 @@ CPU the "upload" is an explicit copy (:func:`device_put_aliases_host`), so
 no state can alias a reused slab.
 
 The JAX package's executor seam (``notify_dispatched``, which attached a
-committed state leaf as the retire token) has no counterpart: the port has
-no executor, and the router's :class:`dispatch_scope` records the event
-itself after the round's update was issued.
+committed state leaf as the retire token) has no counterpart: laned
+updates never run through the captured executor, and the router's
+:class:`dispatch_scope` records the event itself after the round's update
+was issued.
 
 Flags, as in the JAX package: ``TORCHMETRICS_TPU_INGEST_PIPELINE`` (master
 switch, default on; off, the router packs every round with a plain
@@ -66,6 +67,9 @@ import numpy as np
 import torch
 
 from torchmetrics_tpu_torch import obs
+# the executor's bucket ladder: the router sizes its staging slabs by it, so
+# rounds of neighbouring row counts share a slab
+from torchmetrics_tpu_torch.ops.executor import bucket_size
 from torchmetrics_tpu_torch.utils.prints import rank_zero_debug
 
 __all__ = [
@@ -101,22 +105,6 @@ DEFAULT_QUEUE_MAXSIZE = 2
 #: distinct (bucket, layout) ring entries kept before the least recently used
 #: one is dropped (its in-flight slabs stay alive through their own references)
 MAX_SPECS = 8
-#: the bucket ladder's floor (the JAX package's executor ladder)
-_BUCKET_FLOOR = 8
-
-
-def bucket_size(n: int) -> int:
-    """Next rung of the geometric bucket ladder: powers of two, floor 8 (the
-    JAX package's ``ops/executor.py:bucket_size``; the router sizes its
-    staging slabs by it, so rounds of neighbouring row counts share a slab).
-
-    >>> [bucket_size(n) for n in (1, 8, 9, 100, 1024)]
-    [8, 8, 16, 128, 1024]
-    """
-    n = int(n)
-    if n <= _BUCKET_FLOOR:
-        return _BUCKET_FLOOR
-    return 1 << (n - 1).bit_length()
 
 
 def _env_on(name: str, default: str = "1") -> bool:

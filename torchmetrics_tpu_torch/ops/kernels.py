@@ -90,6 +90,20 @@ def gate_snapshot() -> Dict[str, Dict[str, Any]]:
         }
 
 
+def resolve_backend(device: Any = None) -> str:
+    """The body :func:`dispatch` runs for tensors on ``device`` (default:
+    where state lives by default, the current CUDA device when there is one,
+    else the CPU): ``"cuda"``, the hand-written kernels, or ``"reference"``,
+    the plain PyTorch bodies. The names are the gate log's paths.
+
+    >>> resolve_backend("cpu")
+    'reference'
+    """
+    if device is None:
+        return "cuda" if torch.cuda.is_available() else "reference"
+    return "cuda" if torch.device(device).type == "cuda" else "reference"
+
+
 def reset_gate_log() -> None:
     with _GATE_LOCK:
         _GATE_LOG.clear()

@@ -153,13 +153,17 @@ class StreamScratch:
         """The stream's entry, or None before its first call."""
         return self._buffers.get((device, stream))
 
-    def grow(self, device: int, stream: int, zeroed_bytes: int, scratch_bytes: int) -> Tuple:
+    def grow(self, device: int, stream: int, zeroed_bytes: int, scratch_bytes: int, keep: bool = True) -> Tuple:
         """An entry with buffers of at least the given sizes for the stream:
         the kept one while it suffices, else new buffers (``zeroed`` zero),
-        kept when they fit in :attr:`KEEP_BYTES`."""
+        kept when they fit in :attr:`KEEP_BYTES`. ``keep=False`` (a launch
+        recorded into a CUDA graph) always makes new buffers and keeps
+        none: made inside the capture, they come from the graph's pool and
+        their zero fill is a node of the graph, run at every replay, so no
+        other graph or launch ever shares them."""
         import torch
 
-        old = self._buffers.get((device, stream))
+        old = self._buffers.get((device, stream)) if keep else None
         if old is not None:
             if old[3] >= zeroed_bytes and old[5] >= scratch_bytes:
                 return old
@@ -167,7 +171,7 @@ class StreamScratch:
         zeroed = torch.zeros(max(zeroed_bytes, 16), dtype=torch.uint8, device=device)
         scratch = torch.empty(max(scratch_bytes, 16), dtype=torch.uint8, device=device)
         entry = (zeroed, scratch, zeroed.data_ptr(), zeroed.numel(), scratch.data_ptr(), scratch.numel())
-        if zeroed.numel() + scratch.numel() <= self.KEEP_BYTES:
+        if keep and zeroed.numel() + scratch.numel() <= self.KEEP_BYTES:
             self._buffers[(device, stream)] = entry
         return entry
 

@@ -31,6 +31,12 @@ so the containment guarantees are asserted, not assumed:
 - :func:`flip_state_bits` / :func:`skew_replica`: flip bits of a live
   state leaf in place, or of one shard row of a stacked tree (drives the
   integrity audits, ``integrity.py``).
+- :func:`fail_dispatch`: make the captured executor's dispatches raise,
+  after the replay really ran (drives its containment: the live state stays
+  at its pre-call slot, and the dispatch retries).
+- :func:`hang_sync` / :func:`break_sync` / :func:`flaky_sync`: stall, abort
+  or flake the sync's collective seams (``parallel.sync._all_reduce`` and
+  ``_all_gather``; drives ``sync_timeout`` and ``on_sync_failure``).
 - :func:`corrupt_delta_payload`, :func:`drop_delta`,
   :func:`duplicate_delta`, :func:`delay_delta`, :func:`partition_leaf`,
   :func:`kill_aggregator`: transport faults at the fleet uplink's
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from contextlib import contextmanager
 from typing import Any, Dict, Generator, Optional
 
@@ -108,6 +115,137 @@ def raise_in_compute(metric: Any, exc: Optional[BaseException] = None) -> Genera
 
 
 # --------------------------------------------------------------------- inputs
+
+@contextmanager
+def fail_dispatch(
+    exc: Optional[BaseException] = None, consume: bool = True, fail_n: Optional[int] = None
+) -> Generator[None, None, None]:
+    """Make the captured executor's dispatches raise.
+
+    With ``consume=True`` (default) the real dispatch runs first (a replay
+    writes its output slot, a fresh key runs and captures) and only then the
+    call raises: the worst case the executor's recovery reference exists
+    for. ``fail_n=k`` fails the first k dispatches, then passes calls
+    through (drives the warm-dispatch retries, ``io/retry.py``); None
+    (default) fails every one. Patches ``_ExecutorBase._get_fn`` for every
+    executor until exit.
+    """
+    from torchmetrics_tpu_torch.ops import executor as executor_mod
+
+    orig = executor_mod._ExecutorBase._get_fn
+    error = exc if exc is not None else FaultInjected("injected dispatch failure")
+    remaining = {"n": fail_n}
+
+    def patched(self: Any, key: Any, builder: Any) -> Any:
+        fn, fresh = orig(self, key, builder)
+
+        def failing(*args: Any, **kwargs: Any) -> Any:
+            if remaining["n"] is not None and remaining["n"] <= 0:
+                return fn(*args, **kwargs)
+            if remaining["n"] is not None:
+                remaining["n"] -= 1
+            if consume:
+                fn(*args, **kwargs)
+            raise error
+
+        return failing, fresh
+
+    executor_mod._ExecutorBase._get_fn = patched
+    try:
+        yield
+    finally:
+        executor_mod._ExecutorBase._get_fn = orig
+
+
+class _Stalled:
+    """A collective's work handle that completes ``seconds`` after it was
+    issued, by issuing the real collective then (``None``: never)."""
+
+    def __init__(self, issue: Any, seconds: Optional[float]) -> None:
+        self._issue = issue
+        self._ready_at = None if seconds is None else time.monotonic() + seconds
+        self._work: Any = None
+
+    def _due(self) -> bool:
+        return self._ready_at is not None and time.monotonic() >= self._ready_at
+
+    def is_completed(self) -> bool:
+        if self._work is None and self._due():
+            self._work = self._issue()
+        return self._work is not None and self._work.is_completed()
+
+    def wait(self, *_: Any) -> Any:
+        if self._ready_at is None:
+            raise RuntimeError("a collective stalled by hang_sync(seconds=None) was waited on without a bound")
+        if self._work is None:
+            time.sleep(max(0.0, self._ready_at - time.monotonic()))
+            self._work = self._issue()
+        return self._work.wait()
+
+
+@contextmanager
+def _sync_seams(make: Any) -> Generator[None, None, None]:
+    from torchmetrics_tpu_torch.parallel import sync as sync_mod
+
+    orig = (sync_mod._all_reduce, sync_mod._all_gather)
+    sync_mod._all_reduce, sync_mod._all_gather = make(orig[0]), make(orig[1])
+    try:
+        yield
+    finally:
+        sync_mod._all_reduce, sync_mod._all_gather = orig
+
+
+@contextmanager
+def hang_sync(seconds: Optional[float] = 30.0) -> Generator[None, None, None]:
+    """Stall every collective of the sync by ``seconds`` before it is issued
+    (``None``: for good): a metric with ``sync_timeout < seconds`` sees a
+    :class:`~torchmetrics_tpu_torch.utils.exceptions.SyncTimeoutError`; one
+    without a bound blocks, like a rendezvous whose peer died."""
+
+    def make(orig: Any) -> Any:
+        return lambda *a: _Stalled(lambda: orig(*a), seconds)
+
+    with _sync_seams(make):
+        yield
+
+
+@contextmanager
+def break_sync(exc: Optional[BaseException] = None) -> Generator[None, None, None]:
+    """Make every collective of the sync raise at once (aborted by the
+    backend rather than hung)."""
+    error = exc if exc is not None else FaultInjected("injected sync failure")
+
+    def make(orig: Any) -> Any:
+        def failing(*a: Any) -> Any:
+            raise error
+
+        return failing
+
+    with _sync_seams(make):
+        yield
+
+
+@contextmanager
+def flaky_sync(fail_n: int = 1, exc: Optional[BaseException] = None) -> Generator[Dict[str, int], None, None]:
+    """Make the sync's collectives fail exactly ``fail_n`` times, then
+    succeed: the transient signature ``on_sync_failure="retry"`` exists
+    for. Yields the counters ``attempts`` and ``failures``."""
+    error = exc if exc is not None else FaultInjected("injected transient sync failure")
+    counters = {"attempts": 0, "failures": 0}
+
+    def make(orig: Any) -> Any:
+        def sometimes_failing(*a: Any) -> Any:
+            counters["attempts"] += 1
+            if counters["failures"] < fail_n:
+                counters["failures"] += 1
+                raise error
+            return orig(*a)
+
+        return sometimes_failing
+
+    with _sync_seams(make):
+        yield counters
+
 
 def poison_batch(*arrays: Any, mode: str = "nan", frac: float = 0.25, seed: int = 0) -> tuple:
     """Corrupt a fraction of every floating-point array's entries with NaN

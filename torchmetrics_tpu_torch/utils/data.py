@@ -54,6 +54,36 @@ def _flatten_dict(x: dict) -> tuple:
     return new_dict, duplicates
 
 
+def to_onehot(label_tensor: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(N, ...) integer labels to (N, C, ...) int32 one-hot.
+
+    Example:
+        >>> import torch
+        >>> to_onehot(torch.tensor([0, 2]), num_classes=3).tolist()
+        [[1, 0, 0], [0, 0, 1]]
+    """
+    label_tensor = torch.as_tensor(label_tensor)
+    classes = torch.arange(num_classes, device=label_tensor.device).reshape((1, num_classes) + (1,) * (label_tensor.ndim - 1))
+    return (label_tensor.unsqueeze(1) == classes).to(torch.int32)
+
+
+def to_categorical(x: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
+    """Probabilities or logits to integer labels by argmax.
+
+    Example:
+        >>> import torch
+        >>> to_categorical(torch.tensor([[0.1, 0.7, 0.2], [0.6, 0.1, 0.3]])).tolist()
+        [1, 0]
+    """
+    return torch.argmax(torch.as_tensor(x), dim=argmax_dim)
+
+
+def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:
+    """``torch.allclose`` with ``tensor2`` cast to ``tensor1``'s dtype."""
+    tensor1 = torch.as_tensor(tensor1)
+    return bool(torch.allclose(tensor1, torch.as_tensor(tensor2, dtype=tensor1.dtype, device=tensor1.device), rtol=rtol, atol=atol))
+
+
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
     """int32 0/1 mask of the top-k entries along ``dim``; ``topk == 1`` takes
     the first maximum, as ``argmax`` does in both frameworks.

@@ -34,6 +34,15 @@ class EnumStr(str, Enum):
         return hash(self.value.lower())
 
 
+class DataType(EnumStr):
+    """Type of an input tensor pair as detected by input checks."""
+
+    BINARY = "binary"
+    MULTILABEL = "multi-label"
+    MULTICLASS = "multi-class"
+    MULTIDIM_MULTICLASS = "multi-dim multi-class"
+
+
 class AverageMethod(EnumStr):
     """Averaging strategy for multi-class reductions."""
 
@@ -42,6 +51,13 @@ class AverageMethod(EnumStr):
     WEIGHTED = "weighted"
     NONE = "none"
     SAMPLES = "samples"
+
+
+class MDMCAverageMethod(EnumStr):
+    """Multi-dim multi-class averaging strategy."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"
 
 
 class ClassificationTask(EnumStr):

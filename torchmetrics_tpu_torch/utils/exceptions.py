@@ -133,3 +133,18 @@ class FleetProtocolError(TorchMetricsUserError):
         self.leaf = leaf
         self.epoch = epoch
         self.node = node
+
+
+class DispatchStallError(TorchMetricsUserError, TimeoutError):
+    """A captured executor dispatch exceeded its deadline.
+
+    Raised by ``torchmetrics_tpu_torch.io.retry.stall_watchdog``
+    (``TORCHMETRICS_TPU_DISPATCH_DEADLINE``) instead of letting the loop
+    hang on a wedged call. Carries ``executor_status`` breadcrumbs (the
+    owning executor's stats at the time of the stall) when the watchdog
+    guarded an executor dispatch.
+    """
+
+    def __init__(self, message: str, executor_status=None) -> None:
+        super().__init__(message)
+        self.executor_status = executor_status

@@ -299,6 +299,12 @@ class WindowedMetric(Metric):
     def _inner_fields(self) -> List[str]:
         return list(self.inner._defaults)
 
+    def _executor_step_aside(self) -> Optional[str]:
+        return (
+            "windowed ring: each update's slot comes from the host clock;"
+            " its captured dispatch comes with ROADMAP Queue A item 3"
+        )
+
     # ------------------------------------------------------------ update path
     def update(self, *args: Any, window: Optional[int] = None, **kwargs: Any) -> None:
         """Advance the OPEN window's sub-state with one batch.

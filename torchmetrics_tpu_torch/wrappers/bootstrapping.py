@@ -85,6 +85,9 @@ class BootStrapper(WrapperMetric):
     """
 
     full_state_update: Optional[bool] = True
+    # every update draws a fresh host-side resample: a replay would repeat
+    # one sample pattern for good
+    executor_compatible: bool = False
 
     def __init__(
         self,
