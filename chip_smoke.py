@@ -219,6 +219,7 @@ exits non-zero, and so does a run without a CUDA device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1291,8 +1292,10 @@ def phase_workload(name: str, dev) -> dict:
     launches = run["launches"]["bincount"]
     plain = _plain_confmat(spec)
     _check(torch.equal(coll["confmat"].confmat.to(torch.int64), plain), f"{name}: confusion state differs from the plain version")
-    extra = _executor_extra(coll)
-    _check(launches == spec["updates"] + extra, f"{name}: {launches} bincount launches for {out['updates']} updates (+{extra} the executor's)")
+    # the executor keys ImageNet's steady 1,024 and Cityscapes' steady 4
+    # exactly and serves the ragged 848's fresh padded key eagerly: no
+    # padded replay, no probe, one launch an update as without it
+    _check(launches == spec["updates"], f"{name}: {launches} bincount launches for {out['updates']} updates")
     cm, tp, fp, fn, present = _derived(plain)
     spec["check"](result, tp, fp, fn, present.to(torch.float64))
     _check(torch.equal(result["confmat"].to(torch.int64), plain), f"{name}: computed confusion matrix differs")
@@ -1346,7 +1349,7 @@ def phase_binary_curve(dev) -> dict:
     for member in ("auroc", "ap", "roc"):
         _check(torch.equal(coll[member].confmat.to(torch.int64), plain), f"{name}: {member} state differs from the plain body")
     groups = out["compute_groups"]
-    expected = len(coll) + (spec["updates"] - 1) * len(groups) + _executor_extra(coll)
+    expected = len(coll) + (spec["updates"] - 1) * len(groups)  # the steady 1M scores: an exact key, no padding
     _check(len(groups) == 1, f"{name}: the curves did not share one compute group: {groups}")
     _check(
         run["launches"]["binned_curve"] == expected,
@@ -1542,7 +1545,7 @@ def phase_uvg(dev) -> dict:
     spec = WORKLOADS[name](dev)
     run = _drive(name, spec, dev)
     result, out = run["result"], run["out"]
-    expected = (spec["updates"] + _executor_extra(run["coll"])) * (1 + 5)
+    expected = spec["updates"] * (1 + 5)  # a batch of 8: an exact key, no padding
     launches = run["launches"]["ssim_windows"]
     _check(launches == expected, f"{name}: {launches} ssim_windows launches, expected {expected}")
     for key in ("ssim", "ms_ssim"):
@@ -1585,6 +1588,14 @@ EXECUTOR_PHASES = {
     "binary_curve_1m_executor": ("binary_curve_1m", 4),
     "uvg_1080p_executor": ("uvg_1080p", 4),
 }
+#: the phases whose steady batch is off the ladder (Cityscapes' 4 images,
+#: the 1M binary scores): their launches a kernel, on and off alike (every
+#: update one count; the first update every member's: one Jaccard/accuracy/
+#: confusion group, three curves)
+EXECUTOR_STEADY = {
+    "cityscapes_val": {"bincount": 125},
+    "binary_curve_1m": {"binned_curve": 3 + 49},
+}
 #: the ImageNet run's checks of escaped and pending tensors: updates after
 #: the read, and the batches the check runs over
 EXECUTOR_ESCAPE = {"updates_after": 10, "batches": 4}
@@ -1599,7 +1610,7 @@ def _executor_summary(obj) -> dict:
     status = obj.executor_status
     stats = status["stats"]
     keys = ("calls", "compiles", "cache_hits", "padded_calls", "probes", "donated_calls", "copied_calls",
-            "skipped_calls", "dispatch_failures", "recovery_restores", "compile_us_total", "captured")
+            "skipped_calls", "dispatch_failures", "recovery_restores", "compile_us_total", "captured", "eager")
     return {"enabled": status["enabled"], "engaged": status["engaged"], "fallback_reason": status["fallback_reason"],
             **{k: stats[k] for k in keys}}
 
@@ -1641,12 +1652,23 @@ def _executor_tally() -> dict:
 
 
 def _expected_keys(sizes: list) -> int:
-    """Cache keys the collection executor builds: one per (bucket, padded)
-    of the batches after the first (the first update resolves the compute
-    groups, its members eager)."""
-    from torchmetrics_tpu_torch.ops.executor import bucket_size
+    """Cache keys the collection executor builds over the batches after the
+    first (the first update resolves the compute groups, its members
+    eager): a size that repeats the one before it (or was so keyed
+    before), up to ``_EXACT_SIZES`` of them, or a power of two from 8 on,
+    is keyed exactly; any other size pads up the ladder."""
+    from torchmetrics_tpu_torch.ops.executor import _EXACT_SIZES, bucket_size
 
-    return len({(bucket_size(n), bucket_size(n) != n) for n in sizes[1:]})
+    keys, exact, last = set(), set(), None
+    for n in sizes[1:]:
+        if bucket_size(n) == n or n in exact or (n == last and len(exact) < _EXACT_SIZES):
+            if bucket_size(n) != n:
+                exact.add(n)
+            keys.add(("exact", n))
+        else:
+            keys.add(("ladder", bucket_size(n)))
+        last = n
+    return len(keys)
 
 
 def _leader_state(coll) -> dict:
@@ -1689,8 +1711,11 @@ def _drive_executor(phase: str, spec: dict, dev, executor: bool) -> dict:
     steps = EXECUTOR_PHASES[phase][1]
     prof = spec["collection"](executor=executor, validate_args=False)
     gen = spec["batches"]()
-    warm = [next(gen) for _ in range(3)]
-    for batch in warm:  # resolve the groups and build the key before the profiled window
+    # resolve the groups, build the keys (the first size pads, its repeat is
+    # keyed exactly) and judge the exact key at its second replay, all
+    # before the profiled window
+    warm = [next(gen) for _ in range(5)]
+    for batch in warm:
         prof.update(*batch)
     batches = [next(gen) for _ in range(steps + 1)]
     rows, wall_us = _profiled(lambda i: prof.update(*batches[i + 1]), steps)
@@ -1742,6 +1767,11 @@ def _escape_checks(dev) -> dict:
 
     spec = WORKLOADS["imagenet_val"](dev)
     on = spec["collection"](executor=True)
+    # these checks hold a replaying key's escapes and recovery, so its
+    # verdict is off: the key's one timed replay runs beside the pending
+    # compute_async's worker, which can slow it past the eager trials and
+    # leave no dispatch to fail (the phase's own run holds the verdict)
+    on._get_executor().dispatcher().judging = False
     off = spec["collection"](executor=False)
     gen = spec["batches"]()
     batches = [next(gen) for _ in range(EXECUTOR_ESCAPE["batches"])]
@@ -1762,6 +1792,8 @@ def _escape_checks(dev) -> dict:
     before = _leader_state(on)
     count = on.update_count
     stats = on.executor_status["stats"]
+    _check(stats["captured"] and stats["eager"]["keys"] == 0 and not stats["eager"]["calls"],
+           f"imagenet_val_executor: the key does not replay, no dispatch to fail: {stats['eager']}")
     raised = False
     with faults.fail_dispatch(consume=True):
         try:
@@ -1819,10 +1851,19 @@ def phase_executor(phase: str, dev) -> dict:
         want = n + (per_update[kernel] or 0) * (stats["padded_calls"] + stats["probes"])
         _check(per_update[kernel] is not None and on["launches"][kernel] == want,
                f"{phase}: {kernel} launched {on['launches'][kernel]} times with the executor, {want} expected ({n} without)")
+    if workload in EXECUTOR_STEADY:
+        # a steady batch off the ladder is keyed exactly: no call pads, and
+        # every kernel launches as often as without the executor
+        _check(stats["padded_calls"] == 0, f"{phase}: {stats['padded_calls']} padded calls for a steady batch")
+        for kernel, n in EXECUTOR_STEADY[workload].items():
+            _check(on["launches"][kernel] == off["launches"][kernel] == n,
+                   f"{phase}: {kernel} launched {on['launches'][kernel]} times on, {off['launches'][kernel]} off, {n} expected")
     out = {
         "phase": phase, "workload": workload, "updates": off["out"]["updates"], "keys_implied": keys,
         "off": off["out"], "on": on["out"], "launches_per_update_off": per_update,
         "speedup_updates_per_s": on["out"]["updates_per_s"] / off["out"]["updates_per_s"],
+        "speedup_median_update": off["out"]["update_ms_p50"] / on["out"]["update_ms_p50"],
+        "eager_keys": stats["eager"],
         **compared,
     }
     for run in (off, on):
@@ -3121,8 +3162,9 @@ def phase_div2k(dev) -> dict:
     compute_s = time.perf_counter() - t0
     compute_launches = ssim_kernel.launches - update_launches
     peak = torch.cuda.max_memory_allocated(dev)
-    # the executor pads DIV2K's batch of 4 to 8: a replay also updates row 0
-    expected = {"update": updates * (26 * c + 5 * c + 1) + _executor_extra(stream, 26 * c + 5 * c + 1), "compute": 1 + 2}
+    # DIV2K's steady batch of 4: the executor keys it exactly (the first
+    # call's padded key is served eagerly), no padded replay adds a row-0 update
+    expected = {"update": updates * (26 * c + 5 * c + 1), "compute": 1 + 2}
     _generic_check(name, update_launches + compute_launches, expected["update"] + expected["compute"])
     _check(compute_launches == expected["compute"], f"{name}: {compute_launches} launches in the compute, expected 3")
     for key, value in result.items():
@@ -7413,7 +7455,8 @@ def _preempted_child(store: str, device: str, conn) -> None:
     saver.flush(60.0)
     flight = obs.flight_snapshot()
     conn.send(("committed", {
-        "updates": coll.update_count, "stats": {k: saver.stats[k] for k in ("saves", "skipped_inflight", "async_rides", "save_errors")},
+        "updates": coll.update_count,
+        "stats": {k: saver.stats[k] for k in ("saves", "skipped_inflight", "async_rides", "save_errors", "reused_recovery_snapshots")},
         "background_save_ms": [r["duration_us"] / 1e3 for r in flight.get("checkpoint", []) if r["name"].startswith(obs.SPAN_CKPT_SAVE)],
         "autosave_tick_ms": [r["duration_us"] / 1e3 for r in flight.get("autosave", [])],
         "update_us_p50": sorted(tick_us)[len(tick_us) // 2],
@@ -7514,13 +7557,79 @@ def phase_imagenet_val_preempted(dev) -> dict:
     launches = bincount.launches
     _check(launches == n + (n - RUNTIME["kill_after"]) + (n - previous),
            f"imagenet_val_preempted: {launches} bincount launches")
+    reuse = _autosave_reusing_recovery(dev, spec)
+    launches += reuse.pop("bincount_launches")
     return _emit({
         "phase": "imagenet_val_preempted", "child_exitcode": child.exitcode, "kill_after": RUNTIME["kill_after"],
         "child_s": t_kill - t_spawn, "child": committed, "final_save_ms": messages["final_save"]["ms"],
         "snapshots": [os.path.basename(p) for _, p in snaps], "snapshot_bytes": snapshot_bytes,
         "restore_ms": restore_ms, "restore_after_torn_ms": restore_torn_ms, "torn_fallback_count": previous,
         "bincount_launches": launches, "values": {k: float(v) for k, v in _values(want).items()},
+        "reuse_recovery": reuse,
     })
+
+
+def _autosave_reusing_recovery(dev, spec: dict) -> dict:
+    """The collection on the captured executor under ``Autosaver(every 8,
+    reuse_recovery=True)``, saving inline (every 8th update exactly): each save after a replay
+    reuses the executor's recovery reference (the slot the replay read).
+    Checks: some saves reused it; the newest snapshot restores one update
+    behind the live state at its save, bit-equal to the eager counts at
+    that count; the saves raise no ``copied_calls`` (the reuse marks
+    nothing escaped: a replay copies only after the fresh key's run and
+    after the key's one eager trial)."""
+    import torch
+
+    from torchmetrics_tpu_torch.io import Autosaver, load_manifest, restore_state
+    from torchmetrics_tpu_torch.io.checkpoint import _list_snapshots
+    from torchmetrics_tpu_torch.ops import bincount
+
+    n = len(IMAGENET["batches"])
+    every = RUNTIME["every_n_updates"]
+    store = str(_runtime_dir("preempted_reuse"))
+    coll = spec["collection"](executor=True)
+    saver = Autosaver(coll, store, every_n_updates=every, keep=RUNTIME["keep"], background=False, reuse_recovery=True).attach()
+    bincount.launches = 0
+    tick_us = []
+    for i in range(n - 1):  # the 1,024-row batches: one key, replayed
+        t0 = time.perf_counter()
+        coll.update(*_imagenet_batch(i, dev))
+        tick_us.append((time.perf_counter() - t0) * 1e6)
+    saver.flush(60.0)
+    torch.cuda.synchronize()
+    launches = bincount.launches
+    stats = coll.executor_status["stats"]
+    _check(saver.stats["reused_recovery_snapshots"] > 0 and saver.stats["save_errors"] == 0,
+           f"imagenet_val_preempted: the autosaver reused no recovery snapshot: {saver.stats}")
+    # the first call resolves the groups, the second is the fresh key's
+    # (copied), the key's eager trials make the replay after them copy;
+    # every other replay donates: the saves copied nothing in
+    copies = 1 + (1 if stats["eager"]["calls"] and stats["eager"]["keys"] == 0 else 0)
+    _check(stats["copied_calls"] == copies and stats["donated_calls"] == stats["calls"] - copies,
+           f"imagenet_val_preempted: the saves raised copied_calls: {stats}")
+    newest = _list_snapshots(store)[-1][1]
+    count = load_manifest(newest)["update_count"]
+    restored = spec["collection"](executor=False)
+    restore_state(newest, restored)
+    _check((count + 1) % every == 0 and restored.update_count == count,
+           f"imagenet_val_preempted: the newest snapshot holds {count} updates, not one behind a save every {every}")
+    ref = spec["collection"](executor=False)
+    for i in range(count):
+        ref.update(*_imagenet_batch(i, dev))
+    launches += count
+    want = _fields(ref.state())
+    got = {leader: {k: restored[leader]._state[k] for k in sub} for leader, sub in want.items()}
+    _check(_bit_equal(got, want), "imagenet_val_preempted: the reused snapshot differs from the eager state at its count")
+    saver.detach()  # the saver and the collection observe each other: part them
+    out = {
+        "saves": saver.stats["saves"], "reused_recovery_snapshots": saver.stats["reused_recovery_snapshots"],
+        "snapshot_count": count, "executor": {k: stats[k] for k in ("calls", "donated_calls", "copied_calls", "eager")},
+        "update_us_p50": statistics.median(tick_us), "bincount_launches": launches,
+    }
+    del coll, saver, restored, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_imagenet_val_async(dev) -> dict:
@@ -8802,6 +8911,301 @@ def phase_imagenet_val_deferred(dev) -> dict:
         "reduce_ms": reduce_ms, "reshard_8_4_1_ms": reshard_ms, "save_ms": save_ms, "restore_elastic_ms": restore_ms,
         "resumed_on": spec["resume_shards"], "bit_equal": True,
     }
+    return _emit(out)
+
+
+#: the deferred collection step's phase: the stacked shard counts (one
+#: card's deployment, and 8 shards as a data-parallel rank stacks them),
+#: the shadow's and the audits' cadence, the step the degraded read and the
+#: recovery are taken at, and the elastic restore's point and target
+DEFERRED_STEP = {"shards": (1, 8), "every": 8, "lost_at": 46, "resume_after": 24, "resume_shards": 4, "ship_after": 16}
+
+
+def _step_batches(dev) -> list:
+    """ImageNet's 49 batches on the card, made once by index."""
+    return [_imagenet_batch(i, dev) for i in range(len(IMAGENET["batches"]))]
+
+
+def _eager_reference(dev, batches: list, keep=()) -> dict:
+    """The eager collection (executor off) over ``batches``: its leader
+    fields after each count in ``keep``, its final fields and values, and
+    the median ms of an update."""
+    import torch
+
+    coll = _imagenet(dev)["collection"](executor=False)
+    kept, update_ms = {}, []
+    for i, batch in enumerate(batches):
+        _sync(dev)
+        t0 = time.perf_counter()
+        coll.update(*batch)
+        _sync(dev)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 in keep:
+            kept[i + 1] = {leader: {k: v.clone() for k, v in st.items()} for leader, st in _fields(coll.state()).items()}
+    return {"fields": _fields(coll.state()), "values": coll.compute(), "kept": kept, "update_ms": update_ms}
+
+
+def _same_counts(name: str, got: dict, want: dict) -> None:
+    """Leader-keyed host (numpy) or device counts against the eager
+    collection's fields, bit for bit."""
+    import numpy as np
+
+    _check(sorted(got) == sorted(want), f"{name}: leaders {sorted(got)} != {sorted(want)}")
+    for leader, sub in want.items():
+        for k, v in sub.items():
+            g = got[leader][k]
+            g = g.detach().cpu().numpy() if hasattr(g, "detach") else np.asarray(g)
+            _check(np.array_equal(g, v.detach().cpu().numpy()), f"{name}: {leader}.{k} differs from the eager collection's")
+
+
+def _same_values(name: str, got: dict, want: dict) -> None:
+    import numpy as np
+
+    for k, v in want.items():
+        w = v.detach().cpu().numpy()
+        g = np.asarray(got[k].detach().cpu().numpy() if hasattr(got[k], "detach") else got[k])
+        _check(g.shape == w.shape and np.array_equal(g, w), f"{name}: value {k} differs from the eager collection's")
+
+
+def phase_imagenet_val_deferred_step(dev) -> dict:
+    """ImageNet-1k val's collection (1,000 classes, 48 batches of 1,024 and
+    one of 848) through ``make_deferred_collection_step`` at S = 1 (one
+    card's deployment) and S = 8 stacked shards: ``local_step`` over every
+    batch, and ``local_epoch`` over the 48 full batches as one chunk (one
+    captured graph of 48 x S shard updates) then the last batch by
+    ``local_step``. Checks: ``reduce`` counts bit-equal to the eager
+    collection's and values equal; ``reduce_async`` equal to ``reduce``;
+    one capture a key (a step's two batch sizes, the epoch); S ``bincount``
+    launches a step (one a shard's update: 49 S a run, the same by epoch);
+    a donated states tree handed back raises. On 8 shards: the shadow every
+    8 steps, with ``drop_shard`` under ``"raise"``, ``"degraded"`` (after
+    45 steps: 4 behind the shadow's refresh at 41, the value of the eager
+    counts at 41) and ``"restore"`` (step 46 is lost: the run resumes from
+    the shadow at 41 and re-applies that step's batch: the eager counts of
+    batches 0-40 and 45-48);
+    ``attach_integrity`` with ``skew_replica(states, shard=3)`` names shard
+    3; the states after batch 24 restored onto 4 shards finish bit-equal;
+    ``export_canonical`` equals the folded reduce; ``export_delta`` through
+    ``deferred_source`` into a ``LeafExporter`` and an ``Aggregator`` is
+    bit-equal to the fold; the quantized export decodes within
+    ``reduce_error_bound`` (the ImageNet fields are integers: raw).
+    Printed: us a ``local_step`` against an eager collection update, ms a
+    48-step ``local_epoch`` against 48 eager updates, reduce ms, capture
+    ms, pool and static bytes, the peak."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.fleet import Aggregator, LeafExporter, Uplink, deferred_source
+    from torchmetrics_tpu_torch.ops import bincount, fingerprint
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+    from torchmetrics_tpu_torch.ops.executor import make_deferred_collection_step
+    from torchmetrics_tpu_torch.parallel import quantized
+    from torchmetrics_tpu_torch.quarantine import DegradedValue
+    from torchmetrics_tpu_torch.testing import faults
+    from torchmetrics_tpu_torch.utils.exceptions import ShardLossError, StateDivergenceError, TorchMetricsUserError
+
+    spec = DEFERRED_STEP
+    t_phase = time.perf_counter()
+    batches = _step_batches(dev)
+    n, full = len(batches), len(batches) - 1
+    lost_at, every = spec["lost_at"], spec["every"]
+    kept_at = lost_at - (lost_at - 1) % every  # the shadow's last refresh before the loss: 41
+    audit_at = max(range(every - 1, lost_at, every))  # the audits' last capture before it: 39
+    eager = _eager_reference(dev, batches, keep=(kept_at, spec["resume_after"]))
+    want, want_values = eager["fields"], eager["values"]
+    # the restore policy's run: the shadow's prefix, then the lost step's batch on
+    survivor = _eager_reference(dev, batches[:kept_at] + batches[lost_at - 1:])["fields"]
+    chunk = [torch.stack([b[i] for b in batches[:full]]) for i in range(2)]
+    out = {"phase": "imagenet_val_deferred_step", "updates": n, "runs": {}}
+    launches_total = 0
+    for shards in spec["shards"]:
+        row = {}
+        # ---- local_step over every batch
+        coll = _deferred_collection(dev)
+        step = make_deferred_collection_step(coll, mesh=shards)
+        _sync(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        bincount.launches = 0
+        states, step_ms, snapshot, spent = step.init_states(), [], None, None
+        for i, batch in enumerate(batches):
+            _sync(dev)
+            t0 = time.perf_counter()
+            states = step.local_step(states, *batch)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 == spec["resume_after"]:
+                snapshot = {leader: {**{k: v.clone() for k, v in sub.items()}, "_sharded_shards": shards} for leader, sub in states.items()}
+            if i == n - 2:
+                spent = states  # donated to the last step: its slot is the other one
+        launches = bincount.launches
+        launches_total += launches
+        _check(launches == shards * n, f"imagenet_val_deferred_step: S={shards}: {launches} bincount launches, {shards * n} expected (one a shard a step)")
+        _check(step.stats["compiles"] == 2 and step.stats["cache_hits"] == n - 2,
+               f"imagenet_val_deferred_step: S={shards}: keys {step.stats} (two batch sizes: two captures)")
+        _check(step.stats["donated_calls"] == n - 1, f"imagenet_val_deferred_step: S={shards}: donation {step.stats}")
+        t0 = time.perf_counter()
+        got = step.reduce(states)
+        reduce_ms = (time.perf_counter() - t0) * 1e3
+        folded = coll.reduce_sharded_states(states)
+        _same_counts(f"imagenet_val_deferred_step: S={shards} fold", folded, want)
+        _same_values(f"imagenet_val_deferred_step: S={shards} reduce", got, want_values)
+        pending = step.reduce_async(states)
+        _same_values(f"imagenet_val_deferred_step: S={shards} reduce_async", pending.result(60.0), want_values)
+        raised = False
+        try:
+            step.local_step(spent, *batches[0])
+        except TorchMetricsUserError:
+            raised = True
+        _check(raised, f"imagenet_val_deferred_step: S={shards}: a spent (donated) states tree was accepted")
+        _same_counts(f"imagenet_val_deferred_step: S={shards} after the refused call", coll.reduce_sharded_states(states), want)
+        canonical = step.export_canonical(states)
+        _same_counts(f"imagenet_val_deferred_step: S={shards} export_canonical", canonical, want)
+        row.update({
+            "local_step_us_p50": statistics.median(step_ms[1:full]) * 1e3,
+            "eager_update_us_p50": statistics.median(eager["update_ms"][1:full]) * 1e3,
+            "first_step_ms": step_ms[0], "ragged_step_ms": step_ms[-1], "reduce_ms": reduce_ms,
+            "capture_ms": step.stats["capture_us_total"] / 1e3, "stats": dict(step.stats),
+            "static_bytes": step.static_bytes(), "graph_pool_bytes": step.graph_pool_bytes(),
+            "peak_above_base_bytes": torch.cuda.max_memory_allocated(dev) - base, "bincount_launches": launches,
+        })
+        del states, spent
+        # ---- the 48 full batches as one local_epoch, then the last by local_step
+        coll_e = _deferred_collection(dev)
+        epoch_step = make_deferred_collection_step(coll_e, mesh=shards)
+        bincount.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        st = epoch_step.local_epoch(epoch_step.init_states(), *chunk)
+        _sync(dev)
+        first_epoch_ms = (time.perf_counter() - t0) * 1e3
+        st = epoch_step.local_step(st, *batches[-1])
+        launches = bincount.launches
+        launches_total += launches
+        _check(launches == shards * n, f"imagenet_val_deferred_step: S={shards} epoch: {launches} bincount launches, {shards * n} expected")
+        _check(epoch_step.steps == n, f"imagenet_val_deferred_step: S={shards} epoch: {epoch_step.steps} steps")
+        _same_values(f"imagenet_val_deferred_step: S={shards} epoch reduce", epoch_step.reduce(st), want_values)
+        _same_counts(f"imagenet_val_deferred_step: S={shards} epoch fold", coll_e.reduce_sharded_states(st), want)
+        bincount.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        again = epoch_step.local_epoch(epoch_step.init_states(), *chunk)  # the epoch key's replay
+        _sync(dev)
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        launches_total += bincount.launches
+        _check(bincount.launches == shards * full, f"imagenet_val_deferred_step: S={shards}: the epoch's replay launched {bincount.launches}")
+        _check(epoch_step.stats["compiles"] == 2 and epoch_step.stats["cache_hits"] == 1,
+               f"imagenet_val_deferred_step: S={shards} epoch keys {epoch_step.stats}")
+        row.update({
+            "epoch_ms": epoch_ms, "first_epoch_ms": first_epoch_ms, "eager_48_updates_ms": sum(eager["update_ms"][:full]),
+            "epoch_capture_ms": epoch_step.stats["capture_us_total"] / 1e3,
+            "epoch_static_bytes": epoch_step.static_bytes(), "epoch_graph_pool_bytes": epoch_step.graph_pool_bytes(),
+            "epoch_stats": dict(epoch_step.stats),
+        })
+        del st, again, epoch_step, coll_e
+        out["runs"][str(shards)] = row
+        if shards != 8:
+            del step, coll
+            continue
+        # ---- elastic restore: the states after batch 24 on 8 shards, onto 4
+        step4 = make_deferred_collection_step(_deferred_collection(dev), mesh=spec["resume_shards"])
+        t0 = time.perf_counter()
+        st4 = step4.restore_states(snapshot, step_count=spec["resume_after"])
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        bincount.launches = 0
+        for batch in batches[spec["resume_after"]:]:
+            st4 = step4.local_step(st4, *batch)
+        launches_total += bincount.launches
+        _same_values("imagenet_val_deferred_step: restored 8 -> 4", step4.reduce(st4), want_values)
+        _same_counts("imagenet_val_deferred_step: restored 8 -> 4 export", step4.export_canonical(st4), want)
+        row["restore_8_to_4_ms"] = restore_ms
+        del step4, st4, snapshot
+        # ---- the fleet: deferred_source into a LeafExporter and an Aggregator
+        fleet_step = make_deferred_collection_step(_deferred_collection(dev), mesh=shards)
+        live = {"states": fleet_step.init_states()}
+        agg = Aggregator("agg/root")
+        leaf = LeafExporter("leaf/imagenet", deferred_source(fleet_step, lambda: live["states"]), Uplink({"agg/root": agg}), "agg/root")
+        bincount.launches = 0
+        for i, batch in enumerate(batches):
+            live["states"] = fleet_step.local_step(live["states"], *batch)
+            if i + 1 == spec["ship_after"]:
+                leaf.ship()
+        launches_total += bincount.launches
+        leaf.ship()
+        view, _ = agg.canonical()
+        _same_counts("imagenet_val_deferred_step: the aggregator's view",
+                     {leader: {k: view[f"{leader}.{k}"] for k in sub} for leader, sub in want.items()}, want)
+        _check(agg.total_update_count() == n, f"imagenet_val_deferred_step: the aggregator counts {agg.total_update_count()} steps")
+        wire = fleet_step.export_canonical(live["states"], precision="quantized")
+        for leader, sub in wire.items():
+            dec = quantized.decode_canonical(sub)
+            for k, v in want[leader].items():
+                w = v.detach().cpu().numpy()
+                if np.issubdtype(w.dtype, np.floating):
+                    bound = quantized.reduce_error_bound(w[None], "max", 8, 256)
+                    _check(bool((np.abs(dec[k] - w) <= bound + 1e-6).all()), f"imagenet_val_deferred_step: quantized {leader}.{k} past its bound")
+                else:
+                    _check(np.array_equal(dec[k], w), f"imagenet_val_deferred_step: quantized {leader}.{k} (an integer field rides raw)")
+        row["fleet"] = {"shipped": 2, "wire_fields": sum(len(sub["fields"]) for sub in wire.values())}
+        del fleet_step, live, agg, leaf
+        # ---- the shadow every 8 steps, the shard-loss policies and the audits
+        fault_step = make_deferred_collection_step(_deferred_collection(dev), mesh=shards)
+        shadow = fault_step.attach_shadow(every_n_steps=every, on_shard_loss="degraded")
+        integ = fault_step.attach_integrity(every_n_steps=every, on_divergence="raise")
+        fingerprint.launches = 0
+        bincount.launches = 0
+        st = fault_step.init_states()
+        for i, batch in enumerate(batches[: lost_at - 1]):
+            st = fault_step.local_step(st, *batch)
+            if i + 1 == audit_at:  # a capture at this step: audit, then a skewed copy
+                drain_pipeline(60.0)
+                _check(integ.audit(st).ok, "imagenet_val_deferred_step: a clean audit failed")
+                skewed, info = faults.skew_replica(st, shard=3, seed=1)
+                named = None
+                try:
+                    integ.audit(skewed)
+                except StateDivergenceError as err:
+                    named = err.shard
+                _check(named == 3 == info["shard"], f"imagenet_val_deferred_step: the audit named shard {named}, not 3")
+                del skewed
+        drain_pipeline(60.0)
+        behind = shadow.updates_behind(fault_step.steps)
+        _check(behind is not None and behind <= every - 1 and fault_step.steps == lost_at - 1,
+               f"imagenet_val_deferred_step: the shadow is {behind} steps behind step {fault_step.steps}")
+        fault_step._on_shard_loss = "raise"
+        raised = None
+        with faults.drop_shard(fault_step, shard=2):
+            try:
+                fault_step.reduce(st)
+            except ShardLossError as err:
+                raised = err.shard
+        _check(raised == 2, f"imagenet_val_deferred_step: the raise policy gave shard {raised}")
+        fault_step._on_shard_loss = "degraded"
+        with faults.drop_shard(fault_step, shard=0):
+            degraded = fault_step.reduce(st)
+        _check(isinstance(degraded, DegradedValue) and degraded.updates_behind == behind and degraded.age_updates == kept_at,
+               f"imagenet_val_deferred_step: degraded read {getattr(degraded, 'updates_behind', None)} behind at {getattr(degraded, 'age_updates', None)}")
+        _check(torch.equal(degraded.value["confmat"].to(torch.int64), eager["kept"][kept_at]["confmat"]["confmat"].to(torch.int64)),
+               "imagenet_val_deferred_step: the degraded confusion matrix is not the eager one at the shadow's step")
+        fault_step._on_shard_loss = "restore"
+        with faults.drop_shard(fault_step, shard=5, fail_n=1):
+            st = fault_step.local_step(st, *batches[lost_at - 1])  # lost, recovered, re-applied
+        for batch in batches[lost_at:]:
+            st = fault_step.local_step(st, *batch)
+        _same_counts("imagenet_val_deferred_step: the run restored from the shadow", fault_step.export_canonical(st), survivor)
+        launches_total += bincount.launches
+        row["faults"] = {
+            "shadow_refreshes": shadow.stats["refreshes"], "updates_behind": behind, "age_updates": kept_at,
+            "integrity": dict(integ.stats), "audit_named_shard": 3, "raise_shard": raised,
+            "restored_steps": fault_step.steps, "fingerprint_launches": fingerprint.launches,
+        }
+        out["fingerprint_launches"] = fingerprint.launches
+        del fault_step, st, step, coll
+    out.update({"bincount_launches": launches_total, "seconds": time.perf_counter() - t_phase, "bit_equal": True})
+    del eager, survivor, batches, chunk
+    gc.collect()
+    torch.cuda.empty_cache()  # GLDv2's audited pass, later, needs 49 GB in one block
     return _emit(out)
 
 
@@ -10169,10 +10573,16 @@ def main() -> int:
     # class-sharded state, and a 64-site FEMNIST fleet under chaos
     fp_rows = phase_fingerprint_kernels(dev)
     audited = phase_imagenet_val_audited(dev)
+    torch.cuda.empty_cache()  # one 49 GB block for GLDv2's audited pass
     gldv2_audited = phase_gldv2_clean_audited(dev, gldv2.pop("_reuse"))
     torch.cuda.empty_cache()
     femnist_fleet = phase_femnist_fleet(dev, femnist_data)
     del femnist_data
+    # the deferred collection step: a step or a 48-step chunk as one captured
+    # graph over 1 and 8 stacked shards, the read point, the shard shadow's
+    # policies, the audits, the elastic restore and the exports (after
+    # GLDv2's passes, whose 49 GB blocks it would otherwise fragment)
+    deferred_step = phase_imagenet_val_deferred_step(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -10211,6 +10621,7 @@ def main() -> int:
             + femnist["bincount_launches"] + femnist_guarded["bincount_launches"]
             + criteo["bincount_launches"] + femnist_windowed["bincount_launches"]
             + femnist_deferred["bincount_launches"] + gldv2["bincount_launches"] + deferred["bincount_launches"]
+            + deferred_step["bincount_launches"]
             + audited["bincount_launches"] + gldv2_audited["bincount_launches"] + femnist_fleet["bincount_launches"]
             + sum(r["bincount_launches"] for r in executor),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -10327,7 +10738,8 @@ def main() -> int:
             # sum), no Pallas site
             "replaces": "torchmetrics_tpu/integrity.py:112",
             "replaces_kind": "XLA fold, no Pallas site",
-            "launches": audited["fingerprint_launches"] + gldv2_audited["fingerprint_launches"],
+            "launches": audited["fingerprint_launches"] + gldv2_audited["fingerprint_launches"]
+            + deferred_step["fingerprint_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in fp_rows),
             # the headline: GLDv2's 26.45 GB class-sharded stack, one leaf
             "shape": "gldv2_confmat_stack",

@@ -2499,7 +2499,12 @@ def _executor_workload(name, device, executor):
         for _ in range(4):
             original = torch.rand((8, 3, 192, 256), generator=g, device=device)
             batches.append(((original + 0.02 * torch.randn(original.shape, generator=g, device=device)).clamp(0, 1), original))
-    return tm.MetricCollection(members, executor=executor), batches
+    coll = tm.MetricCollection(members, executor=executor)
+    if executor:
+        # these tests hold replays to executor=False: no key runs eagerly
+        # after its timed replay (test_a_key_slower_than_its_eager_call_runs_eagerly)
+        coll._get_executor().dispatcher().judging = False
+    return coll, batches
 
 
 def _launches():
@@ -2551,6 +2556,7 @@ def test_fifty_binned_curve_replays_equal_fifty_eager_calls(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     on = BinaryAUROC(thresholds=200, ignore_index=-1, validate_args=False, executor=True)
     off = BinaryAUROC(thresholds=200, ignore_index=-1, validate_args=False, executor=False)
+    on._get_executor().dispatcher().judging = False  # fifty replays, none an eager trial
     for _ in range(50):
         target = (torch.rand(4096, generator=g, device=cuda_device) < 0.3).to(torch.int64)
         scores = torch.rand(4096, generator=g, device=cuda_device)
@@ -2667,7 +2673,7 @@ def test_later_items_step_aside_on_the_card(cuda_device):
     for m in (windowed, laned, sharded):
         status = m.executor_status
         assert status["enabled"] and not status["engaged"]
-        assert "ROADMAP Queue A item 3" in status["fallback_reason"]
+        assert "ROADMAP Queue A item 4" in status["fallback_reason"]
 
 
 def _binary_batch(g, device, n):
@@ -2688,6 +2694,8 @@ def test_binned_curve_graphs_replay_exact_whichever_replays_first(cuda_device, o
     kw = {"ignore_index": -1, "validate_args": False}
     ons = [BinaryAUROC(thresholds=200, executor=True, **kw), BinaryAUROC(thresholds=300, executor=True, **kw)]
     offs = [BinaryAUROC(thresholds=200, executor=False, **kw), BinaryAUROC(thresholds=300, executor=False, **kw)]
+    for m in ons:
+        m._get_executor().dispatcher().judging = False
     if order == "ladder_then_later_rung":
         report = ons[0].warmup(_binary_batch(g, cuda_device, 4096), ladder=True)
         assert report["warmed"] == 11 and not report["skipped"], report
@@ -2798,3 +2806,255 @@ def test_failed_capture_returns_its_memory(cuda_device):
     del big
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(cuda_device) <= before + (2 << 20)
+
+
+# ------------------------------------------- steady keys and eager keys
+
+
+def test_steady_batch_ladder_key_captured_first_exact_key_replayed_first(cuda_device):
+    """A steady batch of 4 off the ladder: its first call takes the ladder's
+    key (8, captured, the call served by the eager update on the batch as
+    given), its repeat captures the exact key, and from then on the exact
+    key replays: no call pads, launches and states equal executor=False."""
+    c = 19
+    kw = {"ignore_index": 255, "validate_args": False}
+    on = MulticlassConfusionMatrix(num_classes=c, executor=True, **kw)
+    off = MulticlassConfusionMatrix(num_classes=c, executor=False, **kw)
+    on._get_executor().dispatcher().judging = False
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    before = bincount.launches
+    for _ in range(6):
+        x = torch.randint(0, c, (4, 64, 96), generator=g, device=cuda_device)
+        t = torch.randint(0, c, (4, 64, 96), generator=g, device=cuda_device)
+        on.update(x, t)
+        off.update(x, t)
+    torch.cuda.synchronize()
+    assert torch.equal(on._state["confmat"], off._state["confmat"])
+    stats = on.executor_status["stats"]
+    assert stats["padded_calls"] == 0 and stats["probes"] == 0 and stats["compiles"] == 2 and stats["cache_hits"] == 4, stats
+    assert bincount.launches - before == 12  # six on, six off
+    entries = list(on._executor_obj._dispatcher.entries.values())
+    ladder, exact = entries  # the ladder's key was built first
+    assert ladder.graphs and exact.graphs
+    assert ladder.inputs[0].shape[0] == 8 and exact.inputs[0].shape[0] == 4
+    assert ladder.replays == 0 and exact.replays == 4
+
+
+def test_a_key_slower_than_its_eager_call_runs_eagerly(cuda_device):
+    """The verdict after a key's timed replay and its two eager trials: a
+    sum over 512 MB a batch (device-bound: copying the batch into the
+    static buffer costs about twice the sum itself) runs eagerly from then
+    on, its reason in executor_stats; ImageNet's collection (host-bound)
+    keeps replaying. Values and states equal executor=False either way."""
+    from torchmetrics_tpu_torch.classification import MulticlassPrecision, MulticlassRecall
+
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    big = [torch.rand(1 << 27, generator=g, device=cuda_device) for _ in range(2)]
+    on, off = tm.SumMetric(nan_strategy="ignore", executor=True), tm.SumMetric(nan_strategy="ignore", executor=False)
+    for i in range(10):
+        on.update(big[i % 2])
+        off.update(big[i % 2])
+    torch.cuda.synchronize()
+    assert torch.equal(on.compute(), off.compute())
+    stats = on.executor_status["stats"]
+    assert stats["eager"]["keys"] == 1 and stats["eager"]["calls"] >= 3 and stats["padded_calls"] == 0, stats
+    assert "input copies" in stats["eager"]["reasons"][0], stats["eager"]
+    del big
+    c = 1000
+    kw = {"validate_args": False}
+    members = lambda executor: {  # noqa: E731
+        "accuracy": MulticlassAccuracy(num_classes=c, average="micro", executor=executor, **kw),
+        "f1": MulticlassF1Score(num_classes=c, average="macro", executor=executor, **kw),
+        "precision": MulticlassPrecision(num_classes=c, average="macro", executor=executor, **kw),
+        "recall": MulticlassRecall(num_classes=c, average="macro", executor=executor, **kw),
+        "confmat": MulticlassConfusionMatrix(num_classes=c, executor=executor, **kw),
+    }
+    on, off = tm.MetricCollection(members(True), executor=True), tm.MetricCollection(members(False), executor=False)
+    for _ in range(10):
+        x = torch.randn((1024, c), generator=g, device=cuda_device)
+        t = torch.randint(0, c, (1024,), generator=g, device=cuda_device)
+        on.update(x, t)
+        off.update(x, t)
+    torch.cuda.synchronize()
+    assert torch.equal(on["confmat"]._state["confmat"], off["confmat"]._state["confmat"])
+    stats = on.executor_status["stats"]
+    assert stats["eager"]["keys"] == 0 and stats["eager"]["calls"] == 2, stats["eager"]  # its two eager trials
+
+
+def test_a_replay_beside_an_in_flight_read_is_not_judged(cuda_device):
+    """A key's timed replay that starts while an asynchronous read is in
+    flight (its worker shares the host) is not judged: no eager trial
+    follows it, and the first replay with no read in flight is timed in
+    its place, its two eager trials after it. States equal executor=False."""
+    from torchmetrics_tpu_torch.ops.async_read import drain_pipeline
+    from torchmetrics_tpu_torch.testing import faults
+
+    on = MulticlassConfusionMatrix(num_classes=10, validate_args=False, executor=True)
+    off = MulticlassConfusionMatrix(num_classes=10, validate_args=False, executor=False)
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    batches = [
+        (torch.randint(0, 10, (512,), generator=g, device=cuda_device), torch.randint(0, 10, (512,), generator=g, device=cuda_device))
+        for _ in range(9)
+    ]
+    with faults.pause_async_reads():
+        for x, t in batches[:6]:  # the fresh key, then five replays with a read in flight
+            on.update(x, t)
+            off.update(x, t)
+        torch.cuda.synchronize()
+        stats = on.executor_status["stats"]
+        assert stats["eager"]["calls"] == 0, stats["eager"]
+        entry = next(iter(on._executor_obj._dispatcher.entries.values()))
+        assert entry.replays == 5 and entry.timed_at == 6 and entry.best_eager is None
+    assert drain_pipeline(30.0)
+    for x, t in batches[6:]:  # the timed replay, then its two eager trials
+        on.update(x, t)
+        off.update(x, t)
+    torch.cuda.synchronize()
+    stats = on.executor_status["stats"]
+    assert stats["eager"]["calls"] == 2 and entry.best_eager is not None, stats["eager"]
+    assert torch.equal(on._state["confmat"], off._state["confmat"])
+
+
+def test_a_tensor_already_in_the_input_buffer_is_not_copied(cuda_device):
+    """A caller whose batch already is the key's static input buffer (the
+    address the graph reads) pays no copy: the replay reads it in place."""
+    m = MulticlassConfusionMatrix(num_classes=10, validate_args=False, executor=True)
+    m._get_executor().dispatcher().judging = False
+    off = MulticlassConfusionMatrix(num_classes=10, validate_args=False, executor=False)
+    x, t = torch.randint(0, 10, (512,), device=cuda_device), torch.randint(0, 10, (512,), device=cuda_device)
+    m.update(x, t)
+    off.update(x, t)
+    entry = next(iter(m._executor_obj._dispatcher.entries.values()))
+    staged = entry.inputs
+    staged[0].copy_(torch.randint(0, 10, (512,), device=cuda_device))
+    staged[1].copy_(torch.randint(0, 10, (512,), device=cuda_device))
+    copies = []
+    original = torch.Tensor.copy_
+
+    def counting(self, src, *a, **k):
+        copies.append(self.data_ptr())
+        return original(self, src, *a, **k)
+
+    torch.Tensor.copy_ = counting
+    try:
+        m.update(staged[0], staged[1])
+    finally:
+        torch.Tensor.copy_ = original
+    off.update(staged[0].clone(), staged[1].clone())
+    torch.cuda.synchronize()
+    assert not any(ptr in (staged[0].data_ptr(), staged[1].data_ptr()) for ptr in copies)
+    assert torch.equal(m._state["confmat"], off._state["confmat"])
+
+
+def test_recovery_snapshot_reads_the_slot_the_last_replay_read(cuda_device):
+    """``latest_recovery_snapshot`` on the card: the state one committed
+    update behind, bit-equal to executor=False's at that count, copied on
+    the capture stream without marking the state escaped (the next replay
+    donates)."""
+    from torchmetrics_tpu_torch.ops.executor import latest_recovery_snapshot
+
+    on, batches = _executor_workload("imagenet", cuda_device, True)
+    off, _ = _executor_workload("imagenet", cuda_device, False)
+    for b in batches[:4]:
+        on.update(*b)
+    for b in batches[:3]:
+        off.update(*b)
+    count, export = latest_recovery_snapshot(on)
+    assert count == 3
+    for cg in off.compute_groups.values():
+        for k in off[cg[0]]._defaults:
+            assert np.array_equal(export[cg[0]][k], off[cg[0]]._state[k].cpu().numpy()), (cg[0], k)
+    donated = on.executor_status["stats"]["donated_calls"]
+    on.update(*batches[4])
+    assert on.executor_status["stats"]["donated_calls"] == donated + 1
+
+
+# ------------------------------------------------ the deferred collection step
+
+
+def _deferred_case(device, shards):
+    from torchmetrics_tpu_torch.ops.executor import make_deferred_collection_step
+
+    coll, batches = _executor_workload("imagenet", device, False)
+    coll.resolve_compute_groups(*batches[0])
+    return make_deferred_collection_step(coll, mesh=shards), coll, batches[:6]
+
+
+def _stacked_eager(coll, shards, batches):
+    """The eager stacked update: shard s of every field takes rows
+    [s*N/S, (s+1)*N/S) of each batch, one functional_update a shard."""
+    st = coll.init_sharded_states(shards)
+    for batch in batches:
+        k = batch[0].shape[0] // shards
+        parts = []
+        for s in range(shards):
+            sub = {leader: {f: v[s] for f, v in fields.items()} for leader, fields in st.items()}
+            parts.append(coll.functional_update(sub, *(x[s * k:(s + 1) * k] for x in batch)))
+        st = {leader: {f: torch.stack([p[leader][f] for p in parts]) for f in fields} for leader, fields in st.items()}
+    return st
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_deferred_local_step_and_epoch_equal_the_eager_stacked_update(cuda_device, shards):
+    step, coll, batches = _deferred_case(cuda_device, shards)
+    want = _stacked_eager(coll, shards, batches)
+    before = bincount.launches
+    st = step.init_states()
+    for b in batches:
+        st = step.local_step(st, *b)
+    torch.cuda.synchronize()
+    assert bincount.launches - before == shards * len(batches)  # one count a shard a step
+    for leader, fields in want.items():
+        for f, v in fields.items():
+            assert torch.equal(st[leader][f], v), (leader, f)
+    assert step.stats["compiles"] == 1 and step.stats["cache_hits"] == len(batches) - 1 and step.stats["donated_calls"] == len(batches) - 1
+    chunk = [torch.stack([b[i] for b in batches]) for i in range(2)]
+    epoch_step, _, _ = _deferred_case(cuda_device, shards)
+    before = bincount.launches
+    st2 = epoch_step.local_epoch(epoch_step.init_states(), *chunk)  # fresh: eager, then captured
+    st3 = epoch_step.local_epoch(epoch_step.init_states(), *chunk)  # one replay of the unrolled graph
+    torch.cuda.synchronize()
+    assert bincount.launches - before == 2 * shards * len(batches)
+    assert epoch_step.steps == 2 * len(batches) and epoch_step.stats["cache_hits"] == 1
+    for tree in (st2, st3):
+        for leader, fields in want.items():
+            for f, v in fields.items():
+                assert torch.equal(tree[leader][f], v), (leader, f)
+    assert epoch_step.graph_pool_bytes() > 0 and epoch_step.static_bytes() > 0
+
+
+def test_deferred_step_refuses_a_spent_states_tree(cuda_device):
+    """A tree handed back one or two steps after it was donated shares a
+    slot with the live tree (or with the one a step writes next): the step
+    refuses it, and the live tree goes on bit-equal to the eager update."""
+    from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
+
+    step, coll, batches = _deferred_case(cuda_device, 2)
+    st = step.local_step(step.init_states(), *batches[0])
+    st2 = step.local_step(st, *batches[1])
+    st3 = step.local_step(st2, *batches[2])
+    for spent in (st, st2):  # st shares st3's slot: two steps ago
+        with pytest.raises(TorchMetricsUserError, match="donated"):
+            step.local_step(spent, *batches[3])
+    st4 = step.local_step(st3, *batches[3])
+    want = _stacked_eager(coll, 2, batches[:4])
+    for leader, fields in want.items():
+        for f, v in fields.items():
+            assert torch.equal(st4[leader][f], v), (leader, f)
+
+
+def test_deferred_reduce_async_beside_a_running_step_loop(cuda_device):
+    """A read submitted mid-loop resolves to the values of the states it was
+    handed, while the loop keeps replaying over the slots they live in."""
+    step, coll, batches = _deferred_case(cuda_device, 4)
+    st = step.init_states()
+    for b in batches[:3]:
+        st = step.local_step(st, *b)
+    want = step.reduce(st)
+    future = step.reduce_async(st)
+    for _ in range(4):
+        for b in batches:
+            st = step.local_step(st, *b)
+    got = future.result(60.0)
+    for k, v in want.items():
+        assert np.array_equal(np.asarray(got[k]), np.asarray(v)), k

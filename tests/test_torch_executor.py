@@ -13,6 +13,7 @@ their compiles are most of this file's time.
 from __future__ import annotations
 
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -181,6 +182,19 @@ def _drain_reads():
     async_read.drain_pipeline(timeout=60)
 
 
+def _steady_keys_from_jax(case: str, stats: dict) -> dict:
+    """The port's counters after :func:`_sequence`, from JAX's. Where the
+    steady batch is off the ladder (``jaccard`` and ``ssim``: 4 rows, which
+    JAX pads to 8 on every call), the port pads the first executor call as
+    JAX does and keys the repeat exactly: one more key built, one cache hit,
+    padded call and donated call fewer, one more copied call (the fresh
+    exact key copies). ``entry`` and ``binned`` batch 32 rows: equal."""
+    if case in ("entry", "binned"):
+        return dict(stats)
+    delta = {"compiles": 1, "cache_hits": -1, "padded_calls": -1, "donated_calls": -1, "copied_calls": 1}
+    return {k: v + delta.get(k, 0) for k, v in stats.items()}
+
+
 @pytest.mark.parametrize("case", ["entry", "jaccard", "binned", "ssim"])
 def test_collection_sequence_matches_jax(case, jax_runs):
     ref = jax_runs(case)
@@ -192,7 +206,7 @@ def test_collection_sequence_matches_jax(case, jax_runs):
     _assert_tree_close(port["held"], ref["held"], tol)
     _assert_tree_close(port["async"], ref["async"], tol)
     _assert_tree_close(port["value"], ref["value"], tol)
-    assert port["stats"] == ref["stats"]
+    assert port["stats"] == _steady_keys_from_jax(case, ref["stats"])
     assert port["stats"]["calls"] == 3 and port["stats"]["probes"] == 1
 
 
@@ -365,7 +379,7 @@ def test_step_asides_of_later_items_name_them():
     for m in (windowed, laned, sharded):
         status = m.executor_status
         assert status["enabled"] and not status["engaged"]
-        assert "ROADMAP Queue A item 3" in status["fallback_reason"]
+        assert "ROADMAP Queue A item 4" in status["fallback_reason"]
 
 
 def test_fail_dispatch_consumed_keeps_the_pre_call_state_as_jax():
@@ -589,7 +603,8 @@ def test_card_order_of_a_fresh_padded_key(kind):
         return _accuracy(tm, executor=executor)
 
     rng = np.random.RandomState(9)
-    sizes = (16, 11, 11) if kind == "non_row_additive" else (16, 16, 11, 11, 5)
+    # ragged sizes (each differs from the call before) go up the ladder
+    sizes = (16, 11, 13) if kind == "non_row_additive" else (16, 16, 11, 13, 5)
     if kind == "non_row_additive":
         batches = [(torch.from_numpy(rng.rand(n).astype(np.float32)),) for n in sizes]
     else:
@@ -617,14 +632,132 @@ def test_card_order_of_a_fresh_padded_key(kind):
     _assert_tree_close(host(on.compute()), host(off.compute()), 1e-6)
     stats = on.executor_status["stats"]
     if kind == "non_row_additive":
-        # 16 fresh; 11 fresh and padded, served eagerly; 11's replay probes,
-        # refuses the bucket and dispatches unpadded (a fresh key)
+        # 16 fresh; 11 fresh and padded, served eagerly; 13's replay of the
+        # same key probes, refuses the bucket and dispatches unpadded (a
+        # fresh key)
         assert stats["probes"] == 1 and stats["padded_calls"] == 1 and stats["bucketing_enabled"] is False, stats
         assert stats["calls"] == 3 and stats["compiles"] == 3
     else:
         # 16 fresh, 16 replayed (a collection's first 16 resolved its
-        # groups); 11 fresh and padded, served eagerly; 11 replayed padded,
-        # probing; 5 fresh and padded, served eagerly
+        # groups); 11 fresh and padded, served eagerly; 13 replays that key
+        # padded, probing; 5 fresh and padded, served eagerly
         calls = len(batches)
         assert stats["calls"] == calls and stats["compiles"] == 3 and stats["cache_hits"] == calls - 3, stats
         assert stats["padded_calls"] == 1 and stats["probes"] == 1 and stats["bucketing_enabled"] is True, stats
+
+
+# ------------------------------------------------------- steady batch keys
+
+
+def _size_batches(sizes, seed=12):
+    rng = np.random.RandomState(seed)
+    return [_to_port((rng.randn(n, C).astype(np.float32), rng.randint(0, C, n).astype(np.int32))) for n in sizes]
+
+
+@pytest.mark.parametrize("card_order", [False, True], ids=["cpu_order", "card_order"])
+def test_a_steady_batch_gets_an_exact_key(card_order):
+    """A steady batch of 4 (off the ladder) is keyed exactly from its
+    repeat on, and only the ragged last batch (3) pads; states equal
+    ``executor=False`` bit for bit. In the card's order the first call's
+    fresh padded key is served eagerly, so no call pads but the last."""
+    on, off = _accuracy(tm, executor=True), _accuracy(tm, executor=False)
+    on._get_executor().dispatcher().eager_fresh_padded = card_order
+    for b in _size_batches((4,) * 8 + (3,)):
+        on.update(*b)
+        off.update(*b)
+        for k in off._defaults:
+            assert torch.equal(on._state[k], off._state[k]), k
+    stats = on.executor_status["stats"]
+    # keys: the ladder's 8 (the first 4, padded) and the exact 4; 3 replays 8
+    assert stats["compiles"] == 2 and stats["calls"] == 9 and stats["cache_hits"] == 7, stats
+    assert (stats["padded_calls"], stats["probes"]) == ((1, 1) if card_order else (2, 1)), stats
+    exact = on._get_executor()._exact_sizes
+    assert exact == {4}
+
+
+def test_a_steady_batch_after_its_first_call_never_pads():
+    """From its repeat on, a steady batch of 4 replays its exact key:
+    ``padded_calls`` stays where the first call left it."""
+    m = _accuracy(tm, executor=True)
+    batches = _size_batches((4,) * 20)
+    m.update(*batches[0])
+    m.update(*batches[1])
+    padded = m.executor_status["stats"]["padded_calls"]
+    for b in batches[2:]:
+        m.update(*b)
+    stats = m.executor_status["stats"]
+    assert stats["padded_calls"] == padded == 1 and stats["donated_calls"] == 18, stats
+
+
+def test_ragged_sizes_share_ladder_keys():
+    """Sizes that vary call after call pad up the ladder and share its keys;
+    sizes that repeat are keyed exactly, at most ``_EXACT_SIZES`` of them, so
+    captures stay bounded. States equal ``executor=False``."""
+    varying = [9, 10, 11, 12, 13, 14, 15, 9, 12, 10, 15, 11, 13, 14] * 2
+    repeating = [n for n in range(9, 16) for _ in range(2)]
+    for sizes, keys in ((varying, 1), (repeating, 1 + ex_port._EXACT_SIZES)):
+        on, off = _accuracy(tm, executor=True), _accuracy(tm, executor=False)
+        for b in _size_batches(sizes):
+            on.update(*b)
+            off.update(*b)
+        for k in off._defaults:
+            assert torch.equal(on._state[k], off._state[k]), k
+        stats = on.executor_status["stats"]
+        assert stats["compiles"] == keys and stats["calls"] == len(sizes), (sizes, stats)
+        assert len(on._get_executor()._exact_sizes) <= ex_port._EXACT_SIZES
+
+
+def test_steady_size_off_the_ladder_pads_once_where_jax_pads_every_call():
+    """The kept difference from the JAX package (ROADMAP Queue C): JAX keys a
+    steady batch of 5 on the ladder (8) and pads every call; the port pads
+    its first call and keys the repeats exactly. The states agree bit for
+    bit; ``padded_calls`` and ``compiles`` differ by design."""
+    jax_tm = _jax_pkg()
+    batches = [(np.random.RandomState(20 + i).rand(5).astype(np.float32),) for i in range(6)]
+    ref = jax_tm.SumMetric(nan_strategy="ignore", executor=True)
+    port = tm.SumMetric(nan_strategy="ignore", executor=True, device="cpu")
+    for b in batches:
+        ref.update(*_to_jax(b))
+        port.update(*_to_port(b))
+    np.testing.assert_array_equal(_np(port.sum_value), _np(ref.sum_value))
+    ref_stats, port_stats = ref.executor_status["stats"], port.executor_status["stats"]
+    assert (ref_stats["padded_calls"], ref_stats["probes"], ref_stats["compiles"]) == (6, 1, 1)
+    assert (port_stats["padded_calls"], port_stats["probes"], port_stats["compiles"]) == (1, 1, 2)
+
+
+def test_a_warmed_steady_spec_is_keyed_exactly():
+    """``warmup`` of a spec off the ladder builds its exact key (the traffic's
+    steady size) and the rungs below; the first real call replays it."""
+    m = _accuracy(tm, executor=True)
+    spec = torch.empty((12, C), device="meta"), torch.empty((12,), dtype=torch.int32, device="meta")
+    report = m.warmup(spec, ladder=True)
+    assert report["warmed"] == 3 and not report["skipped"], report  # exact 12; the rungs 8 and 16 (7, 15 rows)
+    for b in _size_batches((12, 12, 12)):
+        m.update(*b)
+    stats = m.executor_status["stats"]
+    assert stats["cache_hits"] == 3 and stats["padded_calls"] == 0, stats
+
+
+def test_a_deferred_verdict_times_the_next_replay_up_to_its_cap():
+    """A timed replay that ran beside an in-flight read hands the timing to
+    the key's next replay, ``_VERDICT_DEFERRALS`` times; after that the key
+    keeps replaying unjudged (no replay is timed)."""
+    entry = ex_port._Entry(lambda: None)
+    assert entry.timed_at == 2
+    timed = []
+    for replay in range(1, 40):
+        entry.replays = replay
+        if replay == entry.timed_at:
+            timed.append(replay)
+            ex_port._Dispatcher.defer_verdict(entry)
+    assert timed == list(range(2, 3 + ex_port._VERDICT_DEFERRALS)) and entry.timed_at == 0
+
+
+def test_the_read_pipeline_notes_when_its_worker_last_finished_a_read():
+    """``last_read_done_ns``, which tells the verdict that a read ran beside
+    a timed call, moves past a call's start once a read queued after it
+    resolves, and before the drain sees the read done."""
+    t0_ns = time.perf_counter_ns()
+    async_read.get_pipeline().submit(lambda: None, owner="test")
+    assert async_read.drain_pipeline(30.0)
+    assert async_read.last_read_done_ns() >= t0_ns and async_read.pending_reads() == 0

@@ -1,10 +1,11 @@
 """The port's ``fleet/`` against the JAX package's.
 
-Every test of ``tests/test_fleet.py`` (except the deferred-executor seam,
-which waits for the executor) runs here on the port: exactly-once ledgers
+Every test of ``tests/test_fleet.py`` runs here on the port: exactly-once ledgers
 under any delivery schedule, watermark quarantine and full resync, tree
 convergence, every injected transport fault, failover from snapshots,
-degraded reads with coverage and staleness, and the quantized uplink. Then
+degraded reads with coverage and staleness, the quantized uplink and the
+deferred collection step's delta seam (``export_delta`` and
+``deferred_source``). Then
 the cross-package properties: payload checksums equal for one canonical
 state, a mixed fleet (JAX leaves and port leaves shipping to one port
 aggregator) converging bit-exact, aggregator snapshots restoring across the
@@ -931,3 +932,53 @@ def test_merge_keeps_dtypes_as_the_jax_package(fx, dtype):
     np.testing.assert_array_equal(got, want.astype(dtype))
     if np.dtype(dtype).itemsize == 4 or fx in ("sum", "mean"):
         assert want.dtype == got.dtype
+
+
+# ------------------------------------------------------- deferred-executor seam
+
+
+def test_deferred_step_export_delta_seam():
+    """``DeferredCollectionStep.export_delta``: the cut delta applied to the
+    previous canonical export rebuilds the fresh canonical export exactly
+    (the leaf-side invariant the fleet exporter rides), over 8 stacked
+    shards; and ``deferred_source`` feeds a ``LeafExporter`` whose
+    aggregator merges to that same canonical fold."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.aggregation import MeanMetric, SumMetric
+    from torchmetrics_tpu_torch.fleet import deferred_source
+    from torchmetrics_tpu_torch.ops.executor import make_deferred_collection_step
+
+    coll = MetricCollection(
+        {"mean": MeanMetric(device="cpu"), "total": SumMetric(device="cpu")}, reduce="deferred", device="cpu"
+    )
+    step = make_deferred_collection_step(coll, mesh=8)
+    states = step.init_states()
+
+    def batch(seed):
+        return torch.from_numpy(np.random.RandomState(seed).randint(-40, 40, 16).astype(np.float32) / 8.0)
+
+    states = step.local_step(states, batch(0))
+    baseline, first = step.export_delta(states)
+    for leader, payload in first.items():  # no baseline: full payloads
+        for field, arr in payload.items():
+            np.testing.assert_array_equal(arr, np.asarray(baseline[leader][field]))
+    states = step.local_step(states, batch(1))
+    canonical, payload = step.export_delta(states, baseline=baseline)
+    reds = step.canonical_reductions()
+    for leader in canonical:
+        rebuilt = apply_delta({k: np.asarray(v) for k, v in baseline[leader].items()}, payload[leader], reds[leader])
+        for field, arr in canonical[leader].items():
+            np.testing.assert_array_equal(rebuilt[field], np.asarray(arr))
+    live = {"states": states}
+    agg = Aggregator("agg/root")
+    leaf = LeafExporter("leaf/0", deferred_source(step, lambda: live["states"]), Uplink({"agg/root": agg}, sleep=NO_SLEEP), "agg/root")
+    leaf.ship()
+    live["states"] = step.local_step(live["states"], batch(2))
+    leaf.ship()
+    folded = step.export_canonical(live["states"])
+    view, view_reds = agg.canonical()
+    assert agg.total_update_count() == step.steps == 3
+    for leader, sub in folded.items():
+        for field, arr in sub.items():
+            np.testing.assert_array_equal(np.asarray(view[f"{leader}.{field}"]), arr)
+            assert view_reds[f"{leader}.{field}"] == reds[leader][field]

@@ -491,7 +491,7 @@ def test_deferred_lanes_name_the_missing_layer():
 def test_prewarm_growth_reports_no_executor():
     report = tl.LanedMetric(SumMetric(device=CPU)).prewarm_growth((np.ones(2, np.float32),), rows=4)
     assert report["warmed"] == 0 and report["skipped"] == [tl.LANED_STEP_ASIDE]
-    assert "ROADMAP Queue A item 3" in tl.LANED_STEP_ASIDE
+    assert "ROADMAP Queue A item 4" in tl.LANED_STEP_ASIDE
     assert tl.LanedMetric(CatMetric(device=CPU)).prewarm_growth((), rows=1)["skipped"][0].startswith("eager lane mode")
 
 

@@ -4,8 +4,8 @@ Every ``__all__`` of the JAX package's root, ``utils``, ``ops``, ``io``,
 ``testing``, ``parallel`` and ``fleet`` is a subset of the port module's,
 less a named list: the names left out for good (no ``shard_map`` and no
 named axes in the port; the ingest router records its retire event
-itself) and the names of the executor's later parts (the deferred
-collection step and recovery, the compile cache; ROADMAP Queue A items 3-4).
+itself) and the names of the executor's last part (the compile cache;
+ROADMAP Queue A item 5).
 """
 from __future__ import annotations
 
@@ -18,14 +18,8 @@ MODULES = ("", ".utils", ".ops", ".io", ".testing", ".parallel", ".fleet")
 #: left out for good (ROADMAP Queue C)
 LEFT_OUT = {"shard_map_compat", "in_named_axis_context", "notify_dispatched"}
 
-#: ROADMAP Queue A items 3 and 4
+#: the compile cache's (ROADMAP Queue A item 5)
 LATER_ITEMS = {
-    "make_synced_collection_step",
-    "DeferredCollectionStep",
-    "make_deferred_collection_step",
-    "latest_recovery_snapshot",
-    "deferred_source",
-    # the compile cache's
     "CompileWorker",
     "drain_worker",
     "save_shape_manifest",
@@ -101,3 +95,25 @@ def test_small_utils_match_jax():
     from torchmetrics_tpu_torch.ops import resolve_backend
 
     assert resolve_backend("cpu") == "reference" and resolve_backend("cuda") == "cuda"
+
+
+@pytest.mark.parametrize(
+    "module,names,home",
+    [
+        ("", ("make_synced_collection_step",), "torchmetrics_tpu"),
+        ("ops", ("make_synced_collection_step", "DeferredCollectionStep", "make_deferred_collection_step",
+                 "latest_recovery_snapshot", "make_value_packer"), "torchmetrics_tpu.ops.executor"),
+        ("fleet", ("deferred_source",), "torchmetrics_tpu.fleet"),
+        ("testing", ("drop_shard",), "torchmetrics_tpu.testing.faults"),
+    ],
+)
+def test_deferred_step_and_recovery_names_are_exported(module, names, home):
+    """The deferred collection step's and the recovery snapshot's names:
+    exported by the port's root, ``ops``, ``fleet`` and ``testing``, each
+    defined in the JAX package where it defines the name."""
+    suffix = "." + module if module else ""
+    port = importlib.import_module(f"torchmetrics_tpu_torch{suffix}")
+    ref = importlib.import_module(home)
+    for name in names:
+        assert name in port.__all__ and hasattr(port, name), name
+        assert hasattr(ref, name), name

@@ -36,6 +36,24 @@ and the ``torch.cuda.device`` contexts it enters. Then, for each shape:
 A form the wrapper does not take (an older checkout's) prints the error it
 raised instead. Prints one JSON object a shape and a last line with the
 card's name and power limit as ``nvidia-smi`` reports them.
+
+``--executor`` takes the captured executor's update apart instead, for
+``chip_smoke.py``'s binary-curve collection (1M scores) and its ImageNet
+collection (1,024 rows), each over one batch a call, with the key kept
+captured; and for Cityscapes and UVG with the executor's verdict on (a
+key judged eager steps aside: ``on_us`` is its eager route):
+
+- ``off_us`` / ``on_us``: ``collection.update`` with ``executor=False`` and
+  ``True`` (the key replayed; a key the executor would run eagerly is kept
+  captured here);
+- ``pieces_us``: the executor's steps inside ``on_us``, each timed where
+  the call makes it (the key's preparation, the leaders' lookup, the
+  slots, the dispatch with its replay, the commit) and ``outside_us``, the
+  collection's own path around ``run_update``;
+- ``replay_parts_us``: the replay's parts run alone on the same key: the
+  input copies, the two stream waits, entering the capture stream, the
+  graph's launch, and the launch counters;
+- ``top``: the on path's heaviest functions under ``cProfile`` (own time).
 """
 from __future__ import annotations
 
@@ -198,11 +216,145 @@ def measure_topk(chip_smoke, dev, name: str, q: int, length: int, top_k: int, ca
     return row
 
 
+def _timed_methods(targets, acc):
+    """Wrap each ``(owner, name)`` method so its wall time adds to ``acc[name]``."""
+    saved = []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter_ns()
+            try:
+                return _fn(*a, **k)
+            finally:
+                acc[_name] = acc.get(_name, 0) + time.perf_counter_ns() - t0
+
+        saved.append((owner, name, owner.__dict__.get(name)))
+        setattr(owner, name, timed)
+    return saved
+
+
+def _restore(saved) -> None:
+    for owner, name, old in saved:
+        if old is None:
+            delattr(owner, name)
+        else:
+            setattr(owner, name, old)
+
+
+def measure_executor(chip_smoke, dev, workload: str, calls: int, repeats: int, judging: bool = False) -> dict:
+    import cProfile
+    import pstats
+
+    import torch
+
+    from torchmetrics_tpu_torch.ops import executor as ex_mod
+
+    spec = chip_smoke.WORKLOADS[workload](dev)
+    batches = spec["batches"]()
+    warm = [next(batches) for _ in range(4)]
+    batch = warm[-1]
+    row = {"workload": workload, "rows": int(batch[0].shape[0]), "judging": judging}
+    colls = {}
+    for executor in (False, True):
+        coll = spec["collection"](executor=executor, validate_args=False)
+        if executor:
+            disp = coll._get_executor().dispatcher()
+            if hasattr(disp, "judging"):
+                disp.judging = judging  # False: keep the key captured whatever its figures
+        for b in warm + [batch] * 3:  # past the key's timed replay and eager trial
+            coll.update(*b)
+        colls[executor] = coll
+        row["on_us" if executor else "off_us"] = _host_us(lambda: coll.update(*batch), calls, repeats)
+    on = colls[True]
+    ex = on._executor_obj
+    stats = ex.stats_dict()
+    row["captured"], row["keys"], row["cache_hits"] = stats["captured"], stats["compiles"], stats["cache_hits"]
+    disp = ex._dispatcher
+    acc = {}
+    names = ["_leader_executors", "_prepare", "_record_profile", "_live_states", "_get_fn", "_donation", "_timed_dispatch", "_commit_all"]
+    saved = _timed_methods([(ex, n) for n in names if hasattr(ex, n)], acc)
+    saved += _timed_methods([(disp, n) for n in ("ensure_slots", "load", "run_warm")], acc)
+    saved += _timed_methods([(ex, "run_update")], acc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        on.update(*batch)
+    total = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    _restore(saved)
+    pieces = {k: v / calls / 1e3 for k, v in acc.items()}
+    pieces["outside_us"] = (total - acc.get("run_update", 0)) / calls / 1e3
+    pieces["total_us"] = total / calls / 1e3
+    row["pieces_us"] = pieces
+    # the replay's parts alone, on the key the batch hits
+    leaves = [x for x in batch if isinstance(x, torch.Tensor)]
+    shapes = [tuple(x.shape) for x in leaves]
+    captured = [e for e in disp.entries.values() if e.graphs]
+    entry = next((e for e in captured if [tuple(b.shape) for b in e.inputs] == shapes), None)
+    row["eager_keys"] = stats.get("eager")
+    if entry is None and not captured:  # every key runs eagerly: no replay to take apart
+        del colls, on
+        return row
+    if entry is None:  # the batch's key runs eagerly: time the parts on the most replayed graph
+        entry = max(captured, key=lambda e: getattr(e, "replays", 0))
+        leaves = [torch.zeros_like(b) for b in entry.inputs]
+    stream = ex_mod._capture_stream(dev)
+    caller = torch.cuda.current_stream(dev)
+
+    def copies():
+        for buf, x in zip(entry.inputs, leaves):
+            buf.copy_(x)
+
+    def waits():
+        stream.wait_stream(caller)
+        caller.wait_stream(stream)
+
+    def enter():
+        with torch.cuda.stream(stream):
+            pass
+
+    def launch():
+        with torch.cuda.stream(stream):
+            entry.graphs[disp.cur].replay()
+
+    def counters():
+        launches = entry.launches
+        if launches and isinstance(launches[0], tuple):
+            for m, attr, n in launches:
+                setattr(m, attr, getattr(m, attr) + n)
+        else:
+            mods = ex_mod._counter_modules()
+            ex_mod._write_counters(mods, [c + n for c, n in zip(ex_mod._read_counters(mods), launches)])
+
+    row["replay_parts_us"] = {
+        name: _host_us(fn, calls, repeats) for name, fn in
+        (("copies", copies), ("waits", waits), ("enter_stream", enter), ("graph_launch", launch), ("counters", counters),
+         ("current_stream", lambda: torch.cuda.current_stream(dev)))
+    }
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        on.update(*batch)
+    prof.disable()
+    torch.cuda.synchronize()
+    st = pstats.Stats(prof)
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:25]
+    row["top"] = [
+        {"fn": f"{Path(f).name}:{line}:{name}", "own_us": tt / calls * 1e6, "cum_us": ct / calls * 1e6, "calls": nc / calls}
+        for (f, line, name), (cc, nc, tt, ct, _) in top
+    ]
+    del colls, on
+    return row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(REPO))
     parser.add_argument("--calls", type=int, default=1000)
     parser.add_argument("--repeats", type=int, default=7)
+    parser.add_argument("--executor", action="store_true", help="take the captured executor's update apart instead")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -218,10 +370,18 @@ def main() -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     print(json.dumps({"root": str(Path(torchmetrics_tpu_torch.__file__).parent.parent), "torch": torch.__version__}))
-    for form in ("int32_mask", "int64_ignore"):
-        print(json.dumps(measure_curve(chip_smoke, dev, form, args.calls, args.repeats)), flush=True)
-    for name, q, length, top_k in (("msmarco_k10", 6980, 1000, 10), ("movielens_k100", 138_493, 100, 10)):
-        print(json.dumps(measure_topk(chip_smoke, dev, name, q, length, top_k, args.calls, args.repeats)), flush=True)
+    if args.executor:
+        from torchmetrics_tpu_torch.ops import native
+
+        native.build(chip_smoke.KERNELS)
+        for workload, judging in (("binary_curve_1m", False), ("imagenet_val", False), ("cityscapes_val", True), ("uvg_1080p", True)):
+            calls = args.calls if workload in ("binary_curve_1m", "imagenet_val") else max(20, args.calls // 10)
+            print(json.dumps(measure_executor(chip_smoke, dev, workload, calls, args.repeats, judging)), flush=True)
+    else:
+        for form in ("int32_mask", "int64_ignore"):
+            print(json.dumps(measure_curve(chip_smoke, dev, form, args.calls, args.repeats)), flush=True)
+        for name, q, length, top_k in (("msmarco_k10", 6980, 1000, 10), ("movielens_k100", 138_493, 100, 10)):
+            print(json.dumps(measure_topk(chip_smoke, dev, name, q, length, top_k, args.calls, args.repeats)), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -73,7 +73,12 @@ metric is built with ``device="cpu"``. Ported so far:
 - the captured executor (``ops/executor.py``): on the card every eager
   ``update``/``forward`` of an eligible metric, and a collection's every
   compute group, replays as one CUDA graph over the executor's own state
-  slots (``executor=``, ``TORCHMETRICS_TPU_EXECUTOR``; ``executor_stats``).
+  slots (``executor=``, ``TORCHMETRICS_TPU_EXECUTOR``; ``executor_stats``);
+  the synced step (``make_synced_collection_step``) and the deferred
+  collection step (``ops.make_deferred_collection_step``: a step or a
+  chunk of steps over stacked shards as one replay, the read point, the
+  shard shadow, elastic restore and export), and the recovery snapshot the
+  ``Autosaver`` reuses (``ops.latest_recovery_snapshot``).
 """
 __version__ = "0.1.0"
 
@@ -126,7 +131,7 @@ from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.obs import dump_diagnostics, telemetry_snapshot
 from torchmetrics_tpu_torch.ops.async_read import MetricFuture, pending_reads
 from torchmetrics_tpu_torch.ops.async_read import drain_pipeline as drain_async_reads
-from torchmetrics_tpu_torch.ops.executor import executor_stats
+from torchmetrics_tpu_torch.ops.executor import executor_stats, make_synced_collection_step
 from torchmetrics_tpu_torch.quarantine import DegradedValue, LaneGuard
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
@@ -204,6 +209,7 @@ __all__ = [
     "drain_async_reads",
     "dump_diagnostics",
     "executor_stats",
+    "make_synced_collection_step",
     "fleet",
     "functional",
     "install_preemption_handler",

@@ -353,6 +353,7 @@ class MetricCollection:
         when it can. With the collection's executor on, the members never
         use their own (they run eagerly where it does not run them); with
         ``executor=False`` they may."""
+        ex = None
         if self._groups_checked:
             ex = self._get_executor()
             if ex is not None and ex.run_update(args, kwargs):
@@ -373,6 +374,8 @@ class MetricCollection:
             for m in members:
                 m.update(*args, **m._filter_kwargs(**kwargs))
         if self._groups_checked:
+            if ex is not None:
+                ex.eager_done()  # the eager trial of a captured key, if this was one
             self._compute_groups_create_state_ref()
         elif self._enable_compute_groups:
             self._merge_compute_groups()

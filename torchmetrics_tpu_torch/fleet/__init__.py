@@ -42,7 +42,7 @@ from torchmetrics_tpu_torch.fleet.delta import (
     field_mode,
     payload_checksum,
 )
-from torchmetrics_tpu_torch.fleet.leaf import LeafExporter, metric_source
+from torchmetrics_tpu_torch.fleet.leaf import LeafExporter, deferred_source, metric_source
 from torchmetrics_tpu_torch.fleet.topology import FleetTopology
 from torchmetrics_tpu_torch.fleet.transport import Uplink
 from torchmetrics_tpu_torch.fleet.view import Fleet, GlobalView, build_fleet
@@ -60,6 +60,7 @@ __all__ = [
     "aggregator_source",
     "apply_delta",
     "build_fleet",
+    "deferred_source",
     "delta_since",
     "field_mode",
     "metric_source",

@@ -76,6 +76,28 @@ def metric_source(metric: Any) -> Source:
     return _source
 
 
+def deferred_source(step: Any, states: Any) -> Source:
+    """Adapt a ``DeferredCollectionStep``: its leader-keyed
+    ``export_canonical`` fold flattened to ``"leader.field"`` keys (the fleet
+    protocol is flat), the reductions likewise, and its committed step
+    count. ``states`` is the live stacked states or a zero-argument
+    callable returning them (a loop whose states move on every step)."""
+
+    def _source() -> Tuple[Dict[str, Any], Dict[str, Any], int]:
+        live = states() if callable(states) else states
+        canonical = step.export_canonical(live)
+        reductions = step.canonical_reductions()
+        flat: Dict[str, Any] = {}
+        reds: Dict[str, Any] = {}
+        for leader, sub in canonical.items():
+            for name, value in sub.items():
+                flat[f"{leader}.{name}"] = np.asarray(value)
+                reds[f"{leader}.{name}"] = reductions[leader].get(name)
+        return flat, reds, int(step.steps)
+
+    return _source
+
+
 class LeafExporter:
     """One leaf's delta pipeline: read, cut, outbox, (asynchronous) ship.
 

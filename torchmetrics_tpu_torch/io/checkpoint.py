@@ -830,9 +830,16 @@ class Autosaver:
     ``every_n_updates`` / ``every_s`` may be combined; whichever fires first
     wins and both clocks reset on a save. Loops that carry state outside the
     object call :meth:`step` with the external ``states``. The ``stats``
-    keys are the JAX package's; ``reused_recovery_snapshots`` stays 0: the
-    reuse of the executor's recovery reference is not ported yet (ROADMAP
-    Queue A item 3).
+    keys are the JAX package's.
+
+    ``reuse_recovery=True`` (default): where the captured executor replayed
+    the last update, a save takes its recovery reference instead
+    (``ops.executor.latest_recovery_snapshot``: the state slot that replay
+    read, one committed update behind the live state, copied to the host
+    without marking the state escaped, so the next update copies nothing
+    in); ``stats["reused_recovery_snapshots"]`` counts them. Elsewhere (no
+    replay, an eager call, an escaped state) the save stages the live state
+    as above.
     """
 
     def __init__(
@@ -843,6 +850,7 @@ class Autosaver:
         every_s: Optional[float] = None,
         keep: int = DEFAULT_KEEP,
         background: bool = True,
+        reuse_recovery: bool = True,
     ) -> None:
         if every_n_updates is None and every_s is None:
             raise ValueError("Autosaver needs a cadence: every_n_updates and/or every_s")
@@ -856,6 +864,7 @@ class Autosaver:
         self.every_s = every_s
         self.keep = keep
         self.background = background
+        self.reuse_recovery = reuse_recovery
         self.stats: Dict[str, Any] = {
             "saves": 0,
             "skipped_inflight": 0,
@@ -944,8 +953,19 @@ class Autosaver:
                 # captured inside the tick span: the background write's
                 # checkpoint.save span reopens it (a flow arrow across threads)
                 ctx = obs.capture_context()
-                staged = self.obj.state() if states is None else states
-                event = submission_event(staged) if self.background else None
+                reused = None
+                if states is None and self.reuse_recovery:
+                    from torchmetrics_tpu_torch.ops.executor import latest_recovery_snapshot
+
+                    reused = latest_recovery_snapshot(self.obj)
+                if reused is not None:
+                    # host arrays already, one committed update behind, the
+                    # count key embedded; nothing staged on the device
+                    self.stats["reused_recovery_snapshots"] += 1
+                    staged, event = reused[1], None
+                else:
+                    staged = self.obj.state() if states is None else states
+                    event = submission_event(staged) if self.background else None
                 self._updates_since_save = 0
                 self._last_save_t = time.monotonic()
             if not self.background:
@@ -974,14 +994,15 @@ class Autosaver:
 
     def final_save(self) -> Optional[str]:
         """Synchronous last-gasp snapshot (the preemption-handler path): waits
-        for any in-flight write, then saves the CURRENT live state inline."""
+        for any in-flight write, then saves the CURRENT live state inline (no
+        recovery-snapshot reuse, no background write)."""
         self.flush()
-        background = self.background
-        self.background = False
+        reuse, background = self.reuse_recovery, self.background
+        self.reuse_recovery = self.background = False
         try:
             return self.save_now()
         finally:
-            self.background = background
+            self.reuse_recovery, self.background = reuse, background
 
 
 # -------------------------------------------------------------- preemption

@@ -227,6 +227,8 @@ def _transactional_update_body(self: "Metric", update: Callable, *args: Any, **k
     except BaseException:
         self._rollback(snapshot, pre_count, pre_computed, reduced=pre_reduced)
         raise
+    if ex is not None:
+        ex.eager_done()  # the eager trial of a captured key, if this was one
     self._mark_unreduced()
     # post-commit: an observer raising here (a simulated preemption) does
     # not unwind the committed update
@@ -1145,7 +1147,7 @@ class Metric:
         inputs, or None. A replay reruns no Python, so state that lives
         elsewhere or launches chosen by host values step aside."""
         if self.__dict__.get("_class_layouts"):
-            return "class-axis-sharded state: its captured dispatch comes with ROADMAP Queue A item 3"
+            return "class-axis-sharded state: its captured dispatch comes with ROADMAP Queue A item 4"
         reason = self._async_inline_reason()
         if reason is not None:
             return f"{reason}, whose state a replay would not follow"

@@ -203,6 +203,8 @@ class ReadPipeline:
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
         self.stats: Dict[str, int] = {"submitted": 0, "completed": 0, "errors": 0, "degraded": 0, "inline": 0}
+        #: ``perf_counter_ns`` when the worker last finished a job (0: never)
+        self.last_done_ns = 0
 
     def _ensure_thread(self) -> None:
         with self._lock:
@@ -252,6 +254,7 @@ class ReadPipeline:
             try:
                 self._execute(job, fut, ctx, t_submit_ns)
             finally:
+                self.last_done_ns = time.perf_counter_ns()  # before the drain can see the job done
                 self._q.task_done()
                 obs.gauge_set("reads.pending", self._q.unfinished_tasks)
 
@@ -317,6 +320,14 @@ def pending_reads() -> int:
     with _PIPELINE_LOCK:
         pipeline = _PIPELINE
     return 0 if pipeline is None else pipeline.pending()
+
+
+def last_read_done_ns() -> int:
+    """``perf_counter_ns`` when the pipeline's worker last finished a read
+    (0 when none has)."""
+    with _PIPELINE_LOCK:
+        pipeline = _PIPELINE
+    return 0 if pipeline is None else pipeline.last_done_ns
 
 
 # -------------------------------------------------- laned read serialisation

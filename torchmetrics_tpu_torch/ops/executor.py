@@ -32,8 +32,9 @@ Static buffers
 
 Inputs
     Each key owns static input buffers; a call copies its tensors in (with
-    the padding rows written as copies of row 0) and fills the static
-    scalars (the valid row count, a forward's update count).
+    the padding rows written as copies of row 0; a tensor that already is
+    the buffer the graph reads is not copied) and fills the static scalars
+    (the valid row count, a forward's update count).
 
 Warm before capture
     A key's first call runs its body eagerly, on the same card kernels and
@@ -49,11 +50,32 @@ Warm before capture
     launches it holds and adds them at every replay.
 
 Shape bucketing
-    As in the JAX package: a ragged batch pads up the ladder of
-    :func:`bucket_size` (padding rows are copies of the batch's first row)
-    and the padding's contribution is subtracted inside the body for
-    ``"sum"`` states. The first padded call also runs the eager body on the
-    unpadded batch and compares; a mismatch turns bucketing off for good.
+    A batch size that repeats (the same size as the call before, or one
+    already keyed so) gets an exact key, up to :data:`_EXACT_SIZES` sizes an
+    executor; any other size, a ragged last batch or traffic whose size
+    varies call after call, pads up the ladder of :func:`bucket_size` as in
+    the JAX package (padding rows are copies of the batch's first row) and
+    the padding's contribution is subtracted inside the body for ``"sum"``
+    states. The first padded call also runs the eager body on the unpadded
+    batch and compares; a mismatch turns bucketing off for good. (The JAX
+    package pads every call of a size off the ladder: its ``padded_calls``
+    and ``probes`` count more for a steady size that is no power of two.)
+
+Eager keys
+    On the card an update key's second replay is timed (its whole host
+    path, and its input copies and replay on the device; a replay whose
+    call overlapped an asynchronous read in flight, whose worker shares
+    the host, is not judged, and the next one is timed, up to
+    :data:`_VERDICT_DEFERRALS` times), and the key's
+    next :data:`_EAGER_TRIALS` calls step aside to time the eager path on
+    the same batch shape (host and device). When the replay did not take
+    at most :data:`_KEEP_SHARE` of the faster eager call's time (each the larger of its
+    host time and its host time before launching plus its launches' span
+    on the stream), the key runs eagerly from then on (a later call with
+    the same input shapes steps aside before any key is built), its graphs and static inputs freed, and
+    ``executor_stats(...)["eager"]`` counts such keys (``keys``) and the
+    calls served eagerly (``calls``: the trials and after) and says why
+    (``reasons``).
 
 Where no graph can be captured (a metric on the CPU), the same bookkeeping
 runs with the body called directly in place of a replay: keys, the ladder,
@@ -66,13 +88,14 @@ import os
 import threading
 import time
 import weakref
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from torchmetrics_tpu_torch import obs
-from torchmetrics_tpu_torch.utils.exceptions import DispatchStallError
+from torchmetrics_tpu_torch.ops.async_read import last_read_done_ns, pending_reads
+from torchmetrics_tpu_torch.utils.exceptions import DispatchStallError, TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_debug
 
 ENV_FLAG = "TORCHMETRICS_TPU_EXECUTOR"
@@ -81,6 +104,18 @@ ENV_FLAG = "TORCHMETRICS_TPU_EXECUTOR"
 PROFILE_VERSION = 1
 
 _BUCKET_FLOOR = 8
+#: batch sizes off the ladder an executor keys exactly (more go up the ladder)
+_EXACT_SIZES = 4
+#: a key keeps its graphs only when its timed replay took at most this
+#: share of its faster eager trial's time: one replay is timed, and a tie is
+#: not worth the static copies and the pool
+_KEEP_SHARE = 0.9
+#: replays a key's verdict passes over while asynchronous reads are in
+#: flight; after that the key keeps replaying unjudged
+_VERDICT_DEFERRALS = 8
+#: eager trials a judged key takes (the first eager call after replays may
+#: still allocate its temporaries: the faster one counts)
+_EAGER_TRIALS = 2
 _FUSABLE_REDUCTIONS = ("sum", "max", "min")
 _PROFILE_CAP = 64
 
@@ -213,7 +248,7 @@ def _classify_leaves(leaves: Sequence[Any]) -> Optional[tuple]:
         if type(leaf) is bool:
             sig.append(("static_bool", leaf))
         elif isinstance(leaf, torch.Tensor) and not leaf.requires_grad:
-            sig.append((tuple(leaf.shape), str(leaf.dtype).replace("torch.", ""), str(leaf.device)))
+            sig.append((tuple(leaf.shape), leaf.dtype, leaf.device))
         else:
             return None
     return tuple(sig)
@@ -378,9 +413,14 @@ def _active(metrics: Sequence[Any]) -> Iterator[None]:
 
 
 class _Entry:
-    """One cache key: its body and, on the card, its two graphs."""
+    """One cache key: its body and, on the card, its two graphs, the
+    figures of its first (eager) run and of its timed replay, and why it
+    runs eagerly (``eager_reason``) once a replay lost to that run."""
 
-    __slots__ = ("body", "graphs", "inputs", "scalars", "values", "launches")
+    __slots__ = (
+        "body", "graphs", "inputs", "scalars", "values", "launches", "replays", "timed", "replay_host_us", "replay_pre_us",
+        "trial", "best_eager", "eager_reason", "desc", "timed_at",
+    )
 
     def __init__(self, body: Callable) -> None:
         self.body = body
@@ -388,7 +428,22 @@ class _Entry:
         self.inputs: List[torch.Tensor] = []
         self.scalars: List[torch.Tensor] = []
         self.values: List[Any] = []
-        self.launches: List[int] = []
+        #: (counter module, attribute, launches a replay adds) of each counter a replay moves
+        self.launches: List[Tuple[Any, str, int]] = []
+        self.replays = 0
+        #: the replay to time (0: none is)
+        self.timed_at = 2
+        #: the timed replay's (copy start, replay start, end) events and the
+        #: host ns of the first; its whole call's host time and the host time
+        #: before the copies; then its eager trials still due and the faster
+        #: one's figures (us, host us, host us before launching, span us)
+        self.timed: Any = None
+        self.replay_host_us = 0.0
+        self.replay_pre_us = 0.0
+        self.trial = 0
+        self.best_eager: Optional[Tuple[float, float, float, float]] = None
+        self.eager_reason: Optional[str] = None
+        self.desc = ""
 
 
 class _Call:
@@ -476,16 +531,23 @@ class _Dispatcher:
         #: padded body, whose counters the CPU tests hold to JAX's. Either
         #: order runs on either device (``test_card_order_of_a_fresh_padded_key``)
         self.eager_fresh_padded = self.graphs
+        #: whether a key's timed replay is judged against its eager run (the
+        #: card tests of replay mechanics turn it off)
+        self.judging = True
         self.entries: Dict[Any, _Entry] = {}
+        #: the entry whose timed replay waits for :meth:`judge`
+        self.pending_verdict: Optional[_Entry] = None
         self.slots: Optional[List[List[torch.Tensor]]] = None
         self.spec: Any = None
         self.cur = 0
         self.slot_ids: frozenset = frozenset()
 
     # ------------------------------------------------------------ slots
-    def ensure_slots(self, state_tree: Any) -> None:
-        """Two slots shaped like ``state_tree``; a new layout drops every key."""
-        leaves, spec = tree_flatten(state_tree)
+    def ensure_slots(self, state_tree: Any, flat: Optional[Tuple[List[Any], Any]] = None) -> None:
+        """Two slots shaped like ``state_tree`` (``flat``: its
+        :func:`tree_flatten`, when the caller has it); a new layout drops
+        every key."""
+        leaves, spec = tree_flatten(state_tree) if flat is None else flat
         if self.slots is not None and spec == self.spec and all(
             s.shape == v.shape and s.dtype == v.dtype for s, v in zip(self.slots[0], leaves)
         ):
@@ -499,10 +561,11 @@ class _Dispatcher:
     def slot_tree(self, d: int) -> Any:
         return tree_unflatten(self.spec, self.slots[d])
 
-    def load(self, state_tree: Any) -> None:
-        """Copy the live state into the current slot (tensors already there stay)."""
-        for dst, src in zip(self.slots[self.cur], tree_flatten(state_tree)[0]):
-            if dst is not src:
+    def load(self, state_tree: Any, leaves: Optional[List[Any]] = None) -> None:
+        """Copy the live state into the current slot (tensors already there,
+        or views of them, stay)."""
+        for dst, src in zip(self.slots[self.cur], tree_flatten(state_tree)[0] if leaves is None else leaves):
+            if dst is not src and (dst.data_ptr() != src.data_ptr() or dst.stride() != src.stride()):
                 dst.copy_(src)
 
     def install_fresh(self, state_tree: Any) -> Any:
@@ -616,7 +679,7 @@ class _Dispatcher:
                 if collecting:
                     gc.enable()
         entry.graphs, entry.inputs, entry.scalars, entry.values = graphs, inputs, scalars, values
-        entry.launches = [(a - b) // 2 for a, b in zip(after, before)]
+        entry.launches = [(m, attr, (a - b) // 2) for (m, attr), a, b in zip(mods, after, before) if a != b]
 
     def _release_failed_capture(self) -> None:
         """A capture whose end failed (the capture was invalidated) may
@@ -652,10 +715,20 @@ class _Dispatcher:
                 new_state, value = entry.body(self.slot_tree(d), self._scalar_tensors(call.scalars), *call.padded_leaves())
                 self._write_slot(1 - d, new_state)
             return self.slot_tree(1 - d), self._detached(value)
+        entry.replays += 1
+        timed = self.judging and entry.replays == entry.timed_at  # the first replay may still set up
+        if timed and pending_reads():
+            self.defer_verdict(entry)
+            timed = False
+        if timed:
+            events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
+            events[0].record()
+            t_copy_ns = time.perf_counter_ns()
         for buf, x, is_batched in zip(entry.inputs, call.leaves, call.batched or (False,) * len(call.leaves)):
             n = int(x.shape[0]) if is_batched else None
             if n is None or n == buf.shape[0]:
-                buf.copy_(x)
+                if x.data_ptr() != buf.data_ptr() or x.stride() != buf.stride():
+                    buf.copy_(x)
             else:
                 buf[:n].copy_(x)
                 buf[n:].copy_(x[:1].expand((buf.shape[0] - n,) + tuple(x.shape[1:])))
@@ -664,13 +737,61 @@ class _Dispatcher:
         caller = torch.cuda.current_stream(self.device)
         with self.lock:
             stream = _capture_stream(self.device)
+            if timed:
+                events[1].record(caller)
             stream.wait_stream(caller)
             with torch.cuda.stream(stream):
                 entry.graphs[d].replay()
             caller.wait_stream(stream)
-        mods = _counter_modules()
-        _write_counters(mods, [c + n for c, n in zip(_read_counters(mods), entry.launches)])
-        return self.slot_tree(1 - d), self._detached(entry.values[d], always=True)
+        if timed:
+            events[2].record(caller)
+            entry.timed = (events, t_copy_ns)
+            self.pending_verdict = entry
+        for m, attr, n in entry.launches:
+            setattr(m, attr, getattr(m, attr) + n)
+        value = entry.values[d]
+        return self.slot_tree(1 - d), (None if value is None else self._detached(value, always=True))
+
+    @staticmethod
+    def defer_verdict(entry: _Entry) -> None:
+        """Time the key's next replay in place of this one (none after
+        :data:`_VERDICT_DEFERRALS` such replays)."""
+        entry.timed = None
+        entry.timed_at = entry.replays + 1 if entry.replays < 2 + _VERDICT_DEFERRALS else 0
+
+    @staticmethod
+    def note_trial(entry: _Entry, eager_host_us: float, eager_pre_us: float, e_start: Any, e_end: Any) -> None:
+        """Keep an eager trial's figures where it is the key's faster one. A
+        call takes the larger of its host time and its host time before its
+        first launch plus its launches' span on the stream."""
+        e_end.synchronize()
+        span_us = e_start.elapsed_time(e_end) * 1e3
+        figures = (max(eager_host_us, eager_pre_us + span_us), eager_host_us, eager_pre_us, span_us)
+        if entry.best_eager is None or figures[0] < entry.best_eager[0]:
+            entry.best_eager = figures
+
+    def judge(self, entry: _Entry) -> Optional[str]:
+        """After a key's eager trials: why it runs eagerly from now on (its
+        graphs and static inputs freed), or None to keep replaying: the
+        timed replay (its input copies and the replay on the stream) against
+        the faster eager trial, each as :meth:`note_trial` reckons a call."""
+        (c_start, r_start, r_end), _ = entry.timed
+        entry.timed = None
+        copy_us = c_start.elapsed_time(r_start) * 1e3
+        replay_us = r_start.elapsed_time(r_end) * 1e3
+        eager_us, eager_host_us, eager_pre_us, eager_span_us = entry.best_eager
+        captured_us = max(entry.replay_host_us, entry.replay_pre_us + copy_us + replay_us)
+        if captured_us <= _KEEP_SHARE * eager_us:
+            return None
+        entry.eager_reason = (
+            f"{entry.desc}: the replay took {captured_us:.0f} us, over {_KEEP_SHARE:.0%} of the eager call's"
+            f" (host {entry.replay_host_us:.0f}, of which"
+            f" {entry.replay_pre_us:.0f} before its input copies {copy_us:.0f} and replay {replay_us:.0f} of device time)"
+            f" against the faster of {_EAGER_TRIALS} eager calls' {eager_us:.0f} us (host {eager_host_us:.0f}, of which"
+            f" {eager_pre_us:.0f} before its launches, which spanned {eager_span_us:.0f})"
+        )
+        entry.graphs, entry.inputs, entry.scalars, entry.values = [], [], [], []
+        return entry.eager_reason
 
     def _detached(self, value: Any, always: bool = False) -> Any:
         """A batch value the caller may keep: graph outputs and slot tensors
@@ -806,6 +927,25 @@ class _ExecutorBase:
         self._profile_keys: set = set()
         self._dispatcher: Optional[_Dispatcher] = None
         self._state_sig_memo: Any = None
+        #: batch sizes keyed exactly, and the size of the call before
+        self._exact_sizes: set = set()
+        self._last_n: Optional[int] = None
+        #: keys found slower than their eager call (run eagerly since),
+        #: the calls served eagerly (their trials and after), and why
+        self._eager: Dict[str, Any] = {"keys": 0, "calls": 0, "reasons": []}
+        #: the eager trial under way: (entry, its call's host start ns, host
+        #: ns at its start event, the start event); the running call's start
+        #: and its inputs' cheap signature (:func:`_call_sig`)
+        self._trial: Any = None
+        self._call_t0_ns = 0
+        self._call_sig: Any = None
+        #: the cheap signatures of the calls whose keys run eagerly: such a
+        #: call steps aside before any key is built
+        self._eager_sigs: set = set()
+        #: the update count(s) one committed update behind the live state
+        #: whose slot the last replay read (:func:`latest_recovery_snapshot`);
+        #: None after any call that did not replay
+        self._last_recovery: Any = None
         # one dispatch or warmup of this executor at a time (its slots and
         # keys); the device's lock keeps captures and replays apart
         self._lock = threading.RLock()
@@ -862,6 +1002,8 @@ class _ExecutorBase:
         deadline = default_dispatch_deadline()
 
         def once(call: Callable[[], Any]) -> Any:
+            if deadline is None:
+                return call()
             with stall_watchdog(deadline, what=f"captured dispatch for {self._owner_name()}", status=self.stats_dict):
                 return call()
 
@@ -890,19 +1032,106 @@ class _ExecutorBase:
                         err = again
             raise _DispatchFailure(err)
 
-    def _get_fn(self, key: Any, builder: Callable[[], Callable]) -> Tuple[Callable[..., Any], bool]:
+    def _get_fn(self, key: Any, builder: Callable[[], Callable]) -> Tuple[Optional[Callable[..., Any]], bool]:
         """Resolve ``key`` to its dispatch callable ``fn(call) -> (state,
-        value)`` and whether the key is fresh (built now; ``compiles``)."""
+        value)`` and whether the key is fresh (built now; ``compiles``).
+        ``(None, False)`` for a key that runs eagerly."""
         disp = self.dispatcher()
         entry = disp.entries.get(key)
+        if entry is not None and (entry.eager_reason is not None or entry.trial):
+            if entry.trial:  # time this call's eager path (see :meth:`eager_done`)
+                entry.trial -= 1
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self._trial = (entry, self._call_t0_ns, time.perf_counter_ns(), start, self._call_sig)
+            self._step_aside()
+            return None, False
         if entry is not None and (entry.graphs or not disp.graphs):
             self.stats["cache_hits"] += 1
             members = self._members()
             return (lambda call: disp.run_warm(entry, call, members)), False
         entry = disp.entries[key] = _Entry(builder())
+        entry.desc = _describe_key(key)
         self.stats["compiles"] += 1
         members = self._members()
         return (lambda call: disp.run_fresh(entry, call, members)), True
+
+    def _judge_replay(self, t0_ns: int) -> None:
+        """After an update whose replay was timed: keep the whole call's
+        host time; the key's next call is its eager trial."""
+        disp = self._dispatcher
+        entry = None if disp is None else disp.pending_verdict
+        if entry is None:
+            return
+        disp.pending_verdict = None
+        if pending_reads() or last_read_done_ns() >= t0_ns:  # a read ran beside this call
+            disp.defer_verdict(entry)
+            return
+        entry.replay_host_us = (time.perf_counter_ns() - t0_ns) / 1e3
+        entry.replay_pre_us = (entry.timed[1] - t0_ns) / 1e3
+        entry.trial = _EAGER_TRIALS
+
+    def _steps_aside_at_once(self, args: tuple, kwargs: dict) -> bool:
+        """Whether this update's inputs are those of a key that runs
+        eagerly: it steps aside before any key is built (``eager["calls"]``)."""
+        self._call_sig = sig = _call_sig(args, kwargs) if self._dispatcher is not None and self._dispatcher.graphs else None
+        if sig is None or sig not in self._eager_sigs:
+            return False
+        self._step_aside()
+        return True
+
+    def _step_aside(self) -> None:
+        """A call the eager path serves: counted, and every member's state
+        marked escaped (the eager update replaces the slot tensors)."""
+        self._eager["calls"] += 1
+        for m in self._members():
+            m.__dict__["_state_escaped"] = True
+
+    def _forget_forward_timing(self) -> None:
+        """Forward keys are not judged: drop a timed replay's figures."""
+        if self._dispatcher is not None:
+            self._dispatcher.pending_verdict = None
+
+    def eager_done(self) -> None:
+        """The caller's eager path finished the call this executor stepped
+        aside from: if it was a key's eager trial, note it, and after the
+        key's last trial judge the key (:meth:`_Dispatcher.judge`)."""
+        trial, self._trial = self._trial, None
+        if trial is None:
+            return
+        entry, t0_ns, t_start_ns, start, trial_sig = trial
+        host_us = (time.perf_counter_ns() - t0_ns) / 1e3
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self._dispatcher.note_trial(entry, host_us, (t_start_ns - t0_ns) / 1e3, start, end)
+        if entry.trial:
+            return
+        reason = self._dispatcher.judge(entry)
+        if reason is not None:
+            self._eager["keys"] += 1
+            self._eager["reasons"].append(reason)
+            if trial_sig is not None:
+                self._eager_sigs.add(trial_sig)
+            rank_zero_debug(f"torchmetrics_tpu_torch executor: {self._owner_name()} runs a key eagerly: {reason}")
+
+    def _exact_batch(self, n: int, mode: str) -> bool:
+        """Whether a batch of ``n`` rows gets an exact key (no padding).
+        ``mode``: ``"call"`` (traffic: a size that repeats the call
+        before's, or one already keyed exactly), ``"steady"`` (a warmup's
+        spec: the traffic's size) or ``"ladder"`` (a warmup's rung or a
+        manifest's shape: the JAX package's ladder)."""
+        if bucket_size(n) == n:
+            exact = True
+        elif mode == "ladder":
+            exact = False
+        else:
+            exact = n in self._exact_sizes
+            if not exact and (mode == "steady" or n == self._last_n) and len(self._exact_sizes) < _EXACT_SIZES:
+                self._exact_sizes.add(n)
+                exact = True
+        if mode == "call":
+            self._last_n = n
+        return exact
 
     def _timed_dispatch(self, fresh: bool, primary: Callable, retry_call: Callable, restore: Callable) -> Any:
         t_cold_ns = time.perf_counter_ns() if fresh else None
@@ -914,15 +1143,15 @@ class _ExecutorBase:
             obs.record_span(obs.SPAN_COMPILE, t_cold_ns, t_now_ns, {"owner": self._owner_name()})
         return out
 
-    def _prepare_leaves(self, leaves: List[Any], bucketable: bool):
+    def _prepare_leaves(self, leaves: List[Any], bucketable: bool, mode: str = "call"):
         """(signature, padding plan) of a call's leaves, or None when the call
-        is ineligible."""
+        is ineligible. ``mode`` as :meth:`_exact_batch`."""
         sig = _classify_leaves(leaves)
         if sig is None:
             return None
         n = _common_batch_dim(leaves)
         bucket, padded, batched = None, False, None
-        if n is not None and n > 0 and bucketable:
+        if n is not None and n > 0 and bucketable and not self._exact_batch(n, mode):
             bucket = bucket_size(n)
             padded = bucket != n
         if padded:
@@ -953,7 +1182,7 @@ class _ExecutorBase:
         return {"profile_version": PROFILE_VERSION, "owner": self._owner_name(), "specs": list(self._profile.values())}
 
     # -------------------------------------------------------------- warmup
-    def _warmup_one(self, kind: str, args: tuple, kwargs: dict) -> str:
+    def _warmup_one(self, kind: str, args: tuple, kwargs: dict, mode: str) -> str:
         raise NotImplementedError
 
     def _warmup_bucketable(self) -> bool:
@@ -997,9 +1226,9 @@ class _ExecutorBase:
         rung; ``background=True`` runs on a daemon thread and returns a
         :class:`WarmupHandle`, else the report dict.
         """
-        jobs = [("update", a, k) for a, k in _normalize_warmup_specs(batch_specs, self._device())]
+        jobs = [("update", a, k, "steady") for a, k in _normalize_warmup_specs(batch_specs, self._device())]
         if forward:
-            jobs += [("forward", a, k) for _, a, k in list(jobs)]
+            jobs += [("forward", a, k, mode) for _, a, k, mode in list(jobs)]
         return self._launch_warmup(jobs, ladder, background)
 
     def warmup_from_manifest(self, manifest: Dict[str, Any], background: bool = False) -> Any:
@@ -1010,10 +1239,10 @@ class _ExecutorBase:
         jobs = []
         for spec in manifest["specs"]:
             args, kwargs = dummy_from_spec(spec, self._device())
-            jobs.append((spec.get("kind", "update"), args, kwargs))
+            jobs.append((spec.get("kind", "update"), args, kwargs, "ladder"))
         return self._launch_warmup(jobs, ladder=False, background=background)
 
-    def _launch_warmup(self, jobs: List[Tuple[str, tuple, dict]], ladder: bool, background: bool) -> Any:
+    def _launch_warmup(self, jobs: List[Tuple[str, tuple, dict, str]], ladder: bool, background: bool) -> Any:
         if not background:
             return self._run_warmup(jobs, ladder)
         handle = WarmupHandle()
@@ -1022,13 +1251,16 @@ class _ExecutorBase:
         thread.start()
         return handle
 
-    def _run_warmup(self, jobs: List[Tuple[str, tuple, dict]], ladder: bool) -> Dict[str, Any]:
+    def _run_warmup(self, jobs: List[Tuple[str, tuple, dict, str]], ladder: bool) -> Dict[str, Any]:
+        """Build each job's key (a warmup spec is the traffic's steady size,
+        a manifest's shape and every rung go up the ladder)."""
         t0 = time.perf_counter()
         report: Dict[str, Any] = {"warmed": 0, "already_warm": 0, "skipped": []}
-        for kind, args, kwargs in jobs:
-            for v_args, v_kwargs in self._ladder_variants(args, kwargs) if ladder else [(args, kwargs)]:
+        for kind, args, kwargs, mode in jobs:
+            variants = self._ladder_variants(args, kwargs) if ladder else [(args, kwargs)]
+            for i, (v_args, v_kwargs) in enumerate(variants):
                 try:
-                    outcome = self._warmup_one(kind, v_args, v_kwargs)
+                    outcome = self._warmup_one(kind, v_args, v_kwargs, mode if i == 0 else "ladder")
                 except Exception as err:  # warmup never takes the loop down
                     outcome = f"{kind}: {type(err).__name__}: {err}"
                     rank_zero_debug(f"torchmetrics_tpu_torch warmup: {self._owner_name()}: {outcome}")
@@ -1073,6 +1305,7 @@ class _ExecutorBase:
         out["pending_background"] = 0
         out["profile_entries"] = len(self._profile)
         out["captured"] = disp is not None and disp.graphs
+        out["eager"] = {"keys": self._eager["keys"], "calls": self._eager["calls"], "reasons": list(self._eager["reasons"])}
         return out
 
     def static_bytes(self) -> int:
@@ -1083,6 +1316,29 @@ class _ExecutorBase:
         """Bytes the private graph pool holds (a memory-snapshot walk: call it
         off the hot path)."""
         return 0 if self._dispatcher is None else self._dispatcher.pool_bytes()
+
+
+def _call_sig(args: tuple, kwargs: dict) -> Optional[tuple]:
+    """A call's inputs as their shapes and dtypes (bools by value), or None
+    for inputs other than tensors and bools (a cheap stand-in for its key)."""
+    out: List[Any] = []
+    for v in list(args) + [kwargs[k] for k in sorted(kwargs)]:
+        if isinstance(v, torch.Tensor):
+            out.append((tuple(v.shape), v.dtype))
+        elif type(v) is bool:
+            out.append(v)
+        else:
+            return None
+    return tuple(out) + tuple(sorted(kwargs))
+
+
+def _describe_key(key: Any) -> str:
+    """A key as its call kind and its tensor leaves' shapes and dtypes."""
+    sigs = next((part for part in key if isinstance(part, tuple) and part and all(isinstance(s, tuple) for s in part)), ())
+    shapes = ", ".join(
+        f"{list(s[0])} {s[1]}" if len(s) == 3 else repr(s[1]) for s in sigs if isinstance(s, tuple) and s
+    )
+    return f"{'forward' if key[0] == 'f' else 'update'}({shapes})"
 
 
 def _zero_state(metric: Any) -> Dict[str, Any]:
@@ -1173,6 +1429,7 @@ class MetricExecutor(_ExecutorBase):
         ver = getattr(m, "_state_layout_version", 0)
         if self._state_sig_memo is None or self._state_sig_memo[0] != ver:
             self._state_sig_memo = (ver, (ver, tuple((k, tuple(v.shape), str(v.dtype)) for k, v in m._defaults.items())))
+            self._eager_sigs.clear()  # a new layout: its keys are judged anew
         return self._state_sig_memo[1]
 
     def _live_state(self) -> Dict[str, Any]:
@@ -1221,9 +1478,9 @@ class MetricExecutor(_ExecutorBase):
         return body
 
     # -------------------------------------------------------------- shared
-    def _prepare(self, args: tuple, kwargs: dict):
+    def _prepare(self, args: tuple, kwargs: dict, mode: str = "call"):
         leaves, treedef = tree_flatten((tuple(args), dict(kwargs)))
-        prep = self._prepare_leaves(leaves, self.bucketable())
+        prep = self._prepare_leaves(leaves, self.bucketable(), mode)
         if prep is None:
             return None
         return (treedef,) + prep
@@ -1236,11 +1493,11 @@ class MetricExecutor(_ExecutorBase):
     def _warmup_bucketable(self) -> bool:
         return self.bucketable()
 
-    def _warmup_one(self, kind: str, args: tuple, kwargs: dict) -> str:
+    def _warmup_one(self, kind: str, args: tuple, kwargs: dict, mode: str) -> str:
         m = self._metric
         if not self.usable():
             return f"{kind}: executor unusable ({self.disabled_reason or self._static_reason()})"
-        prep = self._prepare(args, kwargs)
+        prep = self._prepare(args, kwargs, mode)
         if prep is None:
             return f"{kind}: inputs not executor-eligible"
         treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
@@ -1274,14 +1531,23 @@ class MetricExecutor(_ExecutorBase):
         for good and the eager body serves. A WARM replay's failure leaves
         the live state at its pre-call slot and the original error
         propagates (no eager re-run of the batch)."""
+        self._last_recovery = None
         if not self.usable():
             return False
         if not _trace_clean() or not self._eligible_now():
             self.stats["skipped_calls"] += 1
             return False
+        if self._steps_aside_at_once(args, kwargs):
+            return False
+        t0_ns = self._call_t0_ns = time.perf_counter_ns()
+        self._trial = None  # a trial whose eager path never finished is dropped
+        if self._dispatcher is not None:
+            self._dispatcher.pending_verdict = None  # nor is a failed call's timed replay judged
         try:
             with self._lock:
-                return self._run_update(args, kwargs)
+                handled = self._run_update(args, kwargs)
+                self._judge_replay(t0_ns)
+                return handled
         except _DispatchFailure as df:
             raise df.original
         except DispatchStallError:
@@ -1309,10 +1575,13 @@ class MetricExecutor(_ExecutorBase):
         self._record_profile(key, "update", args, kwargs)
         state = self._live_state()
         disp = self.dispatcher()
-        disp.ensure_slots(state)
+        flat = tree_flatten(state)
+        disp.ensure_slots(state, flat)
         fn, fresh = self._get_fn(key, lambda: self._build_update(treedef, batched, bucket, padded, bool_spec, n_leaves))
+        if fn is None:
+            return False
         need_copy = fresh or m._state_escaped or m._state_shared
-        disp.load(state)
+        disp.load(state, flat[0])
         call = _Call(dyn, batched, n, bucket, [n] if padded else [])
 
         def update_unpadded():
@@ -1351,12 +1620,15 @@ class MetricExecutor(_ExecutorBase):
         self.stats["calls"] += 1
         self.stats["copied_calls" if need_copy else "donated_calls"] += 1
         self._commit(new_state, fresh)
+        if not fresh:
+            self._last_recovery = int(m._update_count) - 1
         return True
 
     def run_forward(self, args: tuple, kwargs: dict) -> Tuple[bool, Any]:
         """Run ``forward`` as one ``(state, batch) -> (state', value)``
         dispatch. Returns ``(handled, batch_value)``."""
         m = self._metric
+        self._last_recovery = None
         if not self.usable() or not self._plain_forward or m.dist_sync_on_step:
             return False, None
         if not _trace_clean() or not self._eligible_now() or "_compute_fn" in m.__dict__:
@@ -1364,7 +1636,10 @@ class MetricExecutor(_ExecutorBase):
             return False, None
         try:
             with self._lock:
-                return self._run_forward(args, kwargs)
+                try:
+                    return self._run_forward(args, kwargs)
+                finally:
+                    self._forget_forward_timing()
         except _DispatchFailure as df:
             raise df.original
         except DispatchStallError:
@@ -1400,6 +1675,8 @@ class MetricExecutor(_ExecutorBase):
         fn, fresh = self._get_fn(
             key, lambda: self._build_forward(treedef, batched, bucket, padded, variant, bool_spec, n_leaves)
         )
+        if fn is None:
+            return False, None
         count = int(m._update_count)
         need_copy = fresh or m._state_escaped or m._state_shared
         disp.load(state)
@@ -1434,6 +1711,8 @@ class MetricExecutor(_ExecutorBase):
         self.stats["copied_calls" if need_copy else "donated_calls"] += 1
         self._commit(new_state, fresh)
         self._finish_forward(m)
+        if not fresh:
+            self._last_recovery = int(m._update_count) - 1
         return True, value
 
     @staticmethod
@@ -1515,9 +1794,10 @@ class CollectionExecutor(_ExecutorBase):
                     return f"member {member!r} overrides functional_compute"
         return None
 
-    def _state_sig(self) -> Tuple[Any, ...]:
-        """Per leader, as :meth:`MetricExecutor._state_sig`."""
-        leaders = self._leaders()
+    def _state_sig(self, leader_execs: Any = None) -> Tuple[Any, ...]:
+        """Per leader, as :meth:`MetricExecutor._state_sig` (``leader_execs``:
+        :meth:`_leader_executors`, when the caller has it)."""
+        leaders = self._leaders() if leader_execs is None else [(name, m, cg) for name, m, cg, _ in leader_execs]
         vers = tuple((name, getattr(m, "_state_layout_version", 0)) for name, m, _ in leaders)
         if self._state_sig_memo is None or self._state_sig_memo[0] != vers:
             sig = tuple(
@@ -1525,6 +1805,7 @@ class CollectionExecutor(_ExecutorBase):
                 for (name, ver), (_, m, _) in zip(vers, leaders)
             )
             self._state_sig_memo = (vers, sig)
+            self._eager_sigs.clear()  # a new layout: its keys are judged anew
         return self._state_sig_memo[1]
 
     def _live_states(self, leader_execs) -> Dict[str, Dict[str, Any]]:
@@ -1586,9 +1867,9 @@ class CollectionExecutor(_ExecutorBase):
         return body
 
     # -------------------------------------------------------------- shared
-    def _prepare(self, args: tuple, kwargs: dict, leader_execs):
+    def _prepare(self, args: tuple, kwargs: dict, leader_execs, mode: str = "call"):
         leaves, treedef = tree_flatten((tuple(args), dict(kwargs)))
-        prep = self._prepare_leaves(leaves, self.bucketable(leader_execs))
+        prep = self._prepare_leaves(leaves, self.bucketable(leader_execs), mode)
         if prep is None:
             return None
         return (treedef,) + prep
@@ -1627,6 +1908,11 @@ class CollectionExecutor(_ExecutorBase):
         for name, _, cg, _ in leader_execs:
             self._install(name, states[name], cg, bump_count=True)
 
+    def _note_recovery(self, fresh: bool, leader_execs) -> None:
+        """After a replay, each leader's count one committed update behind."""
+        if not fresh:
+            self._last_recovery = {name: int(m._update_count) - 1 for name, m, _, _ in leader_execs}
+
     def _serve_eagerly(self, new_states: Dict[str, Any], leader_execs) -> None:
         """A fresh key whose capture failed: its eager result serves the call."""
         for name, m0, cg, _ in leader_execs:
@@ -1642,13 +1928,13 @@ class CollectionExecutor(_ExecutorBase):
         leader_execs = self._leader_executors()
         return leader_execs is not None and self.bucketable(leader_execs)
 
-    def _warmup_one(self, kind: str, args: tuple, kwargs: dict) -> str:
+    def _warmup_one(self, kind: str, args: tuple, kwargs: dict, mode: str) -> str:
         if self.disabled_reason is not None:
             return f"{kind}: executor disabled ({self.disabled_reason})"
         leader_execs = self._leader_executors()
         if leader_execs is None:
             return f"{kind}: a compute-group leader is not executor-eligible"
-        prep = self._prepare(args, kwargs, leader_execs)
+        prep = self._prepare(args, kwargs, leader_execs, mode)
         if prep is None:
             return f"{kind}: inputs not executor-eligible"
         treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
@@ -1678,6 +1964,7 @@ class CollectionExecutor(_ExecutorBase):
 
     # ---------------------------------------------------------------- entry
     def run_update(self, args: tuple, kwargs: dict) -> bool:
+        self._last_recovery = None
         if self.disabled_reason is not None:
             return False
         if not _trace_clean():
@@ -1689,9 +1976,17 @@ class CollectionExecutor(_ExecutorBase):
         if any("_update_fn" in self._coll._modules[name].__dict__ for _, _, cg, _ in leader_execs for name in cg):
             self.stats["skipped_calls"] += 1
             return False
+        if self._steps_aside_at_once(args, kwargs):
+            return False
+        t0_ns = self._call_t0_ns = time.perf_counter_ns()
+        self._trial = None  # a trial whose eager path never finished is dropped
+        if self._dispatcher is not None:
+            self._dispatcher.pending_verdict = None  # nor is a failed call's timed replay judged
         try:
             with self._lock:
-                return self._run_update(args, kwargs, leader_execs)
+                handled = self._run_update(args, kwargs, leader_execs)
+                self._judge_replay(t0_ns)
+                return handled
         except _DispatchFailure as df:
             raise df.original
         except DispatchStallError:
@@ -1715,15 +2010,18 @@ class CollectionExecutor(_ExecutorBase):
             self.stats["skipped_calls"] += 1
             return False
         treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
-        kw_map = {name: self._kwarg_names(m, kwargs) for name, m, _ in self._leaders()}
-        key = ("u", treedef, sig, batched, bucket if padded else None, tuple(sorted(kw_map.items())), self._state_sig())
+        kw_map = {name: self._kwarg_names(m, kwargs) for name, m, _, _ in leader_execs}
+        key = ("u", treedef, sig, batched, bucket if padded else None, tuple(sorted(kw_map.items())), self._state_sig(leader_execs))
         self._record_profile(key, "update", args, kwargs)
         states = self._live_states(leader_execs)
         disp = self.dispatcher()
-        disp.ensure_slots(states)
+        flat = tree_flatten(states)
+        disp.ensure_slots(states, flat)
         fn, fresh = self._get_fn(key, lambda: self._build_update(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves))
+        if fn is None:
+            return False
         copied, donated = self._donation(leader_execs, fresh)
-        disp.load(states)
+        disp.load(states, flat[0])
         call = _Call(dyn, batched, n, bucket, [n] if padded else [])
 
         def update_unpadded():
@@ -1760,10 +2058,12 @@ class CollectionExecutor(_ExecutorBase):
         self.stats["calls"] += 1
         self.stats["copied_calls" if copied else "donated_calls"] += 1
         self._commit_all(new_states, fresh, leader_execs)
+        self._note_recovery(fresh, leader_execs)
         return True
 
     def run_forward(self, args: tuple, kwargs: dict) -> Optional[Dict[str, Any]]:
         """Fused forward for the WHOLE collection, or None to fall back."""
+        self._last_recovery = None
         if self.disabled_reason is not None:
             return None
         if not _trace_clean():
@@ -1778,7 +2078,10 @@ class CollectionExecutor(_ExecutorBase):
             return None
         try:
             with self._lock:
-                return self._run_forward(args, kwargs, leader_execs)
+                try:
+                    return self._run_forward(args, kwargs, leader_execs)
+                finally:
+                    self._forget_forward_timing()
         except _DispatchFailure as df:
             raise df.original
         except DispatchStallError:
@@ -1801,6 +2104,8 @@ class CollectionExecutor(_ExecutorBase):
         disp = self.dispatcher()
         disp.ensure_slots(states)
         fn, fresh = self._get_fn(key, lambda: self._build_forward(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves))
+        if fn is None:
+            return None
         copied, donated = self._donation(leader_execs, fresh)
         disp.load(states)
         counts = [int(m._update_count) for _, m, _, _ in leader_execs]
@@ -1845,7 +2150,807 @@ class CollectionExecutor(_ExecutorBase):
         self.stats["calls"] += 1
         self.stats["copied_calls" if copied else "donated_calls"] += 1
         self._commit_all(new_states, fresh, leader_execs)
+        self._note_recovery(fresh, leader_execs)
         return dict(values)
+
+
+# ---------------------------------------------------------------------------
+# the synced step and the deferred collection step
+# ---------------------------------------------------------------------------
+
+
+def make_value_packer(example_values: Any) -> Tuple[Callable[[Any], Dict[str, torch.Tensor]], Callable[[Dict[str, Any]], Any]]:
+    """Build ``(pack, unpack)`` for a fixed values tree.
+
+    ``pack`` concatenates every tensor leaf of a values tree into one flat
+    tensor per dtype (a collection's N values then read back in one
+    device-to-host copy per dtype, not N); ``unpack`` (host side) copies
+    each flat tensor to the host once and restores the tree with numpy
+    leaves.
+
+    >>> pack, unpack = make_value_packer({"a": torch.tensor(1.0), "b": torch.ones(2, 2), "n": torch.tensor(3)})
+    >>> sorted(pack({"a": torch.tensor(1.0), "b": torch.ones(2, 2), "n": torch.tensor(3)}))
+    ['float32', 'int64']
+    >>> unpack(pack({"a": torch.tensor(1.0), "b": torch.ones(2, 2), "n": torch.tensor(3)}))["b"].shape
+    (2, 2)
+    """
+    leaves, spec = tree_flatten(example_values)
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    order: Dict[str, List[int]] = {}
+    for i, leaf in enumerate(leaves):
+        order.setdefault(_dtype_name(leaf.dtype), []).append(i)
+
+    def pack(tree: Any) -> Dict[str, torch.Tensor]:
+        lv = tree_flatten(tree)[0]
+        return {dt: torch.cat([lv[i].reshape(-1) for i in idxs]) for dt, idxs in order.items()}
+
+    def unpack(packed: Dict[str, Any]) -> Any:
+        import numpy as np
+
+        out: List[Any] = [None] * len(shapes)
+        for dt, idxs in order.items():
+            flat = packed[dt]
+            flat = flat.detach().cpu().numpy() if isinstance(flat, torch.Tensor) else np.asarray(flat)
+            off = 0
+            for i in idxs:
+                size = int(np.prod(shapes[i])) if shapes[i] else 1
+                out[i] = flat[off:off + size].reshape(shapes[i])
+                off += size
+        return tree_unflatten(spec, out)
+
+    return pack, unpack
+
+
+def _world_of(collection: Any) -> bool:
+    """Whether a member syncs across ranks (an initialised process group)."""
+    return any(m.distributed_available_fn() for m in collection._modules.values())
+
+
+def _check_process_group(process_group: Any) -> None:
+    if isinstance(process_group, str):
+        raise TypeError(
+            f"the port syncs over a process group, not a named mesh axis: got {process_group!r}"
+            " (pass a torch.distributed group, or None for the world)"
+        )
+
+
+def make_synced_collection_step(collection: Any, process_group: Any = None, pack_values: bool = True, reduce: str = "step"):
+    """The fused ``(states, *batch) -> (states', packed_values)`` synced step.
+
+    One call runs every compute group's update, one ``functional_sync`` of
+    the whole collection over ``process_group`` (one collective per
+    reduction and dtype across every group, in an initialised process group;
+    the JAX package takes a mesh axis name here) and every member's compute,
+    and packs the values per dtype (:func:`make_value_packer`). Returns
+    ``(step, unpack)``; ``unpack`` (host side) restores the values dict.
+
+    With ``reduce="deferred"`` the per-step sync disappears and the return
+    is ``(local_step, reduce_step, unpack)``: ``local_step`` accumulates one
+    shard's slice of a stacked state (leading shard axis of 1, as one
+    shard of ``collection.init_sharded_states`` gives) with no collective,
+    and ``reduce_step(stacked_states) -> packed_values`` folds the shard axis
+    and applies every declared ``dist_reduce_fx`` once: the read point.
+    :func:`make_deferred_collection_step` drives the pair for you.
+    """
+    _check_process_group(process_group)
+    if reduce == "deferred":
+        local_step, reduce_step, _fold, unpack = _make_deferred_bodies(collection, process_group, pack_values)
+        return local_step, reduce_step, unpack
+    if reduce != "step":
+        raise ValueError(f"reduce must be 'step' or 'deferred', got {reduce!r}")
+    box: Dict[str, Any] = {}
+
+    def step(states: Any, *args: Any, **kwargs: Any) -> Tuple[Any, Any]:
+        st = collection.functional_update(states, *args, **kwargs)
+        synced = collection.functional_sync(st, process_group) if _world_of(collection) else st
+        values = collection.functional_compute(synced)
+        if pack_values:
+            if "pack" not in box:
+                box["pack"], box["unpack"] = make_value_packer(values)
+            values = box["pack"](values)
+        return st, values
+
+    def unpack(packed: Any) -> Any:
+        return box["unpack"](packed) if pack_values else packed
+
+    return step, unpack
+
+
+def _make_deferred_bodies(collection: Any, process_group: Any, pack_values: bool, baseline_box: Optional[Dict[str, Any]] = None):
+    """``(local_step, reduce_step, fold_step, unpack)``, the deferred
+    policy's plain bodies. ``local_step`` takes one shard's slice (leading
+    axis 1); ``reduce_step`` and ``fold_step`` the whole stack.
+    ``baseline_box`` may carry a ``"baseline"`` canonical tree (an elastic
+    restore's or a shard-loss recovery's) that the read point merges with
+    the freshly folded value per the declared reductions
+    (``parallel/reshard.py:merge_folded``)."""
+    from torchmetrics_tpu_torch.parallel.reshard import merge_folded
+    from torchmetrics_tpu_torch.parallel.sync import reshard_local_state, unshard_local_state
+
+    box: Dict[str, Any] = {}
+
+    def local_step(states: Any, *args: Any, **kwargs: Any) -> Any:
+        return reshard_local_state(collection.functional_update(unshard_local_state(states), *args, **kwargs))
+
+    def fold_step(states: Any) -> Any:
+        return collection.reduce_sharded_states(states, process_group)
+
+    def _merged(states: Any) -> Any:
+        folded = fold_step(states)
+        baseline = (baseline_box or {}).get("baseline")
+        if baseline is None:
+            return folded
+        return {
+            leader: merge_folded(baseline[leader], sub, collection._modules[leader]._reductions) if leader in baseline else sub
+            for leader, sub in folded.items()
+        }
+
+    def reduce_step(states: Any) -> Any:
+        values = collection.functional_compute(_merged(states))
+        if pack_values:
+            if "pack" not in box:
+                box["pack"], box["unpack"] = make_value_packer(values)
+            values = box["pack"](values)
+        return values
+
+    def unpack(packed: Any) -> Any:
+        return box["unpack"](packed) if pack_values else packed
+
+    return local_step, reduce_step, fold_step, unpack
+
+
+def _shard_slices(x: Any, dim: Optional[int], num_shards: int, what: str) -> List[Any]:
+    """Shard ``s`` of ``x``: rows ``[s*N/S, (s+1)*N/S)`` along ``dim`` (the
+    slice ``shard_map`` over the axis gives device ``s``), or the whole of
+    ``x`` for every shard when ``dim`` is None or ``x`` is no tensor."""
+    if dim is None or not isinstance(x, torch.Tensor):
+        return [x] * num_shards
+    rows = int(x.shape[dim])
+    if rows % num_shards:
+        raise ValueError(f"{what}'s {rows} rows along dim {dim} must split evenly over {num_shards} shards")
+    k = rows // num_shards
+    return [x.narrow(dim, s * k, k) for s in range(num_shards)]
+
+
+class DeferredCollectionStep:
+    """Deferred-reduction drivers for one collection over ``num_shards``
+    shards stacked on this process (built by
+    :func:`make_deferred_collection_step`).
+
+    State is stacked per shard (a leading shard axis on every field); the
+    step loop pays no collective, and every declared ``dist_reduce_fx``
+    runs once, at the read point:
+
+    - :meth:`init_states`: fresh stacked states on the collection's device;
+    - :meth:`local_step`: ``(states, *batch) -> states'``, every shard's
+      slice of the batch into its own shard, one CUDA graph replay on the
+      card (a key's first call runs eagerly, then two graphs are captured,
+      one a state slot, as the captured executor does);
+    - :meth:`local_epoch`: ``(states, *stacked) -> states'``, a chunk of T
+      steps (leading axis = steps) unrolled in one captured graph, keyed
+      by T: the port's ``lax.scan``;
+    - :meth:`reduce` / :meth:`reduce_async`: the fold, one
+      ``functional_sync`` in a process group, the carried baseline's merge,
+      every compute and the packing, run eagerly (once an epoch).
+
+    With ``donate=True`` a step reads the slot it was handed and writes the
+    other one: the tree it returns is that slot, and the tree it was
+    handed is spent. Handing a spent tree back raises
+    :class:`~torchmetrics_tpu_torch.utils.exceptions.TorchMetricsUserError`
+    (the JAX package raises on a deleted buffer). With ``donate=False``
+    every call returns fresh tensors and never writes what it was given.
+
+    Elastic topology: :meth:`restore_states` (a snapshot saved on any shard
+    count becomes a carried baseline; fresh accumulators go back on),
+    :meth:`attach_shadow` (a bounded-lag host shadow of the folded reduce,
+    and the ``on_shard_loss`` policies ``"raise"``, ``"degraded"`` and
+    ``"restore"``), :meth:`attach_integrity` (per-shard fingerprint
+    audits), :meth:`export_canonical` and :meth:`export_delta` (the
+    checkpoint and fleet surfaces).
+    """
+
+    def __init__(
+        self,
+        collection: Any,
+        mesh: Any,
+        axis_name: str,
+        pack_values: bool,
+        batch_specs: Any,
+        donate: bool,
+        process_group: Any = None,
+    ) -> None:
+        if mesh is not None and (not isinstance(mesh, int) or isinstance(mesh, bool) or mesh < 1):
+            raise ValueError(
+                f"mesh is the number of shards stacked on this process (a positive int or None), got {mesh!r};"
+                " the port has no device mesh: a rank stacks its shards and syncs over a process group"
+            )
+        _check_process_group(process_group)
+        self._coll = collection
+        self.num_shards = 1 if mesh is None else int(mesh)
+        self._axis = axis_name
+        self._batch_specs = None if batch_specs is None else tuple(batch_specs)
+        self._donate = donate
+        self._group = process_group
+        #: the carried canonical baseline on the collection's device (the
+        #: read point merges it) and on the host (the shadow and the exports)
+        self._baseline_box: Dict[str, Any] = {}
+        self._baseline_host: Optional[Dict[str, Dict[str, Any]]] = None
+        self._baseline_version = 0
+        self._local_body, self._reduce_body, self._fold_body, self._unpack = _make_deferred_bodies(
+            collection, process_group, pack_values, self._baseline_box
+        )
+        self._compiled: Dict[Any, Callable] = {}
+        self._disp: Optional[_Dispatcher] = None
+        #: the leaves of the tree the last donating step handed out
+        self._handed: Optional[List[torch.Tensor]] = None
+        #: committed local steps (one a batch; an epoch adds its length)
+        self._steps = 0
+        self._shadow: Optional[Any] = None
+        self._on_shard_loss = "raise"
+        self._recovered_states: Optional[Any] = None
+        self._integrity: Optional[Any] = None
+        self.stats: Dict[str, Any] = {
+            "calls": 0, "compiles": 0, "cache_hits": 0, "donated_calls": 0, "copied_calls": 0,
+            "skipped_calls": 0, "capture_us_total": 0.0,
+        }
+        #: the keys whose capture failed (they run eagerly: ``skipped_calls``)
+        self.capture_failures: List[str] = []
+
+    # ------------------------------------------------------------ layout
+    def _dim(self, i: int) -> Optional[int]:
+        """The dim a batch argument splits along (None: every shard sees it all)."""
+        if self._batch_specs is None:
+            return 0
+        spec = self._batch_specs[i] if i < len(self._batch_specs) else None
+        if spec is None:
+            return None
+        return 0 if isinstance(spec, str) else int(spec)
+
+    def init_states(self) -> Dict[str, Dict[str, Any]]:
+        """Fresh stacked states (``(S, *field)`` a field) on the collection's device."""
+        return self._coll.init_sharded_states(self.num_shards)
+
+    def _dispatcher(self) -> _Dispatcher:
+        if self._disp is None:
+            self._disp = _Dispatcher(self._coll.device)
+            self._disp.judging = False  # a chunk of shard updates is one replay, always
+        return self._disp
+
+    def _get(self, key: Any, builder: Callable[[], Callable]) -> Callable:
+        """The dispatch seam: every call resolves its callable here
+        (``testing.faults.drop_shard`` patches it)."""
+        fn = self._compiled.get(key)
+        if fn is None:
+            fn = self._compiled[key] = builder()
+        return fn
+
+    # ------------------------------------------------------------ bodies
+    def _one_step(self, states: Any, shard_args: List[tuple]) -> Any:
+        """Every shard's update of one step: shard ``s`` takes its slice of
+        the state and ``shard_args[s]``; the results stack back."""
+        parts = []
+        for s, args in enumerate(shard_args):
+            local = {leader: {k: v.narrow(0, s, 1) for k, v in sub.items()} for leader, sub in states.items()}
+            parts.append(self._local_body(local, *args))  # its own fusion scope: one count a shard
+        return {
+            leader: {k: torch.cat([p[leader][k] for p in parts]) if len(parts) > 1 else parts[0][leader][k] for k in sub}
+            for leader, sub in states.items()
+        }
+
+    def _step_args(self, batch: tuple) -> List[tuple]:
+        per_arg = [_shard_slices(x, self._dim(i), self.num_shards, f"argument {i}") for i, x in enumerate(batch)]
+        return [tuple(a[s] for a in per_arg) for s in range(self.num_shards)]
+
+    def _epoch_args(self, stacked: tuple) -> List[List[tuple]]:
+        steps = int(stacked[0].shape[0]) if stacked else 0
+        out = []
+        for t in range(steps):
+            out.append(self._step_args(tuple(x[t] if isinstance(x, torch.Tensor) else x for x in stacked)))
+        return out
+
+    # ----------------------------------------------------------- dispatch
+    def _dispatch(self, kind: str, states: Any, batch: tuple, body: Callable[[Any, tuple], Any]) -> Any:
+        """Run ``body(states, batch)`` as one captured key over the step's two
+        state slots (the body called directly off the card)."""
+        leaves, treedef = tree_flatten(tuple(batch))
+        sig = _classify_leaves(leaves)
+        if sig is None or not _trace_clean():
+            self.stats["skipped_calls"] += 1
+            out = body(states, batch)
+            return out if self._donate else {k: dict(v) for k, v in out.items()}
+        disp = self._dispatcher()
+        state_leaves, _ = tree_flatten(states)
+        disp.ensure_slots(states)
+        handed = self._handed
+        donated = handed is not None and len(handed) == len(state_leaves) and all(v is h for v, h in zip(state_leaves, handed))
+        if not donated:
+            # a tree handed out earlier lives in a slot that a later step wrote
+            slot_ptrs = {t.data_ptr() for slot in disp.slots for t in slot}
+            if any(isinstance(v, torch.Tensor) and v.data_ptr() in slot_ptrs for v in state_leaves):
+                raise TorchMetricsUserError(
+                    "these deferred states were donated to an earlier step and are spent (their slot has been written"
+                    " since); pass the states the last step returned, or build the step with donate=False"
+                )
+        if not donated and handed is not None:
+            # the tree the last step handed out lives in the slot this call
+            # loads: move it to storage of its own (it stays valid, as an
+            # undonated output does in the JAX package)
+            for t in handed:
+                t.set_(t.clone())
+            self._handed = None
+        live = disp.slots[disp.cur]
+        dyn, bool_spec = _split_static_bools(leaves)
+        key = (kind, self.num_shards, treedef, sig, disp.spec, tuple((tuple(t.shape), t.dtype) for t in live))
+        entry = disp.entries.get(key)
+        if entry is not None and entry.eager_reason is not None:  # its capture failed: the same kernels, eagerly
+            self.stats["skipped_calls"] += 1
+            return body(states, batch)
+        fresh = entry is None or (disp.graphs and not entry.graphs)
+        if fresh:
+            def run(st: Any, scalars: Any, *xs: Any) -> Tuple[Any, None]:
+                return body(st, tree_unflatten(treedef, _merge_static_bools(xs, bool_spec, len(leaves)))), None
+
+            entry = disp.entries[key] = _Entry(run)
+            entry.desc = _describe_key(key)
+            self.stats["compiles"] += 1
+        else:
+            self.stats["cache_hits"] += 1
+        disp.load(states)
+        call = _Call(dyn, None, None, None, [])
+        if fresh:
+            t0 = time.perf_counter_ns()
+            try:
+                new_state, _ = disp.run_fresh(entry, call, [])
+            except _CaptureFailed as failed:
+                # the key's eager run serves this call; the key runs eagerly from now on
+                entry.eager_reason = f"capture failed: {type(failed.original).__name__}: {failed.original}"
+                self.capture_failures.append(f"{entry.desc}: {entry.eager_reason}")
+                rank_zero_debug(f"torchmetrics_tpu_torch deferred step: {self.capture_failures[-1]}")
+                return failed.result[0]
+            disp._write_slot(1 - disp.cur, new_state)
+            self.stats["capture_us_total"] += (time.perf_counter_ns() - t0) / 1e3
+        else:
+            disp.run_warm(entry, call, [])
+        disp.cur ^= 1
+        self.stats["calls"] += 1
+        self.stats["donated_calls" if donated else "copied_calls"] += 1
+        if not self._donate:
+            return {leader: {k: v.clone() for k, v in sub.items()} for leader, sub in disp.slot_tree(disp.cur).items()}
+        # new tensors on the live slot's storage: only this tree donates to
+        # the next step; any earlier one, though it may share the slot, is
+        # spent
+        self._handed = [
+            torch.empty(0, dtype=t.dtype, device=t.device).set_(t.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+            for t in disp.slots[disp.cur]
+        ]
+        return tree_unflatten(disp.spec, self._handed)
+
+    def _run_guarded(self, key: Any, builder: Callable[[], Callable], states: Any, batch: tuple) -> Any:
+        from torchmetrics_tpu_torch.utils.exceptions import ShardLossError
+
+        fn = self._get(key, builder)
+        try:
+            with obs.span(obs.SPAN_DISPATCH, suffix=type(self._coll).__name__, histogram="executor.dispatch_us"):
+                return fn(states, *batch)
+        except ShardLossError as err:
+            if self._on_shard_loss != "restore" or self._shadow is None:
+                raise obs.flighted(
+                    err, domain="shadow", kind="shard_loss", shard=getattr(err, "shard", None), policy=self._on_shard_loss
+                )
+            # reinstall the bounded-lag shadow and re-apply THIS batch on the
+            # fresh accumulators: the run loses at most updates_behind steps
+            fresh = self.recover()
+            with obs.span(obs.SPAN_DISPATCH, suffix=type(self._coll).__name__, histogram="executor.dispatch_us"):
+                return fn(fresh, *batch)
+
+    def local_step(self, states: Any, *batch: Any) -> Any:
+        """One step: shard ``s`` accumulates slice ``s`` of every sharded
+        argument (``batch_specs``; default: each along dim 0), with no
+        collective. One CUDA graph replay on the card."""
+
+        me = weakref.proxy(self)  # what the cache and the graphs' bodies keep: no cycle holds the graphs
+
+        def build() -> Callable:
+            return lambda st, *b: me._dispatch("local", st, b, lambda s_, b_: me._one_step(s_, me._step_args(b_)))
+
+        out = self._run_guarded(("local", len(batch)), build, states, batch)
+        self._steps += 1
+        self._tick_shadow(out)
+        self._tick_integrity(out)
+        return out
+
+    def local_epoch(self, states: Any, *stacked: Any) -> Any:
+        """A chunk of T steps (every argument's leading axis is steps; the
+        batch dim follows) unrolled in one captured graph keyed by T. The
+        step count advances by T."""
+
+        me = weakref.proxy(self)
+
+        def epoch(st: Any, chunk: tuple) -> Any:
+            for args in me._epoch_args(chunk):
+                st = me._one_step(st, args)
+            return st
+
+        def build() -> Callable:
+            return lambda st, *b: me._dispatch("epoch", st, b, epoch)
+
+        out = self._run_guarded(("epoch", len(stacked)), build, states, stacked)
+        self._steps += int(stacked[0].shape[0]) if stacked else 0
+        self._tick_shadow(out)
+        self._tick_integrity(out)
+        return out
+
+    # --------------------------------------------------------- read point
+    def reduce(self, states: Any) -> Any:
+        """The read point: fold, one sync in a process group, the baseline's
+        merge, every compute; host values (numpy leaves) when packing."""
+        from torchmetrics_tpu_torch.utils.exceptions import ShardLossError
+
+        def build() -> Callable:
+            return self._reduce_body
+
+        fn = self._get(("reduce", self._baseline_version), build)
+        try:
+            with obs.span(obs.SPAN_REDUCE):
+                return self._unpack(fn(states))
+        except ShardLossError as err:
+            return self._serve_shard_loss(err)
+
+    def reduce_async(self, states: Any) -> Any:
+        """Non-blocking :meth:`reduce`: the read point's kernels are enqueued
+        on the caller's stream here (before any later step's replay, which
+        waits on that stream), and a
+        :class:`~torchmetrics_tpu_torch.ops.async_read.MetricFuture`
+        resolves to the unpacked values on the read pipeline's worker. Its
+        outputs are fresh tensors, never a slot."""
+        from torchmetrics_tpu_torch.ops.async_read import MetricFuture, get_pipeline, materialize, submission_event, wait_submitted
+        from torchmetrics_tpu_torch.utils.exceptions import ShardLossError
+
+        def build() -> Callable:
+            return self._reduce_body
+
+        fn = self._get(("reduce", self._baseline_version), build)
+        with obs.span(obs.SPAN_COMPUTE_ASYNC, suffix="DeferredCollectionStep"):
+            try:
+                packed = fn(states)
+            except ShardLossError as err:
+                future = MetricFuture(owner="DeferredCollectionStep.reduce")
+                try:
+                    future._finish(self._serve_shard_loss(err), None)
+                except Exception as served:  # the raise policy: the future carries it
+                    future._finish(None, served)
+                return future
+            event = submission_event(packed)
+
+            def job() -> Any:
+                wait_submitted(event)
+                return self._unpack(materialize(packed))
+
+            return get_pipeline().submit(job, owner="DeferredCollectionStep.reduce")
+
+    # ------------------------------------------------------ elastic topology
+    def _fold_fn(self) -> Callable:
+        """The shadow's fold: the read point's fold and sync, returning the
+        reduced states (fresh tensors, never a slot)."""
+        return self._get("shadow_fold", lambda: self._fold_body)
+
+    def _tick_shadow(self, states: Any) -> None:
+        shadow = self._shadow
+        if shadow is None or not shadow.due(self._steps):
+            return
+        folded = self._fold_fn()(states)  # enqueued; the pipeline worker waits for it
+        shadow.observe(folded, self._steps, baseline=self._baseline_host)
+
+    def attach_shadow(self, every_n_steps: int = 8, on_shard_loss: str = "degraded") -> Any:
+        """Keep a bounded-lag host shadow of the folded reduce (refreshed on
+        the read pipeline every ``every_n_steps`` committed steps) and
+        resolve :class:`~torchmetrics_tpu_torch.utils.exceptions.ShardLossError`
+        per ``on_shard_loss``: ``"raise"`` propagates, ``"degraded"`` serves
+        the shadow as a ``DegradedValue``, ``"restore"`` reinstalls it and
+        continues. Returns the
+        :class:`~torchmetrics_tpu_torch.parallel.reshard.ShardShadow`; it
+        trails the live steps by at most ``every_n_steps - 1`` plus any
+        refresh in flight."""
+        from torchmetrics_tpu_torch.parallel.reshard import SHARD_LOSS_POLICIES, ShardShadow
+
+        if on_shard_loss not in SHARD_LOSS_POLICIES:
+            raise ValueError(f"on_shard_loss must be one of {SHARD_LOSS_POLICIES}, got {on_shard_loss!r}")
+
+        coll = self._coll
+
+        def reductions_of() -> Dict[str, Dict[str, Any]]:
+            return {leader: coll._modules[leader]._reductions for leader in coll.state_spec()}
+
+        self._shadow = ShardShadow(reductions_of, every_n_steps=every_n_steps)
+        self._on_shard_loss = on_shard_loss
+        return self._shadow
+
+    def _tick_integrity(self, states: Any) -> None:
+        integrity = self._integrity
+        if integrity is None or not integrity.due(self._steps):
+            return
+        integrity.observe(states, self._steps)
+
+    def attach_integrity(self, every_n_steps: int = 8, on_divergence: str = "raise") -> Any:
+        """Audit the carried stacked states on a cadence (``integrity.py``):
+        every ``every_n_steps``-th committed step captures per-shard
+        fingerprints, and :meth:`~torchmetrics_tpu_torch.integrity.DeferredIntegrity.audit`
+        verifies the states against them while the step count has not
+        moved, naming the shard a flip hit. ``on_divergence="restore"``
+        reinstalls the shard shadow (:meth:`recover`): attach one first."""
+        from torchmetrics_tpu_torch.integrity import DeferredIntegrity
+
+        self._integrity = DeferredIntegrity(weakref.proxy(self), every_n_steps=every_n_steps, on_divergence=on_divergence)
+        return self._integrity
+
+    @property
+    def integrity(self) -> Any:
+        return self._integrity
+
+    @property
+    def shadow(self) -> Any:
+        return self._shadow
+
+    @property
+    def steps(self) -> int:
+        """Committed local steps since construction (or the last restore)."""
+        return self._steps
+
+    @property
+    def baseline(self) -> Any:
+        """The carried canonical baseline of an elastic restore or a
+        recovery (None on the straight-through path)."""
+        return self._baseline_box.get("baseline")
+
+    def _set_baseline(self, canonical: Any) -> None:
+        import numpy as np
+
+        device = self._coll.device
+        self._baseline_box["baseline"] = {
+            leader: {f: torch.as_tensor(v).to(device) if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v), device=device)
+                     for f, v in sub.items()}
+            for leader, sub in canonical.items()
+        }
+        self._baseline_host = {
+            leader: {f: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for f, v in sub.items()}
+            for leader, sub in canonical.items()
+        }
+        self._baseline_version += 1  # a new baseline is never served by a stale read point
+
+    def restore_states(self, states: Any, step_count: Optional[int] = None, stacked: Optional[bool] = None) -> Any:
+        """Reinstall checkpointed deferred state saved on any shard count.
+
+        ``states`` is leader-keyed: a stacked layout (detected by the
+        reserved ``"_sharded_shards"`` mark; ``stacked=`` overrides) or an
+        already-canonical value. The fold goes through
+        ``parallel/reshard.py``; the canonical value becomes the carried
+        baseline merged at every read, and fresh identity accumulators for
+        this step's shards are returned. ``step_count`` re-anchors the
+        staleness clock."""
+        from torchmetrics_tpu_torch.parallel.reshard import fold_canonical
+
+        count_key, shards_key = "_update_count", "_sharded_shards"
+        canonical: Dict[str, Dict[str, Any]] = {}
+        for leader, sub in states.items():
+            reds = self._coll._modules[leader]._reductions
+            is_stacked = stacked
+            if is_stacked is None:
+                is_stacked = isinstance(sub, dict) and sub.get(shards_key) is not None
+            # a restore replaces any carried baseline: the snapshot is the
+            # whole accumulation (export_canonical folds a live baseline in)
+            canonical[leader] = fold_canonical(sub, reds) if is_stacked else {
+                k: v for k, v in sub.items() if k not in (count_key, shards_key)
+            }
+        obs.counter_inc("shards.elastic_restores")
+        self._set_baseline(canonical)
+        if step_count is not None:
+            self._steps = int(step_count)
+        if self._shadow is not None:
+            self._shadow.seed(canonical, self._steps)
+        return self.init_states()
+
+    def export_canonical(self, states: Any, precision: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
+        """The whole accumulation as one canonical host tree: the live
+        stacked ``states`` folded, the carried baseline merged in (what a
+        checkpoint persists once a baseline exists). Blocks on the fold's
+        device-to-host copy: a save point, not the step loop.
+
+        ``precision="quantized"`` returns each leader in the block-quantized
+        wire format (``parallel.quantized``; each leader's
+        ``sync_quant_bits``/``sync_quant_block``), the fleet uplink's shape.
+        Checkpoints stay exact (``None``)."""
+        import numpy as np
+
+        from torchmetrics_tpu_torch.parallel.quantized import encode_canonical
+        from torchmetrics_tpu_torch.parallel.reshard import merge_folded
+
+        if precision not in (None, "exact", "quantized"):
+            raise ValueError(f"precision must be None, 'exact' or 'quantized', got {precision!r}")
+
+        def host(v: Any) -> Any:
+            return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+        folded = self._fold_fn()(states)
+        baseline = self._baseline_host
+        out: Dict[str, Dict[str, Any]] = {}
+        for leader, sub in folded.items():
+            values = {f: host(v) for f, v in sub.items()}
+            if baseline is not None and leader in baseline:
+                values = {
+                    f: host(v) for f, v in merge_folded(baseline[leader], values, self._coll._modules[leader]._reductions).items()
+                }
+            if precision == "quantized":
+                m = self._coll._modules[leader]
+                obs.counter_inc("sync.quantized_reduces")
+                values = encode_canonical(values, bits=getattr(m, "sync_quant_bits", 8), block_size=getattr(m, "sync_quant_block", 256))
+            out[leader] = values
+        return out
+
+    def canonical_reductions(self) -> Dict[str, Dict[str, Any]]:
+        """Per-leader reduction maps of the :meth:`export_canonical` fold (a
+        fleet exporter cuts deltas with them, an aggregator merges them)."""
+        return {leader: dict(self._coll._modules[leader]._reductions) for leader in self._coll._modules}
+
+    def export_delta(self, states: Any, baseline: Optional[Dict[str, Any]] = None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """``(canonical, payload)``: the exact canonical fold and, per leader
+        and field, what changed since ``baseline`` (a previous call's
+        canonical; None: everything). Ship the payload, keep the canonical
+        as the next call's baseline (``fleet.delta_since``)."""
+        from torchmetrics_tpu_torch.fleet.delta import delta_since
+
+        canonical = self.export_canonical(states)
+        reductions = self.canonical_reductions()
+        payload: Dict[str, Dict[str, Any]] = {}
+        for leader, sub in canonical.items():
+            prev = baseline.get(leader) if baseline is not None else None
+            payload[leader] = delta_since(sub, prev, reductions[leader])
+        return canonical, payload
+
+    def recover(self) -> Any:
+        """Reinstall the shadow's last completed refresh as the carried
+        baseline and return fresh accumulators (the ``"restore"`` action).
+        Raises when no refresh has completed yet."""
+        snap = None if self._shadow is None else self._shadow.snapshot()
+        if snap is None:
+            raise RuntimeError(
+                "shard-loss recovery requested but no shadow refresh has completed;"
+                " attach_shadow() earlier or lower every_n_steps"
+            )
+        canonical, shadow_steps = snap
+        obs.counter_inc("shards.shadow_restores")
+        obs.fault_breadcrumb(
+            "shard_loss_restore",
+            domain="shadow",
+            data={"shadow_steps": shadow_steps, "live_steps": self._steps, "updates_behind": max(0, self._steps - shadow_steps)},
+        )
+        self._set_baseline(canonical)
+        self._steps = int(shadow_steps)
+        self._shadow.seed(canonical, self._steps)
+        fresh = self.init_states()
+        self._recovered_states = fresh
+        return fresh
+
+    def take_recovered_states(self) -> Any:
+        """Pop the fresh states a read-point recovery installed (None when
+        none happened since the last call)."""
+        out, self._recovered_states = self._recovered_states, None
+        return out
+
+    def _serve_shard_loss(self, err: BaseException) -> Any:
+        """Resolve a ShardLossError at the read point per ``on_shard_loss``."""
+        from torchmetrics_tpu_torch.quarantine import DegradedValue
+
+        shadow = self._shadow
+        snap = None if shadow is None else shadow.snapshot()
+        if self._on_shard_loss == "raise" or snap is None:
+            raise obs.flighted(err, domain="shadow", kind="shard_loss", shard=getattr(err, "shard", None), policy=self._on_shard_loss)
+        canonical, shadow_steps = snap
+        behind = max(0, self._steps - shadow_steps)
+        obs.gauge_set("shards.shadow_age_updates", behind)
+        obs.histogram_observe("shards.shadow_staleness_updates", behind)
+        obs.counter_inc("shards.degraded_reads")
+        obs.fault_breadcrumb(
+            "shard_loss_degraded",
+            domain="shadow",
+            data={"shard": getattr(err, "shard", None), "policy": self._on_shard_loss, "updates_behind": behind},
+        )
+        if self._on_shard_loss == "restore":
+            self.recover()
+        device = self._coll.device
+        values = self._coll.functional_compute(
+            {k: {f: torch.as_tensor(v, device=device) for f, v in sub.items()} for k, sub in canonical.items()}
+        )
+        return DegradedValue(value=values, updates_behind=behind, age_updates=shadow_steps)
+
+    # -------------------------------------------------------------- memory
+    def static_bytes(self) -> int:
+        """Bytes of the step's state slots and static inputs."""
+        return 0 if self._disp is None else self._disp.static_bytes()
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes of the step's private graph pool (a memory-snapshot walk)."""
+        return 0 if self._disp is None else self._disp.pool_bytes()
+
+
+def make_deferred_collection_step(
+    collection: Any,
+    mesh: Any = None,
+    axis_name: str = "batch",
+    pack_values: bool = True,
+    batch_specs: Any = None,
+    donate: bool = True,
+    process_group: Any = None,
+) -> DeferredCollectionStep:
+    """The deferred-reduction epoch loop for ``collection``.
+
+    ``mesh`` is the number of shards stacked on this process (None: 1; a
+    rank of a data-parallel job stacks its own and the read point syncs
+    over ``process_group``); ``axis_name`` is metadata only. Returns a
+    :class:`DeferredCollectionStep` whose ``local_step`` and
+    ``local_epoch`` accumulate with no collective, the states donated, and
+    whose ``reduce`` applies every ``dist_reduce_fx`` once. ``batch_specs``
+    gives each batch argument's split: the dim its rows shard along (0 by
+    default) or None for an argument every shard sees whole.
+
+    >>> import torch
+    >>> from torchmetrics_tpu_torch import MetricCollection
+    >>> from torchmetrics_tpu_torch.aggregation import SumMetric
+    >>> coll = MetricCollection({"total": SumMetric(device="cpu")}, device="cpu")
+    >>> step = make_deferred_collection_step(coll, mesh=2)
+    >>> states = step.local_step(step.init_states(), torch.arange(4.0))
+    >>> float(step.reduce(states)["total"])
+    6.0
+    """
+    return DeferredCollectionStep(collection, mesh, axis_name, pack_values, batch_specs, donate, process_group)
+
+
+def latest_recovery_snapshot(obj: Any) -> Optional[Tuple[int, Dict[str, Any]]]:
+    """The state exactly one committed update behind the live state, shaped
+    like a ``state()`` export: the Autosaver's free checkpoint source.
+
+    The JAX package keeps a host copy before every donating call; the port
+    keeps none: its recovery reference is the state slot the last replay
+    read, which no later call has written yet. This copies that slot to the
+    host, ordered on the capture stream under the device's lock (no replay
+    can write it meanwhile), and marks nothing escaped (the next call
+    copies nothing in). Returns ``(update_count, export)`` with the
+    reserved ``"_update_count"`` key(s) embedded and numpy leaves (a
+    collection's export is leader-keyed, its count the largest), or None
+    when the slot is not exactly one committed update behind: no replay
+    yet, the last call ran eagerly (or did not commit), or the live state
+    escaped (was read or set by reference) since.
+    """
+    import numpy as np
+
+    ex = getattr(obj, "_executor_obj", None)
+    rec = getattr(ex, "_last_recovery", None)
+    disp = getattr(ex, "_dispatcher", None)
+    if rec is None or disp is None or disp.slots is None:
+        return None
+    count_key = "_update_count"
+    if isinstance(ex, CollectionExecutor):
+        coll = ex._coll
+        for cg in coll._groups.values():
+            if cg[0] not in rec or int(coll._modules[cg[0]]._update_count) != rec[cg[0]] + 1:
+                return None
+            if any(coll._modules[name]._state_escaped for name in cg):
+                return None
+    else:
+        m = ex._metric
+        if int(m._update_count) != rec + 1 or m._state_escaped:
+            return None
+    read = disp.slots[1 - disp.cur]
+    with disp.lock if disp.lock is not None else nullcontext():
+        if disp.graphs:
+            with torch.cuda.stream(_capture_stream(disp.device)):
+                host = [t.cpu() for t in read]  # ordered after the last replay, which read this slot
+        else:
+            host = [t.clone() for t in read]
+    tree = tree_unflatten(disp.spec, [t.numpy() for t in host])
+    if isinstance(ex, CollectionExecutor):
+        export = {leader: dict(sub, **{count_key: int(rec[leader])}) for leader, sub in tree.items()}
+        return max(int(c) for c in rec.values()), export
+    return int(rec), dict(tree, **{count_key: int(rec)})
 
 
 def executor_stats(obj: Any) -> Dict[str, Any]:
@@ -1858,6 +2963,7 @@ def executor_stats(obj: Any) -> Dict[str, Any]:
         out.update(
             disabled_reason=None, fallback_reason=None, bucketing_enabled=True, cached_executables=0,
             background_enabled=False, pending_background=0, profile_entries=0, captured=False,
+            eager={"keys": 0, "calls": 0, "reasons": []},
         )
         return out
     return ex.stats_dict()

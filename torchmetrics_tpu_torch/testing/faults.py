@@ -138,6 +138,8 @@ def fail_dispatch(
 
     def patched(self: Any, key: Any, builder: Any) -> Any:
         fn, fresh = orig(self, key, builder)
+        if fn is None:  # a key the executor runs eagerly: no dispatch to fail
+            return fn, fresh
 
         def failing(*args: Any, **kwargs: Any) -> Any:
             if remaining["n"] is not None and remaining["n"] <= 0:
@@ -429,6 +431,43 @@ def grow_world(to: int) -> Generator[Dict[str, Any], None, None]:
 
 
 # -------------------------------------------------------------------- reads
+
+@contextmanager
+def drop_shard(step: Any, shard: int = 0, fail_n: Optional[int] = 1, exc: Optional[BaseException] = None) -> Generator[None, None, None]:
+    """Make ``step``'s (a ``DeferredCollectionStep``) dispatches raise an
+    attributed :class:`~torchmetrics_tpu_torch.utils.exceptions.ShardLossError`:
+    a device lost mid-epoch, and the shard of state it accumulated with it.
+
+    ``fail_n=k`` (default 1) faults the first k dispatches inside the
+    context, then passes calls through (a shard lost once and recovered:
+    ``on_shard_loss="restore"`` reinstalls the host shadow and the
+    re-dispatch succeeds); None faults every dispatch (even a recovery's
+    re-dispatch raises). Patches the step's ``_get`` seam until exit.
+    """
+    from torchmetrics_tpu_torch.utils.exceptions import ShardLossError
+
+    orig = step._get
+    remaining = {"n": fail_n}
+
+    def patched(key: Any, builder: Any) -> Any:
+        fn = orig(key, builder)
+
+        def failing(*args: Any, **kwargs: Any) -> Any:
+            if remaining["n"] is not None and remaining["n"] <= 0:
+                return fn(*args, **kwargs)
+            if remaining["n"] is not None:
+                remaining["n"] -= 1
+            raise exc if exc is not None else ShardLossError(f"injected loss of shard {shard} (device lost mid-epoch)", shard=shard)
+
+        return failing
+
+    step._get = patched
+    try:
+        yield
+    finally:
+        if step.__dict__.get("_get") is patched:
+            del step.__dict__["_get"]
+
 
 @contextmanager
 def pause_async_reads(max_s: float = 30.0) -> Generator[threading.Event, None, None]:

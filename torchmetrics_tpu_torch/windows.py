@@ -302,7 +302,7 @@ class WindowedMetric(Metric):
     def _executor_step_aside(self) -> Optional[str]:
         return (
             "windowed ring: each update's slot comes from the host clock;"
-            " its captured dispatch comes with ROADMAP Queue A item 3"
+            " its captured dispatch comes with ROADMAP Queue A item 4"
         )
 
     # ------------------------------------------------------------ update path
