@@ -187,7 +187,19 @@ evaluation workloads:
   federated evaluation of FEMNIST's writers as 64 sites under a two-level
   aggregator tree, with dropped, duplicated, delayed, partitioned and
   corrupted deltas and an aggregator's failover, converging bit for bit to
-  the fault-free fold, then the same traffic quantized at 8 bits.
+  the fault-free fold, then the same traffic quantized at 8 bits;
+- the compile cache over the ImageNet collection (``imagenet_val_compile_cache``):
+  child processes sharing a store of shape profiles, cold (its captures
+  and writes), warm (the recorded keys built before the executor's first
+  call, which replays), warmed from the cold run's saved manifest with the
+  store off, over a poisoned store (a flipped byte, a stale toolchain) and
+  with background captures (cold keys served eagerly, every ``bincount``
+  launch accounted for by thread, the live thread's longest wait on the
+  device's lock), each bit-equal to ``executor=False``; and the
+  ``bincount`` library damaged (a flipped byte, a sidecar naming another
+  toolchain), warned about, rebuilt by ``nvcc`` and held to the plain
+  body. The script's own process runs with the store off, in a fresh
+  cache directory.
 
 It holds both ``ssim_windows`` entries against their plain versions: the
 generic windowed sum (11, 7, 67, 131 and 201 taps) and its backward, and the
@@ -7401,7 +7413,8 @@ def _check_trace(coll, groups: list, out_dir, ready: bool) -> dict:
     eager = sum(groups[: len(groups) - served])
     _check(len(update_spans) == eager and len(dispatch_spans) == served,
            f"imagenet_val_traced: {len(update_spans)} update spans for {eager} eager member updates,"
-           f" {len(dispatch_spans)} dispatch spans for {served} executor calls")
+           f" {len(dispatch_spans)} dispatch spans for {served} executor calls"
+           f" (fallback: {coll.executor_status['fallback_reason']})")
     compute_spans = sorted(n.split("/", 1)[1] for n in names if n.startswith(obs.SPAN_COMPUTE + "/"))
     _check(compute_spans == member_classes, f"imagenet_val_traced: compute spans {compute_spans}")
     ready_spans = [e for e in events if e.name == "imagenet_val.update.ready"]
@@ -10292,6 +10305,317 @@ def _complete(rows, steps: int) -> bool:
     return all(n % steps == 0 for _, _, n in rows)
 
 
+#: the compile cache's phase (imagenet_val_compile_cache): child processes
+#: over ImageNet-1k val's collection sharing one store, each bounded; the
+#: background run's wave of replays beside a capture (the first half of the
+#: first batch, 512 rows: a key of its own) for the live thread's wait on
+#: the device's lock
+COMPILE_CACHE = {"child_timeout_s": 300, "lock_wave_updates": 64}
+#: the children, in order: (mode, store, environment). "store" is the shared
+#: store, "bg" the background run's own (its keys must miss)
+COMPILE_CACHE_RUNS = (
+    ("cold", "store", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "1"}),
+    # the same cold run with the store off (the main process's setting): what
+    # the store's lookup and its writes on the worker cost the first updates
+    ("cold_store_off", "off", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "0"}),
+    ("warm", "store", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "1"}),
+    ("manifest", "store", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "0"}),
+    ("poisoned_flip", "store", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "1"}),
+    ("poisoned_stale", "store", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "1"}),
+    ("background", "bg", {"TORCHMETRICS_TPU_COMPILE_AHEAD": "1", "TORCHMETRICS_TPU_BG_COMPILE": "1"}),
+)
+
+
+def _bincount_per_replay(entry) -> int:
+    from torchmetrics_tpu_torch.ops import bincount
+
+    return sum(n for m, attr, n in entry.launches if m is bincount and attr == "launches")
+
+
+def _compile_cache_child(mode: str, out_dir: str, device: str) -> None:
+    """One process of ``phase_imagenet_val_compile_cache`` (started as
+    ``python3 -c``, its store and flags in the environment): the ImageNet
+    collection over every batch, each update timed (host and synchronised
+    wall time) and classed as a replay or an eager call, with the launches
+    the main thread made; the states, values and figures written to
+    ``out_dir``. ``manifest`` first warms from the cold run's saved profile;
+    ``background`` then replays beside a capture of a new key."""
+    import warnings
+
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount, compile_cache, launch_counts
+
+    warnings.simplefilter("always")
+    dev = torch.device(device)
+    spec = _imagenet_indexed(dev)
+    key = (bincount.__name__, "launches")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        coll = spec["collection"]()
+        out = {"mode": mode}
+        if mode == "manifest":
+            t0 = time.perf_counter()
+            out["warmup"] = coll.warmup_from_manifest(os.path.join(out_dir, "profile.json"))
+            torch.cuda.synchronize()
+            out["warmup_s"] = time.perf_counter() - t0
+        ex = coll._get_executor()
+        torch.cuda.synchronize()
+        stream = torch.cuda.current_stream(dev)
+        bincount.launches = 0
+        main_start = launch_counts.thread_counts().get(key, 0)
+        rows, kept = [], []
+        for i, batch in enumerate(spec["batches"]()):
+            if i < 4:
+                kept.append(batch)
+            before = ex.stats_dict()
+            disp = ex._dispatcher
+            replays = {id(e): (e, e.replays) for e in disp.entries.values()} if disp is not None else {}
+            c0 = launch_counts.thread_counts().get(key, 0)
+            # the caller's stream, never the whole device: a device-wide
+            # synchronize raises while the worker captures
+            stream.synchronize()
+            t0 = time.perf_counter()
+            coll.update(*batch)
+            host_s = time.perf_counter() - t0
+            stream.synchronize()
+            wall_s = time.perf_counter() - t0
+            after = ex.stats_dict()
+            disp = ex._dispatcher
+            replayed = [e for e in (disp.entries.values() if disp is not None else ()) if e.replays > replays.get(id(e), (e, 0))[1]]
+            rows.append({
+                "wall_ms": wall_s * 1e3, "host_us": host_s * 1e6,
+                "replayed": after["cache_hits"] > before["cache_hits"],
+                "per_replay": _bincount_per_replay(replayed[0]) if replayed else None,
+                "probes": after["probes"] - before["probes"],
+                "launched": launch_counts.thread_counts().get(key, 0) - c0,
+                "compiles": after["compiles"] - before["compiles"],
+            })
+            if i == 0:
+                out["disk_hits_before_first_executor_call"] = after["disk_hits"]
+        compile_cache.drain_worker(120)
+        torch.cuda.synchronize()
+        stats = ex.stats_dict()
+        entries = list(ex._dispatcher.entries.values())
+        out.update(
+            rows=rows, stats={k: v for k, v in stats.items() if k != "eager"}, eager=stats["eager"],
+            total_launches=bincount.launches,
+            main_thread_launches=launch_counts.thread_counts().get(key, 0) - main_start,
+            thread_launches=sum(c.get(key, 0) for c in launch_counts.all_threads().values()),
+            entries_per_replay=sorted(_bincount_per_replay(e) for e in entries),
+            lock_wait_main_us=ex.device_lock_wait_us_max(),
+            worker=dict(compile_cache.get_worker().stats),
+        )
+        torch.save(
+            {"state": {k: {f: t.cpu() for f, t in v.items()} for k, v in _leader_state(coll).items()},
+             "result": {k: v.cpu() for k, v in coll.compute().items()}},
+            os.path.join(out_dir, f"{mode}.pt"),
+        )
+        if mode == "cold":
+            coll.save_shape_profile(os.path.join(out_dir, "profile.json"))
+        if mode == "background":
+            # a new key's capture on the worker while the live thread replays
+            small = tuple(t[: t.shape[0] // 2] for t in kept[0])
+            coll.update(*small)
+            for j in range(COMPILE_CACHE["lock_wave_updates"]):
+                coll.update(*kept[j % len(kept)])
+            compile_cache.drain_worker(120)
+            torch.cuda.synchronize()
+            wave = ex.stats_dict()
+            out["lock_wave"] = {
+                "eager_misses": wave["eager_misses"] - stats["eager_misses"],
+                "background_compiles": wave["background_compiles"] - stats["background_compiles"],
+                "replays": wave["cache_hits"] - stats["cache_hits"],
+                "lock_wait_max_us": ex.device_lock_wait_us_max(),
+            }
+    out["warnings"] = [str(w.message)[:300] for w in caught if "compile cache" in str(w.message)]
+    with open(os.path.join(out_dir, f"{mode}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def _library_rebuilds(dev) -> list:
+    """A copy of the built ``bincount`` library, first with one flipped
+    byte, then with a sidecar naming another toolchain, each in a scratch
+    ``BUILD_DIR``: the next launch must warn (naming the file), rebuild it
+    with ``nvcc`` and agree with the plain body. Each launch's seconds (the
+    rebuild's, mostly) are printed."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount, native
+
+    built = native.build(["bincount"])["bincount"]
+    saved = native.BUILD_DIR
+    rows = []
+    x = torch.randint(-5, IMAGENET["num_classes"] ** 2 + 5, (IMAGENET["batches"][0],), device=dev, dtype=torch.int32)
+    want = bincount._wbincount_reference(x, None, IMAGENET["num_classes"] ** 2)
+    for case in ("flip", "other_toolchain"):
+        try:
+            native.BUILD_DIR = _runtime_dir(f"compile_cache_library_{case}")
+            path = native.library_path("bincount")
+            sidecar = path.with_name(path.name + ".json")
+            shutil.copy(built, path)
+            shutil.copy(built.with_name(built.name + ".json"), sidecar)
+            if case == "flip":
+                data = bytearray(path.read_bytes())
+                data[len(data) // 2] ^= 0xFF
+                path.write_bytes(bytes(data))
+            else:
+                record = json.loads(sidecar.read_text())
+                record["toolchain"] = "compiler=nvcc 0.0|flags=|target=sm_00"
+                sidecar.write_text(json.dumps(record))
+            native._LIBS.pop("bincount", None)
+            bincount._entry.cache_clear()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = bincount._wbincount_cuda(x, None, IMAGENET["num_classes"] ** 2)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            named = [str(w.message) for w in caught if str(path) in str(w.message) and "damaged or stale" in str(w.message)]
+            _check(len(named) == 1, f"imagenet_val_compile_cache: the {case} library was not warned about once: {[str(w.message) for w in caught]}")
+            _check(torch.equal(got, want), f"imagenet_val_compile_cache: the rebuilt ({case}) bincount disagrees with the plain body")
+            _check(json.loads(sidecar.read_text())["length"] == path.stat().st_size,
+                   f"imagenet_val_compile_cache: the rebuilt ({case}) library's sidecar does not match it")
+            rows.append({"case": case, "warning": named[0][:240], "launch_with_rebuild_s": seconds,
+                         "nvcc_log_lines": len(native.build_logs.get("bincount", "").splitlines()), "max_abs_err": 0})
+        finally:
+            native.BUILD_DIR = saved
+            native._LIBS.pop("bincount", None)
+            bincount._entry.cache_clear()
+    return rows
+
+
+def phase_imagenet_val_compile_cache(dev) -> dict:
+    """The compile cache (``ops/compile_cache.py``) over ImageNet-1k val's
+    collection at full width, in child processes that share a store
+    (``COMPILE_CACHE_RUNS``): a cold run (the captures it makes, the store's
+    writes, its saved shape profile), the same cold run with the store off
+    (its first updates against the cold run's), a warm one (every recorded key built
+    at the group resolution, before the executor's first call, which
+    replays), one warmed from the saved manifest with the store off (its
+    first update replays), two over a poisoned store (one flipped byte,
+    then a stale toolchain: each warns, misses, finishes), and one with
+    background captures (cold keys served eagerly, captured on the worker,
+    then replayed; every ``bincount`` launch accounted for by thread; the
+    live thread's longest wait on the device's lock beside a capture).
+    Every child's states and values bit-equal to ``executor=False`` here.
+    Then the damaged-library rebuilds (:func:`_library_rebuilds`)."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import bincount
+    from torchmetrics_tpu_torch.testing import corrupt_cache_entry, stale_cache_version
+
+    spec = _imagenet_indexed(dev)
+    ref = spec["collection"](executor=False)
+    per_update = []
+    for batch in spec["batches"]():
+        before = bincount.launches
+        ref.update(*batch)
+        per_update.append(bincount.launches - before)
+    want_state = {k: {f: t.cpu() for f, t in v.items()} for k, v in _leader_state(ref).items()}
+    want_result = {k: v.cpu() for k, v in ref.compute().items()}
+    torch.cuda.synchronize()
+    dirs = {"store": _runtime_dir("compile_cache_store"), "bg": _runtime_dir("compile_cache_bg"),
+            "off": _runtime_dir("compile_cache_off")}
+    out_dir = _runtime_dir("compile_cache_runs")
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs, t_phase = {}, time.perf_counter()
+    for mode, store, flags in COMPILE_CACHE_RUNS:
+        if mode == "poisoned_flip":
+            corrupt_cache_entry(str(dirs["store"]), mode="flip", which="all")
+        elif mode == "poisoned_stale":
+            stale_cache_version(str(dirs["store"]), which="all")
+        env = dict(os.environ, TORCHMETRICS_TPU_CACHE_DIR=str(dirs[store]), TORCHMETRICS_TPU_BG_COMPILE="0")
+        env.update(flags)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke._compile_cache_child({mode!r}, {str(out_dir)!r}, {str(dev)!r})"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=COMPILE_CACHE["child_timeout_s"],
+        )
+        _check(proc.returncode == 0, f"imagenet_val_compile_cache: the {mode} child failed:\n{proc.stderr[-3000:]}")
+        with open(os.path.join(out_dir, f"{mode}.json")) as fh:
+            run = json.load(fh)
+        run["process_s"] = time.perf_counter() - t0
+        saved = torch.load(os.path.join(out_dir, f"{mode}.pt"))
+        for leader, fields in want_state.items():
+            for f, v in fields.items():
+                _check(torch.equal(saved["state"][leader][f], v), f"imagenet_val_compile_cache: {mode}: {leader}.{f} differs from executor=False")
+        _same_result(f"imagenet_val_compile_cache {mode}", saved["result"], want_result)
+        runs[mode] = run
+    cold, warm, manifest, bg = runs["cold"], runs["warm"], runs["manifest"], runs["background"]
+    _check(cold["stats"]["compiles"] >= 1 and cold["stats"]["disk_hits"] == 0 and cold["stats"]["disk_stores"] == cold["stats"]["compiles"],
+           f"imagenet_val_compile_cache: cold run: {cold['stats']}")
+    _check(warm["disk_hits_before_first_executor_call"] >= 1 and warm["rows"][1]["replayed"] and warm["stats"]["compiles"] == 0,
+           f"imagenet_val_compile_cache: the warm run's first executor call did not replay a stored key: {warm['stats']}")
+    _check(manifest["warmup"]["warmed"] >= 1 and manifest["rows"][0]["replayed"] and manifest["stats"]["disk_hits"] == 0,
+           f"imagenet_val_compile_cache: the manifest run's first update did not replay: {manifest['warmup']} {manifest['stats']}")
+    for mode, text in (("poisoned_flip", "damaged/stale entry"), ("poisoned_stale", "stale toolchain")):
+        run = runs[mode]
+        _check(any(text in w for w in run["warnings"]) and run["stats"]["disk_hits"] == 0 and run["stats"]["compiles"] >= 1,
+               f"imagenet_val_compile_cache: {mode} did not warn and miss: {run['warnings']} {run['stats']}")
+    stats = bg["stats"]
+    _check(stats["eager_misses"] >= 1 and stats["background_compiles"] >= 1 and stats["cache_hits"] >= 1,
+           f"imagenet_val_compile_cache: background run: {stats}")
+    # every launch accounted for: each update the main thread served eagerly
+    # launches what executor=False's did, each replay its key's recorded
+    # launches (and a probe one eager update more); the worker's launches
+    # are each background capture's eager run, one replay's worth
+    for i, row in enumerate(bg["rows"]):
+        _check(not row["replayed"] or row["per_replay"] is not None, f"imagenet_val_compile_cache: background update {i} replayed no key")
+        want = (row["per_replay"] or 0) + row["probes"] * per_update[i] if row["replayed"] else per_update[i]
+        _check(row["launched"] == want, f"imagenet_val_compile_cache: background update {i} launched {row['launched']}, {want} expected ({row})")
+    worker = bg["total_launches"] - bg["main_thread_launches"]
+    _check(worker == sum(bg["entries_per_replay"]) and bg["thread_launches"] == bg["total_launches"],
+           f"imagenet_val_compile_cache: the worker launched {worker}, its captures' eager runs {bg['entries_per_replay']}")
+    _check(bg["lock_wave"]["background_compiles"] == 1 and bg["lock_wave"]["replays"] >= COMPILE_CACHE["lock_wave_updates"] - 8,
+           f"imagenet_val_compile_cache: the lock wave: {bg['lock_wave']}")
+    library = _library_rebuilds(dev)
+
+    def summary(run: dict) -> dict:
+        rows = run["rows"]
+        steady = [r for r in rows[2:-1] if r["replayed"]]
+        return {
+            "process_s": run["process_s"], "first_update_ms": rows[0]["wall_ms"], "first_executor_update_ms": rows[1]["wall_ms"],
+            "first_executor_update_replayed": rows[1]["replayed"], "update_ms_p50": statistics.median(r["wall_ms"] for r in rows),
+            "replay_host_us_p50": statistics.median(r["host_us"] for r in steady) if steady else None,
+            "last_update_ms": rows[-1]["wall_ms"], "replays": sum(r["replayed"] for r in rows),
+            **{k: run["stats"][k] for k in ("compiles", "cache_hits", "disk_hits", "disk_stores", "disk_evictions", "eager_misses",
+                                           "background_compiles", "compile_us_total", "probes", "padded_calls")},
+            "eager_calls": run["eager"]["calls"], "warnings": run["warnings"],
+        }
+
+    off = runs["cold_store_off"]
+    _check(off["stats"]["disk_stores"] == 0 and off["stats"]["disk_hits"] == 0 and off["stats"]["compiles"] == cold["stats"]["compiles"],
+           f"imagenet_val_compile_cache: the cold run with the store off: {off['stats']}")
+
+    def first(run: dict, n: int) -> float:
+        return sum(r["wall_ms"] for r in run["rows"][:n])
+
+    out = {
+        "phase": "imagenet_val_compile_cache", "updates": len(per_update), "classes": IMAGENET["num_classes"],
+        "runs": {mode: summary(run) for mode, run in runs.items()},
+        # the store at its default (on) against off, in one cold process
+        # each over the same batches: the first updates' synchronised wall ms
+        "store_on_vs_off": {
+            f"first_{n}_updates_ms": {"on": first(cold, n), "off": first(off, n)} for n in (1, 2, 5, len(per_update))
+        },
+        "warm_disk_hits_before_first_executor_call": warm["disk_hits_before_first_executor_call"],
+        "manifest_warmup": manifest["warmup"], "manifest_warmup_s": manifest["warmup_s"],
+        "background": {
+            "launches_total": bg["total_launches"], "launches_main_thread": bg["main_thread_launches"],
+            "launches_worker": worker, "entries_per_replay": bg["entries_per_replay"],
+            "lock_wait_max_us_main_pass": bg["lock_wait_main_us"], "lock_wave": bg["lock_wave"], "worker": bg["worker"],
+        },
+        "library": library, "children_s": time.perf_counter() - t_phase,
+        "bincount_launches": sum(run["total_launches"] for run in runs.values()),
+    }
+    return _emit(out)
+
+
 def phase_profile(name: str, dev, steps: int = 5) -> dict:
     """Where one update's time goes: ``torch.profiler`` over ``steps``
     updates of pre-generated batches (after one warm-up update outside the
@@ -10475,6 +10799,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # the compile cache (ops/compile_cache.py): this process's store is a
+    # fresh directory, and off. On, a second instance of an owner builds the
+    # keys the first stored, each with an eager run on zero inputs: real
+    # launches that the phases' exact launch counts do not hold. Its own
+    # phase runs the store at its default in child processes, and times a
+    # cold process with it on against one with it off
+    os.environ["TORCHMETRICS_TPU_CACHE_DIR"] = str(_runtime_dir("compile_cache_main"))
+    os.environ["TORCHMETRICS_TPU_COMPILE_AHEAD"] = "0"
+    os.environ.pop("TORCHMETRICS_TPU_BG_COMPILE", None)
     from torchmetrics_tpu_torch.native import build as build_text_library
     from torchmetrics_tpu_torch.native import build_pesq as build_pesq_library
     from torchmetrics_tpu_torch.ops import native
@@ -10583,6 +10916,10 @@ def main() -> int:
     # policies, the audits, the elastic restore and the exports (after
     # GLDv2's passes, whose 49 GB blocks it would otherwise fragment)
     deferred_step = phase_imagenet_val_deferred_step(dev)
+    # the compile cache: cold, warm, manifest-warmed, poisoned and
+    # background processes over the ImageNet collection, and damaged
+    # kernel libraries rebuilt
+    compile_cached = phase_imagenet_val_compile_cache(dev)
     if PROFILE:
         for name in WORKLOADS:
             # uvg and the rest of classification are profiled inside their phases
@@ -10621,7 +10958,7 @@ def main() -> int:
             + femnist["bincount_launches"] + femnist_guarded["bincount_launches"]
             + criteo["bincount_launches"] + femnist_windowed["bincount_launches"]
             + femnist_deferred["bincount_launches"] + gldv2["bincount_launches"] + deferred["bincount_launches"]
-            + deferred_step["bincount_launches"]
+            + deferred_step["bincount_launches"] + compile_cached["bincount_launches"]
             + audited["bincount_launches"] + gldv2_audited["bincount_launches"] + femnist_fleet["bincount_launches"]
             + sum(r["bincount_launches"] for r in executor),
             "max_abs_err": max(r["max_abs_err"] for r in rows),

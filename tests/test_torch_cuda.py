@@ -28,6 +28,16 @@ from torchmetrics_tpu_torch.ops import bincount, kernels
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _isolated_compile_cache(monkeypatch, tmp_path):
+    """This file runs without the suite's conftest: as there, the compile
+    cache's store is off, and it points at a fresh directory of the test's
+    own (the store's tests turn it on)."""
+    monkeypatch.setenv("TORCHMETRICS_TPU_COMPILE_AHEAD", "0")
+    monkeypatch.setenv("TORCHMETRICS_TPU_CACHE_DIR", str(tmp_path / "tm_cache"))
+    monkeypatch.delenv("TORCHMETRICS_TPU_BG_COMPILE", raising=False)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -2881,6 +2891,40 @@ def test_a_key_slower_than_its_eager_call_runs_eagerly(cuda_device):
     assert stats["eager"]["keys"] == 0 and stats["eager"]["calls"] == 2, stats["eager"]  # its two eager trials
 
 
+def test_a_key_captured_after_every_other_key_went_eager(cuda_device, monkeypatch):
+    """Each graph holds the graph pool it was captured into, and a key judged
+    eager frees its graphs; a capture into a pool that nothing holds fails
+    the allocator's assertion. The dispatcher holds its pool itself, so
+    here, with every verdict eager, the collection's 64-row key goes eager
+    and the ragged last batch's padded key is still captured and served:
+    the executor is never disabled, and the values equal executor=False."""
+    from torchmetrics_tpu_torch.ops import executor as ex
+
+    monkeypatch.setattr(ex, "_KEEP_SHARE", -1.0)  # no replay is ever fast enough
+    c = 10
+    members = lambda executor: {  # noqa: E731
+        "accuracy": MulticlassAccuracy(num_classes=c, validate_args=False, executor=executor),
+        "confmat": MulticlassConfusionMatrix(num_classes=c, validate_args=False, executor=executor),
+    }
+    on, off = tm.MetricCollection(members(True), executor=True), tm.MetricCollection(members(False), executor=False)
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    for n in [64] * 8 + [50]:
+        x = torch.randn((n, c), generator=g, device=cuda_device)
+        t = torch.randint(0, c, (n,), generator=g, device=cuda_device)
+        on.update(x, t)
+        off.update(x, t)
+    torch.cuda.synchronize()
+    status = on.executor_status
+    stats = status["stats"]
+    assert status["fallback_reason"] is None, status["fallback_reason"]
+    assert stats["eager"]["keys"] == 1 and stats["compiles"] == 2 and stats["calls"] == 4, stats
+    entries = list(on._executor_obj._dispatcher.entries.values())
+    assert [e.eager_reason is None for e in entries] == [False, True] and len(entries[1].graphs) == 2
+    got, want = on.compute(), off.compute()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_a_replay_beside_an_in_flight_read_is_not_judged(cuda_device):
     """A key's timed replay that starts while an asynchronous read is in
     flight (its worker shares the host) is not judged: no eager trial
@@ -3058,3 +3102,253 @@ def test_deferred_reduce_async_beside_a_running_step_loop(cuda_device):
     got = future.result(60.0)
     for k, v in want.items():
         assert np.array_equal(np.asarray(got[k]), np.asarray(v)), k
+
+
+# ---------------------------------------------------------- the compile cache
+
+
+def _bincount_per_replay(entry):
+    return sum(n for m, attr, n in entry.launches if m is bincount and attr == "launches")
+
+
+def test_a_background_capture_beside_eager_launches_keeps_every_count(cuda_device):
+    """A warmup captures its ladder on a background thread while the main
+    thread launches ``bincount`` eagerly the whole time: the process count is
+    every launch made (the main thread's and the warmup's eager runs, none
+    lost to a capture), and each captured key records only its own launches,
+    one ``bincount`` a replay (two for a padded key: the row-0 correction)."""
+    from torchmetrics_tpu_torch.ops import launch_counts
+
+    warm, batches = _executor_workload("imagenet", cuda_device, True)
+    warm.update(*batches[0])  # resolves the compute groups
+    x = torch.randint(0, 1000, (1 << 16,), device=cuda_device, dtype=torch.int32)
+    torch.cuda.synchronize()
+    bincount.launches = 0
+    mine = launch_counts.thread_counts().get((bincount.__name__, "launches"), 0)
+    handle = warm.warmup(batches[1], ladder=True, background=True)
+    made = 0
+    while not handle.done or made < 50:
+        bincount._wbincount_cuda(x, None, 1000)
+        made += 1
+    report = handle.wait(600.0)
+    torch.cuda.synchronize()
+    assert report is not None and report["warmed"] >= 3 and not report["skipped"], report
+    entries = list(warm._get_executor().dispatcher().entries.items())
+    assert entries
+    for key, entry in entries:
+        assert _bincount_per_replay(entry) == (1 if key[4] is None else 2), (key[4], entry.launches)
+    warmup_eager = sum(_bincount_per_replay(e) for _, e in entries)
+    assert launch_counts.thread_counts()[(bincount.__name__, "launches")] - mine == made
+    assert bincount.launches == made + warmup_eager
+
+
+def test_a_cold_key_is_captured_on_the_worker_and_swapped_in(cuda_device, monkeypatch, tmp_path):
+    from torchmetrics_tpu_torch.ops import compile_cache
+
+    monkeypatch.setenv("TORCHMETRICS_TPU_COMPILE_AHEAD", "1")
+    on, batches = _executor_workload("imagenet", cuda_device, True)
+    off, _ = _executor_workload("imagenet", cuda_device, False)
+    on.set_background_compile(True)
+    on.update(*batches[0])
+    off.update(*batches[0])
+    on.update(*batches[1])  # cold: served eagerly, captured on the worker
+    off.update(*batches[1])
+    stats = on.executor_status["stats"]
+    assert stats["eager_misses"] == 1 and stats["calls"] == 0 and stats["background_enabled"]
+    assert compile_cache.drain_worker(300)
+    for batch in batches[2:-1]:
+        on.update(*batch)
+        off.update(*batch)
+    torch.cuda.synchronize()
+    stats = on.executor_status["stats"]
+    assert stats["background_compiles"] == 1 and stats["cache_hits"] == len(batches) - 3 and stats["captured"], stats
+    for cg in off.compute_groups.values():
+        for k in off[cg[0]]._defaults:
+            assert torch.equal(on[cg[0]]._state[k], off[cg[0]]._state[k]), (cg[0], k)
+
+
+def _background_keys_beside_reused_memory(device):
+    """A binned PR curve with background captures on, its verdict off: a
+    padded update key (sizes that vary pad to one rung) and a forward key,
+    each captured on the worker over a copy of the metric; then a
+    collection, the freed blocks of the device's pool refilled with junk,
+    and more replays. Returns the metric, its ``executor=False`` twin and
+    the forward values of both."""
+    import gc
+
+    from torchmetrics_tpu_torch.classification import BinaryPrecisionRecallCurve
+    from torchmetrics_tpu_torch.ops import compile_cache
+
+    on = BinaryPrecisionRecallCurve(thresholds=100, validate_args=False, device=device, executor=True)
+    off = BinaryPrecisionRecallCurve(thresholds=100, validate_args=False, device=device, executor=False)
+    on._get_executor().dispatcher().judging = False
+    on.set_background_compile(True)
+    g = torch.Generator(device=device).manual_seed(11)
+    sizes = [700, 900, 600, 800, 750, 650, 850, 620, 910, 700]
+
+    def batch(n):
+        return torch.rand((n,), generator=g, device=device), torch.randint(0, 2, (n,), generator=g, device=device)
+
+    values = []
+    for i, n in enumerate(sizes):
+        b = batch(n)
+        if i % 2:
+            values.append((on(*b), off(*b)))
+        else:
+            on.update(*b)
+            off.update(*b)
+        if i < 4:
+            assert compile_cache.drain_worker(300)
+            gc.collect()
+            # refill the pool's freed blocks (a dead copy's defaults and thresholds among them)
+            junk = [torch.full((k,), 7, dtype=dt, device=device) for k in (100, 101, 400) for dt in (torch.int64, torch.float32)
+                    for _ in range(200)]
+            del junk
+    return on, off, values
+
+
+def test_background_keys_read_no_freed_memory(cuda_device, monkeypatch):
+    """A key captured on the worker reads the worker's copy of its owner
+    (its defaults, its sorted thresholds): the key keeps that copy, so a
+    collection and new allocations that reuse freed blocks change no
+    replay. States and forward values bit-equal to ``executor=False``."""
+    monkeypatch.setenv("TORCHMETRICS_TPU_COMPILE_AHEAD", "1")
+    on, off, values = _background_keys_beside_reused_memory(cuda_device)
+    torch.cuda.synchronize()
+    stats = on.executor_status["stats"]
+    assert stats["background_compiles"] >= 2 and stats["cache_hits"] >= 4 and stats["captured"], stats
+    entries = on._get_executor().dispatcher().entries
+    assert {key[0] for key in entries} == {"u", "f"} and all(e.owner_copy is not None for e in entries.values())
+    assert any(key[-2] is not None for key in entries), "no padded key"
+    for k in off._defaults:
+        assert torch.equal(on._state[k], off._state[k]), k
+    for got, want in values:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+_CARD_PROCESS = r"""
+import json, sys, time
+import torch
+import torchmetrics_tpu_torch as tm
+from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix
+from torchmetrics_tpu_torch.ops import compile_cache
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(3)
+batches = [(torch.randn((256, 100), generator=g, device=dev), torch.randint(0, 100, (256,), generator=g, device=dev))
+           for _ in range(4)]
+coll = tm.MetricCollection({"acc": MulticlassAccuracy(num_classes=100, validate_args=False),
+                            "cm": MulticlassConfusionMatrix(num_classes=100, validate_args=False)})
+coll.update(*batches[0])
+hits_before_first_call = coll.executor_status["stats"]["disk_hits"]
+coll.update(*batches[1])
+first = dict(coll.executor_status["stats"])
+for b in batches[2:]:
+    coll.update(*b)
+compile_cache.drain_worker(120)
+s = coll.executor_status["stats"]
+print(json.dumps({"hits_before_first_call": hits_before_first_call, "first_compiles": first["compiles"],
+                  "first_cache_hits": first["cache_hits"], "disk_hits": s["disk_hits"], "disk_stores": s["disk_stores"],
+                  "confmat": coll["cm"].confmat.cpu().tolist(), "acc": float(coll.compute()["acc"])}))
+"""
+
+
+def test_a_warm_process_builds_its_keys_from_the_store(cuda_device, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, TORCHMETRICS_TPU_COMPILE_AHEAD="1", TORCHMETRICS_TPU_CACHE_DIR=str(tmp_path / "store"),
+               PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    runs = []
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", _CARD_PROCESS], capture_output=True, text=True, timeout=600, env=env)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    cold, warm = runs
+    assert cold["hits_before_first_call"] == 0 and cold["first_compiles"] == 1 and cold["disk_stores"] == 1
+    assert warm["hits_before_first_call"] == 1 and warm["first_compiles"] == 0 and warm["first_cache_hits"] == 1
+    assert warm["confmat"] == cold["confmat"] and warm["acc"] == cold["acc"]
+
+
+@pytest.mark.parametrize("mode", ["flip", "other_toolchain"])
+def test_a_damaged_cuda_library_is_rebuilt(cuda_device, tmp_path, mode):
+    """A copy of the built ``bincount`` library with one flipped byte, or a
+    sidecar naming another toolchain: the next launch warns (naming the
+    file), rebuilds it with ``nvcc`` and agrees with the plain body."""
+    import json
+    import shutil
+    import warnings
+
+    from torchmetrics_tpu_torch.ops import native
+
+    built = native.build(["bincount"])["bincount"]
+    saved = native.BUILD_DIR
+    try:
+        native.BUILD_DIR = tmp_path
+        path = native.library_path("bincount")
+        shutil.copy(built, path)
+        shutil.copy(built.with_name(built.name + ".json"), path.with_name(path.name + ".json"))
+        if mode == "flip":
+            data = bytearray(path.read_bytes())
+            data[len(data) // 2] ^= 0xFF
+            path.write_bytes(bytes(data))
+        else:
+            sidecar = path.with_name(path.name + ".json")
+            record = json.loads(sidecar.read_text())
+            record["toolchain"] = "compiler=nvcc 0.0|flags=|target=sm_00"
+            sidecar.write_text(json.dumps(record))
+        native._LIBS.pop("bincount", None)
+        bincount._entry.cache_clear()
+        x = torch.randint(-5, 1005, (1 << 16,), device=cuda_device, dtype=torch.int32)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = bincount._wbincount_cuda(x, None, 1000)
+        torch.cuda.synchronize()
+        assert any(str(path) in str(w.message) and "damaged or stale" in str(w.message) for w in caught), caught
+        assert torch.equal(got, bincount._wbincount_reference(x, None, 1000))
+        assert json.loads(path.with_name(path.name + ".json").read_text())["length"] == path.stat().st_size
+    finally:
+        native.BUILD_DIR = saved
+        native._LIBS.pop("bincount", None)
+        bincount._entry.cache_clear()
+
+
+def test_a_failed_capture_leaves_the_default_generator_usable(cuda_device):
+    """A capture that fails ends without the default CUDA generator's
+    capture epilogue. The executor hands the generator a fresh state of the
+    same seed and offset: later draws from it work and give what they would
+    have, and a later capture replays."""
+
+    class ReadsHost(tm.Metric):
+        full_state_update = False
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + float(x.sum())
+
+        def compute(self):
+            return self.total
+
+    before, batches = _executor_workload("imagenet", cuda_device, True)
+    for batch in batches[:3]:
+        before.update(*batch)  # a graph captured before the failure
+    torch.manual_seed(11)
+    want = torch.rand(8, device=cuda_device)
+    torch.manual_seed(11)
+    m = ReadsHost(executor=True)
+    m.update(torch.ones(16, device=cuda_device))
+    assert m.executor_status["fallback_reason"] is not None and "capture failed" in m.executor_status["fallback_reason"]
+    assert torch.equal(torch.rand(8, device=cuda_device), want)
+    after, _ = _executor_workload("imagenet", cuda_device, True)
+    for batch in batches[:4]:
+        after.update(*batch)
+    before.update(*batches[3])
+    torch.cuda.synchronize()
+    assert after.executor_status["stats"]["cache_hits"] >= 2
+    assert before.executor_status["stats"]["cache_hits"] >= 2

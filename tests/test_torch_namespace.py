@@ -2,10 +2,10 @@
 
 Every ``__all__`` of the JAX package's root, ``utils``, ``ops``, ``io``,
 ``testing``, ``parallel`` and ``fleet`` is a subset of the port module's,
-less a named list: the names left out for good (no ``shard_map`` and no
-named axes in the port; the ingest router records its retire event
-itself) and the names of the executor's last part (the compile cache;
-ROADMAP Queue A item 5).
+less the names left out for good (no ``shard_map`` and no named axes in the
+port; the ingest router records its retire event itself). The compile
+cache's names live where the JAX package defines them: ``ops.compile_cache``
+and ``testing.faults``.
 """
 from __future__ import annotations
 
@@ -18,22 +18,12 @@ MODULES = ("", ".utils", ".ops", ".io", ".testing", ".parallel", ".fleet")
 #: left out for good (ROADMAP Queue C)
 LEFT_OUT = {"shard_map_compat", "in_named_axis_context", "notify_dispatched"}
 
-#: the compile cache's (ROADMAP Queue A item 5)
-LATER_ITEMS = {
-    "CompileWorker",
-    "drain_worker",
-    "save_shape_manifest",
-    "load_shape_manifest",
-    "corrupt_cache_entry",
-    "stale_cache_version",
-}
-
 
 @pytest.mark.parametrize("module", MODULES, ids=[m or "root" for m in MODULES])
 def test_jax_names_are_exported_by_the_port(module):
     ref = importlib.import_module(f"torchmetrics_tpu{module}")
     port = importlib.import_module(f"torchmetrics_tpu_torch{module}")
-    missing = set(ref.__all__) - set(port.__all__) - LEFT_OUT - LATER_ITEMS
+    missing = set(ref.__all__) - set(port.__all__) - LEFT_OUT
     assert not missing
     assert all(hasattr(port, name) for name in port.__all__)
 
@@ -42,7 +32,7 @@ def test_jax_names_are_exported_by_the_port(module):
 def test_the_named_list_is_still_missing(module):
     """A name of the list that the port exports must leave the list."""
     port = importlib.import_module(f"torchmetrics_tpu_torch{module}")
-    assert not (set(port.__all__) & (LEFT_OUT | LATER_ITEMS))
+    assert not (set(port.__all__) & LEFT_OUT)
 
 
 @pytest.mark.parametrize(
@@ -117,3 +107,28 @@ def test_deferred_step_and_recovery_names_are_exported(module, names, home):
     for name in names:
         assert name in port.__all__ and hasattr(port, name), name
         assert hasattr(ref, name), name
+
+
+@pytest.mark.parametrize(
+    "module,names",
+    [
+        ("ops.compile_cache", ("CompileWorker", "get_worker", "drain_worker", "save_shape_manifest", "load_shape_manifest",
+                               "spec_of_call", "dummy_from_spec", "prune_store", "CacheEntryInvalid", "source_hash",
+                               "toolchain_fingerprint", "backend_fingerprint", "entry_key", "entry_path",
+                               "compile_ahead_enabled", "background_compile_default", "cache_dir", "cache_max_bytes")),
+        ("testing.faults", ("corrupt_cache_entry", "stale_cache_version", "torn_write")),
+    ],
+)
+def test_compile_cache_names_are_where_jax_defines_them(module, names):
+    """The compile cache's names, defined by the port's module of the JAX
+    package's name (``ops.compile_cache``, ``testing.faults``); the spec
+    helpers stay importable from ``ops.executor`` too."""
+    port = importlib.import_module(f"torchmetrics_tpu_torch.{module}")
+    ref = importlib.import_module(f"torchmetrics_tpu.{module}")
+    for name in names:
+        assert hasattr(port, name) and hasattr(ref, name), name
+    testing = importlib.import_module("torchmetrics_tpu_torch.testing")
+    assert {"corrupt_cache_entry", "stale_cache_version"} <= set(testing.__all__)
+    from torchmetrics_tpu_torch.ops import executor
+
+    assert executor.spec_of_call is importlib.import_module("torchmetrics_tpu_torch.ops.compile_cache").spec_of_call

@@ -320,7 +320,10 @@ def measure_executor(chip_smoke, dev, workload: str, calls: int, repeats: int, j
 
     def counters():
         launches = entry.launches
-        if launches and isinstance(launches[0], tuple):
+        if launches and isinstance(launches[0], tuple) and hasattr(ex_mod, "launch_counts"):
+            for m, attr, n in launches:
+                ex_mod.launch_counts.add(m, attr, n)
+        elif launches and isinstance(launches[0], tuple):
             for m, attr, n in launches:
                 setattr(m, attr, getattr(m, attr) + n)
         else:

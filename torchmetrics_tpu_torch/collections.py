@@ -17,6 +17,7 @@ update, or the whole forward, as one replay.
 """
 from __future__ import annotations
 
+import os
 from contextlib import nullcontext
 from copy import deepcopy
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
@@ -263,6 +264,14 @@ class MetricCollection:
             self._executor_obj = CollectionExecutor(self)
         return self._executor_obj
 
+    def _consult_store(self) -> None:
+        """Once the compute groups are known, the executor reads the
+        collection's stored profile and builds its keys before its first
+        call (``ops/compile_cache.py``)."""
+        ex = self._get_executor()
+        if ex is not None and ex._leader_executors() is not None:
+            ex.consult_store()
+
     def _resolve_groups_for_warmup(self, args: tuple, kwargs: dict) -> None:
         if args and self._enable_compute_groups and not self._groups_checked:
             self.resolve_compute_groups(*args, **kwargs)
@@ -283,11 +292,14 @@ class MetricCollection:
             return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
         return ex.warmup(specs, forward=forward, ladder=ladder, background=background)
 
-    def warmup_from_manifest(self, manifest: Dict[str, Any], background: bool = False) -> Any:
+    def warmup_from_manifest(self, manifest: Any, background: bool = False) -> Any:
         """Build exactly the call shapes a :meth:`shape_profile` manifest
-        recorded (resolving the groups from its first spec)."""
-        from torchmetrics_tpu_torch.ops.executor import dummy_from_spec
+        recorded, the dict or a path :meth:`save_shape_profile` wrote
+        (resolving the groups from its first spec)."""
+        from torchmetrics_tpu_torch.ops.compile_cache import dummy_from_spec, load_shape_manifest
 
+        if isinstance(manifest, (str, os.PathLike)):
+            manifest = load_shape_manifest(os.fspath(manifest))
         specs = manifest.get("specs") or []
         if specs:
             self._resolve_groups_for_warmup(*dummy_from_spec(specs[0], self._device))
@@ -305,6 +317,22 @@ class MetricCollection:
 
             return {"profile_version": PROFILE_VERSION, "owner": type(self).__name__, "specs": []}
         return ex.shape_profile()
+
+    def save_shape_profile(self, path: str) -> str:
+        """Atomically write :meth:`shape_profile` as JSON at ``path``."""
+        from torchmetrics_tpu_torch.ops.compile_cache import save_shape_manifest
+
+        return save_shape_manifest(path, self.shape_profile())
+
+    def set_background_compile(self, enabled: Optional[bool]) -> None:
+        """Override stall-free background captures for the collection's
+        executor and every member's (see :meth:`Metric.set_background_compile`;
+        ``None`` restores the environment's default)."""
+        ex = self._get_executor()
+        if ex is not None:
+            ex.set_background_compile(enabled)
+        for m in self._modules.values():
+            m.set_background_compile(enabled)
 
     # ------------------------------------------------------ update observers
     def add_update_observer(self, callback: Any) -> Any:
@@ -381,6 +409,7 @@ class MetricCollection:
             self._merge_compute_groups()
             self._compute_groups_create_state_ref()
             self._groups_checked = True
+            self._consult_store()
         self._notify_update()
 
     def _merge_compute_groups(self, trial_states: Optional[Dict[str, Dict[str, Any]]] = None) -> None:

@@ -1191,9 +1191,10 @@ class Metric:
             return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
         return ex.warmup(batch_specs, forward=forward, ladder=ladder, background=background)
 
-    def warmup_from_manifest(self, manifest: Dict[str, Any], background: bool = False) -> Any:
+    def warmup_from_manifest(self, manifest: Any, background: bool = False) -> Any:
         """Build exactly the call shapes a :meth:`shape_profile` manifest
-        recorded (the dict; manifests on disk come with the compile cache)."""
+        recorded: the dict, or a path :meth:`save_shape_profile` wrote (the
+        JAX package's manifests load too)."""
         ex = self._get_executor()
         if ex is None:
             return {"warmed": 0, "already_warm": 0, "skipped": ["executor disabled"], "seconds": 0.0}
@@ -1208,6 +1209,22 @@ class Metric:
 
             return {"profile_version": PROFILE_VERSION, "owner": type(self).__name__, "specs": []}
         return ex.shape_profile()
+
+    def save_shape_profile(self, path: str) -> str:
+        """Atomically write :meth:`shape_profile` as JSON at ``path`` (for
+        :meth:`warmup_from_manifest` in a later process)."""
+        from torchmetrics_tpu_torch.ops.compile_cache import save_shape_manifest
+
+        return save_shape_manifest(path, self.shape_profile())
+
+    def set_background_compile(self, enabled: Optional[bool]) -> None:
+        """Override stall-free background captures for this instance: a cold
+        executor key's call is served by the eager update while its capture
+        runs on the compile worker, and a later call finds it swapped in.
+        ``None`` restores the ``TORCHMETRICS_TPU_BG_COMPILE`` default."""
+        ex = self._get_executor()
+        if ex is not None:
+            ex.set_background_compile(enabled)
 
     # ----------------------------------------------------- asynchronous reads
     #

@@ -11,11 +11,15 @@ and PESQ's alignment and perceptual model are sequential float64 code.
 
 Each source is compiled on its own with ``g++ -O3 -shared -fPIC`` at first
 use into the package's gitignored ``_build/`` directory, under a name of its
-own hashed on that source (``libtm_text_native-<hash>.so``,
-``libtm_pesq-<hash>.so``), so an edited source rebuilds and an unchanged one
-is reused, and neither library's build touches the other's. A build goes to a
+own hashed on that source and the toolchain (``g++ --version`` and
+:data:`CXX_FLAGS`: ``libtm_text_native-<hash>.so``, ``libtm_pesq-<hash>.so``),
+so an edited source or another compiler rebuilds and an unchanged build is
+reused, and neither library's build touches the other's. A build goes to a
 process-unique temporary file that is renamed over the final name, so
-concurrent processes never see a half-written library. Where the text
+concurrent processes never see a half-written library, and leaves a sidecar
+beside it: a library whose sidecar does not vouch for it (truncated,
+zeroed, flipped, replaced) is warned about, deleted and rebuilt
+(``native/libstore.py``). Where the text
 library cannot be built, every text entry point falls back to its
 pure-Python body with a ``RuntimeWarning`` (:func:`native_available` says
 which one runs). PESQ has no pure-Python body: :func:`pesq_batch` returns
@@ -25,7 +29,6 @@ None and the metric raises with the compiler's output
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
 import threading
@@ -36,9 +39,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from torchmetrics_tpu_torch.native import libstore
+
 SOURCE = Path(__file__).resolve().parent / "edit_distance.cpp"
 PESQ_SOURCE = Path(__file__).resolve().parent / "pesq.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 _SYMBOLS = ("tm_levenshtein", "tm_levenshtein_batch", "tm_lcs", "tm_lcs_batch", "tm_ngram_hits_batch")
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -49,39 +56,48 @@ _PESQ_TRIED = False
 _PESQ_ERROR: Optional[str] = None
 
 
+def toolchain() -> str:
+    """What a host library's bytes depend on besides its source: the
+    ``g++ --version`` output and :data:`CXX_FLAGS`."""
+    return libstore.toolchain(CXX, CXX_FLAGS, "host")
+
+
 def _hashed(source: Path, stem: str) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{stem}-{digest}.so"
+    return BUILD_DIR / libstore.library_name(stem, [source], toolchain())
 
 
 def library_path() -> Path:
     """Where the library built from ``edit_distance.cpp`` lives (hashed on
-    the source)."""
+    the source and the toolchain)."""
     return _hashed(SOURCE, "libtm_text_native")
 
 
 def pesq_library_path() -> Path:
     """Where the library built from ``pesq.cpp`` lives (hashed on that
-    source alone)."""
+    source alone and the toolchain)."""
     return _hashed(PESQ_SOURCE, "libtm_pesq")
 
 
 def _build(source: Path, out: Path) -> Path:
-    """Compile ``source`` into ``out`` unless it is there already. Raises
+    """Compile ``source`` into ``out`` unless a library its sidecar vouches
+    for is there already (a damaged one is discarded first), all under the
+    library's build lock (``libstore.locked``). Raises
     ``subprocess.CalledProcessError`` (with the compiler's output) or
     ``FileNotFoundError`` (no ``g++``)."""
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", str(source), "-o", str(tmp)],
-            check=True, capture_output=True, text=True, timeout=120,
-        )
-        os.replace(tmp, out)  # atomic: a concurrent reader sees all or nothing
-    finally:
-        tmp.unlink(missing_ok=True)
+    tool = toolchain()
+    with libstore.locked(out):
+        if libstore.usable(out, tool):
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        try:
+            subprocess.run(
+                [CXX, *CXX_FLAGS, str(source), "-o", str(tmp)],
+                check=True, capture_output=True, text=True, timeout=120,
+            )
+            os.replace(tmp, out)  # atomic: a concurrent reader sees all or nothing
+            libstore.seal(out, tool)
+        finally:
+            tmp.unlink(missing_ok=True)
     return out
 
 
@@ -122,7 +138,7 @@ def _load() -> Optional[ctypes.CDLL]:
             return _LIB
         _TRIED = True
         try:
-            lib = ctypes.CDLL(str(build()))
+            lib = libstore.open_library(build)
             if not all(hasattr(lib, sym) for sym in _SYMBOLS):
                 raise OSError(f"{library_path().name} lacks one of {_SYMBOLS}")
             _LIB = _declare(lib)
@@ -307,7 +323,7 @@ def _load_pesq() -> Optional[ctypes.CDLL]:
             return _PESQ_LIB
         _PESQ_TRIED = True
         try:
-            lib = ctypes.CDLL(str(build_pesq()))
+            lib = libstore.open_library(build_pesq)
             d, i64 = ctypes.POINTER(ctypes.c_double), ctypes.c_int64
             lib.tm_pesq.restype = ctypes.c_double
             lib.tm_pesq.argtypes = [d, d, i64, i64, ctypes.c_int32]

@@ -22,11 +22,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Optional
 
 import torch
 
-from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.ops import kernels, launch_counts, native
 
 #: launches of the CUDA kernel in this process (a plain counter that a run
 #: resets and reads to show its main path went through the kernel)
@@ -73,7 +74,6 @@ def _wbincount_cuda(x: torch.Tensor, weights: Optional[torch.Tensor], length: in
     ``(K, length)``, or int64 ``(1, length)`` weightless, which the launch
     zeroes before it counts; with ``N == 0`` it returns zeros without a
     launch."""
-    global launches
     if x.dtype != torch.int32 or (weights is not None and weights.dtype != torch.float32):
         got = "none" if weights is None else weights.dtype
         raise TypeError(f"bincount kernel takes int32 x and float32 weights, got {x.dtype} and {got}")
@@ -100,7 +100,7 @@ def _wbincount_cuda(x: torch.Tensor, weights: Optional[torch.Tensor], length: in
     )
     if err != 0:
         raise RuntimeError(f"bincount kernel launch failed with CUDA error {err}")
-    launches += 1
+    launch_counts.add(sys.modules[__name__], "launches", 1)
     return out
 
 

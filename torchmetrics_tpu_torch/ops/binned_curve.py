@@ -27,11 +27,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Optional, Tuple
 
 import torch
 
-from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.ops import kernels, launch_counts, native
 
 #: launches of the CUDA kernel in this process (a plain counter that a run
 #: resets and reads to show its main path went through the kernel)
@@ -214,7 +215,6 @@ def _binned_counts_cuda(
     the kernel reuses live per stream in :data:`_scratch`). A launch
     recorded into a CUDA graph takes buffers of its own from the graph's
     pool instead, zeroed by the graph at every replay."""
-    global launches
     device = preds.get_device()
     if device < 0 or not _fits(preds, target, valid, thr_sorted, order, ignore_index, device):
         _refuse(preds, target, valid, thr_sorted, order, ignore_index)
@@ -250,7 +250,7 @@ def _binned_counts_cuda(
         if kept:
             _scratch.drop(device, stream)
         raise RuntimeError(f"binned_curve kernel launch failed with CUDA error {err}")
-    launches += 1
+    launch_counts.add(sys.modules[__name__], "launches", 1)
     return out
 
 

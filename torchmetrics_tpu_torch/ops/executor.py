@@ -85,6 +85,7 @@ from __future__ import annotations
 
 import gc
 import os
+import sys
 import threading
 import time
 import weakref
@@ -94,14 +95,13 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import torch
 
 from torchmetrics_tpu_torch import obs
+from torchmetrics_tpu_torch.ops import compile_cache, launch_counts
+from torchmetrics_tpu_torch.ops.compile_cache import PROFILE_VERSION, _dtype_name, dummy_from_spec, spec_of_call
 from torchmetrics_tpu_torch.ops.async_read import last_read_done_ns, pending_reads
 from torchmetrics_tpu_torch.utils.exceptions import DispatchStallError, TorchMetricsUserError
-from torchmetrics_tpu_torch.utils.prints import rank_zero_debug
+from torchmetrics_tpu_torch.utils.prints import rank_zero_debug, rank_zero_warn
 
 ENV_FLAG = "TORCHMETRICS_TPU_EXECUTOR"
-
-#: version of :meth:`_ExecutorBase.shape_profile` manifests (the JAX package's)
-PROFILE_VERSION = 1
 
 _BUCKET_FLOOR = 8
 #: batch sizes off the ladder an executor keys exactly (more go up the ladder)
@@ -118,17 +118,6 @@ _VERDICT_DEFERRALS = 8
 _EAGER_TRIALS = 2
 _FUSABLE_REDUCTIONS = ("sum", "max", "min")
 _PROFILE_CAP = 64
-
-#: the kernel launch counters a replay adds to: (module, attribute)
-_LAUNCH_COUNTERS = (
-    ("bincount", "launches"),
-    ("binned_curve", "launches"),
-    ("topk_kernel", "launches"),
-    ("ssim_kernel", "launches"),
-    ("sqrtm_kernel", "launches"),
-    ("sqrtm_kernel", "calls"),
-    ("fingerprint", "launches"),
-)
 
 
 def executor_enabled_default() -> bool:
@@ -363,38 +352,15 @@ def _new_stats() -> Dict[str, Any]:
         "dispatch_failures": 0,   # warm-dispatch failures propagated to the caller
         "recovery_restores": 0,   # live states kept at their pre-call slot after a failure
         "dispatch_retries": 0,    # warm failures re-attempted after the restore (io/retry.py)
-        # the compile-ahead layer's keys (a later port of ops/compile_cache.py)
-        "disk_hits": 0,
-        "disk_stores": 0,
-        "disk_evictions": 0,
-        "background_compiles": 0,
-        "eager_misses": 0,
+        # the compile cache (ops/compile_cache.py)
+        "disk_hits": 0,           # keys built ahead of their first call from the owner's stored profile
+        "disk_stores": 0,         # store writes adding a new key's spec to the owner's entry
+        "disk_evictions": 0,      # stored entries dropped because a spec's capture disagreed with its record
+        "background_compiles": 0, # cold keys captured on the worker and swapped in
+        "eager_misses": 0,        # calls served eagerly while their key's capture ran on the worker
         "compile_us_total": 0.0,  # wall time of fresh keys' dispatches: the eager run and the capture
         "warmup": 0,              # keys built through the warmup API
     }
-
-
-# ---------------------------------------------------------- launch counts
-
-
-_COUNTER_MODULES: List[Tuple[Any, str]] = []
-
-
-def _counter_modules() -> List[Tuple[Any, str]]:
-    if not _COUNTER_MODULES:
-        import importlib
-
-        _COUNTER_MODULES.extend((importlib.import_module(f"torchmetrics_tpu_torch.ops.{mod}"), attr) for mod, attr in _LAUNCH_COUNTERS)
-    return _COUNTER_MODULES
-
-
-def _read_counters(mods: List[Tuple[Any, str]]) -> List[int]:
-    return [int(getattr(m, attr)) for m, attr in mods]
-
-
-def _write_counters(mods: List[Tuple[Any, str]], values: List[int]) -> None:
-    for (m, attr), v in zip(mods, values):
-        setattr(m, attr, v)
 
 
 @contextmanager
@@ -415,15 +381,19 @@ def _active(metrics: Sequence[Any]) -> Iterator[None]:
 class _Entry:
     """One cache key: its body and, on the card, its two graphs, the
     figures of its first (eager) run and of its timed replay, and why it
-    runs eagerly (``eager_reason``) once a replay lost to that run."""
+    runs eagerly (``eager_reason``) once a replay lost to that run. A key
+    captured over a detached copy of its owner keeps that copy
+    (``owner_copy``) for as long as its graphs: they read the copy's
+    tensors (its defaults, a curve's sorted thresholds)."""
 
     __slots__ = (
         "body", "graphs", "inputs", "scalars", "values", "launches", "replays", "timed", "replay_host_us", "replay_pre_us",
-        "trial", "best_eager", "eager_reason", "desc", "timed_at",
+        "trial", "best_eager", "eager_reason", "desc", "timed_at", "owner_copy",
     )
 
     def __init__(self, body: Callable) -> None:
         self.body = body
+        self.owner_copy: Any = None
         self.graphs: List[Any] = []
         self.inputs: List[torch.Tensor] = []
         self.scalars: List[torch.Tensor] = []
@@ -524,6 +494,9 @@ class _Dispatcher:
                 )
         self.lock = _device_lock(device) if self.graphs else None
         self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        #: a graph of one tiny fill, captured into the pool before the first
+        #: key and kept as long as the dispatcher (:meth:`_capture_anchor`)
+        self.anchor: Any = None
         #: the order of a padded call on a fresh key. On the card (True) the
         #: eager update on the batch as given serves it, so the call
         #: launches what the eager path does, and the key's first replay
@@ -541,6 +514,9 @@ class _Dispatcher:
         self.spec: Any = None
         self.cur = 0
         self.slot_ids: frozenset = frozenset()
+        #: the longest a replay waited for the device's lock (ns): a
+        #: capture on another thread holds it
+        self.lock_wait_ns_max = 0
 
     # ------------------------------------------------------------ slots
     def ensure_slots(self, state_tree: Any, flat: Optional[Tuple[List[Any], Any]] = None) -> None:
@@ -597,25 +573,28 @@ class _Dispatcher:
     def _scalar_tensors(self, values: List[int]) -> List[torch.Tensor]:
         return [torch.tensor(v, dtype=torch.int32, device=self.device) for v in values]
 
-    def run_fresh(self, entry: _Entry, call: _Call, metrics: Sequence[Any]) -> Any:
+    def run_fresh(self, entry: _Entry, call: _Call, metrics: Sequence[Any], body: Optional[Callable] = None) -> Any:
         """A fresh key: run its body eagerly on the live slot, on the
         caller's stream as the eager path does (the kernels' libraries are
         built and their attributes set before the capture), then capture
         its graphs on the card. Returns the body's ``(state, value)``, which
         serves the call. A padded call with ``call.eager`` runs it, the
         update on the unpadded batch, in place of the padded body; the
-        graphs are captured at the padded shapes."""
+        graphs are captured at the padded shapes. ``body`` (default the
+        entry's) is what runs and is captured: a background capture runs a
+        detached copy's, whose ``metrics`` it names."""
+        body = entry.body if body is None else body
         state = self.slot_tree(self.cur) if call.state is None else call.state
         with _active(metrics):
             if call.eager is not None:
                 new_state, value = call.eager()
             else:
-                new_state, value = entry.body(state, self._scalar_tensors(call.scalars), *call.padded_leaves())
+                new_state, value = body(state, self._scalar_tensors(call.scalars), *call.padded_leaves())
         self._check_layout(new_state)
         result = (new_state, self._detached(value))
         if self.graphs:
             try:
-                self._capture(entry, call, metrics)
+                self._capture(entry, call, metrics, body)
             except Exception as err:
                 raise _CaptureFailed(err, result) from err
         return result
@@ -634,7 +613,7 @@ class _Dispatcher:
                     " fixed state slots cannot follow it"
                 )
 
-    def _capture(self, entry: _Entry, call: _Call, metrics: Sequence[Any]) -> None:
+    def _capture(self, entry: _Entry, call: _Call, metrics: Sequence[Any], body: Callable) -> None:
         from torchmetrics_tpu_torch.ops.kernels import shared_scope
 
         inputs = [
@@ -642,26 +621,28 @@ class _Dispatcher:
             for x, is_batched in zip(call.leaves, call.batched or (False,) * len(call.leaves))
         ]
         scalars = [torch.zeros((), dtype=torch.int32, device=self.device) for _ in call.scalars]
-        mods = _counter_modules()
         graphs, values = [], []
-        with self.lock:
+        with self.lock, launch_counts.capture_scope() as recorded:
             # no cyclic collection inside a capture: a collected graph's
             # destruction is not permitted while the stream captures. Under
             # the lock, so a capture waiting for another never reads the
-            # other's switch as its own
+            # other's switch as its own. The scope takes this thread's
+            # launches out of the counts (a capture launches nothing), and
+            # only this thread's: another's eager launches meanwhile stay
             collecting = gc.isenabled()
             gc.disable()
-            before = _read_counters(mods)
             try:
                 stream = _capture_stream(self.device)
                 stream.wait_stream(torch.cuda.current_stream(self.device))
+                if self.anchor is None:
+                    self.anchor = self._capture_anchor(stream)
                 for d in (0, 1):
                     graph = torch.cuda.CUDAGraph()
                     with torch.cuda.stream(stream), _active(metrics):
                         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                         try:
                             with shared_scope():
-                                new_state, value = entry.body(self.slot_tree(d), scalars, *inputs)
+                                new_state, value = body(self.slot_tree(d), scalars, *inputs)
                                 self._write_slot(1 - d, new_state)
                         except BaseException:
                             try:
@@ -673,13 +654,28 @@ class _Dispatcher:
                         graph.capture_end()
                     graphs.append(graph)
                     values.append(value)
-                after = _read_counters(mods)
             finally:
-                _write_counters(mods, before)  # a capture launches nothing
                 if collecting:
                     gc.enable()
         entry.graphs, entry.inputs, entry.scalars, entry.values = graphs, inputs, scalars, values
-        entry.launches = [(m, attr, (a - b) // 2) for (m, attr), a, b in zip(mods, after, before) if a != b]
+        entry.launches = [(sys.modules[name], attr, n // 2) for (name, attr), n in sorted(recorded.items())]
+
+    def _capture_anchor(self, stream: Any) -> Any:
+        """The pool's anchor. Every graph holds the pool it was captured into,
+        in the device's and the host's caching allocators, and gives it back
+        when freed; a capture into a pool that no graph holds fails their
+        assertion ``use_count > 0``. A key judged eager frees its graphs, so
+        without the anchor a dispatcher whose keys had all gone eager could
+        capture no later key. It keeps the pool's segments (its 2 MB one and
+        those freed keys leave) until the dispatcher goes."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                torch.zeros(1, device=self.device)
+            finally:
+                graph.capture_end()
+        return graph
 
     def _release_failed_capture(self) -> None:
         """A capture whose end failed (the capture was invalidated) may
@@ -687,13 +683,19 @@ class _Dispatcher:
         capture underway, which defers every later free for good (the
         reserved memory then only grows), and it leaves no graph to hand
         the pool back. End the routing (a no-op error where it already
-        ended) and release this capture's hold on the pool."""
+        ended) and release this capture's hold on the pool. The failed end
+        also skips the default CUDA generator's capture epilogue, which
+        leaves its state capturing, and every later draw from it raises
+        ("Offset increment outside graph capture"): the generator takes a
+        fresh state with the same seed and offset."""
         index, pool = self.device.index, tuple(self.pool)
         try:
             torch._C._cuda_endAllocateToPool(index, pool)
         except RuntimeError:  # the failed end had already stopped the routing
             pass
         torch._C._cuda_releasePool(index, pool)
+        generator = torch.cuda.default_generators[index]
+        generator.graphsafe_set_state(generator.clone_state())
         if torch.cuda.is_current_stream_capturing():
             # the stream never left its capture: no later capture may use it
             _CAPTURE_STREAMS.pop(index, None)
@@ -735,7 +737,11 @@ class _Dispatcher:
         for buf, v in zip(entry.scalars, call.scalars):
             buf.fill_(v)
         caller = torch.cuda.current_stream(self.device)
+        t_wait_ns = time.perf_counter_ns()
         with self.lock:
+            waited_ns = time.perf_counter_ns() - t_wait_ns
+            if waited_ns > self.lock_wait_ns_max:
+                self.lock_wait_ns_max = waited_ns
             stream = _capture_stream(self.device)
             if timed:
                 events[1].record(caller)
@@ -748,7 +754,7 @@ class _Dispatcher:
             entry.timed = (events, t_copy_ns)
             self.pending_verdict = entry
         for m, attr, n in entry.launches:
-            setattr(m, attr, getattr(m, attr) + n)
+            launch_counts.add(m, attr, n)
         value = entry.values[d]
         return self.slot_tree(1 - d), (None if value is None else self._detached(value, always=True))
 
@@ -791,6 +797,7 @@ class _Dispatcher:
             f" {eager_pre_us:.0f} before its launches, which spanned {eager_span_us:.0f})"
         )
         entry.graphs, entry.inputs, entry.scalars, entry.values = [], [], [], []
+        entry.owner_copy = None
         return entry.eager_reason
 
     def _detached(self, value: Any, always: bool = False) -> Any:
@@ -841,41 +848,6 @@ class WarmupHandle:
 # ------------------------------------------------------------ shape specs
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    return str(dtype).replace("torch.", "")
-
-
-def spec_of_call(kind: str, args: tuple, kwargs: dict) -> Optional[Dict[str, Any]]:
-    """JSON-able description of one call's input shapes, or None when it
-    cannot be replayed from a manifest (nested structures, other leaves).
-    The JAX package's format: ``{"kind", "args": [...], "kwargs": {...}}``,
-    a leaf ``{"shape", "dtype"}`` or ``{"bool"}``."""
-
-    def leaf(v: Any) -> Optional[Dict[str, Any]]:
-        if type(v) is bool:
-            return {"bool": v}
-        if isinstance(v, torch.Tensor):
-            return {"shape": [int(s) for s in v.shape], "dtype": _dtype_name(v.dtype)}
-        return None
-
-    arg_specs = [leaf(a) for a in args]
-    kw_specs = {k: leaf(v) for k, v in kwargs.items()}
-    if any(s is None for s in arg_specs) or any(s is None for s in kw_specs.values()):
-        return None
-    return {"kind": kind, "args": arg_specs, "kwargs": kw_specs}
-
-
-def dummy_from_spec(spec: Dict[str, Any], device: torch.device) -> Tuple[tuple, dict]:
-    """Zero-filled ``(args, kwargs)`` on ``device`` matching a recorded spec."""
-
-    def leaf(s: Dict[str, Any]) -> Any:
-        if "bool" in s:
-            return bool(s["bool"])
-        return torch.zeros(tuple(s["shape"]), dtype=getattr(torch, s["dtype"]), device=device)
-
-    return tuple(leaf(s) for s in spec.get("args", ())), {k: leaf(s) for k, s in spec.get("kwargs", {}).items()}
-
-
 def _concrete_warmup_leaf(leaf: Any, device: torch.device) -> Any:
     """Example leaf -> zeros of its shape and dtype on ``device`` (a tensor,
     a ``"meta"`` tensor standing for a shape and dtype); bools pass."""
@@ -905,6 +877,45 @@ def _normalize_warmup_specs(batch_specs: Any, device: torch.device) -> List[Tupl
             )
         )
     return out
+
+
+class _KeyPlan:
+    """What builds one key away from its call: the key, the function that
+    makes its body (``build(target)``: over the live owner, or over a
+    detached copy), the owner's zero state, a :class:`_Call` over zero
+    dummies, the spec a store records (``spec``: the manifest's, plus
+    ``"exact"``; None when the call is not replayable) and, for a stored
+    spec, its record."""
+
+    __slots__ = ("key", "build", "zero_state", "call", "spec", "record")
+
+    def __init__(self, key: Any, build: Callable[[Any], Callable], zero_state: Callable[[], Any], call: _Call, spec: Optional[Dict[str, Any]]) -> None:
+        self.key = key
+        self.build = build
+        self.zero_state = zero_state
+        self.call = call
+        self.spec = spec
+        self.record: Dict[str, Any] = {}
+
+
+def _store_spec(kind: str, args: tuple, kwargs: dict, padded: bool) -> Optional[Dict[str, Any]]:
+    """A key's spec as the store records it: the manifest's spec of the
+    call, and whether its batch was keyed exactly or padded up the ladder."""
+    spec = spec_of_call(kind, args, kwargs)
+    return None if spec is None else dict(spec, exact=not padded)
+
+
+def _spec_id(record: Dict[str, Any]) -> str:
+    """A stored spec's identity (its launches aside), the same before and
+    after a JSON round trip."""
+    import json
+
+    return json.dumps({k: record.get(k) for k in ("kind", "args", "kwargs", "exact")}, sort_keys=True)
+
+
+def _launch_record(entry: _Entry) -> Dict[str, int]:
+    """The launches one replay of a key makes, by counter (none off the card)."""
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{attr}": int(n) for m, attr, n in entry.launches}
 
 
 # ------------------------------------------------------------------- base
@@ -949,6 +960,15 @@ class _ExecutorBase:
         # one dispatch or warmup of this executor at a time (its slots and
         # keys); the device's lock keeps captures and replays apart
         self._lock = threading.RLock()
+        # the compile cache: the background override (None: the
+        # environment's default), the keys whose capture is on the worker,
+        # whether the owner's stored profile was read, and its records as
+        # this executor knows them (spec id -> record)
+        self._bg_compile: Optional[bool] = None
+        self._pending_keys: set = set()
+        self._pending_lock = threading.Lock()
+        self._store_checked = False
+        self._stored: Dict[str, Dict[str, Any]] = {}
 
     def _owner_name(self) -> str:
         return type(self).__name__
@@ -958,6 +978,21 @@ class _ExecutorBase:
 
     def _members(self) -> List[Any]:
         """Every metric whose state the bodies read (escape suppression)."""
+        raise NotImplementedError
+
+    def _owner_desc(self) -> str:
+        """Cross-process identity of the owner's computation (its store entry)."""
+        raise NotImplementedError
+
+    def _clone_owner(self) -> Tuple[Any, List[Any]]:
+        """A detached copy of the owner (its executors off) and its metrics,
+        for a capture off the live thread: a body swaps its metric's state
+        while it runs, so a worker never runs the live owner's."""
+        raise NotImplementedError
+
+    def _plan_for(self, kind: str, args: tuple, kwargs: dict, mode: str) -> Any:
+        """The :class:`_KeyPlan` of a call of ``kind`` on zero dummies shaped
+        like ``args``/``kwargs`` (keyed as ``mode``), or why none can be built."""
         raise NotImplementedError
 
     def dispatcher(self) -> _Dispatcher:
@@ -1032,11 +1067,17 @@ class _ExecutorBase:
                         err = again
             raise _DispatchFailure(err)
 
-    def _get_fn(self, key: Any, builder: Callable[[], Callable]) -> Tuple[Optional[Callable[..., Any]], bool]:
+    def _get_fn(
+        self, key: Any, builder: Callable[[], Callable], plan: Optional[Callable[[], "_KeyPlan"]] = None
+    ) -> Tuple[Optional[Callable[..., Any]], bool]:
         """Resolve ``key`` to its dispatch callable ``fn(call) -> (state,
         value)`` and whether the key is fresh (built now; ``compiles``).
-        ``(None, False)`` for a key that runs eagerly."""
+        ``(None, False)`` for a key that runs eagerly: one judged so, or a
+        cold key whose capture runs on the worker (``plan``: the key's
+        :class:`_KeyPlan`, for the worker; ``eager_misses``)."""
         disp = self.dispatcher()
+        if not self._store_checked:
+            self.consult_store()
         entry = disp.entries.get(key)
         if entry is not None and (entry.eager_reason is not None or entry.trial):
             if entry.trial:  # time this call's eager path (see :meth:`eager_done`)
@@ -1050,6 +1091,12 @@ class _ExecutorBase:
             self.stats["cache_hits"] += 1
             members = self._members()
             return (lambda call: disp.run_warm(entry, call, members)), False
+        if plan is not None:
+            with self._pending_lock:
+                pending = key in self._pending_keys
+            if pending or (self.background_enabled() and compile_cache.compile_ahead_enabled() and self._submit_build(plan(), "background")):
+                self._eager_miss()
+                return None, False
         entry = disp.entries[key] = _Entry(builder())
         entry.desc = _describe_key(key)
         self.stats["compiles"] += 1
@@ -1084,6 +1131,13 @@ class _ExecutorBase:
         """A call the eager path serves: counted, and every member's state
         marked escaped (the eager update replaces the slot tensors)."""
         self._eager["calls"] += 1
+        for m in self._members():
+            m.__dict__["_state_escaped"] = True
+
+    def _eager_miss(self) -> None:
+        """A cold key's call the eager path serves while the worker captures
+        the key: counted, and every member's state marked escaped."""
+        self.stats["eager_misses"] += 1
         for m in self._members():
             m.__dict__["_state_escaped"] = True
 
@@ -1231,9 +1285,12 @@ class _ExecutorBase:
             jobs += [("forward", a, k, mode) for _, a, k, mode in list(jobs)]
         return self._launch_warmup(jobs, ladder, background)
 
-    def warmup_from_manifest(self, manifest: Dict[str, Any], background: bool = False) -> Any:
+    def warmup_from_manifest(self, manifest: Any, background: bool = False) -> Any:
         """Replay a shape-profile manifest (the dict :meth:`shape_profile`
-        returns): builds exactly the call shapes recorded, no ladder."""
+        returns, or a path ``save_shape_profile`` wrote): builds exactly the
+        call shapes recorded, no ladder."""
+        if isinstance(manifest, (str, os.PathLike)):
+            manifest = compile_cache.load_shape_manifest(os.fspath(manifest))
         if not isinstance(manifest, dict) or not isinstance(manifest.get("specs"), list):
             raise ValueError("manifest has no 'specs' list")
         jobs = []
@@ -1273,26 +1330,219 @@ class _ExecutorBase:
         report["seconds"] = round(time.perf_counter() - t0, 3)
         return report
 
-    def _dispatch_warmup(self, key: Any, builder: Callable[[], Callable], state_tree: Any, call: _Call) -> str:
-        """Shared tail of the warmup paths: build ``key``, its eager run on
-        a zero state and zero dummies (discarded), and capture it; the live
-        state is never read or written."""
+    def _dispatch_warmup(self, plan: "_KeyPlan") -> str:
+        """Shared tail of the warmup paths: build ``plan``'s key (its eager
+        run on a zero state and zero dummies, discarded, and its capture);
+        the live state is never read or written. The owner's stored profile
+        is read first, as at a first call."""
         disp = self.dispatcher()
-        if key in disp.entries:
+        if not self._store_checked:
+            self.consult_store()
+        if plan.key in disp.entries:
             return "already_warm"
         t0 = time.perf_counter()
         with obs.span(obs.SPAN_WARMUP, owner=self._owner_name()), self._lock:
-            disp.ensure_slots(state_tree)
-            call.state = state_tree
-            fn, _ = self._get_fn(key, builder)
-            try:
-                fn(call)
-            except _CaptureFailed as failed:
-                disp.entries.pop(key, None)
-                raise failed.original
+            disp.ensure_slots(plan.zero_state())
+            entry = self._build_key(plan)
+            disp.entries[plan.key] = entry
+            self.stats["compiles"] += 1
         self.stats["warmup"] += 1
         self.stats["compile_us_total"] += (time.perf_counter() - t0) * 1e6
+        self._schedule_store(plan.spec, entry)
         return "warmed"
+
+    # ----------------------------------------------------- the compile cache
+    def background_enabled(self) -> bool:
+        """Whether cold keys capture on the background worker (the
+        instance's override, else ``TORCHMETRICS_TPU_BG_COMPILE``)."""
+        if self._bg_compile is not None:
+            return self._bg_compile
+        return compile_cache.background_compile_default()
+
+    def set_background_compile(self, enabled: Optional[bool]) -> None:
+        """Override stall-free background captures for this executor (None
+        restores the environment's default)."""
+        self._bg_compile = enabled
+
+    def _backend(self) -> str:
+        return compile_cache.backend_fingerprint(self._device())
+
+    def store_desc(self) -> str:
+        """The owner's full description: its store entry's key."""
+        return "|".join((compile_cache.toolchain_fingerprint(), self._backend(), self._owner_desc()))
+
+    def _build_key(self, plan: "_KeyPlan", clone: Any = None) -> _Entry:
+        """Build ``plan``'s key: its body's eager run on a zero state and
+        zero dummies (discarded), then its capture on the card. With
+        ``clone`` (``(owner, metrics)`` of :meth:`_clone_owner`) the copy's
+        body runs and is captured, and the live owner is never touched; the
+        entry then holds the copy, whose tensors its graphs read. The entry
+        is returned, not installed."""
+        entry = _Entry(plan.build(None))
+        entry.desc = _describe_key(plan.key)
+        body, members = (entry.body, self._members()) if clone is None else (plan.build(clone[0]), clone[1])
+        entry.owner_copy = clone
+        plan.call.state = plan.zero_state()
+        try:
+            self.dispatcher().run_fresh(entry, plan.call, members, body)
+        except _CaptureFailed as failed:
+            raise failed.original
+        return entry
+
+    def consult_store(self) -> None:
+        """Read the owner's stored profile (once) and build every key it
+        records ahead of its first call: each on the worker when background
+        captures are on, else inline (each built key a ``disk_hits``). A
+        record whose capture makes other launches than it recorded evicts
+        the entry (:meth:`_evict_store`)."""
+        if self._store_checked:
+            return
+        self._store_checked = True
+        if not compile_cache.compile_ahead_enabled():
+            return
+        with obs.span(obs.SPAN_CACHE_LOAD, owner=self._owner_name()):
+            profile = compile_cache.load_profile(self.store_desc(), backend=self._backend())
+        if profile is None:
+            return
+        records = [r for r in profile["specs"] if isinstance(r, dict)]
+        self._stored = {_spec_id(r): r for r in records}
+        disp = self.dispatcher()
+        for record in records:
+            try:
+                plan = self._plan_for(
+                    record.get("kind", "update"), *dummy_from_spec(record, self._device()),
+                    "steady" if record.get("exact") else "ladder",
+                )
+            except Exception as err:  # a record this owner cannot key is skipped
+                plan = f"{type(err).__name__}: {err}"
+            if isinstance(plan, str):
+                rank_zero_debug(f"torchmetrics_tpu_torch compile cache: {self._owner_name()} skips a stored spec ({plan})")
+                continue
+            plan.record = record
+            with self._pending_lock:
+                pending = plan.key in self._pending_keys
+            if plan.key in disp.entries or pending:
+                continue
+            with self._lock:
+                disp.ensure_slots(plan.zero_state())
+            if self.background_enabled() and self._submit_build(plan, "store"):
+                continue
+            with self._lock:
+                try:
+                    entry = self._build_key(plan)
+                except Exception as err:  # the call that needs the key builds it
+                    rank_zero_debug(f"torchmetrics_tpu_torch compile cache: a stored spec did not build ({err})")
+                    continue
+                if not self._install_built(plan, entry, "store"):
+                    return
+
+    def _install_built(self, plan: "_KeyPlan", entry: _Entry, why: str) -> bool:
+        """Install a key built ahead of its call (call holding the
+        executor's lock). A stored record whose launches disagree with the
+        capture's evicts the entry and the key is not installed (False):
+        its call judges it afresh."""
+        if why == "store" and _launch_record(entry) != plan.record.get("launches", {}):
+            self._evict_store(plan.record, entry)
+            return False
+        self.dispatcher().entries[plan.key] = entry
+        if why == "store":
+            self.stats["disk_hits"] += 1
+        else:
+            self.stats["compiles"] += 1
+            self.stats["background_compiles"] += 1
+        return True
+
+    def _evict_store(self, record: Dict[str, Any], entry: _Entry) -> None:
+        """A stored spec whose capture made other launches than it recorded:
+        the entry is wrong. Delete it; the executor's keys are judged afresh
+        and stored anew."""
+        compile_cache.evict_entry(self.store_desc())
+        self._stored = {}
+        self.stats["disk_evictions"] += 1
+        detail = f"recorded {record.get('launches', {})}, captured {_launch_record(entry)}"
+        obs.fault_breadcrumb("disk_entry_evicted", domain="compile", data={"owner": self._owner_name(), "error": detail})
+        rank_zero_warn(
+            f"torchmetrics_tpu_torch compile cache: a stored spec of {self._owner_name()} captured other launches"
+            f" than its record ({detail}); entry evicted, building fresh"
+        )
+
+    def _submit_build(self, plan: "_KeyPlan", why: str) -> bool:
+        """Build ``plan``'s key on the worker, over a detached copy of the
+        owner, and swap it in (``why``: ``"background"`` for a cold key, its
+        call served eagerly meanwhile; ``"store"`` for a stored spec). False
+        when it cannot go there (a full queue, an owner that cannot be
+        copied): the caller builds inline."""
+        with self._pending_lock:
+            if plan.key in self._pending_keys:
+                return True
+            self._pending_keys.add(plan.key)
+        disp = self.dispatcher()
+        try:
+            clone = self._clone_owner()
+        except Exception as err:
+            rank_zero_debug(
+                f"torchmetrics_tpu_torch executor: {self._owner_name()} cannot be copied for a background capture"
+                f" ({type(err).__name__}: {err}); building inline"
+            )
+            with self._pending_lock:
+                self._pending_keys.discard(plan.key)
+            return False
+        slots = disp.slots
+
+        def job() -> None:
+            t0 = time.perf_counter()
+            try:
+                with obs.span(obs.SPAN_COMPILE, owner=self._owner_name(), background=True):
+                    entry = self._build_key(plan, clone)
+            except Exception as err:
+                with self._pending_lock:
+                    self._pending_keys.discard(plan.key)
+                self._disable(f"background capture failed: {type(err).__name__}: {err}")
+                return
+            with self._lock:
+                with self._pending_lock:
+                    self._pending_keys.discard(plan.key)
+                current = self._dispatcher is disp and disp.slots is slots and self.disabled_reason is None
+                if not current or plan.key in disp.entries or not self._install_built(plan, entry, why):
+                    return
+                self.stats["compile_us_total"] += (time.perf_counter() - t0) * 1e6
+            if why == "background":
+                self._schedule_store(plan.spec, entry)
+
+        # the enqueue span is the flow source the worker's capture links back to
+        with obs.span(obs.SPAN_COMPILE, owner=self._owner_name(), phase="enqueue"):
+            submitted = compile_cache.get_worker().submit(job)
+        if not submitted:
+            with self._pending_lock:
+                self._pending_keys.discard(plan.key)
+        return submitted
+
+    def _schedule_store(self, spec: Optional[Dict[str, Any]], entry: Optional[_Entry]) -> None:
+        """Add a newly built key's spec, with the launches one replay of it
+        makes, to the owner's entry: a store job on the worker
+        (``disk_stores``), up to :data:`_PROFILE_CAP` specs."""
+        if spec is None or entry is None or not compile_cache.compile_ahead_enabled():
+            return
+        record = dict(spec, launches=_launch_record(entry))
+        sid = _spec_id(record)
+        if sid in self._stored or len(self._stored) >= _PROFILE_CAP:
+            return
+        self._stored[sid] = record
+        desc, backend, owner, owner_desc = self.store_desc(), self._backend(), self._owner_name(), self._owner_desc()
+
+        def job() -> None:
+            with obs.span(obs.SPAN_CACHE_STORE, owner=owner):
+                current = compile_cache.load_profile(desc, backend=backend)
+                specs = [] if current is None else [r for r in current["specs"] if isinstance(r, dict)]
+                known = {_spec_id(r) for r in specs}
+                if sid in known:
+                    return
+                path = compile_cache.store_profile(desc, {"owner": owner_desc, "specs": specs + [record]}, backend=backend)
+            if path is not None:
+                self.stats["disk_stores"] += 1
+
+        with obs.span(obs.SPAN_CACHE_STORE, owner=owner, phase="enqueue"):
+            compile_cache.get_worker().submit(job)
 
     def stats_dict(self) -> Dict[str, Any]:
         out = dict(self.stats)
@@ -1301,8 +1551,9 @@ class _ExecutorBase:
         out["bucketing_enabled"] = self._bucketing_ok
         disp = self._dispatcher
         out["cached_executables"] = 0 if disp is None else len(disp.entries)
-        out["background_enabled"] = False
-        out["pending_background"] = 0
+        out["background_enabled"] = self.background_enabled()
+        with self._pending_lock:
+            out["pending_background"] = len(self._pending_keys)
         out["profile_entries"] = len(self._profile)
         out["captured"] = disp is not None and disp.graphs
         out["eager"] = {"keys": self._eager["keys"], "calls": self._eager["calls"], "reasons": list(self._eager["reasons"])}
@@ -1311,6 +1562,11 @@ class _ExecutorBase:
     def static_bytes(self) -> int:
         """Bytes of the executor's state slots and static inputs."""
         return 0 if self._dispatcher is None else self._dispatcher.static_bytes()
+
+    def device_lock_wait_us_max(self) -> float:
+        """The longest a replay of this executor waited for the device's
+        lock (µs): a capture on another thread held it."""
+        return 0.0 if self._dispatcher is None else self._dispatcher.lock_wait_ns_max / 1e3
 
     def graph_pool_bytes(self) -> int:
         """Bytes the private graph pool holds (a memory-snapshot walk: call it
@@ -1343,6 +1599,18 @@ def _describe_key(key: Any) -> str:
 
 def _zero_state(metric: Any) -> Dict[str, Any]:
     return {k: torch.zeros_like(v) for k, v in metric._defaults.items()}
+
+
+def _config_desc(metric: Any) -> str:
+    """A metric's configuration as its public attributes of plain values
+    (``num_classes``, ``average``, ``ignore_index``, ...), sorted."""
+
+    def plain(v: Any) -> bool:
+        if isinstance(v, (tuple, list)):
+            return all(plain(x) for x in v)
+        return v is None or isinstance(v, (bool, int, float, str))
+
+    return ",".join(f"{k}={v!r}" for k, v in sorted(vars(metric).items()) if not k.startswith("_") and plain(v))
 
 
 # ----------------------------------------------------------------- metric
@@ -1436,9 +1704,63 @@ class MetricExecutor(_ExecutorBase):
         m = self._metric
         return {k: m._state[k] for k in m._defaults}
 
+    # ---------------------------------------------------- the compile cache
+    def _owner_desc(self) -> str:
+        """The metric's class and its module's source hash, its registered
+        state (name, dtype, shape, reduction) and its configuration (the
+        public scalar attributes)."""
+        m = self._metric
+        cls = type(m)
+        fields = ",".join(f"{k}:{_dtype_name(v.dtype)}:{tuple(v.shape)}:{m._reductions.get(k)}" for k, v in m._defaults.items())
+        return f"{cls.__module__}.{cls.__qualname__}@{compile_cache.source_hash(sys.modules.get(cls.__module__) or cls)}|{fields}|cfg={_config_desc(m)}"
+
+    def _clone_owner(self) -> Tuple[Any, List[Any]]:
+        import copy
+
+        clone = copy.deepcopy(self._metric)
+        clone.__dict__["_executor_enabled"] = False
+        return clone, [clone]
+
+    def _plan(self, kind: str, prep: tuple, spec: Optional[Dict[str, Any]]) -> Any:
+        """The :class:`_KeyPlan` of a prepared call (:meth:`_prepare`), or why
+        it has none."""
+        treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
+        m = self._metric
+        scalars = [n] if padded else []
+        if kind == "update":
+            key = ("u", treedef, sig, batched, bucket if padded else None, self._state_sig())
+
+            def build(target: Any = None) -> Callable:
+                return self._build_update(treedef, batched, bucket, padded, bool_spec, n_leaves, target)
+
+        elif kind == "forward":
+            if not self._plain_forward or m.dist_sync_on_step:
+                return "forward: not fusable (custom forward or dist_sync_on_step)"
+            variant = "reduce" if m.full_state_update is False else "full"
+            key = ("f", variant, treedef, sig, batched, bucket if padded else None, self._state_sig())
+            scalars = [0] + scalars
+
+            def build(target: Any = None) -> Callable:
+                return self._build_forward(treedef, batched, bucket, padded, variant, bool_spec, n_leaves, target)
+
+        else:
+            return f"{kind}: unknown warmup kind"
+        call = _Call([torch.zeros_like(x) for x in dyn], batched, n, bucket, scalars)
+        return _KeyPlan(key, build, lambda: _zero_state(self._metric), call, spec)
+
+    def _plan_for(self, kind: str, args: tuple, kwargs: dict, mode: str) -> Any:
+        if not self.usable():
+            return f"{kind}: executor unusable ({self.disabled_reason or self._static_reason()})"
+        prep = self._prepare(args, kwargs, mode)
+        if prep is None:
+            return f"{kind}: inputs not executor-eligible"
+        return self._plan(kind, prep, _store_spec(kind, args, kwargs, prep[6]))
+
     # -------------------------------------------------------------- bodies
-    def _build_update(self, treedef: Any, batched: Any, bucket: Any, padded: bool, bool_spec: tuple, n_leaves: int) -> Callable:
-        ref = self._metric_ref
+    def _build_update(
+        self, treedef: Any, batched: Any, bucket: Any, padded: bool, bool_spec: tuple, n_leaves: int, target: Any = None
+    ) -> Callable:
+        ref = self._metric_ref if target is None else (lambda: target)
         defaults = dict(ref()._defaults)
 
         def body(state, scalars, *dyn):
@@ -1453,8 +1775,11 @@ class MetricExecutor(_ExecutorBase):
 
         return body
 
-    def _build_forward(self, treedef: Any, batched: Any, bucket: Any, padded: bool, variant: str, bool_spec: tuple, n_leaves: int) -> Callable:
-        ref = self._metric_ref
+    def _build_forward(
+        self, treedef: Any, batched: Any, bucket: Any, padded: bool, variant: str, bool_spec: tuple, n_leaves: int,
+        target: Any = None,
+    ) -> Callable:
+        ref = self._metric_ref if target is None else (lambda: target)
         defaults = dict(ref()._defaults)
 
         def body(state, scalars, *dyn):
@@ -1494,33 +1819,8 @@ class MetricExecutor(_ExecutorBase):
         return self.bucketable()
 
     def _warmup_one(self, kind: str, args: tuple, kwargs: dict, mode: str) -> str:
-        m = self._metric
-        if not self.usable():
-            return f"{kind}: executor unusable ({self.disabled_reason or self._static_reason()})"
-        prep = self._prepare(args, kwargs, mode)
-        if prep is None:
-            return f"{kind}: inputs not executor-eligible"
-        treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
-        scalars = [n] if padded else []
-        if kind == "update":
-            key = ("u", treedef, sig, batched, bucket if padded else None, self._state_sig())
-
-            def build():
-                return self._build_update(treedef, batched, bucket, padded, bool_spec, n_leaves)
-
-        elif kind == "forward":
-            if not self._plain_forward or m.dist_sync_on_step:
-                return "forward: not fusable (custom forward or dist_sync_on_step)"
-            variant = "reduce" if m.full_state_update is False else "full"
-            key = ("f", variant, treedef, sig, batched, bucket if padded else None, self._state_sig())
-            scalars = [0] + scalars
-
-            def build():
-                return self._build_forward(treedef, batched, bucket, padded, variant, bool_spec, n_leaves)
-
-        else:
-            return f"{kind}: unknown warmup kind"
-        return self._dispatch_warmup(key, build, _zero_state(m), _Call(dyn, batched, n, bucket, scalars))
+        plan = self._plan_for(kind, args, kwargs, mode)
+        return plan if isinstance(plan, str) else self._dispatch_warmup(plan)
 
     # ---------------------------------------------------------------- entry
     def run_update(self, args: tuple, kwargs: dict) -> bool:
@@ -1577,7 +1877,10 @@ class MetricExecutor(_ExecutorBase):
         disp = self.dispatcher()
         flat = tree_flatten(state)
         disp.ensure_slots(state, flat)
-        fn, fresh = self._get_fn(key, lambda: self._build_update(treedef, batched, bucket, padded, bool_spec, n_leaves))
+        fn, fresh = self._get_fn(
+            key, lambda: self._build_update(treedef, batched, bucket, padded, bool_spec, n_leaves),
+            lambda: self._plan("update", prep, _store_spec("update", args, kwargs, padded)),
+        )
         if fn is None:
             return False
         need_copy = fresh or m._state_escaped or m._state_shared
@@ -1620,7 +1923,9 @@ class MetricExecutor(_ExecutorBase):
         self.stats["calls"] += 1
         self.stats["copied_calls" if need_copy else "donated_calls"] += 1
         self._commit(new_state, fresh)
-        if not fresh:
+        if fresh:
+            self._schedule_store(_store_spec("update", args, kwargs, padded), disp.entries.get(key))
+        else:
             self._last_recovery = int(m._update_count) - 1
         return True
 
@@ -1673,7 +1978,8 @@ class MetricExecutor(_ExecutorBase):
         disp = self.dispatcher()
         disp.ensure_slots(state)
         fn, fresh = self._get_fn(
-            key, lambda: self._build_forward(treedef, batched, bucket, padded, variant, bool_spec, n_leaves)
+            key, lambda: self._build_forward(treedef, batched, bucket, padded, variant, bool_spec, n_leaves),
+            lambda: self._plan("forward", prep, _store_spec("forward", args, kwargs, padded)),
         )
         if fn is None:
             return False, None
@@ -1711,7 +2017,9 @@ class MetricExecutor(_ExecutorBase):
         self.stats["copied_calls" if need_copy else "donated_calls"] += 1
         self._commit(new_state, fresh)
         self._finish_forward(m)
-        if not fresh:
+        if fresh:
+            self._schedule_store(_store_spec("forward", args, kwargs, padded), disp.entries.get(key))
+        else:
             self._last_recovery = int(m._update_count) - 1
         return True, value
 
@@ -1811,9 +2119,74 @@ class CollectionExecutor(_ExecutorBase):
     def _live_states(self, leader_execs) -> Dict[str, Dict[str, Any]]:
         return {name: {k: m._state[k] for k in m._defaults} for name, m, _, _ in leader_execs}
 
+    # ---------------------------------------------------- the compile cache
+    def _owner_desc(self) -> str:
+        """Every member's class and module source hash, grouped by leader,
+        each leader's registered state and every member's configuration."""
+        coll = self._coll
+        parts = []
+        for name, m, cg in self._leaders():
+            members = ",".join(
+                f"{mn}={type(coll._modules[mn]).__qualname__}"
+                f"@{compile_cache.source_hash(sys.modules.get(type(coll._modules[mn]).__module__) or type(coll._modules[mn]))}"
+                f"[{_config_desc(coll._modules[mn])}]"
+                for mn in cg
+            )
+            fields = ",".join(f"{k}:{_dtype_name(v.dtype)}:{tuple(v.shape)}:{m._reductions.get(k)}" for k, v in m._defaults.items())
+            parts.append(f"{name}:[{members}]|{fields}")
+        return "Collection{" + ";".join(parts) + "}"
+
+    def _clone_owner(self) -> Tuple[Any, List[Any]]:
+        import copy
+
+        clone = copy.deepcopy(self._coll)
+        clone.__dict__["_executor_enabled"] = False
+        for mm in clone._modules.values():
+            mm.__dict__["_executor_enabled"] = False
+        return clone, list(clone._modules.values())
+
+    def _plan(self, kind: str, prep: tuple, kwargs: dict, leader_execs: Any, spec: Optional[Dict[str, Any]]) -> Any:
+        """The :class:`_KeyPlan` of a prepared call, or why it has none."""
+        treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
+        kw_map = {name: self._kwarg_names(m, kwargs) for name, m, _ in self._leaders()}
+        kw_key = tuple(sorted(kw_map.items()))
+        if kind == "update":
+            key = ("u", treedef, sig, batched, bucket if padded else None, kw_key, self._state_sig(leader_execs))
+            scalars = [n] if padded else []
+
+            def build(target: Any = None) -> Callable:
+                return self._build_update(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves, target)
+
+        elif kind == "forward":
+            reason = self._forward_unfusable_reason(leader_execs)
+            if reason is not None:
+                return f"forward: {reason}"
+            key = ("f", treedef, sig, batched, bucket if padded else None, kw_key, self._state_sig())
+            scalars = [0] * len(leader_execs) + ([n] if padded else [])
+
+            def build(target: Any = None) -> Callable:
+                return self._build_forward(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves, target)
+
+        else:
+            return f"{kind}: unknown warmup kind"
+        leaders = [(name, m) for name, m, _, _ in leader_execs]
+        call = _Call([torch.zeros_like(x) for x in dyn], batched, n, bucket, scalars)
+        return _KeyPlan(key, build, lambda: {name: _zero_state(m) for name, m in leaders}, call, spec)
+
+    def _plan_for(self, kind: str, args: tuple, kwargs: dict, mode: str) -> Any:
+        if self.disabled_reason is not None:
+            return f"{kind}: executor disabled ({self.disabled_reason})"
+        leader_execs = self._leader_executors()
+        if leader_execs is None:
+            return f"{kind}: a compute-group leader is not executor-eligible"
+        prep = self._prepare(args, kwargs, leader_execs, mode)
+        if prep is None:
+            return f"{kind}: inputs not executor-eligible"
+        return self._plan(kind, prep, kwargs, leader_execs, _store_spec(kind, args, kwargs, prep[6]))
+
     # -------------------------------------------------------------- bodies
-    def _build_update(self, treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves) -> Callable:
-        ref = self._coll_ref
+    def _build_update(self, treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves, target: Any = None) -> Callable:
+        ref = self._coll_ref if target is None else (lambda: target)
         specs = [(name, kw_map[name], dict(m._defaults)) for name, m, _ in self._leaders()]
 
         def body(states, scalars, *dyn):
@@ -1837,8 +2210,8 @@ class CollectionExecutor(_ExecutorBase):
 
         return body
 
-    def _build_forward(self, treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves) -> Callable:
-        ref = self._coll_ref
+    def _build_forward(self, treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves, target: Any = None) -> Callable:
+        ref = self._coll_ref if target is None else (lambda: target)
         specs = [(name, tuple(cg), kw_map[name], dict(m._defaults)) for name, m, cg in self._leaders()]
 
         def body(states, scalars, *dyn):
@@ -1929,38 +2302,8 @@ class CollectionExecutor(_ExecutorBase):
         return leader_execs is not None and self.bucketable(leader_execs)
 
     def _warmup_one(self, kind: str, args: tuple, kwargs: dict, mode: str) -> str:
-        if self.disabled_reason is not None:
-            return f"{kind}: executor disabled ({self.disabled_reason})"
-        leader_execs = self._leader_executors()
-        if leader_execs is None:
-            return f"{kind}: a compute-group leader is not executor-eligible"
-        prep = self._prepare(args, kwargs, leader_execs, mode)
-        if prep is None:
-            return f"{kind}: inputs not executor-eligible"
-        treedef, sig, dyn, batched, bucket, n, padded, bool_spec, n_leaves = prep
-        kw_map = {name: self._kwarg_names(m, kwargs) for name, m, _ in self._leaders()}
-        kw_key = tuple(sorted(kw_map.items()))
-        zero = {name: _zero_state(m) for name, m, _, _ in leader_execs}
-        if kind == "update":
-            key = ("u", treedef, sig, batched, bucket if padded else None, kw_key, self._state_sig())
-            scalars = [n] if padded else []
-
-            def build():
-                return self._build_update(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves)
-
-        elif kind == "forward":
-            reason = self._forward_unfusable_reason(leader_execs)
-            if reason is not None:
-                return f"forward: {reason}"
-            key = ("f", treedef, sig, batched, bucket if padded else None, kw_key, self._state_sig())
-            scalars = [0] * len(leader_execs) + ([n] if padded else [])
-
-            def build():
-                return self._build_forward(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves)
-
-        else:
-            return f"{kind}: unknown warmup kind"
-        return self._dispatch_warmup(key, build, zero, _Call(dyn, batched, n, bucket, scalars))
+        plan = self._plan_for(kind, args, kwargs, mode)
+        return plan if isinstance(plan, str) else self._dispatch_warmup(plan)
 
     # ---------------------------------------------------------------- entry
     def run_update(self, args: tuple, kwargs: dict) -> bool:
@@ -2017,7 +2360,10 @@ class CollectionExecutor(_ExecutorBase):
         disp = self.dispatcher()
         flat = tree_flatten(states)
         disp.ensure_slots(states, flat)
-        fn, fresh = self._get_fn(key, lambda: self._build_update(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves))
+        fn, fresh = self._get_fn(
+            key, lambda: self._build_update(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves),
+            lambda: self._plan("update", prep, kwargs, leader_execs, _store_spec("update", args, kwargs, padded)),
+        )
         if fn is None:
             return False
         copied, donated = self._donation(leader_execs, fresh)
@@ -2059,6 +2405,8 @@ class CollectionExecutor(_ExecutorBase):
         self.stats["copied_calls" if copied else "donated_calls"] += 1
         self._commit_all(new_states, fresh, leader_execs)
         self._note_recovery(fresh, leader_execs)
+        if fresh:
+            self._schedule_store(_store_spec("update", args, kwargs, padded), disp.entries.get(key))
         return True
 
     def run_forward(self, args: tuple, kwargs: dict) -> Optional[Dict[str, Any]]:
@@ -2103,7 +2451,10 @@ class CollectionExecutor(_ExecutorBase):
         states = self._live_states(leader_execs)
         disp = self.dispatcher()
         disp.ensure_slots(states)
-        fn, fresh = self._get_fn(key, lambda: self._build_forward(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves))
+        fn, fresh = self._get_fn(
+            key, lambda: self._build_forward(treedef, batched, bucket, padded, kw_map, bool_spec, n_leaves),
+            lambda: self._plan("forward", prep, kwargs, leader_execs, _store_spec("forward", args, kwargs, padded)),
+        )
         if fn is None:
             return None
         copied, donated = self._donation(leader_execs, fresh)
@@ -2151,6 +2502,8 @@ class CollectionExecutor(_ExecutorBase):
         self.stats["copied_calls" if copied else "donated_calls"] += 1
         self._commit_all(new_states, fresh, leader_execs)
         self._note_recovery(fresh, leader_execs)
+        if fresh:
+            self._schedule_store(_store_spec("forward", args, kwargs, padded), disp.entries.get(key))
         return dict(values)
 
 

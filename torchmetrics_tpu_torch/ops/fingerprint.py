@@ -28,11 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Iterator, Sequence, Tuple
 
 import torch
 
-from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.ops import kernels, launch_counts, native
 
 #: launches of the CUDA kernel in this process (a plain counter that a run
 #: resets and reads to show its main path went through the kernel)
@@ -141,7 +142,6 @@ def _fingerprint_cuda(*segments: torch.Tensor) -> torch.Tensor:
     segments rides in the launch's parameters; a larger one reaches the card
     by a pinned, non-blocking copy on the same stream. Either way the call
     never waits for the card."""
-    global launches
     device = segments[0].get_device()
     table = []
     max_units = 0
@@ -166,7 +166,7 @@ def _fingerprint_cuda(*segments: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"fingerprint kernel launch failed with CUDA error {err}")
-    launches += 1
+    launch_counts.add(sys.modules[__name__], "launches", 1)
     return out.view(torch.uint32)
 
 

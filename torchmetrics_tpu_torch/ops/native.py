@@ -2,11 +2,16 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into its own shared library for ``sm_90a``, then loaded
-with ``ctypes``. Libraries are named by a hash of their source (and of the
-shared headers ``csrc/*.cuh``) and land in ``_build/`` beside the package
-(listed in ``.gitignore``), so an edited source rebuilds and an unchanged one
-is reused. Nothing is built at import: the first launch builds (or
-:func:`build` does, ahead of traffic).
+with ``ctypes``. Libraries land in ``_build/`` beside the package (listed in
+``.gitignore``) under a name hashed on their source, the shared headers
+``csrc/*.cuh`` and the toolchain (``nvcc --version``, :data:`NVCC_FLAGS`
+and the target), so an edited source or another toolkit rebuilds and an
+unchanged build is reused. Each build leaves a sidecar beside its library,
+and a library is loaded only when its sidecar vouches for it
+(``native/libstore.py``): a damaged one is warned about, deleted and
+rebuilt, and one that still does not build or load raises. Nothing is built
+at import: the first launch builds (or :func:`build` does, ahead of
+traffic).
 
 The lean launch path (``csrc/launch.cuh``; the ``binned_curve`` and
 ``retrieval_topk_stats`` wrappers): the C entry takes the device index and
@@ -18,13 +23,15 @@ one buffer per stream, so no call allocates scratch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
+
+from torchmetrics_tpu_torch.native import libstore
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -33,6 +40,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+TARGET = "sm_90a"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -41,24 +49,33 @@ _LOCK = threading.Lock()
 build_logs: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def _nvcc_path() -> Optional[str]:
     from torch.utils.cpp_extension import CUDA_HOME
 
-    if CUDA_HOME is None:
+    return None if CUDA_HOME is None else str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _nvcc() -> str:
+    path = _nvcc_path()
+    if path is None:
         raise RuntimeError(
             "nvcc not found: the CUDA kernels are compiled on first use and need the CUDA"
             " toolkit (set CUDA_HOME)"
         )
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    return path
+
+
+def toolchain() -> str:
+    """What a kernel library's bytes depend on besides its sources: the
+    ``nvcc --version`` output, :data:`NVCC_FLAGS` and :data:`TARGET`."""
+    return libstore.toolchain(_nvcc_path() or "nvcc", NVCC_FLAGS, TARGET)
 
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives (hashed on its
-    source and the shared headers)."""
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        digest.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    source, the shared headers and :func:`toolchain`)."""
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    return BUILD_DIR / libstore.library_name(f"lib{name}", sources, toolchain())
 
 
 def nvcc_command(name: str, out: Path) -> Tuple[str, ...]:
@@ -66,42 +83,53 @@ def nvcc_command(name: str, out: Path) -> Tuple[str, ...]:
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` each,
-    all started together. Raises ``RuntimeError`` with the compiler's output
-    when any build fails."""
+    """Compile every named kernel that is not built yet (or whose library
+    fails its sidecar's check), one ``nvcc`` each, all started together,
+    each under its library's build lock (``libstore.locked``). Raises
+    ``RuntimeError`` with the compiler's output when any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tool = toolchain()
     paths = {name: library_path(name) for name in names}
     jobs = {}
-    for name, out in paths.items():
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        jobs[name] = (
-            tmp,
-            subprocess.Popen(
-                nvcc_command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ),
-        )
-    failed = []
-    for name, (tmp, proc) in jobs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, paths[name])  # atomic: a concurrent reader sees all or nothing
+    with contextlib.ExitStack() as held:
+        for name, out in sorted(paths.items()):  # one order everywhere: no two builders deadlock
+            held.enter_context(libstore.locked(out))
+            if libstore.usable(out, tool):
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            jobs[name] = (
+                tmp,
+                subprocess.Popen(
+                    nvcc_command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ),
+            )
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            log, _ = proc.communicate()
+            build_logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, paths[name])  # atomic: a concurrent reader sees all or nothing
+                libstore.seal(paths[name], tool)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed. A
+    library the loader refuses is discarded and built once more; a second
+    refusal raises ``RuntimeError``."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+            try:
+                lib = libstore.open_library(lambda: build([name])[name])
+            except OSError as err:
+                raise RuntimeError(f"CUDA kernel library of {name} does not load after a rebuild: {err}") from err
+            _LIBS[name] = lib
         return lib
 
 

@@ -44,10 +44,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import torch
 
-from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.ops import kernels, launch_counts, native
 from torchmetrics_tpu_torch.utils.compute import full_float32
 
 #: Newton–Schulz steps of the JAX package's float32 kernel
@@ -105,7 +106,6 @@ def _sqrtm_cuda(sigma: torch.Tensor) -> torch.Tensor:
     anything else. Returns a fresh float64 ``(F, F)``; with ``F == 0`` it
     returns it without a launch. The workspace (4 F^2 doubles and the
     partial sums) comes from PyTorch's allocator on the input's device."""
-    global launches, calls
     if sigma.dtype != torch.float64:
         raise TypeError(f"fid_sqrtm kernel takes a float64 matrix, got {sigma.dtype}")
     if sigma.ndim != 2 or sigma.shape[0] != sigma.shape[1]:
@@ -125,8 +125,8 @@ def _sqrtm_cuda(sigma: torch.Tensor) -> torch.Tensor:
         err = launch(sigma.data_ptr(), out.data_ptr(), ws.data_ptr(), n, KERNEL_ITERS, stream)
     if err != 0:
         raise RuntimeError(f"fid_sqrtm kernel launch failed with CUDA error {err}")
-    launches += 1 + 2 * KERNEL_ITERS
-    calls += 1
+    launch_counts.add(sys.modules[__name__], "launches", 1 + 2 * KERNEL_ITERS)
+    launch_counts.add(sys.modules[__name__], "calls", 1)
     return out
 
 

@@ -31,12 +31,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.ops import kernels, launch_counts, native
 from torchmetrics_tpu_torch.utils.compute import full_float32
 
 #: launches of the CUDA kernel, either entry, in this process (a plain counter
@@ -136,7 +137,6 @@ def _launch(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tens
     ``kw <= Wp`` (any tap count); raises on anything else. Returns a fresh
     float32 ``(M, Hp - kh + 1, Wp - kw + 1)``. Counts each kernel launch:
     one, or two for a window too long for shared memory."""
-    global launches
     _check_cuda("ssim_windows kernel", (x, g_h, g_w))
     if x.ndim != 3 or g_h.ndim != 1 or g_w.ndim != 1:
         raise ValueError(
@@ -161,7 +161,7 @@ def _launch(x: torch.Tensor, g_h: torch.Tensor, g_w: torch.Tensor) -> torch.Tens
         )
     if err != 0:
         raise RuntimeError(f"ssim_windows kernel launch failed with CUDA error {err}")
-    launches += n
+    launch_counts.add(sys.modules[__name__], "launches", n)
     return out
 
 
@@ -291,7 +291,6 @@ def _ssim_fused_cuda(
     ``data_range`` stays on the card). The kernel writes float64 partial sums
     a (plane, block); they are summed here in a fixed order, so the result
     is deterministic. An empty crop gives NaN. Counts each kernel launch."""
-    global launches
     _check_cuda("ssim_windows fused kernel", (preds, target, g_h, g_w))
     if preds.ndim != 4 or preds.shape != target.shape or g_h.ndim != 1 or g_w.ndim != 1:
         raise ValueError(
@@ -330,7 +329,7 @@ def _ssim_fused_cuda(
             )
             if err != 0:
                 raise RuntimeError(f"ssim_windows fused kernel launch failed with CUDA error {err}")
-            launches += n
+            launch_counts.add(sys.modules[__name__], "launches", n)
     count = c * max(ho - 2 * ch, 0) * max(wo - 2 * cw, 0)
     means = (partials.view(b, c * parts, 2).sum(1) / count).to(torch.float32)
     return means[:, 0], means[:, 1], ssim_map

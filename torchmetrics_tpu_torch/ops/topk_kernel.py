@@ -26,11 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Optional
 
 import torch
 
-from torchmetrics_tpu_torch.ops import kernels, native
+from torchmetrics_tpu_torch.ops import kernels, launch_counts, native
 
 #: launches of the CUDA kernel in this process (a plain counter that a run
 #: resets and reads to show its main path went through the kernel)
@@ -101,7 +102,6 @@ def _topk_stats_cuda(ranked_target: torch.Tensor, counts: torch.Tensor, top_k: i
     The lean launch path: one combined test of the arguments (the detailed
     errors come from :func:`_refuse` only when it fails), the device guard in
     the C entry, the output the only allocation."""
-    global launches
     device = ranked_target.get_device()
     if device < 0 or not _fits(ranked_target, counts, device):
         _refuse(ranked_target, counts)
@@ -115,7 +115,7 @@ def _topk_stats_cuda(ranked_target: torch.Tensor, counts: torch.Tensor, top_k: i
     )
     if err != 0:
         raise RuntimeError(f"retrieval_topk_stats kernel launch failed with CUDA error {err}")
-    launches += 1
+    launch_counts.add(sys.modules[__name__], "launches", 1)
     return out
 
 

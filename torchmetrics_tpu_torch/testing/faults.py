@@ -136,8 +136,8 @@ def fail_dispatch(
     error = exc if exc is not None else FaultInjected("injected dispatch failure")
     remaining = {"n": fail_n}
 
-    def patched(self: Any, key: Any, builder: Any) -> Any:
-        fn, fresh = orig(self, key, builder)
+    def patched(self: Any, key: Any, builder: Any, *rest: Any) -> Any:
+        fn, fresh = orig(self, key, builder, *rest)
         if fn is None:  # a key the executor runs eagerly: no dispatch to fail
             return fn, fresh
 
@@ -565,6 +565,71 @@ def torn_write(path: Any, mode: str = "truncate", frac: float = 0.5, seed: int =
     # as the failure would leave them
     with open(path, "wb") as fh:
         fh.write(damaged)
+
+
+def _cache_entry_paths(cache_dir: Optional[str]) -> list:
+    """The shape-profile store's entries under ``cache_dir`` (default: the
+    resolved ``TORCHMETRICS_TPU_CACHE_DIR``), newest first."""
+    from torchmetrics_tpu_torch.ops import compile_cache
+
+    directory = cache_dir if cache_dir is not None else compile_cache.cache_dir()
+    if directory is None:
+        raise ValueError("no cache directory resolved (compile-ahead disabled?)")
+    store = os.path.join(directory, compile_cache.STORE_SUBDIR)
+    try:
+        names = [n for n in os.listdir(store) if n.endswith(compile_cache.ENTRY_SUFFIX)]
+    except FileNotFoundError:
+        raise ValueError(f"no profile store at {store}") from None
+    paths = [os.path.join(store, n) for n in names]
+    return sorted(paths, key=os.path.getmtime, reverse=True)
+
+
+def corrupt_cache_entry(
+    cache_dir: Optional[str] = None, mode: str = "flip", which: str = "newest", frac: float = 0.5, seed: int = 0
+) -> list:
+    """Damage the compile cache's store entries in place
+    (``ops/compile_cache.py``).
+
+    ``mode`` is :func:`torn_write`'s (``truncate``/``zero``/``flip``) plus
+    ``"garbage"``: the whole file replaced by bytes that are no container.
+    ``which`` picks the victims: ``"newest"``, ``"oldest"`` or ``"all"``.
+    Returns the damaged paths. The executor's next read of a damaged entry
+    must warn, delete it and build its keys fresh: the same values, no crash.
+    """
+    paths = _cache_entry_paths(cache_dir)
+    victims = paths if which == "all" else [paths[0] if which == "newest" else paths[-1]]
+    for path in victims:
+        if mode == "garbage":
+            with open(path, "wb") as fh:
+                fh.write(b"\x00garbage-not-a-cache-entry" * 16)
+        else:
+            torn_write(path, mode=mode, frac=frac, seed=seed)
+    return victims
+
+
+def stale_cache_version(cache_dir: Optional[str] = None, which: str = "newest") -> list:
+    """Rewrite store entries' headers with a stale toolchain fingerprint, as
+    an entry written by another torch or another version of the executor
+    would carry (the payload stays intact and checksummed). The loader must
+    refuse such an entry (warn, delete, miss). Returns the paths."""
+    import json
+
+    from torchmetrics_tpu_torch.ops.compile_cache import ENTRY_MAGIC
+
+    paths = _cache_entry_paths(cache_dir)
+    victims = paths if which == "all" else [paths[0] if which == "newest" else paths[-1]]
+    for path in victims:
+        with open(path, "rb") as fh:
+            data = fh.read()
+        hlen = int.from_bytes(data[len(ENTRY_MAGIC):len(ENTRY_MAGIC) + 8], "little")
+        h_start = len(ENTRY_MAGIC) + 8
+        header = json.loads(data[h_start:h_start + hlen].decode())
+        header["toolchain"] = "tm_torch=0.0.0|torch=0.0.0|cuda=0.0|executor=stale|compile_cache=stale"
+        new_header = json.dumps(header, sort_keys=True).encode()
+        # deliberately NOT atomic: a foreign writer's plain rewrite
+        with open(path, "wb") as fh:
+            fh.write(ENTRY_MAGIC + len(new_header).to_bytes(8, "little") + new_header + data[h_start + hlen:])
+    return victims
 
 
 @contextmanager
