@@ -8170,10 +8170,14 @@ def _criteo_members(dev) -> dict:
     }
 
 
-def _criteo_windowed(dev, window: int):
+def _criteo_windowed(dev, window: int, executor: bool = True):
+    """The windowed entry collection; ``executor`` reaches its members and
+    its collection (on: every member's windowed update one replay)."""
     from torchmetrics_tpu_torch import MetricCollection
 
-    return MetricCollection(_criteo_members(dev), device=dev).windowed(window, lateness=CRITEO["lateness"])
+    return MetricCollection(_criteo_members(dev), device=dev).windowed(
+        window, lateness=CRITEO["lateness"], executor=executor
+    )
 
 
 def _launch_counts() -> dict:
@@ -8233,11 +8237,14 @@ def _criteo_hard_check(dev, wc, clock: int) -> dict:
 
 def _criteo_ring_bench(dev, window: int) -> dict:
     """Advance and update µs of the windowed collection at one ring size,
-    against the unwindowed update of the same batch: host wall time of
+    with its executor (``update``) and without (``update_off``), against
+    the unwindowed update of the same batch: host wall time of
     ``bench_calls`` calls ending in a synchronise; the stream's elapsed
     time between CUDA events around them (which counts the device's waits
     for the host); and the device's busy time from ``torch.profiler`` over
-    8 calls (the kernels' own time, which the ring copies grow)."""
+    8 calls (the kernels' own time, which the ring copies grow). The
+    warm-up builds the executor's key and passes its verdict (its timed
+    replay and two eager trials)."""
     import torch
 
     from torchmetrics_tpu_torch import MetricCollection
@@ -8245,13 +8252,19 @@ def _criteo_ring_bench(dev, window: int) -> dict:
     calls = CRITEO["bench_calls"]
     batch = _criteo_hour(0, dev)["on"][0]
     wc = _criteo_windowed(dev, window)
+    off = _criteo_windowed(dev, window, executor=False)
     plain = MetricCollection(_criteo_members(dev), device=dev)
     for _ in range(3):  # groups resolved, allocator warm
         wc.update(*batch)
+        off.update(*batch)
         plain.update(*batch)
         wc.advance()
+        off.advance()
+    for _ in range(4):  # the key's timed replay, its eager trials, the verdict
+        wc.update(*batch)
     out = {"window": window}
     for name, fn in (("advance", lambda: wc.advance()), ("update", lambda: wc.update(*batch)),
+                     ("update_off", lambda: off.update(*batch)),
                      ("unwindowed_update", lambda: plain.update(*batch))):
         _sync(dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -8267,25 +8280,74 @@ def _criteo_ring_bench(dev, window: int) -> dict:
         out[f"{name}_device_us"] = sum(r[1] for r in rows) / 8
     held = {id(v): v.nbytes for m in wc.collection._modules.values() for v in m._state.values()}
     out["ring_bytes"] = sum(held.values())  # a compute group's rings once
+    stats = wc.collection.executor_status["stats"]
+    out["executor"] = {"engaged": stats["calls"] > 0, "fallback_reason": stats["fallback_reason"],
+                       "eager_keys": stats["eager"]["keys"], "copied_calls": stats["copied_calls"]}
     return out
+
+
+def _criteo_same(a, b, clock: int, what: str) -> None:
+    """The executor-on collection ``a`` bit-equal to its executor-off twin
+    ``b`` at ``clock``: every member's state (the rings and the clock),
+    ``compute()`` and every live ``compute_window``."""
+    for name, m in a.items():
+        for f, v in m._state.items():
+            _check(v.equal(b[name]._state[f]), f"criteo: at clock {clock} {what}: {name}.{f} differs")
+    _check(_bit_equal(a.compute(), b.compute()), f"criteo: at clock {clock} {what}: compute() differs")
+    w = CRITEO["window"]
+    for k in range(max(0, clock - w + 1), clock + 1):
+        _check(_bit_equal(a.compute_window(k), b.compute_window(k)), f"criteo: at clock {clock} {what}: compute_window({k}) differs")
+
+
+def _criteo_executor_report(wc) -> dict:
+    """The windowed collection's executor: engaged, its keys and captures,
+    the eager keys and why, the calls copied in and donated, capture ms,
+    pool and static bytes; each member's updates ride the collection's
+    executor (a member's own never runs), so a member counts as engaged
+    where the collection's did and names no fallback of its own."""
+    status = wc.collection.executor_status
+    stats = status["stats"]
+    ex = wc.collection._get_executor()
+    members = {
+        name: {"engaged": status["engaged"], "fallback_reason": m["fallback_reason"]}
+        for name, m in status["members"].items()
+    }
+    return {
+        "engaged": status["engaged"], "fallback_reason": status["fallback_reason"], "members": members,
+        "captured": stats["captured"], "keys": stats["cached_executables"], "captures": stats["compiles"],
+        "calls": stats["calls"], "cache_hits": stats["cache_hits"], "padded_calls": stats["padded_calls"],
+        "skipped_calls": stats["skipped_calls"], "copied_calls": stats["copied_calls"],
+        "donated_calls": stats["donated_calls"], "eager_keys": stats["eager"]["keys"],
+        "eager_calls": stats["eager"]["calls"], "eager_reasons": stats["eager"]["reasons"],
+        "capture_ms_total": stats["compile_us_total"] / 1e3,
+        "pool_bytes": ex.graph_pool_bytes(), "static_bytes": ex.static_bytes(),
+    }
 
 
 def phase_criteo_kaggle_hourly_windows(dev) -> dict:
     """The Criteo train set's 168 hours through the windowed entry
-    collection ``MetricCollection(...).windowed(24, lateness=1)``: each
-    hour's on-time batches, then ``advance()`` (under sync debug mode
+    collection ``MetricCollection(...).windowed(24, lateness=1)`` with its
+    captured executor (``executor=True``: one replay an update, the slot read
+    on the device) and an ``executor=False`` twin fed the same traffic:
+    each hour's on-time batches, then ``advance()`` (under sync debug mode
     "error") and ``compute()``; 1% of an hour delivered after the next
     advance by ``update_window`` (admitted), 0.1% two hours late (dropped);
     ``compute_async()`` at every 24th close, resolved after the next hour's
     updates; at hour 100's close a save to a rotating store, restored into a
-    fresh collection that runs on beside the first. Checks: at clocks 24,
-    100 and 168 the folded ring and every live ``compute_window`` bit-equal
-    to fresh collections of the admitted rows; every async read bit-equal to
-    the compute at its close; the restored run bit-equal to the
-    uninterrupted one; the manifest's windows block; the windows.* counters;
-    kernel launches equal to the unwindowed collection's for the landed
-    batches (none for a dropped one). Printed: rows/s and update µs windowed
-    against unwindowed, advance and update µs at W = 24 and 168, compute,
+    fresh collection that runs on beside the first (the twin saves and
+    restores in place, after a reset).
+    Checks: at clocks 24, 100 and 168 the folded ring and every live
+    ``compute_window`` bit-equal to fresh collections of the admitted rows,
+    and the executor run bit-equal to its twin (states, compute, every live
+    window); every async read bit-equal to the compute at its close; the
+    restored runs bit-equal to the uninterrupted one; the manifest's windows
+    block; the windows.* counters; the executor engaged for every member
+    with no fallback and no padding; kernel launches equal to the
+    unwindowed collection's and the twin's for the landed batches (none for
+    a dropped one). Printed: rows/s and update µs windowed on and off
+    against unwindowed, advance and update µs (host, events, device) at W =
+    24 and 168 on and off, the executor's keys, captures, eager keys,
+    copied calls, capture ms, pool and static bytes, compute,
     compute_window and save/restore ms, peak memory above base."""
     import torch
 
@@ -8301,25 +8363,29 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     wc = _criteo_windowed(dev, w)
+    off = _criteo_windowed(dev, w, executor=False)
     plain = MetricCollection(_criteo_members(dev), device=dev)
     twin = None
-    store = str(_runtime_dir("criteo"))
+    store, store_off = str(_runtime_dir("criteo")), str(_runtime_dir("criteo_off"))
     win_launches = {"bincount": 0, "binned_curve": 0}
     plain_launches = {"bincount": 0, "binned_curve": 0}
+    off_launches = {"bincount": 0, "binned_curve": 0}
     landed = dropped_launches = 0
-    win_s = plain_s = 0.0
+    secs = {"win": 0.0, "plain": 0.0, "off": 0.0}
     on_rows = on_calls = 0
     compute_ms, checks, reads, pending = [], [], [], []
     late, later = {}, {}
     save = None
 
-    def land(fn_win, fn_plain):
+    def land(fn_win, fn_plain, fn_off):
         nonlocal landed
         _, a = _launched(fn_win)
         _, b = _launched(fn_plain)
+        _, c = _launched(fn_off)
         for k in win_launches:
             win_launches[k] += a[k]
             plain_launches[k] += b[k]
+            off_launches[k] += c[k]
         landed += 1
 
     for clock in range(hours + 1):
@@ -8329,35 +8395,35 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
             if twin is not None:
                 _check(twin.update_window(clock - 1, *rows), "criteo: the restored run dropped an hour-late batch")
             land(lambda: _check(wc.update_window(clock - 1, *rows), f"criteo: hour {clock - 1}'s late rows were dropped"),
-                 lambda: plain.update(*rows))
+                 lambda: plain.update(*rows),
+                 lambda: _check(off.update_window(clock - 1, *rows), f"criteo: the twin dropped hour {clock - 1}'s late rows"))
         if clock - 2 in later:
             rows = later.pop(clock - 2)
             if twin is not None:
                 _check(not twin.update_window(clock - 2, *rows), "criteo: the restored run admitted a two-hour-late batch")
+            _check(not off.update_window(clock - 2, *rows), "criteo: the twin admitted a two-hour-late batch")
             got, n = _launched(lambda: wc.update_window(clock - 2, *rows))
             _check(not got, f"criteo: hour {clock - 2}'s two-hour-late rows were admitted")
             dropped_launches += sum(n.values())
         if clock in spec["checks"]:
             checks.append(_criteo_hard_check(dev, wc, clock))
+            _criteo_same(wc, off, clock, "against executor=False")
         if clock == hours:
             break
         data = _criteo_hour(clock, dev)
         _sync(dev)
-        order = ((wc, "win"), (plain, "plain")) if clock % 2 == 0 else ((plain, "plain"), (wc, "win"))
-        for coll, kind in order:
+        kinds = ("win", "plain", "off")
+        for kind in kinds[clock % 3:] + kinds[:clock % 3]:
             t0 = time.perf_counter()
             for batch in data["on"]:
                 if kind == "win":
-                    land(lambda: wc.update(*batch), lambda: None)
+                    land(lambda: wc.update(*batch), lambda: None, lambda: None)
                 else:
-                    _, n = _launched(lambda: plain.update(*batch))
+                    _, n = _launched(lambda: (plain if kind == "plain" else off).update(*batch))
                     for k in plain_launches:
-                        plain_launches[k] += n[k]
+                        (plain_launches if kind == "plain" else off_launches)[k] += n[k]
             _sync(dev)
-            if kind == "win":
-                win_s += time.perf_counter() - t0
-            else:
-                plain_s += time.perf_counter() - t0
+            secs[kind] += time.perf_counter() - t0
         if twin is not None:
             for batch in data["on"]:
                 twin.update(*batch)
@@ -8374,18 +8440,18 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
         torch.cuda.set_sync_debug_mode("error")
         try:
             wc.advance()
+            off.advance()
             if twin is not None:
                 twin.advance()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        future = wc.compute_async() if wc.clock % spec["async_every"] == 0 else None
+        futures = [wc.compute_async(), off.compute_async()] if wc.clock % spec["async_every"] == 0 else []
         _sync(dev)
         t0 = time.perf_counter()
         value = wc.compute()
         _sync(dev)
         compute_ms.append((time.perf_counter() - t0) * 1e3)
-        if future is not None:
-            pending.append((wc.clock, future, value))
+        pending = [(wc.clock, future, value) for future in futures]
         if wc.clock == spec["save_at"]:
             t0 = time.perf_counter()
             path = save_state(wc, store, keep=3)
@@ -8399,13 +8465,20 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
             _sync(dev)
             save = {"save_ms": save_ms, "restore_ms": (time.perf_counter() - t0) * 1e3, "windows_block": block}
             _check(twin.clock == wc.clock, "criteo: the restored clock differs")
+            # the twin goes on from its own save, restored in place (its
+            # compute groups stay resolved, so its launches stay comparable)
+            save_state(off, store_off, keep=3)
+            off.reset()
+            restore_state(store_off, off)
+            _check(off.clock == wc.clock, "criteo: the twin's restored clock differs")
     for at, future, value in pending:
         got = future.result(120.0)
         for k, v in value.items():
             _check(_bit_equal(got[k], v), f"criteo: the async read at clock {at} differs in {k}")
         reads.append(at)
     _check(drain_pipeline(60.0), "criteo: the read pipeline did not drain")
-    _check(reads == list(range(spec["async_every"], hours + 1, spec["async_every"])), f"criteo: async reads at {reads}")
+    want_reads = [at for at in range(spec["async_every"], hours + 1, spec["async_every"]) for _ in range(2)]
+    _check(reads == want_reads, f"criteo: async reads at {reads}")
     for name, m in wc.items():
         for f, v in m._state.items():
             _check(v.equal(twin[name]._state[f]), f"criteo: the restored run's {name}.{f} differs from the uninterrupted run's")
@@ -8413,16 +8486,25 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
     counters = obs.counters_snapshot()
     members = len(wc.keys())
     # each member counts a late event or a drop (the JAX package walks the
-    # members); the restored run delivers from clock 100 on
+    # members); the twin and the restored run deliver too, the restored
+    # run from clock 100 on
     twin_clocks = hours - spec["save_at"] + 1
-    want = {"windows.late_events": members * (hours + twin_clocks), "windows.dropped_late": members * (hours - 1 + twin_clocks)}
+    want = {"windows.late_events": members * (2 * hours + twin_clocks),
+            "windows.dropped_late": members * (2 * (hours - 1) + twin_clocks)}
     got = {k: int(counters.get(k, 0)) for k in want}
     _check(got == want, f"criteo: counters {got}, not {want}")
     # the unwindowed collection's executor pads its ragged batches: one
-    # row-0 update a padded replay and one oracle a probe (the windowed
-    # metrics step aside)
+    # row-0 update a padded replay and one oracle a probe; the windowed
+    # executor pads nothing
+    report = _criteo_executor_report(wc)
+    _check(report["engaged"] and report["fallback_reason"] is None,
+           f"criteo: the windowed collection's executor did not engage: {report['fallback_reason']}")
+    _check(all(m["engaged"] and m["fallback_reason"] is None for m in report["members"].values()),
+           f"criteo: a windowed member steps aside: {report['members']}")
+    _check(report["padded_calls"] == 0 and report["skipped_calls"] == 0, f"criteo: the windowed executor padded or skipped: {report}")
     plain_eager = {k: v - _executor_extra(plain) for k, v in plain_launches.items()}
     _check(win_launches == plain_eager, f"criteo: windowed launches {win_launches} != unwindowed {plain_eager} (executor's own removed)")
+    _check(win_launches == off_launches, f"criteo: windowed launches {win_launches} != executor=False twin's {off_launches}")
     _check(win_launches["bincount"] == landed, f"criteo: {win_launches['bincount']} bincount launches for {landed} landed calls")
     _check(dropped_launches == 0, f"criteo: dropped batches launched {dropped_launches} kernels")
     out = {
@@ -8430,9 +8512,10 @@ def phase_criteo_kaggle_hourly_windows(dev) -> dict:
         "landed_update_calls": landed, "on_time_calls": on_calls, "on_time_rows": on_rows,
         "bincount_launches": win_launches["bincount"], "binned_curve_launches": win_launches["binned_curve"],
         "unwindowed_launches": plain_launches, "compute_groups": sorted(map(sorted, wc.collection.compute_groups.values())),
-        "rows_per_s": {"windowed": on_rows / win_s, "unwindowed": on_rows / plain_s},
-        "update_us": {"windowed": win_s * 1e6 / on_calls, "unwindowed": plain_s * 1e6 / on_calls},
-        "ring_bench": bench,
+        "rows_per_s": {"windowed": on_rows / secs["win"], "windowed_off": on_rows / secs["off"], "unwindowed": on_rows / secs["plain"]},
+        "update_us": {"windowed": secs["win"] * 1e6 / on_calls, "windowed_off": secs["off"] * 1e6 / on_calls,
+                      "unwindowed": secs["plain"] * 1e6 / on_calls},
+        "executor": report, "ring_bench": bench,
         "compute_ms_p50": sorted(compute_ms)[len(compute_ms) // 2], "checks": checks, "async_reads": len(reads),
         "save_restore": save, "counters": got, "peak_mem_above_base_bytes": peak,
     }

@@ -2146,7 +2146,7 @@ def test_windowed_update_and_advance_on_the_card_equal_the_cpu(cuda_device):
 
 
 def test_advances_make_no_device_sync(cuda_device):
-    """``advance`` (the ring's slot from the host clock) and
+    """``advance`` (the retiring slot computed from the device clock) and
     ``advance_windows`` on a warm clock mirror (each lane's slot from its
     head, on the device) run under sync debug mode "error"."""
     coll, auroc = _windowed_entry(cuda_device)
@@ -2672,18 +2672,160 @@ def test_update_inside_the_callers_capture_is_skipped(cuda_device):
 
 
 def test_later_items_step_aside_on_the_card(cuda_device):
-    """Windowed and laned metrics and class-axis states step aside for now,
-    naming the roadmap item that brings them onto the executor."""
-    windowed = tm.WindowedMetric(tm.SumMetric(nan_strategy="ignore"), window=3)
-    windowed.update(torch.tensor([1.0, 2.0], device=cuda_device))
+    """Laned metrics and class-axis states step aside for now, naming the
+    roadmap item that brings them onto the executor (4c and 4b); windowed
+    metrics ride it (the windowed card tests below)."""
     laned = tm.SumMetric(nan_strategy="ignore").laned(capacity=8)
     laned.update(torch.tensor([0, 1], device=cuda_device), torch.tensor([1.0, 2.0], device=cuda_device))
     sharded = MulticlassConfusionMatrix(num_classes=10, validate_args=False, state_sharding="class_axis", class_shards=2)
     sharded.update(torch.tensor([0, 1], device=cuda_device), torch.tensor([1, 1], device=cuda_device))
-    for m in (windowed, laned, sharded):
+    for m, item in ((laned, "4c"), (sharded, "4b")):
         status = m.executor_status
         assert status["enabled"] and not status["engaged"]
-        assert "ROADMAP Queue A item 4" in status["fallback_reason"]
+        assert f"ROADMAP Queue A item {item}" in status["fallback_reason"]
+
+
+def _criteo_like_windowed(device, executor):
+    """A small Criteo-shaped windowed collection, W = 4 and lateness 1: the
+    counting family (one ``bincount`` an update) and binned AUROC and AP
+    (one ``binned_curve``); with the executor, no key judged eager."""
+    from torchmetrics_tpu_torch.classification import (
+        BinaryAccuracy,
+        BinaryAUROC,
+        BinaryAveragePrecision,
+        BinaryConfusionMatrix,
+        BinaryPrecision,
+    )
+
+    d = dict(validate_args=False, device=device)
+    members = {
+        "accuracy": BinaryAccuracy(**d), "precision": BinaryPrecision(**d), "confmat": BinaryConfusionMatrix(**d),
+        "auroc": BinaryAUROC(thresholds=50, **d), "ap": BinaryAveragePrecision(thresholds=50, **d),
+    }
+    wc = tm.MetricCollection(members, device=device).windowed(4, lateness=1, executor=executor)
+    if executor:
+        wc.collection._get_executor().dispatcher().judging = False
+    return wc
+
+
+def _ctr_batch(g, device, n):
+    labels = (torch.rand(n, generator=g, device=device) < 0.25).to(torch.int64)
+    return torch.sigmoid(torch.randn(n, generator=g, device=device) + 1.2 * labels - 1.0), labels
+
+
+def _windowed_launches():
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    return {"bincount": bincount.launches, "binned_curve": binned_curve.launches}
+
+
+def test_one_captured_key_serves_every_slot(cuda_device):
+    """3W clocks of steady on-time batches and one late batch a clock: the
+    on-time size is one key (two graphs) and the late batch another,
+    whatever the slot or the window; every state bit-equal to
+    ``executor=False`` at each clock; the launches after the first update
+    (which resolves the groups) equal the eager run's; the last W clocks'
+    updates, late updates and advances make no device sync."""
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    clocks = 12
+    traffic = [([_ctr_batch(g, cuda_device, 2048) for _ in range(2)], _ctr_batch(g, cuda_device, 512)) for _ in range(clocks)]
+    runs = {}
+    for executor in (True, False):
+        wc = _criteo_like_windowed(cuda_device, executor)
+        wc.update(*traffic[0][0][0])  # resolves the groups, every member eagerly
+        before = _windowed_launches()
+        states = []
+        for clock, (on_time, late) in enumerate(traffic):
+            debug = executor and clock >= clocks - 4
+            torch.cuda.synchronize()
+            if debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for i, batch in enumerate(on_time):
+                    if clock or i:
+                        wc.update(*batch)
+                if clock:
+                    assert wc.update_window(clock - 1, *late)
+                assert wc.advance() == clock + 1
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            states.append({(name, f): v.clone() for name, m in wc.items() for f, v in m._state.items()})
+        torch.cuda.synchronize()
+        runs[executor] = (wc, states, {k: v - before[k] for k, v in _windowed_launches().items()})
+    (on, on_states, on_launches), (_off, off_states, off_launches) = runs[True], runs[False]
+    for clock, (got, want) in enumerate(zip(on_states, off_states)):
+        for key, v in want.items():
+            assert torch.equal(got[key], v), (clock, key)
+    status = on.collection.executor_status
+    stats = status["stats"]
+    assert status["engaged"] and stats["captured"] and status["fallback_reason"] is None
+    assert stats["compiles"] == 2 and stats["padded_calls"] == 0 and stats["eager"]["keys"] == 0
+    entries = list(on.collection._get_executor().dispatcher().entries.values())
+    assert sorted(len(e.graphs) for e in entries) == [2, 2]
+    assert stats["cache_hits"] == stats["calls"] - 2
+    assert on_launches == off_launches
+    landed = 2 * clocks - 1 + clocks - 1
+    assert on_launches["bincount"] == landed and on_launches["binned_curve"] == landed
+
+
+def test_windowed_replays_add_the_eager_launches(cuda_device):
+    """A windowed binned AUROC's replay adds what its eager update launches
+    (one ``binned_curve``), recorded at the capture and added at each
+    replay, on-time and late alike; the capture itself adds none."""
+    from torchmetrics_tpu_torch.classification import BinaryAUROC
+    from torchmetrics_tpu_torch.ops import binned_curve
+
+    g = torch.Generator(device=cuda_device).manual_seed(26)
+    on = BinaryAUROC(thresholds=100, validate_args=False, device=cuda_device).windowed(3, lateness=1, executor=True)
+    off = BinaryAUROC(thresholds=100, validate_args=False, device=cuda_device).windowed(3, lateness=1, executor=False)
+    on._get_executor().dispatcher().judging = False
+    for step in range(9):
+        batch = _ctr_batch(g, cuda_device, 1024)
+        late = _ctr_batch(g, cuda_device, 256)
+        for m in (on, off):
+            before = binned_curve.launches
+            m.update(*batch)
+            assert binned_curve.launches == before + 1, (step, m.executor_status["enabled"])
+            if m.clock:
+                before = binned_curve.launches
+                assert m.update_window(m.clock - 1, *late)
+                assert binned_curve.launches == before + 1
+            m.advance()
+        for f, v in off._state.items():
+            assert torch.equal(on._state[f], v), (step, f)
+    stats = on.executor_status["stats"]
+    assert stats["captured"] and stats["compiles"] == 2 and stats["calls"] == 17 and stats["cache_hits"] == 15
+    torch.testing.assert_close(on.compute(), off.compute(), rtol=0, atol=0)
+
+
+def test_a_held_window_value_survives_replays_and_reuse(cuda_device):
+    """A ``compute_window`` value held across replays keeps its value while
+    ``gc.collect()`` and junk allocations run between them: it is a copy of
+    the slot's row, never a view of the executor's slot."""
+    import gc
+
+    g = torch.Generator(device=cuda_device).manual_seed(27)
+    wc = _criteo_like_windowed(cuda_device, True)
+    ref = _criteo_like_windowed(cuda_device, False)
+    for _ in range(4):
+        batch = _ctr_batch(g, cuda_device, 2048)
+        wc.update(*batch)
+        ref.update(*batch)
+    held = wc.compute_window(0)
+    want = {k: v.clone() for k, v in held.items()}
+    for _ in range(3):
+        gc.collect()
+        junk = [torch.full((1 << 16,), 7.0, device=cuda_device) for _ in range(16)]
+        batch = _ctr_batch(g, cuda_device, 2048)
+        wc.update(*batch)
+        ref.update(*batch)
+        del junk
+    torch.cuda.synchronize()
+    for k, v in want.items():
+        assert torch.equal(held[k], v), k
+    for k, v in ref.compute_window(0).items():
+        assert torch.equal(wc.compute_window(0)[k], v), k
+    assert wc.collection.executor_status["stats"]["cache_hits"] >= 4
 
 
 def _binary_batch(g, device, n):

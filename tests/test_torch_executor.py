@@ -366,20 +366,19 @@ def test_step_aside_reasons_match_jax(build):
 
 
 def test_step_asides_of_later_items_name_them():
-    """Windowed and laned metrics and class-axis states step aside, naming
-    the roadmap item that brings them onto the executor."""
-    windowed = tm.WindowedMetric(tm.SumMetric(nan_strategy="ignore", device="cpu"), window=3, executor=True, device="cpu")
-    windowed.update(torch.tensor([1.0, 2.0]))
+    """Laned metrics and class-axis states step aside, naming the roadmap
+    item that brings them onto the executor (4c and 4b); windowed metrics
+    ride it (``tests/test_torch_windows_executor.py``)."""
     laned = tm.SumMetric(nan_strategy="ignore", device="cpu").laned(capacity=8, executor=True, device="cpu")
     laned.update(torch.tensor([0, 1]), torch.tensor([1.0, 2.0]))
     sharded = cls_port.MulticlassConfusionMatrix(
         num_classes=C, validate_args=False, state_sharding="class_axis", class_shards=2, executor=True, device="cpu"
     )
     sharded.update(torch.tensor([0, 1]), torch.tensor([1, 1]))
-    for m in (windowed, laned, sharded):
+    for m, item in ((laned, "4c"), (sharded, "4b")):
         status = m.executor_status
         assert status["enabled"] and not status["engaged"]
-        assert "ROADMAP Queue A item 4" in status["fallback_reason"]
+        assert f"ROADMAP Queue A item {item}" in status["fallback_reason"]
 
 
 def test_fail_dispatch_consumed_keeps_the_pre_call_state_as_jax():

@@ -820,7 +820,7 @@ def _retired_slots(heads: torch.Tensor, window: int) -> torch.Tensor:
 #: why the captured executor steps aside for a laned metric
 LANED_STEP_ASIDE = (
     "laned state: the lane router's rounds choose the launches on the host;"
-    " its captured dispatch comes with ROADMAP Queue A item 4"
+    " its captured dispatch comes with ROADMAP Queue A item 4c"
 )
 
 
@@ -1742,7 +1742,7 @@ class LanedMetric(Metric):
     def prewarm_growth(self, batch_specs: Any, rows: Union[int, Sequence[int]], levels: int = 1) -> Dict[str, Any]:
         """The JAX package precompiles the update executables of the next
         capacity rungs here. Laned updates do not run through the port's
-        captured executor yet (ROADMAP Queue A item 4), so nothing is built
+        captured executor yet (ROADMAP Queue A item 4c), so nothing is built
         ahead and the report says so, as the JAX package's does when
         compile-ahead is off."""
         report: Dict[str, Any] = {"warmed": 0, "already_warm": 0, "skipped": [], "rungs": []}

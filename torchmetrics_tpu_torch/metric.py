@@ -198,6 +198,7 @@ def _transactional_update_body(self: "Metric", update: Callable, *args: Any, **k
     self._computed = None
     ex = self._get_executor()
     if ex is not None:
+        args, kwargs = self._executor_inputs(args, kwargs)
         try:
             with obs.span(obs.SPAN_UPDATE, suffix=type(self).__name__):
                 handled = ex.run_update(args, kwargs)
@@ -1147,11 +1148,23 @@ class Metric:
         inputs, or None. A replay reruns no Python, so state that lives
         elsewhere or launches chosen by host values step aside."""
         if self.__dict__.get("_class_layouts"):
-            return "class-axis-sharded state: its captured dispatch comes with ROADMAP Queue A item 4"
+            return "class-axis-sharded state: its captured dispatch comes with ROADMAP Queue A item 4b"
         reason = self._async_inline_reason()
         if reason is not None:
             return f"{reason}, whose state a replay would not follow"
         return None
+
+    def _executor_identity(self) -> str:
+        """What the computation of this instance's keys depends on beyond its
+        class, state and public configuration (a wrapper's inner metric),
+        joined to its description in the compile cache; empty by default."""
+        return ""
+
+    def _executor_inputs(self, args: tuple, kwargs: dict) -> Tuple[tuple, dict]:
+        """A call's inputs as the executor keys them (a wrapper turns a
+        Python number it would bake into a graph into a device tensor);
+        unchanged by default."""
+        return args, kwargs
 
     @property
     def executor_status(self) -> Dict[str, Any]:

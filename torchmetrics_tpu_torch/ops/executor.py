@@ -1613,6 +1613,13 @@ def _config_desc(metric: Any) -> str:
     return ",".join(f"{k}={v!r}" for k, v in sorted(vars(metric).items()) if not k.startswith("_") and plain(v))
 
 
+def _identity_desc(metric: Any) -> str:
+    """A metric's ``_executor_identity`` as a suffix of its description
+    (nothing for a metric whose class, state and configuration say it all)."""
+    ident = metric._executor_identity()
+    return f"|{ident}" if ident else ""
+
+
 # ----------------------------------------------------------------- metric
 
 
@@ -1707,12 +1714,16 @@ class MetricExecutor(_ExecutorBase):
     # ---------------------------------------------------- the compile cache
     def _owner_desc(self) -> str:
         """The metric's class and its module's source hash, its registered
-        state (name, dtype, shape, reduction) and its configuration (the
-        public scalar attributes)."""
+        state (name, dtype, shape, reduction), its configuration (the public
+        scalar attributes) and what else its keys compute over (a windowed
+        wrapper's inner metric and ring size: ``_executor_identity``)."""
         m = self._metric
         cls = type(m)
         fields = ",".join(f"{k}:{_dtype_name(v.dtype)}:{tuple(v.shape)}:{m._reductions.get(k)}" for k, v in m._defaults.items())
-        return f"{cls.__module__}.{cls.__qualname__}@{compile_cache.source_hash(sys.modules.get(cls.__module__) or cls)}|{fields}|cfg={_config_desc(m)}"
+        return (
+            f"{cls.__module__}.{cls.__qualname__}@{compile_cache.source_hash(sys.modules.get(cls.__module__) or cls)}"
+            f"|{fields}|cfg={_config_desc(m)}{_identity_desc(m)}"
+        )
 
     def _clone_owner(self) -> Tuple[Any, List[Any]]:
         import copy
@@ -2129,7 +2140,7 @@ class CollectionExecutor(_ExecutorBase):
             members = ",".join(
                 f"{mn}={type(coll._modules[mn]).__qualname__}"
                 f"@{compile_cache.source_hash(sys.modules.get(type(coll._modules[mn]).__module__) or type(coll._modules[mn]))}"
-                f"[{_config_desc(coll._modules[mn])}]"
+                f"[{_config_desc(coll._modules[mn])}{_identity_desc(coll._modules[mn])}]"
                 for mn in cg
             )
             fields = ",".join(f"{k}:{_dtype_name(v.dtype)}:{tuple(v.shape)}:{m._reductions.get(k)}" for k, v in m._defaults.items())

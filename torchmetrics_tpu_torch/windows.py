@@ -7,19 +7,28 @@ module stacks **W per-window sub-states along a leading ring axis** and
 keeps a monotonic window clock:
 
 - **The clock.** ``window_head`` (an int32 state under ``max``) names the
-  open window on the device, for sync and checkpoints; its host mirror
-  :attr:`WindowedMetric.clock` addresses the ring. Slot ``clock % W``
-  houses the open window, so an update or an advance finds its slot with
-  no device-to-host read.
+  open window on the device. As in the JAX package, an update reads its
+  slot there (``window_head % W``, a 0-d int64 tensor) and an advance its
+  retiring slot (``(window_head + 1) % W``), so no slot is a host value a
+  captured graph would bake in: the captured executor (``ops/executor.py``)
+  serves every slot with one key a call shape, and no update or advance
+  reads the device. The host mirror :attr:`WindowedMetric.clock` decides
+  watermark admission, ``head_slot``, ``live_windows``, ``window_spec`` and
+  the close stamps. The two part only where the JAX package's do: an eager
+  ``forward`` resets the metric for its batch, which rewinds the host clock
+  (the device clock comes back through the merge); a captured forward
+  keeps it.
 - **Updates and advances write the ring out of place.** The JAX package
   writes the open slot in place (``.at[slot].set`` on a donated buffer),
   so its advance costs the same for every W. The port's invariant is the
   opposite: updates replace state tensors and never write into them, which
   compute-group followers, the transactional snapshot, the lane guard's
   round baseline and asynchronous read snapshots all rely on. So an update
-  builds a new ring around the slot's new row (one ``torch.cat`` a field)
-  and an advance a new ring whose retiring slot holds the defaults: both
-  copy the whole ring, and their cost grows with W.
+  reads the slot's row (``index_select``) and builds a new ring around its
+  new row (one ``index_copy`` a field), and an advance a new ring whose
+  retiring slot holds the defaults: both copy the whole ring, and their
+  cost grows with W. A late update takes its window as a 0-d integer
+  tensor on the metric's device, a value and not a shape of its key.
 - **Sliding reads fold the live ring**: slots not opened yet are masked to
   the reduction identity and the window axis collapses in one reduction
   (``parallel.sync.fold_window_slots``): ``sum``/``mean`` segments add,
@@ -125,11 +134,22 @@ def _now_us() -> int:
     return time.monotonic_ns() // 1000
 
 
-def _with_row(ring: torch.Tensor, slot: int, row: torch.Tensor) -> torch.Tensor:
-    """A new ring equal to ``ring`` with ``row`` in ``slot`` (one ``cat``,
-    nothing written in place; ``slot`` is a host int, so no index tensor
-    crosses from the host)."""
-    return torch.cat([ring[:slot], row.to(ring.dtype).unsqueeze(0), ring[slot + 1:]])
+def _slot_index(clock: torch.Tensor, window: int) -> torch.Tensor:
+    """The ring slot of window ``clock`` (a 0-d integer tensor) as the
+    one-element int64 index the ring's index operations take, on the
+    clock's device: no host read, no host value."""
+    return torch.remainder(clock.to(torch.int64), window).reshape(1)
+
+
+def _ring_row(ring: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The row of ``ring`` at the slot ``index`` names (a copy)."""
+    return ring.index_select(0, index).squeeze(0)
+
+
+def _with_row(ring: torch.Tensor, index: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """A new ring equal to ``ring`` with ``row`` in the slot ``index``
+    names (one out-of-place ``index_copy``; nothing written into ``ring``)."""
+    return ring.index_copy(0, index, row.to(ring.dtype).unsqueeze(0))
 
 
 def _late_verdict(k: int, clock: int, window: int, lateness: int, data: Dict[str, Any]) -> bool:
@@ -182,6 +202,10 @@ class WindowedMetric(Metric):
     """
 
     full_state_update: Optional[bool] = False
+
+    #: the executor never pads a windowed call, as in the JAX package: a
+    #: padding row, a copy of row 0, lands in the slot's own sub-state
+    _executor_bucketable = False
 
     #: reserved state key carrying the ring geometry and the host clock
     #: through state()/load_state as a uint8 JSON blob leaf
@@ -300,34 +324,76 @@ class WindowedMetric(Metric):
         return list(self.inner._defaults)
 
     def _executor_step_aside(self) -> Optional[str]:
+        """None for a compiled ring: the inner metric under ``_inner`` is a
+        template whose functional update runs over a ring row, holding none
+        of the wrapper's state, so no replay misses a state of its own. A
+        class-axis ring still steps aside (ROADMAP Queue A item 4b); the
+        eager per-window path has no registered state, which the executor
+        names."""
+        if self.__dict__.get("_class_layouts"):
+            return super()._executor_step_aside()
+        return None
+
+    def _executor_identity(self) -> str:
+        """The inner metric (its class, its module's source hash and its
+        configuration) and the ring size: a windowed key runs the INNER
+        metric's update on a ring row, so two wrappers of equal stacked
+        state over different inner metrics never share a stored entry (the
+        JAX package's ``_executor_identity`` and ``_trace_config``)."""
+        import sys
+
+        from torchmetrics_tpu_torch.ops import compile_cache
+        from torchmetrics_tpu_torch.ops.executor import _config_desc
+
+        inner = self.inner
+        cls = type(inner)
+        mod = sys.modules.get(cls.__module__)
         return (
-            "windowed ring: each update's slot comes from the host clock;"
-            " its captured dispatch comes with ROADMAP Queue A item 4"
+            f"inner={cls.__module__}.{cls.__qualname__}@{compile_cache.source_hash(mod or cls)}"
+            f"[{_config_desc(inner)}]{inner._executor_identity()}|windows={self.window}"
         )
 
+    def _window_clock(self, window: Any) -> torch.Tensor:
+        """A late update's window as a 0-d integer tensor on the metric's
+        device (a Python number becomes one by a fill, which reads nothing
+        back)."""
+        if isinstance(window, torch.Tensor):
+            return window
+        return torch.full((), int(window), dtype=torch.int64, device=self._device)
+
+    def _executor_inputs(self, args: tuple, kwargs: dict) -> Tuple[tuple, dict]:
+        """A compiled ring's ``window=`` number as a 0-d device tensor."""
+        window = kwargs.get("window")
+        if window is None or isinstance(window, torch.Tensor) or not self._compiled_windows:
+            return args, kwargs
+        return args, {**kwargs, "window": self._window_clock(window)}
+
     # ------------------------------------------------------------ update path
-    def update(self, *args: Any, window: Optional[int] = None, **kwargs: Any) -> None:
+    def update(self, *args: Any, window: Any = None, **kwargs: Any) -> None:
         """Advance the OPEN window's sub-state with one batch.
 
         ``window`` (normally left None) targets an explicit ABSOLUTE window
         index instead: the late-event path, for which callers use
-        :meth:`update_window`, which enforces the watermark. The slot comes
-        from the host clock or from ``window``, never from the device."""
-        k = self.__dict__["_host_clock"] if window is None else int(window)
-        slot = k % self.window
+        :meth:`update_window`, which enforces the watermark and passes it as
+        a 0-d integer tensor on the metric's device (an int is converted).
+        The slot is read on the device: ``window_head % W`` or ``window % W``."""
         inner = self.inner
         if not self._compiled_windows:
+            k = self.__dict__["_host_clock"] if window is None else int(window)
+            slot = k % self.window
             # staged then committed: a raising inner update leaves the window as it was
             staged = inner.functional_update(self.__dict__["_window_states"][slot], *args, **kwargs)
             self.__dict__["_window_states"][slot] = staged
             self.__dict__["_window_counts"][slot] += 1
             return
         fields = self._inner_fields()
-        row = {f: self._state[f][slot] for f in fields}
+        clock = self._state["window_head"] if window is None else self._window_clock(window)
+        index = _slot_index(clock, self.window)
+        row = {f: _ring_row(self._state[f], index) for f in fields}
         with obs.device_span(obs.SPAN_UPDATE, suffix=type(inner).__name__):
             new_row = inner.functional_update(row, *args, **kwargs)
         for f in fields:
-            self._state[f] = _with_row(self._state[f], slot, new_row[f])
+            self._state[f] = _with_row(self._state[f], index, new_row[f])
 
     def _admit(self, k: int) -> bool:
         """The watermark verdict for window ``k`` at this clock (counted, a
@@ -359,7 +425,10 @@ class WindowedMetric(Metric):
     def advance(self, n: int = 1) -> int:
         """Close the open window and open the next, ``n`` times: the head
         moves on and the retiring slot returns to its defaults, in a new
-        ring (the slot from the host clock; no device read). Returns the new
+        ring (the slot ``(window_head + 1) % W`` computed on the device; no
+        device read). It runs outside the captured executor, as the JAX
+        package's advance is a jit of its own, and marks the state escaped,
+        so the executor's next call copies the new ring in. Returns the new
         clock."""
         for _ in range(int(n)):
             self._advance_once()
@@ -370,13 +439,16 @@ class WindowedMetric(Metric):
         stamps, for a compute-group follower whose ring is its leader's and
         is pointed at the leader's new one after the advance."""
         clock = self.__dict__["_host_clock"]
-        slot = (clock + 1) % self.window
         with obs.span(obs.SPAN_WINDOWS, suffix=type(self.inner).__name__, histogram="windows.advance_us", window=self.window):
             if ring and self._compiled_windows:
+                head = self._state["window_head"] + 1
+                index = _slot_index(head, self.window)
                 for f in self._inner_fields():
-                    self._state[f] = _with_row(self._state[f], slot, self._defaults[f][slot])
-                self._state["window_head"] = self._state["window_head"] + 1
+                    self._state[f] = _with_row(self._state[f], index, self._defaults[f][0])
+                self._state["window_head"] = head
+                self.__dict__["_state_escaped"] = True
             elif ring:
+                slot = (clock + 1) % self.window
                 self.__dict__["_window_states"][slot] = self.inner.init_state()
                 self.__dict__["_window_counts"][slot] = 0
         self.__dict__["_host_clock"] = clock + 1
@@ -422,7 +494,9 @@ class WindowedMetric(Metric):
 
     def compute_window(self, k: int) -> Any:
         """One window's ``compute()`` value, valid while its slot is live
-        (``clock - window < k <= clock``)."""
+        (``clock - window < k <= clock``). The row is a copy, so a value
+        held past later updates keeps its own (the live ring may be the
+        captured executor's slot, which a later replay writes)."""
         k = int(k)
         clock = self.__dict__["_host_clock"]
         if not clock - self.window < k <= clock:
@@ -431,7 +505,7 @@ class WindowedMetric(Metric):
         slot = k % self.window
         if not self._compiled_windows:
             return inner.functional_compute(self.__dict__["_window_states"][slot])
-        return inner.functional_compute({f: self._state[f][slot] for f in self._inner_fields()})
+        return inner.functional_compute({f: self._state[f][slot].clone() for f in self._inner_fields()})
 
     # ----------------------------------------------------- asynchronous reads
     def _read_inner_clone(self) -> Metric:
@@ -445,10 +519,11 @@ class WindowedMetric(Metric):
 
     def _prepare_async_read(self) -> Callable[[], Any]:
         """Window-aligned asynchronous read: the caller snapshots the ring by
-        reference (updates and advances replace it, never write into it) and
-        pins the submission-time clock, so the worker folds exactly the
-        windows live at submission. Eager rings and initialised
-        ``torch.distributed`` worlds read inline."""
+        reference (updates and advances replace it, never write into it; a
+        tensor of the executor's slots is swapped for a copy first) and pins
+        the submission-time clock, so the worker folds exactly the windows
+        live at submission. Eager rings and initialised ``torch.distributed``
+        worlds read inline."""
         from torchmetrics_tpu_torch.ops import async_read as _async
 
         cached = self._computed
@@ -460,7 +535,7 @@ class WindowedMetric(Metric):
             value = self.compute()
             event = _async.submission_event(value)
             return lambda: _ready(event, value)
-        snapshot = self._state_snapshot()
+        snapshot = self._escaped_snapshot()
         flags = self._capture_read_flags()
         clock = self.__dict__["_host_clock"]
         inner_clone = self._read_inner_clone()
@@ -663,7 +738,11 @@ class WindowedCollection:
         self._members: Dict[str, WindowedMetric] = {
             name: WindowedMetric(m, window=window, lateness=lateness, **kwargs) for name, m in metrics.items()
         }
-        self.collection = MetricCollection(dict(self._members), device=next(iter(devices)))
+        # ``executor=`` reaches the members and the collection, whose
+        # executor runs every member's windowed update as one dispatch
+        self.collection = MetricCollection(
+            dict(self._members), device=next(iter(devices)), executor=kwargs.get("executor")
+        )
 
     @property
     def device(self) -> torch.device:
@@ -672,7 +751,7 @@ class WindowedCollection:
 
     @property
     def clock(self) -> int:
-        return next(iter(self._members.values())).clock
+        return self._first().clock
 
     def keys(self) -> Iterable[str]:
         return self._members.keys()
@@ -695,8 +774,14 @@ class WindowedCollection:
         return {"window": self.window, "lateness": self.lateness, "clock": self.clock, "head": self.clock % self.window}
 
     def update(self, *args: Any, **kwargs: Any) -> None:
-        """Advance every member's open window with one collection update."""
+        """Advance every member's open window with one collection update (a
+        ``window=`` given as a number goes in as a 0-d tensor on the device,
+        so every window shares one captured key)."""
+        _, kwargs = self._first()._executor_inputs(args, kwargs)
         self.collection.update(*args, **kwargs)
+
+    def _first(self) -> WindowedMetric:
+        return next(iter(self._members.values()))
 
     def update_window(self, k: int, *args: Any, **kwargs: Any) -> bool:
         """Route a late batch into window ``k`` for every member; returns
@@ -710,13 +795,14 @@ class WindowedCollection:
         verdicts = [m._admit(k) for m in self._members.values()]
         if not all(verdicts):
             return False
-        self.collection.update(*args, window=k, **kwargs)
+        self.update(*args, window=k, **kwargs)
         return True
 
     def advance(self, n: int = 1) -> int:
         """Advance every member's clock; returns the new shared clock. Each
         distinct ring is written once: a compute-group follower moves only
-        its clock, then points at its leader's new ring."""
+        its clock, then points at its leader's new ring (and is marked
+        escaped with it: the executor's next call copies the ring in)."""
         followers = self.collection._compute_group_followers()
         for name, m in self._members.items():
             if name in followers and m._compiled_windows:
@@ -726,6 +812,8 @@ class WindowedCollection:
                 m.advance(n)
         if followers:
             self.collection._compute_groups_create_state_ref()
+            for name in followers:
+                self._members[name].__dict__["_state_escaped"] = True
         return self.clock
 
     def compute(self) -> Dict[str, Any]:
